@@ -1,17 +1,22 @@
 // rdg_gemm: out = epilogue(A[M,K] @ W[N,K]^T + bias[N]) in bf16 with f32
 // accumulation on the tensor cores (WMMA m16n16k16).
 //
-// Replaces: the five matmuls of each Swin block inside the Pallas kernel
-// _rdg_kernel_impl (adsr_tpu/ops/fused_rdg.py:731, 858, 861, 887-892): qkv,
-// proj, fc1, fc2 and the 1x1 adjust conv, with their residual, GELU,
-// LeakyReLU / dense-concat and 0.2-residual epilogues.
+// Replaces: the five matmuls of each Swin block inside the Pallas kernels
+// _rdg_kernel_impl (adsr_tpu/ops/fused_rdg.py:731, 858, 861, 887-892) and
+// _fwd_kernel (adsr_tpu/ops/fused_rdg_train.py:266, training forward and
+// the backward's recompute): qkv, proj, fc1, fc2 and the 1x1 adjust conv,
+// with their residual, GELU, LeakyReLU / dense-concat and 0.2-residual
+// epilogues, plus the training ones: the per-sample stochastic-depth
+// residual (fused_rdg_train.py:295-296, 367, 372) and GELU that also keeps
+// its pre-activation for the backward.
 // Bound on H100: the big products (qkv, fc1 at M = 16384) are near the
 // bf16 ridge (K <= 308 gives at most ~150 flop per byte); the adjust GEMMs
 // (N = 32) are bound by the bytes of A.
 // Design: 64x64 output tiles, 4 warps of 32x32, K stepped by 32 through
 // shared memory with 8-byte vector loads (every K, N and row stride on this
 // path is a multiple of 4). Ragged K and N are zero-filled at the tile edge.
-// The epilogue runs from an f32 staging tile and writes at any row stride,
+// Each epilogue is its own template instance (no per-element branch), run
+// from an f32 staging tile, writing at any row stride,
 // so the adjust output lands straight in columns [c_k, c_k+32) of the
 // concat buffer and block 5's output lands in place over the RDG input.
 // Simple and correct first: no cp.async pipeline, no wgmma, no TMA.
@@ -32,7 +37,7 @@ constexpr int LDC = BN + 4;   // f32 row pitch of the staging tile
 constexpr int kThreads = 128;
 
 enum Epilogue { kNone = 0, kResidual = 1, kGelu = 2, kLeakyRelu = 3,
-                kScaledResidual = 4 };
+                kScaledResidual = 4, kDropResidual = 5, kGeluAux = 6 };
 
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
                                           const __nv_bfloat16* src,
@@ -51,12 +56,15 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
   }
 }
 
+template <int EPI>
 __global__ void __launch_bounds__(kThreads)
 rdg_gemm_kernel(const __nv_bfloat16* __restrict__ A, long long lda,
                 const __nv_bfloat16* __restrict__ W,
                 const float* __restrict__ bias, __nv_bfloat16* out,
-                long long ldo, const __nv_bfloat16* res, long long ldr, int M,
-                int N, int K, int epi) {
+                long long ldo, const __nv_bfloat16* res, long long ldr,
+                const float* __restrict__ row_scale, long long scale_stride,
+                int rows_per_scale, __nv_bfloat16* __restrict__ aux,
+                long long ldaux, int M, int N, int K) {
   __shared__ __align__(128) __nv_bfloat16 As[BM * LDS];
   __shared__ __align__(128) __nv_bfloat16 Ws[BN * LDS];
   __shared__ __align__(128) float Cs[BM * LDC];
@@ -110,21 +118,22 @@ rdg_gemm_kernel(const __nv_bfloat16* __restrict__ A, long long lda,
     const int n = n0 + c;
     if (m >= M || n >= N) continue;
     float v = Cs[r * LDC + c] + bias[n];
-    switch (epi) {
-      case kResidual:
-        v += __bfloat162float(res[m * ldr + n]);
-        break;
-      case kGelu:
-        v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-        break;
-      case kLeakyRelu:
-        v = v >= 0.f ? v : 0.2f * v;
-        break;
-      case kScaledResidual:
-        v = 0.2f * v + __bfloat162float(res[m * ldr + n]);
-        break;
-      default:
-        break;
+    if constexpr (EPI == kResidual) {
+      v += __bfloat162float(res[m * ldr + n]);
+    } else if constexpr (EPI == kGelu) {
+      v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+    } else if constexpr (EPI == kLeakyRelu) {
+      v = v >= 0.f ? v : 0.2f * v;
+    } else if constexpr (EPI == kScaledResidual) {
+      v = 0.2f * v + __bfloat162float(res[m * ldr + n]);
+    } else if constexpr (EPI == kDropResidual) {
+      // residual + m[image] * branch, per sample
+      v = __bfloat162float(res[m * ldr + n]) +
+          row_scale[((int)m / rows_per_scale) * scale_stride] * v;
+    } else if constexpr (EPI == kGeluAux) {
+      // the pre-activation is kept for GELU'
+      aux[m * ldaux + n] = __float2bfloat16(v);
+      v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
     }
     out[m * ldo + n] = __float2bfloat16(v);
   }
@@ -134,20 +143,37 @@ rdg_gemm_kernel(const __nv_bfloat16* __restrict__ A, long long lda,
 
 extern "C" int adsr_rdg_gemm(const void* A, long long lda, const void* W,
                              const void* bias, void* out, long long ldo,
-                             const void* res, long long ldr, int M, int N,
-                             int K, int epilogue, void* stream) {
+                             const void* res, long long ldr,
+                             const void* row_scale, long long scale_stride,
+                             int rows_per_scale, void* aux, long long ldaux,
+                             int M, int N, int K, int epilogue, void* stream) {
   if (M < 0 || N <= 0 || K <= 0 || (K % 4) || (lda % 4) ||
-      epilogue < kNone || epilogue > kScaledResidual)
+      epilogue < kNone || epilogue > kGeluAux)
     return (int)cudaErrorInvalidValue;
-  if ((epilogue == kResidual || epilogue == kScaledResidual) && res == nullptr)
+  if ((epilogue == kResidual || epilogue == kScaledResidual ||
+       epilogue == kDropResidual) && res == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (epilogue == kDropResidual && (row_scale == nullptr || rows_per_scale <= 0))
+    return (int)cudaErrorInvalidValue;
+  if (epilogue == kGeluAux && aux == nullptr) return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
   const long long mt = (M + BM - 1) / BM;
   if (mt > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (unsigned)mt);
-  rdg_gemm_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = rdg_gemm_kernel<kNone>;
+  switch (epilogue) {
+    case kResidual: kernel = rdg_gemm_kernel<kResidual>; break;
+    case kGelu: kernel = rdg_gemm_kernel<kGelu>; break;
+    case kLeakyRelu: kernel = rdg_gemm_kernel<kLeakyRelu>; break;
+    case kScaledResidual: kernel = rdg_gemm_kernel<kScaledResidual>; break;
+    case kDropResidual: kernel = rdg_gemm_kernel<kDropResidual>; break;
+    case kGeluAux: kernel = rdg_gemm_kernel<kGeluAux>; break;
+    default: break;
+  }
+  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)A, lda, (const __nv_bfloat16*)W,
       (const float*)bias, (__nv_bfloat16*)out, ldo,
-      (const __nv_bfloat16*)res, ldr, M, N, K, epilogue);
+      (const __nv_bfloat16*)res, ldr, (const float*)row_scale, scale_stride,
+      rows_per_scale, (__nv_bfloat16*)aux, ldaux, M, N, K);
   return (int)cudaGetLastError();
 }

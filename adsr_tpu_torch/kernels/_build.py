@@ -42,10 +42,28 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, ldx, weight, bias, y, ldy, M, C, eps, stream
     "adsr_rdg_layernorm": [_P, _L, _P, _P, _P, _L, _I, _I, _F, _P],
-    # A, lda, W, bias, out, ldo, res, ldr, M, N, K, epilogue, stream
-    "adsr_rdg_gemm": [_P, _L, _P, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P],
+    # A, lda, W, bias, out, ldo, res, ldr, row_scale, scale_stride,
+    # rows_per_scale, aux, ldaux, M, N, K, epilogue, stream
+    "adsr_rdg_gemm": [_P, _L, _P, _P, _P, _L, _P, _L, _P, _L, _I, _P, _L,
+                      _I, _I, _I, _I, _P],
     # qkv, ctx, bias, mask, B, H, W, C, nh, win, shift, stream
     "adsr_window_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # dy, ldy, dy_f32, alpha, slope, lds, scale, scale_stride, rows_per_scale,
+    # W, pre, ldp, out, ldo, out_f32, M, N, K, stream
+    "adsr_rdg_gemm_dgrad": [_P, _L, _I, _F, _P, _L, _P, _L, _I, _P, _P, _L,
+                            _P, _L, _I, _I, _I, _I, _P],
+    # dy, ldy, dy_f32, alpha, slope, lds, scale, scale_stride, rows_per_scale,
+    # A, lda, part, splits, rows_per_split, dW, db, M, N, K, stream
+    "adsr_rdg_gemm_wgrad": [_P, _L, _I, _F, _P, _L, _P, _L, _I, _P, _L, _P,
+                            _I, _I, _P, _P, _I, _I, _I, _P],
+    # x, ldx, dy, ldy, w, dres, ldr, dx, ldo, part, dgamma, dbeta, M, C, eps,
+    # stream
+    "adsr_rdg_layernorm_bwd": [_P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _P,
+                               _P, _I, _I, _F, _P],
+    # qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, win, shift,
+    # stream
+    "adsr_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _P],
 }
 
 
@@ -147,9 +165,14 @@ def require_bf16_cuda(name: str, *tensors: torch.Tensor) -> None:
                              "aligned base pointer")
 
 
-def require_f32_cuda(name: str, *tensors: torch.Tensor) -> None:
+def require_f32_cuda(name: str, *tensors: torch.Tensor,
+                     contiguous: bool = True) -> None:
+    """float32 on CUDA; ``contiguous=False`` takes any strides (the kernel
+    is given them), but still an aligned base pointer."""
     for t in tensors:
         if t.device.type != "cuda" or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"{name}: parameter tensors must be contiguous "
-                             f"float32 on CUDA, got {t.dtype} on {t.device}")
+                or (contiguous and not t.is_contiguous()) \
+                or t.data_ptr() % 4:
+            raise ValueError(f"{name}: tensors must be "
+                             f"{'contiguous ' if contiguous else ''}float32 "
+                             f"on CUDA, got {t.dtype} on {t.device}")

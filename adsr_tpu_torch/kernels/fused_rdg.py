@@ -22,11 +22,17 @@ function plainly, with a stabilised softmax and exact-erf GELU (the JAX bf16
 serving path uses an unstabilised exp2 softmax and tanh GELU). The per-RDG
 output overwrites ``cat[:, :d]``, so one buffer serves all 12 RDGs: columns
 past ``d`` are always rewritten by block k before block k+1 reads them.
+
+The training forward (TPU kernel 2, ``kernels/fused_rdg_train.py``) runs the
+same launches with two changes: proj and fc2 take the per-sample
+stochastic-depth epilogue (``dp``), and adjust 5 writes the RDG's output to
+``out``, so ``cat`` keeps every block's input for the backward.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+import functools
+from typing import Dict, List, Mapping, Optional
 
 import torch
 
@@ -52,14 +58,18 @@ def rdg_geometry(cfg: DRCTModelConfig) -> Dict[str, tuple]:
 
 
 def _pack_block(sd: Mapping[str, torch.Tensor], layer: int, k: int, c: int,
-                window: int, dtype, device) -> Dict[str, torch.Tensor]:
+                window: int, dtype, device,
+                detach: bool = True) -> Dict[str, torch.Tensor]:
     """Block ``k`` (1-based) of RDG ``layer``: matrices in ``dtype`` as torch
-    Linear [out, in], vectors and the attention bias in f32."""
+    Linear [out, in], vectors and the attention bias in f32. With
+    ``detach=False`` the packing is differentiable (the casts and the bias
+    gather carry gradients back to ``sd``'s tensors)."""
     sw, adj = f"layers.{layer}.swin{k}", f"layers.{layer}.adjust{k}"
 
     def get(name, dt):
-        return torch.as_tensor(sd[name]).detach() \
-            .to(device=device, dtype=dt).contiguous()
+        t = torch.as_tensor(sd[name])
+        t = t.detach() if detach else t
+        return t.to(device=device, dtype=dt).contiguous()
 
     wadj = get(f"{adj}.weight", dtype)              # 1x1 conv [O, I, 1, 1]
     qkv_b = f"{sw}.attn.qkv.bias"                   # absent with qkv_bias=False
@@ -84,25 +94,35 @@ def _pack_block(sd: Mapping[str, torch.Tensor], layer: int, k: int, c: int,
     }
 
 
+@functools.lru_cache(maxsize=None)
+def shift_masks(h: int, w: int, window: int, shifts: tuple,
+                device: torch.device) -> Dict[int, torch.Tensor]:
+    """{shift: [nW, N, N] f32} on ``device``, built once per geometry."""
+    return {s: torch.as_tensor(shift_attn_mask(h, w, window, s),
+                               device=device) for s in set(shifts) if s}
+
+
 def prepack_rdg_stack(state_dict: Mapping[str, torch.Tensor],
                       cfg: DRCTModelConfig, h: int, w: int,
-                      dtype=torch.bfloat16, device="cuda") -> Dict:
+                      dtype=torch.bfloat16, device="cuda",
+                      detach: bool = True) -> Dict:
     """The port's state_dict -> {'rdgs': [num_layers x [5 block dicts]],
-    'masks': {shift: [nW, N, N] f32}}, on ``device``. Run once at
-    registration (the counterpart of ``prepack_rdg_stack``,
-    adsr_tpu/ops/fused_rdg.py:394): the bias gather and the shift masks are
-    built here, never per forward."""
+    'masks': {shift: [nW, N, N] f32}}, on ``device`` (the counterpart of
+    ``prepack_rdg_stack``, adsr_tpu/ops/fused_rdg.py:394). Serving runs it
+    once at registration: the bias gather and the shift masks are built
+    here, never per forward. Training packs every step with
+    ``detach=False``, so the casts and the gather are differentiable (the
+    JAX ``pack_train``, adsr_tpu/ops/fused_rdg_train.py:1048)."""
     win = cfg.window_size
     if min(h, w) <= win or h % win or w % win:
         raise ValueError(f"fused RDG path needs an image larger than, and a "
                          f"multiple of, the window ({h}x{w}, window {win})")
     g = rdg_geometry(cfg)
-    masks = {s: torch.as_tensor(shift_attn_mask(h, w, win, s), device=device)
-             for s in set(g["shifts"]) if s}
     rdgs = [[_pack_block(state_dict, i, k + 1, g["feats"][k], win, dtype,
-                         device) for k in range(5)]
+                         device, detach) for k in range(5)]
             for i in range(cfg.num_layers)]
-    return {"rdgs": rdgs, "masks": masks}
+    return {"rdgs": rdgs,
+            "masks": shift_masks(h, w, win, g["shifts"], torch.device(device))}
 
 
 def rdg_workspace(m: int, cfg: DRCTModelConfig, dtype,
@@ -122,10 +142,15 @@ def _rows(buf: torch.Tensor, m: int, n: int) -> torch.Tensor:
 
 def fused_rdg(cat: torch.Tensor, blocks: List[Dict[str, torch.Tensor]],
               masks: Dict[int, torch.Tensor], cfg: DRCTModelConfig,
-              h: int, w: int, work: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One RDG in place: reads the tokens from ``cat[:, :d]`` (raster order,
-    B*h*w rows) and leaves the RDG's output there. ``work`` holds the
-    scratch buffers of :func:`rdg_workspace`."""
+              h: int, w: int, work: Dict[str, torch.Tensor],
+              dp: Optional[torch.Tensor] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One RDG: reads the tokens from ``cat[:, :d]`` (raster order, B*h*w
+    rows) and returns the RDG's output, written over ``cat[:, :d]`` or, when
+    given, into ``out`` [B*h*w, d]. ``work`` holds the scratch buffers of
+    :func:`rdg_workspace`. ``dp`` [B, 10] f32 are the per-sample
+    stochastic-depth multipliers of the (attn, mlp) branches of blocks
+    1..5 (training)."""
     g = rdg_geometry(cfg)
     m = cat.shape[0]
     d = cfg.embed_dim
@@ -133,30 +158,64 @@ def fused_rdg(cat: torch.Tensor, blocks: List[Dict[str, torch.Tensor]],
         raise ValueError(f"fused_rdg: concat buffer width {cat.shape[1]}, "
                          f"expected {g['cat_width']}")
     for k, p in enumerate(blocks):
-        c, nh, shift = g["feats"][k], g["heads"][k], g["shifts"][k]
-        f = g["hidden"][k]
-        x = cat[:, :c]
-        ln = _rows(work["ln"], m, c)
-        qkv = _rows(work["qkv_hid"], m, 3 * c)
-        ctx = _rows(work["ctx_x2"], m, c)
-        x1 = _rows(work["x1"], m, c)
-        rdg_layernorm(x, p["ln1_w"], p["ln1_b"], ln)
-        rdg_gemm(ln, p["wqkv"], p["bqkv"], qkv)
-        window_attention(qkv, ctx, p["attn_bias"], masks.get(shift), h, w,
-                         nh, cfg.window_size, shift)
-        rdg_gemm(ctx, p["wproj"], p["bproj"], x1, "residual", residual=x)
-        rdg_layernorm(x1, p["ln2_w"], p["ln2_b"], ln)
-        hid = _rows(work["qkv_hid"], m, f)
-        rdg_gemm(ln, p["w1"], p["b1"], hid, "gelu")
-        x2 = _rows(work["ctx_x2"], m, c)
-        rdg_gemm(hid, p["w2"], p["b2"], x2, "residual", residual=x1)
+        c, f = g["feats"][k], g["hidden"][k]
+        # outputs whose lives do not overlap share a buffer
+        ln, ctx = _rows(work["ln"], m, c), _rows(work["ctx_x2"], m, c)
+        bufs = {"ln1": ln, "ln2": ln, "ctx": ctx, "x2": ctx,
+                "qkv": _rows(work["qkv_hid"], m, 3 * c),
+                "hid": _rows(work["qkv_hid"], m, f),
+                "x1": _rows(work["x1"], m, c)}
+        x2 = swin_block_forward(cat[:, :c], p, bufs, masks, cfg, h, w, k, dp)
         if k < 4:
             rdg_gemm(x2, p["wadj"], p["badj"], cat[:, c:c + cfg.gc],
                      "leaky_relu")
         else:
-            rdg_gemm(x2, p["wadj"], p["badj"], cat[:, :d], "scaled_residual",
+            dst = cat[:, :d] if out is None else out
+            rdg_gemm(x2, p["wadj"], p["badj"], dst, "scaled_residual",
                      residual=cat[:, :d])
-    return cat
+    return cat[:, :d] if out is None else out
+
+
+def swin_block_forward(x: torch.Tensor, p: Dict[str, torch.Tensor],
+                       bufs: Dict[str, torch.Tensor],
+                       masks: Dict[int, torch.Tensor], cfg: DRCTModelConfig,
+                       h: int, w: int, k: int,
+                       dp: Optional[torch.Tensor] = None,
+                       hpre: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Swin block ``k`` (0-based) of an RDG on kernels (a)-(c), from its
+    input ``x`` [M, c_k]: LN1, qkv, window attention, proj + residual, LN2,
+    fc1 + GELU, fc2 + residual. ``bufs`` holds the [M, n] outputs ``ln1``,
+    ``qkv``, ``ctx``, ``x1``, ``ln2``, ``hid`` and ``x2``. With ``hpre``,
+    fc1 also writes its pre-activation there (the backward's recompute,
+    ``kernels/fused_rdg_train.py``), which must equal the forward's launch
+    for launch. Returns ``bufs["x2"]``."""
+    g = rdg_geometry(cfg)
+    nh, shift = g["heads"][k], g["shifts"][k]
+    rdg_layernorm(x, p["ln1_w"], p["ln1_b"], bufs["ln1"])
+    rdg_gemm(bufs["ln1"], p["wqkv"], p["bqkv"], bufs["qkv"])
+    window_attention(bufs["qkv"], bufs["ctx"], p["attn_bias"], masks.get(shift),
+                     h, w, nh, cfg.window_size, shift)
+    residual_add(bufs["ctx"], p["wproj"], p["bproj"], bufs["x1"], x, dp, 2 * k)
+    rdg_layernorm(bufs["x1"], p["ln2_w"], p["ln2_b"], bufs["ln2"])
+    if hpre is None:
+        rdg_gemm(bufs["ln2"], p["w1"], p["b1"], bufs["hid"], "gelu")
+    else:
+        rdg_gemm(bufs["ln2"], p["w1"], p["b1"], bufs["hid"], "gelu_aux",
+                 aux=hpre)
+    residual_add(bufs["hid"], p["w2"], p["b2"], bufs["x2"], bufs["x1"], dp,
+                 2 * k + 1)
+    return bufs["x2"]
+
+
+def residual_add(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 out: torch.Tensor, residual: torch.Tensor,
+                 dp: Optional[torch.Tensor], branch: int) -> torch.Tensor:
+    """``out = residual + m * (a @ w.T + b)``: m is the branch's per-sample
+    drop-path multiplier ``dp[:, branch]``, or 1 without ``dp``."""
+    if dp is None:
+        return rdg_gemm(a, w, b, out, "residual", residual=residual)
+    return rdg_gemm(a, w, b, out, "drop_residual", residual=residual,
+                    row_scale=dp[:, branch])
 
 
 def rdg_flops(cfg: DRCTModelConfig, m: int) -> int:

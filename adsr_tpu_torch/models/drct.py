@@ -14,7 +14,12 @@ Architecture arithmetic (as the JAX ``models/drct.py``):
   gc 32 -> dims 180/212/244/276/308 with heads 6/4/2/6/4;
 - blocks 4 and 5 of each RDG use mlp_ratio 1;
 - LayerNorm eps 1e-6 (flax's default, not torch's 1e-5).
-Forward only, deterministic (stochastic depth is a training concern).
+
+Stochastic depth: ``forward(..., dp=...)`` takes per-sample multipliers from
+:func:`drop_path_mults` (0 or 1/keep) on the attention and MLP branches of
+every Swin block; without ``dp`` the forward is deterministic. The eager model
+with a given ``dp``, under autograd, is the plain version of the whole
+training forward (``kernels/fused_rdg_train.py``).
 """
 
 from __future__ import annotations
@@ -110,6 +115,26 @@ def window_attention_eager(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attn.softmax(dim=-1) @ v
 
 
+def drop_path_mults(generator: torch.Generator, cfg: DRCTModelConfig,
+                    b: int, deterministic: bool) -> torch.Tensor:
+    """[num_layers, B, 10] f32 per-(RDG, sample, branch) stochastic-depth
+    multipliers, 0 or 1/keep, on the CPU (the JAX ``drop_path_mults``,
+    adsr_tpu/ops/fused_rdg_train.py:1083-1097). Branch order: (attn, mlp) x
+    blocks 1..5. RDG i drops with rate 0.1 * 6i / (6 * num_layers - 1), the
+    first value of its slice of linspace(0, 0.1, 6 * num_layers)
+    (reference src/drct.py:808-812). Drawn from ``generator`` (a CPU
+    generator): the same schedule as the JAX stream, not its bits."""
+    nl = cfg.num_layers
+    if deterministic:
+        return torch.ones(nl, b, 10)
+    total = 6 * nl
+    rates = torch.tensor([0.1 * (6 * i) / max(total - 1, 1)
+                          for i in range(nl)], dtype=torch.float32)
+    keep = 1.0 - rates[:, None, None]
+    u = torch.rand(nl, b, 10, generator=generator)
+    return torch.floor(keep + u) / keep
+
+
 # --------------------------------------------------------------------------- #
 # Blocks
 # --------------------------------------------------------------------------- #
@@ -166,7 +191,10 @@ class SwinBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_size: Tuple[int, int],
+                m_attn: Optional[torch.Tensor] = None,
+                m_mlp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``m_attn``, ``m_mlp``: [B] per-sample drop-path multipliers."""
         h, w = x_size
         b, l, c = x.shape
         win, shift = self.window_size, self.shift_size
@@ -182,8 +210,12 @@ class SwinBlock(nn.Module):
         x = window_reverse(xw, win, h, w)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + x.reshape(b, l, c)
-        return x + self.mlp(self.norm2(x))
+        x = shortcut + _scaled(x.reshape(b, l, c), m_attn)
+        return x + _scaled(self.mlp(self.norm2(x)), m_mlp)
+
+
+def _scaled(t: torch.Tensor, m: Optional[torch.Tensor]) -> torch.Tensor:
+    return t if m is None else t * m.to(t.dtype)[:, None, None]
 
 
 def _to_space(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -214,12 +246,15 @@ class RDG(nn.Module):
             self.add_module(f"adjust{k + 1}",
                             nn.Conv2d(feat, dim if k == 4 else gc, 1))
 
-    def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_size: Tuple[int, int],
+                dp: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``dp``: [B, 10] drop-path multipliers, (attn, mlp) x blocks 1..5."""
         h, w = x_size
         outs = [x]
         for k in range(5):
             inp = outs[0] if k == 0 else torch.cat(outs, dim=-1)
-            t = getattr(self, f"swin{k + 1}")(inp, x_size)
+            m = (None, None) if dp is None else (dp[:, 2 * k], dp[:, 2 * k + 1])
+            t = getattr(self, f"swin{k + 1}")(inp, x_size, *m)
             t = _to_tokens(getattr(self, f"adjust{k + 1}")(_to_space(t, h, w)))
             if k < 4:
                 t = F.leaky_relu(t, 0.2)
@@ -266,16 +301,18 @@ class DRCT(nn.Module):
             persistent=False)
 
     def forward(self, x: torch.Tensor,
-                taps: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+                taps: Optional[List[torch.Tensor]] = None,
+                dp: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x: LR NHWC float. ``taps``, when given, collects the [B, L, d]
-        token stream after each RDG."""
+        token stream after each RDG; ``dp`` [num_layers, B, 10] holds the
+        drop-path multipliers (:func:`drop_path_mults`)."""
         cfg = self.cfg
         x = (x - self.mean) * cfg.img_range
         b, h, w, _ = x.shape
         feat = self.conv_first(x.permute(0, 3, 1, 2))
         t = self.patch_embed.norm(_to_tokens(feat))
-        for layer in self.layers:
-            t = layer(t, (h, w))
+        for i, layer in enumerate(self.layers):
+            t = layer(t, (h, w), None if dp is None else dp[i])
             if taps is not None:
                 taps.append(t)
         deep = _to_space(self.norm(t), h, w)

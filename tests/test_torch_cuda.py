@@ -11,12 +11,20 @@ import torch
 
 from adsr_tpu_torch.core.config import DRCTModelConfig
 from adsr_tpu_torch.kernels import _build
+from adsr_tpu_torch.kernels import rdg_gemm_bwd as gb
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
+from adsr_tpu_torch.kernels.fused_rdg import prepack_rdg_stack
+from adsr_tpu_torch.kernels.fused_rdg_train import (fused_rdg_train,
+                                                    rdg_train_plain)
 from adsr_tpu_torch.kernels.rdg_gemm import rdg_gemm, rdg_gemm_plain
 from adsr_tpu_torch.kernels.rdg_layernorm import (rdg_layernorm,
                                                   rdg_layernorm_plain)
+from adsr_tpu_torch.kernels.rdg_layernorm_bwd import (rdg_layernorm_bwd,
+                                                      rdg_layernorm_bwd_plain)
 from adsr_tpu_torch.kernels.window_attention import (window_attention,
                                                      window_attention_plain)
+from adsr_tpu_torch.kernels.window_attention_bwd import (
+    window_attention_bwd, window_attention_bwd_plain)
 from adsr_tpu_torch.models.drct import shift_attn_mask
 from adsr_tpu_torch.models.factory import init_sr_params, make_model
 
@@ -71,6 +79,32 @@ def test_kernels_match_plain(dev):
                                        4), atol)
 
 
+def test_gemm_training_epilogues_match_plain(dev):
+    # proj / fc2 of the training forward: residual + m[row // L] * acc with
+    # m a strided [B] column of a drop-path tensor (zeros and 1/keep); fc1 of
+    # the backward's recompute: GELU into out, the pre-activation into aux
+    g = torch.Generator(device=dev).manual_seed(4)
+    m, c, f, b = 4 * 1024, 212, 424, 4
+    a = torch.randn(m, c, generator=g, device=dev).to(torch.bfloat16)
+    res = torch.randn(m, c, generator=g, device=dev).to(torch.bfloat16)
+    wt = (0.05 * torch.randn(c, c, generator=g, device=dev)).to(torch.bfloat16)
+    w1 = (0.05 * torch.randn(f, c, generator=g, device=dev)).to(torch.bfloat16)
+    bias, b1 = (torch.randn(n, generator=g, device=dev) for n in (c, f))
+    dp = torch.full((b, 10), 1.0 / 0.9, device=dev)
+    dp[1, 3] = dp[3, 3] = 0.0
+    out = torch.empty(m, c, dtype=torch.bfloat16, device=dev)
+    rdg_gemm(a, wt, bias, out, "drop_residual", res, row_scale=dp[:, 3])
+    _close(out, rdg_gemm_plain(a, wt, bias, "drop_residual", res, dp[:, 3]),
+           1e-3)
+    rows = slice(1024, 2048)                 # sample 1: the branch dropped
+    assert torch.equal(out[rows], res[rows])
+    hid, pre = (torch.empty(m, f, dtype=torch.bfloat16, device=dev)
+                for _ in range(2))
+    rdg_gemm(a, w1, b1, hid, "gelu_aux", aux=pre)
+    _close(hid, rdg_gemm_plain(a, w1, b1, "gelu_aux"), 1e-3)
+    _close(pre, rdg_gemm_plain(a, w1, b1), 1e-3)
+
+
 def test_fused_forward_counts_launches_and_tracks_eager(dev):
     sd, _ = init_sr_params(CFG, torch.Generator().manual_seed(0), device=dev)
     packed = prepack_drct(sd, CFG, 16, 16, dtype=torch.bfloat16, device=dev)
@@ -96,3 +130,140 @@ def test_fp32_on_the_card_raises(dev):
         rdg_layernorm(x, torch.ones(12, device=dev), torch.zeros(12, device=dev),
                       torch.empty_like(x))
     assert _build.library() is not None
+
+
+def _within(got, want, bound):
+    """Elementwise |got - want| <= bound, bound a tensor or a float."""
+    err = (got.float() - want).abs()
+    assert bool((err <= bound).all()), (err - bound).max()
+
+
+def test_gemm_bwd_kernels_match_plain(dev):
+    # dY rounds to bf16 in shared memory (relative 2^-9 a term) and a bf16
+    # output rounds once more: |err| <= 2^-8 (|dY_eff| @ |W| + |ref|)
+    g = torch.Generator(device=dev).manual_seed(1)
+    m, n, k, b = 2 * 1024, 96, 212, 2
+    wide = torch.randn(m, 308, generator=g, device=dev)        # f32 "dcat"
+    src = torch.randn(m, 308, generator=g, device=dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn(n, k, generator=g, device=dev)).to(torch.bfloat16)
+    a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    pre = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
+    scale = torch.tensor([[1.1, 0.0], [0.0, 1.1]], device=dev)[:, 1]
+    dy, slope = wide[:, 40:40 + n], src[:, 40:40 + n]          # strided
+    for kw in ({}, {"slope_src": slope}, {"alpha": 0.2},
+               {"row_scale": scale}, {"row_scale": scale, "gelu_pre": pre}):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            out = torch.empty(m, k, dtype=out_dtype, device=dev)
+            gb.rdg_gemm_dgrad(dy, w, out, **kw)
+            want = gb.rdg_gemm_dgrad_plain(dy, w, **kw)
+            eff = gb.dy_effective(dy, kw.get("alpha", 1.0),
+                                  kw.get("slope_src"), kw.get("row_scale"))
+            bound = eff.abs() @ w.float().abs()
+            if "gelu_pre" in kw:
+                bound = bound * gb.gelu_grad(pre).abs()
+            _within(out, want, 2.0 ** -8 * (bound + want.abs()) + 1e-6)
+        kw.pop("gelu_pre", None)
+        dw = torch.empty(n, k, device=dev)
+        db = torch.empty(n, device=dev)
+        gb.rdg_gemm_wgrad(dy, a, dw, db, **kw)
+        want_w, want_b = gb.rdg_gemm_wgrad_plain(dy, a, **kw)
+        eff = gb.dy_effective(dy, kw.get("alpha", 1.0), kw.get("slope_src"),
+                              kw.get("row_scale"))
+        _within(dw, want_w, 2.0 ** -8 * (eff.abs().t() @ a.float().abs())
+                + 1e-5)
+        _within(db, want_b, 2.0 ** -8 * eff.abs().sum(0) + 1e-5)
+        dw2, db2 = torch.empty_like(dw), torch.empty_like(db)
+        gb.rdg_gemm_wgrad(dy, a, dw2, db2, **kw)
+        assert torch.equal(dw, dw2) and torch.equal(db, db2)   # deterministic
+
+
+def test_layernorm_bwd_kernel_matches_plain(dev):
+    g = torch.Generator(device=dev).manual_seed(2)
+    m, c = 2 * 1024, 244
+    cat = (1 + 2 * torch.randn(m, 308, generator=g, device=dev)).to(
+        torch.bfloat16)
+    w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    dy = torch.randn(m, c, generator=g, device=dev)
+    res = torch.randn(m, c, generator=g, device=dev)
+    dcat = torch.randn(m, 308, generator=g, device=dev)
+    before = dcat.clone()
+    dw, db = torch.empty(c, device=dev), torch.empty(c, device=dev)
+    n0 = rdg_layernorm_bwd.launches
+    rdg_layernorm_bwd(cat[:, :c], dy, w, dcat[:, :c], dw, db, residual=res)
+    assert rdg_layernorm_bwd.launches == n0 + 1
+    gx, gw, gbias = rdg_layernorm_bwd_plain(cat[:, :c], dy, w)
+    _within(dcat[:, :c], before[:, :c] + gx + res,
+            1e-4 * (gx.abs().max() + res.abs().max()))
+    assert torch.equal(dcat[:, c:], before[:, c:])
+    _within(dw, gw, 1e-4 * gw.abs().max())
+    _within(db, gbias, 1e-4 * gbias.abs().max())
+
+
+@pytest.mark.parametrize("c,nh,shift", [(180, 6, 0), (212, 4, 4),
+                                        (244, 2, 0), (308, 4, 4)])
+def test_window_attention_bwd_kernel_matches_plain(dev, c, nh, shift):
+    # P and dS round to bf16 before the three output products: 2^-7 of each
+    # output's largest magnitude
+    g = torch.Generator(device=dev).manual_seed(3)
+    m, h = 2 * 1024, 32
+    qkv = torch.randn(m, 3 * c, generator=g, device=dev).to(torch.bfloat16)
+    dout = torch.randn(m, c, generator=g, device=dev).to(torch.bfloat16)
+    bias = 0.5 * torch.randn(nh, 64, 64, generator=g, device=dev)
+    mask = torch.as_tensor(shift_attn_mask(h, h, 8, shift), device=dev) \
+        if shift else None
+    dqkv = torch.empty(m, 3 * c, dtype=torch.bfloat16, device=dev)
+    dbias = torch.empty(nh, 64, 64, device=dev)
+    window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 8, shift, dqkv,
+                         dbias)
+    want_q, want_b = window_attention_bwd_plain(qkv, dout, bias, mask, h, h,
+                                                nh, 8, shift)
+    for i in range(3):
+        part = want_q[:, i * c:(i + 1) * c]
+        _within(dqkv[:, i * c:(i + 1) * c], part,
+                2.0 ** -7 * (part.abs().max() + part.abs()))
+    _within(dbias, want_b, 2.0 ** -8 * want_b.abs().max())
+    dq2, db2 = torch.empty_like(dqkv), torch.empty_like(dbias)
+    window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 8, shift, dq2, db2)
+    assert torch.equal(dqkv, dq2) and torch.equal(dbias, db2)
+
+
+def test_rdg_train_grads_track_eager_autograd(dev):
+    # one RDG at the flagship's widths (embed 180, window 8, 32x32 tokens),
+    # batch 4: bf16 kernels against the eager f32 RDG under autograd,
+    # relative L2 per tensor; chip_smoke.py states the limit's reason
+    cfg = DRCTModelConfig(upscale=4, img_size=32, window_size=8, in_chans=1,
+                          embed_dim=180, num_layers=1, num_heads=6, gc=32)
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(1)
+    sd = {k: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
+          for k, v in sd.items()}
+    model = make_model(cfg, device=dev)
+    model.load_state_dict(sd)
+    h = w = cfg.img_size
+    x = torch.randn(4 * h * w, cfg.embed_dim, generator=gen).to(dev)
+    dp = torch.full((4, 10), 1.0 / 0.9, device=dev)
+    dp[1, 2] = dp[3, 9] = 0.0
+    g = torch.randn(4 * h * w, cfg.embed_dim, generator=gen).to(dev)
+    params = dict(model.named_parameters())
+    packed = prepack_rdg_stack(params, cfg, h, w, torch.bfloat16, dev,
+                               detach=False)
+    xk = x.to(torch.bfloat16).requires_grad_(True)
+    out = fused_rdg_train(xk, packed["rdgs"][0], packed["masks"], cfg, h, w,
+                          dp)
+    torch.autograd.backward(out, g.to(torch.bfloat16))
+    got = {k: p.grad.clone() for k, p in params.items() if p.grad is not None}
+    gx = xk.grad.float()
+    model.zero_grad()
+    xp = x.clone().requires_grad_(True)
+    ref = rdg_train_plain(model.layers[0], xp, h, w, dp)
+    torch.autograd.backward(ref, g)
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return ((a.float() - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    assert rel(out, ref.detach()) < 1e-1
+    assert rel(gx, xp.grad) < 1e-1
+    assert len(got) == 75                 # 15 tensors in each of 5 blocks
+    for k, v in got.items():
+        assert rel(v, params[k].grad) < 1e-1, k

@@ -106,18 +106,27 @@ def test_gemm_plain_epilogues_match_jax(epilogue):
     w = (rng.randn(20, 12) * 0.3).astype(np.float32)      # flax Dense [I, O]
     bias = rng.randn(12).astype(np.float32)
     res = rng.randn(32, 12).astype(np.float32)
+    scale = np.asarray([1.25, 0.0, 0.5, 1.0], np.float32)   # 8 rows a sample
     y = jnp.asarray(a) @ w + bias
     want = {"none": y, "residual": y + res,
             "gelu": jax.nn.gelu(y, approximate=False),
             "leaky_relu": jax.nn.leaky_relu(y, 0.2),
-            "scaled_residual": 0.2 * y + res}[epilogue]
-    needs = epilogue in ("residual", "scaled_residual")
-    out = torch.empty(32, 12)
+            "scaled_residual": 0.2 * y + res,
+            "drop_residual": res + np.repeat(scale, 8)[:, None] * y,
+            "gelu_aux": jax.nn.gelu(y, approximate=False)}[epilogue]
+    needs = epilogue in ("residual", "scaled_residual", "drop_residual")
+    out, aux = torch.empty(32, 12), torch.empty(32, 12)
     gemm_mod.rdg_gemm(torch.from_numpy(a), torch.from_numpy(w.T.copy()),
                       torch.from_numpy(bias), out, epilogue,
-                      torch.from_numpy(res) if needs else None)
+                      torch.from_numpy(res) if needs else None,
+                      torch.from_numpy(scale)
+                      if epilogue == "drop_residual" else None,
+                      aux if epilogue == "gelu_aux" else None)
     np.testing.assert_allclose(out.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+    if epilogue == "gelu_aux":          # the pre-activation, for GELU'
+        np.testing.assert_allclose(aux.numpy(), np.asarray(y), atol=1e-5,
+                                   rtol=1e-5)
 
 
 def _jax_shifted_attention(qkv, bias, mask, b, h, w, nh, win, shift):
