@@ -10,8 +10,8 @@ Reference semantics reproduced:
 - test-time HR crop to ``lr_size * scale`` (data.py:176-181);
 - LR list in *descending* scale order: lrs[0] is the model input.
 
-PNG decode uses PIL, imported inside ``load_sr_dataset``: file loading runs on
-the CPU only (the card's machine has no PIL). An ``SRDataset`` is equally
+PNG decode is the port's own (``io/png.py``, numpy + zlib), so file loading
+runs on the card's machine too, which has no PIL. An ``SRDataset`` is equally
 built straight from arrays.
 
 Training batches (``sample_batch``, ``EpochSampler``, pipeline.py:149-233):
@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from adsr_tpu_torch.core.device import resolve_device
+from adsr_tpu_torch.io.png import read_png
 
 
 def rgb_to_ycbcr_y(img: np.ndarray) -> np.ndarray:
@@ -101,23 +102,18 @@ class SRDataset:
 
 def load_sr_dataset(data_dir: str, scales: Sequence[int], n_colors: int,
                     rgb_range: float = 255.0) -> SRDataset:
-    """Load a split directory (test/good, test/bad, ...) with PIL."""
-    from PIL import Image
-
+    """Load a split directory (test/good, test/bad, ...) with the port's
+    PNG decoder (``io/png.py``)."""
     scales_desc = tuple(sorted(set(int(s) for s in scales), reverse=True))
     hr_files, lr_files = _scan(Path(data_dir), scales_desc)
-
-    def read(path: Path) -> np.ndarray:
-        with Image.open(path) as im:
-            return np.asarray(im)
-
     pixel_scale = rgb_range / 255.0
-    hr = np.stack([set_channel(read(f), n_colors) for f in hr_files])
+    hr = np.stack([set_channel(read_png(f), n_colors) for f in hr_files])
     hr *= pixel_scale
     max_s = scales_desc[0]
     lrs = []
     for si in range(len(scales_desc)):
-        arr = np.stack([set_channel(read(f), n_colors) for f in lr_files[si]])
+        arr = np.stack([set_channel(read_png(f), n_colors)
+                        for f in lr_files[si]])
         arr *= pixel_scale
         lrs.append(arr)
     lh, lw = lrs[0].shape[1], lrs[0].shape[2]

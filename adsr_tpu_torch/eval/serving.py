@@ -11,7 +11,7 @@ evaluate.py:250-261). Tail batches are padded to the configured batch size.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping
+from typing import Callable, Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
@@ -33,9 +33,14 @@ class AnomalyServer:
         self._entries: Dict[str, Callable] = {}
 
     def register(self, name: str, exp: Experiment,
-                 params: Mapping[str, torch.Tensor]) -> None:
+                 params: Mapping[str, torch.Tensor],
+                 mode: Optional[str] = None) -> None:
+        """Pack ``params`` once for class ``name``; ``mode`` is the fused
+        forward's (``"rdg"`` or ``"block"``; ``None`` reads
+        ``ADSR_TPU_RDG``, as the JAX ``register`` does through
+        ``prepack_drct``)."""
         forward = make_serving_forward(exp, params, device=self.device,
-                                       quantize_out=False)
+                                       quantize_out=False, mode=mode)
         rgb_range = exp.data.rgb_range
         n_colors = exp.data.n_colors
         win = self.ssim_window

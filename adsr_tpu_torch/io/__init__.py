@@ -1,1 +1,2 @@
-"""Weight carriers between the JAX package and the port."""
+"""Run dirs and checkpoints, the PNG codec, and the weight carrier from the
+JAX package."""

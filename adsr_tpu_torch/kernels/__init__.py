@@ -1,4 +1,5 @@
-"""Hand-written Hopper kernels of the serving path and their wrappers.
+"""Hand-written Hopper kernels of the serving and training paths and their
+wrappers.
 
 Each kernel module holds the wrapper (device dispatch: CPU tensors go to the
 plain PyTorch version, CUDA tensors to the kernel), the plain version, and a

@@ -64,6 +64,9 @@ SIGNATURES = {
     # stream
     "adsr_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _I, _P],
+    # x, ldx, out, ldo, ln1_w, ln1_b, wqkv, bqkv, bias, mask, wproj, bproj,
+    # ln2_w, ln2_b, w1, b1, w2, b2, B, H, W, C, F, nh, win, shift, eps, stream
+    "adsr_swin_block": [_P, _L, _P, _L] + [_P] * 14 + [_I] * 8 + [_F, _P],
 }
 
 

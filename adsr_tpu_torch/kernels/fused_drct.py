@@ -1,35 +1,60 @@
-"""Fused DRCT serving forward: the 12 RDGs through ``fused_rdg``, the
+"""Fused DRCT serving forward: the 12 RDGs on the hand-written kernels, the
 convolutional head and tail in plain PyTorch.
 
 The port of ``adsr_tpu/ops/fused_drct.py`` (``prepack_drct`` ``:57``,
-``fused_drct_apply`` ``:114``, rdg mode). As there, the head and tail (conv
-embed, patch and final LayerNorm in f32 statistics, conv after body,
+``fused_drct_apply`` ``:114``) in both of its modes:
+
+- ``"rdg"`` (the default): each RDG through ``fused_rdg``, 40 launches of
+  kernels (a)-(c) (the port of TPU kernel 1);
+- ``"block"`` (``ADSR_TPU_RDG=0``, as in the JAX package): each Swin block
+  through kernel (g) ``fused_swin_block`` (the port of TPU kernel 4),
+  followed by its adjust conv through ``rdg_gemm`` into the concat buffer,
+  10 launches an RDG.
+
+Both modes read the same packed block dicts. As there, the head and tail
+(conv embed, patch and final LayerNorm in f32 statistics, conv after body,
 upsampling convs, pixel shuffle, last conv) stay outside any hand kernel:
 ``F.conv2d``, ``F.layer_norm``, ``F.pixel_shuffle``. Forward only.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 
 from adsr_tpu_torch.core.config import DRCTModelConfig
-from adsr_tpu_torch.kernels.fused_rdg import (fused_rdg, prepack_rdg_stack,
-                                              rdg_geometry, rdg_workspace)
+from adsr_tpu_torch.kernels.fused_rdg import (_rows, dense_adjust, fused_rdg,
+                                              prepack_rdg_stack, rdg_geometry,
+                                              rdg_workspace)
+from adsr_tpu_torch.kernels.fused_swin_block import fused_swin_block
 from adsr_tpu_torch.models.common import RGB_MEAN
 from adsr_tpu_torch.models.drct import LN_EPS
 
 _HEAD_CONVS = ("conv_first", "conv_after_body", "conv_before_upsample.0",
                "conv_last")
+MODES = ("rdg", "block")
+
+
+def resolve_mode(mode: Optional[str] = None) -> str:
+    """``None`` reads ``ADSR_TPU_RDG`` as the JAX package does
+    (adsr_tpu/ops/fused_drct.py:76-79): ``"0"`` selects ``"block"``."""
+    if mode is None:
+        mode = "block" if os.environ.get("ADSR_TPU_RDG", "1") == "0" else "rdg"
+    if mode not in MODES:
+        raise ValueError(f"unknown fused DRCT mode {mode!r}; one of {MODES}")
+    return mode
 
 
 def prepack_drct(state_dict: Mapping[str, torch.Tensor], cfg: DRCTModelConfig,
-                 h: int, w: int, dtype=torch.bfloat16, device="cuda") -> Dict:
+                 h: int, w: int, dtype=torch.bfloat16, device="cuda",
+                 mode: Optional[str] = None) -> Dict:
     """One-off packing of the port's state_dict for ``fused_drct_apply``:
     RDG operands (``prepack_rdg_stack``) plus the head/tail tensors, all on
-    ``device``; conv weights in ``dtype``, LayerNorm params in f32."""
+    ``device``; conv weights in ``dtype``, LayerNorm params in f32. ``mode``
+    (see :func:`resolve_mode`) is recorded for ``fused_drct_apply``."""
     packed = prepack_rdg_stack(state_dict, cfg, h, w, dtype=dtype,
                                device=device)
 
@@ -46,11 +71,29 @@ def prepack_drct(state_dict: Mapping[str, torch.Tensor], cfg: DRCTModelConfig,
                       get(f"{name}.bias", torch.float32))
     packed["head"] = head
     packed["dtype"] = dtype
+    packed["mode"] = resolve_mode(mode)
     # the dataset mean shift (src/drct.py:773-777), on the device once
     packed["mean"] = torch.tensor(RGB_MEAN if cfg.in_chans == 3
                                   else (0.0,) * cfg.in_chans,
                                   dtype=torch.float32, device=device)
     return packed
+
+
+def rdg_by_blocks(cat: torch.Tensor, blocks: List[Dict[str, torch.Tensor]],
+                  masks: Dict[int, torch.Tensor], cfg: DRCTModelConfig,
+                  h: int, w: int, x2: torch.Tensor) -> torch.Tensor:
+    """One RDG in block mode, over ``cat[:, :d]`` in place: five times
+    kernel (g) on the concat prefix into the scratch ``x2`` (flat, at least
+    M x c_5 elements), then the block's adjust conv (the JAX block mode's
+    ``layer``, adsr_tpu/ops/fused_drct.py:169-184)."""
+    m = cat.shape[0]
+    feats = rdg_geometry(cfg)["feats"]
+    for k, p in enumerate(blocks):
+        c = feats[k]
+        y = fused_swin_block(cat[:, :c], p, masks, cfg, h, w, k,
+                             _rows(x2, m, c))
+        dense_adjust(cat, y, p, cfg, k)
+    return cat[:, :cfg.embed_dim]
 
 
 def _conv(x: torch.Tensor, wb) -> torch.Tensor:
@@ -64,11 +107,13 @@ def _layer_norm(t: torch.Tensor, wb, dtype) -> torch.Tensor:
 
 
 def fused_drct_apply(packed: Dict, cfg: DRCTModelConfig, x: torch.Tensor,
-                     taps: Optional[List[torch.Tensor]] = None
-                     ) -> torch.Tensor:
+                     taps: Optional[List[torch.Tensor]] = None,
+                     mode: Optional[str] = None) -> torch.Tensor:
     """LR [B, h, w, C] float -> SR [B, h*s, w*s, C] float32 from a
-    :func:`prepack_drct` tree. ``taps``, when given, collects the [B, L, d]
-    token stream after each RDG."""
+    :func:`prepack_drct` tree, in ``mode`` (default: the packed one).
+    ``taps``, when given, collects the [B, L, d] token stream after each
+    RDG."""
+    mode = packed["mode"] if mode is None else resolve_mode(mode)
     dtype = packed["dtype"]
     head = packed["head"]
     d = cfg.embed_dim
@@ -79,12 +124,18 @@ def fused_drct_apply(packed: Dict, cfg: DRCTModelConfig, x: torch.Tensor,
 
     feat = _conv(x.permute(0, 3, 1, 2), head["conv_first"])    # NCHW
     tokens = feat.permute(0, 2, 3, 1).reshape(m, d)
-    cat = torch.empty(m, rdg_geometry(cfg)["cat_width"], dtype=dtype,
-                      device=x.device)
+    g = rdg_geometry(cfg)
+    cat = torch.empty(m, g["cat_width"], dtype=dtype, device=x.device)
     cat[:, :d] = _layer_norm(tokens, head["patch_embed.norm"], dtype)
-    work = rdg_workspace(m, cfg, dtype, x.device)
+    if mode == "rdg":
+        work = rdg_workspace(m, cfg, dtype, x.device)
+    else:
+        x2 = torch.empty(m * max(g["feats"]), dtype=dtype, device=x.device)
     for blocks in packed["rdgs"]:
-        fused_rdg(cat, blocks, packed["masks"], cfg, h, w, work)
+        if mode == "rdg":
+            fused_rdg(cat, blocks, packed["masks"], cfg, h, w, work)
+        else:
+            rdg_by_blocks(cat, blocks, packed["masks"], cfg, h, w, x2)
         if taps is not None:
             taps.append(cat[:, :d].reshape(b, h * w, d).clone())
 

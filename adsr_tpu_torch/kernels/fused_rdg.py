@@ -43,8 +43,11 @@ from adsr_tpu_torch.kernels.window_attention import window_attention
 from adsr_tpu_torch.models.drct import relative_position_bias, shift_attn_mask
 
 
+@functools.lru_cache(maxsize=None)
 def rdg_geometry(cfg: DRCTModelConfig) -> Dict[str, tuple]:
-    """Per-block channel/head/shift/hidden arithmetic (src/drct.py:337-373)."""
+    """Per-block channel/head/shift/hidden arithmetic (src/drct.py:337-373),
+    computed once per (frozen) config: the forward asks for it at every
+    launch. Read only."""
     d, gc, nh = cfg.embed_dim, cfg.gc, cfg.num_heads
     shift = cfg.window_size // 2
     feats = tuple(d + k * gc for k in range(5))
@@ -57,6 +60,14 @@ def rdg_geometry(cfg: DRCTModelConfig) -> Dict[str, tuple]:
             "cat_width": feats[4]}          # d + 4*gc: block 5's input
 
 
+def _getter(sd: Mapping[str, torch.Tensor], device, detach: bool):
+    def get(name, dt):
+        t = torch.as_tensor(sd[name])
+        t = t.detach() if detach else t
+        return t.to(device=device, dtype=dt).contiguous()
+    return get
+
+
 def _pack_block(sd: Mapping[str, torch.Tensor], layer: int, k: int, c: int,
                 window: int, dtype, device,
                 detach: bool = True) -> Dict[str, torch.Tensor]:
@@ -64,33 +75,41 @@ def _pack_block(sd: Mapping[str, torch.Tensor], layer: int, k: int, c: int,
     Linear [out, in], vectors and the attention bias in f32. With
     ``detach=False`` the packing is differentiable (the casts and the bias
     gather carry gradients back to ``sd``'s tensors)."""
-    sw, adj = f"layers.{layer}.swin{k}", f"layers.{layer}.adjust{k}"
-
-    def get(name, dt):
-        t = torch.as_tensor(sd[name])
-        t = t.detach() if detach else t
-        return t.to(device=device, dtype=dt).contiguous()
-
+    adj = f"layers.{layer}.adjust{k}"
+    get = _getter(sd, device, detach)
     wadj = get(f"{adj}.weight", dtype)              # 1x1 conv [O, I, 1, 1]
-    qkv_b = f"{sw}.attn.qkv.bias"                   # absent with qkv_bias=False
-    table = get(f"{sw}.attn.relative_position_bias_table", torch.float32)
+    return {**pack_swin(sd, f"layers.{layer}.swin{k}.", c, window, dtype,
+                        device, detach),
+            "wadj": wadj.reshape(wadj.shape[0], wadj.shape[1]),  # Linear [O, I]
+            "badj": get(f"{adj}.bias", torch.float32)}
+
+
+def pack_swin(sd: Mapping[str, torch.Tensor], prefix: str, c: int,
+              window: int, dtype, device,
+              detach: bool = True) -> Dict[str, torch.Tensor]:
+    """The Swin block whose state_dict names start with ``prefix`` (e.g.
+    ``layers.0.swin1.``, or ``""`` for a lone block): the block dict of
+    :func:`_pack_block` without the adjust conv (what
+    ``swin_block_forward`` and ``fused_swin_block`` read)."""
+    get = _getter(sd, device, detach)
+    qkv_b = f"{prefix}attn.qkv.bias"               # absent with qkv_bias=False
+    table = get(f"{prefix}attn.relative_position_bias_table", torch.float32)
+    f32 = torch.float32
     return {
-        "ln1_w": get(f"{sw}.norm1.weight", torch.float32),
-        "ln1_b": get(f"{sw}.norm1.bias", torch.float32),
-        "wqkv": get(f"{sw}.attn.qkv.weight", dtype),
-        "bqkv": (get(qkv_b, torch.float32) if qkv_b in sd else
-                 torch.zeros(3 * c, dtype=torch.float32, device=device)),
+        "ln1_w": get(f"{prefix}norm1.weight", f32),
+        "ln1_b": get(f"{prefix}norm1.bias", f32),
+        "wqkv": get(f"{prefix}attn.qkv.weight", dtype),
+        "bqkv": (get(qkv_b, f32) if qkv_b in sd else
+                 torch.zeros(3 * c, dtype=f32, device=device)),
         "attn_bias": relative_position_bias(table, window).contiguous(),
-        "wproj": get(f"{sw}.attn.proj.weight", dtype),
-        "bproj": get(f"{sw}.attn.proj.bias", torch.float32),
-        "ln2_w": get(f"{sw}.norm2.weight", torch.float32),
-        "ln2_b": get(f"{sw}.norm2.bias", torch.float32),
-        "w1": get(f"{sw}.mlp.fc1.weight", dtype),
-        "b1": get(f"{sw}.mlp.fc1.bias", torch.float32),
-        "w2": get(f"{sw}.mlp.fc2.weight", dtype),
-        "b2": get(f"{sw}.mlp.fc2.bias", torch.float32),
-        "wadj": wadj.reshape(wadj.shape[0], wadj.shape[1]),  # == Linear [O, I]
-        "badj": get(f"{adj}.bias", torch.float32),
+        "wproj": get(f"{prefix}attn.proj.weight", dtype),
+        "bproj": get(f"{prefix}attn.proj.bias", f32),
+        "ln2_w": get(f"{prefix}norm2.weight", f32),
+        "ln2_b": get(f"{prefix}norm2.bias", f32),
+        "w1": get(f"{prefix}mlp.fc1.weight", dtype),
+        "b1": get(f"{prefix}mlp.fc1.bias", f32),
+        "w2": get(f"{prefix}mlp.fc2.weight", dtype),
+        "b2": get(f"{prefix}mlp.fc2.bias", f32),
     }
 
 
@@ -140,6 +159,18 @@ def _rows(buf: torch.Tensor, m: int, n: int) -> torch.Tensor:
     return buf[:m * n].view(m, n)
 
 
+def block_buffers(work: Dict[str, torch.Tensor], m: int, c: int,
+                  f: int) -> Dict[str, torch.Tensor]:
+    """The [m, n] outputs of ``swin_block_forward`` for width ``c`` and
+    hidden width ``f``, as views of :func:`rdg_workspace`'s buffers
+    (outputs whose lives do not overlap share one)."""
+    ln, ctx = _rows(work["ln"], m, c), _rows(work["ctx_x2"], m, c)
+    return {"ln1": ln, "ln2": ln, "ctx": ctx, "x2": ctx,
+            "qkv": _rows(work["qkv_hid"], m, 3 * c),
+            "hid": _rows(work["qkv_hid"], m, f),
+            "x1": _rows(work["x1"], m, c)}
+
+
 def fused_rdg(cat: torch.Tensor, blocks: List[Dict[str, torch.Tensor]],
               masks: Dict[int, torch.Tensor], cfg: DRCTModelConfig,
               h: int, w: int, work: Dict[str, torch.Tensor],
@@ -159,21 +190,26 @@ def fused_rdg(cat: torch.Tensor, blocks: List[Dict[str, torch.Tensor]],
                          f"expected {g['cat_width']}")
     for k, p in enumerate(blocks):
         c, f = g["feats"][k], g["hidden"][k]
-        # outputs whose lives do not overlap share a buffer
-        ln, ctx = _rows(work["ln"], m, c), _rows(work["ctx_x2"], m, c)
-        bufs = {"ln1": ln, "ln2": ln, "ctx": ctx, "x2": ctx,
-                "qkv": _rows(work["qkv_hid"], m, 3 * c),
-                "hid": _rows(work["qkv_hid"], m, f),
-                "x1": _rows(work["x1"], m, c)}
-        x2 = swin_block_forward(cat[:, :c], p, bufs, masks, cfg, h, w, k, dp)
-        if k < 4:
-            rdg_gemm(x2, p["wadj"], p["badj"], cat[:, c:c + cfg.gc],
-                     "leaky_relu")
-        else:
-            dst = cat[:, :d] if out is None else out
-            rdg_gemm(x2, p["wadj"], p["badj"], dst, "scaled_residual",
-                     residual=cat[:, :d])
+        x2 = swin_block_forward(cat[:, :c], p, block_buffers(work, m, c, f),
+                                masks, cfg, h, w, k, dp)
+        dense_adjust(cat, x2, p, cfg, k, out)
     return cat[:, :d] if out is None else out
+
+
+def dense_adjust(cat: torch.Tensor, x2: torch.Tensor,
+                 p: Dict[str, torch.Tensor], cfg: DRCTModelConfig, k: int,
+                 out: Optional[torch.Tensor] = None) -> None:
+    """The 1x1 adjust conv after Swin block ``k`` (0-based) on its output
+    ``x2``: blocks 1-4 append LeakyReLU(0.2) of it to the concat columns
+    ``[c_k, c_k + gc)``; block 5 writes ``0.2 * adjust + cat[:, :d]``, the
+    RDG's output, over ``cat[:, :d]`` in place or into ``out``."""
+    d = cfg.embed_dim
+    if k < 4:
+        c = rdg_geometry(cfg)["feats"][k]
+        rdg_gemm(x2, p["wadj"], p["badj"], cat[:, c:c + cfg.gc], "leaky_relu")
+    else:
+        rdg_gemm(x2, p["wadj"], p["badj"], cat[:, :d] if out is None else out,
+                 "scaled_residual", residual=cat[:, :d])
 
 
 def swin_block_forward(x: torch.Tensor, p: Dict[str, torch.Tensor],

@@ -21,8 +21,15 @@ eager f32 model under autograd (the plain version of the same function).
 The init and drop-path streams are separate generators seeded from
 ``exp.seed``, in the role of the JAX package's ``prng.stream(key, "init" |
 "dropout")``: the same distributions, not the same bits. Single device: no
-mesh and no dual models (ROADMAP Queue 1 items 10 and 11); the Journal and
-checkpoints wait for Queue 4 item 3, so the Trainer logs with ``print``.
+mesh and no dual models (ROADMAP Queue 1 items 10 and 11). With a
+``Journal`` (``io/journal.py``) the Trainer logs into the run dir, saves
+``model_latest.pt`` / ``model_best.pt`` at every test and checkpoints its
+full state for a true resume; without one it logs with ``print``.
+
+The serving forwards (``make_serving_forward``, ``make_eval_forward``,
+``make_tiled_serving_forward``) take ``mode``: ``"rdg"`` runs each RDG on
+kernels (a)-(c), ``"block"`` each Swin block on kernel (g); ``None`` reads
+``ADSR_TPU_RDG`` as the JAX package does.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ import torch
 from adsr_tpu_torch.core.config import DRCTModelConfig, Experiment
 from adsr_tpu_torch.core.device import compute_dtype, resolve_device
 from adsr_tpu_torch.data.pipeline import EpochSampler, SRDataset
+from adsr_tpu_torch.eval.tiled import tiled_sr_forward
+from adsr_tpu_torch.io.journal import Journal
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
 from adsr_tpu_torch.kernels.fused_rdg_train import fused_drct_train_forward
 from adsr_tpu_torch.metrics import psnr_shave4, quantize, ssim_shave4
@@ -61,19 +70,23 @@ def check_serving_precision(exp: Experiment, device: torch.device) -> None:
 
 def make_serving_forward(exp: Experiment,
                          params: Mapping[str, torch.Tensor],
-                         device="cuda", quantize_out: bool = True
+                         device="cuda", quantize_out: bool = True,
+                         mode: Optional[str] = None
                          ) -> Callable[[torch.Tensor], torch.Tensor]:
     """Fixed-params inference: LR batch NHWC float -> SR batch (quantized to
     the 0-255 grid unless ``quantize_out=False``).
 
     ``params`` is the port's state_dict. Packing (weights in the working type,
     the bias gather, the shift masks) runs ONCE here, as the JAX version's
-    ``prepack_drct`` does (adsr_tpu/train/trainer.py:400-457)."""
+    ``prepack_drct`` does (adsr_tpu/train/trainer.py:400-457). ``mode``:
+    ``"rdg"`` or ``"block"`` (``kernels/fused_drct.py``; ``None`` reads
+    ``ADSR_TPU_RDG``)."""
     dev = resolve_device(device)
     check_serving_precision(exp, dev)
     img = exp.model.img_size
     packed = prepack_drct(params, exp.model, img, img,
-                          dtype=compute_dtype(exp.precision), device=dev)
+                          dtype=compute_dtype(exp.precision), device=dev,
+                          mode=mode)
 
     @torch.no_grad()
     def forward(lr) -> torch.Tensor:
@@ -84,7 +97,7 @@ def make_serving_forward(exp: Experiment,
 
 
 def make_eval_forward(exp: Experiment, device="cuda",
-                      quantize_out: bool = True
+                      quantize_out: bool = True, mode: Optional[str] = None
                       ) -> Callable[[Mapping[str, torch.Tensor], torch.Tensor],
                                     torch.Tensor]:
     """Inference with params that change between calls (the Trainer's
@@ -93,7 +106,44 @@ def make_eval_forward(exp: Experiment, device="cuda",
     dev = resolve_device(device)
 
     def forward(params: Mapping[str, torch.Tensor], lr) -> torch.Tensor:
-        return make_serving_forward(exp, params, dev, quantize_out)(lr)
+        return make_serving_forward(exp, params, dev, quantize_out, mode)(lr)
+
+    return forward
+
+
+def make_tiled_serving_forward(exp: Experiment,
+                               params: Mapping[str, torch.Tensor],
+                               tile: int = 0, overlap: int = 8,
+                               quantize_out: bool = True, device="cuda",
+                               mode: Optional[str] = None
+                               ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Serving forward for LR inputs larger than the model's tile
+    (trainer.py:460-515): the LR batch is cut into overlapping ``tile``-sized
+    crops, all of them go through one fused forward packed at the tile size,
+    and the SR tiles are feather-blended (``eval/tiled.py``). ``tile``
+    defaults to the model's ``img_size``. Returns ``forward(lr)``."""
+    dev = resolve_device(device)
+    check_serving_precision(exp, dev)
+    cfg = exp.model
+    scale = max(exp.data.scale)
+    tile = tile if tile > 0 else cfg.img_size
+    win = cfg.window_size
+    if tile < win or tile % win != 0:
+        raise ValueError(
+            f"--tile must be a multiple of the model's window_size ({win}) "
+            f"and >= it; got tile={tile}. A non-divisible tile would build "
+            "truncated window plans/masks.")
+    packed = prepack_drct(params, cfg, tile, tile,
+                          dtype=compute_dtype(exp.precision), device=dev,
+                          mode=mode)
+
+    @torch.no_grad()
+    def forward(lr) -> torch.Tensor:
+        sr = tiled_sr_forward(lambda crops: fused_drct_apply(packed, cfg,
+                                                             crops),
+                              torch.as_tensor(lr, device=dev), tile, overlap,
+                              scale)
+        return quantize(sr, exp.data.rgb_range) if quantize_out else sr
 
     return forward
 
@@ -198,12 +248,13 @@ class Trainer:
     """Epoch driver with the reference's terminate/test cadence."""
 
     def __init__(self, exp: Experiment, train_ds: Optional[SRDataset],
-                 test_ds: Optional[SRDataset], journal=None, device="cuda"):
-        if journal is not None:
-            raise NotImplementedError(
-                "the Journal waits for ROADMAP.md Queue 4 item 3; pass "
-                "journal=None (the Trainer logs with print)")
+                 test_ds: Optional[SRDataset],
+                 journal: Optional[Journal] = None, device="cuda"):
+        if journal is not None and not isinstance(journal, Journal):
+            raise TypeError(f"Trainer: journal must be an io.journal.Journal, "
+                            f"got {type(journal).__name__}")
         self.exp = exp
+        self.journal = journal
         self.device = resolve_device(device)
         self._bundle = make_train_step(exp, self.device)
         self.train_step = self._bundle.step
@@ -226,7 +277,24 @@ class Trainer:
         self.test_ds = test_ds
 
     def _log(self, msg: str) -> None:
-        print(msg, flush=True)
+        if self.journal is not None:
+            self.journal.write_log(msg)
+        else:
+            print(msg, flush=True)
+
+    def save_train_state(self) -> None:
+        """Checkpoint everything a resume needs through the Journal."""
+        self.journal.save_train_state(self.state, self.epoch,
+                                      self.dropout_gen, self.error_last)
+
+    def load_train_state(self) -> None:
+        """Resume from the Journal's ``train_state_latest.pt``: the model,
+        Adam, step, epoch, drop-path generator and last epoch loss, so the
+        next step is the one an uninterrupted run would take."""
+        extra = self.journal.load_train_state(self.state, self.dropout_gen)
+        self.epoch = extra["epoch"]
+        if extra["error_last"] is not None:
+            self.error_last = extra["error_last"]
 
     def train_one_epoch(self) -> Dict[str, float]:
         if self.sampler is None:
@@ -266,9 +334,13 @@ class Trainer:
         self.epoch += 1
         return mean
 
-    def test(self, test_ds: Optional[SRDataset] = None) -> Tuple[float, float]:
+    def test(self, test_ds: Optional[SRDataset] = None,
+             save_results_fn=None) -> Tuple[float, float]:
         """PSNR/SSIM over a test split, in batches of the training batch
-        size (trainer.py:643-698)."""
+        size (trainer.py:643-698). With a Journal, the model is saved as
+        ``model_latest.pt`` and, when this PSNR is the best so far, as
+        ``model_best.pt``. ``save_results_fn(filename, sr)`` receives every
+        SR image."""
         ds = test_ds if test_ds is not None else self.test_ds
         if ds is None:
             raise ValueError("Trainer.test: no test dataset")
@@ -285,11 +357,18 @@ class Trainer:
             sr = sr[:, :hr.shape[1], :hr.shape[2], :]
             psnrs.extend(psnr_shave4(sr, hr, exp.data.rgb_range).tolist())
             ssims.extend(ssim_shave4(sr, hr, exp.data.rgb_range).tolist())
+            if save_results_fn is not None:
+                for j in range(sr.shape[0]):
+                    save_results_fn(ds.filenames[i + j], sr[j])
         p, s = float(np.mean(psnrs)), float(np.mean(ssims))
         self.psnr_ssim_history.append((p, s))
         for name, val in (("PSNR", p), ("SSIM", s)):
             if val > self.best.get(name, (-np.inf, 0))[0]:
                 self.best[name] = (val, len(self.psnr_ssim_history))
+        if self.journal is not None:
+            self.journal.save_model(
+                params, is_best=self.best["PSNR"][1] == len(
+                    self.psnr_ssim_history))
         bp, bpe = self.best["PSNR"]
         bs, bse = self.best["SSIM"]
         self._log(f"[{exp.data.data_test} x{max(exp.data.scale)}]\t"

@@ -16,6 +16,8 @@ from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
 from adsr_tpu_torch.kernels.fused_rdg import prepack_rdg_stack
 from adsr_tpu_torch.kernels.fused_rdg_train import (fused_rdg_train,
                                                     rdg_train_plain)
+from adsr_tpu_torch.kernels.fused_swin_block import (fused_swin_block,
+                                                     fused_swin_block_plain)
 from adsr_tpu_torch.kernels.rdg_gemm import rdg_gemm, rdg_gemm_plain
 from adsr_tpu_torch.kernels.rdg_layernorm import (rdg_layernorm,
                                                   rdg_layernorm_plain)
@@ -121,6 +123,48 @@ def test_fused_forward_counts_launches_and_tracks_eager(dev):
     assert [rdg_layernorm.launches, rdg_gemm.launches,
             window_attention.launches] == [n * CFG.num_layers for n in per_rdg]
     rel = (got - want).norm() / want.norm()
+    assert rel < 5e-2, rel
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4])
+def test_swin_block_kernel_matches_plain(dev, k):
+    # one flagship block per case (embed 180, gc 32: c 180..308, heads
+    # 6/4/2/6/4, shift 0/4), batch 2, 32x32 tokens; chip_smoke.py states the
+    # bound's reason
+    cfg = DRCTModelConfig(upscale=4, img_size=32, window_size=8, in_chans=1,
+                          embed_dim=180, num_layers=1, num_heads=6, gc=32)
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(k)
+    sd = {n: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
+          for n, v in sd.items()}
+    packed = prepack_rdg_stack(sd, cfg, 32, 32, torch.bfloat16, dev)
+    c = (180, 212, 244, 276, 308)[k]
+    x = torch.randn(2 * 1024, 308, generator=gen).to(dev).to(torch.bfloat16)
+    out = torch.empty(2 * 1024, c, dtype=torch.bfloat16, device=dev)
+    n0 = fused_swin_block.launches
+    fused_swin_block(x[:, :c], packed["rdgs"][0][k], packed["masks"], cfg,
+                     32, 32, k, out)
+    assert fused_swin_block.launches == n0 + 1
+    want = fused_swin_block_plain(x[:, :c], packed["rdgs"][0][k],
+                                  packed["masks"], cfg, 32, 32, k)
+    _close(out, want, 4e-2)
+
+
+def test_block_mode_forward_tracks_rdg_mode(dev):
+    sd, _ = init_sr_params(CFG, torch.Generator().manual_seed(0), device=dev)
+    packed = prepack_drct(sd, CFG, 16, 16, dtype=torch.bfloat16, device=dev,
+                          mode="block")
+    x = 255 * torch.rand(2, 16, 16, 1, device=dev)
+    for fn in (rdg_layernorm, rdg_gemm, window_attention, fused_swin_block):
+        fn.launches = 0
+    with torch.no_grad():
+        block = fused_drct_apply(packed, CFG, x)
+        torch.cuda.synchronize()
+        counts = [fn.launches for fn in (rdg_layernorm, rdg_gemm,
+                                         window_attention, fused_swin_block)]
+        rdg = fused_drct_apply(packed, CFG, x, mode="rdg")
+    assert counts == [0, 5 * CFG.num_layers, 0, 5 * CFG.num_layers]
+    rel = (block - rdg).norm() / rdg.norm()
     assert rel < 5e-2, rel
 
 

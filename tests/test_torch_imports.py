@@ -30,6 +30,14 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_entry_point_and_io_modules_are_covered():
+    names = {str(p.relative_to(REPO)) for p in FILES}
+    assert {"adsr_tpu_torch/cli/main.py", "adsr_tpu_torch/cli/evaluate.py",
+            "adsr_tpu_torch/io/png.py", "adsr_tpu_torch/io/journal.py",
+            "adsr_tpu_torch/eval/tiled.py", "adsr_tpu_torch/eval/rundir.py",
+            "adsr_tpu_torch/kernels/fused_swin_block.py"} <= names
+
+
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys, importlib, pkgutil\n"

@@ -296,6 +296,8 @@ def test_trainer_epoch_and_test_match_jax_metrics(monkeypatch, capsys):
 
 
 def test_trainer_refuses_a_journal():
+    # the Trainer takes the port's io.journal.Journal (tests/
+    # test_torch_journal.py) and refuses anything else
     _, pexp = _exps()
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Journal"):
         ptrainer.Trainer(pexp, None, None, journal=object(), device="cpu")
