@@ -1,5 +1,5 @@
 // rdg_gemm: out = epilogue(A[M,K] @ W[N,K]^T + bias[N]) in bf16 with f32
-// accumulation on the tensor cores (WMMA m16n16k16).
+// accumulation on the tensor cores (wgmma, hopper_gemm.cuh).
 //
 // Replaces: the five matmuls of each Swin block inside the Pallas kernels
 // _rdg_kernel_impl (adsr_tpu/ops/fused_rdg.py:731, 858, 861, 887-892) and
@@ -9,171 +9,190 @@
 // epilogues, plus the training ones: the per-sample stochastic-depth
 // residual (fused_rdg_train.py:295-296, 367, 372) and GELU that also keeps
 // its pre-activation for the backward.
-// Bound on H100: the big products (qkv, fc1 at M = 16384) are near the
-// bf16 ridge (K <= 308 gives at most ~150 flop per byte); the adjust GEMMs
-// (N = 32) are bound by the bytes of A.
-// Design: 64x64 output tiles, 4 warps of 32x32, K stepped by 32 through
-// shared memory with 8-byte vector loads (every K, N and row stride on this
-// path is a multiple of 4). Ragged K and N are zero-filled at the tile edge.
-// Each epilogue is its own template instance (no per-element branch), run
-// from an f32 staging tile, writing at any row stride,
-// so the adjust output lands straight in columns [c_k, c_k+32) of the
-// concat buffer and block 5's output lands in place over the RDG input.
-// Simple and correct first: no cp.async pipeline, no wgmma, no TMA.
+// Bound on H100: one RDG's 25 products at M = 16384 token rows move ~0.58 GB
+// (A read once, outputs and residuals once) in 0.17 ms at 3.35 TB/s against
+// 0.07 ms of bf16 tensor-core work (72 GFLOP): bytes. K <= 488 gives at most
+// ~150 flop per byte on the large products; the N = 32 adjust products are
+// bound by the bytes of A.
+// Design: the shared pipelined mainloop of hopper_gemm.cuh with both
+// operands K-major: persistent blocks over 128 x BN output tiles (BN 32 for
+// the adjust products, else 128 or 192 by N: kernels/rdg_gemm.py
+// ``n_tile``), the activations and weights by TMA (the port keeps them in
+// 16-byte rows) into a 5-8 stage mbarrier ring, two consumer warpgroups on
+// wgmma. The epilogue runs from the accumulator registers, one template
+// instance per epilogue: the bias is the accumulators' starting value, lanes
+// trade pairs so each holds 4 columns of a row, and residual reads and bf16
+// stores move 8 bytes a lane at any row stride that is a multiple of 4: the
+// adjust output lands straight in columns [c_k, c_k+32) of the concat
+// buffer, and block 5's lands in place over the RDG input (each row's
+// residuals are read before its first store, so out may alias residual).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
+#include "hopper_gemm.cuh"
 
-#include <cstdint>
+// this file's launches' operands by path, [TMA, cp.async] (read and reset
+// through ctypes: kernels/_build.py ``operand_paths``)
+extern "C" {
+long long adsr_rdg_gemm_operands[2];
+}
 
 namespace {
-
-using namespace nvcuda;
-
-constexpr int BM = 64, BN = 64, BK = 32;
-constexpr int LDS = BK + 8;   // bf16 row pitch of the A / W tiles
-constexpr int LDC = BN + 4;   // f32 row pitch of the staging tile
-constexpr int kThreads = 128;
 
 enum Epilogue { kNone = 0, kResidual = 1, kGelu = 2, kLeakyRelu = 3,
                 kScaledResidual = 4, kDropResidual = 5, kGeluAux = 6 };
 
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ld, long long r0,
-                                          long long rows, int k0, int K) {
-  // BM (== BN) rows x BK cols, 4 bf16 (8 bytes) per chunk
-  for (int i = threadIdx.x; i < BM * BK / 4; i += kThreads) {
-    const int r = i / (BK / 4);
-    const int c = (i % (BK / 4)) * 4;
-    const long long gr = r0 + r;
-    const int gk = k0 + c;
-    uint2 val = make_uint2(0u, 0u);
-    if (gr < rows && gk < K)
-      val = *reinterpret_cast<const uint2*>(src + gr * ld + gk);
-    *reinterpret_cast<uint2*>(dst + r * LDS + c) = val;
-  }
+__device__ __forceinline__ float gelu(float v) {
+  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
 }
 
 template <int EPI>
-__global__ void __launch_bounds__(kThreads)
-rdg_gemm_kernel(const __nv_bfloat16* __restrict__ A, long long lda,
-                const __nv_bfloat16* __restrict__ W,
-                const float* __restrict__ bias, __nv_bfloat16* out,
-                long long ldo, const __nv_bfloat16* res, long long ldr,
-                const float* __restrict__ row_scale, long long scale_stride,
-                int rows_per_scale, __nv_bfloat16* __restrict__ aux,
-                long long ldaux, int M, int N, int K) {
-  __shared__ __align__(128) __nv_bfloat16 As[BM * LDS];
-  __shared__ __align__(128) __nv_bfloat16 Ws[BN * LDS];
-  __shared__ __align__(128) float Cs[BM * LDC];
+struct FwdEpi {
+  const float* bias;
+  __nv_bfloat16* out;
+  long long ldo;
+  const __nv_bfloat16* res;
+  long long ldr;
+  const float* row_scale;
+  long long scale_stride;
+  int rows_per_scale;
+  __nv_bfloat16* aux;
+  long long ldaux;
 
-  const int warp = threadIdx.x >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const long long m0 = (long long)blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
+  static constexpr bool kReadsResidual =
+      EPI == kResidual || EPI == kScaledResidual || EPI == kDropResidual;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  // the bias is the accumulators' starting value
+  template <int BN>
+  __device__ __forceinline__ void init(float (&acc)[BN / 2], int n0,
+                                       int N) const {
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    load_tile(As, A, lda, m0, M, k0, K);
-    load_tile(Ws, W, K, n0, N, k0, K);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], As + (wm * 32 + i * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], Ws + (wn * 32 + j * 16) * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j;
+      const float2 b = n < N ? make_float2(__ldg(bias + n), __ldg(bias + n + 1))
+                             : make_float2(0.f, 0.f);
+      acc[4 * j] = acc[4 * j + 2] = b.x;
+      acc[4 * j + 1] = acc[4 * j + 3] = b.y;
     }
-    __syncthreads();
   }
 
+  template <int BN>
+  __device__ __forceinline__ void row(const float (&acc)[BN / 2], int h,
+                                      int m, int, int n0, int N,
+                                      bool valid) const {
+    constexpr int J = BN / 16;
+    uint2 r[J];                   // the row's residuals, before any store:
+    float s = 1.f;                // out may alias residual (each element
+    if constexpr (kReadsResidual) {   // is read before it is written)
+      const __nv_bfloat16* rr = res + (long long)m * ldr;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < BM * BN; i += kThreads) {
-    const int r = i / BN, c = i % BN;
-    const long long m = m0 + r;
-    const int n = n0 + c;
-    if (m >= M || n >= N) continue;
-    float v = Cs[r * LDC + c] + bias[n];
-    if constexpr (EPI == kResidual) {
-      v += __bfloat162float(res[m * ldr + n]);
-    } else if constexpr (EPI == kGelu) {
-      v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-    } else if constexpr (EPI == kLeakyRelu) {
-      v = v >= 0.f ? v : 0.2f * v;
-    } else if constexpr (EPI == kScaledResidual) {
-      v = 0.2f * v + __bfloat162float(res[m * ldr + n]);
-    } else if constexpr (EPI == kDropResidual) {
-      // residual + m[image] * branch, per sample
-      v = __bfloat162float(res[m * ldr + n]) +
-          row_scale[((int)m / rows_per_scale) * scale_stride] * v;
-    } else if constexpr (EPI == kGeluAux) {
-      // the pre-activation is kept for GELU'
-      aux[m * ldaux + n] = __float2bfloat16(v);
-      v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+      for (int jp = 0; jp < J; ++jp)
+        r[jp] = valid && n0 + 16 * jp < N
+                    ? *reinterpret_cast<const uint2*>(rr + n0 + 16 * jp)
+                    : make_uint2(0u, 0u);
+      if (EPI == kDropResidual && valid)
+        s = __ldg(row_scale + (m / rows_per_scale) * scale_stride);
     }
-    out[m * ldo + n] = __float2bfloat16(v);
+    __nv_bfloat16* o = out + (long long)m * ldo;
+#pragma unroll
+    for (int jp = 0; jp < J; ++jp) {
+      float4 v = row_vector<BN>(acc, h, jp);
+      const int n = n0 + 16 * jp;
+      if (!valid || n >= N) continue;
+      if constexpr (kReadsResidual) {
+        const float4 x = unpack4(r[jp]);
+        if constexpr (EPI == kResidual) {
+          v = make_float4(v.x + x.x, v.y + x.y, v.z + x.z, v.w + x.w);
+        } else if constexpr (EPI == kScaledResidual) {
+          v = make_float4(0.2f * v.x + x.x, 0.2f * v.y + x.y,
+                          0.2f * v.z + x.z, 0.2f * v.w + x.w);
+        } else {          // residual + m[image] * branch, per sample
+          v = make_float4(x.x + s * v.x, x.y + s * v.y, x.z + s * v.z,
+                          x.w + s * v.w);
+        }
+      } else if constexpr (EPI == kGelu) {
+        v = make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
+      } else if constexpr (EPI == kLeakyRelu) {
+        v = make_float4(v.x >= 0.f ? v.x : 0.2f * v.x,
+                        v.y >= 0.f ? v.y : 0.2f * v.y,
+                        v.z >= 0.f ? v.z : 0.2f * v.z,
+                        v.w >= 0.f ? v.w : 0.2f * v.w);
+      } else if constexpr (EPI == kGeluAux) {
+        // the pre-activation is kept for GELU'
+        *reinterpret_cast<uint2*>(aux + (long long)m * ldaux + n) = pack4(v);
+        v = make_float4(gelu(v.x), gelu(v.y), gelu(v.z), gelu(v.w));
+      }
+      *reinterpret_cast<uint2*>(o + n) = pack4(v);
+    }
+  }
+};
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+rdg_gemm_kernel(const Problem p, const FwdEpi<EPI> epi,
+                const __grid_constant__ TmaPair tm) {
+  gemm_body<BN, false, false>(p, epi, tm);
+}
+
+template <int BN, int EPI>
+int launch(const Problem& p, const FwdEpi<EPI>& epi, cudaStream_t s) {
+  return launch_gemm<rdg_gemm_kernel<BN, EPI>, BN, false, false>(
+      p, epi, s, adsr_rdg_gemm_operands);
+}
+
+template <int EPI>
+int dispatch(Problem p, const void* bias, void* out, long long ldo,
+             const void* res, long long ldr, const void* row_scale,
+             long long scale_stride, int rows_per_scale, void* aux,
+             long long ldaux, int bn, cudaStream_t s) {
+  const FwdEpi<EPI> epi{static_cast<const float*>(bias),
+                        static_cast<__nv_bfloat16*>(out), ldo,
+                        static_cast<const __nv_bfloat16*>(res), ldr,
+                        static_cast<const float*>(row_scale), scale_stride,
+                        rows_per_scale, static_cast<__nv_bfloat16*>(aux),
+                        ldaux};
+  p.n_tiles = (p.N + bn - 1) / bn;
+  switch (bn) {
+    case 32: return launch<32, EPI>(p, epi, s);
+    case 64: return launch<64, EPI>(p, epi, s);
+    case 128: return launch<128, EPI>(p, epi, s);
+    case 192: return launch<192, EPI>(p, epi, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// bn: the output tile width (32, 64, 128 or 192), chosen by the wrapper
 extern "C" int adsr_rdg_gemm(const void* A, long long lda, const void* W,
-                             const void* bias, void* out, long long ldo,
+                             long long ldw, const void* bias, void* out, long long ldo,
                              const void* res, long long ldr,
                              const void* row_scale, long long scale_stride,
                              int rows_per_scale, void* aux, long long ldaux,
-                             int M, int N, int K, int epilogue, void* stream) {
-  if (M < 0 || N <= 0 || K <= 0 || (K % 4) || (lda % 4) ||
-      epilogue < kNone || epilogue > kGeluAux)
+                             int M, int N, int K, int epilogue, int bn,
+                             void* stream) {
+  if (M < 0 || N <= 0 || K <= 0 || (K % 4) || (lda % 4) || (ldw % 4) ||
+      ldw < K || (N % 4) || (ldo % 4) || epilogue < kNone ||
+      epilogue > kGeluAux)
     return (int)cudaErrorInvalidValue;
-  if ((epilogue == kResidual || epilogue == kScaledResidual ||
-       epilogue == kDropResidual) && res == nullptr)
+  const bool needs_res = epilogue == kResidual ||
+                         epilogue == kScaledResidual ||
+                         epilogue == kDropResidual;
+  if (needs_res && (res == nullptr || (ldr % 4)))
     return (int)cudaErrorInvalidValue;
   if (epilogue == kDropResidual && (row_scale == nullptr || rows_per_scale <= 0))
     return (int)cudaErrorInvalidValue;
-  if (epilogue == kGeluAux && aux == nullptr) return (int)cudaErrorInvalidValue;
+  if (epilogue == kGeluAux && (aux == nullptr || (ldaux % 4)))
+    return (int)cudaErrorInvalidValue;
   if (M == 0) return 0;
-  const long long mt = (M + BM - 1) / BM;
-  if (mt > 65535) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + BN - 1) / BN, (unsigned)mt);
-  auto kernel = rdg_gemm_kernel<kNone>;
+  Problem p{operand(A, lda), operand(W, ldw), M, N, K, (M + kBM - 1) / kBM, 0,
+            1, K};
+  const cudaStream_t s = (cudaStream_t)stream;
   switch (epilogue) {
-    case kResidual: kernel = rdg_gemm_kernel<kResidual>; break;
-    case kGelu: kernel = rdg_gemm_kernel<kGelu>; break;
-    case kLeakyRelu: kernel = rdg_gemm_kernel<kLeakyRelu>; break;
-    case kScaledResidual: kernel = rdg_gemm_kernel<kScaledResidual>; break;
-    case kDropResidual: kernel = rdg_gemm_kernel<kDropResidual>; break;
-    case kGeluAux: kernel = rdg_gemm_kernel<kGeluAux>; break;
-    default: break;
+#define ADSR_EPI(E) \
+    case E: return dispatch<E>(p, bias, out, ldo, res, ldr, row_scale, \
+                               scale_stride, rows_per_scale, aux, ldaux, bn, s);
+    ADSR_EPI(kNone) ADSR_EPI(kResidual) ADSR_EPI(kGelu) ADSR_EPI(kLeakyRelu)
+    ADSR_EPI(kScaledResidual) ADSR_EPI(kDropResidual) ADSR_EPI(kGeluAux)
+#undef ADSR_EPI
+    default: return (int)cudaErrorInvalidValue;
   }
-  kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)A, lda, (const __nv_bfloat16*)W,
-      (const float*)bias, (__nv_bfloat16*)out, ldo,
-      (const __nv_bfloat16*)res, ldr, (const float*)row_scale, scale_stride,
-      rows_per_scale, (__nv_bfloat16*)aux, ldaux, M, N, K);
-  return (int)cudaGetLastError();
 }

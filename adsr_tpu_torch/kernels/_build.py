@@ -42,20 +42,19 @@ _F = ctypes.c_float
 SIGNATURES = {
     # x, ldx, weight, bias, y, ldy, M, C, eps, stream
     "adsr_rdg_layernorm": [_P, _L, _P, _P, _P, _L, _I, _I, _F, _P],
-    # A, lda, W, bias, out, ldo, res, ldr, row_scale, scale_stride,
-    # rows_per_scale, aux, ldaux, M, N, K, epilogue, stream
-    "adsr_rdg_gemm": [_P, _L, _P, _P, _P, _L, _P, _L, _P, _L, _I, _P, _L,
-                      _I, _I, _I, _I, _P],
+    # A, lda, W, ldw, bias, out, ldo, res, ldr, row_scale, scale_stride,
+    # rows_per_scale, aux, ldaux, M, N, K, epilogue, bn, stream
+    "adsr_rdg_gemm": [_P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _L, _I, _P, _L,
+                      _I, _I, _I, _I, _I, _P],
     # qkv, ctx, bias, mask, B, H, W, C, nh, win, shift, stream
     "adsr_window_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # dy, ldy, dy_f32, alpha, slope, lds, scale, scale_stride, rows_per_scale,
-    # W, pre, ldp, out, ldo, out_f32, M, N, K, stream
-    "adsr_rdg_gemm_dgrad": [_P, _L, _I, _F, _P, _L, _P, _L, _I, _P, _P, _L,
-                            _P, _L, _I, _I, _I, _I, _P],
-    # dy, ldy, dy_f32, alpha, slope, lds, scale, scale_stride, rows_per_scale,
-    # A, lda, part, splits, rows_per_split, dW, db, M, N, K, stream
-    "adsr_rdg_gemm_wgrad": [_P, _L, _I, _F, _P, _L, _P, _L, _I, _P, _L, _P,
-                            _I, _I, _P, _P, _I, _I, _I, _P],
+    # W, ldw, pre, ldp, out, ldo, out_f32, A, lda, eff, lde, part, db_part,
+    # splits, rows_per_split, dW, db, M, N, K, bn, stream (a null out skips
+    # dgrad, a null dW wgrad)
+    "adsr_rdg_gemm_grads": [_P, _L, _I, _F, _P, _L, _P, _L, _I, _P, _L, _P,
+                            _L, _P, _L, _I, _P, _L, _P, _L, _P, _P, _I, _I,
+                            _P, _P, _I, _I, _I, _I, _P],
     # x, ldx, dy, ldy, w, dres, ldr, dx, ldo, part, dgamma, dbeta, M, C, eps,
     # stream
     "adsr_rdg_layernorm_bwd": [_P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _P,
@@ -145,7 +144,11 @@ def library() -> ctypes.CDLL:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on ``t``'s CUDA device: one call
+    into torch's C core (``torch.cuda.current_stream`` builds a Stream
+    object and looks the device up twice, ~9 us a launch on the H100's
+    host)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_rc(name: str, rc: int) -> None:
@@ -153,8 +156,11 @@ def check_rc(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def require_bf16_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """The wrappers' input check for the kernel route."""
+def require_bf16_cuda(name: str, *tensors: torch.Tensor,
+                      layout: bool = True) -> None:
+    """The wrappers' input check for the kernel route; ``layout=False``
+    leaves unit column stride and alignment to the caller's own layout
+    check."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}, kernel needs CUDA")
@@ -163,7 +169,7 @@ def require_bf16_cuda(name: str, *tensors: torch.Tensor) -> None:
                 f"{name}: the CUDA kernels take bf16, got {t.dtype} (fp32 "
                 "kernels are ROADMAP.md Queue 4 item 1, 'fp32 serving "
                 "kernels'; on the CPU fp32 runs the plain path)")
-        if t.stride(-1) != 1 or t.data_ptr() % 8:
+        if layout and (t.stride(-1) != 1 or t.data_ptr() % 8):
             raise ValueError(f"{name}: needs unit column stride and an 8-byte "
                              "aligned base pointer")
 
@@ -179,3 +185,16 @@ def require_f32_cuda(name: str, *tensors: torch.Tensor,
             raise ValueError(f"{name}: tensors must be "
                              f"{'contiguous ' if contiguous else ''}float32 "
                              f"on CUDA, got {t.dtype} on {t.device}")
+
+
+def operand_paths(kernel: str) -> ctypes.Array:
+    """[TMA, cp.async]: how many GEMM operands of ``kernel``'s launches
+    (``"rdg_gemm"`` or ``"rdg_gemm_bwd"``) went by each path since the count
+    was last set to 0 (the array is writable)."""
+    return (ctypes.c_longlong * 2).in_dll(library(), f"adsr_{kernel}_operands")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's streaming multiprocessors (the persistent GEMMs' grid)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count

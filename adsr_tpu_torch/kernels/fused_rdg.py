@@ -37,7 +37,7 @@ from typing import Dict, List, Mapping, Optional
 import torch
 
 from adsr_tpu_torch.core.config import DRCTModelConfig
-from adsr_tpu_torch.kernels.rdg_gemm import rdg_gemm
+from adsr_tpu_torch.kernels.rdg_gemm import pitched, rdg_gemm, row_pitch
 from adsr_tpu_torch.kernels.rdg_layernorm import rdg_layernorm
 from adsr_tpu_torch.kernels.window_attention import window_attention
 from adsr_tpu_torch.models.drct import relative_position_bias, shift_attn_mask
@@ -68,6 +68,19 @@ def _getter(sd: Mapping[str, torch.Tensor], device, detach: bool):
     return get
 
 
+def _matrix_getter(sd: Mapping[str, torch.Tensor], device, detach: bool):
+    """Weight matrices [N, K] (torch Linear) in 16-byte rows (``pitched``),
+    which the GEMM kernels load by TMA: one copy that casts, moves and
+    pitches, differentiable when ``detach`` is False."""
+    def get(name, dt):
+        t = torch.as_tensor(sd[name])
+        t = (t.detach() if detach else t).reshape(t.shape[0], -1)
+        out = pitched(t.shape[0], t.shape[1], dt, device)
+        out.copy_(t)
+        return out
+    return get
+
+
 def _pack_block(sd: Mapping[str, torch.Tensor], layer: int, k: int, c: int,
                 window: int, dtype, device,
                 detach: bool = True) -> Dict[str, torch.Tensor]:
@@ -77,10 +90,10 @@ def _pack_block(sd: Mapping[str, torch.Tensor], layer: int, k: int, c: int,
     gather carry gradients back to ``sd``'s tensors)."""
     adj = f"layers.{layer}.adjust{k}"
     get = _getter(sd, device, detach)
-    wadj = get(f"{adj}.weight", dtype)              # 1x1 conv [O, I, 1, 1]
     return {**pack_swin(sd, f"layers.{layer}.swin{k}.", c, window, dtype,
                         device, detach),
-            "wadj": wadj.reshape(wadj.shape[0], wadj.shape[1]),  # Linear [O, I]
+            # 1x1 conv [O, I, 1, 1] as a Linear [O, I]
+            "wadj": _matrix_getter(sd, device, detach)(f"{adj}.weight", dtype),
             "badj": get(f"{adj}.bias", torch.float32)}
 
 
@@ -90,27 +103,39 @@ def pack_swin(sd: Mapping[str, torch.Tensor], prefix: str, c: int,
     """The Swin block whose state_dict names start with ``prefix`` (e.g.
     ``layers.0.swin1.``, or ``""`` for a lone block): the block dict of
     :func:`_pack_block` without the adjust conv (what
-    ``swin_block_forward`` and ``fused_swin_block`` read)."""
+    ``swin_block_forward`` and ``fused_swin_block`` read). The matrices sit
+    in 16-byte rows for the GEMM kernels; ``fused_swin_block`` on the card
+    takes contiguous ones (``contiguous_matrices``)."""
     get = _getter(sd, device, detach)
+    mat = _matrix_getter(sd, device, detach)
     qkv_b = f"{prefix}attn.qkv.bias"               # absent with qkv_bias=False
     table = get(f"{prefix}attn.relative_position_bias_table", torch.float32)
     f32 = torch.float32
     return {
         "ln1_w": get(f"{prefix}norm1.weight", f32),
         "ln1_b": get(f"{prefix}norm1.bias", f32),
-        "wqkv": get(f"{prefix}attn.qkv.weight", dtype),
+        "wqkv": mat(f"{prefix}attn.qkv.weight", dtype),
         "bqkv": (get(qkv_b, f32) if qkv_b in sd else
                  torch.zeros(3 * c, dtype=f32, device=device)),
         "attn_bias": relative_position_bias(table, window).contiguous(),
-        "wproj": get(f"{prefix}attn.proj.weight", dtype),
+        "wproj": mat(f"{prefix}attn.proj.weight", dtype),
         "bproj": get(f"{prefix}attn.proj.bias", f32),
         "ln2_w": get(f"{prefix}norm2.weight", f32),
         "ln2_b": get(f"{prefix}norm2.bias", f32),
-        "w1": get(f"{prefix}mlp.fc1.weight", dtype),
+        "w1": mat(f"{prefix}mlp.fc1.weight", dtype),
         "b1": get(f"{prefix}mlp.fc1.bias", f32),
-        "w2": get(f"{prefix}mlp.fc2.weight", dtype),
+        "w2": mat(f"{prefix}mlp.fc2.weight", dtype),
         "b2": get(f"{prefix}mlp.fc2.bias", f32),
     }
+
+
+SWIN_MATRICES = ("wqkv", "wproj", "w1", "w2")
+
+
+def contiguous_matrices(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Block dict ``p`` with contiguous copies of its Swin matrices, as
+    kernel (g) ``fused_swin_block`` reads them on the card."""
+    return {**p, **{n: p[n].contiguous() for n in SWIN_MATRICES}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -149,25 +174,33 @@ def rdg_workspace(m: int, cfg: DRCTModelConfig, dtype,
     """Flat scratch buffers for one RDG at ``m`` token rows (reused by all)."""
     g = rdg_geometry(cfg)
     cmax = max(g["feats"])
-    sizes = {"ln": cmax, "qkv_hid": max(3 * cmax, max(g["hidden"])),
-             "ctx_x2": cmax, "x1": cmax}
+    sizes = {"ln": row_pitch(cmax),
+             "qkv_hid": max(3 * cmax, row_pitch(max(g["hidden"]))),
+             "ctx_x2": row_pitch(cmax), "x1": cmax}
     return {k: torch.empty(m * n, dtype=dtype, device=device)
             for k, n in sizes.items()}
 
 
-def _rows(buf: torch.Tensor, m: int, n: int) -> torch.Tensor:
-    return buf[:m * n].view(m, n)
+def _rows(buf: torch.Tensor, m: int, n: int,
+          pitch: Optional[int] = None) -> torch.Tensor:
+    """[m, n] rows of the flat ``buf``, ``pitch`` (default n) elements
+    apart (one view: a launch's host time is mostly such Python)."""
+    return buf.as_strided((m, n), (n if pitch is None else pitch, 1))
 
 
 def block_buffers(work: Dict[str, torch.Tensor], m: int, c: int,
                   f: int) -> Dict[str, torch.Tensor]:
     """The [m, n] outputs of ``swin_block_forward`` for width ``c`` and
     hidden width ``f``, as views of :func:`rdg_workspace`'s buffers
-    (outputs whose lives do not overlap share one)."""
-    ln, ctx = _rows(work["ln"], m, c), _rows(work["ctx_x2"], m, c)
-    return {"ln1": ln, "ln2": ln, "ctx": ctx, "x2": ctx,
+    (outputs whose lives do not overlap share one). The GEMM operands
+    (``ln1``, ``ln2``, ``hid``, ``x2``) have 16-byte rows, which the GEMM
+    kernels load by TMA; ``qkv`` and ``ctx`` are contiguous, as kernel (c)
+    reads and writes them."""
+    ln = _rows(work["ln"], m, c, row_pitch(c))
+    return {"ln1": ln, "ln2": ln, "ctx": _rows(work["ctx_x2"], m, c),
+            "x2": _rows(work["ctx_x2"], m, c, row_pitch(c)),
             "qkv": _rows(work["qkv_hid"], m, 3 * c),
-            "hid": _rows(work["qkv_hid"], m, f),
+            "hid": _rows(work["qkv_hid"], m, f, row_pitch(f)),
             "x1": _rows(work["x1"], m, c)}
 
 

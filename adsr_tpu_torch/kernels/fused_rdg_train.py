@@ -18,7 +18,8 @@ JAX ``pack_train`` ``:1048`` is ``prepack_rdg_stack(..., detach=False)``
   ``cat[:, :d]``, which block 1's backward reads.
 - backward: blocks 5 -> 1, each recomputing its LayerNorms, qkv, attention
   context, GELU pre-activation and output from ``cat`` with kernels (a)-(c),
-  then the gradients with kernels (d) ``rdg_gemm_bwd``, (e)
+  then the gradients with kernels (d) ``rdg_gemm_bwd`` (``rdg_gemm_grads``:
+  dgrad and wgrad of one dY behind one dY_eff pre-pass), (e)
   ``rdg_layernorm_bwd`` and (f) ``window_attention_bwd``. ``dcat`` (f32)
   collects each block's input gradient in ``dcat[:, :c_k]``; the columns
   of adjust k are complete when block k is reached, and adjust 1-4's
@@ -48,7 +49,8 @@ from adsr_tpu_torch.core.config import DRCTModelConfig
 from adsr_tpu_torch.kernels.fused_rdg import (fused_rdg, prepack_rdg_stack,
                                               rdg_geometry, rdg_workspace,
                                               swin_block_forward)
-from adsr_tpu_torch.kernels.rdg_gemm_bwd import rdg_gemm_dgrad, rdg_gemm_wgrad
+from adsr_tpu_torch.kernels.rdg_gemm import pitched
+from adsr_tpu_torch.kernels.rdg_gemm_bwd import rdg_gemm_grads
 from adsr_tpu_torch.kernels.rdg_layernorm_bwd import rdg_layernorm_bwd
 from adsr_tpu_torch.kernels.window_attention_bwd import window_attention_bwd
 from adsr_tpu_torch.models.common import RGB_MEAN
@@ -82,7 +84,10 @@ def fused_rdg_train_bwd(cat: torch.Tensor, g: torch.Tensor,
         grads.append(gr)
         # recompute the block from its input cat[:, :c], every output kept
         x = cat[:, :c]
-        bufs = {name: torch.empty(m, n, dtype=act, device=dev)
+        # the GEMM operands in 16-byte rows (TMA); qkv and ctx contiguous,
+        # as kernels (c) and (f) take them
+        bufs = {name: (pitched if name in ("ln1", "ln2", "hid", "x2")
+                       else torch.empty)(m, n, dtype=act, device=dev)
                 for name, n in (("ln1", c), ("qkv", 3 * c), ("ctx", c),
                                 ("x1", c), ("ln2", c), ("hid", f), ("x2", c))}
         hpre = torch.empty(m, f, dtype=act, device=dev)
@@ -91,26 +96,24 @@ def fused_rdg_train_bwd(cat: torch.Tensor, g: torch.Tensor,
         # adjust: k < 4 LeakyReLU into cat[:, c:c+gc]; k == 4 the 0.2 residual
         adj = (dict(dy=dcat[:, c:c + gc], slope_src=cat[:, c:c + gc])
                if k < 4 else dict(dy=g, alpha=0.2))
-        rdg_gemm_wgrad(a=x2, dw=gr["wadj"], db=gr["badj"], **adj)
         res = torch.empty(m, c, dtype=f32, device=dev)   # residual stream
-        rdg_gemm_dgrad(w=p["wadj"], out=res, **adj)
+        rdg_gemm_grads(w=p["wadj"], a=x2, out=res, dw=gr["wadj"],
+                       db=gr["badj"], **adj)
         # MLP branch: x2 = x1 + m_mlp * fc2(gelu(fc1(ln2(x1))))
-        rdg_gemm_wgrad(res, hid, gr["w2"], gr["b2"], row_scale=m_mlp)
-        dh = torch.empty(m, f, dtype=act, device=dev)
-        rdg_gemm_dgrad(res, p["w2"], dh, row_scale=m_mlp, gelu_pre=hpre)
-        rdg_gemm_wgrad(dh, ln2, gr["w1"], gr["b1"])
+        dh = pitched(m, f, dtype=act, device=dev)
+        rdg_gemm_grads(res, p["w2"], hid, dh, gr["w2"], gr["b2"],
+                       row_scale=m_mlp, gelu_pre=hpre)
         dln = torch.empty(m, c, dtype=f32, device=dev)
-        rdg_gemm_dgrad(dh, p["w1"], dln)
+        rdg_gemm_grads(dh, p["w1"], ln2, dln, gr["w1"], gr["b1"])
         rdg_layernorm_bwd(x1, dln, p["ln2_w"], res, gr["ln2_w"], gr["ln2_b"])
         # attention branch: x1 = x + m_attn * proj(attn(qkv(ln1(x))))
-        rdg_gemm_wgrad(res, ctx, gr["wproj"], gr["bproj"], row_scale=m_attn)
         dctx = torch.empty(m, c, dtype=act, device=dev)
-        rdg_gemm_dgrad(res, p["wproj"], dctx, row_scale=m_attn)
+        rdg_gemm_grads(res, p["wproj"], ctx, dctx, gr["wproj"], gr["bproj"],
+                       row_scale=m_attn)
         dqkv = torch.empty(m, 3 * c, dtype=act, device=dev)
         window_attention_bwd(qkv, dctx, p["attn_bias"], mask, h, w, nh,
                              cfg.window_size, shift, dqkv, gr["attn_bias"])
-        rdg_gemm_wgrad(dqkv, ln1, gr["wqkv"], gr["bqkv"])
-        rdg_gemm_dgrad(dqkv, p["wqkv"], dln)
+        rdg_gemm_grads(dqkv, p["wqkv"], ln1, dln, gr["wqkv"], gr["bqkv"])
         rdg_layernorm_bwd(x, dln, p["ln1_w"], dcat[:, :c], gr["ln1_w"],
                           gr["ln1_b"], residual=res)
     return dcat[:, :d], grads[::-1]

@@ -8,11 +8,14 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the CUDA
 toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: nvcc builds every kernel of ``adsr_tpu_torch/csrc`` (timed);
+2. build: nvcc builds every kernel of ``adsr_tpu_torch/csrc`` (timed) and
+   ptxas's registers, shared memory and spills of each kernel are printed;
 3. kernels against their plain PyTorch versions at the flagship shapes
    (batch 16, 1024 tokens): rdg_layernorm at every block width, rdg_gemm at
    every product and epilogue of the five Swin blocks (the training
-   forward's drop-path and GELU-with-pre-activation epilogues included),
+   forward's drop-path and GELU-with-pre-activation epilogues included, and
+   the redesign's edges: an M that is not a multiple of the 128-row tile,
+   the N = 32 and N = 180 adjust products, ``out`` aliasing ``residual``),
    window_attention at every block geometry at shift 0 and 4, and the whole
    Swin block kernel swin_block (g) at all five blocks, also against the
    (a)-(c) composition;
@@ -25,12 +28,15 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 5. timing with CUDA events after warm-up: the forward at batch 16 in both
    modes (as launched, and replayed as a CUDA graph), a torch.profiler
    breakdown of its device time, and each kernel's launches of one RDG
-   (device time, CUDA graph replay) beside its bound, its plain version and
-   a library call that computes the same function (for swin_block also the
-   (a)-(c) composition);
+   (device time, CUDA graph replay) beside its bound, its achieved TB/s and
+   TFLOP/s, its plain version and a library call that computes the same
+   function (for swin_block also the (a)-(c) composition);
 6. backward kernels against their plain versions at the flagship shapes:
-   rdg_gemm_bwd (dgrad and wgrad of all five products of every block, with
-   their dY transforms and strided dY), rdg_layernorm_bwd (both LayerNorms of
+   rdg_gemm_bwd (dgrad and wgrad of all five products of every block
+   through ``rdg_gemm_grads``, as the training backward calls them, with
+   their dY transforms and strided f32 dY slices, an M that is not a
+   multiple of the tile, and every call run twice, bitwise equal),
+   rdg_layernorm_bwd (both LayerNorms of
    every block, accumulating into the strided concat gradient),
    window_attention_bwd (every block geometry at shift 0 and 4);
 7. one RDG at full width and batch 16 (seeded weights perturbed by
@@ -63,6 +69,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -87,7 +94,8 @@ from adsr_tpu_torch.io.png import write_png
 from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
 from adsr_tpu_torch.kernels import rdg_gemm_bwd as gbwd
-from adsr_tpu_torch.kernels.fused_rdg import (block_buffers, fused_rdg,
+from adsr_tpu_torch.kernels.fused_rdg import (block_buffers,
+                                              contiguous_matrices, fused_rdg,
                                               prepack_rdg_stack, rdg_flops,
                                               rdg_geometry, rdg_workspace,
                                               swin_block_forward)
@@ -97,7 +105,7 @@ from adsr_tpu_torch.kernels.fused_rdg_train import (fused_drct_train_forward,
                                                     fused_rdg_train,
                                                     rdg_train_flops,
                                                     rdg_train_plain)
-from adsr_tpu_torch.kernels.rdg_gemm import rdg_gemm, rdg_gemm_plain
+from adsr_tpu_torch.kernels.rdg_gemm import pitched, rdg_gemm, rdg_gemm_plain
 from adsr_tpu_torch.kernels.rdg_layernorm import (rdg_layernorm,
                                                   rdg_layernorm_plain)
 from adsr_tpu_torch.kernels.rdg_layernorm_bwd import (rdg_layernorm_bwd,
@@ -242,13 +250,81 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """``rdg_gemm_kernel<128,6>`` from an Itanium-mangled kernel name (the
+    length-prefixed identifier that ends in ``_kernel``, and its integer
+    template arguments)."""
+    found = re.search(r"_kernel(?=I|E|v)", mangled)
+    if found is None:
+        return mangled
+    end = found.end()
+    for start in range(end - 1, 0, -1):
+        digits = str(end - start)
+        if mangled[start - len(digits):start] == digits:
+            args = re.match(r"I((?:Li\d+E)+)E", mangled[end:])
+            return mangled[start:end] + (
+                "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
+                if args else "")
+    return mangled
+
+
+def ptxas_summary(log: str) -> list:
+    """One line per kernel from ptxas -v: its name (and template
+    arguments), registers, shared memory and spills."""
+    lines, name, spill = [], None, ""
+    for raw in log.splitlines():
+        line = raw.strip()
+        if "Compiling entry function" in line:
+            name = kernel_name(line.split("'")[1])
+        elif "spill stores" in line:
+            spill = line
+        elif "Used" in line and "registers" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name, spill = None, ""
+    return lines
+
+
+GEMMS = ("rdg_gemm", "rdg_gemm_bwd")
+
+
 def reset_counts() -> None:
+    """Every wrapper's launch count, and the GEMM kernels' operand counts
+    by load path, to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for k in GEMMS:
+        _build.operand_paths(k)[:] = [0, 0]
 
 
 def counts() -> dict:
     return {k: fn.launches for k, fn in WRAPPERS.items()}
+
+
+def operand_paths() -> dict:
+    """{GEMM kernel: [operands loaded by TMA, by cp.async]} since the last
+    :func:`reset_counts`."""
+    return {k: list(_build.operand_paths(k)) for k in GEMMS}
+
+
+def check_operand_paths(path: str, got: dict, report: dict) -> None:
+    """Every GEMM operand of a main path goes by TMA but the attention
+    context, which kernel (c) writes in c-wide rows (2c bytes, not a
+    multiple of 16 at the flagship's widths): one cp.async operand per
+    forward proj product (one per window_attention launch) and one per proj
+    wgrad (one per window_attention_bwd launch). A lost TMA path fails
+    here instead of only running slower."""
+    paths = operand_paths()
+    want = {"rdg_gemm": (2 * got["rdg_gemm"], got["window_attention"]),
+            "rdg_gemm_bwd": (2 * (got["rdg_gemm_dgrad"]
+                                  + got["rdg_gemm_wgrad"]),
+                             got["window_attention_bwd"])}
+    say("paths", f"{path}: GEMM operands [TMA, cp.async] {paths}")
+    for k, (total, cp) in want.items():
+        if sum(paths[k]) != total or paths[k][1] != cp:
+            raise AssertionError(f"{path}: {k} operands {paths[k]} by [TMA, "
+                                 f"cp.async], expected {total - cp} by TMA "
+                                 f"and {cp} by cp.async")
+    report.setdefault("operand_paths", {})[path] = paths
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -317,11 +393,19 @@ def flagship_shapes(cfg):
 
 def make_case_inputs(cfg, dev, gen):
     """Random operands at every kernel shape of one RDG (bf16 working copies
-    plus the f32 copies the plain versions read)."""
+    plus the f32 copies the plain versions read), laid out as the main path
+    lays them out: weights and the GEMM operands ``act`` (LayerNorm and
+    adjust inputs) and ``hid`` in 16-byte rows (``pitched``), ``qkv`` and
+    the attention context ``ctx`` (the same values as ``act``) contiguous."""
     g, m = flagship_shapes(cfg)
 
-    def randn(*shape, std=1.0, dtype=torch.bfloat16):
-        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+    def randn(*shape, std=1.0, dtype=torch.bfloat16, pitch=False):
+        t = (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
+        if not pitch:
+            return t
+        out = pitched(*shape, dtype=dtype, device=dev)
+        out.copy_(t)
+        return out
 
     cat = randn(m, g["cat_width"])
     n = cfg.window_size ** 2
@@ -332,14 +416,16 @@ def make_case_inputs(cfg, dev, gen):
             "c": c, "nh": nh, "f": f, "a": a, "shift": g["shifts"][k],
             "ln_w": 1.0 + randn(c, std=0.1, dtype=torch.float32),
             "ln_b": randn(c, std=0.1, dtype=torch.float32),
-            "act": randn(m, c), "hid": randn(m, f), "x1": randn(m, c),
+            "act": randn(m, c, pitch=True), "hid": randn(m, f, pitch=True),
+            "x1": randn(m, c),
             "qkv": randn(m, 3 * c),
             "attn_bias": randn(nh, n, n, std=0.5, dtype=torch.float32),
         }
+        blk["ctx"] = blk["act"].contiguous()
         for name, (n_out, n_in) in {"wqkv": (3 * c, c), "wproj": (c, c),
                                     "w1": (f, c), "w2": (c, f),
                                     "wadj": (a, c)}.items():
-            blk[name] = randn(n_out, n_in, std=0.05)
+            blk[name] = randn(n_out, n_in, std=0.05, pitch=True)
             blk["b" + name[1:]] = randn(n_out, std=0.05, dtype=torch.float32)
         blocks.append(blk)
     masks = {s: torch.as_tensor(shift_attn_mask(cfg.img_size, cfg.img_size,
@@ -354,7 +440,7 @@ def gemm_cases(cfg, cat, blk, k):
     c, d = blk["c"], cfg.embed_dim
     cases = [
         ("qkv", blk["act"], blk["wqkv"], blk["bqkv"], "none", None),
-        ("proj", blk["act"], blk["wproj"], blk["bproj"], "residual", cat[:, :c]),
+        ("proj", blk["ctx"], blk["wproj"], blk["bproj"], "residual", cat[:, :c]),
         ("fc1", blk["act"], blk["w1"], blk["b1"], "gelu", None),
         ("fc2", blk["hid"], blk["w2"], blk["b2"], "residual", blk["x1"]),
     ]
@@ -380,23 +466,32 @@ def phase_kernels(cfg, dev, check: Checker):
               f"{cat.shape[1]})", out,
               rdg_layernorm_plain(cat[:, :c].float(), blk["ln_w"],
                                   blk["ln_b"]), LN_ATOL)
-    for k, blk in enumerate(blocks):
-        for label, a, wt, bias, epi, res in gemm_cases(cfg, cat, blk, k):
-            want = rdg_gemm_plain(a.float(), wt.float(), bias, epi,
-                                  None if res is None else res.float())
-            if label == "adjust":
-                # adjust 1-4 straight into the concat columns at the buffer's
-                # stride; adjust 5 in place over the RDG input
-                dst = cat.clone()
-                out = dst[:, blk["c"]:blk["c"] + cfg.gc] if k < 4 \
-                    else dst[:, :cfg.embed_dim]
-                res = None if k < 4 else out
-            else:
-                out = torch.empty(m, wt.shape[0], dtype=torch.bfloat16,
-                                  device=dev)
-            rdg_gemm(a, wt, bias, out, epi, res)
-            check("rdg_gemm", f"b{k + 1} {label} {m}x{wt.shape[0]}x"
-                  f"{wt.shape[1]} {epi}", out, want, GEMM_ATOL)
+    # every product at M = B * L rows, then blocks 1 and 5 again at an M that
+    # is not a multiple of the 128-row tile (the last tile's rows past M load
+    # as zeros and are not stored)
+    for rows in (m, m - 40):
+        tag = "" if rows == m else " (ragged M)"
+        for k, blk in enumerate(blocks):
+            if rows != m and k not in (0, 4):
+                continue
+            for label, a, wt, bias, epi, res in gemm_cases(cfg, cat, blk, k):
+                a, res = a[:rows], None if res is None else res[:rows]
+                want = rdg_gemm_plain(a.float(), wt.float(), bias, epi,
+                                      None if res is None else res.float())
+                if label == "adjust":
+                    # adjust 1-4 straight into the concat columns at the
+                    # buffer's stride; adjust 5 in place over the RDG input
+                    # (out aliases residual)
+                    dst = cat.clone()[:rows]
+                    out = dst[:, blk["c"]:blk["c"] + cfg.gc] if k < 4 \
+                        else dst[:, :cfg.embed_dim]
+                    res = None if k < 4 else out
+                else:
+                    out = torch.empty(rows, wt.shape[0], dtype=torch.bfloat16,
+                                      device=dev)
+                rdg_gemm(a, wt, bias, out, epi, res)
+                check("rdg_gemm", f"b{k + 1} {label} {rows}x{wt.shape[0]}x"
+                      f"{wt.shape[1]} {epi}{tag}", out, want, GEMM_ATOL)
     # the training forward's epilogues: proj and fc2 scale the branch by a
     # per-sample multiplier, a strided [B] column of a drop-path tensor of
     # zeros and 1/keep (every column holds zeros); fc1 also writes its
@@ -406,7 +501,7 @@ def phase_kernels(cfg, dev, check: Checker):
     for k, blk in enumerate(blocks):
         c, f = blk["c"], blk["f"]
         for label, a, wt, bias, res, col in (
-                ("proj", blk["act"], blk["wproj"], blk["bproj"], cat[:, :c],
+                ("proj", blk["ctx"], blk["wproj"], blk["bproj"], cat[:, :c],
                  2 * k),
                 ("fc2", blk["hid"], blk["w2"], blk["b2"], blk["x1"],
                  2 * k + 1)):
@@ -440,12 +535,14 @@ def phase_kernels(cfg, dev, check: Checker):
 
 
 def swin_case(blk):
-    """The packed block dict of kernel (g) from one block's case inputs."""
-    return {"ln1_w": blk["ln_w"], "ln1_b": blk["ln_b"], "wqkv": blk["wqkv"],
-            "bqkv": blk["bqkv"], "attn_bias": blk["attn_bias"],
-            "wproj": blk["wproj"], "bproj": blk["bproj"],
-            "ln2_w": blk["ln_w"], "ln2_b": blk["ln_b"], "w1": blk["w1"],
-            "b1": blk["b1"], "w2": blk["w2"], "b2": blk["b2"]}
+    """The packed block dict of kernel (g) from one block's case inputs
+    (contiguous matrices, as block mode hands them to (g))."""
+    return contiguous_matrices({
+        "ln1_w": blk["ln_w"], "ln1_b": blk["ln_b"], "wqkv": blk["wqkv"],
+        "bqkv": blk["bqkv"], "attn_bias": blk["attn_bias"],
+        "wproj": blk["wproj"], "bproj": blk["bproj"], "ln2_w": blk["ln_w"],
+        "ln2_b": blk["ln_b"], "w1": blk["w1"], "b1": blk["b1"],
+        "w2": blk["w2"], "b2": blk["b2"]})
 
 
 def phase_swin_block(cfg, dev, check: Checker):
@@ -531,6 +628,7 @@ def phase_main(exp, dev, report):
         if got[k] != PER_FORWARD[k] * n_fwd:
             raise AssertionError(f"{k}: {got[k]} launches, expected "
                                  f"{PER_FORWARD[k]} x {n_fwd}")
+    check_operand_paths("serving", got, report)
     if scores.shape != (len(lr_u8), 3) or not np.isfinite(scores).all():
         raise AssertionError(f"scores {scores.shape} not finite")
     say("main", "scores (1-SSIM, MSE, -PSNR) mean good "
@@ -592,6 +690,7 @@ def phase_main(exp, dev, report):
     if got != expected_counts(PER_FORWARD_BLOCK, n_fwd):
         raise AssertionError(f"block mode launches {got}, expected "
                              f"{PER_FORWARD_BLOCK} x {n_fwd}")
+    check_operand_paths("serving_block", got, report)
     if scores_b.shape != scores.shape or not np.isfinite(scores_b).all():
         raise AssertionError(f"block mode scores {scores_b.shape} not finite")
     report["main_path_launches_block"] = got
@@ -663,15 +762,21 @@ def set_bounds(cfg, blocks, m, masks):
         at_tc += 4 * m * n * c
         at_f32 += 6 * (m // n) * nh * n * n       # scale, bias, mask, exp, sum, div
     out = {}
-    for name, byt, t_ops in (
-            ("rdg_layernorm", ln_b, ln_ops / F32_FLOPS),
-            ("rdg_gemm", mm_b, mm_ops / BF16_TC_FLOPS),
-            ("window_attention", at_b, at_tc / BF16_TC_FLOPS
+    for name, byt, ops, t_ops in (
+            ("rdg_layernorm", ln_b, ln_ops, ln_ops / F32_FLOPS),
+            ("rdg_gemm", mm_b, mm_ops, mm_ops / BF16_TC_FLOPS),
+            ("window_attention", at_b, at_tc + at_f32, at_tc / BF16_TC_FLOPS
              + at_f32 / F32_FLOPS)):
         t_b = byt / HBM_BYTES_PER_S
         out[name] = (max(t_b, t_ops) * 1e3,
-                     "bytes" if t_b >= t_ops else "operations")
+                     "bytes" if t_b >= t_ops else "operations", byt, ops)
     return out
+
+
+def achieved(kernel_ms: float, bound) -> str:
+    """The bound's bytes and operations over the measured time."""
+    return (f"achieved {bound[2] / kernel_ms / 1e9:.3f} TB/s, "
+            f"{bound[3] / kernel_ms / 1e9:.1f} TFLOP/s")
 
 
 def profile_forward(packed, cfg, x, reps: int = 3, mode: str = "rdg"):
@@ -831,13 +936,17 @@ def phase_timing(exp, dev, packed, x, model, server, lr_u8, hr_u8, report):
         plain_ms = graph_ms(lambda: fn("plain"), iters=5)
         library_ms = graph_ms(lambda: fn("library"), iters=20)
         launched_ms = cuda_ms(fn, iters=20)
-        timings[name] = (kernel_ms, plain_ms, library_ms) + bounds[name]
+        timings[name] = (kernel_ms, plain_ms, library_ms) + bounds[name][:2]
         report.setdefault("per_rdg_launched_ms", {})[name] = launched_ms
+        report.setdefault("per_rdg_achieved", {})[name] = {
+            "tb_per_s": bounds[name][2] / kernel_ms / 1e9,
+            "tflop_per_s": bounds[name][3] / kernel_ms / 1e9}
         say("timing", f"{name:16s} one RDG's launches: kernel "
                       f"{kernel_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
-                      f"({bounds[name][1]}), plain f32 {plain_ms:.4f} ms, "
-                      f"library {library_ms:.4f} ms (device time, CUDA "
-                      f"graph); launched from Python {launched_ms:.4f} ms")
+                      f"({bounds[name][1]}; {achieved(kernel_ms, bounds[name])}"
+                      f"), plain f32 {plain_ms:.4f} ms, library "
+                      f"{library_ms:.4f} ms (device time, CUDA graph); "
+                      f"launched from Python {launched_ms:.4f} ms")
     rdg_sum = sum(t[0] for t in timings.values())
     say("timing", f"sum over kernels x {cfg.num_layers} RDGs = "
                   f"{rdg_sum * cfg.num_layers:.3f} ms of the {fwd_ms:.3f} ms "
@@ -948,7 +1057,7 @@ def phase_block_timing(exp, dev, packed, x, report):
                                   vec["ln1_b"], eps=1e-6)
                 F.linear(ln, p["wqkv"], vec["bqkv"])
                 F.scaled_dot_product_attention(q, k_, v, attn_mask=term)
-                x1 = F.linear(blk["act"], p["wproj"], vec["bproj"]) \
+                x1 = F.linear(blk["ctx"], p["wproj"], vec["bproj"]) \
                     + cat[:, :c]
                 hid = F.gelu(F.linear(F.layer_norm(x1, (c,), vec["ln2_w"],
                                                    vec["ln2_b"], eps=1e-6),
@@ -1002,7 +1111,7 @@ def bwd_cases(cfg, cat, dcat, blk, k, extra):
             ("fc2", extra["res"][:, :c], blk["w2"], blk["hid"],
              {"row_scale": m_mlp, "gelu_pre": extra["pre"][:, :blk["f"]]}, bf),
             ("fc1", blk["hid"], blk["w1"], blk["act"], {}, f32),
-            ("proj", extra["res"][:, :c], blk["wproj"], blk["act"],
+            ("proj", extra["res"][:, :c], blk["wproj"], blk["ctx"],
              {"row_scale": m_attn}, bf),
             ("qkv", blk["qkv"], blk["wqkv"], blk["act"], {}, f32)]
 
@@ -1023,6 +1132,40 @@ def make_bwd_extra(cfg, dev, gen, cat):
     }
 
 
+def bwd_case(check, label, dy, wt, a, kw, odt, tag=""):
+    """One product's backward as the training backward runs it, through
+    ``rdg_gemm_grads`` (dgrad and wgrad of one dY, one pre-pass), against
+    the plain versions; twice, bitwise equal."""
+    m, f32 = dy.shape[0], torch.float32
+    eff = gbwd.dy_effective(dy, kw.get("alpha", 1.0), kw.get("slope_src"),
+                            kw.get("row_scale"))
+    runs = []
+    for _ in range(2):
+        got = (torch.empty(m, wt.shape[1], dtype=odt, device=dy.device),
+               torch.empty(wt.shape, dtype=f32, device=dy.device),
+               torch.empty(wt.shape[0], dtype=f32, device=dy.device))
+        gbwd.rdg_gemm_grads(dy, wt, a, *got, **kw)
+        runs.append(got)
+    (out, dw, db), again = runs
+    want = gbwd.rdg_gemm_dgrad_plain(dy, wt, **kw)
+    bound = eff.abs() @ wt.float().abs()
+    if "gelu_pre" in kw:
+        bound = bound * gbwd.gelu_grad(kw["gelu_pre"]).abs()
+    check("rdg_gemm_bwd", f"{label} dgrad {m}x{wt.shape[0]}->{wt.shape[1]} "
+          f"{str(odt)[6:]}{tag}", out, want,
+          2.0 ** -8 * (bound + want.abs()) + 1e-6, 0.0, "bwd")
+    want_w, want_b = gbwd.rdg_gemm_wgrad_plain(
+        dy, a, **{key: v for key, v in kw.items() if key != "gelu_pre"})
+    check("rdg_gemm_bwd", f"{label} wgrad dW {tuple(wt.shape)}{tag}", dw,
+          want_w, 2.0 ** -8 * (eff.abs().t() @ a.float().abs()) + 1e-5, 0.0,
+          "bwd")
+    check("rdg_gemm_bwd", f"{label} wgrad db{tag}", db, want_b,
+          1e-5 * eff.abs().sum(0) + 1e-5, 0.0, "bwd")
+    if not all(torch.equal(x, y) for x, y in zip(again, (out, dw, db))):
+        raise AssertionError(f"{label}{tag}: a second rdg_gemm_grads call "
+                             "differs")
+
+
 def phase_bwd_kernels(cfg, dev, check: Checker):
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     cat, blocks, masks = make_case_inputs(cfg, dev, gen)
@@ -1030,31 +1173,24 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
     g, m = flagship_shapes(cfg)
     h = w = cfg.img_size
     f32 = torch.float32
-    for k, blk in enumerate(blocks):
-        for label, dy, wt, a, kw, odt in bwd_cases(cfg, cat, extra["dcat"],
-                                                   blk, k, extra):
-            eff = gbwd.dy_effective(dy, kw.get("alpha", 1.0),
-                                    kw.get("slope_src"), kw.get("row_scale"))
-            out = torch.empty(m, wt.shape[1], dtype=odt, device=dev)
-            gbwd.rdg_gemm_dgrad(dy, wt, out, **kw)
-            want = gbwd.rdg_gemm_dgrad_plain(dy, wt, **kw)
-            bound = eff.abs() @ wt.float().abs()
-            if "gelu_pre" in kw:
-                bound = bound * gbwd.gelu_grad(kw["gelu_pre"]).abs()
-            check("rdg_gemm_bwd", f"b{k + 1} {label} dgrad {m}x{wt.shape[0]}"
-                  f"->{wt.shape[1]} {str(odt)[6:]}", out, want,
-                  2.0 ** -8 * (bound + want.abs()) + 1e-6, 0.0, "bwd")
-            kw = {key: v for key, v in kw.items() if key != "gelu_pre"}
-            dw = torch.empty(wt.shape, dtype=f32, device=dev)
-            db = torch.empty(wt.shape[0], dtype=f32, device=dev)
-            gbwd.rdg_gemm_wgrad(dy, a, dw, db, **kw)
-            want_w, want_b = gbwd.rdg_gemm_wgrad_plain(dy, a, **kw)
-            check("rdg_gemm_bwd", f"b{k + 1} {label} wgrad dW "
-                  f"{tuple(wt.shape)}", dw, want_w,
-                  2.0 ** -8 * (eff.abs().t() @ a.float().abs()) + 1e-5, 0.0,
-                  "bwd")
-            check("rdg_gemm_bwd", f"b{k + 1} {label} wgrad db", db, want_b,
-                  1e-5 * eff.abs().sum(0) + 1e-5, 0.0, "bwd")
+    # every product at M = B * L rows, then blocks 1 and 5 again at an M that
+    # is not a multiple of the tile (with alpha 1.1 for the drop-path
+    # multiplier, whose [B] needs B to divide M); every call runs twice and
+    # must repeat itself bitwise
+    for rows in (m, m - 40):
+        tag = "" if rows == m else " (ragged M)"
+        for k, blk in enumerate(blocks):
+            if rows != m and k not in (0, 4):
+                continue
+            for label, dy, wt, a, kw, odt in bwd_cases(cfg, cat, extra["dcat"],
+                                                       blk, k, extra):
+                if rows != m:
+                    dy, a = dy[:rows], a[:rows]
+                    kw = {key: (v[:rows] if key in ("slope_src", "gelu_pre")
+                                else v) for key, v in kw.items()
+                          if key != "row_scale"} | (
+                        {"alpha": 1.1} if "row_scale" in kw else {})
+                bwd_case(check, f"b{k + 1} {label}", dy, wt, a, kw, odt, tag)
     for k, blk in enumerate(blocks):
         c = blk["c"]
         dy = extra["res"][:, :c].contiguous()
@@ -1083,11 +1219,11 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
             mask = masks.get(shift)
             dqkv = torch.empty(m, 3 * c, dtype=torch.bfloat16, device=dev)
             dbias = torch.empty(blk["attn_bias"].shape, dtype=f32, device=dev)
-            window_attention_bwd(blk["qkv"], blk["act"], blk["attn_bias"],
+            window_attention_bwd(blk["qkv"], blk["ctx"], blk["attn_bias"],
                                  mask, h, w, nh, cfg.window_size, shift, dqkv,
                                  dbias)
             want_q, want_b = window_attention_bwd_plain(
-                blk["qkv"], blk["act"], blk["attn_bias"], mask, h, w, nh,
+                blk["qkv"], blk["ctx"], blk["attn_bias"], mask, h, w, nh,
                 cfg.window_size, shift)
             for i, part in enumerate("qkv"):
                 ref = want_q[:, i * c:(i + 1) * c]
@@ -1240,6 +1376,7 @@ def phase_train(exp, dev, report):
         raise AssertionError(f"train: losses {losses}, test {psnr} {ssim}")
     if got != want:
         raise AssertionError(f"train launches {got}, expected {want}")
+    check_operand_paths("train", got, report)
     report["train_path"] = {"losses": losses, "psnr": psnr, "ssim": ssim,
                             "launches": got, "wall_s": wall}
 
@@ -1297,14 +1434,14 @@ def bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
         at_tc += 10 * m * n * c
         at_f32 += 10 * (m // n) * nh * n * n
     out = {}
-    for name, byt, t_ops in (
-            ("rdg_gemm_bwd", gm_b, gm_ops / BF16_TC_FLOPS),
-            ("rdg_layernorm_bwd", ln_b, ln_ops / F32_FLOPS),
-            ("window_attention_bwd", at_b, at_tc / BF16_TC_FLOPS
-             + at_f32 / F32_FLOPS)):
+    for name, byt, ops, t_ops in (
+            ("rdg_gemm_bwd", gm_b, gm_ops, gm_ops / BF16_TC_FLOPS),
+            ("rdg_layernorm_bwd", ln_b, ln_ops, ln_ops / F32_FLOPS),
+            ("window_attention_bwd", at_b, at_tc + at_f32,
+             at_tc / BF16_TC_FLOPS + at_f32 / F32_FLOPS)):
         t_b = byt / HBM_BYTES_PER_S
         out[name] = (max(t_b, t_ops) * 1e3,
-                     "bytes" if t_b >= t_ops else "operations")
+                     "bytes" if t_b >= t_ops else "operations", byt, ops)
     return out
 
 
@@ -1316,6 +1453,7 @@ def profile_steps(fn, reps: int = 3):
     from torch.profiler import ProfilerActivity, profile
     fams = {"dgrad_kernel": "rdg_gemm_bwd dgrad",
             "wgrad_kernel": "rdg_gemm_bwd wgrad",
+            "dy_prep_kernel": "rdg_gemm_bwd dY prep",
             "sum_partials_kernel": "partial sums (d, e, f)"}
     fams.update({f"{k}_kernel": k for k in KERNELS + BWD_KERNELS[1:]})
     fn()
@@ -1424,13 +1562,14 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
                     torch.matmul(lib_dy[id(dy)], wt)
                     torch.matmul(lib_dy[id(dy)].t(), a)
                     continue
-                wkw = {key: v for key, v in kw.items() if key != "gelu_pre"}
                 if mode == "plain":
+                    wkw = {key: v for key, v in kw.items()
+                           if key != "gelu_pre"}
                     gbwd.rdg_gemm_dgrad_plain(dy, wt, **kw)
                     gbwd.rdg_gemm_wgrad_plain(dy, a, **wkw)
-                else:
-                    gbwd.rdg_gemm_dgrad(dy, wt, outs[k, i], **kw)
-                    gbwd.rdg_gemm_wgrad(dy, a, *grads[k, i], **wkw)
+                else:           # as the training backward calls them
+                    gbwd.rdg_gemm_grads(dy, wt, a, outs[k, i], *grads[k, i],
+                                        **kw)
 
     ln_in = []
     for blk in blocks:
@@ -1482,7 +1621,7 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
     def attn_bwd_set(mode="kernel"):
         for k, blk in enumerate(blocks):
             c, nh, shift = blk["c"], blk["nh"], blk["shift"]
-            args = (blk["qkv"], blk["act"], blk["attn_bias"], masks.get(shift),
+            args = (blk["qkv"], blk["ctx"], blk["attn_bias"], masks.get(shift),
                     h, w, nh, cfg.window_size, shift)
             if mode == "library":
                 o, ins, do = sdpa[k]
@@ -1505,11 +1644,15 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
                       if name == "window_attention_bwd"
                       else graph_ms(lambda: fn("library"), iters=10))
         launched_ms = cuda_ms(fn, iters=10)
-        timings[name] = (kernel_ms, plain_ms, library_ms) + bounds[name]
+        timings[name] = (kernel_ms, plain_ms, library_ms) + bounds[name][:2]
         report.setdefault("per_rdg_launched_ms", {})[name] = launched_ms
+        report.setdefault("per_rdg_achieved", {})[name] = {
+            "tb_per_s": bounds[name][2] / kernel_ms / 1e9,
+            "tflop_per_s": bounds[name][3] / kernel_ms / 1e9}
         say("train-timing", f"{name:20s} one RDG's launches: kernel "
                             f"{kernel_ms:.4f} ms, bound {bounds[name][0]:.4f} "
-                            f"ms ({bounds[name][1]}), plain f32 "
+                            f"ms ({bounds[name][1]}; "
+                            f"{achieved(kernel_ms, bounds[name])}), plain f32 "
                             f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
                             f"(device time, CUDA graph); launched from "
                             f"Python {launched_ms:.4f} ms")
@@ -1585,6 +1728,7 @@ def phase_cli(exp, dev, report):
     if train_launches != want:
         raise AssertionError(f"train CLI launches {train_launches}, "
                              f"expected {want}")
+    check_operand_paths("train_cli", train_launches, report)
     run = Path(run_dir)
     files = {p.name for p in run.iterdir()}
     model_files = {p.name for p in (run / "model").iterdir()}
@@ -1629,6 +1773,7 @@ def phase_cli(exp, dev, report):
         if launches[mode] != expected_counts(per, n_fwd):
             raise AssertionError(f"evaluate CLI ({mode}) launches "
                                  f"{launches[mode]}, expected {per} x {n_fwd}")
+        check_operand_paths(f"evaluate_cli_{mode}", launches[mode], report)
         if not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs) \
                 or len(lines) != 2 * CLI_TEST \
                 or set(res["specificity"]) != {"ssim", "mse", "psnr"} \
@@ -1700,18 +1845,19 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     say("build", f"{lib.relative_to(_build.BUILD_ROOT.parent.parent)} ready "
                  f"in {build_s:.1f} s")
-    for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line.lower():
-            say("build", line.strip())
+    for line in ptxas_summary(_build.build_log()):
+        say("build", line)
     report["build_s"] = build_s
 
     exp = drct_experiment("grid", HR, SCALE, precision="bf16",
                           batch_size=BATCH, run_tag="chip_smoke")
     check = Checker()
+    reset_counts()
     phase_kernels(exp.model, dev, check)
     phase_swin_block(exp.model, dev, check)
     say("kernels", f"{check.cases} cases within tolerance; max abs error "
-                   f"{check.max_abs}")
+                   f"{check.max_abs}; GEMM operands [TMA, cp.async] over "
+                   f"these cases {operand_paths()}")
     report["max_abs_err"] = check.max_abs
 
     params, packed, x, model, server, lr_u8, hr_u8 = phase_main(exp, dev,
@@ -1752,13 +1898,18 @@ def main() -> int:
             replaces = REPLACES_BLOCK
         if not by_path:
             raise AssertionError(f"{k}: launched on no main path")
-        kernels.append({"name": k, "route": "cuda", "source": SOURCES[k],
-                        "replaces": replaces,
-                        "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
-                        "max_abs_err": check.max_abs[k], "ms": kernel_ms,
-                        "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": library_ms})
+        entry = {"name": k, "route": "cuda", "source": SOURCES[k],
+                 "replaces": replaces,
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": check.max_abs[k], "ms": kernel_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms}
+        if k in GEMMS:          # [TMA, cp.async] operands by main path
+            entry["operands_by_path"] = {
+                p: got[k] for p, got in report["operand_paths"].items()
+                if p in by_path}
+        kernels.append(entry)
     report["total_s"] = time.perf_counter() - t_start
     say("report", json.dumps(report))
     say("done", f"all phases passed in {report['total_s']:.1f} s")

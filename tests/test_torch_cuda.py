@@ -13,7 +13,8 @@ from adsr_tpu_torch.core.config import DRCTModelConfig
 from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels import rdg_gemm_bwd as gb
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
-from adsr_tpu_torch.kernels.fused_rdg import prepack_rdg_stack
+from adsr_tpu_torch.kernels.fused_rdg import (contiguous_matrices,
+                                              prepack_rdg_stack)
 from adsr_tpu_torch.kernels.fused_rdg_train import (fused_rdg_train,
                                                     rdg_train_plain)
 from adsr_tpu_torch.kernels.fused_swin_block import (fused_swin_block,
@@ -81,12 +82,16 @@ def test_kernels_match_plain(dev):
                                        4), atol)
 
 
-def test_gemm_training_epilogues_match_plain(dev):
+@pytest.mark.parametrize("c,f", [(180, 360), (212, 424), (308, 308)])
+def test_gemm_training_epilogues_match_plain(dev, c, f):
     # proj / fc2 of the training forward: residual + m[row // L] * acc with
     # m a strided [B] column of a drop-path tensor (zeros and 1/keep); fc1 of
-    # the backward's recompute: GELU into out, the pre-activation into aux
+    # the backward's recompute: GELU into out, the pre-activation into aux;
+    # adjust 5 in place over its residual (out aliases residual). M is not a
+    # multiple of the kernel's 128-row tile, K = c is 4 past a multiple of 16
     g = torch.Generator(device=dev).manual_seed(4)
-    m, c, f, b = 4 * 1024, 212, 424, 4
+    b = 4
+    m = b * 1014
     a = torch.randn(m, c, generator=g, device=dev).to(torch.bfloat16)
     res = torch.randn(m, c, generator=g, device=dev).to(torch.bfloat16)
     wt = (0.05 * torch.randn(c, c, generator=g, device=dev)).to(torch.bfloat16)
@@ -98,13 +103,20 @@ def test_gemm_training_epilogues_match_plain(dev):
     rdg_gemm(a, wt, bias, out, "drop_residual", res, row_scale=dp[:, 3])
     _close(out, rdg_gemm_plain(a, wt, bias, "drop_residual", res, dp[:, 3]),
            1e-3)
-    rows = slice(1024, 2048)                 # sample 1: the branch dropped
+    rows = slice(m // b, 2 * m // b)         # sample 1: the branch dropped
     assert torch.equal(out[rows], res[rows])
     hid, pre = (torch.empty(m, f, dtype=torch.bfloat16, device=dev)
                 for _ in range(2))
     rdg_gemm(a, w1, b1, hid, "gelu_aux", aux=pre)
     _close(hid, rdg_gemm_plain(a, w1, b1, "gelu_aux"), 1e-3)
     _close(pre, rdg_gemm_plain(a, w1, b1), 1e-3)
+    cat = torch.randn(m, 308, generator=g, device=dev).to(torch.bfloat16)
+    w5 = (0.05 * torch.randn(180, c, generator=g, device=dev)).to(
+        torch.bfloat16)
+    want = rdg_gemm_plain(a, w5, bias[:180], "scaled_residual", cat[:, :180])
+    rdg_gemm(a, w5, bias[:180].contiguous(), cat[:, :180], "scaled_residual",
+             cat[:, :180])
+    _close(cat[:, :180], want, 1e-3)
 
 
 def test_fused_forward_counts_launches_and_tracks_eager(dev):
@@ -138,15 +150,15 @@ def test_swin_block_kernel_matches_plain(dev, k):
     sd = {n: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
           for n, v in sd.items()}
     packed = prepack_rdg_stack(sd, cfg, 32, 32, torch.bfloat16, dev)
+    blk = contiguous_matrices(packed["rdgs"][0][k])     # as block mode
     c = (180, 212, 244, 276, 308)[k]
     x = torch.randn(2 * 1024, 308, generator=gen).to(dev).to(torch.bfloat16)
     out = torch.empty(2 * 1024, c, dtype=torch.bfloat16, device=dev)
     n0 = fused_swin_block.launches
-    fused_swin_block(x[:, :c], packed["rdgs"][0][k], packed["masks"], cfg,
-                     32, 32, k, out)
+    fused_swin_block(x[:, :c], blk, packed["masks"], cfg, 32, 32, k, out)
     assert fused_swin_block.launches == n0 + 1
-    want = fused_swin_block_plain(x[:, :c], packed["rdgs"][0][k],
-                                  packed["masks"], cfg, 32, 32, k)
+    want = fused_swin_block_plain(x[:, :c], blk, packed["masks"], cfg, 32,
+                                  32, k)
     _close(out, want, 4e-2)
 
 
@@ -182,25 +194,33 @@ def _within(got, want, bound):
     assert bool((err <= bound).all()), (err - bound).max()
 
 
-def test_gemm_bwd_kernels_match_plain(dev):
-    # dY rounds to bf16 in shared memory (relative 2^-9 a term) and a bf16
-    # output rounds once more: |err| <= 2^-8 (|dY_eff| @ |W| + |ref|)
+@pytest.mark.parametrize("n,k", [(32, 180), (96, 212), (924, 308),
+                                 (180, 360), (180, 308)])
+def test_gemm_bwd_kernels_match_plain(dev, n, k):
+    # products of the flagship's shapes (adjust 1-4, a narrow one, qkv of
+    # block 5, fc2 of block 1, adjust 5) at an M that is not a multiple of
+    # the 128-row tile, dY an f32 column slice of a wider buffer. dY rounds
+    # to bf16 once (relative 2^-9 a term) and a bf16 output rounds once
+    # more: |err| <= 2^-8 (|dY_eff| @ |W| + |ref|)
     g = torch.Generator(device=dev).manual_seed(1)
-    m, n, k, b = 2 * 1024, 96, 212, 2
-    wide = torch.randn(m, 308, generator=g, device=dev)        # f32 "dcat"
-    src = torch.randn(m, 308, generator=g, device=dev).to(torch.bfloat16)
+    b = 2
+    m = b * 1004
+    wide = torch.randn(m, n + 44, generator=g, device=dev)     # f32 "dcat"
+    src = torch.randn(m, n + 44, generator=g, device=dev).to(torch.bfloat16)
     w = (0.05 * torch.randn(n, k, generator=g, device=dev)).to(torch.bfloat16)
     a = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
     pre = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
     scale = torch.tensor([[1.1, 0.0], [0.0, 1.1]], device=dev)[:, 1]
     dy, slope = wide[:, 40:40 + n], src[:, 40:40 + n]          # strided
     for kw in ({}, {"slope_src": slope}, {"alpha": 0.2},
-               {"row_scale": scale}, {"row_scale": scale, "gelu_pre": pre}):
+               {"row_scale": scale}, {"row_scale": scale, "gelu_pre": pre},
+               {"bf16": True}):
+        d = dy.to(torch.bfloat16) if kw.pop("bf16", False) else dy
         for out_dtype in (torch.float32, torch.bfloat16):
             out = torch.empty(m, k, dtype=out_dtype, device=dev)
-            gb.rdg_gemm_dgrad(dy, w, out, **kw)
-            want = gb.rdg_gemm_dgrad_plain(dy, w, **kw)
-            eff = gb.dy_effective(dy, kw.get("alpha", 1.0),
+            gb.rdg_gemm_dgrad(d, w, out, **kw)
+            want = gb.rdg_gemm_dgrad_plain(d, w, **kw)
+            eff = gb.dy_effective(d, kw.get("alpha", 1.0),
                                   kw.get("slope_src"), kw.get("row_scale"))
             bound = eff.abs() @ w.float().abs()
             if "gelu_pre" in kw:
@@ -209,16 +229,23 @@ def test_gemm_bwd_kernels_match_plain(dev):
         kw.pop("gelu_pre", None)
         dw = torch.empty(n, k, device=dev)
         db = torch.empty(n, device=dev)
-        gb.rdg_gemm_wgrad(dy, a, dw, db, **kw)
-        want_w, want_b = gb.rdg_gemm_wgrad_plain(dy, a, **kw)
-        eff = gb.dy_effective(dy, kw.get("alpha", 1.0), kw.get("slope_src"),
+        gb.rdg_gemm_wgrad(d, a, dw, db, **kw)
+        want_w, want_b = gb.rdg_gemm_wgrad_plain(d, a, **kw)
+        eff = gb.dy_effective(d, kw.get("alpha", 1.0), kw.get("slope_src"),
                               kw.get("row_scale"))
         _within(dw, want_w, 2.0 ** -8 * (eff.abs().t() @ a.float().abs())
                 + 1e-5)
         _within(db, want_b, 2.0 ** -8 * eff.abs().sum(0) + 1e-5)
         dw2, db2 = torch.empty_like(dw), torch.empty_like(db)
-        gb.rdg_gemm_wgrad(dy, a, dw2, db2, **kw)
+        gb.rdg_gemm_wgrad(d, a, dw2, db2, **kw)
         assert torch.equal(dw, dw2) and torch.equal(db, db2)   # deterministic
+        # the training backward's call: one pre-pass, the same two products
+        out = torch.empty(m, k, dtype=torch.bfloat16, device=dev)
+        gb.rdg_gemm_dgrad(d, w, out, **kw)
+        both = (torch.empty_like(out), torch.empty_like(dw),
+                torch.empty_like(db))
+        gb.rdg_gemm_grads(d, w, a, *both, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(both, (out, dw, db)))
 
 
 def test_layernorm_bwd_kernel_matches_plain(dev):
