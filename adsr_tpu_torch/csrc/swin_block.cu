@@ -17,279 +17,286 @@
 // of shifted window (wi, wj) is raster row ((wi*8+r+shift) mod H)*W +
 // (wj*8+s+shift) mod W, the map window_attention uses), keeps the residual
 // stream in f32 in shared memory through the whole block, and writes the 64
-// rows back once through the same map. Every product is WMMA bf16 with f32
-// accumulation; the weights stream from global memory (L2-resident, at most
-// ~1.1 MB a block in bf16) through one 64x64 staged tile, zero-filled past
-// their edges, the next tile's loads in flight in registers while the
-// current one feeds the tensor cores. qkv runs one head at a time, its head
-// dim zero-padded to a multiple of 16 (30/53/122/46/77 at the flagship);
-// the proj and fc2
-// products accumulate straight into the f32 residual; the MLP runs in
-// chunks of 64 hidden columns (fc1 + GELU into a bf16 tile, then fc2).
-// Numerics are the eager model's: stabilised f32 softmax, exact erf, no
-// weight folds (the TPU kernel's A&S erf polynomial was a Mosaic
-// workaround). Simple and correct first: no cp.async, wgmma or TMA, one
-// block per SM (the shared-memory footprint is up to ~222 KB).
+// rows back once through the same map.
+//   - Weights: a producer warp streams 64-row x 64-column tiles of the packed
+//     weights (16-byte rows, kernels/fused_rdg.py) by TMA (16-row boxes,
+//     128-byte swizzle, zeros past every edge) into a ring of 8 KB stages
+//     with full/empty mbarriers, in the order the products consume them,
+//     so the L2 latency of the weight stream hides behind the ring.
+//   - Products: two consumer warpgroups run every product on wgmma
+//     m64n32k16, each on 32 of a tile's 64 weight rows (M = the window's
+//     64 rows), A (LayerNorm output, context, hidden chunk) from
+//     128-byte-swizzled shared memory, B from the ring; each product's
+//     epilogue runs from the accumulator registers (bias, GELU, residual
+//     add into the f32 stream), with no f32 staging tile.
+//   - Attention, per head: the qkv product writes the head's q, k, v
+//     planes (head dim zero-padded to a multiple of 16: 30/53/122/46/77 at
+//     the flagship), then each warp runs the register-resident core of
+//     window_attn_core.cuh (shared with kernel (c)) on its 16 query rows
+//     (the first warpgroup's 4 warps: the planes hold one head) and
+//     writes its context straight into a swizzled A tile, and the head's
+//     share of proj (its hd columns of Wproj) accumulates into the stream:
+//     one head's context in shared memory instead of all of them leaves
+//     room for a deeper ring.
+//   - MLP in chunks of 64 hidden columns: fc1 + GELU into one swizzled
+//     tile, then fc2 accumulates it into the f32 stream.
+// A tile waits about an L2 round trip, so the ring is as deep as shared
+// memory allows (up to 16 stages). One window a block: the f32 residual of
+// one window (up to 64 x 312 x 4 = 80 KB) stays in shared memory, so a
+// block runs alone on its SM (two waves of 128 blocks at batch 16), and two
+// consumer warpgroups share the window's work, so that its gather,
+// LayerNorms and epilogues run on 8 warps. Two windows a block would need
+// the residual in registers: left for later. Numerics are the eager model's:
+// stabilised f32 softmax, exact erf, no weight folds (the TPU kernel's A&S
+// erf polynomial was a Mosaic workaround).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
 #include <cstdint>
 
+#include "hopper_gemm.cuh"        // mbarrier, TMA, wgmma and tensor-map wrappers
+#include "window_attn_core.cuh"   // the attention core shared with (c)
+
 namespace {
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kWin = 8;
-constexpr int N = kWin * kWin;    // tokens per window
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int BN = 64;            // output columns per product tile
-constexpr int BK = 64;            // reduction step of the staged weight tile
-constexpr int LDW = BK + 8;       // bf16 pitch of the weight tile
-constexpr int LDS = N + 4;        // f32 pitch of the score / staging tile
-constexpr int LDP = 2 * LDS;      // bf16 pitch of P, written over the scores
-constexpr int FC = 64;            // hidden columns per MLP chunk
-constexpr int LDH = FC + 8;       // bf16 pitch of the hidden chunk
-constexpr int kMaxC = 320;        // LayerNorm keeps <= 10 values a lane
+constexpr int kTok = kWin * kWin;              // tokens per window (M)
+constexpr int kMathGroups = 2;                 // consumer warpgroups
+constexpr int kMathThreads = 128 * kMathGroups;
+constexpr int kThreads = kMathThreads + 32;    // + the producer warp
+constexpr int kTileRows = 64;                  // weight rows a stage holds
+constexpr int kBoxRows = 16;                   // rows of one TMA box
+constexpr int kStageBytes = kTileRows * 128;   // 64 rows x 64 bf16
+constexpr int kHalf = kTileRows / kMathGroups; // a warpgroup's rows of a tile
+constexpr int kMaxStages = 16;
+constexpr int kMaxC = 320;                     // LayerNorm: <= 10 values a lane
 constexpr int kMaxPerLane = kMaxC / 32;
 constexpr size_t kMaxSmem = 232448;
 
 __host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
-__host__ __device__ inline size_t align128(size_t v) {
-  return (v + 127) / 128 * 128;
+// weight rows of a tile of the ``n`` rows left of a product
+__host__ __device__ inline int tile_rows(int n) {
+  return n < kTileRows ? round16(n) : kTileRows;
 }
 
-// Shared-memory regions (byte offsets) for channel width C.
+// Shared memory (byte offsets from the 1024-aligned base), for width C, head
+// dim hd (its tile HDP = hd rounded up to 16) and ``stages`` ring stages:
+//   ring   stages x 8 KB of weight tiles
+//   y      the LayerNorm output as swizzled A atoms [kp / 64][64 x 64] bf16
+//   ctx    one head's context, the same way (hk = ceil((hd + 7) / 64)
+//          atoms: the context starts at column (h hd) % 8, so that its
+//          share of Wproj starts 16-byte aligned for TMA); in the MLP, the
+//          hidden chunk
+//   x      the f32 residual stream [64][ldx] (ldx = 8 mod 16: the
+//          accumulator layout's float2 stores hit 32 distinct banks)
+//   qkv    one head's q, k, v planes [3][64][hdp + 8] bf16
+//   bars   a full and an empty mbarrier a stage
 struct Layout {
-  int cp, ldx, lda, ldq;
-  size_t x, y, ctx, qkv, st, w, bytes;
+  int kp, hk, ldx, ldq;
+  size_t y, ctx, x, qkv, bars, bytes;
 };
 
-__host__ __device__ inline Layout make_layout(int C, int HDP) {
+__host__ __device__ inline Layout make_layout(int C, int hd, int stages) {
+  const int HDP = round16(hd);
   Layout L;
-  L.cp = round16(C);
-  L.ldx = L.cp + 4;    // f32 residual stream [64][ldx]
-  L.lda = L.cp + 8;    // bf16 LayerNorm output and context [64][lda]
-  L.ldq = HDP + 8;     // bf16 q, k, v planes [3][64][ldq]
-  size_t off = 0;
-  L.x = off;   off += align128((size_t)N * L.ldx * 4);
-  L.y = off;   off += align128((size_t)N * L.lda * 2);
-  // the context; after proj, the bf16 hidden chunk of the MLP
-  L.ctx = off;
-  {
-    const size_t a = (size_t)N * L.lda * 2, h = (size_t)N * LDH * 2;
-    off += align128(a > h ? a : h);
-  }
-  L.qkv = off; off += align128((size_t)3 * N * L.ldq * 2);
-  L.st = off;  off += align128((size_t)N * LDS * 4);   // scores / staging
-  L.w = off;   off += align128((size_t)BN * LDW * 2);  // weight tile
-  L.bytes = off;
+  L.kp = (C + 63) / 64 * 64;
+  L.hk = (hd + 7 + 63) / 64;
+  L.ldx = C + (24 - C % 16) % 16;
+  L.ldq = HDP + 8;
+  size_t off = (size_t)stages * kStageBytes;
+  L.y = off;   off += (size_t)L.kp / 64 * kAtomBytes;
+  L.ctx = off; off += (size_t)L.hk * kAtomBytes;
+  L.x = off;   off += (size_t)kTok * L.ldx * 4;
+  L.qkv = off; off += (size_t)3 * kTok * L.ldq * 2;
+  L.bars = off; off += (size_t)16 * stages;
+  L.bytes = 1024 + off;          // room to align the base to 1024 bytes
   return L;
+}
+
+// element (t, c) of a swizzled K-major A operand: 64-column atoms of 64 rows
+// x 128 bytes, the 16-byte chunk of column c in row t at chunk ^ (t % 8)
+__device__ __forceinline__ int swz(int t, int c) {
+  return (c >> 6) * (kAtomBytes / 2) + t * 64
+         + ((((c >> 3) & 7) ^ (t & 7)) << 3) + (c & 7);
 }
 
 struct Args {
   const bf16* x; long long ldx;
   bf16* out; long long ldo;
-  const float* ln1_w; const float* ln1_b;
-  const bf16* wqkv; const float* bqkv;
-  const float* bias; const float* mask;
-  const bf16* wproj; const float* bproj;
-  const float* ln2_w; const float* ln2_b;
-  const bf16* w1; const float* b1;
-  const bf16* w2; const float* b2;
-  int H, W, C, F, nh, hd, shift;
+  const float* ln1_w; const float* ln1_b; const float* bqkv;
+  const float* bias; const float* mask; const float* bproj;
+  const float* ln2_w; const float* ln2_b; const float* b1; const float* b2;
+  int H, W, C, F, nh, hd, shift, stages;
   float eps, scale;
 };
 
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> Acc;
+// the four weight matrices' TMA maps (torch Linear [N, K], 16-byte rows)
+struct alignas(64) Maps {
+  CUtensorMap qkv, proj, fc1, fc2;
+};
 
-// ---- weight rows of each product (nullptr: a zero row) -------------------
+__device__ __forceinline__ void math_barrier() {   // the consumer warpgroups
+  asm volatile("bar.sync 1, %0;\n" :: "n"(kMathThreads) : "memory");
+}
 
-struct QkvRows {     // output column j of head h: part j / HDP, dim j % HDP
-  const bf16* w; int C, hd, hdp, h;
-  __device__ const bf16* operator()(int j) const {
-    const int part = j / hdp, d = j - part * hdp;
-    return (part < 3 && d < hd) ? w + (long long)(part * C + h * hd + d) * C
-                                : nullptr;
+// generic-proxy writes of this thread visible to later wgmma reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+struct RingState {
+  uint32_t base, bars;
+  int stages, stage;
+  uint32_t phase;
+  __device__ uint32_t full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t empty(int s) const { return bars + 8 * (stages + s); }
+  __device__ void advance() {
+    if (++stage == stages) { stage = 0; phase ^= 1; }
   }
 };
 
-struct LinearRows {  // a torch Linear [N, K] from column offset k0
-  const bf16* w; int n, ld, k0;
-  __device__ const bf16* operator()(int j) const {
-    return j < n ? w + (long long)j * ld + k0 : nullptr;
-  }
-};
-
-constexpr int kChunks = BN * BK / 4 / kThreads;   // 8-byte loads a thread
-static_assert(BN * BK / 4 % kThreads == 0, "whole chunks a thread");
-
-// Rows [n0, n0+BN) x cols [k0, k0+BK) of the weight into registers, zero
-// where the row does not exist or k >= klim (every K here is a multiple
-// of 4); store_weight_tile puts them into Ws.
-template <class Rows>
-__device__ __forceinline__ void fetch_weight_tile(uint2* v, const Rows& rows,
-                                                  int n0, int k0, int klim) {
+// acc = A[64 x 64 ksteps] @ (the next ksteps ring tiles of weight rows)^T:
+// the consumer side of one output tile. A is a run of swizzled atoms at
+// shared address ``a``. Every tile runs as m64n64: a ragged tile (16, 32 or
+// 48 rows) leaves its last accumulator columns with products of stale ring
+// rows, which no epilogue reads; the wgmma sequence has no branch, so ptxas
+// keeps it asynchronous (a data-dependent choice of shape made it serialize
+// every wgmma). One group stays in flight while the next stage is awaited,
+// and each stage goes back to the producer once the group that read it has
+// retired.
+__device__ __forceinline__ void mma_tile(RingState& r, uint32_t a, int ksteps,
+                                         float (&acc)[16]) {
 #pragma unroll
-  for (int j = 0; j < kChunks; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
-    const bf16* p = rows(n0 + r);
-    v[j] = make_uint2(0u, 0u);
-    if (p != nullptr && k0 + c < klim)
-      v[j] = *reinterpret_cast<const uint2*>(p + k0 + c);
+  for (int i = 0; i < 16; ++i) acc[i] = 0.f;
+  const int lane = threadIdx.x & 31;
+  const uint32_t half = (threadIdx.x >> 7) * kHalf * 128;   // its 32 rows
+  int prev = -1;
+  for (int s = 0; s < ksteps; ++s) {
+    mbar_wait(r.full(r.stage), r.phase);
+    const uint32_t sb = r.base + r.stage * kStageBytes;
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_n32<0, 0>(acc, smem_desc(a + s * kAtomBytes + kk * 32, 16, 1024),
+                      smem_desc(sb + half + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();                   // the previous stage's group
+    fence_operand(acc);
+    if (prev >= 0 && lane == 0) mbar_arrive(r.empty(prev));
+    prev = r.stage;
+    r.advance();
   }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  if (lane == 0) mbar_arrive(r.empty(prev));
 }
 
-__device__ __forceinline__ void store_weight_tile(bf16* Ws, const uint2* v) {
+// Y (swizzled) = LayerNorm(X) over the true C (f32 two-pass statistics),
+// zero in columns [C, kp); each consumer warp takes 8 rows, four at a time
+// so that their shuffle reductions overlap.
+__device__ void layer_norm(const float* X, int ldx, bf16* Y, int C, int kp,
+                           const float* __restrict__ w,
+                           const float* __restrict__ b, float eps) {
+  constexpr int R = 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float wv[kMaxPerLane], bv[kMaxPerLane];   // the lane's columns, once
 #pragma unroll
-  for (int j = 0; j < kChunks; ++j) {
-    const int i = threadIdx.x + j * kThreads;
-    const int r = i / (BK / 4), c = (i % (BK / 4)) * 4;
-    *reinterpret_cast<uint2*>(Ws + r * LDW + c) = v[j];
+  for (int i = 0; i < kMaxPerLane; ++i) {
+    const int c = lane + 32 * i;
+    wv[i] = c < C ? w[c] : 0.f;
+    bv[i] = c < C ? b[c] : 0.f;
   }
-}
-
-// acc (+)= A[64 x K] @ W[n0:n0+BN, :K]^T for this warp's two 16x16
-// fragments: rows 16*(warp%4), columns 32*(warp/4) + {0, 16} of the tile.
-// A is in shared memory and zero in its columns [K, round16(K)). The next
-// weight tile is loaded into registers before this tile's products start,
-// so its latency hides behind the tensor-core work.
-template <class Rows>
-__device__ void tile_mma(Acc* acc, const bf16* A, int lda, int K,
-                         const Rows& rows, int n0, bf16* Ws) {
-  const int warp = threadIdx.x >> 5;
-  const int r0 = 16 * (warp & 3), c0 = 32 * (warp >> 2);
-  const int kp = round16(K);
-  uint2 next[kChunks];
-  fetch_weight_tile(next, rows, n0, 0, K);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store_weight_tile(Ws, next);
-    __syncthreads();
-    if (k0 + BK < K) fetch_weight_tile(next, rows, n0, k0 + BK, K);
+  constexpr int kRows = kTok / (kMathThreads / 32);
+  for (int t0 = kRows * warp; t0 < kRows * warp + kRows; t0 += R) {
+    float v[R][kMaxPerLane], mu[R], q[R];
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      if (k0 + kk < kp) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, A + r0 * lda + k0 + kk, lda);
+    for (int u = 0; u < R; ++u) {
+      const float* xr = X + (t0 + u) * ldx;
+      mu[u] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, Ws + (c0 + 16 * j) * LDW + kk, LDW);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        }
+      for (int i = 0; i < kMaxPerLane; ++i) {
+        const int c = lane + 32 * i;
+        v[u][i] = c < C ? xr[c] : 0.f;
+        mu[u] += v[u][i];
       }
     }
-    __syncthreads();
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < R; ++u)
+        mu[u] += __shfl_xor_sync(0xffffffffu, mu[u], o);
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      mu[u] /= C;
+      q[u] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxPerLane; ++i) {
+        const float d = v[u][i] - mu[u];
+        q[u] += lane + 32 * i < C ? d * d : 0.f;
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < R; ++u)
+        q[u] += __shfl_xor_sync(0xffffffffu, q[u], o);
+#pragma unroll
+    for (int u = 0; u < R; ++u) {
+      const float inv = rsqrtf(q[u] / C + eps);
+#pragma unroll
+      for (int i = 0; i < kMaxPerLane; ++i) {
+        const int c = lane + 32 * i;
+        if (c < kp)
+          Y[swz(t0 + u, c)] = __float2bfloat16(
+              c < C ? (v[u][i] - mu[u]) * inv * wv[i] + bv[i] : 0.f);
+      }
+    }
+  }
+}
+
+// v[j] = vec[n0 + 8 j + 2 (lane % 4) + {0, 1}] where the column is below
+// ``lim`` and the tile has it (else 0; all 0 for a null ``vec``): an
+// epilogue's per-column vector, loaded before its product so that the
+// loads land while the tiles arrive.
+__device__ __forceinline__ void load_cols(float2 (&v)[4], const float* vec,
+                                          int n0, int rows, int lim) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + 8 * j + 2 * tq;
+    const bool in = vec != nullptr && 8 * j < rows;
+    v[j] = make_float2(in && n < lim ? vec[n] : 0.f,
+                       in && n + 1 < lim ? vec[n + 1] : 0.f);
   }
 }
 
-// out[64 x Nout] = A @ W^T, each 64-column tile staged in f32 and handed to
-// epi(token, column, value).
-template <class Rows, class Epi>
-__device__ void gemm_staged(const bf16* A, int lda, int K, int Nout,
-                            const Rows& rows, bf16* Ws, float* St,
-                            const Epi& epi) {
-  const int warp = threadIdx.x >> 5;
-  const int r0 = 16 * (warp & 3), c0 = 32 * (warp >> 2);
-  for (int n0 = 0; n0 < Nout; n0 += BN) {
-    Acc acc[2];
-    wmma::fill_fragment(acc[0], 0.f);
-    wmma::fill_fragment(acc[1], 0.f);
-    tile_mma(acc, A, lda, K, rows, n0, Ws);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(St + r0 * LDS + c0 + 16 * j, acc[j], LDS,
-                              wmma::mem_row_major);
-    __syncthreads();
-    for (int i = threadIdx.x; i < N * BN; i += kThreads) {
-      const int t = i / BN, c = i % BN;
-      if (n0 + c < Nout) epi(t, n0 + c, St[t * LDS + c]);
-    }
-    __syncthreads();
-  }
-}
-
-// X[64 x Nout] += A @ W^T, accumulating straight into the f32 residual.
-template <class Rows>
-__device__ void gemm_accumulate(float* X, int ldx, int Nout, const bf16* A,
-                                int lda, int K, const Rows& rows, bf16* Ws) {
-  const int warp = threadIdx.x >> 5;
-  const int r0 = 16 * (warp & 3), c0 = 32 * (warp >> 2);
-  const int np = round16(Nout);
-  for (int n0 = 0; n0 < Nout; n0 += BN) {
-    Acc acc[2];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = n0 + c0 + 16 * j;
-      if (col < np)
-        wmma::load_matrix_sync(acc[j], X + r0 * ldx + col, ldx,
-                               wmma::mem_row_major);
-      else
-        wmma::fill_fragment(acc[j], 0.f);
-    }
-    tile_mma(acc, A, lda, K, rows, n0, Ws);
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = n0 + c0 + 16 * j;
-      if (col < np)
-        wmma::store_matrix_sync(X + r0 * ldx + col, acc[j], ldx,
-                                wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Y[t, :C] = LayerNorm(X[t, :C]) in bf16 (f32 two-pass statistics over the
-// true C), Y[t, C:cp] = 0; one warp per row.
-__device__ void layer_norm(const float* X, int ldx, bf16* Y, int ldy, int C,
-                           int cp, const float* __restrict__ w,
-                           const float* __restrict__ b, float eps) {
+// X[row, n0 + cols] += acc + v for the columns below C: the epilogue of
+// proj and fc2, from the accumulator layout (rows 16 w + lane / 4 and + 8,
+// column pairs 8 j + 2 (lane % 4))
+__device__ __forceinline__ void add_into_stream(float* X, int ldx, int n0,
+                                                int rows, int C,
+                                                const float (&acc)[16],
+                                                const float2 (&v)[4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int t = warp; t < N; t += kWarps) {
-    const float* xr = X + t * ldx;
-    float v[kMaxPerLane];
-    float s = 0.f;
+  const int t = 16 * (warp & 3) + (lane >> 2);
 #pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int c = lane + 32 * i;
-      v[i] = c < C ? xr[c] : 0.f;
-      s += v[i];
-    }
-    const float mu = warp_sum(s) / C;
-    float q = 0.f;
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int c = lane + 32 * i;
-      const float d = v[i] - mu;
-      q += c < C ? d * d : 0.f;
-    }
-    const float inv = rsqrtf(warp_sum(q) / C + eps);
-    bf16* yr = Y + t * ldy;
-#pragma unroll
-    for (int i = 0; i < kMaxPerLane; ++i) {
-      const int c = lane + 32 * i;
-      if (c < C)
-        yr[c] = __float2bfloat16((v[i] - mu) * inv * w[c] + b[c]);
-      else if (c < cp)
-        yr[c] = __float2bfloat16(0.f);
+  for (int j = 0; j < 4; ++j) {
+    const int n = n0 + 8 * j + 2 * (lane & 3);
+    if (8 * j < rows && n < C) {     // C % 4 == 0: n + 1 < C too
+      float2* x0 = reinterpret_cast<float2*>(X + t * ldx + n);
+      float2* x1 = reinterpret_cast<float2*>(X + (t + 8) * ldx + n);
+      float2 u = *x0, w = *x1;
+      u.x += acc[4 * j] + v[j].x;
+      u.y += acc[4 * j + 1] + v[j].y;
+      w.x += acc[4 * j + 2] + v[j].x;
+      w.y += acc[4 * j + 3] + v[j].y;
+      *x0 = u;
+      *x1 = w;
     }
   }
 }
@@ -304,195 +311,227 @@ __device__ __forceinline__ long long token_row(int b, int wi, int wj, int t,
 
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, 1)
-swin_block_kernel(const Args a) {
-  static_assert(N * (HDP + 4) * 4 <= 2 * N * (HDP + 8) * 2,
-                "the f32 context tile must fit the q and k planes");
-  constexpr int NF = HDP / 16;          // 16-wide fragments of a head
-  constexpr int NJ = (NF + 1) / 2;      // of them per warp in P @ V
-  constexpr int LDO = HDP + 4;          // f32 pitch of a head's context
+swin_block_kernel(const __grid_constant__ Maps maps, const Args a) {
   const int C = a.C, F = a.F, hd = a.hd;
-  const Layout L = make_layout(C, HDP);
-  const int ldx = L.ldx, lda = L.lda, ldq = L.ldq, cp = L.cp;
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* X = reinterpret_cast<float*>(smem + L.x);
-  bf16* Y = reinterpret_cast<bf16*>(smem + L.y);
-  bf16* Ctx = reinterpret_cast<bf16*>(smem + L.ctx);
-  bf16* Hb = Ctx;                       // the MLP's chunk, after proj
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.qkv);
-  bf16* Ks = Qs + N * ldq;
-  bf16* Vs = Ks + N * ldq;
-  float* Os = reinterpret_cast<float*>(smem + L.qkv);   // over q and k
-  float* St = reinterpret_cast<float*>(smem + L.st);
-  bf16* Ps = reinterpret_cast<bf16*>(St);               // over the scores
-  bf16* Ws = reinterpret_cast<bf16*>(smem + L.w);
+  const Layout L = make_layout(C, hd, a.stages);
+  extern __shared__ __align__(1024) unsigned char swin_smem[];
+  const uint32_t raw = (uint32_t)__cvta_generic_to_shared(swin_smem);
+  unsigned char* smem = swin_smem + (((raw + 1023u) & ~1023u) - raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  RingState ring{sbase, sbase + (uint32_t)L.bars, a.stages, 0, 0u};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(ring.full(s), 1);                  // the producer's arrival
+      mbar_init(ring.empty(s), kMathThreads / 32); // one a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
   const int nww = a.W / kWin;
   const int nw = (a.H / kWin) * nww;
   const int win = blockIdx.x % nw;
   const int b = blockIdx.x / nw;
   const int wi = win / nww, wj = win % nww;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = 16 * (warp & 3);
-  const bf16 zero = __float2bfloat16(0.f);
+  const int ks = (C + 63) / 64;                    // 64-wide K steps over c
+  const int hk = L.hk;                             // ... over a head's dims
 
-  // gather the window's rows into the f32 residual (4 bf16 per load)
+  if (threadIdx.x >= kMathThreads) {
+    // ---- producer: every weight tile, in the consumers' order ----
+    if (threadIdx.x == kMathThreads) {
+      auto load = [&](const CUtensorMap* map, int row0, int rows, int k0) {
+        mbar_wait(ring.empty(ring.stage), ring.phase ^ 1);
+        mbar_arrive_expect_tx(ring.full(ring.stage), rows * 128);
+        const uint32_t dst = sbase + ring.stage * kStageBytes;
+        for (int i = 0; i < rows; i += kBoxRows)
+          tma_2d(dst + i * 128, map, k0, row0 + i, ring.full(ring.stage));
+        ring.advance();
+      };
+      for (int h = 0; h < a.nh; ++h) {
+        for (int p = 0; p < 3; ++p)
+          for (int n0 = 0; n0 < HDP; n0 += kTileRows)
+            for (int s = 0; s < ks; ++s)
+              load(&maps.qkv, p * C + h * hd + n0, min(kTileRows, HDP - n0),
+                   64 * s);
+        for (int n0 = 0; n0 < C; n0 += kTileRows)     // the head's proj share
+          for (int s = 0; s < hk; ++s)
+            load(&maps.proj, n0, tile_rows(C - n0), (h * hd & ~7) + 64 * s);
+      }
+      for (int f0 = 0; f0 < F; f0 += kTileRows) {
+        for (int s = 0; s < ks; ++s)
+          load(&maps.fc1, f0, tile_rows(F - f0), 64 * s);
+        for (int n0 = 0; n0 < C; n0 += kTileRows)
+          load(&maps.fc2, n0, tile_rows(C - n0), f0);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup ----
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int r0 = 16 * (warp & 3), g = lane >> 2, tq = lane & 3;
+  const int wg = tid >> 7;              // consumer warpgroup
+  const int cb = kHalf * wg;            // its columns of every output tile
+  const int ldx = L.ldx, ldq = L.ldq, kp = L.kp;
+  float* X = reinterpret_cast<float*>(smem + L.x);
+  bf16* Y = reinterpret_cast<bf16*>(smem + L.y);
+  bf16* Cx = reinterpret_cast<bf16*>(smem + L.ctx);
+  bf16* Hb = Cx;                        // the MLP's hidden chunk, after proj
+  bf16* planes = reinterpret_cast<bf16*>(smem + L.qkv);
+  const uint32_t s_y = sbase + (uint32_t)L.y, s_ctx = sbase + (uint32_t)L.ctx;
+  const uint32_t s_q = sbase + (uint32_t)L.qkv;
+  const uint32_t plane_bytes = 2u * kTok * ldq;
+  float acc[16];
+
+  // gather the window's rows into the f32 residual: every 8-byte copy in
+  // flight at once, by cp.async into the Y region (LN1 overwrites it), then
+  // widened; the context tile is zero past the head dim (proj reduces over
+  // hk atoms)
   const int q4 = C / 4;
-  for (int i = threadIdx.x; i < N * q4; i += kThreads) {
-    const int t = i / q4, c = (i % q4) * 4;
-    const uint2 raw = *reinterpret_cast<const uint2*>(
-        a.x + token_row(b, wi, wj, t, a.H, a.W, a.shift) * a.ldx + c);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-    const float2 lo = __bfloat1622float2(h2[0]), hi = __bfloat1622float2(h2[1]);
+  for (int i = tid; i < kTok * q4; i += kMathThreads) {
+    const int t = i / q4, c = (i - t * q4) * 4;
+    cp_async<8>(s_y + 2u * (t * C + c),
+                a.x + token_row(b, wi, wj, t, a.H, a.W, a.shift) * a.ldx + c,
+                8);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  math_barrier();
+  for (int i = tid; i < kTok * q4; i += kMathThreads) {
+    const int t = i / q4, c = (i - t * q4) * 4;
     *reinterpret_cast<float4*>(X + t * ldx + c) =
-        make_float4(lo.x, lo.y, hi.x, hi.y);
+        unpack4(*reinterpret_cast<const uint2*>(Y + t * C + c));
   }
-  for (int i = threadIdx.x; i < N * (cp - C); i += kThreads) {
-    const int t = i / (cp - C), c = C + i % (cp - C);
-    X[t * ldx + c] = 0.f;
-    Ctx[t * lda + c] = zero;            // the proj product reads [C, cp)
-  }
-  __syncthreads();
+  for (int i = tid; i < kTok * 64 * hk; i += kMathThreads)
+    Cx[i] = __float2bfloat16(0.f);
+  math_barrier();
+  layer_norm(X, ldx, Y, C, kp, a.ln1_w, a.ln1_b, a.eps);
+  fence_async_shared();
+  math_barrier();
 
-  layer_norm(X, ldx, Y, lda, C, cp, a.ln1_w, a.ln1_b, a.eps);
-  __syncthreads();
-
-  // ---- attention, one head at a time -------------------------------------
-  const float* mw = a.mask != nullptr ? a.mask + (size_t)win * N * N : nullptr;
+  // ---- attention and proj, one head at a time: X += ctx_h Wproj_h^T ----
+  const float* mw = a.mask != nullptr ? a.mask + (size_t)win * kTok * kTok
+                                      : nullptr;
+  float2 vec[4];
   for (int h = 0; h < a.nh; ++h) {
-    const float* bqkv = a.bqkv;
-    auto qkv_epi = [&](int t, int j, float v) {
-      const int part = j / HDP, d = j - part * HDP;
-      const float val = d < hd ? v + bqkv[part * C + h * hd + d] : 0.f;
-      Qs[part * N * ldq + t * ldq + d] = __float2bfloat16(val);
-    };
-    gemm_staged(Y, lda, C, 3 * HDP, QkvRows{a.wqkv, C, hd, HDP, h}, Ws, St,
-                qkv_epi);
-
-    {  // scores S = Q K^T: this warp's rows x 32 keys
-      const int c0 = 32 * (warp >> 2);
-      Acc s[2];
-      wmma::fill_fragment(s[0], 0.f);
-      wmma::fill_fragment(s[1], 0.f);
+    for (int p = 0; p < 3; ++p) {      // q, k, v of head h into its plane
+      bf16* plane = planes + p * kTok * ldq;
+      for (int n0 = 0; n0 < HDP; n0 += kTileRows) {
+        const int rows = min(kTileRows, HDP - n0);
+        load_cols(vec, a.bqkv + p * C + h * hd, n0 + cb, rows - cb, hd);
+        mma_tile(ring, s_y, ks, acc);
 #pragma unroll
-      for (int kk = 0; kk < HDP; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf;
-        wmma::load_matrix_sync(qf, Qs + r0 * ldq + kk, ldq);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-          wmma::load_matrix_sync(kf, Ks + (c0 + 16 * j) * ldq + kk, ldq);
-          wmma::mma_sync(s[j], qf, kf, s[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(St + r0 * LDS + c0 + 16 * j, s[j], LDS,
-                                wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // stabilised softmax in f32, 8 rows a warp, lane owns keys lane and
-    // lane + 32; P (bf16) is written over the row's own scores
-    const float* bh = a.bias + (size_t)h * N * N;
-    for (int r = warp * (N / kWarps); r < (warp + 1) * (N / kWarps); ++r) {
-      float x0 = St[r * LDS + lane] * a.scale + bh[r * N + lane];
-      float x1 = St[r * LDS + lane + 32] * a.scale + bh[r * N + lane + 32];
-      if (mw != nullptr) {
-        x0 += mw[r * N + lane];
-        x1 += mw[r * N + lane + 32];
-      }
-      const float mx = warp_max(fmaxf(x0, x1));
-      const float e0 = expf(x0 - mx), e1 = expf(x1 - mx);
-      const float inv = 1.f / warp_sum(e0 + e1);
-      __syncwarp();
-      Ps[r * LDP + lane] = __float2bfloat16(e0 * inv);
-      Ps[r * LDP + lane + 32] = __float2bfloat16(e1 * inv);
-    }
-    __syncthreads();
-
-    {  // context O = P V into f32 over the q and k planes (both done)
-      const int jw = warp >> 2;
-      Acc o[NJ];
-#pragma unroll
-      for (int i = 0; i < NJ; ++i) wmma::fill_fragment(o[i], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < N; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::load_matrix_sync(pf, Ps + r0 * LDP + kk, LDP);
-#pragma unroll
-        for (int i = 0; i < NJ; ++i) {
-          const int j = jw + 2 * i;
-          if (j < NF) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-                vf;
-            wmma::load_matrix_sync(vf, Vs + kk * ldq + 16 * j, ldq);
-            wmma::mma_sync(o[i], pf, vf, o[i]);
+        for (int j = 0; j < 4; ++j) {
+          const int d = n0 + cb + 8 * j + 2 * tq;
+          if (cb + 8 * j < rows) {     // zeros past the head dim
+            const bool in0 = d < hd, in1 = d + 1 < hd;
+            *reinterpret_cast<__nv_bfloat162*>(plane + (r0 + g) * ldq + d) =
+                __floats2bfloat162_rn(in0 ? acc[4 * j] + vec[j].x : 0.f,
+                                      in1 ? acc[4 * j + 1] + vec[j].y : 0.f);
+            *reinterpret_cast<__nv_bfloat162*>(plane + (r0 + g + 8) * ldq
+                                               + d) =
+                __floats2bfloat162_rn(in0 ? acc[4 * j + 2] + vec[j].x : 0.f,
+                                      in1 ? acc[4 * j + 3] + vec[j].y : 0.f);
           }
         }
       }
+    }
+    math_barrier();                    // the head's planes are whole
+    // the context at columns oc + d of its tile, oc = (h hd) % 8: the
+    // tile's column 0 is Wproj's column h hd - oc, 16-byte aligned
+    const int oc = (h * hd) & 7;
+    if (wg == 0) {                     // the core on the first warpgroup
+      float o[HDP / 8][4];
+      attn_core<HDP>(s_q, s_q + plane_bytes, s_q + 2 * plane_bytes, ldq, r0,
+                     a.bias + (size_t)h * kTok * kTok, mw, a.scale, o);
 #pragma unroll
-      for (int i = 0; i < NJ; ++i) {
-        const int j = jw + 2 * i;
-        if (j < NF)
-          wmma::store_matrix_sync(Os + r0 * LDO + 16 * j, o[i], LDO,
-                                  wmma::mem_row_major);
+      for (int j = 0; j < HDP / 8; ++j) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int d = 8 * j + 2 * tq + x;
+          if (d < hd) {
+            Cx[swz(r0 + g, oc + d)] = __float2bfloat16(o[j][x]);
+            Cx[swz(r0 + g + 8, oc + d)] = __float2bfloat16(o[j][2 + x]);
+          }
+        }
       }
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < N * hd; i += kThreads) {
-      const int t = i / hd, d = i % hd;
-      Ctx[t * lda + h * hd + d] = __float2bfloat16(Os[t * LDO + d]);
+    fence_async_shared();
+    math_barrier();                    // the context is whole; the planes free
+    for (int n0 = 0; n0 < C; n0 += kTileRows) {
+      const int rows = tile_rows(C - n0);
+      load_cols(vec, h == 0 ? a.bproj : nullptr, n0 + cb, rows - cb, C);
+      mma_tile(ring, s_ctx, hk, acc);
+      add_into_stream(X, ldx, n0 + cb, rows - cb, C, acc, vec);
     }
-    __syncthreads();
-  }
-
-  // ---- proj + residual: X += bproj, then X += ctx @ Wproj^T --------------
-  for (int i = threadIdx.x; i < N * C; i += kThreads)
-    X[(i / C) * ldx + i % C] += a.bproj[i % C];
-  __syncthreads();
-  gemm_accumulate(X, ldx, C, Ctx, lda, C, LinearRows{a.wproj, C, C, 0}, Ws);
-
-  // ---- MLP: X += b2, then per chunk X += GELU(LN2(X) W1^T + b1) W2^T -----
-  layer_norm(X, ldx, Y, lda, C, cp, a.ln2_w, a.ln2_b, a.eps);
-  __syncthreads();                      // every row read before b2 lands
-  for (int i = threadIdx.x; i < N * C; i += kThreads)
-    X[(i / C) * ldx + i % C] += a.b2[i % C];
-  __syncthreads();
-  for (int f0 = 0; f0 < F; f0 += FC) {
-    const float* b1 = a.b1;
-    auto fc1_epi = [&](int t, int j, float v) {
-      const int f = f0 + j;
-      float g = 0.f;
-      if (f < F) {
-        v += b1[f];
-        g = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+    math_barrier();                    // the context is read before it changes
+    // back to zeros, so the next head's tile is zero off its own columns
+    if (wg == 0) {
+#pragma unroll
+      for (int j = 0; j < HDP / 8; ++j) {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int d = 8 * j + 2 * tq + x;
+          if (d < hd) {
+            Cx[swz(r0 + g, oc + d)] = __float2bfloat16(0.f);
+            Cx[swz(r0 + g + 8, oc + d)] = __float2bfloat16(0.f);
+          }
+        }
       }
-      Hb[t * LDH + j] = __float2bfloat16(g);
-    };
-    gemm_staged(Y, lda, C, FC, LinearRows{a.w1 + (long long)f0 * C, F - f0,
-                                          C, 0},
-                Ws, St, fc1_epi);
-    const int kc = F - f0 < FC ? F - f0 : FC;
-    gemm_accumulate(X, ldx, C, Hb, LDH, kc, LinearRows{a.w2, C, F, f0}, Ws);
+    }
   }
 
-  // ---- scatter the window's rows back --------------------------------------
-  for (int i = threadIdx.x; i < N * q4; i += kThreads) {
-    const int t = i / q4, c = (i % q4) * 4;
-    const float4 v = *reinterpret_cast<const float4*>(X + t * ldx + c);
-    __nv_bfloat162 h2[2] = {__floats2bfloat162_rn(v.x, v.y),
-                            __floats2bfloat162_rn(v.z, v.w)};
+  // ---- MLP: X += GELU(LN2(X) W1^T + b1) W2^T + b2, 64 hidden at a time ----
+  layer_norm(X, ldx, Y, C, kp, a.ln2_w, a.ln2_b, a.eps);
+  fence_async_shared();
+  math_barrier();
+  for (int f0 = 0; f0 < F; f0 += kTileRows) {
+    const int rows = tile_rows(F - f0);
+    load_cols(vec, a.b1 + f0, cb, rows - cb, F - f0);
+    mma_tile(ring, s_y, ks, acc);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {      // every column of the chunk, zeros
+#pragma unroll                          // past F
+      for (int x = 0; x < 2; ++x) {
+        const int c = cb + 8 * j + 2 * tq + x;
+        float u = 0.f, v = 0.f;
+        if (cb + 8 * j < rows && f0 + c < F) {
+          const float bb = x ? vec[j].y : vec[j].x;
+          u = acc[4 * j + x] + bb;
+          v = acc[4 * j + 2 + x] + bb;
+          u = 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+          v = 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
+        }
+        Hb[swz(r0 + g, c)] = __float2bfloat16(u);
+        Hb[swz(r0 + g + 8, c)] = __float2bfloat16(v);
+      }
+    }
+    fence_async_shared();
+    math_barrier();
+    for (int n0 = 0; n0 < C; n0 += kTileRows) {
+      const int rows2 = tile_rows(C - n0);
+      load_cols(vec, f0 == 0 ? a.b2 : nullptr, n0 + cb, rows2 - cb, C);
+      mma_tile(ring, s_ctx, 1, acc);
+      add_into_stream(X, ldx, n0 + cb, rows2 - cb, C, acc, vec);
+    }
+    math_barrier();                    // the chunk is read before it changes
+  }
+
+  // ---- scatter the window's rows back ----
+  for (int i = tid; i < kTok * q4; i += kMathThreads) {
+    const int t = i / q4, c = (i - t * q4) * 4;
     *reinterpret_cast<uint2*>(
         a.out + token_row(b, wi, wj, t, a.H, a.W, a.shift) * a.ldo + c) =
-        *reinterpret_cast<const uint2*>(h2);
+        pack4(*reinterpret_cast<const float4*>(X + t * ldx + c));
   }
 }
 
 template <int HDP>
-int launch(const Args& a, int B, cudaStream_t stream) {
-  const Layout L = make_layout(a.C, HDP);
-  if (L.bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+int launch(const Args& a, const Maps& maps, int B, long long smem,
+           cudaStream_t stream) {
+  const Layout L = make_layout(a.C, a.hd, a.stages);
+  if (a.stages < 2 || a.stages > kMaxStages || (long long)L.bytes != smem ||
+      L.bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
   static size_t configured = 0;   // per template instance
   if (L.bytes > configured) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -503,19 +542,33 @@ int launch(const Args& a, int B, cudaStream_t stream) {
   }
   const long long blocks = (long long)B * (a.H / kWin) * (a.W / kWin);
   if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  swin_block_kernel<HDP><<<(unsigned)blocks, kThreads, L.bytes, stream>>>(a);
+  swin_block_kernel<HDP><<<(unsigned)blocks, kThreads, L.bytes, stream>>>(
+      maps, a);
   return (int)cudaGetLastError();
+}
+
+// a weight matrix [rows, cols] in 16-byte rows: its TMA map in 16-row boxes
+int weight_map(CUtensorMap* map, const void* w, long long ld, int rows,
+               int cols) {
+  const Operand op = operand(w, ld);
+  if (!op.vec16) return (int)cudaErrorInvalidValue;
+  return encode_map(map, op, cols, rows, kBoxRows);
 }
 
 }  // namespace
 
+// ``stages`` and ``smem`` are the ring depth and shared-memory size the
+// caller planned (kernels/fused_swin_block.py ``swin_block_plan``); a launch
+// whose plan differs from this file's layout is refused. The weights are
+// torch Linear matrices with 16-byte rows (row strides ld*, multiples of 8).
 extern "C" int adsr_swin_block(
     const void* x, long long ldx, void* out, long long ldo, const void* ln1_w,
-    const void* ln1_b, const void* wqkv, const void* bqkv, const void* bias,
-    const void* mask, const void* wproj, const void* bproj, const void* ln2_w,
-    const void* ln2_b, const void* w1, const void* b1, const void* w2,
+    const void* ln1_b, const void* wqkv, long long ld_qkv, const void* bqkv,
+    const void* bias, const void* mask, const void* wproj, long long ld_proj,
+    const void* bproj, const void* ln2_w, const void* ln2_b, const void* w1,
+    long long ld1, const void* b1, const void* w2, long long ld2,
     const void* b2, int B, int H, int W, int C, int F, int nh, int win,
-    int shift, float eps, void* stream) {
+    int shift, int stages, float eps, long long smem, void* stream) {
   if (win != kWin || H % kWin || W % kWin || B < 0 || C <= 0 || C > kMaxC ||
       C % 4 || F <= 0 || F % 4 || nh <= 0 || C % nh || ldx % 4 || ldo % 4 ||
       ldx < C || ldo < C || shift < 0 || shift >= kWin ||
@@ -525,25 +578,29 @@ extern "C" int adsr_swin_block(
   Args a;
   a.x = (const bf16*)x; a.ldx = ldx; a.out = (bf16*)out; a.ldo = ldo;
   a.ln1_w = (const float*)ln1_w; a.ln1_b = (const float*)ln1_b;
-  a.wqkv = (const bf16*)wqkv; a.bqkv = (const float*)bqkv;
-  a.bias = (const float*)bias; a.mask = (const float*)mask;
-  a.wproj = (const bf16*)wproj; a.bproj = (const float*)bproj;
+  a.bqkv = (const float*)bqkv; a.bias = (const float*)bias;
+  a.mask = (const float*)mask; a.bproj = (const float*)bproj;
   a.ln2_w = (const float*)ln2_w; a.ln2_b = (const float*)ln2_b;
-  a.w1 = (const bf16*)w1; a.b1 = (const float*)b1;
-  a.w2 = (const bf16*)w2; a.b2 = (const float*)b2;
+  a.b1 = (const float*)b1; a.b2 = (const float*)b2;
   a.H = H; a.W = W; a.C = C; a.F = F; a.nh = nh; a.hd = C / nh;
-  a.shift = shift; a.eps = eps;
+  a.shift = shift; a.stages = stages; a.eps = eps;
   a.scale = (float)(1.0 / std::sqrt((double)a.hd));
+  Maps maps;
+  int rc = weight_map(&maps.qkv, wqkv, ld_qkv, 3 * C, C);
+  if (!rc) rc = weight_map(&maps.proj, wproj, ld_proj, C, C);
+  if (!rc) rc = weight_map(&maps.fc1, w1, ld1, F, C);
+  if (!rc) rc = weight_map(&maps.fc2, w2, ld2, C, F);
+  if (rc) return rc;
   cudaStream_t s = (cudaStream_t)stream;
   switch ((a.hd + 15) / 16) {
-    case 1: return launch<16>(a, B, s);
-    case 2: return launch<32>(a, B, s);
-    case 3: return launch<48>(a, B, s);
-    case 4: return launch<64>(a, B, s);
-    case 5: return launch<80>(a, B, s);
-    case 6: return launch<96>(a, B, s);
-    case 7: return launch<112>(a, B, s);
-    case 8: return launch<128>(a, B, s);
+    case 1: return launch<16>(a, maps, B, smem, s);
+    case 2: return launch<32>(a, maps, B, smem, s);
+    case 3: return launch<48>(a, maps, B, smem, s);
+    case 4: return launch<64>(a, maps, B, smem, s);
+    case 5: return launch<80>(a, maps, B, smem, s);
+    case 6: return launch<96>(a, maps, B, smem, s);
+    case 7: return launch<112>(a, maps, B, smem, s);
+    case 8: return launch<128>(a, maps, B, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -14,7 +14,8 @@
 // and writes 64 x hd of dq, dk, dv plus its 64 x 64 f32 d(bias) partial;
 // the five 64-token products are ~100 flop per byte, below the bf16 ridge.
 // Design: one block (4 warps, 16 query rows each) per (image, window,
-// head), the cyclic shift as the same raster-row arithmetic as the forward,
+// head), the cyclic shift as the same raster-row arithmetic as the forward
+// (qkv at any row stride: the forward's 16-byte rows, read in place),
 // so the gradient is scattered back through the very row map the forward
 // gathered with and no rolled copy exists. The softmax is the stabilised
 // f32 one, as in the forward. rowsum(dO o O) is computed as
@@ -139,6 +140,7 @@ __device__ __forceinline__ void rows_gx(const __nv_bfloat16* G,
 template <int HDP>
 __global__ void __launch_bounds__(kThreads)
 window_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
+                            long long ldq,
                             const __nv_bfloat16* __restrict__ dctx,
                             const float* __restrict__ bias,
                             const float* __restrict__ mask,
@@ -173,7 +175,7 @@ window_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
     __nv_bfloat16 q = zero, k = zero, v = zero, g = zero;
     if (d < hd) {
       const long long row = token_row(b, wi, wj, t, H, W, shift);
-      const __nv_bfloat16* p = qkv + row * C3 + h * hd + d;
+      const __nv_bfloat16* p = qkv + row * ldq + h * hd + d;
       q = p[0];
       k = p[C];
       v = p[2 * C];
@@ -247,7 +249,8 @@ window_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
 }
 
 template <int HDP>
-int launch(const void* qkv, const void* dctx, const void* bias,
+int launch(const void* qkv, long long ldq, const void* dctx,
+           const void* bias,
            const void* mask, void* dqkv, void* part, void* dbias, int B,
            int H, int W, int C, int nh, int hd, int shift,
            cudaStream_t stream) {
@@ -264,7 +267,7 @@ int launch(const void* qkv, const void* dctx, const void* bias,
   if (windows * nh > 0x7fffffffll) return (int)cudaErrorInvalidValue;
   window_attention_bwd_kernel<HDP>
       <<<(unsigned)(windows * nh), kThreads, bytes, stream>>>(
-          (const __nv_bfloat16*)qkv, (const __nv_bfloat16*)dctx,
+          (const __nv_bfloat16*)qkv, ldq, (const __nv_bfloat16*)dctx,
           (const float*)bias, (const float*)mask, (__nv_bfloat16*)dqkv,
           (float*)part, H, W, C, nh, hd, shift,
           (float)(1.0 / std::sqrt((double)hd)));
@@ -276,26 +279,28 @@ int launch(const void* qkv, const void* dctx, const void* bias,
 
 }  // namespace
 
-extern "C" int adsr_window_attention_bwd(const void* qkv, const void* dctx,
+extern "C" int adsr_window_attention_bwd(const void* qkv, long long ldq,
+                                         const void* dctx,
                                          const void* bias, const void* mask,
                                          void* dqkv, void* part, void* dbias,
                                          int B, int H, int W, int C, int nh,
                                          int win, int shift, void* stream) {
   if (win != kWin || H % kWin || W % kWin || nh <= 0 || C % nh || B < 0 ||
-      shift < 0 || shift >= kWin || (shift > 0) != (mask != nullptr))
+      shift < 0 || shift >= kWin || (shift > 0) != (mask != nullptr) ||
+      ldq < 3ll * C)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const int hd = C / nh;
   cudaStream_t s = (cudaStream_t)stream;
   switch ((hd + 15) / 16) {
-    case 1: return launch<16>(qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 2: return launch<32>(qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 3: return launch<48>(qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 4: return launch<64>(qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 5: return launch<80>(qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 6: return launch<96>(qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 7: return launch<112>(qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 8: return launch<128>(qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
+    case 1: return launch<16>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
+    case 2: return launch<32>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
+    case 3: return launch<48>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
+    case 4: return launch<64>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
+    case 5: return launch<80>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
+    case 6: return launch<96>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
+    case 7: return launch<112>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
+    case 8: return launch<128>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

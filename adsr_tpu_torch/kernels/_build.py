@@ -46,8 +46,10 @@ SIGNATURES = {
     # rows_per_scale, aux, ldaux, M, N, K, epilogue, bn, stream
     "adsr_rdg_gemm": [_P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _L, _I, _P, _L,
                       _I, _I, _I, _I, _I, _P],
-    # qkv, ctx, bias, mask, B, H, W, C, nh, win, shift, stream
-    "adsr_window_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, win, shift, smem,
+    # stream
+    "adsr_window_attention": [_P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _L, _P],
     # dy, ldy, dy_f32, alpha, slope, lds, scale, scale_stride, rows_per_scale,
     # W, ldw, pre, ldp, out, ldo, out_f32, A, lda, eff, lde, part, db_part,
     # splits, rows_per_split, dW, db, M, N, K, bn, stream (a null out skips
@@ -59,13 +61,16 @@ SIGNATURES = {
     # stream
     "adsr_rdg_layernorm_bwd": [_P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _P,
                                _P, _I, _I, _F, _P],
-    # qkv, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, win, shift,
-    # stream
-    "adsr_window_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _P],
-    # x, ldx, out, ldo, ln1_w, ln1_b, wqkv, bqkv, bias, mask, wproj, bproj,
-    # ln2_w, ln2_b, w1, b1, w2, b2, B, H, W, C, F, nh, win, shift, eps, stream
-    "adsr_swin_block": [_P, _L, _P, _L] + [_P] * 14 + [_I] * 8 + [_F, _P],
+    # qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, win,
+    # shift, stream
+    "adsr_window_attention_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                  _I, _I, _I, _I, _P],
+    # x, ldx, out, ldo, ln1_w, ln1_b, wqkv, ld_qkv, bqkv, bias, mask, wproj,
+    # ld_proj, bproj, ln2_w, ln2_b, w1, ld1, b1, w2, ld2, b2, B, H, W, C, F,
+    # nh, win, shift, stages, eps, smem, stream
+    "adsr_swin_block": [_P, _L, _P, _L, _P, _P, _P, _L, _P, _P, _P, _P, _L,
+                        _P, _P, _P, _P, _L, _P, _P, _L, _P] + [_I] * 9
+                       + [_F, _L, _P],
 }
 
 

@@ -11,13 +11,12 @@ The port of ``adsr_tpu/ops/fused_drct.py`` (``prepack_drct`` ``:57``,
   followed by its adjust conv through ``rdg_gemm`` into the concat buffer,
   10 launches an RDG.
 
-Both modes read the same packed block dicts. The GEMM kernels read the
-matrices in 16-byte rows, kernel (g) contiguous: block mode makes its
-contiguous copies of the Swin matrices on first use (:func:`block_rdgs`).
-As there, the head and tail (conv embed, patch and final LayerNorm in f32
-statistics, conv after body, upsampling convs, pixel shuffle, last conv)
-stay outside any hand kernel: ``F.conv2d``, ``F.layer_norm``,
-``F.pixel_shuffle``. Forward only.
+Both modes read the same packed block dicts, whose matrices sit in 16-byte
+rows: kernels (b) and (g) load them by TMA, so no mode keeps a second copy
+of the weights. As there, the head and tail (conv embed, patch and final
+LayerNorm in f32 statistics, conv after body, upsampling convs, pixel
+shuffle, last conv) stay outside any hand kernel: ``F.conv2d``,
+``F.layer_norm``, ``F.pixel_shuffle``. Forward only.
 """
 
 from __future__ import annotations
@@ -29,10 +28,9 @@ import torch
 import torch.nn.functional as F
 
 from adsr_tpu_torch.core.config import DRCTModelConfig
-from adsr_tpu_torch.kernels.fused_rdg import (_rows, contiguous_matrices,
-                                              dense_adjust, fused_rdg,
-                                              prepack_rdg_stack, rdg_geometry,
-                                              rdg_workspace)
+from adsr_tpu_torch.kernels.fused_rdg import (_rows, dense_adjust,
+                                              fused_rdg, prepack_rdg_stack,
+                                              rdg_geometry, rdg_workspace)
 from adsr_tpu_torch.kernels.fused_swin_block import fused_swin_block
 from adsr_tpu_torch.kernels.rdg_gemm import row_pitch
 from adsr_tpu_torch.models.common import RGB_MEAN
@@ -81,20 +79,7 @@ def prepack_drct(state_dict: Mapping[str, torch.Tensor], cfg: DRCTModelConfig,
     packed["mean"] = torch.tensor(RGB_MEAN if cfg.in_chans == 3
                                   else (0.0,) * cfg.in_chans,
                                   dtype=torch.float32, device=device)
-    if packed["mode"] == "block":
-        block_rdgs(packed)
     return packed
-
-
-def block_rdgs(packed: Dict) -> List[List[Dict[str, torch.Tensor]]]:
-    """Block mode's block dicts: the packed ones with contiguous copies of
-    the Swin matrices for kernel (g), made on the first call (at packing
-    when block mode is packed) and kept in ``packed``; rdg mode never
-    makes them."""
-    if "rdgs_block" not in packed:
-        packed["rdgs_block"] = [[contiguous_matrices(p) for p in blocks]
-                                for blocks in packed["rdgs"]]
-    return packed["rdgs_block"]
 
 
 def rdg_by_blocks(cat: torch.Tensor, blocks: List[Dict[str, torch.Tensor]],
@@ -151,7 +136,7 @@ def fused_drct_apply(packed: Dict, cfg: DRCTModelConfig, x: torch.Tensor,
     else:
         x2 = torch.empty(m * row_pitch(max(g["feats"])), dtype=dtype,
                          device=x.device)
-    for blocks in packed["rdgs"] if mode == "rdg" else block_rdgs(packed):
+    for blocks in packed["rdgs"]:
         if mode == "rdg":
             fused_rdg(cat, blocks, packed["masks"], cfg, h, w, work)
         else:

@@ -104,8 +104,7 @@ def pack_swin(sd: Mapping[str, torch.Tensor], prefix: str, c: int,
     ``layers.0.swin1.``, or ``""`` for a lone block): the block dict of
     :func:`_pack_block` without the adjust conv (what
     ``swin_block_forward`` and ``fused_swin_block`` read). The matrices sit
-    in 16-byte rows for the GEMM kernels; ``fused_swin_block`` on the card
-    takes contiguous ones (``contiguous_matrices``)."""
+    in 16-byte rows, which kernels (b) and (g) load by TMA."""
     get = _getter(sd, device, detach)
     mat = _matrix_getter(sd, device, detach)
     qkv_b = f"{prefix}attn.qkv.bias"               # absent with qkv_bias=False
@@ -127,15 +126,6 @@ def pack_swin(sd: Mapping[str, torch.Tensor], prefix: str, c: int,
         "w2": mat(f"{prefix}mlp.fc2.weight", dtype),
         "b2": get(f"{prefix}mlp.fc2.bias", f32),
     }
-
-
-SWIN_MATRICES = ("wqkv", "wproj", "w1", "w2")
-
-
-def contiguous_matrices(p: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """Block dict ``p`` with contiguous copies of its Swin matrices, as
-    kernel (g) ``fused_swin_block`` reads them on the card."""
-    return {**p, **{n: p[n].contiguous() for n in SWIN_MATRICES}}
 
 
 @functools.lru_cache(maxsize=None)
@@ -175,7 +165,7 @@ def rdg_workspace(m: int, cfg: DRCTModelConfig, dtype,
     g = rdg_geometry(cfg)
     cmax = max(g["feats"])
     sizes = {"ln": row_pitch(cmax),
-             "qkv_hid": max(3 * cmax, row_pitch(max(g["hidden"]))),
+             "qkv_hid": max(row_pitch(3 * cmax), row_pitch(max(g["hidden"]))),
              "ctx_x2": row_pitch(cmax), "x1": cmax}
     return {k: torch.empty(m * n, dtype=dtype, device=device)
             for k, n in sizes.items()}
@@ -192,14 +182,14 @@ def block_buffers(work: Dict[str, torch.Tensor], m: int, c: int,
                   f: int) -> Dict[str, torch.Tensor]:
     """The [m, n] outputs of ``swin_block_forward`` for width ``c`` and
     hidden width ``f``, as views of :func:`rdg_workspace`'s buffers
-    (outputs whose lives do not overlap share one). The GEMM operands
-    (``ln1``, ``ln2``, ``hid``, ``x2``) have 16-byte rows, which the GEMM
-    kernels load by TMA; ``qkv`` and ``ctx`` are contiguous, as kernel (c)
-    reads and writes them."""
+    (outputs whose lives do not overlap share one). Every row a kernel
+    loads in 16-byte pieces has 16-byte rows: the GEMM operands (``ln1``,
+    ``ln2``, ``ctx``, ``hid``, ``x2``), which kernel (b) loads by TMA, and
+    ``qkv``, which kernel (c) reads whole, as it writes ``ctx``."""
     ln = _rows(work["ln"], m, c, row_pitch(c))
-    return {"ln1": ln, "ln2": ln, "ctx": _rows(work["ctx_x2"], m, c),
-            "x2": _rows(work["ctx_x2"], m, c, row_pitch(c)),
-            "qkv": _rows(work["qkv_hid"], m, 3 * c),
+    ctx_x2 = _rows(work["ctx_x2"], m, c, row_pitch(c))
+    return {"ln1": ln, "ln2": ln, "ctx": ctx_x2, "x2": ctx_x2,
+            "qkv": _rows(work["qkv_hid"], m, 3 * c, row_pitch(3 * c)),
             "hid": _rows(work["qkv_hid"], m, f, row_pitch(f)),
             "x1": _rows(work["x1"], m, c)}
 

@@ -84,10 +84,11 @@ def fused_rdg_train_bwd(cat: torch.Tensor, g: torch.Tensor,
         grads.append(gr)
         # recompute the block from its input cat[:, :c], every output kept
         x = cat[:, :c]
-        # the GEMM operands in 16-byte rows (TMA); qkv and ctx contiguous,
-        # as kernels (c) and (f) take them
-        bufs = {name: (pitched if name in ("ln1", "ln2", "hid", "x2")
-                       else torch.empty)(m, n, dtype=act, device=dev)
+        # 16-byte rows for every buffer a kernel loads in 16-byte pieces:
+        # the GEMM operands (TMA) and qkv, which kernel (c) reads whole and
+        # kernel (f) reads at its row stride
+        bufs = {name: (torch.empty if name == "x1"
+                       else pitched)(m, n, dtype=act, device=dev)
                 for name, n in (("ln1", c), ("qkv", 3 * c), ("ctx", c),
                                 ("x1", c), ("ln2", c), ("hid", f), ("x2", c))}
         hpre = torch.empty(m, f, dtype=act, device=dev)

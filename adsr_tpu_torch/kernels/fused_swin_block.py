@@ -4,22 +4,30 @@ Replaces the Pallas kernel ``fused_swin_block``
 (``adsr_tpu/ops/fused_swin_block.py:297``, body ``_kernel`` ``:215``,
 pallas_call ``:337``), which the JAX package's "block" serving mode
 (``ADSR_TPU_RDG=0``) runs once per Swin block. Source:
-``adsr_tpu_torch/csrc/swin_block.cu``. Bound on the H100: operations (the
-weights are re-read from L2 by every window; each window's activations are
-read and written once). Design: one thread block per (image, 8x8 window)
-takes the window's 64 token rows through LN1, qkv, shifted-window attention,
-proj + residual, LN2, fc1 + GELU and fc2 + residual in shared memory, with the
-residual stream in f32; the cyclic shift is the raster-row map that
-``window_attention`` uses; head dims are zero-padded to multiples of 16; the
-numerics are the eager model's (stabilised softmax, exact-erf GELU).
+``adsr_tpu_torch/csrc/swin_block.cu`` (with ``hopper_gemm.cuh``'s TMA,
+mbarrier and wgmma wrappers and the attention core of
+``window_attn_core.cuh``, shared with kernel (c)). Bound on the H100:
+operations (the weights are re-read from L2 by every window; each window's
+activations are read and written once). Design: one thread block per (image,
+8x8 window) takes the window's 64 token rows through LN1, qkv, shifted-window
+attention, proj + residual, LN2, fc1 + GELU and fc2 + residual in shared
+memory, with the residual stream in f32; a producer warp streams the packed
+weights (16-byte rows) by TMA into a ring of 64 x 64 tiles, two consumer
+warpgroups run the products on wgmma (32 of a tile's 64 columns each) with
+their epilogues from the accumulators, and the attention core per head; the
+cyclic shift is the raster-row map that ``window_attention`` uses; head
+dims are zero-padded to multiples of 16; the numerics are the eager model's
+(stabilised softmax, exact-erf GELU).
 
 The block reads the packed block dict of ``kernels/fused_rdg.py``
-(``pack_swin`` / ``_pack_block``): no second packer. ``pack_swin_weights``
-carries a JAX ``SwinBlock`` param tree into that dict, for the tests.
+(``pack_swin`` / ``_pack_block``) as it is: no second packer and no second
+copy of the weights. ``pack_swin_weights`` carries a JAX ``SwinBlock`` param
+tree into that dict, for the tests.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Mapping, Optional
 
 import torch
@@ -30,10 +38,15 @@ from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels.fused_rdg import pack_swin, rdg_geometry
 from adsr_tpu_torch.kernels.rdg_gemm import rdg_gemm_plain
 from adsr_tpu_torch.kernels.rdg_layernorm import EPS, rdg_layernorm_plain
-from adsr_tpu_torch.kernels.window_attention import (KERNEL_WINDOW,
+from adsr_tpu_torch.kernels.window_attention import (BLOCK_SHARED_MAX,
+                                                     KERNEL_WINDOW, REGISTERS,
+                                                     check_rows16, head_tile,
                                                      window_attention_plain)
 
 MAX_WIDTH = 320        # the kernel's LayerNorm keeps <= 10 values a lane
+THREADS = 288          # two consumer warpgroups + one producer warp
+STAGE_BYTES = 64 * 128  # a ring stage: 64 weight rows x 64 bf16
+MAX_STAGES = 16
 _VECTORS = ("ln1_w", "ln1_b", "bqkv", "attn_bias", "bproj", "ln2_w", "ln2_b",
             "b1", "b2")
 _MATRICES = ("wqkv", "wproj", "w1", "w2")
@@ -52,6 +65,41 @@ def pack_swin_weights(params: Mapping[str, Any], c: int, window: int,
         module = ".".join(path.split("/")[:-1])
         sd[f"{module}.{suffix}"] = torch.as_tensor(arr.copy())
     return pack_swin(sd, "", c, window, dtype, device)
+
+
+@functools.lru_cache(maxsize=None)
+def swin_block_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
+                    w: int = 8) -> Dict[str, int]:
+    """What kernel (g) launches for width ``c``, hidden width ``f`` and
+    ``nh`` heads at batch ``b`` and ``h`` x ``w`` tokens: one block of
+    ``THREADS`` per (image, window); its shared memory (1 KB of alignment
+    room, the weight ring, the LayerNorm output as swizzled 64-column atoms,
+    one head's context as such atoms (it starts at column (h hd) % 8, so
+    that its share of Wproj starts 16-byte aligned), the f32 residual
+    [64][ldx], one head's q/k/v planes, the ring's mbarriers) with as many
+    8 KB ring stages as fit, at most ``MAX_STAGES``; the 64-row weight tiles
+    one window streams (qkv per head and part, proj per head over its dims,
+    fc1 and fc2 per 64 hidden columns); the registers a thread may use
+    (one block an SM: each of the SM's four register quarters holds up to
+    three of its nine warps). The source refuses a launch whose stages and
+    shared memory differ from its own layout. Read only (cached)."""
+    hd = c // nh
+    hdp = head_tile(hd)
+    kp = -(-c // 64) * 64
+    hk = -(-(hd + 7) // 64)     # a head's context from column (h hd) % 8
+    ldx = c + (24 - c % 16) % 16
+    fixed = 1024 + (kp // 64 + hk) * STAGE_BYTES + 64 * ldx * 4 \
+        + 3 * 64 * (hdp + 8) * 2
+    stages = min(MAX_STAGES, (BLOCK_SHARED_MAX - fixed) // (STAGE_BYTES + 16))
+    ks, nc = kp // 64, -(-c // 64)
+    tiles = 3 * nh * hk * ks + nh * nc * hk + -(-f // 64) * (ks + nc)
+    return {"hdp": hdp, "ldx": ldx, "stages": stages,
+            "smem_bytes": fixed + stages * (STAGE_BYTES + 16),
+            "threads": THREADS,
+            "blocks": b * (h // KERNEL_WINDOW) * (w // KERNEL_WINDOW),
+            "weight_tiles": tiles,
+            "max_registers": min(255, REGISTERS // 4 // -(-THREADS // 128)
+                                 // 32 // 8 * 8)}
 
 
 def block_geometry(cfg: DRCTModelConfig, k: int) -> Dict[str, int]:
@@ -114,19 +162,22 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     _build.require_f32_cuda("fused_swin_block", *(p[n] for n in _VECTORS))
     if mask is not None:
         _build.require_f32_cuda("fused_swin_block", mask)
-    if x.stride(0) % 4 or out.stride(0) % 4 \
-            or not all(p[n].is_contiguous() for n in _MATRICES):
-        raise ValueError("fused_swin_block: needs row strides that are "
-                         "multiples of 4 and contiguous weights")
+    if x.stride(0) % 4 or out.stride(0) % 4:
+        raise ValueError("fused_swin_block: needs row strides of x and out "
+                         "that are multiples of 4")
+    check_rows16("fused_swin_block", *(p[n] for n in _MATRICES))
+    plan = swin_block_plan(c, geo["hidden"], geo["heads"])
     rc = _build.library().adsr_swin_block(
         x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
         p["ln1_w"].data_ptr(), p["ln1_b"].data_ptr(), p["wqkv"].data_ptr(),
-        p["bqkv"].data_ptr(), p["attn_bias"].data_ptr(),
+        p["wqkv"].stride(0), p["bqkv"].data_ptr(), p["attn_bias"].data_ptr(),
         None if mask is None else mask.data_ptr(), p["wproj"].data_ptr(),
-        p["bproj"].data_ptr(), p["ln2_w"].data_ptr(), p["ln2_b"].data_ptr(),
-        p["w1"].data_ptr(), p["b1"].data_ptr(), p["w2"].data_ptr(),
+        p["wproj"].stride(0), p["bproj"].data_ptr(), p["ln2_w"].data_ptr(),
+        p["ln2_b"].data_ptr(), p["w1"].data_ptr(), p["w1"].stride(0),
+        p["b1"].data_ptr(), p["w2"].data_ptr(), p["w2"].stride(0),
         p["b2"].data_ptr(), m // (h * w), h, w, c, geo["hidden"],
-        geo["heads"], win, shift, EPS, _build.stream_ptr(x))
+        geo["heads"], win, shift, plan["stages"], EPS, plan["smem_bytes"],
+        _build.stream_ptr(x))
     _build.check_rc("fused_swin_block", rc)
     fused_swin_block.launches += 1
     return out

@@ -2,13 +2,20 @@
 
 Replaces the attention phases of the Pallas kernel ``_rdg_kernel_impl``
 (``adsr_tpu/ops/fused_rdg.py:734-855``). Source:
-``adsr_tpu_torch/csrc/window_attention.cu``. Bound on the H100: bytes (qkv is
-read once, the context written once; the 64-token products are cheap).
-Design: one block per (image, window, head); the cyclic shift is index
-arithmetic on raster rows, so nothing is rolled or gathered in memory; head
-dims are zero-padded to a multiple of 16 in shared memory; the softmax is the
-stabilised f32 one (the TPU kernel's unstabilised exp2 form, its score-bound
-guard and its window pairs with -1e30 off-diagonal terms are not carried over).
+``adsr_tpu_torch/csrc/window_attention.cu`` on the attention core of
+``csrc/window_attn_core.cuh`` (shared with kernel (g)). Bound on the H100:
+bytes (qkv is read once, the context written once; the 64-token products
+are cheap). Design: one small block per (image, window, head), several to
+an SM, reads the pieces of the window's 64 qkv rows that hold its head in
+16-byte loads (``qkv`` and ``out`` have 16-byte rows: row strides that are
+multiples of 8 elements, as ``kernels/rdg_gemm.py`` ``pitched`` lays them
+out) into q/k/v planes in shared memory (head dims zero-padded to a
+multiple of 16); each warp runs the register-resident core (mma.sync
+scores, bias and mask, stabilised f32 softmax, P @ V) on 16 query rows; the
+context goes back in 16-byte stores. The cyclic shift is index arithmetic on raster rows,
+so nothing is rolled or gathered in memory; the softmax is the stabilised
+f32 one (the TPU kernel's unstabilised exp2 form, its score-bound guard and
+its window pairs with -1e30 off-diagonal terms are not carried over).
 
 Also here, for packing and the plain version: the additive attention term
 (relative-position bias plus shift mask) in its per-window form, the JAX
@@ -18,6 +25,7 @@ grouping.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -27,7 +35,49 @@ from adsr_tpu_torch.models.drct import (window_attention_eager,
                                         window_partition, window_reverse)
 
 KERNEL_WINDOW = 8      # the CUDA kernel is written for 8x8 windows (N = 64)
+THREADS = 128          # 4 warps a block, 16 query rows each
+SM_SHARED_BYTES = 233472     # an H100 SM's shared memory
+BLOCK_SHARED_MAX = 232448    # the most one block may take
+BLOCK_RESERVED = 1024        # what the runtime keeps per resident block
+REGISTERS = 65536            # 32-bit registers an SM
 
+
+def head_tile(hd: int) -> int:
+    """The head dim a plane holds: ``hd`` zero-padded to a multiple of 16
+    (the mma k and n steps)."""
+    return -(-hd // 16) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def window_attention_plan(c: int, nh: int, b: int = 1, h: int = 8,
+                          w: int = 8) -> dict:
+    """What kernel (c) launches for width ``c`` and ``nh`` heads at batch
+    ``b`` and ``h`` x ``w`` tokens: one block of ``THREADS`` per (image,
+    window, head); its shared memory (the head's q/k/v planes [3][64][hdp +
+    8] bf16); the blocks an SM holds by shared memory and the registers a
+    thread may use for that. The source refuses a launch whose shared
+    memory differs from this plan's. Read only (cached)."""
+    hdp = head_tile(c // nh)
+    smem = 3 * 64 * (hdp + 8) * 2
+    per_sm = SM_SHARED_BYTES // (smem + BLOCK_RESERVED)
+    return {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
+            "threads": THREADS,
+            "blocks": b * (h // KERNEL_WINDOW) * (w // KERNEL_WINDOW) * nh,
+            "blocks_per_sm": per_sm,
+            "max_registers": min(255, REGISTERS // (THREADS * per_sm))}
+
+
+def check_rows16(name: str, *tensors: torch.Tensor) -> None:
+    """The layout rule of ``qkv`` and the context of kernel (c) and of the
+    weights of kernel (g), on tensor metadata only (no card needed): 16-byte
+    rows, that is unit column stride, a row stride that is a multiple of 8
+    elements and a 16-byte aligned base."""
+    for t in tensors:
+        if t.stride(-1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: needs 16-byte rows (unit column "
+                             "stride, a row stride that is a multiple of 8 "
+                             f"and a 16-byte aligned base), got strides "
+                             f"{tuple(t.stride())}")
 
 def build_attn_term(bias: torch.Tensor, h: int, w: int, window: int,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -64,7 +114,8 @@ def window_attention_plain(qkv: torch.Tensor, bias: torch.Tensor,
 def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
                      mask: Optional[torch.Tensor], h: int, w: int,
                      num_heads: int, window: int, shift: int) -> torch.Tensor:
-    """Context of raster-order ``qkv`` [B*h*w, 3c] into ``out`` [B*h*w, c].
+    """Context of raster-order ``qkv`` [B*h*w, 3c] into ``out`` [B*h*w, c],
+    both with 16-byte rows on the card (any strides on the CPU).
 
     ``bias`` [nh, N, N] f32; ``mask`` [nW, N, N] f32 when ``shift > 0``."""
     m, c3 = qkv.shape
@@ -84,19 +135,21 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
                                          window, shift))
         return out
     if window != KERNEL_WINDOW or h % window or w % window \
-            or c // num_heads > 128:
+            or c // num_heads > 128 or c % 4:
         raise NotImplementedError(
-            f"window_attention: the CUDA kernel takes 8x8 windows and head "
-            f"dims <= 128 (got window {window}, {h}x{w}, hd {c // num_heads})")
+            f"window_attention: the CUDA kernel takes 8x8 windows, widths "
+            f"that are multiples of 4 and head dims <= 128 (got window "
+            f"{window}, {h}x{w}, c {c}, hd {c // num_heads})")
     _build.require_bf16_cuda("window_attention", qkv, out)
-    if not (qkv.is_contiguous() and out.is_contiguous()):
-        raise ValueError("window_attention: qkv and out must be contiguous")
+    check_rows16("window_attention", qkv, out)
     params = (bias,) + ((mask,) if mask is not None else ())
     _build.require_f32_cuda("window_attention", *params)
     rc = _build.library().adsr_window_attention(
-        qkv.data_ptr(), out.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(),
-        m // (h * w), h, w, c, num_heads, window, shift, _build.stream_ptr(qkv))
+        qkv.data_ptr(), qkv.stride(0), out.data_ptr(), out.stride(0),
+        bias.data_ptr(), None if mask is None else mask.data_ptr(),
+        m // (h * w), h, w, c, num_heads, window, shift,
+        window_attention_plan(c, num_heads)["smem_bytes"],
+        _build.stream_ptr(qkv))
     _build.check_rc("window_attention", rc)
     window_attention.launches += 1
     return out

@@ -13,7 +13,9 @@ Replaces the attention backward phases of the Pallas kernel ``_bwd_kernel``
 ``adsr_tpu_torch/csrc/window_attention_bwd.cu``. Bound on the H100: bytes.
 Design: one block per (image, window, head), the shift as the forward's
 row arithmetic, head dims zero-padded in shared memory. The kernel takes
-8x8 windows (``KERNEL_WINDOW``) like the forward.
+8x8 windows (``KERNEL_WINDOW``) like the forward, and ``qkv`` at its row
+stride (the forward's 16-byte rows, read in place); ``dout`` and ``dqkv``
+are contiguous.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 the call raises.
@@ -101,17 +103,17 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
             f"window_attention_bwd: the CUDA kernel takes 8x8 windows and "
             f"head dims <= 128 (got window {window}, hd {c // num_heads})")
     _build.require_bf16_cuda("window_attention_bwd", qkv, dout, dqkv)
-    if not (qkv.is_contiguous() and dout.is_contiguous()
+    if not (qkv.stride(1) == 1 and dout.is_contiguous()
             and dqkv.is_contiguous()):
-        raise ValueError("window_attention_bwd: qkv, dout and dqkv must be "
-                         "contiguous")
+        raise ValueError("window_attention_bwd: qkv needs unit column "
+                         "stride, dout and dqkv must be contiguous")
     params = (bias, dbias) + ((mask,) if mask is not None else ())
     _build.require_f32_cuda("window_attention_bwd", *params)
     b = m // (h * w)
     part = torch.empty(b * nw * num_heads * n * n, dtype=torch.float32,
                        device=qkv.device)
     rc = _build.library().adsr_window_attention_bwd(
-        qkv.data_ptr(), dout.data_ptr(), bias.data_ptr(),
+        qkv.data_ptr(), qkv.stride(0), dout.data_ptr(), bias.data_ptr(),
         None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
         part.data_ptr(), dbias.data_ptr(), b, h, w, c, num_heads, window,
         shift, _build.stream_ptr(qkv))

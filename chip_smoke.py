@@ -9,7 +9,9 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds every kernel of ``adsr_tpu_torch/csrc`` (timed) and
-   ptxas's registers, shared memory and spills of each kernel are printed;
+   ptxas's registers, shared memory and spills of each kernel are printed,
+   then the launch plans of window_attention (c) and swin_block (g) at the
+   five flagship blocks (blocks, threads, shared memory, (g)'s ring);
 3. kernels against their plain PyTorch versions at the flagship shapes
    (batch 16, 1024 tokens): rdg_layernorm at every block width, rdg_gemm at
    every product and epilogue of the five Swin blocks (the training
@@ -30,7 +32,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    breakdown of its device time, and each kernel's launches of one RDG
    (device time, CUDA graph replay) beside its bound, its achieved TB/s and
    TFLOP/s, its plain version and a library call that computes the same
-   function (for swin_block also the (a)-(c) composition);
+   function (for swin_block also the (a)-(c) composition); every main path's
+   GEMM operands must all go by TMA (``[paths]`` lines);
 6. backward kernels against their plain versions at the flagship shapes:
    rdg_gemm_bwd (dgrad and wgrad of all five products of every block
    through ``rdg_gemm_grads``, as the training backward calls them, with
@@ -94,25 +97,27 @@ from adsr_tpu_torch.io.png import write_png
 from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
 from adsr_tpu_torch.kernels import rdg_gemm_bwd as gbwd
-from adsr_tpu_torch.kernels.fused_rdg import (block_buffers,
-                                              contiguous_matrices, fused_rdg,
+from adsr_tpu_torch.kernels.fused_rdg import (block_buffers, fused_rdg,
                                               prepack_rdg_stack, rdg_flops,
                                               rdg_geometry, rdg_workspace,
                                               swin_block_forward)
 from adsr_tpu_torch.kernels.fused_swin_block import (fused_swin_block,
-                                                     fused_swin_block_plain)
+                                                     fused_swin_block_plain,
+                                                     swin_block_plan)
 from adsr_tpu_torch.kernels.fused_rdg_train import (fused_drct_train_forward,
                                                     fused_rdg_train,
                                                     rdg_train_flops,
                                                     rdg_train_plain)
-from adsr_tpu_torch.kernels.rdg_gemm import pitched, rdg_gemm, rdg_gemm_plain
+from adsr_tpu_torch.kernels.rdg_gemm import (pitched, rdg_gemm,
+                                             rdg_gemm_plain, row_pitch)
 from adsr_tpu_torch.kernels.rdg_layernorm import (rdg_layernorm,
                                                   rdg_layernorm_plain)
 from adsr_tpu_torch.kernels.rdg_layernorm_bwd import (rdg_layernorm_bwd,
                                                       rdg_layernorm_bwd_plain)
 from adsr_tpu_torch.kernels.window_attention import (build_attn_term,
                                                      window_attention,
-                                                     window_attention_plain)
+                                                     window_attention_plain,
+                                                     window_attention_plan)
 from adsr_tpu_torch.kernels.window_attention_bwd import (
     window_attention_bwd, window_attention_bwd_plain)
 from adsr_tpu_torch.models.drct import RDG, drop_path_mults, shift_attn_mask
@@ -307,23 +312,21 @@ def operand_paths() -> dict:
 
 
 def check_operand_paths(path: str, got: dict, report: dict) -> None:
-    """Every GEMM operand of a main path goes by TMA but the attention
-    context, which kernel (c) writes in c-wide rows (2c bytes, not a
-    multiple of 16 at the flagship's widths): one cp.async operand per
-    forward proj product (one per window_attention launch) and one per proj
-    wgrad (one per window_attention_bwd launch). A lost TMA path fails
-    here instead of only running slower."""
+    """Every GEMM operand of a main path goes by TMA: the port keeps every
+    buffer a GEMM loads in 16-byte rows (the attention context too, which
+    kernel (c) writes in 16-byte stores), and the backward's dY that are
+    not (an f32 gradient, dqkv) go through the dY_eff pre-pass into 16-byte
+    rows. A lost TMA path fails here instead of only running slower."""
     paths = operand_paths()
-    want = {"rdg_gemm": (2 * got["rdg_gemm"], got["window_attention"]),
-            "rdg_gemm_bwd": (2 * (got["rdg_gemm_dgrad"]
-                                  + got["rdg_gemm_wgrad"]),
-                             got["window_attention_bwd"])}
+    want = {"rdg_gemm": 2 * got["rdg_gemm"],
+            "rdg_gemm_bwd": 2 * (got["rdg_gemm_dgrad"]
+                                 + got["rdg_gemm_wgrad"])}
     say("paths", f"{path}: GEMM operands [TMA, cp.async] {paths}")
-    for k, (total, cp) in want.items():
-        if sum(paths[k]) != total or paths[k][1] != cp:
+    for k, total in want.items():
+        if paths[k] != [total, 0]:
             raise AssertionError(f"{path}: {k} operands {paths[k]} by [TMA, "
-                                 f"cp.async], expected {total - cp} by TMA "
-                                 f"and {cp} by cp.async")
+                                 f"cp.async], expected {total} by TMA and "
+                                 "none by cp.async")
     report.setdefault("operand_paths", {})[path] = paths
 
 
@@ -394,9 +397,11 @@ def flagship_shapes(cfg):
 def make_case_inputs(cfg, dev, gen):
     """Random operands at every kernel shape of one RDG (bf16 working copies
     plus the f32 copies the plain versions read), laid out as the main path
-    lays them out: weights and the GEMM operands ``act`` (LayerNorm and
-    adjust inputs) and ``hid`` in 16-byte rows (``pitched``), ``qkv`` and
-    the attention context ``ctx`` (the same values as ``act``) contiguous."""
+    lays them out: weights, the GEMM operands ``act`` (LayerNorm and adjust
+    inputs, and the attention context ``ctx``: the same tensor) and ``hid``,
+    and ``qkv`` in 16-byte rows (``pitched``); the backward's ``dqkv`` (the
+    qkv values) and ``dctx`` (the act values) contiguous, as kernels (d)
+    and (f) take them."""
     g, m = flagship_shapes(cfg)
 
     def randn(*shape, std=1.0, dtype=torch.bfloat16, pitch=False):
@@ -418,10 +423,12 @@ def make_case_inputs(cfg, dev, gen):
             "ln_b": randn(c, std=0.1, dtype=torch.float32),
             "act": randn(m, c, pitch=True), "hid": randn(m, f, pitch=True),
             "x1": randn(m, c),
-            "qkv": randn(m, 3 * c),
+            "qkv": randn(m, 3 * c, pitch=True),
             "attn_bias": randn(nh, n, n, std=0.5, dtype=torch.float32),
         }
-        blk["ctx"] = blk["act"].contiguous()
+        blk["ctx"] = blk["act"]
+        blk["dqkv"] = blk["qkv"].contiguous()
+        blk["dctx"] = blk["act"].contiguous()
         for name, (n_out, n_in) in {"wqkv": (3 * c, c), "wproj": (c, c),
                                     "w1": (f, c), "w2": (c, f),
                                     "wadj": (a, c)}.items():
@@ -451,6 +458,23 @@ def gemm_cases(cfg, cat, blk, k):
         cases.append(("adjust", blk["act"], blk["wadj"], blk["badj"],
                       "scaled_residual", cat[:, :d]))
     return cases
+
+
+def print_plans(cfg, report):
+    """The launch plans of kernels (c) and (g) at the five flagship blocks
+    (kernels/window_attention.py, kernels/fused_swin_block.py): blocks,
+    threads, shared memory, (g)'s ring stages and weight tiles a window."""
+    g = rdg_geometry(cfg)
+    side = cfg.img_size
+    plans = {}
+    for k in range(5):
+        c, f, nh = g["feats"][k], g["hidden"][k], g["heads"][k]
+        pa = window_attention_plan(c, nh, BATCH, side, side)
+        pg = swin_block_plan(c, f, nh, BATCH, side, side)
+        say("plan", f"b{k + 1} c={c} heads={nh}: window_attention {pa}; "
+                    f"swin_block {pg}")
+        plans[f"b{k + 1}"] = {"window_attention": pa, "swin_block": pg}
+    report["plans"] = plans
 
 
 def phase_kernels(cfg, dev, check: Checker):
@@ -524,7 +548,7 @@ def phase_kernels(cfg, dev, check: Checker):
         atol = 2.0 ** -8 * blk["qkv"][:, 2 * c:].float().abs().max().item()
         for shift in (0, cfg.window_size // 2):
             mask = masks.get(shift)
-            out = torch.empty(m, c, dtype=torch.bfloat16, device=dev)
+            out = pitched(m, c, device=dev)
             window_attention(blk["qkv"], out, blk["attn_bias"], mask, h, w,
                              nh, cfg.window_size, shift)
             want = window_attention_plain(blk["qkv"].float(), blk["attn_bias"],
@@ -536,13 +560,13 @@ def phase_kernels(cfg, dev, check: Checker):
 
 def swin_case(blk):
     """The packed block dict of kernel (g) from one block's case inputs
-    (contiguous matrices, as block mode hands them to (g))."""
-    return contiguous_matrices({
+    (the matrices in 16-byte rows, as block mode hands them to (g))."""
+    return {
         "ln1_w": blk["ln_w"], "ln1_b": blk["ln_b"], "wqkv": blk["wqkv"],
         "bqkv": blk["bqkv"], "attn_bias": blk["attn_bias"],
         "wproj": blk["wproj"], "bproj": blk["bproj"], "ln2_w": blk["ln_w"],
         "ln2_b": blk["ln_b"], "w1": blk["w1"], "b1": blk["b1"],
-        "w2": blk["w2"], "b2": blk["b2"]})
+        "w2": blk["w2"], "b2": blk["b2"]}
 
 
 def phase_swin_block(cfg, dev, check: Checker):
@@ -866,11 +890,11 @@ def phase_timing(exp, dev, packed, x, model, server, lr_u8, hr_u8, report):
                  for k, v in blk.items()} for blk in blocks]
     bf = {id(t): t.to(torch.bfloat16) for blk in blocks for t in blk.values()
           if torch.is_tensor(t) and t.dtype == torch.float32}
-    scratch = torch.empty(m * 3 * max(g["feats"]), dtype=torch.bfloat16,
-                          device=dev)
+    scratch = torch.empty(m * row_pitch(3 * max(g["feats"])),
+                          dtype=torch.bfloat16, device=dev)
 
-    def rows(n_cols):
-        return scratch[:m * n_cols].view(m, n_cols)
+    def rows(n_cols):           # 16-byte rows, as the main path's buffers
+        return scratch.as_strided((m, n_cols), (row_pitch(n_cols), 1))
 
     def ln_set(mode="kernel"):
         for blk, blk32 in zip(blocks, blocks32):
@@ -983,7 +1007,8 @@ def swin_bound(cfg, blocks, m, masks):
         tc += 2 * m * (4 * c * c + 2 * c * f) + 4 * m * n * c
         f32 += 6 * (m // n) * nh * n * n + 2 * 8 * m * c + 8 * m * f
     t_b, t_ops = byt / HBM_BYTES_PER_S, tc / BF16_TC_FLOPS + f32 / F32_FLOPS
-    return max(t_b, t_ops) * 1e3, "bytes" if t_b >= t_ops else "operations"
+    return (max(t_b, t_ops) * 1e3, "bytes" if t_b >= t_ops else "operations",
+            byt, tc + f32)
 
 
 def phase_block_timing(exp, dev, packed, x, report):
@@ -1074,17 +1099,21 @@ def phase_block_timing(exp, dev, packed, x, report):
     launched_ms = cuda_ms(block_set, iters=20)
     bound = swin_bound(cfg, blocks, m, masks)
     say("timing", f"swin_block       one RDG's launches: kernel "
-                  f"{kernel_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}), "
+                  f"{kernel_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+                  f"{achieved(kernel_ms, bound)}), "
                   f"plain f32 {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
                   f"(a)-(c) composition {composition_ms:.4f} ms (device "
                   f"time, CUDA graph); launched from Python "
                   f"{launched_ms:.4f} ms")
     report.setdefault("per_rdg_launched_ms", {})["swin_block"] = launched_ms
+    report.setdefault("per_rdg_achieved", {})["swin_block"] = {
+        "tb_per_s": bound[2] / kernel_ms / 1e9,
+        "tflop_per_s": bound[3] / kernel_ms / 1e9}
     report.setdefault("per_rdg_ms", {})["swin_block"] = {
         "ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "composition_ms": composition_ms, "bound_ms": bound[0],
         "bound_by": bound[1]}
-    return {"swin_block": (kernel_ms, plain_ms, library_ms) + bound}
+    return {"swin_block": (kernel_ms, plain_ms, library_ms) + bound[:2]}
 
 
 # --------------------------------------------------------------------------- #
@@ -1113,7 +1142,7 @@ def bwd_cases(cfg, cat, dcat, blk, k, extra):
             ("fc1", blk["hid"], blk["w1"], blk["act"], {}, f32),
             ("proj", extra["res"][:, :c], blk["wproj"], blk["ctx"],
              {"row_scale": m_attn}, bf),
-            ("qkv", blk["qkv"], blk["wqkv"], blk["act"], {}, f32)]
+            ("qkv", blk["dqkv"], blk["wqkv"], blk["act"], {}, f32)]
 
 
 def make_bwd_extra(cfg, dev, gen, cat):
@@ -1219,11 +1248,11 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
             mask = masks.get(shift)
             dqkv = torch.empty(m, 3 * c, dtype=torch.bfloat16, device=dev)
             dbias = torch.empty(blk["attn_bias"].shape, dtype=f32, device=dev)
-            window_attention_bwd(blk["qkv"], blk["ctx"], blk["attn_bias"],
+            window_attention_bwd(blk["qkv"], blk["dctx"], blk["attn_bias"],
                                  mask, h, w, nh, cfg.window_size, shift, dqkv,
                                  dbias)
             want_q, want_b = window_attention_bwd_plain(
-                blk["qkv"], blk["ctx"], blk["attn_bias"], mask, h, w, nh,
+                blk["qkv"], blk["dctx"], blk["attn_bias"], mask, h, w, nh,
                 cfg.window_size, shift)
             for i, part in enumerate("qkv"):
                 ref = want_q[:, i * c:(i + 1) * c]
@@ -1621,7 +1650,7 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
     def attn_bwd_set(mode="kernel"):
         for k, blk in enumerate(blocks):
             c, nh, shift = blk["c"], blk["nh"], blk["shift"]
-            args = (blk["qkv"], blk["ctx"], blk["attn_bias"], masks.get(shift),
+            args = (blk["qkv"], blk["dctx"], blk["attn_bias"], masks.get(shift),
                     h, w, nh, cfg.window_size, shift)
             if mode == "library":
                 o, ins, do = sdpa[k]
@@ -1853,6 +1882,7 @@ def main() -> int:
                           batch_size=BATCH, run_tag="chip_smoke")
     check = Checker()
     reset_counts()
+    print_plans(exp.model, report)
     phase_kernels(exp.model, dev, check)
     phase_swin_block(exp.model, dev, check)
     say("kernels", f"{check.cases} cases within tolerance; max abs error "

@@ -13,13 +13,12 @@ from adsr_tpu_torch.core.config import DRCTModelConfig
 from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels import rdg_gemm_bwd as gb
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
-from adsr_tpu_torch.kernels.fused_rdg import (contiguous_matrices,
-                                              prepack_rdg_stack)
+from adsr_tpu_torch.kernels.fused_rdg import prepack_rdg_stack
 from adsr_tpu_torch.kernels.fused_rdg_train import (fused_rdg_train,
                                                     rdg_train_plain)
 from adsr_tpu_torch.kernels.fused_swin_block import (fused_swin_block,
                                                      fused_swin_block_plain)
-from adsr_tpu_torch.kernels.rdg_gemm import rdg_gemm, rdg_gemm_plain
+from adsr_tpu_torch.kernels.rdg_gemm import pitched, rdg_gemm, rdg_gemm_plain
 from adsr_tpu_torch.kernels.rdg_layernorm import (rdg_layernorm,
                                                   rdg_layernorm_plain)
 from adsr_tpu_torch.kernels.rdg_layernorm_bwd import (rdg_layernorm_bwd,
@@ -72,10 +71,11 @@ def test_kernels_match_plain(dev):
                                             bias, "leaky_relu"), 1e-3)
     assert torch.equal(dst[:, :c], cat[:, :c])     # other columns untouched
 
-    qkv = torch.randn(m, 3 * c, generator=g, device=dev).to(torch.bfloat16)
+    qkv = pitched(m, 3 * c, device=dev)          # 16-byte rows
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
     tb = torch.randn(nh, 64, 64, generator=g, device=dev)
     mask = torch.as_tensor(shift_attn_mask(32, 32, 8, 4), device=dev)
-    ctx = torch.empty(m, c, dtype=torch.bfloat16, device=dev)
+    ctx = pitched(m, c, device=dev)
     window_attention(qkv, ctx, tb, mask, 32, 32, nh, 8, 4)
     atol = 2.0 ** -8 * qkv[:, 2 * c:].float().abs().max().item()
     _close(ctx, window_attention_plain(qkv.float(), tb, mask, 32, 32, nh, 8,
@@ -150,7 +150,7 @@ def test_swin_block_kernel_matches_plain(dev, k):
     sd = {n: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
           for n, v in sd.items()}
     packed = prepack_rdg_stack(sd, cfg, 32, 32, torch.bfloat16, dev)
-    blk = contiguous_matrices(packed["rdgs"][0][k])     # as block mode
+    blk = packed["rdgs"][0][k]          # the packed dict, as block mode
     c = (180, 212, 244, 276, 308)[k]
     x = torch.randn(2 * 1024, 308, generator=gen).to(dev).to(torch.bfloat16)
     out = torch.empty(2 * 1024, c, dtype=torch.bfloat16, device=dev)
@@ -338,3 +338,39 @@ def test_rdg_train_grads_track_eager_autograd(dev):
     assert len(got) == 75                 # 15 tensors in each of 5 blocks
     for k, v in got.items():
         assert rel(v, params[k].grad) < 1e-1, k
+
+
+@pytest.mark.parametrize("c,nh,shift,b", [(180, 6, 0, 3), (212, 4, 4, 1),
+                                          (244, 2, 0, 2), (276, 6, 4, 1),
+                                          (308, 4, 4, 2)])
+def test_window_attention_kernel_matches_plain_at_every_head_dim(dev, c, nh,
+                                                                  shift, b):
+    # the flagship's five blocks (hd 30/53/122/46/77), qkv and ctx column
+    # slices of wider 16-byte-row buffers; columns past c are untouched.
+    # P rounds to bf16 before P @ V: 2^-8 max|v|
+    g = torch.Generator(device=dev).manual_seed(5)
+    m, h = b * 1024, 32
+    qkv = pitched(m, 3 * c + 8, device=dev)[:, :3 * c]
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    tb = 0.5 * torch.randn(nh, 64, 64, generator=g, device=dev)
+    mask = torch.as_tensor(shift_attn_mask(h, h, 8, shift), device=dev) \
+        if shift else None
+    wide = torch.zeros(m, 320, dtype=torch.bfloat16, device=dev)
+    n0 = window_attention.launches
+    window_attention(qkv, wide[:, :c], tb, mask, h, h, nh, 8, shift)
+    assert window_attention.launches == n0 + 1
+    atol = 2.0 ** -8 * qkv[:, 2 * c:].float().abs().max().item()
+    _close(wide[:, :c], window_attention_plain(qkv, tb, mask, h, h, nh, 8,
+                                               shift), atol)
+    assert not wide[:, c:].any()
+
+
+def test_attention_kernels_refuse_rows_that_are_not_16_bytes(dev):
+    m, c = 1024, 180
+    qkv = torch.zeros(m, 3 * c, dtype=torch.bfloat16, device=dev)  # 1080 B
+    out = pitched(m, c, device=dev)
+    tb = torch.zeros(6, 64, 64, device=dev)
+    n0 = window_attention.launches
+    with pytest.raises(ValueError, match="16-byte rows"):
+        window_attention(qkv, out, tb, None, 32, 32, 6, 8, 0)
+    assert window_attention.launches == n0

@@ -59,20 +59,29 @@ def test_block_mode_matches_rdg_mode(name):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-5)
 
 
-def test_block_copies_are_made_only_for_block_mode():
-    # rdg mode keeps one copy of the weights (16-byte rows for the GEMMs);
-    # block mode's contiguous copies for kernel (g) come at its first use
-    cfg, packed = _packed("tiny", "rdg")
+def test_block_mode_reads_the_packed_dicts_themselves(monkeypatch):
+    # kernel (g) takes the packed matrices in their 16-byte rows: block mode
+    # hands it the packed block dicts as they are, with no second copy
+    cfg, packed = _packed("tiny", "block")
+    keys = set(packed)
+    seen = []
+    real = fd.fused_swin_block
+
+    def spy(x, p, masks, cfg_, h, w, k, out):
+        seen.append(p)
+        return real(x, p, masks, cfg_, h, w, k, out)
+
+    monkeypatch.setattr(fd, "fused_swin_block", spy)
     x = torch.from_numpy(lr_input(jax_params("tiny")[0]))
     with torch.no_grad():
         fused_drct_apply(packed, cfg, x)
-        assert "rdgs_block" not in packed
-        fused_drct_apply(packed, cfg, x, mode="block")
-    blocks = packed["rdgs_block"]
-    assert fd.block_rdgs(packed) is blocks                  # made once
-    assert all(p[n].is_contiguous() for b in blocks for p in b
-               for n in ("wqkv", "wproj", "w1", "w2"))
-    assert "rdgs_block" in _packed("tiny", "block")[1]
+    want = [p for blocks in packed["rdgs"] for p in blocks]
+    assert len(seen) == len(want) == 5 * cfg.num_layers
+    assert all(a is b for a, b in zip(seen, want))
+    assert set(packed) == keys                       # nothing added
+    for p in want:
+        for n in ("wqkv", "wproj", "w1", "w2"):
+            assert p[n].stride(1) == 1 and p[n].stride(0) % 8 == 0
 
 
 def test_adsr_tpu_rdg_0_selects_block_mode(monkeypatch):
