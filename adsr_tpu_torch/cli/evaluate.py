@@ -55,7 +55,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    choices=["bf16", "fp32"],
                    help="bf16 (default, unlike the JAX CLI's fp32): the "
                         "card's kernels are bf16 only (fp32 kernels are "
-                        "ROADMAP.md Queue 4 item 1); fp32 runs on the CPU")
+                        "ROADMAP.md Queue 1 item 8); fp32 runs on the CPU")
     p.add_argument("--workers", type=int, default=0)  # compat; unused
     p.add_argument("--tile", type=int, default=0,
                    help="LR tile size for overlapped-tile serving; 0 = "

@@ -12,7 +12,7 @@ checkpoint and stop resumable. After training, the model is tested on
 or, for small configurations, on the CPU with the plain PyTorch path.
 
 DRCT only: ``--model-type drn-l`` (ROADMAP.md Queue 1 item 10), ``--dp`` /
-``--tp`` > 1 (Queue 1 item 11) and ``--remat-policy dots`` (Queue 4 item 8)
+``--tp`` > 1 (Queue 1 item 11) and ``--remat-policy dots`` (Queue 1 item 9)
 raise ``NotImplementedError``. ``--workers`` is accepted and ignored.
 """
 
@@ -66,7 +66,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--precision", type=str, default="bf16",
                    choices=["bf16", "fp32"],
                    help="bf16 (default): the card's kernels are bf16 only "
-                        "(fp32 kernels are ROADMAP.md Queue 4 item 1); fp32 "
+                        "(fp32 kernels are ROADMAP.md Queue 1 item 8); fp32 "
                         "runs on the CPU")
     p.add_argument("--dp", type=int, default=-1)
     p.add_argument("--tp", type=int, default=1)
@@ -104,7 +104,7 @@ def build_experiment(args: argparse.Namespace) -> Experiment:
             "data parallel is ROADMAP.md Queue 1 item 11")
     if args.remat_policy != "full":
         raise NotImplementedError(
-            f"--remat-policy {args.remat_policy}: ROADMAP.md Queue 4 item 8 "
+            f"--remat-policy {args.remat_policy}: ROADMAP.md Queue 1 item 9 "
             "(the port's backward recomputes each RDG from its concat)")
     pre = PRETRAINED if args.pretrain else "."
     exp = drct_experiment(

@@ -10,297 +10,400 @@
 // (adsr_tpu/ops/fused_rdg_train.py:405-770): the per-(window, head)
 // recompute of the probabilities and the gradient of q, k, v and of the
 // additive attention term.
-// Bound on H100: bytes. A block reads 64 tokens x hd of q, k, v and dO once
-// and writes 64 x hd of dq, dk, dv plus its 64 x 64 f32 d(bias) partial;
-// the five 64-token products are ~100 flop per byte, below the bf16 ridge.
-// Design: one block (4 warps, 16 query rows each) per (image, window,
-// head), the cyclic shift as the same raster-row arithmetic as the forward
-// (qkv at any row stride: the forward's 16-byte rows, read in place),
-// so the gradient is scattered back through the very row map the forward
-// gathered with and no rolled copy exists. The softmax is the stabilised
-// f32 one, as in the forward. rowsum(dO o O) is computed as
-// rowsum(P o dP), which needs no O. Head dims are zero-padded to a multiple
-// of 16 in shared memory (WMMA); dK and dV read dS and P column-major, so
-// no transpose is stored. d(bias) sums dS over every window of every image:
-// each block writes its dS as an f32 partial and partials.cuh sums them in
-// a fixed order (bitwise reproducible, no atomics).
+// Bound on H100: bytes. Each window reads 64 tokens x hd of q, k, v and dO
+// once and writes 64 x hd of dq, dk, dv; the five 64-token products are
+// ~100 flop per byte, below the bf16 ridge, so mma.sync is enough.
+// Design: a block (4 warps, 16 query rows each) takes one head and a group
+// of G consecutive (image, window)s (kernels/window_attention_bwd.py
+// ``window_attention_bwd_plan`` picks G), in a fixed order:
+//   - gather: the 16-byte pieces of the window's 64 qkv rows that hold the
+//     head's q, k and v, and of its 64 dO rows, eight loads in flight a
+//     thread, unpacked into bf16 planes [4][64][HDP + 8] (head dims zero-
+//     padded to a multiple of 16); the cyclic shift is the forward's
+//     raster-row arithmetic, so nothing is rolled or gathered in memory;
+//   - each warp runs window_attn_bwd_core.cuh on its 16 query rows: S, the
+//     stabilised f32 softmax, dP, dS and dQ in registers (no f32 score tile
+//     in shared memory), P and dS once to bf16 tiles; after a barrier, its
+//     16 key rows of dK = dS^T Q and then dV = P^T dO from the tiles;
+//   - the three results go through the planes that are free by then and
+//     back to dqkv in 16-byte stores (element stores where a piece is
+//     shared with a neighbouring head), at dqkv's row stride;
+//   - d(bias): each warp adds its dS into a register fragment that lives
+//     across the group, and the block writes one f32 [64 x 64] partial per
+//     (group, head) at the end; partials.cuh's column mode sums the groups'
+//     partials in a fixed order (bitwise reproducible, no atomics), which
+//     cuts the partial traffic by G against one partial per window.
+// No state survives a launch and nothing is allocated here, so a CUDA graph
+// can replay it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <cmath>
+#include <cstdint>
 
 #include "partials.cuh"
+#include "window_attn_bwd_core.cuh"
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int kWin = 8;
 constexpr int N = kWin * kWin;     // tokens per window
-constexpr int kThreads = 128;      // 4 warps, 16 rows each
-constexpr int LDSS = N + 4;        // f32 pitch of the score tiles
-constexpr int LDP = N + 8;         // bf16 pitch of the P and dS tiles
+constexpr int kThreads = 128;      // 4 warps x 16 query (and key) rows
+constexpr int kBatch = 8;          // 16-byte loads in flight a thread
+constexpr size_t kMaxSmem = 232448;
 
-template <int HDP>
-struct Smem {
-  static constexpr int LDQ = HDP + 8;   // bf16 pitch of q / k / v / dO
-  static constexpr int LDO = HDP + 4;   // f32 pitch of the output staging
-  static constexpr size_t tile_bytes = (size_t)N * LDQ * 2;
-  static constexpr size_t score_bytes = 2ull * N * LDSS * 4;  // P, dP in f32
-  static constexpr size_t bytes =
-      4 * tile_bytes + score_bytes + 2ull * N * LDP * 2;
-  // the f32 output staging reuses the P / dP region once dS exists
-  static_assert((size_t)N * LDO * 4 <= score_bytes, "staging must fit");
+// Blocks an SM must hold by registers (168 a thread for head tiles up to
+// 80, else 255): left alone, ptxas takes 220-255 registers at every tile
+// and so holds two blocks an SM. A third block, at the cost of a few
+// spilled bytes, measured faster an RDG on the H100 (PERF.md, from
+// scripts/torch_attention_bwd_sweep.py); the plan
+// (kernels/window_attention_bwd.py) sizes the grid to one wave of them.
+constexpr int min_blocks(int hdp) { return hdp <= 80 ? 3 : 2; }
+
+typedef __nv_bfloat16 bf16;
+
+// Shared memory of one block: q, k, v, dO planes and the P, dS tiles
+__host__ __device__ inline size_t smem_bytes(int hdp) {
+  return (size_t)4 * N * (hdp + 8) * 2 + (size_t)2 * N * kBwdTileLd * 2;
+}
+
+// The 16-byte pieces of a token row that hold the head's columns [start_p,
+// start_p + hd) of part p (q, k, v of qkv; 3: dO of dctx): they start at
+// column lo_p (a multiple of 8; a piece is 4 columns wide at the end of a
+// row whose width is 4 past a multiple of 8), and a row's pieces of all
+// parts are numbered in part order, those of part p from begin_p.
+struct Parts {
+  int start[4], lo[4], begin[5];
+
+  __device__ Parts(int h, int hd, int C) {
+    start[0] = h * hd;
+    start[1] = start[0] + C;
+    start[2] = start[1] + C;
+    start[3] = start[0];
+    begin[0] = 0;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      lo[p] = start[p] & ~7;
+      begin[p + 1] = begin[p] + (start[p] + hd - lo[p] + 7) / 8;
+    }
+  }
+
+  static __device__ __forceinline__ int pick(const int (&a)[4], int p) {
+    return p == 0 ? a[0] : (p == 1 ? a[1] : (p == 2 ? a[2] : a[3]));
+  }
+  // the part of piece k, and the first column and head dim of the piece
+  __device__ __forceinline__ int part(int k) const {
+    return (k >= begin[1]) + (k >= begin[2]) + (k >= begin[3]);
+  }
+  __device__ __forceinline__ int first(int k, int p) const {
+    const int b = p == 0 ? 0 : (p == 1 ? begin[1]
+                                       : (p == 2 ? begin[2] : begin[3]));
+    return pick(lo, p) + 8 * (k - b);
+  }
 };
 
-__device__ __forceinline__ long long token_row(int b, int wi, int wj, int t,
-                                               int H, int W, int shift) {
-  const int r = t / kWin, s = t % kWin;
-  const int row = (wi * kWin + r + shift) % H;
-  const int col = (wj * kWin + s + shift) % W;
-  return (long long)b * H * W + (long long)row * W + col;
-}
+// A thread's walk over the (token, piece) pairs i = threadIdx.x + j *
+// kThreads of a window, i = token * chunks + piece, stepped without a
+// division (the same pairs for every window of the group).
+struct Walk {
+  int t, k, dt, dk, chunks;
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                              wmma::col_major>;
-using FragBR = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                              wmma::row_major>;
-using FragBC = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                              wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// rows [16w, 16w+16) of X[64 x 64] = A[64 x HDP] @ B[64 x HDP]^T, f32 out
-template <int HDP>
-__device__ __forceinline__ void rows_abt(const __nv_bfloat16* A,
-                                         const __nv_bfloat16* B, int ld,
-                                         float* out, int warp) {
-  FragC c[N / 16];
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j) wmma::fill_fragment(c[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < HDP; kk += 16) {
-    FragA a;
-    wmma::load_matrix_sync(a, A + warp * 16 * ld + kk, ld);
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j) {
-      FragBC b;
-      wmma::load_matrix_sync(b, B + j * 16 * ld + kk, ld);
-      wmma::mma_sync(c[j], a, b, c[j]);
+  __device__ Walk(int chunks_) : chunks(chunks_) {
+    t = threadIdx.x / chunks;
+    k = threadIdx.x - t * chunks;
+    dt = kThreads / chunks;
+    dk = kThreads - dt * chunks;
+  }
+  __device__ __forceinline__ void step() {
+    t += dt;
+    k += dk;
+    if (k >= chunks) {
+      k -= chunks;
+      ++t;
     }
   }
-#pragma unroll
-  for (int j = 0; j < N / 16; ++j)
-    wmma::store_matrix_sync(out + warp * 16 * LDSS + j * 16, c[j], LDSS,
-                            wmma::mem_row_major);
-}
+};
 
-// rows [16w, 16w+16) of Y[64 x HDP] = op(G)[64 x 64] @ X[64 x HDP], where
-// op(G) = G (G_T false) or G^T (G_T true), G a [64 x 64] bf16 tile at pitch
-// LDP; written to the warp's own 16 rows of the f32 staging tile
-template <int HDP, bool G_T>
-__device__ __forceinline__ void rows_gx(const __nv_bfloat16* G,
-                                        const __nv_bfloat16* X, float* stage,
-                                        int warp) {
-  constexpr int LDQ = Smem<HDP>::LDQ, LDO = Smem<HDP>::LDO;
-  FragC c[HDP / 16];
-#pragma unroll
-  for (int j = 0; j < HDP / 16; ++j) wmma::fill_fragment(c[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < N; kk += 16) {
-    if constexpr (G_T) {
-      FragAT a;   // element (r, c) of G^T is G[c][r]: column-major G
-      wmma::load_matrix_sync(a, G + kk * LDP + warp * 16, LDP);
-#pragma unroll
-      for (int j = 0; j < HDP / 16; ++j) {
-        FragBR b;
-        wmma::load_matrix_sync(b, X + kk * LDQ + j * 16, LDQ);
-        wmma::mma_sync(c[j], a, b, c[j]);
-      }
+// The raster row of token t of the block's current window: the cyclic
+// shift wraps at most once (a window starts below H - 7 and shift < 8).
+struct WindowRows {
+  long long img;
+  int row0, col0, H, W;
+
+  __device__ __forceinline__ long long operator()(int t) const {
+    int r = row0 + (t >> 3), c = col0 + (t & 7);
+    r -= r >= H ? H : 0;
+    c -= c >= W ? W : 0;
+    return img + (long long)r * W + c;
+  }
+};
+
+// 8 bf16 of a 16-byte piece into head dims [j0, j0 + 8) of a plane row,
+// those in [0, hd) only: one 16-byte or four 4-byte stores where the piece
+// lies inside the head and is so aligned, element stores at its edges.
+__device__ __forceinline__ void put8(bf16* row, int j0, int hd, uint4 v) {
+  if (j0 >= 0 && j0 + 8 <= hd && (j0 & 1) == 0) {
+    if ((j0 & 7) == 0) {
+      *reinterpret_cast<uint4*>(row + j0) = v;
     } else {
-      FragA a;
-      wmma::load_matrix_sync(a, G + warp * 16 * LDP + kk, LDP);
-#pragma unroll
-      for (int j = 0; j < HDP / 16; ++j) {
-        FragBR b;
-        wmma::load_matrix_sync(b, X + kk * LDQ + j * 16, LDQ);
-        wmma::mma_sync(c[j], a, b, c[j]);
-      }
+      uint32_t* d = reinterpret_cast<uint32_t*>(row + j0);
+      d[0] = v.x;
+      d[1] = v.y;
+      d[2] = v.z;
+      d[3] = v.w;
     }
+    return;
   }
+  const bf16* e = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-  for (int j = 0; j < HDP / 16; ++j)
-    wmma::store_matrix_sync(stage + warp * 16 * LDO + j * 16, c[j], LDO,
-                            wmma::mem_row_major);
+  for (int x = 0; x < 8; ++x)
+    if (j0 + x >= 0 && j0 + x < hd) row[j0 + x] = e[x];
+}
+
+// n (8 or 4) bf16 of a plane row from head dim j0 (inside the head), as
+// put8 stores them
+__device__ __forceinline__ uint4 get8(const bf16* row, int j0, int n) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if ((j0 & 7) == 0 && n == 8) return *reinterpret_cast<const uint4*>(row + j0);
+  if ((j0 & 1) == 0) {
+    const uint32_t* s = reinterpret_cast<const uint32_t*>(row + j0);
+    v.x = s[0];
+    v.y = s[1];
+    if (n == 8) {
+      v.z = s[2];
+      v.w = s[3];
+    }
+    return v;
+  }
+  bf16* e = reinterpret_cast<bf16*>(&v);
+#pragma unroll
+  for (int x = 0; x < 8; ++x)
+    if (x < n) e[x] = row[j0 + x];
+  return v;
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-window_attention_bwd_kernel(const __nv_bfloat16* __restrict__ qkv,
-                            long long ldq,
-                            const __nv_bfloat16* __restrict__ dctx,
+__global__ void __launch_bounds__(kThreads, min_blocks(HDP))
+window_attention_bwd_kernel(const bf16* __restrict__ qkv, long long ldq,
+                            const bf16* __restrict__ dctx, long long ldg,
                             const float* __restrict__ bias,
                             const float* __restrict__ mask,
-                            __nv_bfloat16* __restrict__ dqkv,
-                            float* __restrict__ dbias_part, int H, int W,
-                            int C, int nh, int hd, int shift, float scale) {
-  using S = Smem<HDP>;
-  constexpr int LDQ = S::LDQ, LDO = S::LDO;
+                            bf16* __restrict__ dqkv, long long ldd,
+                            float* __restrict__ part, int windows, int group,
+                            int H, int W, int C, int nh, int hd, int shift,
+                            float scale) {
+  constexpr int LD = HDP + 8;
+  constexpr int kPlane = N * LD;          // elements of one plane
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + N * LDQ;
-  __nv_bfloat16* Vs = Ks + N * LDQ;
-  __nv_bfloat16* Gs = Vs + N * LDQ;                       // dO
-  float* Ps32 = reinterpret_cast<float*>(smem + 4 * S::tile_bytes);
-  float* dPs = Ps32 + N * LDSS;
-  float* stage = Ps32;                                    // after dS
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(
-      smem + 4 * S::tile_bytes + S::score_bytes);
-  __nv_bfloat16* dSs = Ps + N * LDP;
+  bf16* planes = reinterpret_cast<bf16*>(smem);   // q, k, v, dO
+  const uint32_t sp = (uint32_t)__cvta_generic_to_shared(planes);
+  const uint32_t sq = sp, sk = sp + 2u * kPlane, sv = sp + 4u * kPlane,
+                 sg = sp + 6u * kPlane;
+  const uint32_t tp = sp + 8u * kPlane;                  // P tile
+  const uint32_t tds = tp + 2u * N * kBwdTileLd;         // dS tile
 
+  const int h = blockIdx.x % nh;
+  const int grp = blockIdx.x / nh;
+  const int w_end = min(windows, (grp + 1) * group);
   const int nww = W / kWin;
   const int nw = (H / kWin) * nww;
-  const int h = blockIdx.x % nh;
-  const int win = (blockIdx.x / nh) % nw;
-  const int b = blockIdx.x / (nh * nw);
-  const int wi = win / nww, wj = win % nww;
-  const long long C3 = 3ll * C;
+  const int C3 = 3 * C;
+  const Parts pc(h, hd, C);
+  const int chunks = pc.begin[4];
+  const int total = N * chunks;
 
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  for (int i = threadIdx.x; i < N * HDP; i += kThreads) {
-    const int t = i / HDP, d = i % HDP;
-    __nv_bfloat16 q = zero, k = zero, v = zero, g = zero;
-    if (d < hd) {
-      const long long row = token_row(b, wi, wj, t, H, W, shift);
-      const __nv_bfloat16* p = qkv + row * ldq + h * hd + d;
-      q = p[0];
-      k = p[C];
-      v = p[2 * C];
-      g = dctx[row * C + h * hd + d];
+  if (HDP > hd) {                         // the padded head dims are zero
+    const int pad = HDP - hd;
+    for (int i = threadIdx.x; i < 4 * N * pad; i += kThreads) {
+      const int row = i / pad;            // (plane, token)
+      planes[row * LD + hd + (i - row * pad)] = __float2bfloat16(0.f);
     }
-    Qs[t * LDQ + d] = q;
-    Ks[t * LDQ + d] = k;
-    Vs[t * LDQ + d] = v;
-    Gs[t * LDQ + d] = g;
   }
-  __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  rows_abt<HDP>(Qs, Ks, LDQ, Ps32, warp);    // raw scores q k^T
-  rows_abt<HDP>(Gs, Vs, LDQ, dPs, warp);     // dP = dO V^T
-  __syncwarp();
+  const int r0 = 16 * warp, g = lane >> 2, tq = lane & 3;
+  float dbias[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dbias[j][i] = 0.f;
 
-  // the warp's own 16 rows: stabilised softmax, then dS; lane owns 2 keys
-  const float* bh = bias + (size_t)h * N * N;
-  const float* mw = mask != nullptr ? mask + (size_t)win * N * N : nullptr;
-  float* part = dbias_part + ((size_t)(b * nw + win) * nh + h) * N * N;
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    float x0 = Ps32[r * LDSS + lane] * scale + bh[r * N + lane];
-    float x1 = Ps32[r * LDSS + lane + 32] * scale + bh[r * N + lane + 32];
-    if (mw != nullptr) {
-      x0 += mw[r * N + lane];
-      x1 += mw[r * N + lane + 32];
+  const Walk start(chunks);
+  for (int wg = grp * group; wg < w_end; ++wg) {
+    const int b = wg / nw, win = wg % nw;
+    const int wi = win / nww, wj = win % nww;
+    const WindowRows rows{(long long)b * H * W, wi * kWin + shift,
+                          wj * kWin + shift, H, W};
+
+    // gather the head's q, k, v and dO of the window's 64 tokens
+    Walk it = start;
+    for (int base = threadIdx.x; base < total; base += kThreads * kBatch) {
+      uint4 v[kBatch];
+      int dst[kBatch], j0[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (base + j * kThreads < total) {
+          const int p = pc.part(it.k);
+          const int c0 = pc.first(it.k, p);
+          const long long row = rows(it.t);
+          const bf16* src = p < 3 ? qkv + row * ldq + c0
+                                  : dctx + row * ldg + c0;
+          if (c0 + 8 <= (p < 3 ? C3 : C)) {
+            v[j] = __ldg(reinterpret_cast<const uint4*>(src));
+          } else {                        // 4 columns at the end of a row
+            const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
+            v[j] = make_uint4(u.x, u.y, 0u, 0u);
+          }
+          dst[j] = p * kPlane + it.t * LD;
+          j0[j] = c0 - Parts::pick(pc.start, p);
+          it.step();
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j)
+        if (base + j * kThreads < total) put8(planes + dst[j], j0[j], hd, v[j]);
     }
-    float mx = fmaxf(x0, x1);
+    __syncthreads();
+
+    float acc[HDP / 8][4];
+    attn_bwd_rows<HDP>(sq, sk, sv, sg, LD, tp, tds, r0,
+                       bias + (size_t)h * N * N,
+                       mask != nullptr ? mask + (size_t)win * N * N : nullptr,
+                       scale, dbias, acc);
+    __syncthreads();   // the tiles are whole; nothing reads k or v again
+
+    // the results of part p go over plane (p + 1) % 3, each free when it is
+    // written: dQ * scale over this warp's query rows of the k plane, then
+    // its key rows of dK * scale over the v plane; dV waits in registers
+    // until every warp is done with q and dO
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-    const float e0 = expf(x0 - mx), e1 = expf(x1 - mx);
-    float sum = e0 + e1;
+    for (int which = 0; which < 3; ++which) {
+      if (which > 0)
+        tile_t_times<HDP>(which == 1 ? tds : tp, which == 1 ? sq : sg, LD,
+                          r0, acc);
+      if (which == 2) __syncthreads();
+      const float mul = which < 2 ? scale : 1.f;
+      bf16* o = planes + (which + 1) % 3 * kPlane + (r0 + g) * LD;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float inv = 1.f / sum;
-    const float p0 = e0 * inv, p1 = e1 * inv;
-    const float g0 = dPs[r * LDSS + lane], g1 = dPs[r * LDSS + lane + 32];
-    float dsum = p0 * g0 + p1 * g1;
+      for (int j = 0; j < HDP / 8; ++j) {
+        const int d = 8 * j + 2 * tq;
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      dsum += __shfl_xor_sync(0xffffffffu, dsum, o);
-    const float s0 = p0 * (g0 - dsum), s1 = p1 * (g1 - dsum);
-    Ps[r * LDP + lane] = __float2bfloat16(p0);
-    Ps[r * LDP + lane + 32] = __float2bfloat16(p1);
-    dSs[r * LDP + lane] = __float2bfloat16(s0);
-    dSs[r * LDP + lane + 32] = __float2bfloat16(s1);
-    part[r * N + lane] = s0;
-    part[r * N + lane + 32] = s1;
+        for (int x = 0; x < 2; ++x) {
+          if (d + x < hd) {
+            o[d + x] = __float2bfloat16(acc[j][x] * mul);
+            o[8 * LD + d + x] = __float2bfloat16(acc[j][2 + x] * mul);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // dq, dk, dv: columns [start_p, start_p + hd) of part p of each row
+    Walk ot(pc.begin[3]);
+    for (int i = threadIdx.x; i < N * pc.begin[3]; i += kThreads, ot.step()) {
+      const int p = pc.part(ot.k);
+      const int c0 = pc.first(ot.k, p);
+      const int s0 = Parts::pick(pc.start, p);
+      const int n = min(8, C3 - c0);      // 4 at the end of a row 4 past 8
+      const bf16* src = planes + (p + 1) % 3 * kPlane + ot.t * LD;
+      bf16* dst = dqkv + rows(ot.t) * ldd + c0;
+      if (c0 >= s0 && c0 + n <= s0 + hd) {
+        const uint4 v = get8(src, c0 - s0, n);
+        if (n == 8)
+          *reinterpret_cast<uint4*>(dst) = v;
+        else
+          *reinterpret_cast<uint2*>(dst) = make_uint2(v.x, v.y);
+      } else {                            // a piece shared with a neighbour
+#pragma unroll
+        for (int x = 0; x < 8; ++x)
+          if (x < n && c0 + x >= s0 && c0 + x < s0 + hd)
+            dst[x] = src[c0 - s0 + x];
+      }
+    }
+    __syncthreads();   // the next window's gather overwrites the planes
   }
-  __syncthreads();   // dK, dV read every row of dS and P; P/dP f32 are free
 
-  // each warp: its 16 rows of dQ (query rows), then of dK and dV (key rows)
-  for (int which = 0; which < 3; ++which) {
-    if (which == 0)
-      rows_gx<HDP, false>(dSs, Ks, stage, warp);   // dQ = dS K
-    else if (which == 1)
-      rows_gx<HDP, true>(dSs, Qs, stage, warp);    // dK = dS^T Q
-    else
-      rows_gx<HDP, true>(Ps, Gs, stage, warp);     // dV = P^T dO
-    __syncwarp();
-    const float mul = which < 2 ? scale : 1.f;
-    for (int i = lane; i < 16 * hd; i += 32) {
-      const int t = warp * 16 + i / hd, d = i % hd;
-      dqkv[token_row(b, wi, wj, t, H, W, shift) * C3 + which * C + h * hd + d] =
-          __float2bfloat16(stage[t * LDO + d] * mul);
-    }
-    __syncwarp();
+  // this block's d(bias) partial: row (group, head) of [groups * nh][64 x 64]
+  float* pr = part + ((size_t)grp * nh + h) * N * N + (r0 + g) * N + 2 * tq;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<float2*>(pr + 8 * j) =
+        make_float2(dbias[j][0], dbias[j][1]);
+    *reinterpret_cast<float2*>(pr + 8 * N + 8 * j) =
+        make_float2(dbias[j][2], dbias[j][3]);
   }
 }
 
 template <int HDP>
-int launch(const void* qkv, long long ldq, const void* dctx,
-           const void* bias,
-           const void* mask, void* dqkv, void* part, void* dbias, int B,
-           int H, int W, int C, int nh, int hd, int shift,
+int launch(const void* qkv, long long ldq, const void* dctx, long long ldg,
+           const void* bias, const void* mask, void* dqkv, long long ldd,
+           void* part, void* dbias, int B, int H, int W, int C, int nh,
+           int hd, int shift, int group, long long smem,
            cudaStream_t stream) {
-  constexpr size_t bytes = Smem<HDP>::bytes;
-  static bool configured = false;   // per template instance
-  if (!configured) {
+  const size_t bytes = smem_bytes(HDP);
+  if ((long long)bytes != smem || bytes > kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  static size_t configured = 0;   // per template instance
+  if (bytes > configured) {
     cudaError_t e = cudaFuncSetAttribute(
         window_attention_bwd_kernel<HDP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    configured = true;
+    configured = bytes;
   }
   const long long windows = (long long)B * (H / kWin) * (W / kWin);
-  if (windows * nh > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  const long long groups = (windows + group - 1) / group;
+  if (windows > 0x7fffffffll || groups * nh > 0x7fffffffll)
+    return (int)cudaErrorInvalidValue;
   window_attention_bwd_kernel<HDP>
-      <<<(unsigned)(windows * nh), kThreads, bytes, stream>>>(
-          (const __nv_bfloat16*)qkv, ldq, (const __nv_bfloat16*)dctx,
-          (const float*)bias, (const float*)mask, (__nv_bfloat16*)dqkv,
-          (float*)part, H, W, C, nh, hd, shift,
+      <<<(unsigned)(groups * nh), kThreads, bytes, stream>>>(
+          (const bf16*)qkv, ldq, (const bf16*)dctx, ldg, (const float*)bias,
+          (const float*)mask, (bf16*)dqkv, ldd, (float*)part, (int)windows,
+          group, H, W, C, nh, hd, shift,
           (float)(1.0 / std::sqrt((double)hd)));
   const int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  return sum_partials((const float*)part, (int)windows, (long long)nh * N * N,
-                      (float*)dbias, (long long)nh * N * N, nullptr, stream);
+  // d(bias)[i] = sum over the groups of part[group][i], i < nh * 64 * 64
+  return sum_partials(nullptr, 0, 0, nullptr, 0, nullptr, stream,
+                      (const float*)part, (int)groups, nh * N * N,
+                      (float*)dbias);
 }
 
 }  // namespace
 
+// ``group`` windows a block and ``smem`` are what the caller planned
+// (kernels/window_attention_bwd.py ``window_attention_bwd_plan``); a launch
+// whose shared memory differs from this file's layout is refused. ``part``
+// holds ceil(windows / group) * nh * 64 * 64 f32.
 extern "C" int adsr_window_attention_bwd(const void* qkv, long long ldq,
-                                         const void* dctx,
+                                         const void* dctx, long long ldg,
                                          const void* bias, const void* mask,
-                                         void* dqkv, void* part, void* dbias,
-                                         int B, int H, int W, int C, int nh,
-                                         int win, int shift, void* stream) {
-  if (win != kWin || H % kWin || W % kWin || nh <= 0 || C % nh || B < 0 ||
-      shift < 0 || shift >= kWin || (shift > 0) != (mask != nullptr) ||
-      ldq < 3ll * C)
+                                         void* dqkv, long long ldd,
+                                         void* part, void* dbias, int B,
+                                         int H, int W, int C, int nh, int win,
+                                         int shift, int group, long long smem,
+                                         void* stream) {
+  if (win != kWin || H % kWin || W % kWin || nh <= 0 || C % nh || C % 4 ||
+      B < 0 || shift < 0 || shift >= kWin ||
+      (shift > 0) != (mask != nullptr) || group < 1 || ldq % 8 || ldg % 8 ||
+      ldd % 8 || ldq < 3ll * C || ldg < C || ldd < 3ll * C ||
+      reinterpret_cast<uintptr_t>(qkv) % 16 ||
+      reinterpret_cast<uintptr_t>(dctx) % 16 ||
+      reinterpret_cast<uintptr_t>(dqkv) % 16)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const int hd = C / nh;
   cudaStream_t s = (cudaStream_t)stream;
   switch ((hd + 15) / 16) {
-    case 1: return launch<16>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 2: return launch<32>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 3: return launch<48>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 4: return launch<64>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 5: return launch<80>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 6: return launch<96>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 7: return launch<112>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
-    case 8: return launch<128>(qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, hd, shift, s);
+    case 1: return launch<16>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
+    case 2: return launch<32>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
+    case 3: return launch<48>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
+    case 4: return launch<64>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
+    case 5: return launch<80>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
+    case 6: return launch<96>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
+    case 7: return launch<112>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
+    case 8: return launch<128>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

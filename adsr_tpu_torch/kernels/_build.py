@@ -57,14 +57,14 @@ SIGNATURES = {
     "adsr_rdg_gemm_grads": [_P, _L, _I, _F, _P, _L, _P, _L, _I, _P, _L, _P,
                             _L, _P, _L, _I, _P, _L, _P, _L, _P, _P, _I, _I,
                             _P, _P, _I, _I, _I, _I, _P],
-    # x, ldx, dy, ldy, w, dres, ldr, dx, ldo, part, dgamma, dbeta, M, C, eps,
-    # stream
+    # x, ldx, dy, ldy, w, dres, ldr, dx, ldo, part, dgamma, dbeta, M, C,
+    # blocks, eps, stream
     "adsr_rdg_layernorm_bwd": [_P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _P,
-                               _P, _I, _I, _F, _P],
-    # qkv, ldq, dctx, bias, mask, dqkv, part, dbias, B, H, W, C, nh, win,
-    # shift, stream
-    "adsr_window_attention_bwd": [_P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                  _I, _I, _I, _I, _P],
+                               _P, _I, _I, _I, _F, _P],
+    # qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C,
+    # nh, win, shift, group, smem, stream
+    "adsr_window_attention_bwd": [_P, _L, _P, _L, _P, _P, _P, _L, _P, _P]
+                                 + [_I] * 8 + [_L, _P],
     # x, ldx, out, ldo, ln1_w, ln1_b, wqkv, ld_qkv, bqkv, bias, mask, wproj,
     # ld_proj, bproj, ln2_w, ln2_b, w1, ld1, b1, w2, ld2, b2, B, H, W, C, F,
     # nh, win, shift, stages, eps, smem, stream
@@ -172,7 +172,7 @@ def require_bf16_cuda(name: str, *tensors: torch.Tensor,
         if t.dtype != torch.bfloat16:
             raise NotImplementedError(
                 f"{name}: the CUDA kernels take bf16, got {t.dtype} (fp32 "
-                "kernels are ROADMAP.md Queue 4 item 1, 'fp32 serving "
+                "kernels are ROADMAP.md Queue 1 item 8, 'fp32 serving "
                 "kernels'; on the CPU fp32 runs the plain path)")
         if layout and (t.stride(-1) != 1 or t.data_ptr() % 8):
             raise ValueError(f"{name}: needs unit column stride and an 8-byte "

@@ -194,6 +194,17 @@ def block_buffers(work: Dict[str, torch.Tensor], m: int, c: int,
             "x1": _rows(work["x1"], m, c)}
 
 
+def attention_grad_buffers(m: int, c: int, dtype, device
+                           ) -> Dict[str, torch.Tensor]:
+    """The training backward's attention gradients for width ``c``: the
+    context's ``dctx`` [m, c] and ``dqkv`` [m, 3c], both with 16-byte rows
+    (:func:`~adsr_tpu_torch.kernels.rdg_gemm.pitched`): kernel (d) writes
+    dctx and kernel (f) reads it in 16-byte pieces, (f) writes dqkv and (d)
+    reads it in place by TMA (no dY_eff copy)."""
+    return {"dctx": pitched(m, c, dtype=dtype, device=device),
+            "dqkv": pitched(m, 3 * c, dtype=dtype, device=device)}
+
+
 def fused_rdg(cat: torch.Tensor, blocks: List[Dict[str, torch.Tensor]],
               masks: Dict[int, torch.Tensor], cfg: DRCTModelConfig,
               h: int, w: int, work: Dict[str, torch.Tensor],

@@ -46,7 +46,8 @@ import torch
 import torch.nn.functional as F
 
 from adsr_tpu_torch.core.config import DRCTModelConfig
-from adsr_tpu_torch.kernels.fused_rdg import (fused_rdg, prepack_rdg_stack,
+from adsr_tpu_torch.kernels.fused_rdg import (attention_grad_buffers,
+                                              fused_rdg, prepack_rdg_stack,
                                               rdg_geometry, rdg_workspace,
                                               swin_block_forward)
 from adsr_tpu_torch.kernels.rdg_gemm import pitched
@@ -108,10 +109,9 @@ def fused_rdg_train_bwd(cat: torch.Tensor, g: torch.Tensor,
         rdg_gemm_grads(dh, p["w1"], ln2, dln, gr["w1"], gr["b1"])
         rdg_layernorm_bwd(x1, dln, p["ln2_w"], res, gr["ln2_w"], gr["ln2_b"])
         # attention branch: x1 = x + m_attn * proj(attn(qkv(ln1(x))))
-        dctx = torch.empty(m, c, dtype=act, device=dev)
+        dctx, dqkv = attention_grad_buffers(m, c, act, dev).values()
         rdg_gemm_grads(res, p["wproj"], ctx, dctx, gr["wproj"], gr["bproj"],
                        row_scale=m_attn)
-        dqkv = torch.empty(m, 3 * c, dtype=act, device=dev)
         window_attention_bwd(qkv, dctx, p["attn_bias"], mask, h, w, nh,
                              cfg.window_size, shift, dqkv, gr["attn_bias"])
         rdg_gemm_grads(dqkv, p["wqkv"], ln1, dln, gr["wqkv"], gr["bqkv"])

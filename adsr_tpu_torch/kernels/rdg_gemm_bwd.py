@@ -214,6 +214,8 @@ def _launch(name: str, dy, alpha, slope_src, row_scale, w=None, out=None,
     splits, rows = (wgrad_splits(m, n, k, _build.sm_count(dy.device))
                     if dw is not None else (0, 0))
     prep = needs_prep(dy, alpha, slope_src, row_scale)
+    global dy_eff_copies
+    dy_eff_copies += prep
     part, db_part, size, lde = wgrad_scratch(m, n, k, splits, prep)
     scratch = torch.empty(size, dtype=torch.uint8, device=dy.device)
     base = scratch.data_ptr()
@@ -293,3 +295,6 @@ def rdg_gemm_grads(dy: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 
 rdg_gemm_dgrad.launches = 0
 rdg_gemm_wgrad.launches = 0
+# card calls whose dY went through the dY_eff pre-pass into a bf16 copy
+# (:func:`needs_prep`), as opposed to being read in place; settable to 0
+dy_eff_copies = 0

@@ -12,8 +12,13 @@ Replaces the LayerNorm backward phases of the Pallas kernel ``_bwd_kernel``
 affine into the next matmul and needs no dgamma / dbeta, the port keeps the
 affine unfolded and emits them. Source:
 ``adsr_tpu_torch/csrc/rdg_layernorm_bwd.cu``. Bound on the H100: bytes.
-Design: one warp per row, the row in registers; dx is accumulated in place
-into a strided f32 buffer (a column prefix of the concat gradient).
+Design: a half-warp per row (two rows in flight a warp), x as 8-byte bf16x4
+and the f32 tensors as float4 loads, gamma read once a thread, a grid of
+:func:`rdg_layernorm_bwd_plan`'s blocks looping over the rows; dx is
+accumulated in place into a strided f32 buffer (a column prefix of the
+concat gradient); dgamma/dbeta as one fixed-order partial row a block, summed
+by a second pass spread over many blocks (:func:`check_ln_bwd_layout` states
+the layouts the kernel takes).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 the call raises.
@@ -21,6 +26,7 @@ the call raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -28,7 +34,48 @@ import torch
 from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels.rdg_layernorm import EPS
 
-_ROWS_PER_BLOCK = 64
+THREADS = 256          # 8 warps, a half-warp per row: 16 rows a step
+ROWS_PER_STEP = 16
+MAX_C = 320            # five float4 a lane of a half-warp
+BLOCKS_PER_SM = 2
+_SMS = 132             # the H100's SMs
+
+
+@functools.lru_cache(maxsize=None)
+def rdg_layernorm_bwd_plan(m: int, c: int, sms: int = _SMS) -> dict:
+    """What kernel (e) launches for ``m`` rows of width ``c``: blocks of
+    ``THREADS`` that loop over steps of ``ROWS_PER_STEP`` rows, as many as
+    ``BLOCKS_PER_SM`` a streaming multiprocessor holds (or one per step, if
+    fewer), and one dgamma/dbeta partial row [2c] f32 a block. Read only
+    (cached)."""
+    steps = -(-m // ROWS_PER_STEP)
+    blocks = max(1, min(steps, sms * BLOCKS_PER_SM))
+    return {"threads": THREADS, "blocks": blocks,
+            "steps_per_block": -(-steps // blocks),
+            "partial_bytes": blocks * 2 * c * 4}
+
+
+def check_ln_bwd_layout(name: str, x: torch.Tensor, dy: torch.Tensor,
+                        dx: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None,
+                        weight: Optional[torch.Tensor] = None) -> None:
+    """The kernel's layout rules, on tensor metadata only (no card needed):
+    c a multiple of 4 up to ``MAX_C``; every tensor with unit column stride
+    and a row stride that is a multiple of 4; ``x`` (bf16) with an 8-byte
+    aligned base, ``dy``, ``dx``, ``residual`` and ``weight`` (f32) with a
+    16-byte aligned base (4-wide loads and stores)."""
+    c = x.shape[1]
+    if c % 4 or c > MAX_C:
+        raise ValueError(f"{name}: the kernel takes widths that are "
+                         f"multiples of 4 up to {MAX_C}, got {c}")
+    f32 = (dy, dx) + tuple(t for t in (residual, weight) if t is not None)
+    for t, align in ((x, 8),) + tuple((t, 16) for t in f32):
+        if t.stride(-1) != 1 or (t.dim() > 1 and t.stride(0) % 4) \
+                or t.data_ptr() % align:
+            raise ValueError(f"{name}: needs unit column stride, a row "
+                             "stride that is a multiple of 4 and an aligned "
+                             f"base ({align} bytes), got strides "
+                             f"{tuple(t.stride())}")
 
 
 def rdg_layernorm_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
@@ -53,10 +100,11 @@ def rdg_layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
                       dbias: torch.Tensor,
                       residual: Optional[torch.Tensor] = None,
                       eps: float = EPS) -> None:
-    """``dx`` [M, c] (f32, any row stride) += the input gradient (+
-    ``residual`` [M, c] f32); ``dweight``, ``dbias`` [c] f32 are written.
-    ``x`` [M, c] is the forward's input (bf16 on CUDA, any row stride),
-    ``dy`` [M, c] f32 the output's gradient."""
+    """``dx`` [M, c] (f32) += the input gradient (+ ``residual`` [M, c]
+    f32); ``dweight``, ``dbias`` [c] f32 are written. ``x`` [M, c] is the
+    forward's input (bf16 on CUDA), ``dy`` [M, c] f32 the output's
+    gradient. Any strides on the CPU; on the card the rows of
+    :func:`check_ln_bwd_layout`."""
     m, c = x.shape
     if dy.shape != (m, c) or dx.shape != (m, c) or weight.shape != (c,) \
             or dweight.shape != (c,) or dbias.shape != (c,) or \
@@ -69,14 +117,13 @@ def rdg_layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
         dweight.copy_(gw)
         dbias.copy_(gb)
         return
+    check_ln_bwd_layout("rdg_layernorm_bwd", x, dy, dx, residual, weight)
     _build.require_bf16_cuda("rdg_layernorm_bwd", x)
     _build.require_f32_cuda("rdg_layernorm_bwd", weight, dweight, dbias)
     strided = (dy, dx) + ((residual,) if residual is not None else ())
     _build.require_f32_cuda("rdg_layernorm_bwd", *strided, contiguous=False)
-    if any(t.stride(-1) != 1 for t in strided):
-        raise ValueError("rdg_layernorm_bwd: dy, dx and residual need unit "
-                         "column stride")
-    part = torch.empty(-(-m // _ROWS_PER_BLOCK) * 2 * c, dtype=torch.float32,
+    plan = rdg_layernorm_bwd_plan(m, c, _build.sm_count(x.device))
+    part = torch.empty(plan["blocks"] * 2 * c, dtype=torch.float32,
                        device=x.device)
     rc = _build.library().adsr_rdg_layernorm_bwd(
         x.data_ptr(), x.stride(0), dy.data_ptr(), dy.stride(0),
@@ -84,7 +131,7 @@ def rdg_layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
         residual.data_ptr() if residual is not None else None,
         residual.stride(0) if residual is not None else 0,
         dx.data_ptr(), dx.stride(0), part.data_ptr(), dweight.data_ptr(),
-        dbias.data_ptr(), m, c, eps, _build.stream_ptr(x))
+        dbias.data_ptr(), m, c, plan["blocks"], eps, _build.stream_ptr(x))
     _build.check_rc("rdg_layernorm_bwd", rc)
     rdg_layernorm_bwd.launches += 1
 

@@ -10,12 +10,15 @@ softmax ``P``, then ``dV = P^T dO``, ``dP = dO V^T``,
 
 Replaces the attention backward phases of the Pallas kernel ``_bwd_kernel``
 (``adsr_tpu/ops/fused_rdg_train.py:405-770``). Source:
-``adsr_tpu_torch/csrc/window_attention_bwd.cu``. Bound on the H100: bytes.
-Design: one block per (image, window, head), the shift as the forward's
-row arithmetic, head dims zero-padded in shared memory. The kernel takes
-8x8 windows (``KERNEL_WINDOW``) like the forward, and ``qkv`` at its row
-stride (the forward's 16-byte rows, read in place); ``dout`` and ``dqkv``
-are contiguous.
+``adsr_tpu_torch/csrc/window_attention_bwd.cu`` on the backward core of
+``csrc/window_attn_bwd_core.cuh``. Bound on the H100: bytes. Design: a
+block takes one head and a group of consecutive windows
+(:func:`window_attention_bwd_plan`), gathers each window's q, k, v and dO by
+16-byte pieces, keeps S, P, dP, dS and dQ of each warp's 16 rows in
+registers, computes dK and dV from bf16 P and dS tiles, and writes one
+d(bias) partial per (group, head). The kernel takes 8x8 windows
+(``KERNEL_WINDOW``) like the forward, and ``qkv``, ``dout`` and ``dqkv``
+with 16-byte rows at their row strides (:func:`check_rows16`).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 the call raises.
@@ -23,13 +26,58 @@ the call raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from adsr_tpu_torch.kernels import _build
-from adsr_tpu_torch.kernels.window_attention import KERNEL_WINDOW
+from adsr_tpu_torch.kernels.window_attention import (BLOCK_RESERVED,
+                                                     KERNEL_WINDOW, REGISTERS,
+                                                     SM_SHARED_BYTES,
+                                                     check_rows16, head_tile)
 from adsr_tpu_torch.models.drct import window_partition, window_reverse
+
+THREADS = 128          # 4 warps, 16 query (and key) rows each
+MAX_GROUP = 8          # windows a block
+_TOKENS = KERNEL_WINDOW ** 2
+_TILE_LD = _TOKENS + 8          # bf16 pitch of the P and dS tiles
+_SMS = 132                      # the H100's SMs
+
+
+def min_blocks(hdp: int) -> int:
+    """Blocks an SM holds by registers: the source's ``__launch_bounds__``
+    minimum (168 registers a thread up to a head tile of 80, else 255)."""
+    return 3 if hdp <= 80 else 2
+
+
+@functools.lru_cache(maxsize=None)
+def window_attention_bwd_plan(c: int, nh: int, b: int = 1, h: int = 8,
+                              w: int = 8, sms: int = _SMS) -> dict:
+    """What kernel (f) launches for width ``c`` and ``nh`` heads at batch
+    ``b`` and ``h`` x ``w`` tokens. A block of ``THREADS`` takes one head
+    and ``group`` consecutive (image, window)s, the last group possibly
+    short; its shared memory holds the head's q, k, v and dO planes
+    [4][64][hdp + 8] and the bf16 P and dS tiles [2][64][72]. ``group`` is
+    the fewest windows a block (at most ``MAX_GROUP``) for which every
+    block is resident at once, ``blocks_per_sm`` of them an SM (by shared
+    memory and :func:`min_blocks`): one wave, as many blocks as fit, and
+    G times fewer d(bias) partials, one per (group, head), than windows.
+    The source refuses a launch whose shared memory differs from this
+    plan's. Read only (cached)."""
+    hdp = head_tile(c // nh)
+    smem = 4 * _TOKENS * (hdp + 8) * 2 + 2 * _TOKENS * _TILE_LD * 2
+    per_sm = min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED), min_blocks(hdp))
+    windows = b * (h // KERNEL_WINDOW) * (w // KERNEL_WINDOW)
+    group = next((g for g in range(1, MAX_GROUP)
+                  if nh * -(-windows // g) <= per_sm * sms), MAX_GROUP)
+    groups = -(-windows // group)
+    return {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
+            "threads": THREADS, "windows": windows, "group": group,
+            "groups": groups, "last_group": windows - (groups - 1) * group,
+            "blocks": groups * nh, "blocks_per_sm": per_sm,
+            "max_registers": min(255, REGISTERS // (THREADS * per_sm)),
+            "partial_bytes": groups * nh * _TOKENS * _TOKENS * 4}
 
 
 def window_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
@@ -37,7 +85,7 @@ def window_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
                                mask: Optional[torch.Tensor], h: int, w: int,
                                num_heads: int, window: int, shift: int
                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """f32 (dqkv [B*L, 3c], dbias [nh, N, N])."""
+    """f32 (dqkv [B*L, 3c], dbias [nh, N, N]); any strides."""
     m, c3 = qkv.shape
     c = c3 // 3
     b = m // (h * w)
@@ -77,7 +125,9 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
                          shift: int, dqkv: torch.Tensor,
                          dbias: torch.Tensor) -> None:
     """Write the gradient of ``qkv`` into ``dqkv`` [B*L, 3c] and of the
-    additive bias into ``dbias`` [nh, N, N] (f32)."""
+    additive bias into ``dbias`` [nh, N, N] (f32). On the card ``qkv``,
+    ``dout`` and ``dqkv`` have 16-byte rows (any row stride that is a
+    multiple of 8); any strides on the CPU."""
     m, c3 = qkv.shape
     c = c3 // 3
     n = window * window
@@ -98,25 +148,27 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
         dbias.copy_(gb)
         return
     if window != KERNEL_WINDOW or h % window or w % window \
-            or c // num_heads > 128:
+            or c // num_heads > 128 or c % 4:
         raise NotImplementedError(
-            f"window_attention_bwd: the CUDA kernel takes 8x8 windows and "
-            f"head dims <= 128 (got window {window}, hd {c // num_heads})")
+            f"window_attention_bwd: the CUDA kernel takes 8x8 windows, widths "
+            f"that are multiples of 4 and head dims <= 128 (got window "
+            f"{window}, c {c}, hd {c // num_heads})")
+    check_rows16("window_attention_bwd", qkv, dout, dqkv)
     _build.require_bf16_cuda("window_attention_bwd", qkv, dout, dqkv)
-    if not (qkv.stride(1) == 1 and dout.is_contiguous()
-            and dqkv.is_contiguous()):
-        raise ValueError("window_attention_bwd: qkv needs unit column "
-                         "stride, dout and dqkv must be contiguous")
     params = (bias, dbias) + ((mask,) if mask is not None else ())
     _build.require_f32_cuda("window_attention_bwd", *params)
     b = m // (h * w)
-    part = torch.empty(b * nw * num_heads * n * n, dtype=torch.float32,
+    plan = window_attention_bwd_plan(c, num_heads, b, h, w,
+                                     _build.sm_count(qkv.device))
+    part = torch.empty(plan["partial_bytes"] // 4, dtype=torch.float32,
                        device=qkv.device)
     rc = _build.library().adsr_window_attention_bwd(
-        qkv.data_ptr(), qkv.stride(0), dout.data_ptr(), bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), dqkv.data_ptr(),
-        part.data_ptr(), dbias.data_ptr(), b, h, w, c, num_heads, window,
-        shift, _build.stream_ptr(qkv))
+        qkv.data_ptr(), qkv.stride(0), dout.data_ptr(), dout.stride(0),
+        bias.data_ptr(), None if mask is None else mask.data_ptr(),
+        dqkv.data_ptr(), dqkv.stride(0), part.data_ptr(), dbias.data_ptr(),
+        b, h, w, c, num_heads, window, shift, plan["group"],
+        plan["smem_bytes"],
+        _build.stream_ptr(qkv))
     _build.check_rc("window_attention_bwd", rc)
     window_attention_bwd.launches += 1
 

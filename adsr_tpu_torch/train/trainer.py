@@ -64,7 +64,7 @@ def check_serving_precision(exp: Experiment, device: torch.device) -> None:
     if device.type == "cuda" and exp.precision != "bf16":
         raise NotImplementedError(
             f"precision {exp.precision!r} on CUDA: the kernels are bf16 only; "
-            "fp32 kernels are ROADMAP.md Queue 4 item 1, 'fp32 serving "
+            "fp32 kernels are ROADMAP.md Queue 1 item 8, 'fp32 serving "
             "kernels' (on the CPU, fp32 runs the plain path)")
 
 

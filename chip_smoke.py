@@ -10,8 +10,10 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds every kernel of ``adsr_tpu_torch/csrc`` (timed) and
    ptxas's registers, shared memory and spills of each kernel are printed,
-   then the launch plans of window_attention (c) and swin_block (g) at the
-   five flagship blocks (blocks, threads, shared memory, (g)'s ring);
+   then the launch plans of window_attention (c), swin_block (g),
+   window_attention_bwd (f) and rdg_layernorm_bwd (e) at the five flagship
+   blocks (blocks, threads, shared memory, (g)'s ring, (f)'s windows a
+   block);
 3. kernels against their plain PyTorch versions at the flagship shapes
    (batch 16, 1024 tokens): rdg_layernorm at every block width, rdg_gemm at
    every product and epilogue of the five Swin blocks (the training
@@ -41,7 +43,11 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    multiple of the tile, and every call run twice, bitwise equal),
    rdg_layernorm_bwd (both LayerNorms of
    every block, accumulating into the strided concat gradient),
-   window_attention_bwd (every block geometry at shift 0 and 4);
+   window_attention_bwd (every block geometry at shift 0 and 4, qkv, dO
+   and dqkv in 16-byte rows as the training backward lays them out, and
+   blocks 1 and 4 at batch 5 on 40 x 40 tokens, whose windows the plan
+   groups with a short last group); each (e) and (f) call twice, bitwise
+   equal;
 7. one RDG at full width and batch 16 (seeded weights perturbed by
    N(0, 0.02), drop-path zeros): the autograd Function's output and every
    gradient (bf16 kernels) against the eager f32 RDG under autograd, with a
@@ -53,7 +59,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 9. training timing: the train step at batch 16 (CUDA events), its forward and
    backward, a torch.profiler breakdown and idle share, and the backward
    kernels' launches of one RDG beside their bounds, plain versions and
-   library calls;
+   library calls (the SDPA backward replayed as a CUDA graph, or the median
+   of 20 launched runs where it cannot be captured);
 10. the CLIs: a synthetic data root written with the port's PNG writer
    (under ``workspace/chip_smoke``), ``cli.main`` trains the flagship for
    one epoch (16 steps at batch 16) into a run dir, then ``cli.evaluate``
@@ -113,13 +120,15 @@ from adsr_tpu_torch.kernels.rdg_gemm import (pitched, rdg_gemm,
 from adsr_tpu_torch.kernels.rdg_layernorm import (rdg_layernorm,
                                                   rdg_layernorm_plain)
 from adsr_tpu_torch.kernels.rdg_layernorm_bwd import (rdg_layernorm_bwd,
-                                                      rdg_layernorm_bwd_plain)
+                                                      rdg_layernorm_bwd_plain,
+                                                      rdg_layernorm_bwd_plan)
 from adsr_tpu_torch.kernels.window_attention import (build_attn_term,
                                                      window_attention,
                                                      window_attention_plain,
                                                      window_attention_plan)
 from adsr_tpu_torch.kernels.window_attention_bwd import (
-    window_attention_bwd, window_attention_bwd_plain)
+    window_attention_bwd, window_attention_bwd_plain,
+    window_attention_bwd_plan)
 from adsr_tpu_torch.models.drct import RDG, drop_path_mults, shift_attn_mask
 from adsr_tpu_torch.models.factory import (init_sr_params, init_weights_,
                                            make_model)
@@ -299,6 +308,7 @@ def reset_counts() -> None:
         fn.launches = 0
     for k in GEMMS:
         _build.operand_paths(k)[:] = [0, 0]
+    gbwd.dy_eff_copies = 0
 
 
 def counts() -> dict:
@@ -311,23 +321,39 @@ def operand_paths() -> dict:
     return {k: list(_build.operand_paths(k)) for k in GEMMS}
 
 
+# dY_eff copies of one Swin block's backward: adjust (the f32 concat
+# gradient, or 0.2 g), fc2 and proj (the f32 residual-stream gradient with
+# the drop-path multiplier); fc1's dh and qkv's dqkv (16-byte rows, written
+# by kernel (f)) are read in place
+DY_EFF_COPIES_PER_BLOCK = 3
+
+
 def check_operand_paths(path: str, got: dict, report: dict) -> None:
     """Every GEMM operand of a main path goes by TMA: the port keeps every
     buffer a GEMM loads in 16-byte rows (the attention context too, which
-    kernel (c) writes in 16-byte stores), and the backward's dY that are
-    not (an f32 gradient, dqkv) go through the dY_eff pre-pass into 16-byte
-    rows. A lost TMA path fails here instead of only running slower."""
+    kernel (c) writes in 16-byte stores, and dqkv, which kernel (f) writes
+    in 16-byte rows), and the backward's dY that are not (an f32 gradient)
+    go through the dY_eff pre-pass into 16-byte rows. A lost TMA path, or a
+    dY copied that could be read in place, fails here instead of only
+    running slower."""
     paths = operand_paths()
     want = {"rdg_gemm": 2 * got["rdg_gemm"],
             "rdg_gemm_bwd": 2 * (got["rdg_gemm_dgrad"]
                                  + got["rdg_gemm_wgrad"])}
-    say("paths", f"{path}: GEMM operands [TMA, cp.async] {paths}")
+    copies = gbwd.dy_eff_copies
+    want_copies = DY_EFF_COPIES_PER_BLOCK * got["window_attention_bwd"]
+    say("paths", f"{path}: GEMM operands [TMA, cp.async] {paths}; dY_eff "
+                 f"copies {copies} (qkv's dY read in place)")
     for k, total in want.items():
         if paths[k] != [total, 0]:
             raise AssertionError(f"{path}: {k} operands {paths[k]} by [TMA, "
                                  f"cp.async], expected {total} by TMA and "
                                  "none by cp.async")
+    if copies != want_copies:
+        raise AssertionError(f"{path}: {copies} dY_eff copies, expected "
+                             f"{want_copies}")
     report.setdefault("operand_paths", {})[path] = paths
+    report.setdefault("dy_eff_copies", {})[path] = copies
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -399,9 +425,9 @@ def make_case_inputs(cfg, dev, gen):
     plus the f32 copies the plain versions read), laid out as the main path
     lays them out: weights, the GEMM operands ``act`` (LayerNorm and adjust
     inputs, and the attention context ``ctx``: the same tensor) and ``hid``,
-    and ``qkv`` in 16-byte rows (``pitched``); the backward's ``dqkv`` (the
-    qkv values) and ``dctx`` (the act values) contiguous, as kernels (d)
-    and (f) take them."""
+    ``qkv``, and the backward's ``dqkv`` (the qkv values) and ``dctx`` (the
+    act values) in 16-byte rows (``pitched``; ``attention_grad_buffers`` on
+    the training backward), as kernels (b)-(d) and (f) take them."""
     g, m = flagship_shapes(cfg)
 
     def randn(*shape, std=1.0, dtype=torch.bfloat16, pitch=False):
@@ -427,8 +453,10 @@ def make_case_inputs(cfg, dev, gen):
             "attn_bias": randn(nh, n, n, std=0.5, dtype=torch.float32),
         }
         blk["ctx"] = blk["act"]
-        blk["dqkv"] = blk["qkv"].contiguous()
-        blk["dctx"] = blk["act"].contiguous()
+        blk["dqkv"] = pitched(m, 3 * c, device=dev)
+        blk["dqkv"].copy_(blk["qkv"])
+        blk["dctx"] = pitched(m, c, device=dev)
+        blk["dctx"].copy_(blk["act"])
         for name, (n_out, n_in) in {"wqkv": (3 * c, c), "wproj": (c, c),
                                     "w1": (f, c), "w2": (c, f),
                                     "wadj": (a, c)}.items():
@@ -461,19 +489,29 @@ def gemm_cases(cfg, cat, blk, k):
 
 
 def print_plans(cfg, report):
-    """The launch plans of kernels (c) and (g) at the five flagship blocks
-    (kernels/window_attention.py, kernels/fused_swin_block.py): blocks,
-    threads, shared memory, (g)'s ring stages and weight tiles a window."""
+    """The launch plans of kernels (c), (g), (f) and (e) at the five
+    flagship blocks (kernels/window_attention.py, kernels/fused_swin_block.py,
+    kernels/window_attention_bwd.py, kernels/rdg_layernorm_bwd.py): blocks,
+    threads, shared memory, (g)'s ring stages and weight tiles a window,
+    (f)'s windows a block and d(bias) partials, (e)'s grid."""
     g = rdg_geometry(cfg)
     side = cfg.img_size
+    m = BATCH * side * side
+    sms = _build.sm_count(torch.device(DEVICE))
     plans = {}
     for k in range(5):
         c, f, nh = g["feats"][k], g["hidden"][k], g["heads"][k]
         pa = window_attention_plan(c, nh, BATCH, side, side)
         pg = swin_block_plan(c, f, nh, BATCH, side, side)
+        pf = window_attention_bwd_plan(c, nh, BATCH, side, side, sms)
+        pe = rdg_layernorm_bwd_plan(m, c, sms)
         say("plan", f"b{k + 1} c={c} heads={nh}: window_attention {pa}; "
                     f"swin_block {pg}")
-        plans[f"b{k + 1}"] = {"window_attention": pa, "swin_block": pg}
+        say("plan", f"b{k + 1} c={c} heads={nh}: window_attention_bwd {pf}; "
+                    f"rdg_layernorm_bwd {pe}")
+        plans[f"b{k + 1}"] = {"window_attention": pa, "swin_block": pg,
+                              "window_attention_bwd": pf,
+                              "rdg_layernorm_bwd": pe}
     report["plans"] = plans
 
 
@@ -1227,12 +1265,19 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
                                     extra["res"][:, :c]),
                                    ("ln2 into the stream grad", blk["x1"],
                                     None)):
-            acc = extra["dcat"].clone()
+            runs = []
+            for _ in range(2):           # twice: bitwise equal
+                acc = extra["dcat"].clone()
+                dw = torch.empty(c, dtype=f32, device=dev)
+                db = torch.empty(c, dtype=f32, device=dev)
+                rdg_layernorm_bwd(x, dy, blk["ln_w"], acc[:, :c], dw, db,
+                                  residual=residual)
+                runs.append((acc, dw, db))
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"rdg_layernorm_bwd b{k + 1} {label}: a "
+                                     "second call differs")
+            acc, dw, db = runs[0]
             dx = acc[:, :c]
-            dw = torch.empty(c, dtype=f32, device=dev)
-            db = torch.empty(c, dtype=f32, device=dev)
-            rdg_layernorm_bwd(x, dy, blk["ln_w"], dx, dw, db,
-                              residual=residual)
             gx, gw, gb = rdg_layernorm_bwd_plain(x, dy, blk["ln_w"])
             want = extra["dcat"][:, :c] + gx + \
                 (0.0 if residual is None else residual)
@@ -1242,27 +1287,53 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
                       got, ref, 1e-4 * ref.abs().max().item(), 0.0, "bwd")
             if not torch.equal(acc[:, c:], extra["dcat"][:, c:]):
                 raise AssertionError("rdg_layernorm_bwd wrote past column c")
+    # every block geometry at both shifts on the flagship batch, in the
+    # training backward's 16-byte rows and the plan's windows a block; then
+    # blocks 1 and 4 on 40 x 40 tokens at batch 5 (125 windows), where the
+    # plan groups 2 windows a block and the last group is short; every
+    # call twice, bitwise equal
+    short, half = (5, 40), cfg.window_size // 2
+    short_mask = torch.as_tensor(shift_attn_mask(
+        short[1], short[1], cfg.window_size, half), device=dev)
     for k, blk in enumerate(blocks):
         c, nh = blk["c"], blk["nh"]
-        for shift in (0, cfg.window_size // 2):
-            mask = masks.get(shift)
-            dqkv = torch.empty(m, 3 * c, dtype=torch.bfloat16, device=dev)
-            dbias = torch.empty(blk["attn_bias"].shape, dtype=f32, device=dev)
-            window_attention_bwd(blk["qkv"], blk["dctx"], blk["attn_bias"],
-                                 mask, h, w, nh, cfg.window_size, shift, dqkv,
-                                 dbias)
+        cases = [(shift, h, masks.get(shift)) for shift in (0, half)]
+        if k in (0, 3) and short[0] * short[1] ** 2 <= m:
+            cases.append((half, short[1], short_mask))
+        for shift, side, mask in cases:
+            rows = m if side == h else short[0] * side * side
+            plan = window_attention_bwd_plan(c, nh, rows // side ** 2, side,
+                                             side)
+            qkv, dctx = blk["qkv"][:rows], blk["dctx"][:rows]
+            runs = []
+            for _ in range(2):
+                dqkv = pitched(rows, 3 * c, device=dev)
+                dbias = torch.empty(blk["attn_bias"].shape, dtype=f32,
+                                    device=dev)
+                window_attention_bwd(qkv, dctx, blk["attn_bias"], mask, side,
+                                     side, nh, cfg.window_size, shift, dqkv,
+                                     dbias)
+                runs.append((dqkv, dbias))
+            (dqkv, dbias), again = runs
+            tag = "" if side == h else (
+                f" {side}x{side} B={rows // side ** 2} groups of "
+                f"{plan['group']}, last {plan['last_group']}")
+            if not (torch.equal(dqkv, again[0])
+                    and torch.equal(dbias, again[1])):
+                raise AssertionError(f"window_attention_bwd b{k + 1} shift="
+                                     f"{shift}{tag}: a second call differs")
             want_q, want_b = window_attention_bwd_plain(
-                blk["qkv"], blk["dctx"], blk["attn_bias"], mask, h, w, nh,
+                qkv, dctx, blk["attn_bias"], mask, side, side, nh,
                 cfg.window_size, shift)
             for i, part in enumerate("qkv"):
                 ref = want_q[:, i * c:(i + 1) * c]
                 check("window_attention_bwd", f"b{k + 1} c={c} heads={nh} "
-                      f"shift={shift} d{part}", dqkv[:, i * c:(i + 1) * c],
-                      ref, 2.0 ** -7 * ref.abs().max().item(), 2.0 ** -7,
-                      "bwd")
-            check("window_attention_bwd", f"b{k + 1} c={c} shift={shift} "
-                  "dbias", dbias, want_b, 2.0 ** -8 * want_b.abs().max().item(),
-                  0.0, "bwd")
+                      f"shift={shift}{tag} d{part}",
+                      dqkv[:, i * c:(i + 1) * c], ref,
+                      2.0 ** -7 * ref.abs().max().item(), 2.0 ** -7, "bwd")
+            check("window_attention_bwd", f"b{k + 1} c={c} shift={shift}"
+                  f"{tag} dbias", dbias, want_b,
+                  2.0 ** -8 * want_b.abs().max().item(), 0.0, "bwd")
     return cat, blocks, masks, extra
 
 
@@ -1508,6 +1579,47 @@ def profile_steps(fn, reps: int = 3):
     return start.elapsed_time(end) / reps, families
 
 
+def sdpa_bwd_ms(sdpa, launched, runs: int = 20):
+    """(ms, how) of the SDPA backward of one RDG's five attentions, the
+    library call beside kernel (f): replayed as a CUDA graph, its forward
+    captured first into a graph of its own on the same stream and pool (as
+    ``torch.cuda.make_graphed_callables`` does), so that autograd runs the
+    backward on the capturing stream; where capture fails, the median of
+    ``runs`` launched runs of ``launched``, with their spread."""
+    def forward():
+        return [F.scaled_dot_product_attention(*ins, attn_mask=term)
+                for _, ins, _, term in sdpa]
+
+    def backward(outs):
+        for o, (_, ins, do, _) in zip(outs, sdpa):
+            torch.autograd.grad(o, ins, do)
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                backward(forward())
+        torch.cuda.current_stream().wait_stream(side)
+        pool = torch.cuda.graph_pool_handle()
+        fwd_graph, bwd_graph = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        # autograd runs the backward on its own thread: capture per thread
+        with torch.cuda.graph(fwd_graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            outs = forward()
+        with torch.cuda.graph(bwd_graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            backward(outs)
+        return cuda_ms(bwd_graph.replay, iters=10), "CUDA graph"
+    except RuntimeError as err:
+        torch.cuda.synchronize()
+        times = sorted(cuda_ms(launched, iters=1) for _ in range(runs))
+        return times[runs // 2], (
+            f"launched, median of {runs} runs (min {times[0]:.4f}, max "
+            f"{times[-1]:.4f} ms); graph capture failed: "
+            f"{str(err).splitlines()[0][:160]}")
+
+
 def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
     cfg = exp.model
     g, m = flagship_shapes(cfg)
@@ -1642,8 +1754,8 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
                                masks.get(blk["shift"])).to(bf).contiguous()
         o = torch.nn.functional.scaled_dot_product_attention(q, k_, v,
                                                              attn_mask=term)
-        sdpa.append((o, (q, k_, v), torch.randn_like(o)))
-    attn_out = [(torch.empty(m, 3 * blk["c"], dtype=bf, device=dev),
+        sdpa.append((o, (q, k_, v), torch.randn_like(o), term))
+    attn_out = [(pitched(m, 3 * blk["c"], dtype=bf, device=dev),
                  torch.empty(blk["attn_bias"].shape, device=dev))
                 for blk in blocks]
 
@@ -1653,7 +1765,7 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
             args = (blk["qkv"], blk["dctx"], blk["attn_bias"], masks.get(shift),
                     h, w, nh, cfg.window_size, shift)
             if mode == "library":
-                o, ins, do = sdpa[k]
+                o, ins, do, _ = sdpa[k]
                 torch.autograd.grad(o, ins, do, retain_graph=True)
             elif mode == "plain":
                 window_attention_bwd_plain(*args)
@@ -1667,11 +1779,13 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
                      ("window_attention_bwd", attn_bwd_set)):
         kernel_ms = graph_ms(fn, iters=10)
         plain_ms = graph_ms(lambda: fn("plain"), iters=3)
-        # the SDPA backward runs through autograd: timed launched, not as
-        # a graph (its few large launches carry little host overhead)
-        library_ms = (cuda_ms(lambda: fn("library"), iters=10)
-                      if name == "window_attention_bwd"
-                      else graph_ms(lambda: fn("library"), iters=10))
+        library_how = "CUDA graph"
+        if name == "window_attention_bwd":
+            library_ms, library_how = sdpa_bwd_ms(
+                sdpa, lambda: fn("library"))
+            report["sdpa_bwd_timing"] = library_how
+        else:
+            library_ms = graph_ms(lambda: fn("library"), iters=10)
         launched_ms = cuda_ms(fn, iters=10)
         timings[name] = (kernel_ms, plain_ms, library_ms) + bounds[name][:2]
         report.setdefault("per_rdg_launched_ms", {})[name] = launched_ms
@@ -1683,7 +1797,8 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
                             f"ms ({bounds[name][1]}; "
                             f"{achieved(kernel_ms, bounds[name])}), plain f32 "
                             f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
-                            f"(device time, CUDA graph); launched from "
+                            f"(device time, CUDA graph; library: "
+                            f"{library_how}); launched from "
                             f"Python {launched_ms:.4f} ms")
     report["per_rdg_bwd_ms"] = {k: {"ms": v[0], "plain_ms": v[1],
                                     "library_ms": v[2], "bound_ms": v[3],

@@ -134,7 +134,7 @@ def test_train_cli_resume_continues_from_the_checkpoint(run, capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--model-type", "drn-l"], "Queue 1 item 10"),
     (["--dp", "2"], "Queue 1 item 11"),
-    (["--remat-policy", "dots"], "Queue 4 item 8")])
+    (["--remat-policy", "dots"], "Queue 1 item 9")])
 def test_train_cli_refuses_what_the_port_lacks(flags, item):
     with pytest.raises(NotImplementedError, match=item):
         cli_main.build_experiment(cli_main.parse_args(flags))

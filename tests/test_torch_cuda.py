@@ -268,24 +268,37 @@ def test_layernorm_bwd_kernel_matches_plain(dev):
     assert torch.equal(dcat[:, c:], before[:, c:])
     _within(dw, gw, 1e-4 * gw.abs().max())
     _within(db, gbias, 1e-4 * gbias.abs().max())
+    # a second call repeats the first bitwise (fixed-order partial sums)
+    again = before.clone()
+    dw2, db2 = torch.empty_like(dw), torch.empty_like(db)
+    rdg_layernorm_bwd(cat[:, :c], dy, w, again[:, :c], dw2, db2, residual=res)
+    assert torch.equal(again, dcat) and torch.equal(dw2, dw) \
+        and torch.equal(db2, db)
 
 
-@pytest.mark.parametrize("c,nh,shift", [(180, 6, 0), (212, 4, 4),
-                                        (244, 2, 0), (308, 4, 4)])
-def test_window_attention_bwd_kernel_matches_plain(dev, c, nh, shift):
+@pytest.mark.parametrize("c,nh,shift,b,h", [
+    (180, 6, 0, 2, 32), (212, 4, 4, 2, 32), (244, 2, 0, 2, 32),
+    (308, 4, 4, 2, 32), (180, 6, 4, 5, 40), (276, 6, 0, 5, 40)])
+def test_window_attention_bwd_kernel_matches_plain(dev, c, nh, shift, b, h):
     # P and dS round to bf16 before the three output products: 2^-7 of each
-    # output's largest magnitude
+    # output's largest magnitude. qkv, dout and dqkv in 16-byte rows, as the
+    # training backward lays them out; at batch 5 on 40 x 40 tokens (125
+    # windows) the plan groups 2 windows a block, the last group short
     g = torch.Generator(device=dev).manual_seed(3)
-    m, h = 2 * 1024, 32
-    qkv = torch.randn(m, 3 * c, generator=g, device=dev).to(torch.bfloat16)
-    dout = torch.randn(m, c, generator=g, device=dev).to(torch.bfloat16)
+    m = b * h * h
+    qkv = pitched(m, 3 * c, device=dev)
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    dout = pitched(m, c, device=dev)
+    dout.copy_(torch.randn(m, c, generator=g, device=dev))
     bias = 0.5 * torch.randn(nh, 64, 64, generator=g, device=dev)
     mask = torch.as_tensor(shift_attn_mask(h, h, 8, shift), device=dev) \
         if shift else None
-    dqkv = torch.empty(m, 3 * c, dtype=torch.bfloat16, device=dev)
+    dqkv = pitched(m, 3 * c, device=dev)
     dbias = torch.empty(nh, 64, 64, device=dev)
+    n0 = window_attention_bwd.launches
     window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 8, shift, dqkv,
                          dbias)
+    assert window_attention_bwd.launches == n0 + 1
     want_q, want_b = window_attention_bwd_plain(qkv, dout, bias, mask, h, h,
                                                 nh, 8, shift)
     for i in range(3):
@@ -293,7 +306,7 @@ def test_window_attention_bwd_kernel_matches_plain(dev, c, nh, shift):
         _within(dqkv[:, i * c:(i + 1) * c], part,
                 2.0 ** -7 * (part.abs().max() + part.abs()))
     _within(dbias, want_b, 2.0 ** -8 * want_b.abs().max())
-    dq2, db2 = torch.empty_like(dqkv), torch.empty_like(dbias)
+    dq2, db2 = pitched(m, 3 * c, device=dev), torch.empty_like(dbias)
     window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 8, shift, dq2, db2)
     assert torch.equal(dqkv, dq2) and torch.equal(dbias, db2)
 
@@ -374,3 +387,15 @@ def test_attention_kernels_refuse_rows_that_are_not_16_bytes(dev):
     with pytest.raises(ValueError, match="16-byte rows"):
         window_attention(qkv, out, tb, None, 32, 32, 6, 8, 0)
     assert window_attention.launches == n0
+    # kernel (f): dout (360-byte rows) and dqkv (1080) as they were once
+    # allocated, contiguous
+    n0 = window_attention_bwd.launches
+    good = pitched(m, 3 * c, device=dev)
+    for dout, dqkv in ((torch.zeros(m, c, dtype=torch.bfloat16, device=dev),
+                        good),
+                       (out, torch.zeros(m, 3 * c, dtype=torch.bfloat16,
+                                         device=dev))):
+        with pytest.raises(ValueError, match="16-byte rows"):
+            window_attention_bwd(good, dout, tb, None, 32, 32, 6, 8, 0, dqkv,
+                                 torch.empty(6, 64, 64, device=dev))
+    assert window_attention_bwd.launches == n0
