@@ -1,6 +1,6 @@
 // window_attention_bwd: backward of the shifted-window multi-head
 // self-attention over 8x8 windows (window_attention.cu), from the raster
-// qkv and the context's gradient.
+// qkv and the context's gradient (16x16 windows: window_attention_bwd16.cu).
 //
 //   S  = q k^T * scale + bias + mask,  P = softmax(S)   (recomputed)
 //   dV = P^T dO,  dP = dO V^T,  dS = P o (dP - rowsum(dO o O)),
@@ -44,6 +44,7 @@
 
 #include "partials.cuh"
 #include "window_attn_bwd_core.cuh"
+#include "window_tiles.cuh"   // put8, get8
 
 namespace {
 
@@ -138,50 +139,6 @@ struct WindowRows {
     return img + (long long)r * W + c;
   }
 };
-
-// 8 bf16 of a 16-byte piece into head dims [j0, j0 + 8) of a plane row,
-// those in [0, hd) only: one 16-byte or four 4-byte stores where the piece
-// lies inside the head and is so aligned, element stores at its edges.
-__device__ __forceinline__ void put8(bf16* row, int j0, int hd, uint4 v) {
-  if (j0 >= 0 && j0 + 8 <= hd && (j0 & 1) == 0) {
-    if ((j0 & 7) == 0) {
-      *reinterpret_cast<uint4*>(row + j0) = v;
-    } else {
-      uint32_t* d = reinterpret_cast<uint32_t*>(row + j0);
-      d[0] = v.x;
-      d[1] = v.y;
-      d[2] = v.z;
-      d[3] = v.w;
-    }
-    return;
-  }
-  const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-  for (int x = 0; x < 8; ++x)
-    if (j0 + x >= 0 && j0 + x < hd) row[j0 + x] = e[x];
-}
-
-// n (8 or 4) bf16 of a plane row from head dim j0 (inside the head), as
-// put8 stores them
-__device__ __forceinline__ uint4 get8(const bf16* row, int j0, int n) {
-  uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if ((j0 & 7) == 0 && n == 8) return *reinterpret_cast<const uint4*>(row + j0);
-  if ((j0 & 1) == 0) {
-    const uint32_t* s = reinterpret_cast<const uint32_t*>(row + j0);
-    v.x = s[0];
-    v.y = s[1];
-    if (n == 8) {
-      v.z = s[2];
-      v.w = s[3];
-    }
-    return v;
-  }
-  bf16* e = reinterpret_cast<bf16*>(&v);
-#pragma unroll
-  for (int x = 0; x < 8; ++x)
-    if (x < n) e[x] = row[j0 + x];
-  return v;
-}
 
 template <int HDP>
 __global__ void __launch_bounds__(kThreads, min_blocks(HDP))

@@ -21,6 +21,11 @@
 // expf, P = e / sum rounded once to bf16, f32 accumulation. At 64 tokens a
 // window the two products are ~64 flop per byte of q, k, v, below the bf16
 // ridge, so mma.sync is enough; wgmma serves (g)'s dense products.
+// The core is built from three pieces templated on the head tile (and
+// add_bias on the keys a window): qk_tile (a 16 x 64 score tile), add_bias
+// and pv_tile (P V over 64 keys). Kernel (c) at 16x16 windows (N = 256,
+// window_attention.cu) and kernel (f) at N = 256 (window_attention_bwd.cu)
+// walk the window's keys in tiles of 64 with the same pieces.
 
 #pragma once
 
@@ -64,73 +69,119 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Rows [r0, r0 + 16) of one (window, head). ``q``, ``k``, ``v``: shared-
-// memory addresses of the three planes, ``ld`` elements a token row (ld * 2
-// bytes an odd multiple of 16, so each ldmatrix phase hits 8 distinct bank
-// groups); dims [hd, HDP) of every plane are zero. ``bias``: the head's
-// [64][64] f32 term; ``mask``: the window's [64][64] f32 mask or null.
-// On return o[j] holds mma's C layout of columns [8j, 8j + 8): o[j][0..1]
-// row r0 + lane / 4, columns 8j + 2 (lane % 4) + {0, 1}; o[j][2..3] the
-// same columns of row r0 + lane / 4 + 8.
+// S[16 x 64] = A[r0, r0 + 16) B[0, 64)^T over HDP dims: ``a`` and ``b`` are
+// shared-memory addresses of two bf16 planes of ``ldb`` bytes a row (an odd
+// multiple of 16, so each ldmatrix phase hits 8 distinct bank groups). A's
+// rows are the query rows (or, for a transposed score, key rows), B's the
+// 64 columns; K non-transposed is mma's "col" B. s[j] holds mma's C layout
+// of columns [8j, 8j + 8): s[j][0..1] row r0 + lane / 4, columns 8j + 2
+// (lane % 4) + {0, 1}; s[j][2..3] the same columns of row r0 + lane / 4 + 8.
 template <int HDP>
-__device__ __forceinline__ void attn_core(uint32_t q, uint32_t k, uint32_t v,
-                                          int ld, int r0,
-                                          const float* __restrict__ bias,
-                                          const float* __restrict__ mask,
-                                          float scale, float (&o)[HDP / 8][4]) {
+__device__ __forceinline__ void qk_tile(uint32_t a, uint32_t b, uint32_t ldb,
+                                        int r0, float (&s)[8][4]) {
   static_assert(HDP % 16 == 0 && HDP <= 128, "head dim tile");
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const uint32_t ldb = 2u * ld;
+  const int lane = threadIdx.x & 31;
   // each lane's row address for the four 8x8 matrices of an ldmatrix.x4
-  const uint32_t qa = q + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb
+  const uint32_t qa = a + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb
                       + (lane >> 4) * 16;
-  const uint32_t ka = k + ((lane & 7) + (lane >> 4) * 8) * ldb
+  const uint32_t ka = b + ((lane & 7) + (lane >> 4) * 8) * ldb
                       + ((lane >> 3) & 1) * 16;
-  const uint32_t va = v + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb
-                      + (lane >> 4) * 16;
-
-  float s[8][4];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < HDP / 16; ++kk) {
-    uint32_t a[4];
-    ldsm_x4(qa + kk * 32, a);
+    uint32_t x[4];
+    ldsm_x4(qa + kk * 32, x);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {     // keys [16 jj, 16 jj + 16)
-      uint32_t b[4];
-      ldsm_x4(ka + jj * 16 * ldb + kk * 32, b);
-      mma_16816(s[2 * jj], a, b[0], b[1]);
-      mma_16816(s[2 * jj + 1], a, b[2], b[3]);
+    for (int jj = 0; jj < 4; ++jj) {     // columns [16 jj, 16 jj + 16)
+      uint32_t y[4];
+      ldsm_x4(ka + jj * 16 * ldb + kk * 32, y);
+      mma_16816(s[2 * jj], x, y[0], y[1]);
+      mma_16816(s[2 * jj + 1], x, y[2], y[3]);
     }
   }
+}
 
-  // x = s * scale + bias (+ mask), then the stabilised softmax of rows
-  // r0 + g (values 0, 1) and r0 + g + 8 (values 2, 3)
-  const float* b0 = bias + (r0 + g) * kAttnTokens + 2 * t;
-  const float* m0 = mask != nullptr ? mask + (r0 + g) * kAttnTokens + 2 * t
-                                    : nullptr;
-  float mx0 = -INFINITY, mx1 = -INFINITY;
+// x = s * scale + bias (+ mask) for the lane's two rows of a score tile:
+// ``bias`` and ``mask`` (or null) point at the tile's element (row r0,
+// column 0) of [NK][NK] f32 matrices (NK = keys a window), read in 8-byte
+// loads.
+template <int NK>
+__device__ __forceinline__ void add_bias(float (&s)[8][4],
+                                         const float* __restrict__ bias,
+                                         const float* __restrict__ mask,
+                                         float scale) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* b0 = bias + g * NK + 2 * t;
+  const float* m0 = mask != nullptr ? mask + g * NK + 2 * t : nullptr;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const float2 u = *reinterpret_cast<const float2*>(b0 + 8 * j);
-    const float2 w = *reinterpret_cast<const float2*>(b0 + 8 * kAttnTokens
-                                                      + 8 * j);
+    const float2 w = *reinterpret_cast<const float2*>(b0 + 8 * NK + 8 * j);
     s[j][0] = s[j][0] * scale + u.x;
     s[j][1] = s[j][1] * scale + u.y;
     s[j][2] = s[j][2] * scale + w.x;
     s[j][3] = s[j][3] * scale + w.y;
     if (m0 != nullptr) {
       const float2 mu = *reinterpret_cast<const float2*>(m0 + 8 * j);
-      const float2 mw = *reinterpret_cast<const float2*>(m0 + 8 * kAttnTokens
-                                                         + 8 * j);
+      const float2 mw = *reinterpret_cast<const float2*>(m0 + 8 * NK + 8 * j);
       s[j][0] += mu.x;
       s[j][1] += mu.y;
       s[j][2] += mw.x;
       s[j][3] += mw.y;
     }
+  }
+}
+
+// o += P V[0, 64): ``p`` the bf16 P tile in the A layout (p[j][0] row r0 +
+// lane / 4, p[j][1] row r0 + lane / 4 + 8, of columns 8j + 2 (lane % 4) +
+// {0, 1}: the C layout of qk_tile, packed), ``v`` a plane of 64 rows read
+// with ldmatrix.trans as the row-major B.
+template <int HDP>
+__device__ __forceinline__ void pv_tile(const uint32_t (&p)[8][2], uint32_t v,
+                                        uint32_t ldb,
+                                        float (&o)[HDP / 8][4]) {
+  const int lane = threadIdx.x & 31;
+  const uint32_t va = v + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb
+                      + (lane >> 4) * 16;
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {       // rows of V [16 kb, 16 kb + 16)
+    const uint32_t a[4] = {p[2 * kb][0], p[2 * kb][1], p[2 * kb + 1][0],
+                           p[2 * kb + 1][1]};
+#pragma unroll
+    for (int jd = 0; jd < HDP / 16; ++jd) {
+      uint32_t b[4];
+      ldsm_x4_trans(va + kb * 16 * ldb + jd * 32, b);
+      mma_16816(o[2 * jd], a, b[0], b[1]);
+      mma_16816(o[2 * jd + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Rows [r0, r0 + 16) of one 8x8 window and head. ``q``, ``k``, ``v``:
+// shared-memory addresses of the three planes, ``ld`` elements a token row;
+// dims [hd, HDP) of every plane are zero. ``bias``: the head's [64][64] f32
+// term; ``mask``: the window's [64][64] f32 mask or null. On return o[j]
+// holds mma's C layout of columns [8j, 8j + 8) (as qk_tile's s).
+template <int HDP>
+__device__ __forceinline__ void attn_core(uint32_t q, uint32_t k, uint32_t v,
+                                          int ld, int r0,
+                                          const float* __restrict__ bias,
+                                          const float* __restrict__ mask,
+                                          float scale, float (&o)[HDP / 8][4]) {
+  const uint32_t ldb = 2u * ld;
+  float s[8][4];
+  qk_tile<HDP>(q, k, ldb, r0, s);
+  // x = s * scale + bias (+ mask), then the stabilised softmax of rows
+  // r0 + g (values 0, 1) and r0 + g + 8 (values 2, 3)
+  add_bias<kAttnTokens>(s, bias + r0 * kAttnTokens,
+                        mask != nullptr ? mask + r0 * kAttnTokens : nullptr,
+                        scale);
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
     mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
     mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
   }
@@ -161,23 +212,11 @@ __device__ __forceinline__ void attn_core(uint32_t q, uint32_t k, uint32_t v,
     p[j][0] = pack_bf16x2(s[j][0] * inv0, s[j][1] * inv0);
     p[j][1] = pack_bf16x2(s[j][2] * inv1, s[j][3] * inv1);
   }
-
 #pragma unroll
   for (int j = 0; j < HDP / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
-#pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {       // keys [16 kb, 16 kb + 16)
-    const uint32_t a[4] = {p[2 * kb][0], p[2 * kb][1], p[2 * kb + 1][0],
-                           p[2 * kb + 1][1]};
-#pragma unroll
-    for (int jd = 0; jd < HDP / 16; ++jd) {
-      uint32_t b[4];
-      ldsm_x4_trans(va + kb * 16 * ldb + jd * 32, b);
-      mma_16816(o[2 * jd], a, b[0], b[1]);
-      mma_16816(o[2 * jd + 1], a, b[2], b[3]);
-    }
-  }
+  pv_tile<HDP>(p, v, ldb, o);
 }
 
 }  // namespace

@@ -156,7 +156,8 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
         raise NotImplementedError(
             f"fused_swin_block: the CUDA kernel takes 8x8 windows, widths "
             f"<= {MAX_WIDTH} and multiples of 4, head dims <= 128 (got "
-            f"window {win}, {h}x{w}, c {c}, hidden {geo['hidden']})")
+            f"window {win}, {h}x{w}, c {c}, hidden {geo['hidden']}); at "
+            f"16x16 windows serve in rdg mode (ADSR_TPU_RDG=1)")
     _build.require_bf16_cuda("fused_swin_block", x, out,
                              *(p[n] for n in _MATRICES))
     _build.require_f32_cuda("fused_swin_block", *(p[n] for n in _VECTORS))

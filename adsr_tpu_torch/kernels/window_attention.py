@@ -12,10 +12,16 @@ multiples of 8 elements, as ``kernels/rdg_gemm.py`` ``pitched`` lays them
 out) into q/k/v planes in shared memory (head dims zero-padded to a
 multiple of 16); each warp runs the register-resident core (mma.sync
 scores, bias and mask, stabilised f32 softmax, P @ V) on 16 query rows; the
-context goes back in 16-byte stores. The cyclic shift is index arithmetic on raster rows,
-so nothing is rolled or gathered in memory; the softmax is the stabilised
-f32 one (the TPU kernel's unstabilised exp2 form, its score-bound guard and
-its window pairs with -1e30 off-diagonal terms are not carried over).
+context goes back in 16-byte stores. At 16x16 windows (N = 256) one
+block per (image, window, head, tile of 64 query rows) walks the window's
+four key tiles once with the same core pieces, FlashAttention-2's online
+softmax: exp(S - running max) rounded once to bf16 for P @ V, the f32
+context rescaled as the max grows and divided by the row sum at the end.
+The cyclic shift is index
+arithmetic on raster rows, so nothing is rolled or gathered in memory; the
+softmax is the stabilised f32 one (the TPU kernel's unstabilised exp2 form,
+its score-bound guard and its window pairs with -1e30 off-diagonal terms
+are not carried over).
 
 Also here, for packing and the plain version: the additive attention term
 (relative-position bias plus shift mask) in its per-window form, the JAX
@@ -34,7 +40,9 @@ from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.models.drct import (window_attention_eager,
                                         window_partition, window_reverse)
 
-KERNEL_WINDOW = 8      # the CUDA kernel is written for 8x8 windows (N = 64)
+KERNEL_WINDOW = 8      # the CUDA kernel's first window: 8x8 (N = 64)
+KERNEL_WINDOWS = (8, 16)     # the windows it takes: N = 64 and N = 256
+KEY_TILE = 64          # keys (and query rows) a tile at N = 256
 THREADS = 128          # 4 warps a block, 16 query rows each
 SM_SHARED_BYTES = 233472     # an H100 SM's shared memory
 BLOCK_SHARED_MAX = 232448    # the most one block may take
@@ -50,21 +58,40 @@ def head_tile(hd: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def window_attention_plan(c: int, nh: int, b: int = 1, h: int = 8,
-                          w: int = 8) -> dict:
+                          w: int = 8, window: int = KERNEL_WINDOW) -> dict:
     """What kernel (c) launches for width ``c`` and ``nh`` heads at batch
-    ``b`` and ``h`` x ``w`` tokens: one block of ``THREADS`` per (image,
-    window, head); its shared memory (the head's q/k/v planes [3][64][hdp +
-    8] bf16); the blocks an SM holds by shared memory and the registers a
-    thread may use for that. The source refuses a launch whose shared
-    memory differs from this plan's. Read only (cached)."""
+    ``b``, ``h`` x ``w`` tokens and ``window`` x ``window`` windows. At
+    window 8 one block of ``THREADS`` per (image, window, head), its shared
+    memory the head's q/k/v planes [3][64][hdp + 8] bf16; at window 16 one
+    block per (image, window, head, tile of 64 query rows), which keeps its
+    Q tile and one 64-key K and V tile, the same [3][64][hdp + 8], plus a
+    staging area for the next K and V tiles' 16-byte pieces
+    (:func:`stage_bytes`), and walks the window's ``key_tiles`` key tiles
+    once. Also the blocks an SM holds
+    by shared memory and the registers a thread may use for that. The
+    source refuses a launch whose shared memory differs from this plan's.
+    Read only (cached)."""
+    if window not in KERNEL_WINDOWS:
+        raise ValueError(f"window_attention_plan: window {window}, the "
+                         f"kernel takes {KERNEL_WINDOWS}")
     hdp = head_tile(c // nh)
-    smem = 3 * 64 * (hdp + 8) * 2
+    n = window * window
+    smem = 3 * KEY_TILE * (hdp + 8) * 2
+    if window != KERNEL_WINDOW:
+        smem += 2 * stage_bytes(hdp)
     per_sm = SM_SHARED_BYTES // (smem + BLOCK_RESERVED)
     return {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
-            "threads": THREADS,
-            "blocks": b * (h // KERNEL_WINDOW) * (w // KERNEL_WINDOW) * nh,
+            "threads": THREADS, "tokens": n, "key_tiles": n // KEY_TILE,
+            "blocks": b * (h // window) * (w // window) * nh
+            * (n // KEY_TILE),
             "blocks_per_sm": per_sm,
             "max_registers": min(255, REGISTERS // (THREADS * per_sm))}
+
+
+def stage_bytes(hdp: int) -> int:
+    """Bytes of one part's staged tile at N = 256: 64 rows of at most
+    ``hdp // 8 + 1`` 16-byte pieces (a head from any column offset)."""
+    return KEY_TILE * (hdp // 8 + 1) * 16
 
 
 def check_rows16(name: str, *tensors: torch.Tensor) -> None:
@@ -134,12 +161,12 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
         out.copy_(window_attention_plain(qkv, bias, mask, h, w, num_heads,
                                          window, shift))
         return out
-    if window != KERNEL_WINDOW or h % window or w % window \
+    if window not in KERNEL_WINDOWS or h % window or w % window \
             or c // num_heads > 128 or c % 4:
         raise NotImplementedError(
-            f"window_attention: the CUDA kernel takes 8x8 windows, widths "
-            f"that are multiples of 4 and head dims <= 128 (got window "
-            f"{window}, {h}x{w}, c {c}, hd {c // num_heads})")
+            f"window_attention: the CUDA kernel takes 8x8 windows or 16x16 "
+            f"windows, widths that are multiples of 4 and head dims <= 128 "
+            f"(got window {window}, {h}x{w}, c {c}, hd {c // num_heads})")
     _build.require_bf16_cuda("window_attention", qkv, out)
     check_rows16("window_attention", qkv, out)
     params = (bias,) + ((mask,) if mask is not None else ())
@@ -148,7 +175,7 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
         qkv.data_ptr(), qkv.stride(0), out.data_ptr(), out.stride(0),
         bias.data_ptr(), None if mask is None else mask.data_ptr(),
         m // (h * w), h, w, c, num_heads, window, shift,
-        window_attention_plan(c, num_heads)["smem_bytes"],
+        window_attention_plan(c, num_heads, window=window)["smem_bytes"],
         _build.stream_ptr(qkv))
     _build.check_rc("window_attention", rc)
     window_attention.launches += 1

@@ -16,9 +16,17 @@ block takes one head and a group of consecutive windows
 (:func:`window_attention_bwd_plan`), gathers each window's q, k, v and dO by
 16-byte pieces, keeps S, P, dP, dS and dQ of each warp's 16 rows in
 registers, computes dK and dV from bf16 P and dS tiles, and writes one
-d(bias) partial per (group, head). The kernel takes 8x8 windows
-(``KERNEL_WINDOW``) like the forward, and ``qkv``, ``dout`` and ``dqkv``
-with 16-byte rows at their row strides (:func:`check_rows16`).
+d(bias) partial per (group, head). At 16x16 windows (N = 256, the
+256px and 512/x8 models) FlashAttention-2's deterministic backward in two
+launches on tiles of 64 tokens (:func:`_plan16`): a ``dq`` launch per
+(window, head, query tile) that also writes each row's softmax statistics
+and ``D = rowsum(P o dP)``, then a ``dkv`` launch per (group of windows,
+head, key tile) that accumulates dK, dV and an f32 d(bias) tile of its keys
+in shared memory, one [nh, 256, 256] partial per group (at most 32 MiB a
+call); both count in ``launches``. No float atomics at either window. The
+kernel takes 8x8 and 16x16 windows (``KERNEL_WINDOWS``) like the forward,
+and ``qkv``, ``dout`` and ``dqkv`` with 16-byte rows at their row strides
+(:func:`check_rows16`).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 the call raises.
@@ -32,10 +40,12 @@ from typing import Optional, Tuple
 import torch
 
 from adsr_tpu_torch.kernels import _build
-from adsr_tpu_torch.kernels.window_attention import (BLOCK_RESERVED,
-                                                     KERNEL_WINDOW, REGISTERS,
+from adsr_tpu_torch.kernels.window_attention import (BLOCK_RESERVED, KEY_TILE,
+                                                     KERNEL_WINDOW,
+                                                     KERNEL_WINDOWS, REGISTERS,
                                                      SM_SHARED_BYTES,
-                                                     check_rows16, head_tile)
+                                                     check_rows16, head_tile,
+                                                     stage_bytes)
 from adsr_tpu_torch.models.drct import window_partition, window_reverse
 
 THREADS = 128          # 4 warps, 16 query (and key) rows each
@@ -43,6 +53,8 @@ MAX_GROUP = 8          # windows a block
 _TOKENS = KERNEL_WINDOW ** 2
 _TILE_LD = _TOKENS + 8          # bf16 pitch of the P and dS tiles
 _SMS = 132                      # the H100's SMs
+MAX_PARTIAL_BYTES = 32 << 20    # d(bias) partials a call at 16x16 windows
+_ACC_LD = KEY_TILE + 4          # f32 pitch of the N = 256 d(bias) tile
 
 
 def min_blocks(hdp: int) -> int:
@@ -53,7 +65,8 @@ def min_blocks(hdp: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def window_attention_bwd_plan(c: int, nh: int, b: int = 1, h: int = 8,
-                              w: int = 8, sms: int = _SMS) -> dict:
+                              w: int = 8, sms: int = _SMS,
+                              window: int = KERNEL_WINDOW) -> dict:
     """What kernel (f) launches for width ``c`` and ``nh`` heads at batch
     ``b`` and ``h`` x ``w`` tokens. A block of ``THREADS`` takes one head
     and ``group`` consecutive (image, window)s, the last group possibly
@@ -64,7 +77,9 @@ def window_attention_bwd_plan(c: int, nh: int, b: int = 1, h: int = 8,
     memory and :func:`min_blocks`): one wave, as many blocks as fit, and
     G times fewer d(bias) partials, one per (group, head), than windows.
     The source refuses a launch whose shared memory differs from this
-    plan's. Read only (cached)."""
+    plan's. Read only (cached). ``window`` 16: :func:`_plan16`."""
+    if window != KERNEL_WINDOW:
+        return _plan16(c, nh, b, h, w, window)
     hdp = head_tile(c // nh)
     smem = 4 * _TOKENS * (hdp + 8) * 2 + 2 * _TOKENS * _TILE_LD * 2
     per_sm = min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED), min_blocks(hdp))
@@ -78,6 +93,58 @@ def window_attention_bwd_plan(c: int, nh: int, b: int = 1, h: int = 8,
             "blocks": groups * nh, "blocks_per_sm": per_sm,
             "max_registers": min(255, REGISTERS // (THREADS * per_sm)),
             "partial_bytes": groups * nh * _TOKENS * _TOKENS * 4}
+
+
+def _plan16(c: int, nh: int, b: int, h: int, w: int, window: int) -> dict:
+    """Kernel (f) at 16x16 windows (N = 256): two launches and the partial
+    sums. ``dq``: one block per (image, window, head, tile of 64 query
+    rows), shared memory ``smem_dq_bytes`` (its Q, dO, K and V tiles
+    [4][64][hdp + 8] bf16 and the staging of the next K and V tiles,
+    :func:`~adsr_tpu_torch.kernels.window_attention.stage_bytes`); it also
+    writes each row's (max, 1 / sum, D),
+    ``stats_bytes``. ``dkv``: one block per (group of ``group`` windows,
+    head, tile of 64 keys), shared memory ``smem_bytes`` (the four tiles, an
+    f32 d(bias) tile [256][68], the tile's row statistics and, where that
+    costs no block an SM (``dkv_staged``), the staging of the next Q and dO
+    tiles); each writes
+    its columns of one [nh][256][256] f32 partial per group. ``group`` is the
+    fewest windows a block that keep the partials within
+    ``MAX_PARTIAL_BYTES``."""
+    if window not in KERNEL_WINDOWS:
+        raise ValueError(f"window_attention_bwd_plan: window {window}, the "
+                         f"kernel takes {KERNEL_WINDOWS}")
+    hdp = head_tile(c // nh)
+    n = window * window
+    tiles = n // KEY_TILE
+    planes = 4 * KEY_TILE * (hdp + 8) * 2
+    smem_dq = planes + 2 * stage_bytes(hdp)
+
+    def per_sm(smem: int) -> int:
+        # by shared memory, and two at most by 255 registers a thread
+        return min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED),
+                   REGISTERS // (THREADS * 255))
+
+    # dkv stages its next Q and dO tiles where that costs no block an SM
+    smem = planes + n * _ACC_LD * 4 + KEY_TILE * 16
+    staged = per_sm(smem + 2 * stage_bytes(hdp)) == per_sm(smem)
+    smem += 2 * stage_bytes(hdp) if staged else 0
+    windows = b * (h // window) * (w // window)
+    per_group = nh * n * n * 4
+    group = max(1, -(-windows // max(1, MAX_PARTIAL_BYTES // per_group)))
+    groups = -(-windows // group)
+    per_sm = per_sm(smem)
+    return {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
+            "smem_dq_bytes": smem_dq, "dkv_staged": staged,
+            "threads": THREADS, "tokens": n,
+            "key_tiles": tiles, "windows": windows, "group": group,
+            "groups": groups, "last_group": windows - (groups - 1) * group,
+            "blocks": groups * nh * tiles,
+            "dq_blocks": windows * nh * tiles,
+            "blocks_per_sm": per_sm,
+            "dq_blocks_per_sm": SM_SHARED_BYTES // (smem_dq + BLOCK_RESERVED),
+            "max_registers": min(255, REGISTERS // (THREADS * per_sm)),
+            "partial_bytes": groups * per_group,
+            "stats_bytes": windows * nh * n * 16, "launches": 2}
 
 
 def window_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
@@ -147,30 +214,46 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
         dqkv.copy_(gq)
         dbias.copy_(gb)
         return
-    if window != KERNEL_WINDOW or h % window or w % window \
+    if window not in KERNEL_WINDOWS or h % window or w % window \
             or c // num_heads > 128 or c % 4:
         raise NotImplementedError(
-            f"window_attention_bwd: the CUDA kernel takes 8x8 windows, widths "
-            f"that are multiples of 4 and head dims <= 128 (got window "
-            f"{window}, c {c}, hd {c // num_heads})")
+            f"window_attention_bwd: the CUDA kernel takes 8x8 windows or "
+            f"16x16 windows, widths that are multiples of 4 and head dims "
+            f"<= 128 (got window {window}, c {c}, hd {c // num_heads})")
     check_rows16("window_attention_bwd", qkv, dout, dqkv)
     _build.require_bf16_cuda("window_attention_bwd", qkv, dout, dqkv)
     params = (bias, dbias) + ((mask,) if mask is not None else ())
     _build.require_f32_cuda("window_attention_bwd", *params)
     b = m // (h * w)
     plan = window_attention_bwd_plan(c, num_heads, b, h, w,
-                                     _build.sm_count(qkv.device))
+                                     _build.sm_count(qkv.device), window)
     part = torch.empty(plan["partial_bytes"] // 4, dtype=torch.float32,
                        device=qkv.device)
-    rc = _build.library().adsr_window_attention_bwd(
-        qkv.data_ptr(), qkv.stride(0), dout.data_ptr(), dout.stride(0),
-        bias.data_ptr(), None if mask is None else mask.data_ptr(),
-        dqkv.data_ptr(), dqkv.stride(0), part.data_ptr(), dbias.data_ptr(),
-        b, h, w, c, num_heads, window, shift, plan["group"],
-        plan["smem_bytes"],
-        _build.stream_ptr(qkv))
+    lib = _build.library()
+    ins = (qkv.data_ptr(), qkv.stride(0), dout.data_ptr(), dout.stride(0),
+           bias.data_ptr(), None if mask is None else mask.data_ptr())
+    outs = (dqkv.data_ptr(), dqkv.stride(0))
+    if window == KERNEL_WINDOW:
+        rc = lib.adsr_window_attention_bwd(
+            *ins, *outs, part.data_ptr(), dbias.data_ptr(), b, h, w, c,
+            num_heads, window, shift, plan["group"], plan["smem_bytes"],
+            _build.stream_ptr(qkv))
+    else:
+        stats = torch.empty(plan["stats_bytes"] // 4, dtype=torch.float32,
+                            device=qkv.device)
+        # [key][query] copies for the dkv launch, whose score rows are keys
+        bias_t = bias.transpose(1, 2).contiguous()
+        mask_t = None if mask is None else mask.transpose(1, 2).contiguous()
+        rc = lib.adsr_window_attention_bwd16(
+            *ins, bias_t.data_ptr(),
+            None if mask_t is None else mask_t.data_ptr(), *outs,
+            stats.data_ptr(), part.data_ptr(), dbias.data_ptr(), b, h, w, c,
+            num_heads, shift, plan["group"], plan["smem_dq_bytes"],
+            plan["smem_bytes"], _build.stream_ptr(qkv))
     _build.check_rc("window_attention_bwd", rc)
-    window_attention_bwd.launches += 1
+    # one for each of (f)'s own kernels (the partial sums not counted)
+    window_attention_bwd.launches += 1 if window == KERNEL_WINDOW \
+        else plan["launches"]
 
 
 window_attention_bwd.launches = 0

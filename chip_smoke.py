@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's DRCT x4 @128px serving and training paths and its
-train and evaluate CLIs on one GPU.
+train and evaluate CLIs on one GPU, then the window-16 geometry (256px/x4
+and 512/x8).
 
     python3 chip_smoke.py
 
@@ -20,7 +21,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    forward's drop-path and GELU-with-pre-activation epilogues included, and
    the redesign's edges: an M that is not a multiple of the 128-row tile,
    the N = 32 and N = 180 adjust products, ``out`` aliasing ``residual``),
-   window_attention at every block geometry at shift 0 and 4, and the whole
+   window_attention at every block geometry at shift 0 and 4 (and block 2
+   at batch 5), and the whole
    Swin block kernel swin_block (g) at all five blocks, also against the
    (a)-(c) composition;
 4. main path: the flagship DRCT (27.4M params, random weights from a seed,
@@ -66,11 +68,28 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    one epoch (16 steps at batch 16) into a run dir, then ``cli.evaluate``
    scores 8 + 8 test images of 512 px, auto-tiled (25 tiles of 32 LR px an
    image), in rdg mode and with ``ADSR_TPU_RDG=0``; launch counters, run-dir
-   files, AUCs, specificity and tiled img/s in both modes.
+   files, AUCs, specificity and tiled img/s in both modes;
+11. the window-16 geometry, lines "[w16] <phase>: ...": the full-width
+   256px model (``drct_experiment("grid", 256, 4)``: LR 64 x 64, 16x16
+   windows, N = 256 keys, shifts 0 and 8, M = 65,536 token rows at batch
+   16) through phases 2-3 and 5-10 at that size: the plans of (c) and (f);
+   kernels (a)-(c) and (d)-(f) against their plain versions (every block,
+   both shifts, (f) also at batch 5 with short groups, each (f) call twice,
+   bitwise equal); ``AnomalyServer`` scores 16 good + 16 defective 256 px
+   images and a tail of 5 in rdg mode and the forward runs RDG by RDG
+   against the eager f32 model; block mode (kernel (g) takes 8x8 windows)
+   is refused before any launch; the timing of the forward, each kernel and
+   the step; one RDG's gradients; the Trainer; ``cli.main --resolution
+   256`` and ``cli.evaluate`` on 512 px test images (2 x 2 tiles of 64 LR
+   px); then 512 px at x8 (``drct_experiment("grid", 512, 8)``):
+   ``AnomalyServer`` scores one batch, the SR against eager f32, and four
+   train steps.
 
-The last three lines are the kernels' JSON record, the nvidia-smi line and
-``{"ok": true, "device": {...}}``; a ``[report]`` line before them holds
-every number the run measured, as JSON.
+The last three lines are the kernels' JSON record (each kernel's
+window-16 readings under ``"w16"``, its launches on every main path under
+``"launches_by_path"``), the nvidia-smi line and ``{"ok": true, "device":
+{...}}``; a ``[report]`` line before them holds every number the run
+measured, as JSON (the window-16 phase's under ``"w16"``).
 """
 
 from __future__ import annotations
@@ -132,7 +151,8 @@ from adsr_tpu_torch.kernels.window_attention_bwd import (
 from adsr_tpu_torch.models.drct import RDG, drop_path_mults, shift_attn_mask
 from adsr_tpu_torch.models.factory import (init_sr_params, init_weights_,
                                            make_model)
-from adsr_tpu_torch.train.trainer import Trainer, make_tiled_serving_forward
+from adsr_tpu_torch.train.trainer import (Trainer, make_tiled_serving_forward,
+                                          make_train_step)
 
 SEED = 0
 DEVICE = "cuda"
@@ -238,8 +258,16 @@ PER_TRAIN_STEP = {"rdg_layernorm": 240, "rdg_gemm": 540,
                   "window_attention": 120, "rdg_gemm_dgrad": 300,
                   "rdg_gemm_wgrad": 300, "rdg_layernorm_bwd": 120,
                   "window_attention_bwd": 60}
+# 16x16 windows: kernel (f) makes two launches a call (dq, then dK / dV
+# over groups of windows), so 120 a step; the other counts are the
+# flagship's (the same launches a block at any window)
+PER_TRAIN_STEP_W16 = {**PER_TRAIN_STEP, "window_attention_bwd": 120}
+W16_BWD_LAUNCHES = 2
 SOURCES = {k: f"adsr_tpu_torch/csrc/{k}.cu"
            for k in KERNELS + BWD_KERNELS + BLOCK_KERNELS}
+# kernel (f)'s 16x16-window launches have a source of their own
+W16_SOURCES = {"window_attention_bwd":
+               "adsr_tpu_torch/csrc/window_attention_bwd16.cu"}
 REPLACES = "adsr_tpu/ops/fused_rdg.py:573"
 REPLACES_TRAIN_FWD = "adsr_tpu/ops/fused_rdg_train.py:823"
 REPLACES_BWD = "adsr_tpu/ops/fused_rdg_train.py:968"
@@ -253,8 +281,15 @@ def expected_counts(per: dict, n: int) -> dict:
     return want
 
 
+# "w16" while the window-16 phase runs: its lines read "[w16] <phase>: ..."
+PREFIX = None
+
+
 def say(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    if PREFIX:
+        print(f"[{PREFIX}] {phase}: {msg}", flush=True)
+    else:
+        print(f"[{phase}] {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -328,20 +363,23 @@ def operand_paths() -> dict:
 DY_EFF_COPIES_PER_BLOCK = 3
 
 
-def check_operand_paths(path: str, got: dict, report: dict) -> None:
+def check_operand_paths(path: str, got: dict, report: dict,
+                        bwd_launches: int = 1) -> None:
     """Every GEMM operand of a main path goes by TMA: the port keeps every
     buffer a GEMM loads in 16-byte rows (the attention context too, which
     kernel (c) writes in 16-byte stores, and dqkv, which kernel (f) writes
     in 16-byte rows), and the backward's dY that are not (an f32 gradient)
     go through the dY_eff pre-pass into 16-byte rows. A lost TMA path, or a
     dY copied that could be read in place, fails here instead of only
-    running slower."""
+    running slower. ``bwd_launches``: kernel (f)'s launches a Swin block
+    backward (2 at 16x16 windows)."""
     paths = operand_paths()
     want = {"rdg_gemm": 2 * got["rdg_gemm"],
             "rdg_gemm_bwd": 2 * (got["rdg_gemm_dgrad"]
                                  + got["rdg_gemm_wgrad"])}
     copies = gbwd.dy_eff_copies
-    want_copies = DY_EFF_COPIES_PER_BLOCK * got["window_attention_bwd"]
+    want_copies = DY_EFF_COPIES_PER_BLOCK * got["window_attention_bwd"] \
+        // bwd_launches
     say("paths", f"{path}: GEMM operands [TMA, cp.async] {paths}; dY_eff "
                  f"copies {copies} (qkv's dY read in place)")
     for k, total in want.items():
@@ -501,9 +539,13 @@ def print_plans(cfg, report):
     plans = {}
     for k in range(5):
         c, f, nh = g["feats"][k], g["hidden"][k], g["heads"][k]
-        pa = window_attention_plan(c, nh, BATCH, side, side)
-        pg = swin_block_plan(c, f, nh, BATCH, side, side)
-        pf = window_attention_bwd_plan(c, nh, BATCH, side, side, sms)
+        win = cfg.window_size
+        pa = window_attention_plan(c, nh, BATCH, side, side, window=win)
+        # kernel (g) takes 8x8 windows only (block mode at window 16 is
+        # refused)
+        pg = swin_block_plan(c, f, nh, BATCH, side, side) if win == 8 \
+            else None
+        pf = window_attention_bwd_plan(c, nh, BATCH, side, side, sms, win)
         pe = rdg_layernorm_bwd_plan(m, c, sms)
         say("plan", f"b{k + 1} c={c} heads={nh}: window_attention {pa}; "
                     f"swin_block {pg}")
@@ -581,19 +623,26 @@ def phase_kernels(cfg, dev, check: Checker):
             check("rdg_gemm", f"b{k + 1} fc1 {m}x{f}x{c} gelu_aux {name}",
                   got, rdg_gemm_plain(blk["act"].float(), blk["w1"].float(),
                                       blk["b1"], epi), GEMM_ATOL)
+    # every block at both shifts, then block 2 on the first 5 images (an
+    # odd batch: a grid that is no multiple of the batch of 16)
     for k, blk in enumerate(blocks):
         c, nh = blk["c"], blk["nh"]
         atol = 2.0 ** -8 * blk["qkv"][:, 2 * c:].float().abs().max().item()
-        for shift in (0, cfg.window_size // 2):
+        half = cfg.window_size // 2
+        for shift, rows in [(0, m), (half, m)] + ([(half, 5 * h * w)]
+                                                  if k == 1 else []):
             mask = masks.get(shift)
-            out = pitched(m, c, device=dev)
-            window_attention(blk["qkv"], out, blk["attn_bias"], mask, h, w,
-                             nh, cfg.window_size, shift)
-            want = window_attention_plain(blk["qkv"].float(), blk["attn_bias"],
+            qkv = blk["qkv"][:rows]
+            out = pitched(rows, c, device=dev)
+            window_attention(qkv, out, blk["attn_bias"], mask, h, w, nh,
+                             cfg.window_size, shift)
+            want = window_attention_plain(qkv.float(), blk["attn_bias"],
                                           mask, h, w, nh, cfg.window_size,
                                           shift)
             check("window_attention", f"b{k + 1} c={c} heads={nh} "
-                  f"hd={c // nh} shift={shift}", out, want, atol)
+                  f"hd={c // nh} shift={shift}"
+                  + ("" if rows == m else f" B={rows // (h * w)}"), out,
+                  want, atol)
 
 
 def swin_case(blk):
@@ -632,16 +681,18 @@ def phase_swin_block(cfg, dev, check: Checker):
                        f"{(comp.float() - want).abs().max().item():.3e}")
 
 
-def synthetic_split(rng, n_good, n_bad):
-    """uint8 RGB HR [N,128,128,3] and LR [N,32,32,3]. The LR is 4x4 block
-    averaging, a stand-in for the reference's Lanczos prep, which waits for
-    the data slice of the port."""
-    good = [grid_texture(rng, HR) for _ in range(n_good)]
+def synthetic_split(rng, n_good, n_bad, hr_px=None, scale=None):
+    """uint8 RGB HR [N, hr_px, hr_px, 3] (default HR) and LR at 1 / scale
+    (default SCALE). The LR is block averaging, a stand-in for the
+    reference's Lanczos prep, which waits for the data slice of the port."""
+    hr_px, scale = hr_px or HR, scale or SCALE
+    good = [grid_texture(rng, hr_px) for _ in range(n_good)]
     kinds = ("blob", "scratch")
-    bad = [inject_defect(rng, grid_texture(rng, HR), kinds[i % 2])
+    bad = [inject_defect(rng, grid_texture(rng, hr_px), kinds[i % 2])
            for i in range(n_bad)]
     hr = np.stack(good + bad)
-    lr = hr.reshape(hr.shape[0], HR // SCALE, SCALE, HR // SCALE, SCALE, 3) \
+    s = hr_px // scale
+    lr = hr.reshape(hr.shape[0], s, scale, s, scale, 3) \
         .astype(np.float64).mean(axis=(2, 4)).round().astype(np.uint8)
     return lr, hr
 
@@ -651,16 +702,20 @@ def to_float(imgs_u8, n_colors, rgb_range):
         * (rgb_range / 255.0)
 
 
-def phase_main(exp, dev, report):
-    cfg = exp.model
+def seeded_params(cfg, dev):
+    """The model's seeded init plus a seeded N(0, 0.02) on every leaf, as
+    the CPU parity tests do, so biases, LayerNorm affines and the bias
+    tables are not trivial and the attention is not near uniform."""
     params, _ = init_sr_params(cfg, torch.Generator().manual_seed(SEED),
                                device=dev)
-    # every leaf plus a seeded N(0, 0.02), as the CPU parity tests do, so
-    # biases, LayerNorm affines and the bias tables are not trivial and the
-    # attention is not near uniform
     gen = torch.Generator().manual_seed(SEED + 2)
-    params = {k: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
-              for k, v in params.items()}
+    return {k: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
+            for k, v in params.items()}
+
+
+def phase_main(exp, dev, report):
+    cfg = exp.model
+    params = seeded_params(cfg, dev)
     n_params = sum(v.numel() for v in params.values())
     say("main", f"DRCT x{cfg.upscale} @{HR}px: embed {cfg.embed_dim}, "
                 f"{cfg.num_layers} RDGs, window {cfg.window_size}, "
@@ -789,6 +844,135 @@ def phase_main(exp, dev, report):
     return params, packed, x, model, server, lr_u8, hr_u8
 
 
+def phase_serving(exp, dev, report, n_good=16, n_bad=16, tail=5):
+    """Window-16 serving: ``exp``'s model (random weights from a seed, bf16)
+    registered with ``AnomalyServer`` scores ``n_good`` good and ``n_bad``
+    defective synthetic grid images and a tail, in rdg mode, with the launch
+    counters checked; the forward RDG by RDG against the eager f32 model
+    (PERF.md section 2's limits); block mode refused before any launch
+    (kernel (g) takes 8x8 windows only)."""
+    cfg = exp.model
+    hr_px, scale = exp.data.resolution, cfg.upscale
+    params = seeded_params(cfg, dev)
+    n_params = sum(v.numel() for v in params.values())
+    say("serving", f"DRCT x{scale} @{hr_px}px: LR {cfg.img_size}x"
+                   f"{cfg.img_size}, window {cfg.window_size}, embed "
+                   f"{cfg.embed_dim}, {cfg.num_layers} RDGs, {n_params} "
+                   f"params ({n_params / 1e6:.2f}M), {exp.precision}")
+    if not PARAMS_RANGE[0] < n_params < PARAMS_RANGE[1]:
+        raise AssertionError(f"param count {n_params}, expected ~27.6M")
+    rng = np.random.RandomState(SEED + 20)
+    lr_u8, hr_u8 = synthetic_split(rng, n_good + tail, n_bad, hr_px, scale)
+    order = list(range(n_good)) + list(range(n_good + tail, len(lr_u8))) \
+        + list(range(n_good, n_good + tail))
+    lr_u8, hr_u8 = lr_u8[order], hr_u8[order]      # good, bad, tail
+    server = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev)
+    server.register("grid", exp, params, mode="rdg")
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = server.score("grid", lr_u8, hr_u8)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    n_fwd = math.ceil(len(lr_u8) / BATCH)
+    say("serving", f"AnomalyServer scored {len(lr_u8)} requests of {hr_px} "
+                   f"px in {n_fwd} forwards ({wall * 1e3:.1f} ms wall, first "
+                   f"call); launches {got}")
+    if got != expected_counts(PER_FORWARD, n_fwd):
+        raise AssertionError(f"serving launches {got}, expected "
+                             f"{PER_FORWARD} x {n_fwd}")
+    check_operand_paths("serving", got, report)
+    if scores.shape != (len(lr_u8), 3) or not np.isfinite(scores).all():
+        raise AssertionError(f"scores {scores.shape} not finite")
+    say("serving", "scores (1-SSIM, MSE, -PSNR) mean good "
+                   f"{scores[:n_good].mean(0).round(5).tolist()} bad "
+                   f"{scores[n_good:n_good + n_bad].mean(0).round(5).tolist()}")
+    report["main_path_launches"] = got
+    report["main_path_forwards"] = n_fwd
+    report["params"] = n_params
+
+    packed = prepack_drct(params, cfg, cfg.img_size, cfg.img_size,
+                          dtype=torch.bfloat16, device=dev, mode="rdg")
+    x = torch.as_tensor(to_float(lr_u8[:BATCH], cfg.in_chans,
+                                 exp.data.rgb_range), device=dev)
+    model = make_model(cfg, device=dev)
+    model.load_state_dict(params)
+    with torch.no_grad():
+        taps_p, taps_k = [], []
+        sr_p = model(x, taps=taps_p)
+        sr_k = fused_drct_apply(packed, cfg, x, taps=taps_k, mode="rdg")
+    tok, inc, sr_err = stream_errors(taps_k, sr_k, taps_p, sr_p)
+    say("serving", "kernels (bf16) vs eager f32 model, relative L2 of the "
+                   "token stream after each RDG: "
+                   + " ".join(f"{e:.2e}" for e in tok))
+    say("serving", "... of each RDG's increment (RDGs 2-12): "
+                   + " ".join(f"{e:.2e}" for e in inc))
+    say("serving", f"... of the float SR [{tuple(sr_k.shape)}]: {sr_err:.3e}")
+    if max(tok) > TOKENS_REL_L2 or max(inc) > INCREMENT_REL_L2 \
+            or sr_err > SR_REL_L2 or not torch.isfinite(sr_k).all():
+        raise AssertionError(
+            f"forward vs plain: tokens {max(tok):.3e} > {TOKENS_REL_L2} or "
+            f"increments {max(inc):.3e} > {INCREMENT_REL_L2} or SR "
+            f"{sr_err:.3e} > {SR_REL_L2}")
+    report.update(rel_l2_tokens=tok, rel_l2_increments=inc, rel_l2_sr=sr_err)
+
+    # block mode as a user selects it: ADSR_TPU_RDG=0 at registration
+    os.environ["ADSR_TPU_RDG"] = "0"
+    server_b = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev)
+    server_b.register("grid", exp, params)
+    os.environ.pop("ADSR_TPU_RDG")
+    reset_counts()
+    try:
+        server_b.score("grid", lr_u8[:BATCH], hr_u8[:BATCH])
+    except NotImplementedError as err:
+        refused = str(err).splitlines()[0]
+    else:
+        raise AssertionError("block mode at window 16 ran")
+    torch.cuda.synchronize()
+    if any(counts().values()):
+        raise AssertionError(f"block mode at window 16 launched {counts()}")
+    say("serving", f"block mode (ADSR_TPU_RDG=0) at window "
+                   f"{cfg.window_size} refused before any launch: {refused}")
+    report["block_mode_refused"] = refused
+    return params, packed, x, model, server, lr_u8, hr_u8
+
+
+def phase_x8(dev, report, steps=4):
+    """512 px at x8 (LR 64 x 64: the window-16 token geometry, three pixel
+    shuffles in the tail): ``AnomalyServer`` scores one batch, the final SR
+    against the eager f32 model, then ``steps`` train steps at batch 16."""
+    exp = drct_experiment("grid", 512, 8, precision="bf16",
+                          batch_size=BATCH, run_tag="chip_smoke_x8")
+    cfg = exp.model
+    _, packed, x, model, server, lr_u8, hr_u8 = phase_serving(
+        exp, dev, report, n_good=BATCH // 2, n_bad=BATCH // 2, tail=0)
+    serving = report["main_path_launches"]
+    del model, server, packed
+    bundle = make_train_step(exp, dev)
+    state = bundle.init_state(torch.Generator().manual_seed(SEED + 21))
+    lr = torch.as_tensor(to_float(lr_u8, 1, 255.0), dtype=torch.float32,
+                         device=dev)
+    hr = torch.as_tensor(to_float(hr_u8, 1, 255.0), dtype=torch.float32,
+                         device=dev)
+    gen = torch.Generator().manual_seed(SEED + 22)
+    losses = []
+    reset_counts()
+    for _ in range(steps):
+        state, metrics = bundle.step(state, [lr], hr, exp.optim.lr, gen)
+        losses.append(float(metrics["total"]))
+    torch.cuda.synchronize()
+    got = counts()
+    say("x8", f"{steps} train steps at batch {BATCH} (HR {hr.shape[1]} px, "
+              f"x{cfg.upscale}): L1 " + " ".join(f"{v:.4f}" for v in losses)
+        + f"; launches {got}")
+    if not all(math.isfinite(v) for v in losses) \
+            or got != expected_counts(PER_TRAIN_STEP_W16, steps):
+        raise AssertionError(f"x8 train: losses {losses}, launches {got}")
+    check_operand_paths("train_x8", got, report, W16_BWD_LAUNCHES)
+    report["train_x8"] = {"losses": losses, "launches": got}
+    return {"serving_x8": serving, "train_x8": got}
+
+
 def stream_errors(taps_k, sr_k, taps_p, sr_p):
     """Relative L2 of the token stream after each RDG, of each RDG's
     increment (RDGs 2..), and of the float SR, kernels against the plain
@@ -863,8 +1047,10 @@ def profile_forward(packed, cfg, x, reps: int = 3, mode: str = "rdg"):
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0:
+            # window_attention16_kernel: (c) at 16x16 windows
             fam = next((k for k in KERNELS + BLOCK_KERNELS
-                        if k + "_kernel" in ev.key), "other")
+                        if k + "_kernel" in ev.key or k + "16_" in ev.key),
+                       "other")
             families[fam] = families.get(fam, 0.0) + us / 1e3 / reps
     return start.elapsed_time(end) / reps, families
 
@@ -1287,23 +1473,26 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
                       got, ref, 1e-4 * ref.abs().max().item(), 0.0, "bwd")
             if not torch.equal(acc[:, c:], extra["dcat"][:, c:]):
                 raise AssertionError("rdg_layernorm_bwd wrote past column c")
-    # every block geometry at both shifts on the flagship batch, in the
+    # every block geometry at both shifts on the main batch, in the
     # training backward's 16-byte rows and the plan's windows a block; then
-    # blocks 1 and 4 on 40 x 40 tokens at batch 5 (125 windows), where the
-    # plan groups 2 windows a block and the last group is short; every
+    # two blocks at batch 5 whose plan ends on a short group: at window 8
+    # blocks 1 and 4 on 40 x 40 tokens (125 windows, groups of 2), at
+    # window 16 blocks 2 and 5 on 64 x 64 (80 windows, groups of 3); every
     # call twice, bitwise equal
-    short, half = (5, 40), cfg.window_size // 2
+    win = cfg.window_size
+    short, half = (5, 40 if win == 8 else 64), win // 2
+    short_blocks = (0, 3) if win == 8 else (1, 4)
     short_mask = torch.as_tensor(shift_attn_mask(
-        short[1], short[1], cfg.window_size, half), device=dev)
+        short[1], short[1], win, half), device=dev)
     for k, blk in enumerate(blocks):
         c, nh = blk["c"], blk["nh"]
         cases = [(shift, h, masks.get(shift)) for shift in (0, half)]
-        if k in (0, 3) and short[0] * short[1] ** 2 <= m:
+        if k in short_blocks and short[0] * short[1] ** 2 <= m:
             cases.append((half, short[1], short_mask))
         for shift, side, mask in cases:
             rows = m if side == h else short[0] * side * side
             plan = window_attention_bwd_plan(c, nh, rows // side ** 2, side,
-                                             side)
+                                             side, window=win)
             qkv, dctx = blk["qkv"][:rows], blk["dctx"][:rows]
             runs = []
             for _ in range(2):
@@ -1430,20 +1619,27 @@ def phase_rdg(exp, dev, report):
                                  f"{v:.3e} > {RDG_REL_L2[cls]} ({cls})")
 
 
-def train_dataset(rng, n):
-    lr_u8, hr_u8 = synthetic_split(rng, n, 0)
+def train_dataset(rng, n, hr_px=None, scale=None):
+    lr_u8, hr_u8 = synthetic_split(rng, n, 0, hr_px, scale)
     lr = to_float(lr_u8, 1, 255.0).astype(np.float32)
     hr = to_float(hr_u8, 1, 255.0).astype(np.float32)
-    return SRDataset(hr=hr, lrs=[lr], scales_desc=(SCALE,),
+    return SRDataset(hr=hr, lrs=[lr], scales_desc=(scale or SCALE,),
                      filenames=[f"{i:03d}" for i in range(n)])
 
 
-def phase_train(exp, dev, report):
+def phase_train(exp, dev, report, per_step_want=None, bwd_launches=1):
+    """A Trainer of two short epochs, its test and 20 steps on one batch,
+    with the launch counters checked (``per_step_want``: one step's
+    launches, default PER_TRAIN_STEP; ``bwd_launches``: kernel (f)'s a
+    Swin block backward)."""
+    per_step_want = per_step_want or PER_TRAIN_STEP
+    hr_px, scale = exp.data.resolution, max(exp.data.scale)
     exp = dataclasses.replace(
         exp, data=dataclasses.replace(exp.data, test_every=2),
         optim=dataclasses.replace(exp.optim, epochs=2), print_every=1)
     rng = np.random.RandomState(SEED + 8)
-    train_ds, test_ds = train_dataset(rng, 32), train_dataset(rng, 8)
+    train_ds = train_dataset(rng, 32, hr_px, scale)
+    test_ds = train_dataset(rng, 8, hr_px, scale)
     trainer = Trainer(exp, train_ds, test_ds, device=dev)
     losses = []
     step = trainer.train_step
@@ -1463,7 +1659,7 @@ def phase_train(exp, dev, report):
     wall = time.perf_counter() - t0
     got = counts()
     n_steps = exp.optim.epochs * exp.data.test_every
-    want = expected_counts(PER_TRAIN_STEP, n_steps)
+    want = expected_counts(per_step_want, n_steps)
     for k, v in PER_FORWARD.items():
         want[k] += v                     # Trainer.test: one forward of 8
     say("train", f"Trainer: {exp.optim.epochs} epochs x "
@@ -1476,7 +1672,7 @@ def phase_train(exp, dev, report):
         raise AssertionError(f"train: losses {losses}, test {psnr} {ssim}")
     if got != want:
         raise AssertionError(f"train launches {got}, expected {want}")
-    check_operand_paths("train", got, report)
+    check_operand_paths("train", got, report, bwd_launches)
     report["train_path"] = {"losses": losses, "psnr": psnr, "ssim": ssim,
                             "launches": got, "wall_s": wall}
 
@@ -1492,9 +1688,9 @@ def phase_train(exp, dev, report):
         if i == 0:
             torch.cuda.synchronize()
             per_step = counts()
-    if per_step != expected_counts(PER_TRAIN_STEP, 1):
+    if per_step != expected_counts(per_step_want, 1):
         raise AssertionError(f"launches per step {per_step}, expected "
-                             f"{PER_TRAIN_STEP}")
+                             f"{per_step_want}")
     drop = 1.0 - fixed[-1] / fixed[0]
     say("train", f"{FIXED_BATCH_STEPS} steps on one batch at LR {lr_rate}: "
                  f"L1 {fixed[0]:.4f} -> {fixed[-1]:.4f} (drop {drop:.3f}); "
@@ -1556,6 +1752,11 @@ def profile_steps(fn, reps: int = 3):
             "dy_prep_kernel": "rdg_gemm_bwd dY prep",
             "sum_partials_kernel": "partial sums (d, e, f)"}
     fams.update({f"{k}_kernel": k for k in KERNELS + BWD_KERNELS[1:]})
+    # 16x16 windows: (c)'s kernel and (f)'s two launches
+    fams.update({"window_attention16_kernel": "window_attention",
+                 "window_attention_bwd16_dq_kernel": "window_attention_bwd dq",
+                 "window_attention_bwd16_dkv_kernel":
+                     "window_attention_bwd dkv"})
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -1620,7 +1821,9 @@ def sdpa_bwd_ms(sdpa, launched, runs: int = 20):
             f"{str(err).splitlines()[0][:160]}")
 
 
-def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
+def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report,
+                       per_step_want=None):
+    per_step_want = per_step_want or PER_TRAIN_STEP
     cfg = exp.model
     g, m = flagship_shapes(cfg)
     h = w = cfg.img_size
@@ -1668,9 +1871,13 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report):
                                           key=lambda kv: -kv[1]))
         + f"; busy {busy:.3f} of {wall:.3f} ms wall under the profiler (idle "
           f"share {max(0.0, 1 - busy / wall):.3f})")
-    launches = sum(PER_TRAIN_STEP.values())
-    partial_passes = sum(PER_TRAIN_STEP[k] for k in (
-        "rdg_gemm_wgrad", "rdg_layernorm_bwd", "window_attention_bwd"))
+    launches = sum(per_step_want.values())
+    # one partial-sum pass a wgrad, a LayerNorm backward and an attention
+    # backward (half the forward attention launches of a step: the other
+    # half are the recompute's)
+    partial_passes = sum(per_step_want[k] for k in (
+        "rdg_gemm_wgrad", "rdg_layernorm_bwd")) \
+        + per_step_want["window_attention"] // 2
     say("train-timing", f"launches per step: {launches} through the wrappers"
                         f" + {partial_passes} partial-sum passes")
     report["train_timing"] = {
@@ -1834,36 +2041,42 @@ def write_split(base: Path, rng, n: int, hr: int, defect: bool = False):
                   lr)
 
 
-def phase_cli(exp, dev, report):
-    """``cli.main`` trains the flagship for one epoch into a run dir, then
-    ``cli.evaluate`` scores 512 px test images from it, auto-tiled, in rdg
-    mode and with ``ADSR_TPU_RDG=0``; tiled img/s in both modes."""
-    shutil.rmtree(CLI_DIR, ignore_errors=True)
-    root = CLI_DIR / "data"
+def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
+              per_step_want=None, bwd_launches=1, overlap=8):
+    """``cli.main`` trains ``exp``'s model (the flagship by default) for one
+    epoch into a run dir, then ``cli.evaluate`` scores 512 px test images
+    from it, auto-tiled with ``overlap`` LR px between tiles, in each of
+    ``modes`` (rdg mode, and block mode with ``ADSR_TPU_RDG=0``); tiled
+    img/s in each mode. ``per_step_want``: one train step's launches
+    (default PER_TRAIN_STEP)."""
+    per_step_want = per_step_want or PER_TRAIN_STEP
+    hr_px = exp.data.resolution
+    shutil.rmtree(cli_dir, ignore_errors=True)
+    root = cli_dir / "data"
     rng = np.random.RandomState(SEED + 11)
     t0 = time.perf_counter()
-    write_split(root / "grid" / "train" / "good", rng, CLI_TRAIN, HR)
-    write_split(root / "grid" / "val" / "good", rng, CLI_VAL, HR)
+    write_split(root / "grid" / "train" / "good", rng, CLI_TRAIN, hr_px)
+    write_split(root / "grid" / "val" / "good", rng, CLI_VAL, hr_px)
     write_split(root / "grid" / "test" / "good", rng, CLI_TEST, CLI_TEST_HR)
     write_split(root / "grid" / "test" / "bad", rng, CLI_TEST, CLI_TEST_HR,
                 defect=True)
     say("cli", f"data root {root}: {CLI_TRAIN} train + {CLI_VAL} val images "
-               f"at {HR} px, {CLI_TEST} + {CLI_TEST} test images at "
+               f"at {hr_px} px, {CLI_TEST} + {CLI_TEST} test images at "
                f"{CLI_TEST_HR} px, written in {time.perf_counter() - t0:.1f} s")
 
     os.environ["ADSR_TPU_RDG"] = "1"
     reset_counts()
     t0 = time.perf_counter()
-    run_dir = cli_main.main(["--resolution", str(HR), "--scale", str(SCALE),
-                             "--epochs", "1", "--batch-size", str(BATCH),
-                             "--data-root", str(root),
-                             "--save-dir", str(CLI_DIR / "runs"),
+    run_dir = cli_main.main(["--resolution", str(hr_px), "--scale",
+                             str(SCALE), "--epochs", "1", "--batch-size",
+                             str(BATCH), "--data-root", str(root),
+                             "--save-dir", str(cli_dir / "runs"),
                              "--run-tag", "chip"])
     torch.cuda.synchronize()
     train_wall = time.perf_counter() - t0
     train_launches = counts()
     steps = 256 // BATCH                  # the reference's mvtec cadence
-    want = expected_counts(PER_TRAIN_STEP, steps)
+    want = expected_counts(per_step_want, steps)
     for k, v in PER_FORWARD.items():      # the val/good test: one forward
         want[k] += v
     say("cli", f"cli.main: {steps} steps at batch {BATCH} and the val/good "
@@ -1872,7 +2085,7 @@ def phase_cli(exp, dev, report):
     if train_launches != want:
         raise AssertionError(f"train CLI launches {train_launches}, "
                              f"expected {want}")
-    check_operand_paths("train_cli", train_launches, report)
+    check_operand_paths("train_cli", train_launches, report, bwd_launches)
     run = Path(run_dir)
     files = {p.name for p in run.iterdir()}
     model_files = {p.name for p in (run / "model").iterdir()}
@@ -1895,19 +2108,21 @@ def phase_cli(exp, dev, report):
 
     results, walls, launches = {}, {}, {}
     n_fwd = 2 * math.ceil(CLI_TEST / CLI_BATCH)
-    for mode, flag in (("rdg", "1"), ("block", "0")):
+    for mode in modes:
+        flag = "1" if mode == "rdg" else "0"
         os.environ["ADSR_TPU_RDG"] = flag
         reset_counts()
         t0 = time.perf_counter()
         res = cli_eval.main(["--run-dir", run_dir, "--data-root", str(root),
                              "--sweep-windows", "9",
-                             "--output-dir", str(CLI_DIR / f"eval_{mode}")])
+                             "--tile-overlap", str(overlap),
+                             "--output-dir", str(cli_dir / f"eval_{mode}")])
         torch.cuda.synchronize()
         walls[mode] = time.perf_counter() - t0
         launches[mode] = counts()
         per = PER_FORWARD if mode == "rdg" else PER_FORWARD_BLOCK
         aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
-        lines = (CLI_DIR / f"eval_{mode}" / "scores.txt").read_text() \
+        lines = (cli_dir / f"eval_{mode}" / "scores.txt").read_text() \
             .splitlines()
         say("cli", f"cli.evaluate, {mode} mode (ADSR_TPU_RDG={flag}): AUC "
                    f"ssim/mse/psnr {aucs[0]:.4f}/{aucs[1]:.4f}/{aucs[2]:.4f}, "
@@ -1926,11 +2141,13 @@ def phase_cli(exp, dev, report):
                                  f"{len(lines)} score lines, {res}")
         results[mode] = res
     os.environ.pop("ADSR_TPU_RDG")
-    diff = {k: float(np.max(np.abs(np.subtract(results["rdg"][k],
-                                               results["block"][k]))))
-            for k in ("scores_ssim", "scores_mse", "scores_psnr")}
-    say("cli", f"largest per-image score difference, block vs rdg mode: "
-               f"{diff}")
+    diff = None
+    if len(modes) == 2:
+        diff = {k: float(np.max(np.abs(np.subtract(results["rdg"][k],
+                                                   results["block"][k]))))
+                for k in ("scores_ssim", "scores_mse", "scores_psnr")}
+        say("cli", f"largest per-image score difference, block vs rdg mode: "
+                   f"{diff}")
 
     # tiled serving of the 512 px test images in both modes
     lr = load_sr_dataset(str(root / "grid" / "test" / "good"), (SCALE,), 1)
@@ -1938,11 +2155,12 @@ def phase_cli(exp, dev, report):
     params = load_state_dict(ckpt, dev)
     tiled = {}
     tile = exp.model.img_size
-    n_tiles = len(tile_starts(lr.shape[1], tile, 8)) \
-        * len(tile_starts(lr.shape[2], tile, 8))
-    for mode in ("rdg", "block"):
-        fwd = make_tiled_serving_forward(exp, params, quantize_out=False,
-                                         device=dev, mode=mode)
+    n_tiles = len(tile_starts(lr.shape[1], tile, overlap)) \
+        * len(tile_starts(lr.shape[2], tile, overlap))
+    for mode in modes:
+        fwd = make_tiled_serving_forward(exp, params, overlap=overlap,
+                                         quantize_out=False, device=dev,
+                                         mode=mode)
         ms = cuda_ms(lambda: fwd(lr), iters=3, warmup=1)
         tiled[mode] = {"ms": ms, "img_per_s": lr.shape[0] * 1e3 / ms,
                        "tiles_per_image": n_tiles}
@@ -1958,8 +2176,60 @@ def phase_cli(exp, dev, report):
                      "specificity": {m: r["specificity"]
                                      for m, r in results.items()},
                      "score_diff_block_vs_rdg": diff, "tiled": tiled}
-    return {"train_cli": train_launches, "evaluate_cli_rdg": launches["rdg"],
-            "evaluate_cli_block": launches["block"]}
+    return {"train_cli": train_launches,
+            **{f"evaluate_cli_{m}": launches[m] for m in modes}}
+
+
+W16_CLI_DIR = Path("workspace") / "chip_smoke_w16"
+
+
+def phase_w16(dev, report):
+    """The window-16 geometry (16x16 windows, N = 256 keys a window) at full
+    width: ``drct_experiment("grid", 256, 4)`` (LR 64 x 64, M = 65,536 token
+    rows a batch of 16) through the same checks as the flagship (launch
+    plans; kernels (a)-(c) against their plain versions; serving RDG by RDG;
+    timing; kernels (d)-(f); one RDG's gradients; the Trainer; the CLIs,
+    rdg mode only), then 512 px at x8. Its lines read "[w16] ...". Returns
+    (launches by main path, timings)."""
+    global PREFIX
+    PREFIX = "w16"
+    r16 = report.setdefault("w16", {})
+    exp = drct_experiment("grid", 256, 4, precision="bf16",
+                          batch_size=BATCH, run_tag="chip_smoke_w16")
+    cfg = exp.model
+    check = Checker()
+    print_plans(cfg, r16)
+    phase_kernels(cfg, dev, check)
+    params, packed, x, model, server, lr_u8, hr_u8 = phase_serving(exp, dev,
+                                                                   r16)
+    serving = r16["main_path_launches"]
+    timings = phase_timing(exp, dev, packed, x, model, server, lr_u8, hr_u8,
+                           r16)
+    del model, server, packed
+    bwd_inputs = phase_bwd_kernels(cfg, dev, check)
+    say("kernels", f"{check.cases} cases within tolerance; max abs error "
+                   f"{check.max_abs}")
+    r16["max_abs_err"] = check.max_abs
+    phase_rdg(exp, dev, r16)
+    trainer, lrs, hr, train = phase_train(exp, dev, r16, PER_TRAIN_STEP_W16,
+                                          W16_BWD_LAUNCHES)
+    timings.update(phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs,
+                                      r16, PER_TRAIN_STEP_W16))
+    del trainer, bwd_inputs
+    cli = phase_cli(exp, dev, r16, W16_CLI_DIR, ("rdg",), PER_TRAIN_STEP_W16,
+                    W16_BWD_LAUNCHES, overlap=0)
+    x8 = phase_x8(dev, r16.setdefault("x8", {}))
+    paths = {"serving_w16": serving, "train_w16": train,
+             "train_cli_w16": cli["train_cli"],
+             "evaluate_cli_w16": cli["evaluate_cli_rdg"], **x8}
+    # (c) on both paths and (f) on the training path went through N = 256
+    for path, k in (("serving_w16", "window_attention"),
+                    ("train_w16", "window_attention"),
+                    ("train_w16", "window_attention_bwd")):
+        if not paths[path][k]:
+            raise AssertionError(f"{path}: {k} launched no time")
+    PREFIX = None
+    return paths, timings
 
 
 def main() -> int:
@@ -2024,10 +2294,11 @@ def main() -> int:
                                       report))
     del trainer, bwd_inputs
     cli_launches = phase_cli(exp, dev, report)
+    w16_paths, timings16 = phase_w16(dev, report)
 
     # launches by main path, each counted from 0 over that path's run
     paths = {"serving": main_launches, "serving_block": block_launches,
-             "train": train_launches, **cli_launches}
+             "train": train_launches, **cli_launches, **w16_paths}
     kernels = []
     for k in KERNELS + BWD_KERNELS + BLOCK_KERNELS:
         kernel_ms, plain_ms, library_ms, bound_ms, bound_by = timings[k]
@@ -2054,6 +2325,13 @@ def main() -> int:
             entry["operands_by_path"] = {
                 p: got[k] for p, got in report["operand_paths"].items()
                 if p in by_path}
+        if k in timings16:      # at 16x16 windows, M = 65,536 token rows
+            kernel_ms, plain_ms, library_ms, bound_ms, bound_by = timings16[k]
+            entry["w16"] = {"source": W16_SOURCES.get(k, SOURCES[k]),
+                            "ms": kernel_ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by,
+                            "library_ms": library_ms,
+                            "max_abs_err": report["w16"]["max_abs_err"][k]}
         kernels.append(entry)
     report["total_s"] = time.perf_counter() - t_start
     say("report", json.dumps(report))

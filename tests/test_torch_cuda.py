@@ -399,3 +399,81 @@ def test_attention_kernels_refuse_rows_that_are_not_16_bytes(dev):
             window_attention_bwd(good, dout, tb, None, 32, 32, 6, 8, 0, dqkv,
                                  torch.empty(6, 64, 64, device=dev))
     assert window_attention_bwd.launches == n0
+
+
+# 16x16 windows (N = 256): the 256px model's five blocks (hd 30/53/122/46/77)
+# at shifts 0 and 8 on 32 x 32 tokens (4 windows an image)
+W16_BLOCKS = [(180, 6, 0), (212, 4, 8), (244, 2, 0), (276, 6, 8), (308, 4, 0)]
+
+
+@pytest.mark.parametrize("c,nh,shift", W16_BLOCKS)
+def test_window_attention_kernel_matches_plain_at_window16(dev, c, nh, shift):
+    # exp(S - max) rounds to bf16 once before P @ V (the online softmax over
+    # four key tiles): 2^-8 max|v|; qkv and ctx column slices of wider
+    # 16-byte-row buffers
+    g = torch.Generator(device=dev).manual_seed(6)
+    b, h = 2, 32
+    m = b * h * h
+    qkv = pitched(m, 3 * c + 8, device=dev)[:, :3 * c]
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    tb = 0.5 * torch.randn(nh, 256, 256, generator=g, device=dev)
+    mask = torch.as_tensor(shift_attn_mask(h, h, 16, shift), device=dev) \
+        if shift else None
+    wide = torch.zeros(m, 320, dtype=torch.bfloat16, device=dev)
+    n0 = window_attention.launches
+    window_attention(qkv, wide[:, :c], tb, mask, h, h, nh, 16, shift)
+    assert window_attention.launches == n0 + 1
+    atol = 2.0 ** -8 * qkv[:, 2 * c:].float().abs().max().item()
+    _close(wide[:, :c], window_attention_plain(qkv, tb, mask, h, h, nh, 16,
+                                               shift), atol)
+    assert not wide[:, c:].any()
+
+
+@pytest.mark.parametrize("c,nh,shift,b", [blk + (2,) for blk in W16_BLOCKS]
+                         + [(180, 6, 8, 11)])
+def test_window_attention_bwd_kernel_matches_plain_at_window16(dev, c, nh,
+                                                               shift, b):
+    # the two launches (dq, then dkv over groups of windows) and the partial
+    # sums: 2^-7 of each output's largest magnitude, d(bias) 2^-8; at batch
+    # 11 (44 windows, 6 heads) the plan groups 3 windows a block, the last
+    # group short; a second call bitwise equal
+    g = torch.Generator(device=dev).manual_seed(7)
+    h = 32
+    m = b * h * h
+    qkv = pitched(m, 3 * c, device=dev)
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    dout = pitched(m, c, device=dev)
+    dout.copy_(torch.randn(m, c, generator=g, device=dev))
+    bias = 0.5 * torch.randn(nh, 256, 256, generator=g, device=dev)
+    mask = torch.as_tensor(shift_attn_mask(h, h, 16, shift), device=dev) \
+        if shift else None
+    dqkv = pitched(m, 3 * c, device=dev)
+    dbias = torch.empty(nh, 256, 256, device=dev)
+    n0 = window_attention_bwd.launches
+    window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 16, shift, dqkv,
+                         dbias)
+    assert window_attention_bwd.launches == n0 + 2
+    want_q, want_b = window_attention_bwd_plain(qkv, dout, bias, mask, h, h,
+                                                nh, 16, shift)
+    for i in range(3):
+        part = want_q[:, i * c:(i + 1) * c]
+        _within(dqkv[:, i * c:(i + 1) * c], part,
+                2.0 ** -7 * (part.abs().max() + part.abs()))
+    _within(dbias, want_b, 2.0 ** -8 * want_b.abs().max())
+    dq2, db2 = pitched(m, 3 * c, device=dev), torch.empty_like(dbias)
+    window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 16, shift, dq2, db2)
+    assert torch.equal(dqkv, dq2) and torch.equal(dbias, db2)
+
+
+def test_block_mode_refuses_window16_before_any_launch(dev):
+    cfg = DRCTModelConfig(upscale=2, img_size=32, window_size=16, in_chans=1,
+                          embed_dim=12, num_layers=1, num_heads=2, gc=4)
+    params, _ = init_sr_params(cfg, torch.Generator().manual_seed(0),
+                               device=dev)
+    packed = prepack_drct(params, cfg, 32, 32, dtype=torch.bfloat16,
+                          device=dev, mode="block")
+    n0 = fused_swin_block.launches
+    x = torch.rand(2, 32, 32, 1, device=dev) * 255
+    with pytest.raises(NotImplementedError, match="8x8 windows"):
+        fused_drct_apply(packed, cfg, x)
+    assert fused_swin_block.launches == n0

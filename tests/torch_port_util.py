@@ -19,7 +19,9 @@ from adsr_tpu_torch.io.convert import drct_state_dict_from_jax
 
 # tiny configs: the JAX suite's tiny one, its heads config (embed 18, gc 6,
 # heads 3), one whose head count really changes per block (dims
-# 12/16/20/24/28 -> heads 3/2/1/3/2), window 8 and RGB
+# 12/16/20/24/28 -> heads 3/2/1/3/2), window 8, RGB, window 16 (N = 256: 4
+# windows an image, shift 8) and window 16 with the x8 tail (three pixel
+# shuffles)
 CONFIGS = {
     "tiny": dict(upscale=2, img_size=8, window_size=4, in_chans=1,
                  embed_dim=12, num_layers=2, num_heads=2, gc=4),
@@ -31,6 +33,10 @@ CONFIGS = {
                     embed_dim=12, num_layers=1, num_heads=2, gc=4),
     "rgb": dict(upscale=2, img_size=8, window_size=4, in_chans=3,
                 embed_dim=12, num_layers=1, num_heads=2, gc=4),
+    "window16": dict(upscale=2, img_size=32, window_size=16, in_chans=1,
+                     embed_dim=12, num_layers=1, num_heads=2, gc=4),
+    "window16x8": dict(upscale=8, img_size=32, window_size=16, in_chans=1,
+                       embed_dim=12, num_layers=1, num_heads=2, gc=4),
 }
 
 ATOL, RTOL = 2e-3, 1e-3        # the JAX suite's f32 forward tolerance
@@ -61,6 +67,28 @@ def port_state_dict(name: str, scan_layers: bool = True, seed: int = 0):
 def jax_apply(name: str):
     jcfg = jax_params(name)[0]
     return jax.jit(JaxDRCT(jcfg).apply)
+
+
+def jax_window_attention(qkv, bias, mask, b, h, w, nh, win, shift):
+    """The JAX model's shifted-window attention on a raster-order qkv
+    [B*h*w, 3c] (jnp): roll, window partition, ``window_attention_xla``,
+    reverse. Returns the context [B*h*w, c]."""
+    from adsr_tpu.models import drct as jdrct
+    from adsr_tpu.ops.window_attention import window_attention_xla
+    c = qkv.shape[-1] // 3
+    hd = c // nh
+    x = qkv.reshape(b, h, w, 3 * c)
+    if shift:
+        x = jnp.roll(x, (-shift, -shift), axis=(1, 2))
+    xw = jdrct.window_partition(x, win)
+    q, k, v = xw.reshape(-1, win * win, 3, nh, hd).transpose(2, 0, 3, 1, 4)
+    o = window_attention_xla(q * hd ** -0.5, k, v, bias,
+                             None if mask is None else jnp.asarray(mask))
+    o = jdrct.window_reverse(o.transpose(0, 2, 1, 3).reshape(-1, win * win, c),
+                             win, h, w)
+    if shift:
+        o = jnp.roll(o, (shift, shift), axis=(1, 2))
+    return o.reshape(b * h * w, c)
 
 
 def lr_input(cfg, batch: int = 2, seed: int = 1) -> np.ndarray:
