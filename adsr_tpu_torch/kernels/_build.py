@@ -77,6 +77,10 @@ SIGNATURES = {
                         _P, _P, _P, _P, _L, _P, _P, _L, _P] + [_I] * 9
                        + [_F, _L, _P],
 }
+# (g) at 16x16 windows (swin_block16.cu): adsr_swin_block's arguments
+SIGNATURES["adsr_swin_block16"] = SIGNATURES["adsr_swin_block"]
+# hd, smem, int* out: the clusters the card holds at once
+SIGNATURES["adsr_swin_block16_clusters"] = [_I, _L, _P]
 
 
 def sources() -> List[Path]:

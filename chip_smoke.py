@@ -72,18 +72,20 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 11. the window-16 geometry, lines "[w16] <phase>: ...": the full-width
    256px model (``drct_experiment("grid", 256, 4)``: LR 64 x 64, 16x16
    windows, N = 256 keys, shifts 0 and 8, M = 65,536 token rows at batch
-   16) through phases 2-3 and 5-10 at that size: the plans of (c) and (f);
-   kernels (a)-(c) and (d)-(f) against their plain versions (every block,
-   both shifts, (f) also at batch 5 with short groups, each (f) call twice,
-   bitwise equal); ``AnomalyServer`` scores 16 good + 16 defective 256 px
-   images and a tail of 5 in rdg mode and the forward runs RDG by RDG
-   against the eager f32 model; block mode (kernel (g) takes 8x8 windows)
-   is refused before any launch; the timing of the forward, each kernel and
-   the step; one RDG's gradients; the Trainer; ``cli.main --resolution
-   256`` and ``cli.evaluate`` on 512 px test images (2 x 2 tiles of 64 LR
-   px); then 512 px at x8 (``drct_experiment("grid", 512, 8)``):
-   ``AnomalyServer`` scores one batch, the SR against eager f32, and four
-   train steps.
+   16) through phases 2-10 at that size: the plans of (c), (g) (a cluster
+   of four blocks a window, and the clusters the card holds at once) and
+   (f); kernels (a)-(c), (g) and (d)-(f) against their plain versions
+   (every block, both shifts, (f) also at batch 5 with short groups, (g)
+   at batch 5 on 32 x 32 tokens and against the (a)-(c) composition, each
+   (f) and (g) call twice, bitwise equal); ``AnomalyServer`` scores 16 good
+   + 16 defective 256 px images and a tail of 5 in rdg mode and in block
+   mode (``ADSR_TPU_RDG=0``), and both forwards run RDG by RDG against the
+   eager f32 model; the timing of both forwards, each kernel and the step;
+   one RDG's gradients; the Trainer; ``cli.main --resolution 256`` and
+   ``cli.evaluate`` in both modes on 512 px test images (2 x 2 tiles of 64
+   LR px); then 512 px at x8 (``drct_experiment("grid", 512, 8)``):
+   ``AnomalyServer`` scores one batch in each mode, the SR against eager
+   f32, and four train steps.
 
 The last three lines are the kernels' JSON record (each kernel's
 window-16 readings under ``"w16"``, its launches on every main path under
@@ -129,6 +131,7 @@ from adsr_tpu_torch.kernels.fused_rdg import (block_buffers, fused_rdg,
                                               swin_block_forward)
 from adsr_tpu_torch.kernels.fused_swin_block import (fused_swin_block,
                                                      fused_swin_block_plain,
+                                                     swin_block16_clusters,
                                                      swin_block_plan)
 from adsr_tpu_torch.kernels.fused_rdg_train import (fused_drct_train_forward,
                                                     fused_rdg_train,
@@ -265,9 +268,10 @@ PER_TRAIN_STEP_W16 = {**PER_TRAIN_STEP, "window_attention_bwd": 120}
 W16_BWD_LAUNCHES = 2
 SOURCES = {k: f"adsr_tpu_torch/csrc/{k}.cu"
            for k in KERNELS + BWD_KERNELS + BLOCK_KERNELS}
-# kernel (f)'s 16x16-window launches have a source of their own
+# kernels (f)'s and (g)'s 16x16-window launches have sources of their own
 W16_SOURCES = {"window_attention_bwd":
-               "adsr_tpu_torch/csrc/window_attention_bwd16.cu"}
+               "adsr_tpu_torch/csrc/window_attention_bwd16.cu",
+               "swin_block": "adsr_tpu_torch/csrc/swin_block16.cu"}
 REPLACES = "adsr_tpu/ops/fused_rdg.py:573"
 REPLACES_TRAIN_FWD = "adsr_tpu/ops/fused_rdg_train.py:823"
 REPLACES_BWD = "adsr_tpu/ops/fused_rdg_train.py:968"
@@ -528,10 +532,12 @@ def gemm_cases(cfg, cat, blk, k):
 
 def print_plans(cfg, report):
     """The launch plans of kernels (c), (g), (f) and (e) at the five
-    flagship blocks (kernels/window_attention.py, kernels/fused_swin_block.py,
-    kernels/window_attention_bwd.py, kernels/rdg_layernorm_bwd.py): blocks,
-    threads, shared memory, (g)'s ring stages and weight tiles a window,
-    (f)'s windows a block and d(bias) partials, (e)'s grid."""
+    blocks of ``cfg`` (kernels/window_attention.py,
+    kernels/fused_swin_block.py, kernels/window_attention_bwd.py,
+    kernels/rdg_layernorm_bwd.py): blocks, threads, shared memory, (g)'s
+    ring stages, weight tiles a block and (at 16x16 windows) cluster size
+    and the clusters the card holds at once, (f)'s windows a block and
+    d(bias) partials, (e)'s grid."""
     g = rdg_geometry(cfg)
     side = cfg.img_size
     m = BATCH * side * side
@@ -541,10 +547,9 @@ def print_plans(cfg, report):
         c, f, nh = g["feats"][k], g["hidden"][k], g["heads"][k]
         win = cfg.window_size
         pa = window_attention_plan(c, nh, BATCH, side, side, window=win)
-        # kernel (g) takes 8x8 windows only (block mode at window 16 is
-        # refused)
-        pg = swin_block_plan(c, f, nh, BATCH, side, side) if win == 8 \
-            else None
+        pg = swin_block_plan(c, f, nh, BATCH, side, side, window=win)
+        if win == 16:           # clusters of 4 blocks the card holds at once
+            pg = {**pg, "clusters_at_once": swin_block16_clusters(c, f, nh)}
         pf = window_attention_bwd_plan(c, nh, BATCH, side, side, sms, win)
         pe = rdg_layernorm_bwd_plan(m, c, sms)
         say("plan", f"b{k + 1} c={c} heads={nh}: window_attention {pa}; "
@@ -657,8 +662,11 @@ def swin_case(blk):
 
 
 def phase_swin_block(cfg, dev, check: Checker):
-    """Kernel (g) at the five flagship block shapes against its plain f32
-    version and against the (a)-(c) composition on the same inputs."""
+    """Kernel (g) at the five block shapes of ``cfg`` against its plain f32
+    version and against the (a)-(c) composition on the same inputs; at
+    16x16 windows also two launches bitwise equal, and each block at batch 5
+    on 32 x 32 tokens (4 windows an image: 20 clusters, a grid short of
+    the card's SMs)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     cat, blocks, masks = make_case_inputs(cfg, dev, gen)
     g, m = flagship_shapes(cfg)
@@ -679,6 +687,25 @@ def phase_swin_block(cfg, dev, check: Checker):
               2 * SWIN_ATOL, 2 * RTOL)
         say("kernels", f"{'':20s} (a)-(c) composition vs plain max_abs "
                        f"{(comp.float() - want).abs().max().item():.3e}")
+        if cfg.window_size == 16:
+            again = torch.empty_like(out)
+            fused_swin_block(x, p, masks, cfg, h, w, k, again)
+            if not torch.equal(out, again):
+                raise AssertionError(f"swin_block {case}: two launches differ")
+    if cfg.window_size != 16:
+        return
+    side = 32
+    rows = 5 * side * side
+    masks_s = {s: torch.as_tensor(shift_attn_mask(side, side, 16, s),
+                                  device=dev) for s in masks}
+    for k, blk in enumerate(blocks):
+        c, p, x = blk["c"], swin_case(blk), cat[:rows, :blk["c"]]
+        out = torch.empty(rows, c, dtype=torch.bfloat16, device=dev)
+        fused_swin_block(x, p, masks_s, cfg, side, side, k, out)
+        check("swin_block", f"b{k + 1} c={c} shift={blk['shift']} B=5 on "
+              f"{side}x{side}", out,
+              fused_swin_block_plain(x, p, masks_s, cfg, side, side, k),
+              SWIN_ATOL)
 
 
 def synthetic_split(rng, n_good, n_bad, hr_px=None, scale=None):
@@ -711,6 +738,69 @@ def seeded_params(cfg, dev):
     gen = torch.Generator().manual_seed(SEED + 2)
     return {k: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
             for k, v in params.items()}
+
+
+def check_forwards(packed, cfg, x, model, report, phase):
+    """Both serving modes' forwards of ``packed`` on ``x``, kernels (bf16)
+    against the eager f32 ``model`` (TF32 off) RDG by RDG within PERF.md
+    section 2's limits, and block mode against rdg mode."""
+    with torch.no_grad():
+        taps_p = []
+        sr_p = model(x, taps=taps_p)
+        outs = {}
+        for mode in ("rdg", "block"):
+            taps_k = []
+            sr_k = fused_drct_apply(packed, cfg, x, taps=taps_k, mode=mode)
+            outs[mode] = (sr_k, taps_k)
+            tok, inc, sr_err = stream_errors(taps_k, sr_k, taps_p, sr_p)
+            say(phase, f"{mode} mode, kernels (bf16) vs eager f32 model, "
+                       "relative L2 of the token stream after each RDG: "
+                       + " ".join(f"{e:.2e}" for e in tok))
+            say(phase, "... of each RDG's increment (RDGs 2-12): "
+                       + " ".join(f"{e:.2e}" for e in inc))
+            say(phase, f"... of the float SR [{tuple(sr_k.shape)}]: "
+                       f"{sr_err:.3e}")
+            if max(tok) > TOKENS_REL_L2 or max(inc) > INCREMENT_REL_L2 \
+                    or sr_err > SR_REL_L2 or not torch.isfinite(sr_k).all():
+                raise AssertionError(
+                    f"{mode} forward vs plain: tokens {max(tok):.3e} > "
+                    f"{TOKENS_REL_L2} or increments {max(inc):.3e} > "
+                    f"{INCREMENT_REL_L2} or SR {sr_err:.3e} > {SR_REL_L2}")
+            key = "" if mode == "rdg" else "_block"
+            report["rel_l2_tokens" + key] = tok
+            report["rel_l2_increments" + key] = inc
+            report["rel_l2_sr" + key] = sr_err
+        (sr_r, taps_r), (sr_b, taps_b) = outs["rdg"], outs["block"]
+        between = {"tokens": max(rel_l2(b, r) for b, r in zip(taps_b, taps_r)),
+                   "sr": rel_l2(sr_b, sr_r)}
+    say(phase, f"block mode vs rdg mode, relative L2: token stream at most "
+               f"{between['tokens']:.3e}, float SR {between['sr']:.3e}")
+    report["rel_l2_block_vs_rdg"] = between
+
+
+def check_block_server(server_b, lr_u8, hr_u8, scores, n_fwd, report,
+                       phase):
+    """``server_b``, registered in block mode, scores the requests that rdg
+    mode scored as ``scores``: its launches (kernel (g) and the adjust
+    products only), GEMM operand paths and finite scores, and the largest
+    difference to rdg mode."""
+    reset_counts()
+    scores_b = server_b.score("grid", lr_u8, hr_u8)
+    torch.cuda.synchronize()
+    got = counts()
+    say(phase, f"AnomalyServer in block mode scored {len(lr_u8)} requests in "
+               f"{n_fwd} forwards; launches {got}; largest score difference "
+               f"to rdg mode (1-SSIM, MSE, -PSNR) "
+               f"{np.abs(scores_b - scores).max(0).tolist()}")
+    if got != expected_counts(PER_FORWARD_BLOCK, n_fwd):
+        raise AssertionError(f"block mode launches {got}, expected "
+                             f"{PER_FORWARD_BLOCK} x {n_fwd}")
+    check_operand_paths("serving_block", got, report)
+    if scores_b.shape != scores.shape or not np.isfinite(scores_b).all():
+        raise AssertionError(f"block mode scores {scores_b.shape} not finite")
+    report["main_path_launches_block"] = got
+    report["score_diff_block_vs_rdg"] = np.abs(scores_b - scores).max(0) \
+        .tolist()
 
 
 def phase_main(exp, dev, report):
@@ -761,58 +851,12 @@ def phase_main(exp, dev, report):
                                  exp.data.rgb_range), device=dev)
     model = make_model(cfg, device=dev)
     model.load_state_dict(params)
-    with torch.no_grad():
-        taps_p = []
-        sr_p = model(x, taps=taps_p)
-        outs = {}
-        for mode in ("rdg", "block"):
-            taps_k = []
-            sr_k = fused_drct_apply(packed, cfg, x, taps=taps_k, mode=mode)
-            outs[mode] = (sr_k, taps_k)
-            tok, inc, sr_err = stream_errors(taps_k, sr_k, taps_p, sr_p)
-            say("main", f"{mode} mode, kernels (bf16) vs eager f32 model, "
-                        "relative L2 of the token stream after each RDG: "
-                        + " ".join(f"{e:.2e}" for e in tok))
-            say("main", "... of each RDG's increment (RDGs 2-12): "
-                        + " ".join(f"{e:.2e}" for e in inc))
-            say("main", f"... of the float SR: {sr_err:.3e}")
-            if max(tok) > TOKENS_REL_L2 or max(inc) > INCREMENT_REL_L2 \
-                    or sr_err > SR_REL_L2 or not torch.isfinite(sr_k).all():
-                raise AssertionError(
-                    f"{mode} forward vs plain: tokens {max(tok):.3e} > "
-                    f"{TOKENS_REL_L2} or increments {max(inc):.3e} > "
-                    f"{INCREMENT_REL_L2} or SR {sr_err:.3e} > {SR_REL_L2}")
-            key = "" if mode == "rdg" else "_block"
-            report["rel_l2_tokens" + key] = tok
-            report["rel_l2_increments" + key] = inc
-            report["rel_l2_sr" + key] = sr_err
-        (sr_r, taps_r), (sr_b, taps_b) = outs["rdg"], outs["block"]
-        between = {"tokens": max(rel_l2(b, r) for b, r in zip(taps_b, taps_r)),
-                   "sr": rel_l2(sr_b, sr_r)}
-    say("main", f"block mode vs rdg mode, relative L2: token stream at most "
-                f"{between['tokens']:.3e}, float SR {between['sr']:.3e}")
-    report["rel_l2_block_vs_rdg"] = between
+    check_forwards(packed, cfg, x, model, report, "main")
 
     # the block serving mode through the entry point a user calls
     server_b = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev)
     server_b.register("grid", exp, params, mode="block")
-    reset_counts()
-    scores_b = server_b.score("grid", lr_u8, hr_u8)
-    torch.cuda.synchronize()
-    got = counts()
-    say("main", f"AnomalyServer in block mode scored {len(lr_u8)} requests "
-                f"in {n_fwd} forwards; launches {got}; largest score "
-                f"difference to rdg mode (1-SSIM, MSE, -PSNR) "
-                f"{np.abs(scores_b - scores).max(0).tolist()}")
-    if got != expected_counts(PER_FORWARD_BLOCK, n_fwd):
-        raise AssertionError(f"block mode launches {got}, expected "
-                             f"{PER_FORWARD_BLOCK} x {n_fwd}")
-    check_operand_paths("serving_block", got, report)
-    if scores_b.shape != scores.shape or not np.isfinite(scores_b).all():
-        raise AssertionError(f"block mode scores {scores_b.shape} not finite")
-    report["main_path_launches_block"] = got
-    report["score_diff_block_vs_rdg"] = np.abs(scores_b - scores).max(0) \
-        .tolist()
+    check_block_server(server_b, lr_u8, hr_u8, scores, n_fwd, report, "main")
 
     # the array core of evaluate_anomaly over the same synthetic test split
     rgb = exp.data.rgb_range
@@ -847,10 +891,11 @@ def phase_main(exp, dev, report):
 def phase_serving(exp, dev, report, n_good=16, n_bad=16, tail=5):
     """Window-16 serving: ``exp``'s model (random weights from a seed, bf16)
     registered with ``AnomalyServer`` scores ``n_good`` good and ``n_bad``
-    defective synthetic grid images and a tail, in rdg mode, with the launch
-    counters checked; the forward RDG by RDG against the eager f32 model
-    (PERF.md section 2's limits); block mode refused before any launch
-    (kernel (g) takes 8x8 windows only)."""
+    defective synthetic grid images and a tail, in rdg mode and in block mode
+    (``ADSR_TPU_RDG=0`` at registration: kernel (g) at 16x16 windows), with
+    the launch counters checked; both forwards RDG by RDG against the eager
+    f32 model (PERF.md section 2's limits), and block mode against rdg
+    mode."""
     cfg = exp.model
     hr_px, scale = exp.data.resolution, cfg.upscale
     params = seeded_params(cfg, dev)
@@ -891,62 +936,38 @@ def phase_serving(exp, dev, report, n_good=16, n_bad=16, tail=5):
     report["main_path_forwards"] = n_fwd
     report["params"] = n_params
 
+    # block mode as a user selects it: ADSR_TPU_RDG=0 at registration
+    os.environ["ADSR_TPU_RDG"] = "0"
+    server_b = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev)
+    server_b.register("grid", exp, params)
+    os.environ.pop("ADSR_TPU_RDG")
+    check_block_server(server_b, lr_u8, hr_u8, scores, n_fwd, report,
+                       "serving")
+    del server_b
+
+    # both forwards, kernels vs the eager f32 model (TF32 off), per RDG
     packed = prepack_drct(params, cfg, cfg.img_size, cfg.img_size,
                           dtype=torch.bfloat16, device=dev, mode="rdg")
     x = torch.as_tensor(to_float(lr_u8[:BATCH], cfg.in_chans,
                                  exp.data.rgb_range), device=dev)
     model = make_model(cfg, device=dev)
     model.load_state_dict(params)
-    with torch.no_grad():
-        taps_p, taps_k = [], []
-        sr_p = model(x, taps=taps_p)
-        sr_k = fused_drct_apply(packed, cfg, x, taps=taps_k, mode="rdg")
-    tok, inc, sr_err = stream_errors(taps_k, sr_k, taps_p, sr_p)
-    say("serving", "kernels (bf16) vs eager f32 model, relative L2 of the "
-                   "token stream after each RDG: "
-                   + " ".join(f"{e:.2e}" for e in tok))
-    say("serving", "... of each RDG's increment (RDGs 2-12): "
-                   + " ".join(f"{e:.2e}" for e in inc))
-    say("serving", f"... of the float SR [{tuple(sr_k.shape)}]: {sr_err:.3e}")
-    if max(tok) > TOKENS_REL_L2 or max(inc) > INCREMENT_REL_L2 \
-            or sr_err > SR_REL_L2 or not torch.isfinite(sr_k).all():
-        raise AssertionError(
-            f"forward vs plain: tokens {max(tok):.3e} > {TOKENS_REL_L2} or "
-            f"increments {max(inc):.3e} > {INCREMENT_REL_L2} or SR "
-            f"{sr_err:.3e} > {SR_REL_L2}")
-    report.update(rel_l2_tokens=tok, rel_l2_increments=inc, rel_l2_sr=sr_err)
-
-    # block mode as a user selects it: ADSR_TPU_RDG=0 at registration
-    os.environ["ADSR_TPU_RDG"] = "0"
-    server_b = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev)
-    server_b.register("grid", exp, params)
-    os.environ.pop("ADSR_TPU_RDG")
-    reset_counts()
-    try:
-        server_b.score("grid", lr_u8[:BATCH], hr_u8[:BATCH])
-    except NotImplementedError as err:
-        refused = str(err).splitlines()[0]
-    else:
-        raise AssertionError("block mode at window 16 ran")
-    torch.cuda.synchronize()
-    if any(counts().values()):
-        raise AssertionError(f"block mode at window 16 launched {counts()}")
-    say("serving", f"block mode (ADSR_TPU_RDG=0) at window "
-                   f"{cfg.window_size} refused before any launch: {refused}")
-    report["block_mode_refused"] = refused
+    check_forwards(packed, cfg, x, model, report, "serving")
     return params, packed, x, model, server, lr_u8, hr_u8
 
 
 def phase_x8(dev, report, steps=4):
     """512 px at x8 (LR 64 x 64: the window-16 token geometry, three pixel
-    shuffles in the tail): ``AnomalyServer`` scores one batch, the final SR
-    against the eager f32 model, then ``steps`` train steps at batch 16."""
+    shuffles in the tail): ``AnomalyServer`` scores one batch in each mode,
+    each forward against the eager f32 model, then ``steps`` train steps at
+    batch 16."""
     exp = drct_experiment("grid", 512, 8, precision="bf16",
                           batch_size=BATCH, run_tag="chip_smoke_x8")
     cfg = exp.model
     _, packed, x, model, server, lr_u8, hr_u8 = phase_serving(
         exp, dev, report, n_good=BATCH // 2, n_bad=BATCH // 2, tail=0)
     serving = report["main_path_launches"]
+    serving_block = report["main_path_launches_block"]
     del model, server, packed
     bundle = make_train_step(exp, dev)
     state = bundle.init_state(torch.Generator().manual_seed(SEED + 21))
@@ -970,7 +991,8 @@ def phase_x8(dev, report, steps=4):
         raise AssertionError(f"x8 train: losses {losses}, launches {got}")
     check_operand_paths("train_x8", got, report, W16_BWD_LAUNCHES)
     report["train_x8"] = {"losses": losses, "launches": got}
-    return {"serving_x8": serving, "train_x8": got}
+    return {"serving_x8": serving, "serving_block_x8": serving_block,
+            "train_x8": got}
 
 
 def stream_errors(taps_k, sr_k, taps_p, sr_p):
@@ -2187,10 +2209,11 @@ def phase_w16(dev, report):
     """The window-16 geometry (16x16 windows, N = 256 keys a window) at full
     width: ``drct_experiment("grid", 256, 4)`` (LR 64 x 64, M = 65,536 token
     rows a batch of 16) through the same checks as the flagship (launch
-    plans; kernels (a)-(c) against their plain versions; serving RDG by RDG;
-    timing; kernels (d)-(f); one RDG's gradients; the Trainer; the CLIs,
-    rdg mode only), then 512 px at x8. Its lines read "[w16] ...". Returns
-    (launches by main path, timings)."""
+    plans; kernels (a)-(c) and (g) against their plain versions; serving RDG
+    by RDG; timing; kernels (d)-(f); one RDG's gradients; the Trainer; the
+    CLIs), in rdg mode and in block mode (kernel (g) at N = 256), then 512
+    px at x8. Its lines read "[w16] ...". Returns (launches by main path,
+    timings)."""
     global PREFIX
     PREFIX = "w16"
     r16 = report.setdefault("w16", {})
@@ -2200,11 +2223,14 @@ def phase_w16(dev, report):
     check = Checker()
     print_plans(cfg, r16)
     phase_kernels(cfg, dev, check)
+    phase_swin_block(cfg, dev, check)
     params, packed, x, model, server, lr_u8, hr_u8 = phase_serving(exp, dev,
                                                                    r16)
     serving = r16["main_path_launches"]
+    serving_block = r16["main_path_launches_block"]
     timings = phase_timing(exp, dev, packed, x, model, server, lr_u8, hr_u8,
                            r16)
+    timings.update(phase_block_timing(exp, dev, packed, x, r16))
     del model, server, packed
     bwd_inputs = phase_bwd_kernels(cfg, dev, check)
     say("kernels", f"{check.cases} cases within tolerance; max abs error "
@@ -2216,16 +2242,21 @@ def phase_w16(dev, report):
     timings.update(phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs,
                                       r16, PER_TRAIN_STEP_W16))
     del trainer, bwd_inputs
-    cli = phase_cli(exp, dev, r16, W16_CLI_DIR, ("rdg",), PER_TRAIN_STEP_W16,
-                    W16_BWD_LAUNCHES, overlap=0)
+    cli = phase_cli(exp, dev, r16, W16_CLI_DIR, ("rdg", "block"),
+                    PER_TRAIN_STEP_W16, W16_BWD_LAUNCHES, overlap=0)
     x8 = phase_x8(dev, r16.setdefault("x8", {}))
-    paths = {"serving_w16": serving, "train_w16": train,
-             "train_cli_w16": cli["train_cli"],
-             "evaluate_cli_w16": cli["evaluate_cli_rdg"], **x8}
-    # (c) on both paths and (f) on the training path went through N = 256
+    paths = {"serving_w16": serving, "serving_block_w16": serving_block,
+             "train_w16": train, "train_cli_w16": cli["train_cli"],
+             "evaluate_cli_w16": cli["evaluate_cli_rdg"],
+             "evaluate_cli_block_w16": cli["evaluate_cli_block"], **x8}
+    # (c) on both paths, (f) on the training path and (g) on the block-mode
+    # paths went through N = 256
     for path, k in (("serving_w16", "window_attention"),
                     ("train_w16", "window_attention"),
-                    ("train_w16", "window_attention_bwd")):
+                    ("train_w16", "window_attention_bwd"),
+                    ("serving_block_w16", "swin_block"),
+                    ("evaluate_cli_block_w16", "swin_block"),
+                    ("serving_block_x8", "swin_block")):
         if not paths[path][k]:
             raise AssertionError(f"{path}: {k} launched no time")
     PREFIX = None

@@ -465,15 +465,49 @@ def test_window_attention_bwd_kernel_matches_plain_at_window16(dev, c, nh,
     assert torch.equal(dqkv, dq2) and torch.equal(dbias, db2)
 
 
-def test_block_mode_refuses_window16_before_any_launch(dev):
-    cfg = DRCTModelConfig(upscale=2, img_size=32, window_size=16, in_chans=1,
-                          embed_dim=12, num_layers=1, num_heads=2, gc=4)
-    params, _ = init_sr_params(cfg, torch.Generator().manual_seed(0),
-                               device=dev)
-    packed = prepack_drct(params, cfg, 32, 32, dtype=torch.bfloat16,
-                          device=dev, mode="block")
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4])
+def test_swin_block_kernel_matches_plain_at_window16(dev, k):
+    # the 256px model's five blocks (c 180..308, heads 6/4/2/6/4, hd
+    # 30/53/122/46/77, shifts 0/8) at 16x16 windows, batch 2 on 32x32
+    # tokens (4 windows an image, a cluster of 4 blocks a window); the
+    # bound of the 8x8 case above
+    cfg = DRCTModelConfig(upscale=4, img_size=32, window_size=16, in_chans=1,
+                          embed_dim=180, num_layers=1, num_heads=6, gc=32)
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(k)
+    sd = {n: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
+          for n, v in sd.items()}
+    packed = prepack_rdg_stack(sd, cfg, 32, 32, torch.bfloat16, dev)
+    blk = packed["rdgs"][0][k]
+    c = (180, 212, 244, 276, 308)[k]
+    x = torch.randn(2 * 1024, 308, generator=gen).to(dev).to(torch.bfloat16)
+    out = torch.empty(2 * 1024, c, dtype=torch.bfloat16, device=dev)
     n0 = fused_swin_block.launches
-    x = torch.rand(2, 32, 32, 1, device=dev) * 255
-    with pytest.raises(NotImplementedError, match="8x8 windows"):
-        fused_drct_apply(packed, cfg, x)
-    assert fused_swin_block.launches == n0
+    fused_swin_block(x[:, :c], blk, packed["masks"], cfg, 32, 32, k, out)
+    assert fused_swin_block.launches == n0 + 1
+    want = fused_swin_block_plain(x[:, :c], blk, packed["masks"], cfg, 32,
+                                  32, k)
+    _close(out, want, 4e-2)
+    again = torch.empty_like(out)      # no atomics: bitwise repeatable
+    fused_swin_block(x[:, :c], blk, packed["masks"], cfg, 32, 32, k, again)
+    assert torch.equal(out, again)
+
+
+def test_block_mode_forward_tracks_rdg_mode_at_window16(dev):
+    cfg = DRCTModelConfig(upscale=2, img_size=32, window_size=16, in_chans=1,
+                          embed_dim=12, num_layers=2, num_heads=2, gc=4)
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    packed = prepack_drct(sd, cfg, 32, 32, dtype=torch.bfloat16, device=dev,
+                          mode="block")
+    x = 255 * torch.rand(2, 32, 32, 1, device=dev)
+    for fn in (rdg_layernorm, rdg_gemm, window_attention, fused_swin_block):
+        fn.launches = 0
+    with torch.no_grad():
+        block = fused_drct_apply(packed, cfg, x)
+        torch.cuda.synchronize()
+        counts = [fn.launches for fn in (rdg_layernorm, rdg_gemm,
+                                         window_attention, fused_swin_block)]
+        rdg = fused_drct_apply(packed, cfg, x, mode="rdg")
+    assert counts == [0, 5 * cfg.num_layers, 0, 5 * cfg.num_layers]
+    rel = (block - rdg).norm() / rdg.norm()
+    assert rel < 5e-2, rel

@@ -13,38 +13,15 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from adsr_tpu.models.drct import SwinBlock, shift_attn_mask
-from adsr_tpu.models.factory import fast_init
+from adsr_tpu.models.drct import shift_attn_mask
 from adsr_tpu.ops.fused_swin_block import fused_swin_block as jax_block
 from adsr_tpu.ops.fused_swin_block import pack_swin_weights as jax_pack
 
-from adsr_tpu_torch.core.config import DRCTModelConfig
 from adsr_tpu_torch.kernels import fused_swin_block as fsb
 from adsr_tpu_torch.kernels.fused_rdg import _pack_block, rdg_geometry
 
-from torch_port_util import jax_params, port_state_dict
-
-
-def _lone_block_cfg(c, nh, win, mlp_ratio=2.0):
-    """A config whose block 2 (k=1: shifted) and block 1 (k=0: not) are the
-    lone block's geometry: gc 0 keeps every block at width c."""
-    return DRCTModelConfig(upscale=2, img_size=8, window_size=win,
-                           in_chans=1, embed_dim=c, num_layers=1,
-                           num_heads=nh, gc=0, mlp_ratio=mlp_ratio)
-
-
-def _jax_block_and_params(c, nh, win, shift, h, seed=0):
-    rng = np.random.RandomState(seed)
-    x = rng.randn(2, h * h, c).astype(np.float32)
-    blk = SwinBlock(dim=c, input_resolution=(h, h), num_heads=nh,
-                    window_size=win, shift_size=shift, mlp_ratio=2.0)
-    params = fast_init(blk.init, jax.random.key(seed), jnp.asarray(x),
-                       (h, h))["params"]
-    # perturb every leaf so biases, LayerNorm affines and the table matter
-    params = jax.tree_util.tree_map(
-        lambda a: np.asarray(a, np.float32)
-        + 0.02 * rng.randn(*np.shape(a)).astype(np.float32), params)
-    return blk, params, x
+from torch_port_util import (jax_params, jax_swin_block_case,
+                             lone_block_cfg, port_state_dict)
 
 
 # the JAX suite's case (tests/test_fused_swin_block.py:19-22), and one whose
@@ -52,13 +29,13 @@ def _jax_block_and_params(c, nh, win, shift, h, seed=0):
 @pytest.mark.parametrize("c,nh,shift", [(12, 2, 0), (12, 2, 2), (20, 1, 2)])
 def test_plain_block_matches_jax_fused_swin_block(c, nh, shift):
     h, win = 8, 4
-    _, params, x = _jax_block_and_params(c, nh, win, shift, h)
+    _, params, x = jax_swin_block_case(c, nh, win, shift, h)
     mask = shift_attn_mask(h, h, win, shift) if shift else None
     packed = {k: jnp.asarray(v) for k, v in
               jax_pack(params, c, nh, win).items()}
     want = np.asarray(jax_block(jnp.asarray(x), packed, h, h, win, shift, nh,
                                 c, mask=mask))
-    cfg = _lone_block_cfg(c, nh, win)
+    cfg = lone_block_cfg(c, nh, win)
     k = 1 if shift else 0
     assert fsb.block_geometry(cfg, k) == {"c": c, "heads": nh,
                                           "hidden": 2 * c, "shift": shift}
@@ -76,8 +53,8 @@ def test_plain_block_matches_jax_fused_swin_block(c, nh, shift):
 def test_strided_concat_prefix_input():
     # the block reads cat[:, :c] at the concat buffer's row stride
     c, nh, win, h = 12, 2, 4, 8
-    _, params, x = _jax_block_and_params(c, nh, win, 0, h, seed=3)
-    cfg = _lone_block_cfg(c, nh, win)
+    _, params, x = jax_swin_block_case(c, nh, win, 0, h, seed=3)
+    cfg = lone_block_cfg(c, nh, win)
     p = fsb.pack_swin_weights(params, c, win)
     xt = torch.from_numpy(x.reshape(-1, c))
     wide = torch.cat([xt, torch.full((xt.shape[0], 8), float("nan"))], 1)
@@ -105,8 +82,8 @@ def test_packing_from_a_jax_tree_equals_the_rdg_packer():
 
 
 def test_shape_errors_raise():
-    cfg = _lone_block_cfg(12, 2, 4)
-    p = fsb.pack_swin_weights(_jax_block_and_params(12, 2, 4, 0, 8)[1], 12, 4)
+    cfg = lone_block_cfg(12, 2, 4)
+    p = fsb.pack_swin_weights(jax_swin_block_case(12, 2, 4, 0, 8)[1], 12, 4)
     x = torch.zeros(2 * 64, 12)
     with pytest.raises(ValueError):
         fsb.fused_swin_block(x, p, {}, cfg, 8, 8, 0, torch.empty(128, 10))

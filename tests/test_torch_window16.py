@@ -278,13 +278,33 @@ def test_card_route_takes_window16_to_the_device_check():
     assert wab.window_attention_bwd.launches == 0
 
 
-def test_block_mode_refuses_window16_on_the_card_route():
+def _block_meta(win, c=12, side=32):
+    """Kernel (g)'s arguments at ``win`` as meta tensors (no card): a
+    window-16 test config at that window, the concat prefix and output, and
+    the block dict's matrices."""
     from adsr_tpu_torch.core.config import DRCTModelConfig
     from adsr_tpu_torch.kernels import fused_swin_block as fsb
     from torch_port_util import CONFIGS
-    cfg = DRCTModelConfig(**CONFIGS["window16"])
-    m = 2 * 32 * 32
-    with pytest.raises(NotImplementedError, match="8x8 windows"):
-        fsb.fused_swin_block(torch.empty(m, 12, **META), {}, {}, cfg, 32, 32,
-                             0, torch.empty(m, 12, **META))
-    assert fsb.fused_swin_block.launches == 0
+    cfg = DRCTModelConfig(**{**CONFIGS["window16"], "window_size": win})
+    m = 2 * side * side
+    p = {n: torch.empty(c, c, **META) for n in fsb._MATRICES}
+    return fsb, cfg, torch.empty(m, c, **META), p, torch.empty(m, c, **META)
+
+
+def test_block_mode_takes_window16_to_the_device_check():
+    # window 16 passes kernel (g)'s geometry rule and stops at the device
+    # check (a meta tensor is not CUDA), before any launch
+    fsb, cfg, x, p, out = _block_meta(WIN)
+    n0 = fsb.fused_swin_block.launches
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        fsb.fused_swin_block(x, p, {}, cfg, 32, 32, 0, out)
+    assert fsb.fused_swin_block.launches == n0
+
+
+@pytest.mark.parametrize("win", [4, 32])
+def test_block_mode_refuses_windows_other_than_8_and_16(win):
+    fsb, cfg, x, p, out = _block_meta(win)
+    n0 = fsb.fused_swin_block.launches
+    with pytest.raises(NotImplementedError, match="8x8 or 16x16 windows"):
+        fsb.fused_swin_block(x, p, {}, cfg, 32, 32, 0, out)
+    assert fsb.fused_swin_block.launches == n0

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 
 from adsr_tpu.core.config import DRCTModelConfig as JaxConfig
 from adsr_tpu.models.drct import DRCT as JaxDRCT
+from adsr_tpu.models.drct import SwinBlock
 from adsr_tpu.models.factory import fast_init
 
 from adsr_tpu_torch.core.config import DRCTModelConfig
@@ -95,3 +96,27 @@ def lr_input(cfg, batch: int = 2, seed: int = 1) -> np.ndarray:
     rng = np.random.RandomState(seed)
     return (rng.rand(batch, cfg.img_size, cfg.img_size, cfg.in_chans)
             * 255).astype(np.float32)
+
+
+def lone_block_cfg(c, nh, win, mlp_ratio=2.0):
+    """A config whose block 2 (k=1: shifted) and block 1 (k=0: not) are a
+    lone Swin block's geometry: gc 0 keeps every block at width c."""
+    return DRCTModelConfig(upscale=2, img_size=8, window_size=win,
+                           in_chans=1, embed_dim=c, num_layers=1,
+                           num_heads=nh, gc=0, mlp_ratio=mlp_ratio)
+
+
+def jax_swin_block_case(c, nh, win, shift, h, seed=0):
+    """A JAX ``SwinBlock`` of width ``c`` on ``h`` x ``h`` tokens, its params
+    (seeded init plus a seeded N(0, 0.02) on every leaf, so biases,
+    LayerNorm affines and the table matter) and an input [2, h*h, c] f32."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(2, h * h, c).astype(np.float32)
+    blk = SwinBlock(dim=c, input_resolution=(h, h), num_heads=nh,
+                    window_size=win, shift_size=shift, mlp_ratio=2.0)
+    params = fast_init(blk.init, jax.random.key(seed), jnp.asarray(x),
+                       (h, h))["params"]
+    params = jax.tree_util.tree_map(
+        lambda a: np.asarray(a, np.float32)
+        + 0.02 * rng.randn(*np.shape(a)).astype(np.float32), params)
+    return blk, params, x
