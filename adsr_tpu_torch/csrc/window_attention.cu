@@ -1,6 +1,6 @@
 // window_attention: shifted-window multi-head self-attention over 8x8
-// windows (and, below, 16x16 windows in tiles of 64 tokens), reading q, k, v
-// straight from the raster-order qkv buffer.
+// windows, reading q, k, v straight from the raster-order qkv buffer (16x16
+// windows: window_attention16.cu).
 //
 // Replaces: the attention phases of the Pallas kernel _rdg_kernel_impl
 // (adsr_tpu/ops/fused_rdg.py:734-855): per (window, head) scores with the
@@ -34,7 +34,6 @@
 #include <cstdint>
 
 #include "window_attn_core.cuh"
-#include "window_tiles.cuh"
 
 namespace {
 
@@ -209,198 +208,6 @@ int launch(const void* qkv, long long ldq, void* ctx, long long ldc,
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------------------
-// 16x16 windows (N = 256 tokens): one block (4 warps, 16 query rows each)
-// per (image, window, head, tile of 64 query rows). The block keeps its Q
-// tile and one K and one V tile of 64 keys in shared memory ([3][64][HDP +
-// 8], the N = 64 kernel's planes) and a staging area that cp.async fills
-// with the next K and V tiles' raw 16-byte pieces while the warps run the
-// products of this one (87 KB in all at a head tile of 128, two blocks an
-// SM). It walks the window's four key tiles once, FlashAttention-2's online
-// softmax: each
-// tile's scores S (qk_tile, add_bias), the row max m grown to the tile's,
-// e = exp(S - m) in f32, the row sum l and the f32 O rescaled by exp(m_old
-// - m) and e rounded once to bf16 for O += e V; O / l at the end. So P is
-// rounded to bf16 unnormalised (e in (0, 1]) and normalised in f32 after
-// P V, where the N = 64 kernel rounds P = e / sum: the same one rounding a
-// probability, the same stabilised f32 softmax and f32 accumulation. The
-// bias [256][256] of the head and the mask [256][256] of the window are
-// f32, read once a (window, head, query tile) from L2: 0.25 MB a (window,
-// head), several times the block's q, k, v bytes.
-
-constexpr int kWin16 = 16;
-constexpr int N16 = kWin16 * kWin16;
-constexpr int kKeyTiles = N16 / kTileRows;
-
-// Shared memory of one block: the Q, K, V planes and the staging of the
-// next K and V tiles
-__host__ __device__ inline size_t smem_bytes16(int hdp) {
-  return smem_bytes(hdp) + (size_t)2 * stage_slots(hdp) * 16;
-}
-
-template <int HDP>
-__global__ void __launch_bounds__(kThreads)
-window_attention16_kernel(const bf16* __restrict__ qkv, long long ldq,
-                          bf16* __restrict__ ctx, long long ldc,
-                          const float* __restrict__ bias,
-                          const float* __restrict__ mask, int H, int W, int C,
-                          int nh, int hd, int shift, float scale) {
-  constexpr int LD = HDP + 8;
-  constexpr int kPlane = kTileRows * LD;  // elements of one plane
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* pq = reinterpret_cast<bf16*>(smem);
-  bf16* pk = pq + kPlane;
-  bf16* pv = pq + 2 * kPlane;
-  const uint32_t sq = (uint32_t)__cvta_generic_to_shared(pq);
-  const uint32_t sk = sq + 2u * kPlane, sv = sq + 4u * kPlane, ldb = 2u * LD;
-
-  const int nww = W / kWin16;
-  const int nw = (H / kWin16) * nww;
-  const int qt = blockIdx.x % kKeyTiles;
-  const int h = (blockIdx.x / kKeyTiles) % nh;
-  const int win = (blockIdx.x / (kKeyTiles * nh)) % nw;
-  const int b = blockIdx.x / (kKeyTiles * nh * nw);
-  const int wi = win / nww, wj = win % nww;
-  const int C3 = 3 * C, s0 = h * hd;
-  const WinRows<kWin16> rows{(long long)b * H * W, wi * kWin16 + shift,
-                             wj * kWin16 + shift, H, W};
-
-  // staging for the next K and V tiles' raw pieces (cp.async)
-  const uint4* stk = reinterpret_cast<const uint4*>(pq + 3 * kPlane);
-  const uint4* stv = stk + stage_slots(HDP);
-  const uint32_t ssk = sq + 6u * kPlane, ssv = ssk + 16u * stage_slots(HDP);
-  auto stage_kv = [&](int kt) {
-    stage_tile<kWin16>(ssk, qkv, ldq, C3, s0 + C, hd, rows, kt * kTileRows);
-    stage_tile<kWin16>(ssv, qkv, ldq, C3, s0 + 2 * C, hd, rows,
-                       kt * kTileRows);
-    stage_commit();
-  };
-  stage_kv(0);
-  zero_pad<HDP>(pq, 3 * kTileRows, hd);   // the padded head dims are zero
-  load_tile<kWin16>(pq, LD, qkv, ldq, C3, s0, hd, rows, qt * kTileRows);
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = 16 * warp, g = lane >> 2, tq = lane & 3;
-  const size_t q0 = (size_t)qt * kTileRows + r0;   // the warp's first query
-  const float* bias_r = bias + ((size_t)h * N16 + q0) * N16;
-  const float* mask_r =
-      mask != nullptr ? mask + ((size_t)win * N16 + q0) * N16 : nullptr;
-
-  // rows r0 + g (values 0, 1) and r0 + g + 8 (values 2, 3)
-  float mx0 = -INFINITY, mx1 = -INFINITY, sum0 = 0.f, sum1 = 0.f;
-  float o[HDP / 8][4];
-#pragma unroll
-  for (int j = 0; j < HDP / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
-  for (int kt = 0; kt < kKeyTiles; ++kt) {
-    stage_wait_all();
-    __syncthreads();        // tile kt staged, Q whole, the last tile done
-    unpack_tile(pk, LD, stk, s0 + C, hd);
-    unpack_tile(pv, LD, stv, s0 + 2 * C, hd);
-    __syncthreads();
-    if (kt + 1 < kKeyTiles) stage_kv(kt + 1);   // lands during the products
-    float s[8][4];
-    qk_tile<HDP>(sq, sk, ldb, r0, s);
-    add_bias<N16>(s, bias_r + kt * kTileRows,
-                  mask_r != nullptr ? mask_r + kt * kTileRows : nullptr,
-                  scale);
-    float t0 = mx0, t1 = mx1;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      t0 = fmaxf(t0, fmaxf(s[j][0], s[j][1]));
-      t1 = fmaxf(t1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int sh = 1; sh <= 2; sh <<= 1) {
-      t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, sh));
-      t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, sh));
-    }
-    const float a0 = expf(mx0 - t0), a1 = expf(mx1 - t1);  // 0 at tile 0
-    mx0 = t0;
-    mx1 = t1;
-    float e0 = 0.f, e1 = 0.f;
-    uint32_t p[8][2];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = expf(s[j][0] - t0);
-      s[j][1] = expf(s[j][1] - t0);
-      s[j][2] = expf(s[j][2] - t1);
-      s[j][3] = expf(s[j][3] - t1);
-      e0 += s[j][0] + s[j][1];
-      e1 += s[j][2] + s[j][3];
-      p[j][0] = pack_bf16x2(s[j][0], s[j][1]);
-      p[j][1] = pack_bf16x2(s[j][2], s[j][3]);
-    }
-#pragma unroll
-    for (int sh = 1; sh <= 2; sh <<= 1) {
-      e0 += __shfl_xor_sync(0xffffffffu, e0, sh);
-      e1 += __shfl_xor_sync(0xffffffffu, e1, sh);
-    }
-    sum0 = sum0 * a0 + e0;
-    sum1 = sum1 * a1 + e1;
-#pragma unroll
-    for (int j = 0; j < HDP / 8; ++j) {
-      o[j][0] *= a0;
-      o[j][1] *= a0;
-      o[j][2] *= a1;
-      o[j][3] *= a1;
-    }
-    pv_tile<HDP>(p, sv, ldb, o);
-  }
-  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
-#pragma unroll
-  for (int j = 0; j < HDP / 8; ++j) {
-    o[j][0] *= inv0;
-    o[j][1] *= inv0;
-    o[j][2] *= inv1;
-    o[j][3] *= inv1;
-  }
-
-  // the context over this warp's own 16 rows of the Q tile (qk_tile reads
-  // only a warp's own rows of Q), then back to ctx
-  bf16* q = pq + (r0 + g) * LD;
-#pragma unroll
-  for (int j = 0; j < HDP / 8; ++j) {
-    const int d = 8 * j + 2 * tq;
-#pragma unroll
-    for (int x = 0; x < 2; ++x) {
-      if (d + x < hd) {
-        q[d + x] = __float2bfloat16(o[j][x]);
-        q[8 * LD + d + x] = __float2bfloat16(o[j][2 + x]);
-      }
-    }
-  }
-  __syncthreads();
-  store_tile<kWin16>(pq, LD, ctx, ldc, C, s0, hd, rows, qt * kTileRows);
-}
-
-template <int HDP>
-int launch16(const void* qkv, long long ldq, void* ctx, long long ldc,
-             const void* bias, const void* mask, int B, int H, int W, int C,
-             int nh, int hd, int shift, long long smem, cudaStream_t stream) {
-  const size_t bytes = smem_bytes16(HDP);
-  if ((long long)bytes != smem || bytes > kMaxSmem)
-    return (int)cudaErrorInvalidValue;
-  static size_t configured = 0;   // per template instance
-  if (bytes > configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        window_attention16_kernel<HDP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = bytes;
-  }
-  const long long blocks =
-      (long long)B * (H / kWin16) * (W / kWin16) * nh * kKeyTiles;
-  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  window_attention16_kernel<HDP>
-      <<<(unsigned)blocks, kThreads, bytes, stream>>>(
-          (const bf16*)qkv, ldq, (bf16*)ctx, ldc, (const float*)bias,
-          (const float*)mask, H, W, C, nh, hd, shift,
-          (float)(1.0 / std::sqrt((double)hd)));
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // ``smem`` is the shared memory the caller planned
@@ -411,7 +218,7 @@ extern "C" int adsr_window_attention(const void* qkv, long long ldq, void* ctx,
                                      const void* mask, int B, int H, int W,
                                      int C, int nh, int win, int shift,
                                      long long smem, void* stream) {
-  if ((win != kWin && win != kWin16) || H % win || W % win || nh <= 0 ||
+  if (win != kWin || H % win || W % win || nh <= 0 ||
       C % nh || C % 4 || B < 0 || shift < 0 || shift >= win ||
       (shift > 0) != (mask != nullptr) || ldq % 8 || ldc % 8 ||
       ldq < 3ll * C || ldc < C || reinterpret_cast<uintptr_t>(qkv) % 16 ||
@@ -420,19 +227,6 @@ extern "C" int adsr_window_attention(const void* qkv, long long ldq, void* ctx,
   if (B == 0) return 0;
   const int hd = C / nh;
   cudaStream_t s = (cudaStream_t)stream;
-  if (win == kWin16) {
-    switch ((hd + 15) / 16) {
-      case 1: return launch16<16>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);
-      case 2: return launch16<32>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);
-      case 3: return launch16<48>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);
-      case 4: return launch16<64>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);
-      case 5: return launch16<80>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);
-      case 6: return launch16<96>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);
-      case 7: return launch16<112>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);
-      case 8: return launch16<128>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);
-      default: return (int)cudaErrorInvalidValue;
-    }
-  }
   switch ((hd + 15) / 16) {
     case 1: return launch<16>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);
     case 2: return launch<32>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, hd, shift, smem, s);

@@ -23,12 +23,10 @@
 // ridge, so mma.sync is enough; wgmma serves (g)'s dense products.
 // The core is built from three pieces templated on the head tile (and
 // add_bias on the keys a window): qk_tile (a 16 x 64 score tile), add_bias
-// and pv_tile (P V over 64 keys). Kernels (c), (f) and (g) at 16x16
-// windows (N = 256: window_attention.cu, window_attention_bwd16.cu,
-// swin_block16.cu) walk the window's keys in tiles of 64 with the same
-// pieces; (g) takes its online-softmax step from online_softmax_tile, which
-// (c) runs inline (through the function, ptxas allocated (c)'s head tiles
-// 32 and 48 differently and (c) read ~1% slower on the H100).
+// and pv_tile (P V over 64 keys). Kernel (g) at 16x16 windows (N = 256,
+// swin_block16.cu) walks the window's keys in tiles of 64 with the same
+// pieces and its online-softmax step, online_softmax_tile; kernels (c) and
+// (f) at N = 256 run on wgmma (attn16.cuh).
 
 #pragma once
 

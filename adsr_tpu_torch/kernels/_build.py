@@ -65,11 +65,16 @@ SIGNATURES = {
     # nh, win, shift, group, smem, stream
     "adsr_window_attention_bwd": [_P, _L, _P, _L, _P, _P, _P, _L, _P, _P]
                                  + [_I] * 8 + [_L, _P],
-    # qkv, ldq, dctx, ldg, bias, mask, bias_t, mask_t, dqkv, ldd, stats,
+    # qkv, ldq, ctx, ldc, bias, mask, stats, B, H, W, C, nh, shift, smem,
+    # stream (16x16 windows)
+    "adsr_window_attention16": [_P, _L, _P, _L, _P, _P, _P] + [_I] * 6
+                               + [_L, _P],
+    # qkv, ldq, dctx, ldg, ctx, ldc, bias, mask, stats, dqkv, ldd, stats4,
     # part, dbias, B, H, W, C, nh, shift, group, smem_dq, smem_dkv, stream
     # (16x16 windows)
-    "adsr_window_attention_bwd16": [_P, _L, _P, _L, _P, _P, _P, _P, _P, _L,
-                                    _P, _P, _P] + [_I] * 7 + [_L, _L, _P],
+    "adsr_window_attention_bwd16": [_P, _L, _P, _L, _P, _L, _P, _P, _P, _P,
+                                    _L, _P, _P, _P] + [_I] * 7
+                                   + [_L, _L, _P],
     # x, ldx, out, ldo, ln1_w, ln1_b, wqkv, ld_qkv, bqkv, bias, mask, wproj,
     # ld_proj, bproj, ln2_w, ln2_b, w1, ld1, b1, w2, ld2, b2, B, H, W, C, F,
     # nh, win, shift, stages, eps, smem, stream

@@ -39,7 +39,8 @@ import torch
 from adsr_tpu_torch.core.config import DRCTModelConfig
 from adsr_tpu_torch.kernels.rdg_gemm import pitched, rdg_gemm, row_pitch
 from adsr_tpu_torch.kernels.rdg_layernorm import rdg_layernorm
-from adsr_tpu_torch.kernels.window_attention import window_attention
+from adsr_tpu_torch.kernels.window_attention import (attn_operands,
+                                                     window_attention)
 from adsr_tpu_torch.models.drct import relative_position_bias, shift_attn_mask
 
 
@@ -125,6 +126,10 @@ def pack_swin(sd: Mapping[str, torch.Tensor], prefix: str, c: int,
         "b1": get(f"{prefix}mlp.fc1.bias", f32),
         "w2": mat(f"{prefix}mlp.fc2.weight", dtype),
         "b2": get(f"{prefix}mlp.fc2.bias", f32),
+        # the bias as its table [nh, (2W - 1)^2], which kernels (c) and (f)
+        # read at 16x16 windows (window_attention.attn_operands); gradients
+        # reach the table through attn_bias
+        "attn_table": table.detach().t().contiguous(),
     }
 
 
@@ -251,20 +256,23 @@ def swin_block_forward(x: torch.Tensor, p: Dict[str, torch.Tensor],
                        masks: Dict[int, torch.Tensor], cfg: DRCTModelConfig,
                        h: int, w: int, k: int,
                        dp: Optional[torch.Tensor] = None,
-                       hpre: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       hpre: Optional[torch.Tensor] = None,
+                       stats: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Swin block ``k`` (0-based) of an RDG on kernels (a)-(c), from its
     input ``x`` [M, c_k]: LN1, qkv, window attention, proj + residual, LN2,
     fc1 + GELU, fc2 + residual. ``bufs`` holds the [M, n] outputs ``ln1``,
     ``qkv``, ``ctx``, ``x1``, ``ln2``, ``hid`` and ``x2``. With ``hpre``,
-    fc1 also writes its pre-activation there (the backward's recompute,
+    fc1 also writes its pre-activation there, and with ``stats`` the
+    attention its softmax statistics (the backward's recompute,
     ``kernels/fused_rdg_train.py``), which must equal the forward's launch
     for launch. Returns ``bufs["x2"]``."""
     g = rdg_geometry(cfg)
     nh, shift = g["heads"][k], g["shifts"][k]
     rdg_layernorm(x, p["ln1_w"], p["ln1_b"], bufs["ln1"])
     rdg_gemm(bufs["ln1"], p["wqkv"], p["bqkv"], bufs["qkv"])
-    window_attention(bufs["qkv"], bufs["ctx"], p["attn_bias"], masks.get(shift),
-                     h, w, nh, cfg.window_size, shift)
+    window_attention(bufs["qkv"], bufs["ctx"],
+                     *attn_operands(p, masks, h, w, shift, cfg.window_size),
+                     h, w, nh, cfg.window_size, shift, stats)
     residual_add(bufs["ctx"], p["wproj"], p["bproj"], bufs["x1"], x, dp, 2 * k)
     rdg_layernorm(bufs["x1"], p["ln2_w"], p["ln2_b"], bufs["ln2"])
     if hpre is None:

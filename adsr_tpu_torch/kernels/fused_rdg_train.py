@@ -17,10 +17,12 @@ JAX ``pack_train`` ``:1048`` is ``prepack_rdg_stack(..., detach=False)``
   block's exact input. The RDG's output goes to its own buffer, never over
   ``cat[:, :d]``, which block 1's backward reads.
 - backward: blocks 5 -> 1, each recomputing its LayerNorms, qkv, attention
-  context, GELU pre-activation and output from ``cat`` with kernels (a)-(c),
-  then the gradients with kernels (d) ``rdg_gemm_bwd`` (``rdg_gemm_grads``:
-  dgrad and wgrad of one dY behind one dY_eff pre-pass), (e)
-  ``rdg_layernorm_bwd`` and (f) ``window_attention_bwd``. ``dcat`` (f32)
+  context, GELU pre-activation and output from ``cat`` with kernels (a)-(c)
+  (at 16x16 windows (c) also writes its softmax statistics), then the
+  gradients with kernels (d) ``rdg_gemm_bwd`` (``rdg_gemm_grads``: dgrad
+  and wgrad of one dY behind one dY_eff pre-pass), (e)
+  ``rdg_layernorm_bwd`` and (f) ``window_attention_bwd`` (at 16x16 windows
+  from the recomputed context and those statistics). ``dcat`` (f32)
   collects each block's input gradient in ``dcat[:, :c_k]``; the columns
   of adjust k are complete when block k is reached, and adjust 1-4's
   LeakyReLU derivative is read from the sign of the saved ``cat`` columns.
@@ -53,11 +55,15 @@ from adsr_tpu_torch.kernels.fused_rdg import (attention_grad_buffers,
 from adsr_tpu_torch.kernels.rdg_gemm import pitched
 from adsr_tpu_torch.kernels.rdg_gemm_bwd import rdg_gemm_grads
 from adsr_tpu_torch.kernels.rdg_layernorm_bwd import rdg_layernorm_bwd
+from adsr_tpu_torch.kernels.window_attention import (attn_operands,
+                                                     softmax_stats)
 from adsr_tpu_torch.kernels.window_attention_bwd import window_attention_bwd
 from adsr_tpu_torch.models.common import RGB_MEAN
 from adsr_tpu_torch.models.drct import RDG, LN_EPS
 
 # the packed operands of one Swin block + adjust conv, in the Function's order
+# (the bias table ``attn_table`` takes no gradient of its own, attn_bias's
+# carries it: it rides in the Function's non-tensor spec)
 BLOCK_KEYS = ("ln1_w", "ln1_b", "wqkv", "bqkv", "attn_bias", "wproj", "bproj",
               "ln2_w", "ln2_b", "w1", "b1", "w2", "b2", "wadj", "badj")
 
@@ -78,7 +84,7 @@ def fused_rdg_train_bwd(cat: torch.Tensor, g: torch.Tensor,
     for k in reversed(range(5)):
         p = blocks[k]
         c, nh, shift = geo["feats"][k], geo["heads"][k], geo["shifts"][k]
-        f, mask = geo["hidden"][k], masks.get(shift)
+        f = geo["hidden"][k]
         m_attn, m_mlp = dp[:, 2 * k], dp[:, 2 * k + 1]
         gr = {key: torch.empty(p[key].shape, dtype=f32, device=dev)
               for key in BLOCK_KEYS}
@@ -93,7 +99,11 @@ def fused_rdg_train_bwd(cat: torch.Tensor, g: torch.Tensor,
                 for name, n in (("ln1", c), ("qkv", 3 * c), ("ctx", c),
                                 ("x1", c), ("ln2", c), ("hid", f), ("x2", c))}
         hpre = torch.empty(m, f, dtype=act, device=dev)
-        swin_block_forward(x, p, bufs, masks, cfg, h, w, k, dp, hpre=hpre)
+        # at 16x16 windows the attention also writes its softmax
+        # statistics, which kernel (f) reads beside the context
+        stats = softmax_stats(bufs["qkv"], h, w, nh, cfg.window_size)
+        swin_block_forward(x, p, bufs, masks, cfg, h, w, k, dp, hpre=hpre,
+                           stats=stats)
         ln1, qkv, ctx, x1, ln2, hid, x2 = bufs.values()
         # adjust: k < 4 LeakyReLU into cat[:, c:c+gc]; k == 4 the 0.2 residual
         adj = (dict(dy=dcat[:, c:c + gc], slope_src=cat[:, c:c + gc])
@@ -112,8 +122,12 @@ def fused_rdg_train_bwd(cat: torch.Tensor, g: torch.Tensor,
         dctx, dqkv = attention_grad_buffers(m, c, act, dev).values()
         rdg_gemm_grads(res, p["wproj"], ctx, dctx, gr["wproj"], gr["bproj"],
                        row_scale=m_attn)
-        window_attention_bwd(qkv, dctx, p["attn_bias"], mask, h, w, nh,
-                             cfg.window_size, shift, dqkv, gr["attn_bias"])
+        window_attention_bwd(qkv, dctx,
+                             *attn_operands(p, masks, h, w, shift,
+                                            cfg.window_size),
+                             h, w, nh, cfg.window_size, shift, dqkv,
+                             gr["attn_bias"],
+                             *((ctx, stats) if stats is not None else ()))
         rdg_gemm_grads(dqkv, p["wqkv"], ln1, dln, gr["wqkv"], gr["bqkv"])
         rdg_layernorm_bwd(x, dln, p["ln1_w"], dcat[:, :c], gr["ln1_w"],
                           gr["ln1_b"], residual=res)
@@ -125,8 +139,8 @@ class _RDGTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dp, spec, *operands):
-        cfg, h, w, masks = spec
-        blocks = _unflatten(operands)
+        cfg, h, w, masks, tables = spec
+        blocks = _unflatten(operands, tables)
         m, d = x.shape
         cat = torch.empty(m, rdg_geometry(cfg)["cat_width"], dtype=x.dtype,
                           device=x.device)
@@ -141,19 +155,19 @@ class _RDGTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         cat, dp, *operands = ctx.saved_tensors
-        cfg, h, w, masks = ctx.spec
+        cfg, h, w, masks, tables = ctx.spec
         dx, grads = fused_rdg_train_bwd(cat, g.contiguous(),
-                                        _unflatten(operands), masks, cfg, h,
-                                        w, dp)
+                                        _unflatten(operands, tables), masks,
+                                        cfg, h, w, dp)
         flat = [gr[key] for gr in grads for key in BLOCK_KEYS]
         return (dx.to(cat.dtype), None, None,
                 *(gv.to(op.dtype) for gv, op in zip(flat, operands)))
 
 
-def _unflatten(operands) -> List[Dict[str, torch.Tensor]]:
+def _unflatten(operands, tables) -> List[Dict[str, torch.Tensor]]:
     n = len(BLOCK_KEYS)
-    return [dict(zip(BLOCK_KEYS, operands[i:i + n]))
-            for i in range(0, len(operands), n)]
+    return [dict(zip(BLOCK_KEYS, operands[i:i + n]), attn_table=t)
+            for i, t in zip(range(0, len(operands), n), tables)]
 
 
 def fused_rdg_train(x: torch.Tensor, blocks: Sequence[Dict[str, torch.Tensor]],
@@ -164,8 +178,9 @@ def fused_rdg_train(x: torch.Tensor, blocks: Sequence[Dict[str, torch.Tensor]],
     detach=False)``, ``dp`` [B, 10] f32 drop-path multipliers. Returns the
     RDG's output [B*h*w, d]."""
     flat = [blk[key] for blk in blocks for key in BLOCK_KEYS]
+    tables = [blk["attn_table"] for blk in blocks]
     return _RDGTrain.apply(x, dp.to(device=x.device, dtype=torch.float32)
-                           .contiguous(), (cfg, h, w, masks), *flat)
+                           .contiguous(), (cfg, h, w, masks, tables), *flat)
 
 
 def rdg_train_plain(layer: RDG, x: torch.Tensor, h: int, w: int,

@@ -57,9 +57,12 @@ def relative_position_index(window_size: int) -> np.ndarray:
 
 
 @lru_cache(maxsize=None)
-def shift_attn_mask(h: int, w: int, window_size: int, shift: int) -> np.ndarray:
-    """[nW, N, N] additive 0/-100 mask for SW-MSA (src/drct.py:449-470)."""
-    img = np.zeros((h, w))
+def shift_region_labels(h: int, w: int, window_size: int,
+                        shift: int) -> np.ndarray:
+    """[nW, N] int32 region of each token of each shifted window (one of the
+    nine slices of the rolled image), the classes SW-MSA's mask separates
+    (src/drct.py:449-470)."""
+    img = np.zeros((h, w), dtype=np.int32)
     slices = (slice(0, -window_size), slice(-window_size, -shift),
               slice(-shift, None))
     cnt = 0
@@ -67,10 +70,18 @@ def shift_attn_mask(h: int, w: int, window_size: int, shift: int) -> np.ndarray:
         for ws in slices:
             img[hs, ws] = cnt
             cnt += 1
-    win = (img.reshape(h // window_size, window_size,
-                       w // window_size, window_size)
-              .transpose(0, 2, 1, 3)
-              .reshape(-1, window_size * window_size))
+    return (img.reshape(h // window_size, window_size,
+                        w // window_size, window_size)
+               .transpose(0, 2, 1, 3)
+               .reshape(-1, window_size * window_size))
+
+
+@lru_cache(maxsize=None)
+def shift_attn_mask(h: int, w: int, window_size: int, shift: int) -> np.ndarray:
+    """[nW, N, N] additive 0/-100 mask for SW-MSA (src/drct.py:449-470):
+    -100 where query and key lie in different regions
+    (:func:`shift_region_labels`)."""
+    win = shift_region_labels(h, w, window_size, shift)
     mask = win[:, None, :] - win[:, :, None]
     return np.where(mask != 0, -100.0, 0.0).astype(np.float32)
 

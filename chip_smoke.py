@@ -75,12 +75,17 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    16) through phases 2-10 at that size: the plans of (c), (g) (a cluster
    of four blocks a window, and the clusters the card holds at once) and
    (f); kernels (a)-(c), (g) and (d)-(f) against their plain versions
-   (every block, both shifts, (f) also at batch 5 with short groups, (g)
-   at batch 5 on 32 x 32 tokens and against the (a)-(c) composition, each
-   (f) and (g) call twice, bitwise equal); ``AnomalyServer`` scores 16 good
+   (every block, both shifts; (c) and (f) take the bias as its relative-
+   position table and the shift mask as region labels, and (c) also writes
+   each query row's softmax statistics, checked against the plain
+   version's; (f) is fed (c)'s own context and statistics, as the training
+   backward feeds it, also at batch 5 with short groups; (g) at batch 5 on
+   32 x 32 tokens and against the (a)-(c) composition; each (f) and (g)
+   call twice, bitwise equal); ``AnomalyServer`` scores 16 good
    + 16 defective 256 px images and a tail of 5 in rdg mode and in block
    mode (``ADSR_TPU_RDG=0``), and both forwards run RDG by RDG against the
-   eager f32 model; the timing of both forwards, each kernel and the step;
+   eager f32 model; the timing of both forwards, each kernel ((c) also with
+   the statistics, as the training recompute calls it) and the step;
    one RDG's gradients; the Trainer; ``cli.main --resolution 256`` and
    ``cli.evaluate`` in both modes on 512 px test images (2 x 2 tiles of 64
    LR px); then 512 px at x8 (``drct_experiment("grid", 512, 8)``):
@@ -128,7 +133,7 @@ from adsr_tpu_torch.kernels import rdg_gemm_bwd as gbwd
 from adsr_tpu_torch.kernels.fused_rdg import (block_buffers, fused_rdg,
                                               prepack_rdg_stack, rdg_flops,
                                               rdg_geometry, rdg_workspace,
-                                              swin_block_forward)
+                                              shift_masks, swin_block_forward)
 from adsr_tpu_torch.kernels.fused_swin_block import (fused_swin_block,
                                                      fused_swin_block_plain,
                                                      swin_block16_clusters,
@@ -144,7 +149,11 @@ from adsr_tpu_torch.kernels.rdg_layernorm import (rdg_layernorm,
 from adsr_tpu_torch.kernels.rdg_layernorm_bwd import (rdg_layernorm_bwd,
                                                       rdg_layernorm_bwd_plain,
                                                       rdg_layernorm_bwd_plan)
-from adsr_tpu_torch.kernels.window_attention import (build_attn_term,
+from adsr_tpu_torch.kernels.window_attention import (TILED_WINDOWS,
+                                                     attn_operands,
+                                                     build_attn_term,
+                                                     full_bias,
+                                                     softmax_stats,
                                                      window_attention,
                                                      window_attention_plain,
                                                      window_attention_plan)
@@ -227,6 +236,12 @@ SR_REL_L2 = 1.5e-2
 #   gradients differ by 0.8 of that element's. phase_rdg prints the share
 #   of such elements.
 RDG_REL_L2 = {"out/dx": 7e-3, "block 5": 1.5e-2, "blocks 1-4": 1e-1}
+# Kernel (c)'s softmax statistics at 16x16 windows (each query row's max m
+# and 1 / sum of its scaled, biased, masked scores) against the plain
+# version's f32 ones on the same bf16 q, k: both sum the same exact bf16
+# products in f32, in another order (~1e-6 relative on scores of order 1-10),
+# so m within 1e-4 + 1e-4 |m| and 1 / sum within 1e-4 relative.
+STATS_TOL = 1e-4
 
 
 def rdg_tensor_class(name: str) -> str:
@@ -268,8 +283,10 @@ PER_TRAIN_STEP_W16 = {**PER_TRAIN_STEP, "window_attention_bwd": 120}
 W16_BWD_LAUNCHES = 2
 SOURCES = {k: f"adsr_tpu_torch/csrc/{k}.cu"
            for k in KERNELS + BWD_KERNELS + BLOCK_KERNELS}
-# kernels (f)'s and (g)'s 16x16-window launches have sources of their own
-W16_SOURCES = {"window_attention_bwd":
+# kernels (c)'s, (f)'s and (g)'s 16x16-window launches have sources of
+# their own
+W16_SOURCES = {"window_attention": "adsr_tpu_torch/csrc/window_attention16.cu",
+               "window_attention_bwd":
                "adsr_tpu_torch/csrc/window_attention_bwd16.cu",
                "swin_block": "adsr_tpu_torch/csrc/swin_block16.cu"}
 REPLACES = "adsr_tpu/ops/fused_rdg.py:573"
@@ -469,7 +486,9 @@ def make_case_inputs(cfg, dev, gen):
     inputs, and the attention context ``ctx``: the same tensor) and ``hid``,
     ``qkv``, and the backward's ``dqkv`` (the qkv values) and ``dctx`` (the
     act values) in 16-byte rows (``pitched``; ``attention_grad_buffers`` on
-    the training backward), as kernels (b)-(d) and (f) take them."""
+    the training backward), as kernels (b)-(d) and (f) take them; at 16x16
+    windows the bias as a random relative-position table ``attn_table``
+    (what (c) and (f) read) and its gather ``attn_bias``."""
     g, m = flagship_shapes(cfg)
 
     def randn(*shape, std=1.0, dtype=torch.bfloat16, pitch=False):
@@ -492,8 +511,15 @@ def make_case_inputs(cfg, dev, gen):
             "act": randn(m, c, pitch=True), "hid": randn(m, f, pitch=True),
             "x1": randn(m, c),
             "qkv": randn(m, 3 * c, pitch=True),
-            "attn_bias": randn(nh, n, n, std=0.5, dtype=torch.float32),
         }
+        if cfg.window_size in TILED_WINDOWS:
+            # the relative-position table kernels (c) and (f) read, and its
+            # [nh, N, N] gather for (g), the plain versions and the library
+            blk["attn_table"] = randn(nh, (2 * cfg.window_size - 1) ** 2,
+                                      std=0.5, dtype=torch.float32)
+            blk["attn_bias"] = full_bias(blk["attn_table"], cfg.window_size)
+        else:
+            blk["attn_bias"] = randn(nh, n, n, std=0.5, dtype=torch.float32)
         blk["ctx"] = blk["act"]
         blk["dqkv"] = pitched(m, 3 * c, device=dev)
         blk["dqkv"].copy_(blk["qkv"])
@@ -505,10 +531,10 @@ def make_case_inputs(cfg, dev, gen):
             blk[name] = randn(n_out, n_in, std=0.05, pitch=True)
             blk["b" + name[1:]] = randn(n_out, std=0.05, dtype=torch.float32)
         blocks.append(blk)
-    masks = {s: torch.as_tensor(shift_attn_mask(cfg.img_size, cfg.img_size,
-                                                cfg.window_size, s),
-                                device=dev)
-             for s in set(g["shifts"]) if s}
+    # the shift masks (at 16x16 windows (c) and (f) read their region
+    # labels, attn_operands)
+    masks = shift_masks(cfg.img_size, cfg.img_size, cfg.window_size,
+                        tuple(g["shifts"]), torch.device(dev))
     return cat, blocks, masks
 
 
@@ -637,17 +663,27 @@ def phase_kernels(cfg, dev, check: Checker):
         for shift, rows in [(0, m), (half, m)] + ([(half, 5 * h * w)]
                                                   if k == 1 else []):
             mask = masks.get(shift)
+            kbias, kmask = attn_operands(blk, masks, h, w, shift,
+                                         cfg.window_size)
             qkv = blk["qkv"][:rows]
             out = pitched(rows, c, device=dev)
-            window_attention(qkv, out, blk["attn_bias"], mask, h, w, nh,
-                             cfg.window_size, shift)
+            # at 16x16 windows also the softmax statistics the training
+            # backward's recompute asks for
+            stats = softmax_stats(qkv, h, w, nh, cfg.window_size)
+            want_st = None if stats is None else torch.empty_like(stats)
+            window_attention(qkv, out, kbias, kmask, h, w, nh,
+                             cfg.window_size, shift, stats)
             want = window_attention_plain(qkv.float(), blk["attn_bias"],
                                           mask, h, w, nh, cfg.window_size,
-                                          shift)
-            check("window_attention", f"b{k + 1} c={c} heads={nh} "
-                  f"hd={c // nh} shift={shift}"
-                  + ("" if rows == m else f" B={rows // (h * w)}"), out,
-                  want, atol)
+                                          shift, want_st)
+            label = (f"b{k + 1} c={c} heads={nh} hd={c // nh} shift={shift}"
+                     + ("" if rows == m else f" B={rows // (h * w)}"))
+            check("window_attention", label, out, want, atol)
+            if stats is not None:
+                check("window_attention", f"{label} stats max",
+                      stats[..., 0], want_st[..., 0], STATS_TOL, STATS_TOL)
+                check("window_attention", f"{label} stats 1/sum",
+                      stats[..., 1], want_st[..., 1], 0.0, STATS_TOL)
 
 
 def swin_case(blk):
@@ -658,7 +694,8 @@ def swin_case(blk):
         "bqkv": blk["bqkv"], "attn_bias": blk["attn_bias"],
         "wproj": blk["wproj"], "bproj": blk["bproj"], "ln2_w": blk["ln_w"],
         "ln2_b": blk["ln_b"], "w1": blk["w1"], "b1": blk["b1"],
-        "w2": blk["w2"], "b2": blk["b2"]}
+        "w2": blk["w2"], "b2": blk["b2"],
+        **({"attn_table": blk["attn_table"]} if "attn_table" in blk else {})}
 
 
 def phase_swin_block(cfg, dev, check: Checker):
@@ -1008,6 +1045,17 @@ def stream_errors(taps_k, sr_k, taps_p, sr_p):
     return tok, inc, rel_l2(sr_k, sr_p)
 
 
+def attn_operand_bytes(blk, cfg, masks) -> int:
+    """Bytes of the bias and shift mask kernels (c) and (f) read
+    (``attn_operands``): the relative-position table and the region labels
+    at 16x16 windows, [nh, N, N] and [nW, N, N] at 8x8 (no mask at shift
+    0)."""
+    return sum(t.numel() * t.element_size()
+               for t in attn_operands(blk, masks, cfg.img_size, cfg.img_size,
+                                      blk["shift"], cfg.window_size)
+               if t is not None)
+
+
 def set_bounds(cfg, blocks, m, masks):
     """Least time (ms) of one RDG's launches of each kernel, and what bounds
     it: max(bytes / HBM rate, sum over types of ops / peak rate)."""
@@ -1024,9 +1072,7 @@ def set_bounds(cfg, blocks, m, masks):
             mm_b += (m * n_in * 2 + n_out * n_in * 2 + n_out * 4
                      + m * n_out * 2 * (2 if res else 1))
             mm_ops += 2 * m * n_out * n_in
-        at_b += m * 3 * c * 2 + m * c * 2 + nh * n * n * 4
-        if blk["shift"]:
-            at_b += masks[blk["shift"]].numel() * 4
+        at_b += m * 3 * c * 2 + m * c * 2 + attn_operand_bytes(blk, cfg, masks)
         at_tc += 4 * m * n * c
         at_f32 += 6 * (m // n) * nh * n * n       # scale, bias, mask, exp, sum, div
     out = {}
@@ -1190,10 +1236,15 @@ def phase_timing(exp, dev, packed, x, model, server, lr_u8, hr_u8, report):
                 window_attention_plain(blk32["qkv"], blk["attn_bias"],
                                        masks.get(shift), h, w, nh,
                                        cfg.window_size, shift)
-            else:
-                window_attention(blk["qkv"], rows(c), blk["attn_bias"],
-                                 masks.get(shift), h, w, nh,
-                                 cfg.window_size, shift)
+            else:               # "stats": as the training recompute calls it
+                window_attention(blk["qkv"], rows(c),
+                                 *attn_operands(blk, masks, h, w, shift,
+                                                cfg.window_size),
+                                 h, w, nh, cfg.window_size, shift,
+                                 attn_stats[k] if mode == "stats" else None)
+
+    attn_stats = [softmax_stats(blk["qkv"], h, w, blk["nh"], cfg.window_size)
+                  for blk in blocks]
 
     bounds = set_bounds(cfg, blocks, m, masks)
     timings = {}
@@ -1217,6 +1268,12 @@ def phase_timing(exp, dev, packed, x, model, server, lr_u8, hr_u8, report):
                       f"), plain f32 {plain_ms:.4f} ms, library "
                       f"{library_ms:.4f} ms (device time, CUDA graph); "
                       f"launched from Python {launched_ms:.4f} ms")
+    if attn_stats[0] is not None:
+        stats_ms = graph_ms(lambda: attn_set("stats"), iters=20)
+        report["window_attention_stats_ms"] = stats_ms
+        say("timing", f"window_attention one RDG's launches with the softmax "
+                      f"statistics (the training recompute's call): "
+                      f"{stats_ms:.4f} ms (device time, CUDA graph)")
     rdg_sum = sum(t[0] for t in timings.values())
     say("timing", f"sum over kernels x {cfg.num_layers} RDGs = "
                   f"{rdg_sum * cfg.num_layers:.3f} ms of the {fwd_ms:.3f} ms "
@@ -1504,26 +1561,39 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
     win = cfg.window_size
     short, half = (5, 40 if win == 8 else 64), win // 2
     short_blocks = (0, 3) if win == 8 else (1, 4)
-    short_mask = torch.as_tensor(shift_attn_mask(
-        short[1], short[1], win, half), device=dev)
+    short_masks = shift_masks(short[1], short[1], win, (half,),
+                              torch.device(dev))
     for k, blk in enumerate(blocks):
         c, nh = blk["c"], blk["nh"]
-        cases = [(shift, h, masks.get(shift)) for shift in (0, half)]
+        cases = [(shift, h, masks) for shift in (0, half)]
         if k in short_blocks and short[0] * short[1] ** 2 <= m:
-            cases.append((half, short[1], short_mask))
-        for shift, side, mask in cases:
+            cases.append((half, short[1], short_masks))
+        for shift, side, mks in cases:
+            # the full mask for the plain version, the kernels' own form
+            mask = mks.get(shift)
+            kbias, kmask = attn_operands(blk, mks, side, side, shift, win)
             rows = m if side == h else short[0] * side * side
             plan = window_attention_bwd_plan(c, nh, rows // side ** 2, side,
                                              side, window=win)
             qkv, dctx = blk["qkv"][:rows], blk["dctx"][:rows]
+            # at 16x16 windows (f) reads kernel (c)'s own context and
+            # softmax statistics, as the training backward's recompute
+            # leaves them
+            fwd = ()
+            if win in TILED_WINDOWS:
+                ctx = pitched(rows, c, device=dev)
+                stats = softmax_stats(qkv, side, side, nh, win)
+                window_attention(qkv, ctx, kbias, kmask,
+                                 side, side, nh, win, shift, stats)
+                fwd = (ctx, stats)
             runs = []
             for _ in range(2):
                 dqkv = pitched(rows, 3 * c, device=dev)
                 dbias = torch.empty(blk["attn_bias"].shape, dtype=f32,
                                     device=dev)
-                window_attention_bwd(qkv, dctx, blk["attn_bias"], mask, side,
-                                     side, nh, cfg.window_size, shift, dqkv,
-                                     dbias)
+                window_attention_bwd(qkv, dctx, kbias, kmask,
+                                     side, side, nh, cfg.window_size, shift,
+                                     dqkv, dbias, *fwd)
                 runs.append((dqkv, dbias))
             (dqkv, dbias), again = runs
             tag = "" if side == h else (
@@ -1746,9 +1816,11 @@ def bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
         for residual in (True, False):
             ln_b += m * c * (2 + 4 + 2 * 4 + (4 if residual else 0)) + 3 * c * 4
             ln_ops += 12 * m * c
-        at_b += m * 3 * c * 2 * 2 + m * c * 2 + 2 * nh * n * n * 4
-        if blk["shift"]:
-            at_b += masks[blk["shift"]].numel() * 4
+        # what the gradient needs: qkv, dqkv, dO, the bias and mask in,
+        # d(bias) [nh, N, N] out (not the forward's context and statistics
+        # (f) also reads at 16x16 windows: phase_train_timing reports them)
+        at_b += m * 3 * c * 2 * 2 + m * c * 2 + nh * n * n * 4 \
+            + attn_operand_bytes(blk, cfg, masks)
         at_tc += 10 * m * n * c
         at_f32 += 10 * (m // n) * nh * n * n
     out = {}
@@ -1987,19 +2059,39 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report,
     attn_out = [(pitched(m, 3 * blk["c"], dtype=bf, device=dev),
                  torch.empty(blk["attn_bias"].shape, device=dev))
                 for blk in blocks]
+    # at 16x16 windows (f) also reads the forward's context and softmax
+    # statistics: kernel (c)'s, made once here (the recompute's launch is
+    # not (f)'s time)
+    attn_fwd = []
+    for blk in blocks:
+        c, nh, shift = blk["c"], blk["nh"], blk["shift"]
+        stats = softmax_stats(blk["qkv"], h, w, nh, cfg.window_size)
+        if stats is None:
+            attn_fwd.append(())
+            continue
+        ctx = pitched(m, c, dtype=bf, device=dev)
+        window_attention(blk["qkv"], ctx,
+                         *attn_operands(blk, masks, h, w, shift,
+                                        cfg.window_size),
+                         h, w, nh, cfg.window_size, shift, stats)
+        attn_fwd.append((ctx, stats))
 
     def attn_bwd_set(mode="kernel"):
         for k, blk in enumerate(blocks):
             c, nh, shift = blk["c"], blk["nh"], blk["shift"]
-            args = (blk["qkv"], blk["dctx"], blk["attn_bias"], masks.get(shift),
-                    h, w, nh, cfg.window_size, shift)
+            geo = (h, w, nh, cfg.window_size, shift)
             if mode == "library":
                 o, ins, do, _ = sdpa[k]
                 torch.autograd.grad(o, ins, do, retain_graph=True)
             elif mode == "plain":
-                window_attention_bwd_plain(*args)
+                window_attention_bwd_plain(blk["qkv"], blk["dctx"],
+                                           blk["attn_bias"], masks.get(shift),
+                                           *geo, *attn_fwd[k])
             else:
-                window_attention_bwd(*args, *attn_out[k])
+                window_attention_bwd(blk["qkv"], blk["dctx"],
+                                     *attn_operands(blk, masks, h, w, shift,
+                                                    cfg.window_size),
+                                     *geo, *attn_out[k], *attn_fwd[k])
 
     bounds = bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks)
     timings = {}
@@ -2033,6 +2125,19 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report,
                                     "library_ms": v[2], "bound_ms": v[3],
                                     "bound_by": v[4]}
                                 for k, v in timings.items()}
+    # at 16x16 windows (f) also reads the forward's context and softmax
+    # statistics, which its bound leaves out (the gradient does not need
+    # them): their bytes and time at the HBM rate, beside the bound
+    fwd_bytes = sum(t.numel() * t.element_size()
+                    for pair in attn_fwd for t in pair)
+    if fwd_bytes:
+        fwd_ms = fwd_bytes / HBM_BYTES_PER_S * 1e3
+        report["window_attention_bwd_fwd_operands"] = {"bytes": fwd_bytes,
+                                                       "ms": fwd_ms}
+        say("train-timing", f"window_attention_bwd also reads the forward's "
+                            f"context and statistics: {fwd_bytes / 1e6:.1f} "
+                            f"MB an RDG, {fwd_ms:.4f} ms at the HBM rate "
+                            f"(outside its bound)")
     return timings
 
 

@@ -23,11 +23,13 @@ from adsr_tpu_torch.kernels.rdg_layernorm import (rdg_layernorm,
                                                   rdg_layernorm_plain)
 from adsr_tpu_torch.kernels.rdg_layernorm_bwd import (rdg_layernorm_bwd,
                                                       rdg_layernorm_bwd_plain)
-from adsr_tpu_torch.kernels.window_attention import (window_attention,
+from adsr_tpu_torch.kernels.window_attention import (full_bias, full_mask,
+                                                     softmax_stats,
+                                                     window_attention,
                                                      window_attention_plain)
 from adsr_tpu_torch.kernels.window_attention_bwd import (
     window_attention_bwd, window_attention_bwd_plain)
-from adsr_tpu_torch.models.drct import shift_attn_mask
+from adsr_tpu_torch.models.drct import shift_attn_mask, shift_region_labels
 from adsr_tpu_torch.models.factory import init_sr_params, make_model
 
 pytestmark = pytest.mark.cuda
@@ -410,23 +412,39 @@ W16_BLOCKS = [(180, 6, 0), (212, 4, 8), (244, 2, 0), (276, 6, 8), (308, 4, 0)]
 def test_window_attention_kernel_matches_plain_at_window16(dev, c, nh, shift):
     # exp(S - max) rounds to bf16 once before P @ V (the online softmax over
     # four key tiles): 2^-8 max|v|; qkv and ctx column slices of wider
-    # 16-byte-row buffers
+    # 16-byte-row buffers. The softmax statistics against the plain
+    # version's f32 ones: the scores are f32 sums of the same bf16 products
+    # in another order, so the max within 1e-4 and 1 / sum within 1e-4
+    # relative; a second launch bitwise equal
     g = torch.Generator(device=dev).manual_seed(6)
     b, h = 2, 32
     m = b * h * h
     qkv = pitched(m, 3 * c + 8, device=dev)[:, :3 * c]
     qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
-    tb = 0.5 * torch.randn(nh, 256, 256, generator=g, device=dev)
-    mask = torch.as_tensor(shift_attn_mask(h, h, 16, shift), device=dev) \
-        if shift else None
+    # the bias as the kernel takes it at 16x16 windows: its relative-
+    # position table [nh, 31 * 31] (the plain version gathers it)
+    tb = 0.5 * torch.randn(nh, 961, generator=g, device=dev)
+    # and the shift mask as each window's region labels [nW, 256]
+    mask = torch.as_tensor(shift_region_labels(h, h, 16, shift),
+                           device=dev) if shift else None
     wide = torch.zeros(m, 320, dtype=torch.bfloat16, device=dev)
+    stats = softmax_stats(qkv, h, h, nh, 16)
     n0 = window_attention.launches
-    window_attention(qkv, wide[:, :c], tb, mask, h, h, nh, 16, shift)
+    window_attention(qkv, wide[:, :c], tb, mask, h, h, nh, 16, shift, stats)
     assert window_attention.launches == n0 + 1
     atol = 2.0 ** -8 * qkv[:, 2 * c:].float().abs().max().item()
+    want_st = torch.empty_like(stats)
     _close(wide[:, :c], window_attention_plain(qkv, tb, mask, h, h, nh, 16,
-                                               shift), atol)
+                                               shift, want_st), atol)
     assert not wide[:, c:].any()
+    _within(stats[..., 0], want_st[..., 0], 1e-4 * (1 + want_st[..., 0].abs()))
+    _within(stats[..., 1], want_st[..., 1], 1e-4 * want_st[..., 1].abs())
+    again, st2 = torch.zeros_like(wide), torch.empty_like(stats)
+    window_attention(qkv, again[:, :c], tb, mask, h, h, nh, 16, shift, st2)
+    assert torch.equal(again, wide) and torch.equal(st2, stats)
+    # serving passes no statistics: the same context
+    window_attention(qkv, again[:, :c], tb, mask, h, h, nh, 16, shift)
+    assert torch.equal(again, wide)
 
 
 @pytest.mark.parametrize("c,nh,shift,b", [blk + (2,) for blk in W16_BLOCKS]
@@ -434,9 +452,11 @@ def test_window_attention_kernel_matches_plain_at_window16(dev, c, nh, shift):
 def test_window_attention_bwd_kernel_matches_plain_at_window16(dev, c, nh,
                                                                shift, b):
     # the two launches (dq, then dkv over groups of windows) and the partial
-    # sums: 2^-7 of each output's largest magnitude, d(bias) 2^-8; at batch
-    # 11 (44 windows, 6 heads) the plan groups 3 windows a block, the last
-    # group short; a second call bitwise equal
+    # sums, fed kernel (c)'s own context and softmax statistics as the
+    # training backward feeds them: 2^-7 of each output's largest magnitude,
+    # d(bias) 2^-8, against the plain f32 backward of the same qkv (its own
+    # softmax and D); at batch 11 (44 windows, 6 heads) the plan groups 3
+    # windows a block, the last group short; a second call bitwise equal
     g = torch.Generator(device=dev).manual_seed(7)
     h = 32
     m = b * h * h
@@ -444,14 +464,17 @@ def test_window_attention_bwd_kernel_matches_plain_at_window16(dev, c, nh,
     qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
     dout = pitched(m, c, device=dev)
     dout.copy_(torch.randn(m, c, generator=g, device=dev))
-    bias = 0.5 * torch.randn(nh, 256, 256, generator=g, device=dev)
-    mask = torch.as_tensor(shift_attn_mask(h, h, 16, shift), device=dev) \
-        if shift else None
+    bias = 0.5 * torch.randn(nh, 961, generator=g, device=dev)   # the table
+    mask = torch.as_tensor(shift_region_labels(h, h, 16, shift),
+                           device=dev) if shift else None      # the labels
+    ctx = pitched(m, c, device=dev)
+    stats = softmax_stats(qkv, h, h, nh, 16)
+    window_attention(qkv, ctx, bias, mask, h, h, nh, 16, shift, stats)
     dqkv = pitched(m, 3 * c, device=dev)
     dbias = torch.empty(nh, 256, 256, device=dev)
     n0 = window_attention_bwd.launches
     window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 16, shift, dqkv,
-                         dbias)
+                         dbias, ctx, stats)
     assert window_attention_bwd.launches == n0 + 2
     want_q, want_b = window_attention_bwd_plain(qkv, dout, bias, mask, h, h,
                                                 nh, 16, shift)
@@ -461,8 +484,21 @@ def test_window_attention_bwd_kernel_matches_plain_at_window16(dev, c, nh,
                 2.0 ** -7 * (part.abs().max() + part.abs()))
     _within(dbias, want_b, 2.0 ** -8 * want_b.abs().max())
     dq2, db2 = pitched(m, 3 * c, device=dev), torch.empty_like(dbias)
-    window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 16, shift, dq2, db2)
+    window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 16, shift, dq2, db2,
+                         ctx, stats)
     assert torch.equal(dqkv, dq2) and torch.equal(dbias, db2)
+    # without the forward's statistics, or with the bias gathered, the card
+    # refuses at window 16
+    with pytest.raises(ValueError, match="softmax statistics"):
+        window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 16, shift, dq2,
+                             db2)
+    with pytest.raises(NotImplementedError, match="relative-position"):
+        window_attention_bwd(qkv, dout, full_bias(bias, 16), mask, h, h, nh,
+                             16, shift, dq2, db2, ctx, stats)
+    if shift:      # nor the [nW, N, N] mask
+        with pytest.raises(NotImplementedError, match="region labels"):
+            window_attention_bwd(qkv, dout, bias, full_mask(mask, 16), h, h,
+                                 nh, 16, shift, dq2, db2, ctx, stats)
 
 
 @pytest.mark.parametrize("k", [0, 1, 2, 3, 4])

@@ -166,22 +166,35 @@ def test_window_attention_plan_at_window16(c, nh, shift, b):
     p = wa.window_attention_plan(c, nh, b, 64, 64, window=WIN)
     hd = c // nh
     assert p["hdp"] % 16 == 0 and hd <= p["hdp"] < hd + 16
-    # the Q, K, V tiles and the staging of the next K and V tiles' pieces
-    assert p["smem_bytes"] == 3 * 64 * p["ld"] * 2 \
-        + 2 * 64 * (p["hdp"] // 8 + 1) * 16 <= wa.BLOCK_SHARED_MAX
-    # more than one block an SM, head tile 128 (block 3) included
-    assert p["blocks_per_sm"] >= 2
+    # swizzled tiles hold whole 64-column atoms
+    assert p["tile_cols"] % 64 == 0 and p["hdp"] <= p["tile_cols"] \
+        < p["hdp"] + 64
+    assert wa.swizzle_bytes(p["hdp"]) == 64 * p["tile_cols"] * 2
+    # the window's K and V (4 tiles each), a Q tile a warpgroup, the
+    # staging of one K and one V tile's pieces (later each warpgroup's
+    # second Q tile), the head's 961-entry bias table, the window's 256
+    # region labels and the 1024-byte alignment
+    assert (wa.REL_TABLE_BYTES, wa.LABEL_BYTES) == (3856, 1024)
+    assert p["smem_bytes"] == 1024 + 10 * wa.swizzle_bytes(p["hdp"]) \
+        + 2 * 64 * (p["hdp"] // 8 + 1) * 16 + 3856 + 1024 \
+        <= wa.BLOCK_SHARED_MAX
+    assert (p["threads"], p["warpgroups"]) == (256, 2)
+    # two blocks an SM up to a head tile of 64 (by shared memory too), one
+    # above (blocks 3 and 5)
+    assert p["blocks_per_sm"] == (2 if p["hdp"] <= 64 else 1)
+    assert p["blocks_per_sm"] * (p["smem_bytes"] + wa.BLOCK_RESERVED) \
+        <= wa.SM_SHARED_BYTES
     assert (p["tokens"], p["key_tiles"]) == (N, 4)
-    # the grid: one block per (image, window, head, query tile), each once,
-    # decoded as the source does (query tile fastest, then head, window)
+    # the grid: one block per (image, window, head), each once, decoded as
+    # the source does (head fastest, then window)
     nw = 16
     seen = set()
     for bid in range(p["blocks"]):
-        qt, h = bid % 4, (bid // 4) % nh
-        win, img = (bid // (4 * nh)) % nw, bid // (4 * nh * nw)
-        seen.add((img, win, h, qt))
-    assert len(seen) == p["blocks"] == b * nw * nh * 4
+        h, win, img = bid % nh, (bid // nh) % nw, bid // (nh * nw)
+        seen.add((img, win, h))
+    assert len(seen) == p["blocks"] == b * nw * nh
     assert {s[0] for s in seen} == set(range(b))
+    assert p["stats_bytes"] == b * nw * nh * N * 8
     # the N = 64 plan is unchanged by the window argument's default
     assert wa.window_attention_plan(c, nh, 16, 32, 32) \
         == wa.window_attention_plan(c, nh, 16, 32, 32, window=8)
@@ -193,11 +206,26 @@ def test_window_attention_bwd_plan_at_window16(c, nh, shift, b):
     p = wab.window_attention_bwd_plan(c, nh, b, 64, 64, SMS, WIN)
     windows = b * 16
     assert p["windows"] == windows and p["launches"] == 2
-    planes = 4 * 64 * p["ld"] * 2      # Q, dO, K, V tiles
-    assert p["smem_dq_bytes"] == planes + 2 * wa.stage_bytes(p["hdp"])
-    stage = 2 * wa.stage_bytes(p["hdp"]) if p["dkv_staged"] else 0
-    assert p["smem_bytes"] == planes + N * 68 * 4 + 64 * 16 + stage
+    tile = wa.swizzle_bytes(p["hdp"])
+    # dq: alignment, Q, dO, K, V tiles, the next K and V tiles' staging, D,
+    # the bias table
+    assert p["smem_dq_bytes"] == 1024 + 4 * tile \
+        + 2 * wa.stage_bytes(p["hdp"]) + 64 * 4 + wa.REL_TABLE_BYTES \
+        + wa.LABEL_BYTES
+    # dkv: alignment, K and V, each warpgroup's Q, dO and row statistics,
+    # the f32 d(bias) tile; where it fits each warpgroup's staging of its
+    # next Q, dO and statistics, and then the next window's K and V staging
+    unstaged = 1024 + 6 * tile + 2 * 64 * 16 + N * 64 * 4 \
+        + wa.REL_TABLE_BYTES + wa.LABEL_BYTES
+    staged = unstaged + 2 * (2 * wa.stage_bytes(p["hdp"]) + 64 * 16)
+    kv = staged + 2 * wa.stage_bytes(p["hdp"])
+    assert p["dkv_staged"] == (staged <= wa.BLOCK_SHARED_MAX)
+    assert p["dkv_kv_staged"] == (p["dkv_staged"]
+                                  and kv <= wa.BLOCK_SHARED_MAX)
+    assert p["smem_bytes"] == (kv if p["dkv_kv_staged"] else staged
+                               if p["dkv_staged"] else unstaged)
     assert p["smem_bytes"] <= wa.BLOCK_SHARED_MAX
+    assert (p["threads"], p["dq_threads"]) == (256, 128)
     assert p["blocks_per_sm"] >= 1 and p["dq_blocks_per_sm"] >= 1
     # d(bias) partials: one [nh][256][256] f32 per group, at most 32 MiB
     assert p["partial_bytes"] == p["groups"] * nh * N * N * 4
@@ -231,11 +259,16 @@ def test_window16_bwd_plans_at_batch_16():
     # 64 of 2 heads (4)
     assert [p["group"] for p in plans] == [13, 8, 4, 13, 8]
     assert [p["last_group"] for p in plans] == [9, 8, 4, 9, 8]
-    assert [p["blocks_per_sm"] for p in plans] == [2, 2, 1, 2, 2]
-    # dkv stages its next Q and dO tiles but at head tiles 64 and 80
-    # (blocks 2 and 5), where the staging would cost the second block an SM
-    assert [p["dkv_staged"] for p in plans] == [True, False, True, True,
-                                                False]
+    # one dkv block (two warpgroups) an SM; dq three up to a head tile of
+    # 64, else two
+    assert [p["blocks_per_sm"] for p in plans] == [1, 1, 1, 1, 1]
+    assert [p["dq_blocks_per_sm"] for p in plans] == [3, 3, 2, 3, 2]
+    # dkv stages each warpgroup's next Q and dO tiles but at head tile 128
+    # (block 3), and the next window's K and V up to a head tile of 64
+    assert [p["dkv_staged"] for p in plans] == [True, True, False, True,
+                                                True]
+    assert [p["dkv_kv_staged"] for p in plans] == [True, True, False, True,
+                                                   False]
     assert max(p["partial_bytes"] for p in plans) <= 32 << 20
 
 
