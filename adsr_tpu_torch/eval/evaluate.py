@@ -7,7 +7,10 @@ evaluate.py:214) -> per-image SSIM at every window size of the sweep (odd
 sizes 3, 13, ... up to min_dim-3, evaluate.py:233-248, optionally capped to
 ``sweep_windows`` evenly spaced sizes) plus MSE and PSNR on the device ->
 ROC-AUC per score and the specificity at the perfect-recall threshold on the
-host.
+host. On the card the forward serves through one CUDA graph per LR shape
+(the tail is padded, so one graph an evaluation; ``graphs=False`` launches
+it), and the SSIM of every window size comes back in one transfer, as the
+JAX version's one compiled sweep does.
 
 ``evaluate_anomaly_arrays`` is the array core (no files); ``evaluate_anomaly``
 loads ``test/good`` and ``test/bad`` with the port's PNG decoder, calls it,
@@ -35,7 +38,7 @@ from adsr_tpu_torch.train.trainer import (make_serving_forward,
 
 
 def _forward_split(forward: Callable, exp: Experiment, lr: np.ndarray,
-                   hr: np.ndarray, batch: int, device: torch.device
+                   hr: np.ndarray, batch: int
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """SR over one split; returns (sr_u8, hr_u8) as [N,H,W,C] uint8.
     ``lr`` / ``hr`` are float arrays in [0, rgb_range]; the tail is padded to
@@ -47,7 +50,7 @@ def _forward_split(forward: Callable, exp: Experiment, lr: np.ndarray,
         pad = batch - chunk.shape[0]
         if pad:
             chunk = np.concatenate([chunk, np.repeat(chunk[-1:], pad, 0)])
-        sr = forward(torch.as_tensor(chunk, device=device)).cpu().numpy()
+        sr = forward(chunk).cpu().numpy()
         outs.append(sr[:sr.shape[0] - pad] if pad else sr)
     sr = np.concatenate(outs)
     h, w = hr.shape[1], hr.shape[2]
@@ -82,17 +85,21 @@ def sweep_best_window(sr_u8: np.ndarray, hr_u8: np.ndarray,
                       y_true: Sequence[int],
                       window_sizes: Optional[Sequence[int]] = None,
                       device="cuda") -> Tuple[int, float, Dict[int, np.ndarray]]:
-    """SSIM at every window size on the device; AUC per size on the host."""
+    """SSIM at every window size on the device, brought to the host in one
+    transfer (the JAX ``_ssim_sweep_graph``, evaluate.py:78-90); AUC per
+    size on the host."""
     dev = resolve_device(device)
     if window_sizes is None:
         window_sizes = window_size_candidates(min(hr_u8.shape[1], hr_u8.shape[2]))
     a = to_luma(torch.as_tensor(hr_u8, device=dev).float() / 255.0)
     b = to_luma(torch.as_tensor(sr_u8, device=dev).float() / 255.0)
+    all_ssim = torch.stack([
+        ssim_map(a, b, ws, 0.01 ** 2, 0.03 ** 2).mean(dim=(1, 2, 3))
+        for ws in window_sizes]).cpu().numpy()
     best_ws, best_auc = window_sizes[0], -1.0
     per_ws: Dict[int, np.ndarray] = {}
-    for ws in window_sizes:
-        ssim = ssim_map(a, b, ws, 0.01 ** 2, 0.03 ** 2).mean(dim=(1, 2, 3))
-        scores = 1.0 - ssim.cpu().numpy()
+    for ws, ssim in zip(window_sizes, all_ssim):
+        scores = 1.0 - ssim
         per_ws[ws] = scores
         auc = roc_auc(y_true, scores)
         if auc > best_auc:
@@ -103,10 +110,11 @@ def sweep_best_window(sr_u8: np.ndarray, hr_u8: np.ndarray,
 def make_split_forward(exp: Experiment, params: Mapping[str, torch.Tensor],
                        lr_size: int, device, tile: int = 0,
                        tile_overlap: int = 8, mode: Optional[str] = None,
-                       log=print) -> Callable:
+                       log=print, graphs: bool = True) -> Callable:
     """The raw-float SR forward of an evaluation: tiled when ``tile > 0`` or
     when the LR input (``lr_size``) exceeds the model's ``img_size``
-    (evaluate.py:143-165), else the whole-image serving forward."""
+    (evaluate.py:143-165), else the whole-image serving forward; on the card
+    a CUDA graph per LR shape unless ``graphs=False``."""
     train_tile = exp.model.img_size
     if tile > 0 or lr_size > train_tile:
         log(f"Tiled serving: tile={tile or train_tile} "
@@ -114,15 +122,15 @@ def make_split_forward(exp: Experiment, params: Mapping[str, torch.Tensor],
         return make_tiled_serving_forward(exp, params, tile or train_tile,
                                           overlap=tile_overlap,
                                           quantize_out=False, device=device,
-                                          mode=mode)
+                                          mode=mode, graphs=graphs)
     # raw float SR: the uint8 conversion TRUNCATES like the reference's
     # .byte(); serving's quantize() rounds
     return make_serving_forward(exp, params, device=device,
-                                quantize_out=False, mode=mode)
+                                quantize_out=False, mode=mode, graphs=graphs)
 
 
 def _evaluate(exp, params, lr_good, hr_good, lr_bad, hr_bad, batch, device,
-              log, tile, tile_overlap, sweep_windows, mode
+              log, tile, tile_overlap, sweep_windows, mode, graphs
               ) -> Tuple[Dict[str, object], np.ndarray]:
     dev = resolve_device(device)
     if len(lr_good) == 0 or len(lr_bad) == 0:
@@ -130,9 +138,9 @@ def _evaluate(exp, params, lr_good, hr_good, lr_bad, hr_bad, batch, device,
                          f"({len(lr_good)} good, {len(lr_bad)} defective)")
     lr_size = max(lr_good.shape[1], lr_good.shape[2])
     forward = make_split_forward(exp, params, lr_size, dev, tile,
-                                 tile_overlap, mode, log)
-    sr_g, hr_g = _forward_split(forward, exp, lr_good, hr_good, batch, dev)
-    sr_b, hr_b = _forward_split(forward, exp, lr_bad, hr_bad, batch, dev)
+                                 tile_overlap, mode, log, graphs)
+    sr_g, hr_g = _forward_split(forward, exp, lr_good, hr_good, batch)
+    sr_b, hr_b = _forward_split(forward, exp, lr_bad, hr_bad, batch)
     sr_u8 = np.concatenate([sr_g, sr_b])
     hr_u8 = np.concatenate([hr_g, hr_b])
     y_true = [0] * len(sr_g) + [1] * len(sr_b)
@@ -175,12 +183,14 @@ def evaluate_anomaly_arrays(exp: Experiment, params: Mapping[str, torch.Tensor],
                             batch: int = 8, device="cuda", log=print,
                             tile: int = 0, tile_overlap: int = 8,
                             sweep_windows: int = 0,
-                            mode: Optional[str] = None) -> Dict[str, object]:
+                            mode: Optional[str] = None,
+                            graphs: bool = True) -> Dict[str, object]:
     """The array core of :func:`evaluate_anomaly`: LR/HR float arrays in
     [0, rgb_range] (NHWC) for the good and defective test images ->
     AUCs, best SSIM window, per-image scores and the specificity report."""
     return _evaluate(exp, params, lr_good, hr_good, lr_bad, hr_bad, batch,
-                     device, log, tile, tile_overlap, sweep_windows, mode)[0]
+                     device, log, tile, tile_overlap, sweep_windows, mode,
+                     graphs)[0]
 
 
 def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
@@ -188,14 +198,17 @@ def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
                      out_dir: Optional[str] = None, save_images: bool = True,
                      batch: int = 8, device="cuda", log=print, tile: int = 0,
                      tile_overlap: int = 8, sweep_windows: int = 0,
-                     mode: Optional[str] = None) -> Dict[str, object]:
+                     mode: Optional[str] = None,
+                     graphs: bool = True) -> Dict[str, object]:
     """Full anomaly pass over ``{data_root}/{classe}/test/{good,bad}``
     (reference evaluate.py:138-267). ``tile > 0`` forces tiled serving with
     that LR tile; 0 tiles when the test LR exceeds the model's input size.
     ``sweep_windows > 0`` caps the SSIM window sweep; ``mode`` picks the
     fused forward (``"rdg"`` / ``"block"``; ``None`` reads
-    ``ADSR_TPU_RDG``). With ``out_dir`` and ``save_images`` the uint8 SR
-    images go to ``out_dir/{good,bad}/x{scale}/{name}.png``."""
+    ``ADSR_TPU_RDG``). On the card the forward serves through a CUDA graph
+    per LR shape; ``graphs=False`` launches it. With ``out_dir`` and
+    ``save_images`` the uint8 SR images go to
+    ``out_dir/{good,bad}/x{scale}/{name}.png``."""
     scale = max(exp.data.scale)
 
     def load(split: str):
@@ -206,7 +219,7 @@ def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
     ds_good, ds_bad = load("good"), load("bad")
     out, sr_u8 = _evaluate(exp, params, ds_good.lrs[0], ds_good.hr,
                            ds_bad.lrs[0], ds_bad.hr, batch, device, log, tile,
-                           tile_overlap, sweep_windows, mode)
+                           tile_overlap, sweep_windows, mode, graphs)
     out["filenames"] = ds_good.filenames + ds_bad.filenames
     out["splits"] = ["good"] * ds_good.n + ["bad"] * ds_bad.n
     if save_images and out_dir:

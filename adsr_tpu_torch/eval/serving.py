@@ -6,18 +6,24 @@ Per registered class: uint8 LR/HR batch -> channel conversion + pixel scaling
 (``make_serving_forward``: packed once at registration, the RDGs through the
 hand-written kernels on CUDA) -> uint8 quantisation round-trip -> per-image
 anomaly scores (1-SSIM at a configured window, MSE, -PSNR, reference
-evaluate.py:250-261). Tail batches are padded to the configured batch size.
+evaluate.py:250-261). Tail batches are padded to the configured batch size,
+so each class has one input shape. On the card the whole scoring call runs
+as one CUDA graph per class (``core/graphs.py``), as the JAX ``register``
+jits it: the uint8 requests are copied into its static inputs and the
+[B, 3] scores come back with one device-to-host copy. ``graphs=False``
+launches every kernel from Python on every call.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, Optional
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 import torch
 
 from adsr_tpu_torch.core.config import Experiment
 from adsr_tpu_torch.core.device import resolve_device
+from adsr_tpu_torch.core.graphs import CapturedCall
 from adsr_tpu_torch.metrics import mse_eval, psnr_eval, quantize, ssim_eval
 from adsr_tpu_torch.train.trainer import make_serving_forward
 
@@ -26,11 +32,12 @@ class AnomalyServer:
     """Registry of per-class scoring functions on one device."""
 
     def __init__(self, batch_size: int = 16, ssim_window: int = 11,
-                 device="cuda"):
+                 device="cuda", graphs: bool = True):
         self.batch_size = batch_size
         self.ssim_window = ssim_window
         self.device = resolve_device(device)
-        self._entries: Dict[str, Callable] = {}
+        self.graphs = graphs
+        self._entries: Dict[str, CapturedCall] = {}
 
     def register(self, name: str, exp: Experiment,
                  params: Mapping[str, torch.Tensor],
@@ -40,7 +47,8 @@ class AnomalyServer:
         ``ADSR_TPU_RDG``, as the JAX ``register`` does through
         ``prepack_drct``)."""
         forward = make_serving_forward(exp, params, device=self.device,
-                                       quantize_out=False, mode=mode)
+                                       quantize_out=False, mode=mode,
+                                       graphs=False)
         rgb_range = exp.data.rgb_range
         n_colors = exp.data.n_colors
         win = self.ssim_window
@@ -58,7 +66,8 @@ class AnomalyServer:
                                 mse_eval(sr01, hr01),
                                 -psnr_eval(hr01, sr01)], dim=-1)
 
-        self._entries[name] = score
+        self._entries[name] = CapturedCall(score, self.device,
+                                           capture=self.graphs)
 
     def classes(self) -> List[str]:
         return list(self._entries)
@@ -78,8 +87,7 @@ class AnomalyServer:
             if pad:
                 lr = np.concatenate([lr, np.repeat(lr[-1:], pad, 0)])
                 hr = np.concatenate([hr, np.repeat(hr[-1:], pad, 0)])
-            s = fn(torch.as_tensor(lr, device=self.device),
-                   torch.as_tensor(hr, device=self.device)).cpu().numpy()
+            s = fn(lr, hr).cpu().numpy()
             outs.append(s[:s.shape[0] - pad] if pad else s)
         return np.concatenate(outs)
 

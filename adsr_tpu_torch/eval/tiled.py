@@ -7,12 +7,15 @@ feather-blended: each tile's output is weighted by a pyramid mask that ramps
 from 1/(r+1) at the tile border to 1 past the overlap band, the weighted sum
 is divided by the summed weight. Tile starts are clamped so the last tile
 ends at the image edge. The blend runs on the tensor's device with one
-slice-add per tile (never a loop over pixels).
+slice-add per tile (never a loop over pixels). A caller that serves many
+batches builds the mask once on the device (:func:`feather_weights`) and
+passes it in: the blend itself then makes no tensor from host data, so it
+can be captured in a CUDA graph.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -36,13 +39,25 @@ def feather_mask(tile_hr: int, ramp: int) -> np.ndarray:
     return (w[:, None] * w[None, :])[..., None].astype(np.float32)
 
 
+def feather_weights(tile: int, overlap: int, scale: int,
+                    device) -> torch.Tensor:
+    """:func:`feather_mask` of a ``tile``-px LR tile at ``scale``, f32 on
+    ``device``: one host-to-device copy, made outside any CUDA graph
+    capture."""
+    return torch.as_tensor(feather_mask(tile * scale, overlap * scale),
+                           device=device)
+
+
 def tiled_sr_forward(tile_forward: Callable[[torch.Tensor], torch.Tensor],
                      lr: torch.Tensor, tile: int, overlap: int,
-                     scale: int) -> torch.Tensor:
+                     scale: int,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """SR of an LR batch [B, H, W, C] through overlapping [tile, tile] crops.
 
     ``tile_forward`` maps [N, tile, tile, C] -> [N, tile*scale, tile*scale,
-    C] (raw float SR: blending comes before quantisation)."""
+    C] (raw float SR: blending comes before quantisation). ``mask`` is
+    :func:`feather_weights` of (``tile``, ``overlap``, ``scale``), built
+    here when not given."""
     b, h, w, c = lr.shape
     ys, xs = tile_starts(h, tile, overlap), tile_starts(w, tile, overlap)
     if len(ys) == 1 and len(xs) == 1 and h == tile and w == tile:
@@ -51,8 +66,9 @@ def tiled_sr_forward(tile_forward: Callable[[torch.Tensor], torch.Tensor],
     crops = torch.cat([lr[:, y:y + tile, x:x + tile, :] for y, x in starts])
     sr_tiles = tile_forward(crops)                    # [nt*B, ts, ts, C]
     ts = tile * scale
-    mask = torch.as_tensor(feather_mask(ts, overlap * scale),
-                           device=sr_tiles.device, dtype=sr_tiles.dtype)
+    if mask is None:
+        mask = feather_weights(tile, overlap, scale, sr_tiles.device)
+    mask = mask.to(sr_tiles.dtype)
     acc = sr_tiles.new_zeros(b, h * scale, w * scale, c)
     wacc = sr_tiles.new_zeros(1, h * scale, w * scale, 1)
     for i, (y, x) in enumerate(starts):

@@ -34,11 +34,15 @@ def _uniform_filter_nchw(x: torch.Tensor, win: int,
 
 
 def to_luma(x: torch.Tensor) -> torch.Tensor:
-    """NHWC with C==3 -> NHW1 luma; C==1 passthrough."""
+    """NHWC with C==3 -> NHW1 luma; C==1 passthrough. Each channel times
+    its coefficient as a scalar, so no coefficient tensor is made from host
+    data (the scoring call is captured in a CUDA graph); the products are
+    summed by the same reduction as ``(x * coeffs).sum(-1)``, bit for bit
+    on the card too."""
     if x.shape[-1] == 1:
         return x
-    coeffs = torch.tensor(_LUMA_COEFFS, dtype=x.dtype, device=x.device)
-    return (x[..., :3] * coeffs).sum(dim=-1, keepdim=True)
+    return torch.stack([x[..., i] * c for i, c in enumerate(_LUMA_COEFFS)],
+                       dim=-1).sum(dim=-1, keepdim=True)
 
 
 def ssim_map(a: torch.Tensor, b: torch.Tensor, win: int,

@@ -29,7 +29,11 @@ full state for a true resume; without one it logs with ``print``.
 The serving forwards (``make_serving_forward``, ``make_eval_forward``,
 ``make_tiled_serving_forward``) take ``mode``: ``"rdg"`` runs each RDG on
 kernels (a)-(c), ``"block"`` each Swin block on kernel (g); ``None`` reads
-``ADSR_TPU_RDG`` as the JAX package does.
+``ADSR_TPU_RDG`` as the JAX package does. On the card
+``make_serving_forward`` and ``make_tiled_serving_forward`` serve through
+one CUDA graph per LR shape (``core/graphs.py``), as the JAX versions jit
+theirs; ``graphs=False`` launches every kernel from Python on every call.
+``make_eval_forward`` repacks its params on every call, so it launches.
 """
 
 from __future__ import annotations
@@ -45,8 +49,9 @@ import torch
 
 from adsr_tpu_torch.core.config import DRCTModelConfig, Experiment
 from adsr_tpu_torch.core.device import compute_dtype, resolve_device
+from adsr_tpu_torch.core.graphs import CapturedCall
 from adsr_tpu_torch.data.pipeline import EpochSampler, SRDataset
-from adsr_tpu_torch.eval.tiled import tiled_sr_forward
+from adsr_tpu_torch.eval.tiled import feather_weights, tiled_sr_forward
 from adsr_tpu_torch.io.journal import Journal
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
 from adsr_tpu_torch.kernels.fused_rdg_train import fused_drct_train_forward
@@ -71,8 +76,8 @@ def check_serving_precision(exp: Experiment, device: torch.device) -> None:
 def make_serving_forward(exp: Experiment,
                          params: Mapping[str, torch.Tensor],
                          device="cuda", quantize_out: bool = True,
-                         mode: Optional[str] = None
-                         ) -> Callable[[torch.Tensor], torch.Tensor]:
+                         mode: Optional[str] = None, graphs: bool = True
+                         ) -> CapturedCall:
     """Fixed-params inference: LR batch NHWC float -> SR batch (quantized to
     the 0-255 grid unless ``quantize_out=False``).
 
@@ -80,7 +85,10 @@ def make_serving_forward(exp: Experiment,
     the bias gather, the shift masks) runs ONCE here, as the JAX version's
     ``prepack_drct`` does (adsr_tpu/train/trainer.py:400-457). ``mode``:
     ``"rdg"`` or ``"block"`` (``kernels/fused_drct.py``; ``None`` reads
-    ``ADSR_TPU_RDG``)."""
+    ``ADSR_TPU_RDG``). On the card the forward runs as one CUDA graph per
+    LR shape (the JAX version's jit, trainer.py:447-454); ``graphs=False``
+    launches its kernels on every call. ``forward(lr)`` takes a numpy array
+    or a tensor on any device."""
     dev = resolve_device(device)
     check_serving_precision(exp, dev)
     img = exp.model.img_size
@@ -89,11 +97,11 @@ def make_serving_forward(exp: Experiment,
                           mode=mode)
 
     @torch.no_grad()
-    def forward(lr) -> torch.Tensor:
-        sr = fused_drct_apply(packed, exp.model, torch.as_tensor(lr, device=dev))
+    def forward(lr: torch.Tensor) -> torch.Tensor:
+        sr = fused_drct_apply(packed, exp.model, lr)
         return quantize(sr, exp.data.rgb_range) if quantize_out else sr
 
-    return forward
+    return CapturedCall(forward, dev, capture=graphs)
 
 
 def make_eval_forward(exp: Experiment, device="cuda",
@@ -101,12 +109,14 @@ def make_eval_forward(exp: Experiment, device="cuda",
                       ) -> Callable[[Mapping[str, torch.Tensor], torch.Tensor],
                                     torch.Tensor]:
     """Inference with params that change between calls (the Trainer's
-    eval): ``forward(params, lr)`` repacks ``params`` and runs the serving
-    kernels (trainer.py:354-398)."""
+    eval): ``forward(params, lr)`` repacks ``params`` and launches the
+    serving kernels (trainer.py:354-398). Its capture belongs with the
+    compiled train step (ROADMAP.md Queue 1 item 2)."""
     dev = resolve_device(device)
 
     def forward(params: Mapping[str, torch.Tensor], lr) -> torch.Tensor:
-        return make_serving_forward(exp, params, dev, quantize_out, mode)(lr)
+        return make_serving_forward(exp, params, dev, quantize_out, mode,
+                                    graphs=False)(lr)
 
     return forward
 
@@ -115,13 +125,16 @@ def make_tiled_serving_forward(exp: Experiment,
                                params: Mapping[str, torch.Tensor],
                                tile: int = 0, overlap: int = 8,
                                quantize_out: bool = True, device="cuda",
-                               mode: Optional[str] = None
-                               ) -> Callable[[torch.Tensor], torch.Tensor]:
+                               mode: Optional[str] = None,
+                               graphs: bool = True) -> CapturedCall:
     """Serving forward for LR inputs larger than the model's tile
     (trainer.py:460-515): the LR batch is cut into overlapping ``tile``-sized
     crops, all of them go through one fused forward packed at the tile size,
     and the SR tiles are feather-blended (``eval/tiled.py``). ``tile``
-    defaults to the model's ``img_size``. Returns ``forward(lr)``."""
+    defaults to the model's ``img_size``. Returns ``forward(lr)``: on the
+    card the whole call (crops, forward, blend, quantisation) runs as one
+    CUDA graph per LR shape, as the JAX version jits it; ``graphs=False``
+    launches it."""
     dev = resolve_device(device)
     check_serving_precision(exp, dev)
     cfg = exp.model
@@ -136,16 +149,16 @@ def make_tiled_serving_forward(exp: Experiment,
     packed = prepack_drct(params, cfg, tile, tile,
                           dtype=compute_dtype(exp.precision), device=dev,
                           mode=mode)
+    mask = feather_weights(tile, overlap, scale, dev)
 
     @torch.no_grad()
-    def forward(lr) -> torch.Tensor:
+    def forward(lr: torch.Tensor) -> torch.Tensor:
         sr = tiled_sr_forward(lambda crops: fused_drct_apply(packed, cfg,
                                                              crops),
-                              torch.as_tensor(lr, device=dev), tile, overlap,
-                              scale)
+                              lr, tile, overlap, scale, mask)
         return quantize(sr, exp.data.rgb_range) if quantize_out else sr
 
-    return forward
+    return CapturedCall(forward, dev, capture=graphs)
 
 
 def cosine_lr(epoch: int, lr0: float, eta_min: float, epochs: int) -> float:

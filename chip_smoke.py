@@ -69,7 +69,18 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    scores 8 + 8 test images of 512 px, auto-tiled (25 tiles of 32 LR px an
    image), in rdg mode and with ``ADSR_TPU_RDG=0``; launch counters, run-dir
    files, AUCs, specificity and tiled img/s in both modes;
-11. the window-16 geometry, lines "[w16] <phase>: ...": the full-width
+11. graphs: serving through CUDA graphs, the entry points' default
+   (``core/graphs.py``; phases 4-10 check the launched route,
+   ``graphs=False``): ``make_serving_forward`` in both modes, ``AnomalyServer``
+   in both modes (the 16 + 16 + 5 requests of phase 4, tail padded) and
+   ``make_tiled_serving_forward`` on 16 images of 512 px, each replay
+   bitwise equal to the launched route, the warm-up and the capture one
+   call's launches each and the replays none, the memory each capture
+   reserved; then graphs against launched in alternating turns (host clock,
+   median and spread): the forward, request latency, tiled img/s and the
+   wall of ``evaluate_anomaly`` (the core of ``cli.evaluate``) on phase 10's
+   data root;
+12. the window-16 geometry, lines "[w16] <phase>: ...": the full-width
    256px model (``drct_experiment("grid", 256, 4)``: LR 64 x 64, 16x16
    windows, N = 256 keys, shifts 0 and 8, M = 65,536 token rows at batch
    16) through phases 2-10 at that size: the plans of (c), (g) (a cluster
@@ -88,9 +99,10 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    the statistics, as the training recompute calls it) and the step;
    one RDG's gradients; the Trainer; ``cli.main --resolution 256`` and
    ``cli.evaluate`` in both modes on 512 px test images (2 x 2 tiles of 64
-   LR px); then 512 px at x8 (``drct_experiment("grid", 512, 8)``):
-   ``AnomalyServer`` scores one batch in each mode, the SR against eager
-   f32, and four train steps.
+   LR px); phase 11 at that size; then 512 px at x8 (``drct_experiment(
+   "grid", 512, 8)``): ``AnomalyServer`` scores one batch in each mode, the
+   SR against eager f32, the rdg-mode forward and ``AnomalyServer`` through
+   their graphs against the launched route, and four train steps.
 
 The last three lines are the kernels' JSON record (each kernel's
 window-16 readings under ``"w16"``, its launches on every main path under
@@ -107,6 +119,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -121,7 +134,8 @@ from adsr_tpu_torch.cli import main as cli_main
 from adsr_tpu_torch.core.config import drct_experiment
 from adsr_tpu_torch.data.pipeline import SRDataset, load_sr_dataset, set_channel
 from adsr_tpu_torch.data.synthetic import grid_texture, inject_defect
-from adsr_tpu_torch.eval.evaluate import evaluate_anomaly_arrays
+from adsr_tpu_torch.eval.evaluate import (evaluate_anomaly,
+                                          evaluate_anomaly_arrays)
 from adsr_tpu_torch.eval.rundir import resolve_checkpoint
 from adsr_tpu_torch.eval.serving import AnomalyServer
 from adsr_tpu_torch.eval.tiled import tile_starts
@@ -163,7 +177,8 @@ from adsr_tpu_torch.kernels.window_attention_bwd import (
 from adsr_tpu_torch.models.drct import RDG, drop_path_mults, shift_attn_mask
 from adsr_tpu_torch.models.factory import (init_sr_params, init_weights_,
                                            make_model)
-from adsr_tpu_torch.train.trainer import (Trainer, make_tiled_serving_forward,
+from adsr_tpu_torch.train.trainer import (Trainer, make_serving_forward,
+                                          make_tiled_serving_forward,
                                           make_train_step)
 
 SEED = 0
@@ -855,7 +870,10 @@ def phase_main(exp, dev, report):
     lr_u8, hr_u8 = synthetic_split(rng, 16 + 5, 16)
     order = list(range(16)) + list(range(21, 37)) + list(range(16, 21))
     lr_u8, hr_u8 = lr_u8[order], hr_u8[order]      # good, bad, tail of 5
-    server = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev)
+    # the launched route (graphs=False): every call counts its launches;
+    # phase_graphs holds the captured route against it
+    server = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev,
+                           graphs=False)
     server.register("grid", exp, params, mode="rdg")
 
     reset_counts()
@@ -891,7 +909,8 @@ def phase_main(exp, dev, report):
     check_forwards(packed, cfg, x, model, report, "main")
 
     # the block serving mode through the entry point a user calls
-    server_b = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev)
+    server_b = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev,
+                             graphs=False)
     server_b.register("grid", exp, params, mode="block")
     check_block_server(server_b, lr_u8, hr_u8, scores, n_fwd, report, "main")
 
@@ -905,7 +924,7 @@ def phase_main(exp, dev, report):
     res = evaluate_anomaly_arrays(exp, params, lr_f[good], hr_f[good],
                                   lr_f[bad], hr_f[bad], batch=BATCH,
                                   device=dev, log=lambda s: say("main", s),
-                                  mode="rdg")
+                                  mode="rdg", graphs=False)
     torch.cuda.synchronize()
     n_eval = math.ceil(len(good) / BATCH) + math.ceil(len(bad) / BATCH)
     got = counts()
@@ -948,7 +967,8 @@ def phase_serving(exp, dev, report, n_good=16, n_bad=16, tail=5):
     order = list(range(n_good)) + list(range(n_good + tail, len(lr_u8))) \
         + list(range(n_good, n_good + tail))
     lr_u8, hr_u8 = lr_u8[order], hr_u8[order]      # good, bad, tail
-    server = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev)
+    server = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev,
+                           graphs=False)
     server.register("grid", exp, params, mode="rdg")
     reset_counts()
     t0 = time.perf_counter()
@@ -975,7 +995,8 @@ def phase_serving(exp, dev, report, n_good=16, n_bad=16, tail=5):
 
     # block mode as a user selects it: ADSR_TPU_RDG=0 at registration
     os.environ["ADSR_TPU_RDG"] = "0"
-    server_b = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev)
+    server_b = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev,
+                             graphs=False)
     server_b.register("grid", exp, params)
     os.environ.pop("ADSR_TPU_RDG")
     check_block_server(server_b, lr_u8, hr_u8, scores, n_fwd, report,
@@ -1001,11 +1022,18 @@ def phase_x8(dev, report, steps=4):
     exp = drct_experiment("grid", 512, 8, precision="bf16",
                           batch_size=BATCH, run_tag="chip_smoke_x8")
     cfg = exp.model
-    _, packed, x, model, server, lr_u8, hr_u8 = phase_serving(
+    params, packed, x, model, server, lr_u8, hr_u8 = phase_serving(
         exp, dev, report, n_good=BATCH // 2, n_bad=BATCH // 2, tail=0)
     serving = report["main_path_launches"]
     serving_block = report["main_path_launches_block"]
     del model, server, packed
+    fwd = {g: make_serving_forward(exp, params, dev, mode="rdg", graphs=g)
+           for g in (True, False)}
+    check_replays("forward_rdg", fwd[True], fwd[False], forward_inputs(x),
+                  PER_FORWARD, report)
+    del fwd
+    serving_graphs = check_server_graphs(exp, dev, params, lr_u8, hr_u8,
+                                         "rdg", report, "serving_graphs")[0]
     bundle = make_train_step(exp, dev)
     state = bundle.init_state(torch.Generator().manual_seed(SEED + 21))
     lr = torch.as_tensor(to_float(lr_u8, 1, 255.0), dtype=torch.float32,
@@ -1029,7 +1057,7 @@ def phase_x8(dev, report, steps=4):
     check_operand_paths("train_x8", got, report, W16_BWD_LAUNCHES)
     report["train_x8"] = {"losses": losses, "launches": got}
     return {"serving_x8": serving, "serving_block_x8": serving_block,
-            "train_x8": got}
+            "serving_graphs_x8": serving_graphs, "train_x8": got}
 
 
 def stream_errors(taps_k, sr_k, taps_p, sr_p):
@@ -1154,7 +1182,8 @@ def phase_timing(exp, dev, packed, x, model, server, lr_u8, hr_u8, report):
     say("timing", f"fused forward, batch {BATCH}: {fwd_ms:.3f} ms = "
                   f"{BATCH * 1e3 / fwd_ms:.1f} img/s (bf16 kernels); eager f32 "
                   f"model {eager_ms:.3f} ms; AnomalyServer.score of {BATCH} "
-                  f"uint8 requests {score_ms:.3f} ms host wall")
+                  f"uint8 requests {score_ms:.3f} ms host wall (launched, "
+                  "graphs=False)")
     say("timing", f"the same forward replayed as a CUDA graph (no host launch "
                   f"gaps): {fwd_graph_ms:.3f} ms = "
                   f"{BATCH * 1e3 / fwd_graph_ms:.1f} img/s")
@@ -2234,7 +2263,10 @@ def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
                f"{Path(ckpt).name}")
 
     results, walls, launches = {}, {}, {}
-    n_fwd = 2 * math.ceil(CLI_TEST / CLI_BATCH)
+    # cli.evaluate serves through one CUDA graph per LR shape (both splits
+    # pad to the batch: one shape): its warm-up and its capture count one
+    # forward's launches each, its replays none
+    n_fwd = min(2 * math.ceil(CLI_TEST / CLI_BATCH), 2)
     for mode in modes:
         flag = "1" if mode == "rdg" else "0"
         os.environ["ADSR_TPU_RDG"] = flag
@@ -2287,7 +2319,7 @@ def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
     for mode in modes:
         fwd = make_tiled_serving_forward(exp, params, overlap=overlap,
                                          quantize_out=False, device=dev,
-                                         mode=mode)
+                                         mode=mode, graphs=False)
         ms = cuda_ms(lambda: fwd(lr), iters=3, warmup=1)
         tiled[mode] = {"ms": ms, "img_per_s": lr.shape[0] * 1e3 / ms,
                        "tiles_per_image": n_tiles}
@@ -2305,6 +2337,232 @@ def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
                      "score_diff_block_vs_rdg": diff, "tiled": tiled}
     return {"train_cli": train_launches,
             **{f"evaluate_cli_{m}": launches[m] for m in modes}}
+
+
+# --------------------------------------------------------------------------- #
+# Serving through CUDA graphs (core/graphs.py): replays against the launched
+# route bit for bit, launch counts, memory, and graphs against launched
+# --------------------------------------------------------------------------- #
+
+GRAPH_TURNS = 4      # A/B turns; the routes' order alternates turn by turn
+GRAPH_CALLS = 10     # timed calls a turn of a forward or a scoring call
+
+
+def host_ms(fn, calls: int) -> list:
+    """Host wall ms of each of ``calls`` calls of ``fn``, each ended by a
+    synchronize: the latency a caller sees."""
+    out = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def ab_turns(routes: dict, calls: int, turns: int = GRAPH_TURNS) -> dict:
+    """{route: the median of each turn's calls (ms), and their median,
+    least and most}: the routes timed in turns, in the order a b, b a, ..."""
+    names = list(routes)
+    per = {k: [] for k in names}
+    for t in range(turns):
+        for k in (names if t % 2 == 0 else names[::-1]):
+            per[k].append(statistics.median(host_ms(routes[k], calls)))
+    return {k: {"median": statistics.median(v), "min": min(v), "max": max(v),
+                "turns": v} for k, v in per.items()}
+
+
+def ab_text(ab: dict, batch: int = 0) -> str:
+    """'graphs 10.7 ms [10.6, 10.8]; launched ...' (img/s too with a
+    batch)."""
+    def one(v):
+        text = f"{v['median']:.3f} ms [{v['min']:.3f}, {v['max']:.3f}]"
+        if batch:
+            text += f" = {batch * 1e3 / v['median']:.1f} img/s"
+        return text
+    return "; ".join(f"{k} {one(v)}" for k, v in ab.items())
+
+
+def check_replays(label: str, graphed, launched, inputs: list, per: dict,
+                  report: dict) -> dict:
+    """``graphed`` (a ``CapturedCall``) on ``inputs`` (one shape): its
+    warm-up and its capture count one call's ``per`` launches each, its
+    replays none; each result equals ``launched``'s on the same input bit
+    for bit, after every later replay. Returns the launches."""
+    reset_counts()
+    outs = []
+    for i, x in enumerate(inputs):
+        outs.append(graphed(x))
+        torch.cuda.synchronize()
+        got, want = counts(), expected_counts(per, min(i + 1, 2))
+        if got != want:
+            raise AssertionError(f"{label}: launches {got} after call {i + 1}"
+                                 f", expected {want}")
+    launches = counts()
+    check_operand_paths(f"{label}_graphs", launches, report)
+    if graphed.captured() != 1:
+        raise AssertionError(f"{label}: {graphed.captured()} graphs for one "
+                             "input shape")
+    for i, (x, got) in enumerate(zip(inputs, outs)):
+        want = launched(x)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{label}: call {i + 1} differs from the launched route by "
+                f"up to {(got - want).abs().max().item():.3e}")
+    mib = graphed.reserved_bytes() / 2 ** 20
+    say("graphs", f"{label}: {len(inputs)} calls at {tuple(inputs[0].shape)}"
+                  f": warm-up and capture launched {launches}, the "
+                  f"{len(inputs) - 2} calls after the capture added 0; every "
+                  f"result bitwise "
+                  f"equal to the launched route's; the capture reserved "
+                  f"{mib:.1f} MiB")
+    report.setdefault("graphs", {})[label] = {
+        "launches": launches, "replays": len(inputs) - 2,
+        "reserved_mib": mib, "bitwise_equal": True}
+    return launches
+
+
+def forward_inputs(x: torch.Tensor) -> list:
+    """Four inputs of ``x``'s shape: itself, mirrored in each axis and
+    rolled over the batch."""
+    return [x, x.flip(1), x.flip(2), x.roll(1, 0)]
+
+
+def check_server_graphs(exp, dev, params, lr_u8, hr_u8, mode, report,
+                        label: str):
+    """``AnomalyServer`` scores ``lr_u8`` / ``hr_u8`` (tail padded) through
+    its captured call and launched: the capture's launches, scores equal
+    bit for bit (twice, so every batch replays once). Returns (launches,
+    graphed server, launched server)."""
+    per = PER_FORWARD if mode == "rdg" else PER_FORWARD_BLOCK
+    servers = {}
+    for graphs in (True, False):
+        servers[graphs] = AnomalyServer(batch_size=BATCH, ssim_window=11,
+                                        device=dev, graphs=graphs)
+        servers[graphs].register("grid", exp, params, mode=mode)
+    n_calls = math.ceil(len(lr_u8) / BATCH)
+    reset_counts()
+    first = servers[True].score("grid", lr_u8, hr_u8)
+    torch.cuda.synchronize()
+    after_first = counts()
+    again = servers[True].score("grid", lr_u8, hr_u8)
+    torch.cuda.synchronize()
+    launches = counts()
+    if after_first != expected_counts(per, min(n_calls, 2)) \
+            or launches != expected_counts(per, 2):
+        raise AssertionError(f"{label}: launches {after_first} after "
+                             f"{n_calls} calls, {launches} after "
+                             f"{2 * n_calls}")
+    check_operand_paths(label, launches, report)
+    want = servers[False].score("grid", lr_u8, hr_u8)
+    for got in (first, again):
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: scores differ from the launched "
+                                 f"route by {np.abs(got - want).max(0)}")
+    entry = servers[True]._entries["grid"]
+    mib = entry.reserved_bytes() / 2 ** 20
+    say("graphs", f"{label}: AnomalyServer ({mode} mode) scored "
+                  f"{len(lr_u8)} requests twice ({n_calls} calls a time, one "
+                  f"shape): launches {launches} (warm-up and capture), "
+                  f"{2 * n_calls - 2} replays added 0; scores bitwise equal "
+                  f"to the launched route's; the capture reserved "
+                  f"{mib:.1f} MiB")
+    report.setdefault("graphs", {})[label] = {
+        "launches": launches, "calls": 2 * n_calls, "reserved_mib": mib,
+        "bitwise_equal": True}
+    return launches, servers[True], servers[False]
+
+
+def phase_graphs(exp, dev, params, lr_u8, hr_u8, report, cli_dir=CLI_DIR,
+                 overlap=8, suffix=""):
+    """Serving through CUDA graphs, the defaults of the entry points: for
+    the forward of ``make_serving_forward`` (both modes),
+    ``AnomalyServer`` (both modes, the requests of the main phase with their
+    padded tail) and ``make_tiled_serving_forward`` on 16 LR images of 512
+    px HR, replays against the launched route (``graphs=False``) bit for
+    bit with the launch counts of :func:`check_replays`; then graphs
+    against launched in turns (host clock): the forward, request latency
+    (16 requests), tiled img/s and ``evaluate_anomaly`` (the core of
+    ``cli.evaluate``) on the CLI phase's data root. Returns launches by
+    path."""
+    cfg = exp.model
+    rgb = exp.data.rgb_range
+    scale = cfg.upscale
+    paths, timing = {}, {}
+    x = torch.as_tensor(to_float(lr_u8[:BATCH], cfg.in_chans, rgb),
+                        dtype=torch.float32, device=dev)
+    for mode in ("rdg", "block"):
+        per = PER_FORWARD if mode == "rdg" else PER_FORWARD_BLOCK
+        fwd = {g: make_serving_forward(exp, params, dev, mode=mode, graphs=g)
+               for g in (True, False)}
+        check_replays(f"forward_{mode}", fwd[True], fwd[False],
+                      forward_inputs(x), per, report)
+        ab = ab_turns({"graphs": lambda: fwd[True](x),
+                       "launched": lambda: fwd[False](x)}, GRAPH_CALLS)
+        say("graphs", f"{mode}-mode forward through make_serving_forward, "
+                      f"batch {BATCH}, host clock, median [least, most] of "
+                      f"{GRAPH_TURNS} turns: {ab_text(ab, BATCH)}")
+        timing[f"forward_{mode}"] = ab
+        del fwd
+        launches, s_g, s_l = check_server_graphs(
+            exp, dev, params, lr_u8, hr_u8, mode, report,
+            f"serving{'' if mode == 'rdg' else '_block'}_graphs")
+        paths[f"serving{'' if mode == 'rdg' else '_block'}_graphs{suffix}"] \
+            = launches
+        req = (lr_u8[:BATCH], hr_u8[:BATCH])
+        ab = ab_turns({"graphs": lambda: s_g.score("grid", *req),
+                       "launched": lambda: s_l.score("grid", *req)},
+                      GRAPH_CALLS)
+        say("graphs", f"{mode}-mode request latency, AnomalyServer.score of "
+                      f"{BATCH} uint8 requests, host clock: {ab_text(ab)}")
+        timing[f"request_{mode}"] = ab
+        del s_g, s_l
+
+    # tiled serving of 16 images of 512 px, as cli.evaluate serves them
+    rng = np.random.RandomState(SEED + 30)
+    lr_t, _ = synthetic_split(rng, BATCH // 2, BATCH // 2, CLI_TEST_HR, scale)
+    xt = torch.as_tensor(to_float(lr_t, cfg.in_chans, rgb),
+                         dtype=torch.float32, device=dev)
+    tiled = {g: make_tiled_serving_forward(exp, params, overlap=overlap,
+                                           quantize_out=False, device=dev,
+                                           mode="rdg", graphs=g)
+             for g in (True, False)}
+    n_tiles = len(tile_starts(xt.shape[1], cfg.img_size, overlap)) ** 2
+    check_replays("tiled", tiled[True], tiled[False], forward_inputs(xt)[:3],
+                  PER_FORWARD, report)
+    ab = ab_turns({"graphs": lambda: tiled[True](xt),
+                   "launched": lambda: tiled[False](xt)}, 2)
+    say("graphs", f"tiled serving, rdg mode, {BATCH} images of {CLI_TEST_HR} "
+                  f"px ({n_tiles} tiles of {cfg.img_size} LR px each, one "
+                  f"forward of {n_tiles * BATCH} tiles): {ab_text(ab, BATCH)}")
+    timing["tiled"] = ab
+    del tiled
+
+    # the evaluate CLI's core on its data root, one call a turn: a new
+    # captured call each evaluation (warm-up, capture, replays)
+    root = cli_dir / "data"
+    results = {}
+
+    def evaluate(graphs):
+        results[graphs] = evaluate_anomaly(
+            exp, params, str(root), "grid",
+            out_dir=str(cli_dir / f"graphs_eval_{graphs}"), batch=CLI_BATCH,
+            device=dev, log=lambda s: None, tile_overlap=overlap,
+            sweep_windows=9, mode="rdg", graphs=graphs)
+
+    ab = ab_turns({"graphs": lambda: evaluate(True),
+                   "launched": lambda: evaluate(False)}, 1)
+    for k in ("scores_ssim", "scores_mse", "scores_psnr"):
+        if results[True][k] != results[False][k]:
+            raise AssertionError(f"evaluate_anomaly: {k} differ between "
+                                 "graphs and launched")
+    say("graphs", f"evaluate_anomaly (cli.evaluate's core: {2 * CLI_TEST} "
+                  f"PNGs of {CLI_TEST_HR} px, tiled, the 9-window sweep, "
+                  f"images written), rdg mode, wall: {ab_text(ab)}; scores "
+                  "equal")
+    timing["evaluate"] = ab
+    report.setdefault("graphs", {})["timing"] = timing
+    return paths
 
 
 W16_CLI_DIR = Path("workspace") / "chip_smoke_w16"
@@ -2349,11 +2607,14 @@ def phase_w16(dev, report):
     del trainer, bwd_inputs
     cli = phase_cli(exp, dev, r16, W16_CLI_DIR, ("rdg", "block"),
                     PER_TRAIN_STEP_W16, W16_BWD_LAUNCHES, overlap=0)
+    graph_paths = phase_graphs(exp, dev, params, lr_u8, hr_u8, r16,
+                               W16_CLI_DIR, overlap=0, suffix="_w16")
     x8 = phase_x8(dev, r16.setdefault("x8", {}))
     paths = {"serving_w16": serving, "serving_block_w16": serving_block,
              "train_w16": train, "train_cli_w16": cli["train_cli"],
              "evaluate_cli_w16": cli["evaluate_cli_rdg"],
-             "evaluate_cli_block_w16": cli["evaluate_cli_block"], **x8}
+             "evaluate_cli_block_w16": cli["evaluate_cli_block"],
+             **graph_paths, **x8}
     # (c) on both paths, (f) on the training path and (g) on the block-mode
     # paths went through N = 256
     for path, k in (("serving_w16", "window_attention"),
@@ -2430,11 +2691,14 @@ def main() -> int:
                                       report))
     del trainer, bwd_inputs
     cli_launches = phase_cli(exp, dev, report)
+    graph_paths = phase_graphs(exp, dev, params, lr_u8, hr_u8, report)
     w16_paths, timings16 = phase_w16(dev, report)
 
-    # launches by main path, each counted from 0 over that path's run
+    # launches by main path, each counted from 0 over that path's run (a
+    # captured path's: its warm-up and its capture)
     paths = {"serving": main_launches, "serving_block": block_launches,
-             "train": train_launches, **cli_launches, **w16_paths}
+             "train": train_launches, **cli_launches, **graph_paths,
+             **w16_paths}
     kernels = []
     for k in KERNELS + BWD_KERNELS + BLOCK_KERNELS:
         kernel_ms, plain_ms, library_ms, bound_ms, bound_by = timings[k]

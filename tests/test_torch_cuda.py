@@ -6,10 +6,13 @@ card's machine has no JAX, so run them without the suite's conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
-from adsr_tpu_torch.core.config import DRCTModelConfig
+from adsr_tpu_torch.core.config import DataConfig, DRCTModelConfig, Experiment
+from adsr_tpu_torch.core.graphs import CapturedCall
+from adsr_tpu_torch.eval.serving import AnomalyServer
 from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels import rdg_gemm_bwd as gb
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
@@ -30,7 +33,10 @@ from adsr_tpu_torch.kernels.window_attention import (full_bias, full_mask,
 from adsr_tpu_torch.kernels.window_attention_bwd import (
     window_attention_bwd, window_attention_bwd_plain)
 from adsr_tpu_torch.models.drct import shift_attn_mask, shift_region_labels
+from adsr_tpu_torch.metrics import _LUMA_COEFFS, to_luma
 from adsr_tpu_torch.models.factory import init_sr_params, make_model
+from adsr_tpu_torch.train.trainer import (make_serving_forward,
+                                          make_tiled_serving_forward)
 
 pytestmark = pytest.mark.cuda
 
@@ -547,3 +553,93 @@ def test_block_mode_forward_tracks_rdg_mode_at_window16(dev):
     assert counts == [0, 5 * cfg.num_layers, 0, 5 * cfg.num_layers]
     rel = (block - rdg).norm() / rdg.norm()
     assert rel < 5e-2, rel
+
+
+# ---- serving through CUDA graphs (core/graphs.py) ----
+
+WINDOW16 = DRCTModelConfig(upscale=2, img_size=32, window_size=16,
+                           in_chans=1, embed_dim=12, num_layers=2,
+                           num_heads=2, gc=4)
+COUNTED = (rdg_layernorm, rdg_gemm, window_attention, fused_swin_block)
+
+
+def _launches():
+    return [fn.launches for fn in COUNTED]
+
+
+def _experiment(cfg):
+    hr = cfg.img_size * cfg.upscale
+    return Experiment(model=cfg, data=DataConfig(
+        resolution=hr, patch_size=hr, scale=(cfg.upscale,),
+        n_colors=cfg.in_chans, batch_size=4), precision="bf16")
+
+
+@pytest.mark.parametrize("window16,mode", [(False, "rdg"), (False, "block"),
+                                           (True, "rdg"), (True, "block")])
+def test_serving_replay_equals_launched_bitwise(dev, window16, mode):
+    cfg = WINDOW16 if window16 else CFG
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    graphed = make_serving_forward(_experiment(cfg), sd, dev, mode=mode)
+    launched = make_serving_forward(_experiment(cfg), sd, dev, mode=mode,
+                                    graphs=False)
+    side = cfg.img_size
+    xs = [255 * torch.rand(2, side, side, 1, device=dev) for _ in range(4)]
+    n0 = _launches()
+    outs = [graphed(xs[0])]                          # warm-up
+    per_call = [a - b for a, b in zip(_launches(), n0)]
+    outs += [graphed(x) for x in xs[1:]]             # capture, replays
+    torch.cuda.synchronize()
+    assert sum(per_call) > 0 and graphed.captured() == 1
+    # the capture counts one call's launches, a replay none
+    assert [a - b for a, b in zip(_launches(), n0)] == \
+        [2 * n for n in per_call]
+    for x, got in zip(xs, outs):     # earlier results survive later replays
+        assert torch.equal(got, launched(x))
+
+
+def test_tiled_replay_equals_launched_and_each_shape_has_a_graph(dev):
+    sd, _ = init_sr_params(CFG, torch.Generator().manual_seed(0), device=dev)
+    exp = _experiment(CFG)
+    graphed = make_tiled_serving_forward(exp, sd, overlap=4, device=dev)
+    launched = make_tiled_serving_forward(exp, sd, overlap=4, device=dev,
+                                          graphs=False)
+    xs = [255 * torch.rand(2, 40, 40, 1, device=dev) for _ in range(3)] \
+        + [255 * torch.rand(3, 24, 40, 1, device=dev) for _ in range(3)]
+    outs = [graphed(x) for x in xs]
+    assert graphed.captured() == 2 and len(graphed.signatures()) == 2
+    assert graphed.reserved_bytes() > 0
+    for x, got in zip(xs, outs):
+        assert torch.equal(got, launched(x))
+
+
+def test_server_replay_equals_launched_scores(dev):
+    sd, _ = init_sr_params(CFG, torch.Generator().manual_seed(0), device=dev)
+    rng = np.random.RandomState(0)
+    lr = rng.randint(0, 256, (11, 16, 16, 1), np.uint8)   # 4 + 4 + 3 (tail)
+    hr = rng.randint(0, 256, (11, 32, 32, 1), np.uint8)
+    scores = []
+    for graphs in (True, False):
+        server = AnomalyServer(batch_size=4, ssim_window=7, device=dev,
+                               graphs=graphs)
+        server.register("grid", _experiment(CFG), sd, mode="rdg")
+        scores.append(server.score("grid", lr, hr))
+        scores.append(server.score("grid", lr, hr))
+    assert scores[0].shape == (11, 3) and np.isfinite(scores[0]).all()
+    for got in scores[:3]:
+        np.testing.assert_array_equal(got, scores[3])
+
+
+def test_to_luma_is_the_channel_sum_on_the_card(dev):
+    x = torch.rand(4, 33, 17, 3, device=dev)
+    coeffs = torch.tensor(_LUMA_COEFFS, device=dev)
+    assert torch.equal(to_luma(x), (x * coeffs).sum(-1, keepdim=True))
+
+
+def test_capture_of_a_host_sync_raises(dev):
+    cc = CapturedCall(lambda x: x * x.sum().item(), dev)
+    x = torch.ones(4, device=dev)
+    assert torch.equal(cc(x), x * 4)                # the warm-up launches
+    for _ in range(2):                              # and never again
+        with pytest.raises(RuntimeError):
+            cc(x)
+    assert cc.captured() == 0
