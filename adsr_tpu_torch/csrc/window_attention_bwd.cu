@@ -44,7 +44,7 @@
 
 #include "partials.cuh"
 #include "window_attn_bwd_core.cuh"
-#include "window_tiles.cuh"   // put8, get8
+#include "window_tiles.cuh"   // Parts, put8, get8
 
 namespace {
 
@@ -68,41 +68,6 @@ typedef __nv_bfloat16 bf16;
 __host__ __device__ inline size_t smem_bytes(int hdp) {
   return (size_t)4 * N * (hdp + 8) * 2 + (size_t)2 * N * kBwdTileLd * 2;
 }
-
-// The 16-byte pieces of a token row that hold the head's columns [start_p,
-// start_p + hd) of part p (q, k, v of qkv; 3: dO of dctx): they start at
-// column lo_p (a multiple of 8; a piece is 4 columns wide at the end of a
-// row whose width is 4 past a multiple of 8), and a row's pieces of all
-// parts are numbered in part order, those of part p from begin_p.
-struct Parts {
-  int start[4], lo[4], begin[5];
-
-  __device__ Parts(int h, int hd, int C) {
-    start[0] = h * hd;
-    start[1] = start[0] + C;
-    start[2] = start[1] + C;
-    start[3] = start[0];
-    begin[0] = 0;
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      lo[p] = start[p] & ~7;
-      begin[p + 1] = begin[p] + (start[p] + hd - lo[p] + 7) / 8;
-    }
-  }
-
-  static __device__ __forceinline__ int pick(const int (&a)[4], int p) {
-    return p == 0 ? a[0] : (p == 1 ? a[1] : (p == 2 ? a[2] : a[3]));
-  }
-  // the part of piece k, and the first column and head dim of the piece
-  __device__ __forceinline__ int part(int k) const {
-    return (k >= begin[1]) + (k >= begin[2]) + (k >= begin[3]);
-  }
-  __device__ __forceinline__ int first(int k, int p) const {
-    const int b = p == 0 ? 0 : (p == 1 ? begin[1]
-                                       : (p == 2 ? begin[2] : begin[3]));
-    return pick(lo, p) + 8 * (k - b);
-  }
-};
 
 // A thread's walk over the (token, piece) pairs i = threadIdx.x + j *
 // kThreads of a window, i = token * chunks + piece, stepped without a

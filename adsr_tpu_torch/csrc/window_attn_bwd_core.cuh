@@ -36,28 +36,36 @@
 
 namespace {
 
-constexpr int kBwdTileLd = kAttnTokens + 8;   // bf16 pitch of the P / dS tiles
+// bf16 pitch of the P / dS tiles of NK keys (an odd multiple of 16 bytes)
+__host__ __device__ constexpr int bwd_tile_ld(int nk) { return nk + 8; }
+constexpr int kBwdTileLd = bwd_tile_ld(kAttnTokens);
 
 __device__ __forceinline__ void sts_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v));
 }
 
-// Rows [r0, r0 + 16) of one (window, head). ``q``, ``k``, ``v``, ``g`` (dO):
+// Rows [r0, r0 + 16) of one (window, head) of NK keys (64: an 8x8 window;
+// 16: a 4x4 window, whose 16 rows a warp holds whole: the caller points the
+// planes and tiles at the window's first row and passes r0 = 0). ``q``,
+// ``k``, ``v``, ``g`` (dO):
 // shared-memory addresses of the four planes, ``ld`` elements a token row
 // (ld * 2 bytes an odd multiple of 16); dims [hd, HDP) of every plane are
-// zero. ``pt``, ``dst``: the P and dS tiles [64][kBwdTileLd] bf16, of which
-// this warp writes rows [r0, r0 + 16). ``bias``: the head's [64][64] f32
-// term; ``mask``: the window's [64][64] f32 mask or null. ``dbias`` (mma's
-// C layout of keys [8j, 8j + 8), rows r0 + lane / 4 and r0 + lane / 4 + 8)
+// zero. ``pt``, ``dst``: the P and dS tiles [NK][bwd_tile_ld(NK)] bf16, of
+// which this warp writes rows [r0, r0 + 16). ``bias``: the head's [NK][NK]
+// f32 term; ``mask``: the window's [NK][NK] f32 mask or null. ``dbias``
+// (mma's C layout of keys [8j, 8j + 8), rows r0 + lane / 4 and r0 + lane /
+// 4 + 8)
 // accumulates dS. On return dq holds dS K (unscaled) in the C layout of
 // attn_core's o.
-template <int HDP>
+template <int HDP, int NK = kAttnTokens>
 __device__ __forceinline__ void attn_bwd_rows(
     uint32_t q, uint32_t k, uint32_t v, uint32_t g, int ld, uint32_t pt,
     uint32_t dst, int r0, const float* __restrict__ bias,
-    const float* __restrict__ mask, float scale, float (&dbias)[8][4],
+    const float* __restrict__ mask, float scale, float (&dbias)[NK / 8][4],
     float (&dq)[HDP / 8][4]) {
   static_assert(HDP % 16 == 0 && HDP <= 128, "head dim tile");
+  static_assert(NK % 16 == 0 && NK <= kAttnTokens, "keys a window");
+  constexpr int kLd = bwd_tile_ld(NK);
   const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
   const uint32_t ldb = 2u * ld;
   // A operands (Q, dO rows), "col" B operands (K, V rows as keys) and the
@@ -69,9 +77,9 @@ __device__ __forceinline__ void attn_bwd_rows(
   const uint32_t trow = ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb
                         + (lane >> 4) * 16;
 
-  float s[8][4], dp[8][4];
+  float s[NK / 8][4], dp[NK / 8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
 #pragma unroll
@@ -80,7 +88,7 @@ __device__ __forceinline__ void attn_bwd_rows(
     ldsm_x4(q + arow + kk * 32, a);
     ldsm_x4(g + arow + kk * 32, ag);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {     // keys [16 jj, 16 jj + 16)
+    for (int jj = 0; jj < NK / 16; ++jj) {   // keys [16 jj, 16 jj + 16)
       uint32_t b[4], bv[4];
       ldsm_x4(k + brow + jj * 16 * ldb + kk * 32, b);
       mma_16816(s[2 * jj], a, b[0], b[1]);
@@ -93,22 +101,21 @@ __device__ __forceinline__ void attn_bwd_rows(
 
   // the stabilised softmax of rows r0 + gr (values 0, 1) and r0 + gr + 8
   // (values 2, 3), as attn_core
-  const float* b0 = bias + (r0 + gr) * kAttnTokens + 2 * t;
-  const float* m0 = mask != nullptr ? mask + (r0 + gr) * kAttnTokens + 2 * t
+  const float* b0 = bias + (r0 + gr) * NK + 2 * t;
+  const float* m0 = mask != nullptr ? mask + (r0 + gr) * NK + 2 * t
                                     : nullptr;
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NK / 8; ++j) {
     const float2 u = *reinterpret_cast<const float2*>(b0 + 8 * j);
-    const float2 w = *reinterpret_cast<const float2*>(b0 + 8 * kAttnTokens
-                                                      + 8 * j);
+    const float2 w = *reinterpret_cast<const float2*>(b0 + 8 * NK + 8 * j);
     s[j][0] = s[j][0] * scale + u.x;
     s[j][1] = s[j][1] * scale + u.y;
     s[j][2] = s[j][2] * scale + w.x;
     s[j][3] = s[j][3] * scale + w.y;
     if (m0 != nullptr) {
       const float2 mu = *reinterpret_cast<const float2*>(m0 + 8 * j);
-      const float2 mw = *reinterpret_cast<const float2*>(m0 + 8 * kAttnTokens
+      const float2 mw = *reinterpret_cast<const float2*>(m0 + 8 * NK
                                                          + 8 * j);
       s[j][0] += mu.x;
       s[j][1] += mu.y;
@@ -125,7 +132,7 @@ __device__ __forceinline__ void attn_bwd_rows(
   }
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NK / 8; ++j) {
     s[j][0] = expf(s[j][0] - mx0);
     s[j][1] = expf(s[j][1] - mx0);
     s[j][2] = expf(s[j][2] - mx1);
@@ -143,7 +150,7 @@ __device__ __forceinline__ void attn_bwd_rows(
   // P in f32, D = rowsum(P o dP)
   float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NK / 8; ++j) {
     s[j][0] *= inv0;
     s[j][1] *= inv0;
     s[j][2] *= inv1;
@@ -160,11 +167,11 @@ __device__ __forceinline__ void attn_bwd_rows(
   // dS = P o (dP - D) in f32 into d(bias); P and dS once to bf16, into the
   // tiles (rows r0 + gr and r0 + gr + 8, keys 8j + 2t, + 1) and, for dS, as
   // the A fragments of dS K
-  const uint32_t tl0 = ((r0 + gr) * kBwdTileLd + 2 * t) * 2u;
-  const uint32_t tl1 = tl0 + 8u * kBwdTileLd * 2u;
-  uint32_t ds[8][2];
+  const uint32_t tl0 = ((r0 + gr) * kLd + 2 * t) * 2u;
+  const uint32_t tl1 = tl0 + 8u * kLd * 2u;
+  uint32_t ds[NK / 8][2];
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NK / 8; ++j) {
     dp[j][0] = s[j][0] * (dp[j][0] - d0);
     dp[j][1] = s[j][1] * (dp[j][1] - d0);
     dp[j][2] = s[j][2] * (dp[j][2] - d1);
@@ -184,7 +191,7 @@ __device__ __forceinline__ void attn_bwd_rows(
 #pragma unroll
     for (int i = 0; i < 4; ++i) dq[j][i] = 0.f;
 #pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {       // keys [16 kb, 16 kb + 16)
+  for (int kb = 0; kb < NK / 16; ++kb) {   // keys [16 kb, 16 kb + 16)
     const uint32_t a[4] = {ds[2 * kb][0], ds[2 * kb][1], ds[2 * kb + 1][0],
                            ds[2 * kb + 1][1]};
 #pragma unroll
@@ -197,16 +204,17 @@ __device__ __forceinline__ void attn_bwd_rows(
   }
 }
 
-// Key rows [j0, j0 + 16) of Y = T^T X: ``tile`` a [64][kBwdTileLd] bf16 tile
-// T[query][key] (P or dS), ``x`` a [64][ld] plane X[query][dim] (dO or Q).
+// Key rows [j0, j0 + 16) of Y = T^T X over NK queries: ``tile`` a
+// [NK][bwd_tile_ld(NK)] bf16 tile T[query][key] (P or dS), ``x`` a [NK][ld]
+// plane X[query][dim] (dO or Q).
 // The A operand (T^T, rows = keys) and the row-major B (X) both come by
 // ldmatrix.trans. y: mma's C layout, rows j0 + lane / 4 (+ 8), dims
 // [8j, 8j + 8).
-template <int HDP>
+template <int HDP, int NK = kAttnTokens>
 __device__ __forceinline__ void tile_t_times(uint32_t tile, uint32_t x, int ld,
                                              int j0, float (&y)[HDP / 8][4]) {
   const int lane = threadIdx.x & 31;
-  const uint32_t ldb = 2u * ld, ldt = 2u * kBwdTileLd;
+  const uint32_t ldb = 2u * ld, ldt = 2u * bwd_tile_ld(NK);
   // A: matrix m of the x4 holds T rows [16 kk + 8 (m / 2), + 8) at key
   // columns j0 + 8 (m % 2), transposed on delivery
   const uint32_t ta = tile + ((lane & 7) + (lane >> 4) * 8) * ldt
@@ -218,7 +226,7 @@ __device__ __forceinline__ void tile_t_times(uint32_t tile, uint32_t x, int ld,
 #pragma unroll
     for (int i = 0; i < 4; ++i) y[j][i] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {        // queries [16 kk, 16 kk + 16)
+  for (int kk = 0; kk < NK / 16; ++kk) {  // queries [16 kk, 16 kk + 16)
     uint32_t a[4];
     ldsm_x4_trans(ta + kk * 16 * ldt, a);
 #pragma unroll

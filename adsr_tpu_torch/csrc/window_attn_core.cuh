@@ -21,9 +21,13 @@
 // expf, P = e / sum rounded once to bf16, f32 accumulation. At 64 tokens a
 // window the two products are ~64 flop per byte of q, k, v, below the bf16
 // ridge, so mma.sync is enough; wgmma serves (g)'s dense products.
-// The core is built from three pieces templated on the head tile (and
-// add_bias on the keys a window): qk_tile (a 16 x 64 score tile), add_bias
-// and pv_tile (P V over 64 keys). Kernel (g) at 16x16 windows (N = 256,
+// The core is built from three pieces templated on the head tile and the
+// keys of a tile (NK, 64 by default): qk_tile (a 16 x NK score tile),
+// add_bias (its bias row stride also a template argument) and pv_tile (P V
+// over NK keys). At 4x4 windows (N = 16, window_attention4.cu and
+// swin_block4.cu) a warp holds a whole window: attn_core<HDP, 16> on its 16
+// rows, S as two n8 tiles (each row's 16 scores 4 to a lane of the quad)
+// and P V one k16 step. Kernel (g) at 16x16 windows (N = 256,
 // swin_block16.cu) walks the window's keys in tiles of 64 with the same
 // pieces and its online-softmax step, online_softmax_tile; kernels (c) and
 // (f) at N = 256 run on wgmma (attn16.cuh).
@@ -70,17 +74,18 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// S[16 x 64] = A[r0, r0 + 16) B[0, 64)^T over HDP dims: ``a`` and ``b`` are
+// S[16 x NK] = A[r0, r0 + 16) B[0, NK)^T over HDP dims: ``a`` and ``b`` are
 // shared-memory addresses of two bf16 planes of ``ldb`` bytes a row (an odd
 // multiple of 16, so each ldmatrix phase hits 8 distinct bank groups). A's
 // rows are the query rows (or, for a transposed score, key rows), B's the
-// 64 columns; K non-transposed is mma's "col" B. s[j] holds mma's C layout
+// NK columns; K non-transposed is mma's "col" B. s[j] holds mma's C layout
 // of columns [8j, 8j + 8): s[j][0..1] row r0 + lane / 4, columns 8j + 2
 // (lane % 4) + {0, 1}; s[j][2..3] the same columns of row r0 + lane / 4 + 8.
-template <int HDP>
+template <int HDP, int NK = kAttnTokens>
 __device__ __forceinline__ void qk_tile(uint32_t a, uint32_t b, uint32_t ldb,
-                                        int r0, float (&s)[8][4]) {
+                                        int r0, float (&s)[NK / 8][4]) {
   static_assert(HDP % 16 == 0 && HDP <= 128, "head dim tile");
+  static_assert(NK % 16 == 0 && NK <= kAttnTokens, "keys a tile");
   const int lane = threadIdx.x & 31;
   // each lane's row address for the four 8x8 matrices of an ldmatrix.x4
   const uint32_t qa = a + (r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb
@@ -88,7 +93,7 @@ __device__ __forceinline__ void qk_tile(uint32_t a, uint32_t b, uint32_t ldb,
   const uint32_t ka = b + ((lane & 7) + (lane >> 4) * 8) * ldb
                       + ((lane >> 3) & 1) * 16;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NK / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
 #pragma unroll
@@ -96,7 +101,7 @@ __device__ __forceinline__ void qk_tile(uint32_t a, uint32_t b, uint32_t ldb,
     uint32_t x[4];
     ldsm_x4(qa + kk * 32, x);
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {     // columns [16 jj, 16 jj + 16)
+    for (int jj = 0; jj < NK / 16; ++jj) {   // columns [16 jj, 16 jj + 16)
       uint32_t y[4];
       ldsm_x4(ka + jj * 16 * ldb + kk * 32, y);
       mma_16816(s[2 * jj], x, y[0], y[1]);
@@ -108,9 +113,9 @@ __device__ __forceinline__ void qk_tile(uint32_t a, uint32_t b, uint32_t ldb,
 // x = s * scale + bias (+ mask) for the lane's two rows of a score tile:
 // ``bias`` and ``mask`` (or null) point at the tile's element (row r0,
 // column 0) of [NK][NK] f32 matrices (NK = keys a window), read in 8-byte
-// loads.
-template <int NK>
-__device__ __forceinline__ void add_bias(float (&s)[8][4],
+// loads; the tile is COLS columns wide.
+template <int NK, int COLS = kAttnTokens>
+__device__ __forceinline__ void add_bias(float (&s)[COLS / 8][4],
                                          const float* __restrict__ bias,
                                          const float* __restrict__ mask,
                                          float scale) {
@@ -118,7 +123,7 @@ __device__ __forceinline__ void add_bias(float (&s)[8][4],
   const float* b0 = bias + g * NK + 2 * t;
   const float* m0 = mask != nullptr ? mask + g * NK + 2 * t : nullptr;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < COLS / 8; ++j) {
     const float2 u = *reinterpret_cast<const float2*>(b0 + 8 * j);
     const float2 w = *reinterpret_cast<const float2*>(b0 + 8 * NK + 8 * j);
     s[j][0] = s[j][0] * scale + u.x;
@@ -136,19 +141,20 @@ __device__ __forceinline__ void add_bias(float (&s)[8][4],
   }
 }
 
-// o += P V[0, 64): ``p`` the bf16 P tile in the A layout (p[j][0] row r0 +
+// o += P V[0, NK): ``p`` the bf16 P tile in the A layout (p[j][0] row r0 +
 // lane / 4, p[j][1] row r0 + lane / 4 + 8, of columns 8j + 2 (lane % 4) +
-// {0, 1}: the C layout of qk_tile, packed), ``v`` a plane of 64 rows read
+// {0, 1}: the C layout of qk_tile, packed), ``v`` a plane of NK rows read
 // with ldmatrix.trans as the row-major B.
-template <int HDP>
-__device__ __forceinline__ void pv_tile(const uint32_t (&p)[8][2], uint32_t v,
+template <int HDP, int NK = kAttnTokens>
+__device__ __forceinline__ void pv_tile(const uint32_t (&p)[NK / 8][2],
+                                        uint32_t v,
                                         uint32_t ldb,
                                         float (&o)[HDP / 8][4]) {
   const int lane = threadIdx.x & 31;
   const uint32_t va = v + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldb
                       + (lane >> 4) * 16;
 #pragma unroll
-  for (int kb = 0; kb < 4; ++kb) {       // rows of V [16 kb, 16 kb + 16)
+  for (int kb = 0; kb < NK / 16; ++kb) { // rows of V [16 kb, 16 kb + 16)
     const uint32_t a[4] = {p[2 * kb][0], p[2 * kb][1], p[2 * kb + 1][0],
                            p[2 * kb + 1][1]};
 #pragma unroll
@@ -219,28 +225,31 @@ __device__ __forceinline__ void online_softmax_tile(float (&s)[8][4],
   pv_tile<HDP>(p, v, ldb, o);
 }
 
-// Rows [r0, r0 + 16) of one 8x8 window and head. ``q``, ``k``, ``v``:
-// shared-memory addresses of the three planes, ``ld`` elements a token row;
-// dims [hd, HDP) of every plane are zero. ``bias``: the head's [64][64] f32
-// term; ``mask``: the window's [64][64] f32 mask or null. On return o[j]
-// holds mma's C layout of columns [8j, 8j + 8) (as qk_tile's s).
-template <int HDP>
+// Rows [r0, r0 + 16) of one window and head, NK keys (64: an 8x8 window;
+// 16: a 4x4 window, whose 16 rows a warp holds whole: the caller points
+// ``q``, ``k`` and ``v`` at the window's first row and passes r0 = 0).
+// ``q``, ``k``, ``v``: shared-memory addresses of the three planes, ``ld``
+// elements a token row; dims [hd, HDP) of every plane are zero. ``bias``:
+// the head's [NK][NK] f32 term; ``mask``: the window's [NK][NK] f32 mask or
+// null. On return o[j] holds mma's C layout of columns [8j, 8j + 8) (as
+// qk_tile's s).
+template <int HDP, int NK = kAttnTokens>
 __device__ __forceinline__ void attn_core(uint32_t q, uint32_t k, uint32_t v,
                                           int ld, int r0,
                                           const float* __restrict__ bias,
                                           const float* __restrict__ mask,
                                           float scale, float (&o)[HDP / 8][4]) {
   const uint32_t ldb = 2u * ld;
-  float s[8][4];
-  qk_tile<HDP>(q, k, ldb, r0, s);
+  float s[NK / 8][4];
+  qk_tile<HDP, NK>(q, k, ldb, r0, s);
   // x = s * scale + bias (+ mask), then the stabilised softmax of rows
   // r0 + g (values 0, 1) and r0 + g + 8 (values 2, 3)
-  add_bias<kAttnTokens>(s, bias + r0 * kAttnTokens,
-                        mask != nullptr ? mask + r0 * kAttnTokens : nullptr,
-                        scale);
+  add_bias<NK, NK>(s, bias + r0 * NK, mask != nullptr ? mask + r0 * NK
+                                                      : nullptr,
+                   scale);
   float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NK / 8; ++j) {
     mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
     mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
   }
@@ -251,7 +260,7 @@ __device__ __forceinline__ void attn_core(uint32_t q, uint32_t k, uint32_t v,
   }
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NK / 8; ++j) {
     s[j][0] = expf(s[j][0] - mx0);
     s[j][1] = expf(s[j][1] - mx0);
     s[j][2] = expf(s[j][2] - mx1);
@@ -265,9 +274,9 @@ __device__ __forceinline__ void attn_core(uint32_t q, uint32_t k, uint32_t v,
     sum1 += __shfl_xor_sync(0xffffffffu, sum1, sh);
   }
   const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
-  uint32_t p[8][2];      // P in bf16: the A fragments of P V
+  uint32_t p[NK / 8][2];   // P in bf16: the A fragments of P V
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
+  for (int j = 0; j < NK / 8; ++j) {
     p[j][0] = pack_bf16x2(s[j][0] * inv0, s[j][1] * inv0);
     p[j][1] = pack_bf16x2(s[j][2] * inv1, s[j][3] * inv1);
   }
@@ -275,7 +284,7 @@ __device__ __forceinline__ void attn_core(uint32_t q, uint32_t k, uint32_t v,
   for (int j = 0; j < HDP / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[j][i] = 0.f;
-  pv_tile<HDP>(p, v, ldb, o);
+  pv_tile<HDP, NK>(p, v, ldb, o);
 }
 
 }  // namespace

@@ -2,8 +2,8 @@
 // (N = 256 tokens, walked in tiles of 64): the raster row of a token of a
 // (cyclically shifted) window, the 16-byte slots a staged tile takes and
 // the cp.async group calls (the gathers themselves are attn16.cuh's and
-// swin_block16.cu's). put8 / get8 are kernel (f)'s N = 64 gather and store
-// of 16-byte pieces.
+// swin_block16.cu's). Parts, put8 and get8 are kernel (f)'s gather and
+// store of 16-byte pieces at N = 64 and N = 16.
 
 #pragma once
 
@@ -29,6 +29,41 @@ struct WinRows {
     r -= r >= H ? H : 0;
     c -= c >= W ? W : 0;
     return img + (long long)r * W + c;
+  }
+};
+
+// The 16-byte pieces of a token row that hold the head's columns [start_p,
+// start_p + hd) of part p (q, k, v of qkv; 3: dO of dctx): they start at
+// column lo_p (a multiple of 8; a piece is 4 columns wide at the end of a
+// row whose width is 4 past a multiple of 8), and a row's pieces of all
+// parts are numbered in part order, those of part p from begin_p.
+struct Parts {
+  int start[4], lo[4], begin[5];
+
+  __device__ Parts(int h, int hd, int C) {
+    start[0] = h * hd;
+    start[1] = start[0] + C;
+    start[2] = start[1] + C;
+    start[3] = start[0];
+    begin[0] = 0;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      lo[p] = start[p] & ~7;
+      begin[p + 1] = begin[p] + (start[p] + hd - lo[p] + 7) / 8;
+    }
+  }
+
+  static __device__ __forceinline__ int pick(const int (&a)[4], int p) {
+    return p == 0 ? a[0] : (p == 1 ? a[1] : (p == 2 ? a[2] : a[3]));
+  }
+  // the part of piece k, and the first column and head dim of the piece
+  __device__ __forceinline__ int part(int k) const {
+    return (k >= begin[1]) + (k >= begin[2]) + (k >= begin[3]);
+  }
+  __device__ __forceinline__ int first(int k, int p) const {
+    const int b = p == 0 ? 0 : (p == 1 ? begin[1]
+                                       : (p == 2 ? begin[2] : begin[3]));
+    return pick(lo, p) + 8 * (k - b);
   }
 };
 

@@ -82,8 +82,18 @@ SIGNATURES = {
                         _P, _P, _P, _P, _L, _P, _P, _L, _P] + [_I] * 9
                        + [_F, _L, _P],
 }
-# (g) at 16x16 windows (swin_block16.cu): adsr_swin_block's arguments
+# qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, shift, smem, stream (4x4
+# windows)
+SIGNATURES["adsr_window_attention4"] = [_P, _L, _P, _L, _P, _P] + [_I] * 6 \
+    + [_L, _P]
+# qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh,
+# shift, group, smem, stream (4x4 windows)
+SIGNATURES["adsr_window_attention_bwd4"] = [_P, _L, _P, _L, _P, _P, _P, _L,
+                                            _P, _P] + [_I] * 7 + [_L, _P]
+# (g) at 16x16 windows (swin_block16.cu) and at 4x4 (swin_block4.cu):
+# adsr_swin_block's arguments
 SIGNATURES["adsr_swin_block16"] = SIGNATURES["adsr_swin_block"]
+SIGNATURES["adsr_swin_block4"] = SIGNATURES["adsr_swin_block"]
 # hd, smem, int* out: the clusters the card holds at once
 SIGNATURES["adsr_swin_block16_clusters"] = [_I, _L, _P]
 

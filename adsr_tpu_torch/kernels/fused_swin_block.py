@@ -4,9 +4,10 @@ Replaces the Pallas kernel ``fused_swin_block``
 (``adsr_tpu/ops/fused_swin_block.py:297``, body ``_kernel`` ``:215``,
 pallas_call ``:337``), which the JAX package's "block" serving mode
 (``ADSR_TPU_RDG=0``) runs once per Swin block. Sources:
-``adsr_tpu_torch/csrc/swin_block.cu`` (8x8 windows) and
-``csrc/swin_block16.cu`` (16x16 windows), on the ring, products and
-LayerNorm of ``csrc/swin_block_core.cuh`` (with ``hopper_gemm.cuh``'s TMA,
+``adsr_tpu_torch/csrc/swin_block.cu`` (8x8 windows),
+``csrc/swin_block4.cu`` (4x4 windows) and ``csrc/swin_block16.cu`` (16x16
+windows), on the ring, products and LayerNorm of
+``csrc/swin_block_core.cuh`` (with ``hopper_gemm.cuh``'s TMA,
 mbarrier and wgmma wrappers) and the attention core of
 ``window_attn_core.cuh``, shared with kernel (c). Bound on the H100:
 operations (the weights are re-read from L2 by every window; each window's
@@ -17,7 +18,10 @@ stream in f32; a producer warp streams the packed weights (16-byte rows) by
 TMA into a ring of 64 x 64 tiles, two consumer warpgroups run the products
 on wgmma (32 of a tile's 64 columns each) with their epilogues from the
 accumulators, and the attention core per head. At 8x8 windows one block
-per (image, window) holds the window. At 16x16 windows (N = 256) one
+per (image, window) holds the window. At 4x4 windows (N = 16) one block
+holds four consecutive windows over the flat (image, window) index, the
+last group possibly short, and each warp of the first warpgroup runs the
+16-key attention core on its own window. At 16x16 windows (N = 256) one
 cluster of ``CLUSTER`` blocks per (image, window), one 64-row query tile a
 block: each block computes its rows' q, k and v, and walks the window's four
 key tiles with kernel (c)'s online softmax, reading the peers' K and V
@@ -47,11 +51,12 @@ from adsr_tpu_torch.kernels.fused_rdg import pack_swin, rdg_geometry
 from adsr_tpu_torch.kernels.rdg_gemm import rdg_gemm_plain
 from adsr_tpu_torch.kernels.rdg_layernorm import EPS, rdg_layernorm_plain
 from adsr_tpu_torch.kernels.window_attention import (BLOCK_SHARED_MAX,
-                                                     KERNEL_WINDOW,
+                                                     GROUP4, KERNEL_WINDOW,
                                                      KERNEL_WINDOWS, KEY_TILE,
                                                      REGISTERS, check_rows16,
                                                      head_tile,
-                                                     window_attention_plain)
+                                                     window_attention_plain,
+                                                     windows_text)
 
 MAX_WIDTH = 320        # the kernel's LayerNorm keeps <= 10 values a lane
 THREADS = 288          # two consumer warpgroups + one producer warp
@@ -85,11 +90,12 @@ def swin_block_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
     ``nh`` heads at batch ``b``, ``h`` x ``w`` tokens and ``window`` x
     ``window`` windows: ``cluster`` blocks of ``THREADS`` per (image,
     window), each holding 64 token rows (one block at window 8, a cluster of
-    ``CLUSTER`` at window 16, one 64-row query tile a block); ``blocks`` in
-    all. A block's shared memory, ``regions`` in the source's order after
-    1 KB of alignment room: the weight ``ring``, the LayerNorm output
-    (``ln``) as swizzled 64-column atoms, one head's context (``ctx``) as
-    such atoms (it starts at column (h hd) % 8, so that its share of Wproj
+    ``CLUSTER`` at window 16, one 64-row query tile a block); at window 4
+    one block per ``group`` consecutive windows (``last_group`` in the
+    last); ``blocks`` in all. A block's shared memory, ``regions`` in the
+    source's order after 1 KB of alignment room: the weight ``ring``, the
+    LayerNorm output (``ln``) as swizzled 64-column atoms, one head's
+    context (``ctx``) as such atoms (it starts at column (h hd) % 8, so that its share of Wproj
     starts 16-byte aligned; at window 16 the region also holds a peer's K
     and V tiles during the attention, ``staging_bytes``), the f32 residual
     ``x`` [64][ldx], the block's rows of one head's q/k/v planes (``qkv``),
@@ -97,7 +103,8 @@ def swin_block_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
     at most ``MAX_STAGES``. Also the 64-row weight tiles one block streams
     (qkv per head and part, proj per head over its dims, fc1 and fc2 per 64
     hidden columns) and one window (``window_weight_tiles``: every block of
-    a cluster streams them all), and the registers a thread may use (one
+    a cluster streams them all; at window 4 a quarter of a block's), and
+    the registers a thread may use (one
     block an SM: each of the SM's four register quarters holds up to three
     of its nine warps).
     The source refuses a launch whose stages and shared memory differ from
@@ -110,7 +117,7 @@ def swin_block_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
     kp = -(-c // 64) * 64
     hk = -(-(hd + 7) // 64)     # a head's context from column (h hd) % 8
     ldx = c + (24 - c % 16) % 16
-    cluster = window * window // KEY_TILE
+    cluster = max(1, window * window // KEY_TILE)
     staging = 2 * KEY_TILE * (hdp + 8) * 2 if cluster > 1 else 0
     regions = {"ln": kp // 64 * STAGE_BYTES,
                "ctx": max(hk * STAGE_BYTES, staging), "x": 64 * ldx * 4,
@@ -121,7 +128,7 @@ def swin_block_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
     ks, nc = kp // 64, -(-c // 64)
     tiles = 3 * nh * hk * ks + nh * nc * hk + -(-f // 64) * (ks + nc)
     windows = b * (h // window) * (w // window)
-    return {"hdp": hdp, "ldx": ldx, "stages": stages,
+    plan = {"hdp": hdp, "ldx": ldx, "stages": stages,
             "smem_bytes": fixed + stages * (STAGE_BYTES + 16),
             "regions": regions, "threads": THREADS, "cluster": cluster,
             "windows": windows, "blocks": windows * cluster,
@@ -129,6 +136,12 @@ def swin_block_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
             "window_weight_tiles": tiles * cluster,
             "max_registers": min(255, REGISTERS // 4 // -(-THREADS // 128)
                                  // 32 // 8 * 8)}
+    if window == 4:             # GROUP4 windows a block: 64 token rows
+        groups = -(-windows // GROUP4)
+        plan.update(group=GROUP4, groups=groups, blocks=groups,
+                    last_group=windows - (groups - 1) * GROUP4,
+                    window_weight_tiles=tiles / GROUP4)
+    return plan
 
 
 def swin_block16_clusters(c: int, f: int, nh: int) -> int:
@@ -178,7 +191,7 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     """Swin block ``k`` (0-based) of an RDG on ``x`` [B*h*w, c_k] (raster
     token order, any row stride: the concat prefix ``cat[:, :c_k]``) into
     ``out`` [B*h*w, c_k]. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (8x8 or 16x16 windows) or the call raises."""
+    launches the kernel (4x4, 8x8 or 16x16 windows) or the call raises."""
     geo = block_geometry(cfg, k)
     c, shift = geo["c"], geo["shift"]
     m = x.shape[0]
@@ -195,7 +208,7 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
     if win not in KERNEL_WINDOWS or h % win or w % win or c > MAX_WIDTH \
             or c % 4 or geo["hidden"] % 4 or c // geo["heads"] > 128:
         raise NotImplementedError(
-            f"fused_swin_block: the CUDA kernel takes 8x8 or 16x16 windows, "
+            f"fused_swin_block: the CUDA kernel takes {windows_text()}, "
             f"widths <= {MAX_WIDTH} and multiples of 4, head dims <= 128 (got "
             f"window {win}, {h}x{w}, c {c}, hidden {geo['hidden']})")
     _build.require_bf16_cuda("fused_swin_block", x, out,
@@ -217,8 +230,8 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                          f"{win}x{win} windows of {h}x{w} tokens")
     plan = swin_block_plan(c, geo["hidden"], geo["heads"], window=win)
     lib = _build.library()
-    launch = lib.adsr_swin_block if win == KERNEL_WINDOW \
-        else lib.adsr_swin_block16
+    launch = {4: lib.adsr_swin_block4, KERNEL_WINDOW: lib.adsr_swin_block,
+              16: lib.adsr_swin_block16}[win]
     rc = launch(
         x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
         p["ln1_w"].data_ptr(), p["ln1_b"].data_ptr(), p["wqkv"].data_ptr(),

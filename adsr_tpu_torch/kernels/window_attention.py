@@ -12,8 +12,13 @@ multiples of 8 elements, as ``kernels/rdg_gemm.py`` ``pitched`` lays them
 out) into q/k/v planes in shared memory (head dims zero-padded to a
 multiple of 16); each warp runs the register-resident core (mma.sync
 scores, bias and mask, stabilised f32 softmax, P @ V) on 16 query rows; the
-context goes back in 16-byte stores. At 16x16 windows (N = 256,
-``csrc/window_attention16.cu`` on ``csrc/attn16.cuh``) one block of two
+context goes back in 16-byte stores. At 4x4 windows (N = 16,
+``csrc/window_attention4.cu``) one warp holds a whole window (16 query
+rows against 16 keys, the core templated on the key count) and a block of
+four warps takes one head and a group of four consecutive windows over
+the flat (image, window) index, so it still fills 64 plane rows; the last
+group may be short (:func:`window_attention_plan`). At 16x16 windows (N =
+256, ``csrc/window_attention16.cu`` on ``csrc/attn16.cuh``) one block of two
 warpgroups per (image, window, head) gathers the window's K and V once
 into swizzled tiles and each warpgroup walks them for two of the four
 64-row query tiles on ``wgmma``, FlashAttention-2's online softmax:
@@ -46,9 +51,10 @@ from adsr_tpu_torch.models.drct import (relative_position_index,
                                         window_partition, window_reverse)
 
 KERNEL_WINDOW = 8      # the CUDA kernel's first window: 8x8 (N = 64)
-KERNEL_WINDOWS = (8, 16)     # the windows it takes: N = 64 and N = 256
+KERNEL_WINDOWS = (4, 8, 16)  # the windows it takes: N = 16, 64 and 256
 KEY_TILE = 64          # keys (and query rows) a tile at N = 256
 THREADS = 128          # 4 warps a block, 16 query rows each
+GROUP4 = 4             # windows a block at 4x4 windows: one a warp
 WARPGROUPS16 = 2       # consumer warpgroups a block at N = 256
 # the windows whose kernels walk 64-token tiles on wgmma (N = 256): they
 # take the bias as its table and the shift mask as region labels, and (c)
@@ -65,6 +71,13 @@ BLOCK_RESERVED = 1024        # what the runtime keeps per resident block
 REGISTERS = 65536            # 32-bit registers an SM
 
 
+def windows_text() -> str:
+    """'4x4, 8x8 or 16x16 windows': the windows the CUDA kernels take
+    (``KERNEL_WINDOWS``), for their refusal messages."""
+    names = [f"{w}x{w}" for w in KERNEL_WINDOWS]
+    return f"{', '.join(names[:-1])} or {names[-1]} windows"
+
+
 def head_tile(hd: int) -> int:
     """The head dim a plane holds: ``hd`` zero-padded to a multiple of 16
     (the mma k and n steps)."""
@@ -77,7 +90,10 @@ def window_attention_plan(c: int, nh: int, b: int = 1, h: int = 8,
     """What kernel (c) launches for width ``c`` and ``nh`` heads at batch
     ``b``, ``h`` x ``w`` tokens and ``window`` x ``window`` windows. At
     window 8 one block of ``THREADS`` per (image, window, head), its shared
-    memory the head's q/k/v planes [3][64][hdp + 8] bf16. At window 16 one
+    memory the head's q/k/v planes [3][64][hdp + 8] bf16. At window 4 one
+    block of ``THREADS`` per (group of ``GROUP4`` windows, head), the same
+    planes (16 rows a window), ``group`` windows a block over the flat
+    (image, window) index and ``last_group`` in the last. At window 16 one
     block of ``WARPGROUPS16`` warpgroups per (image, window, head): the
     window's K and V (four 64-key tiles each) and one Q tile a warpgroup as
     swizzled tiles (:func:`swizzle_bytes`), the staging of one K and one V
@@ -95,21 +111,26 @@ def window_attention_plan(c: int, nh: int, b: int = 1, h: int = 8,
                          f"kernel takes {KERNEL_WINDOWS}")
     hdp = head_tile(c // nh)
     n = window * window
-    if window == KERNEL_WINDOW:
+    windows = b * (h // window) * (w // window)
+    if window not in TILED_WINDOWS:
         smem = 3 * KEY_TILE * (hdp + 8) * 2
         threads = THREADS
         per_sm = SM_SHARED_BYTES // (smem + BLOCK_RESERVED)
-        blocks = b * (h // window) * (w // window) * nh
-        return {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
+        plan = {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
                 "threads": threads, "tokens": n, "key_tiles": 1,
-                "blocks": blocks, "blocks_per_sm": per_sm,
+                "blocks": windows * nh, "blocks_per_sm": per_sm,
                 "max_registers": min(255, REGISTERS // (threads * per_sm))}
+        if window == KERNEL_WINDOW:
+            return plan
+        groups = -(-windows // GROUP4)
+        return {**plan, "group": GROUP4, "groups": groups,
+                "last_group": windows - (groups - 1) * GROUP4,
+                "blocks": groups * nh}
     smem = (ALIGN_SLACK + 10 * swizzle_bytes(hdp) + 2 * stage_bytes(hdp)
             + REL_TABLE_BYTES + LABEL_BYTES)
     threads = 128 * WARPGROUPS16
     per_sm = min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED),
                  2 if hdp <= 64 else 1)
-    windows = b * (h // window) * (w // window)
     return {"hdp": hdp, "ld": hdp + 8, "tile_cols": swizzle_cols(hdp),
             "smem_bytes": smem, "threads": threads,
             "warpgroups": WARPGROUPS16, "tokens": n,
@@ -344,9 +365,9 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
     if window not in KERNEL_WINDOWS or h % window or w % window \
             or c // num_heads > 128 or c % 4:
         raise NotImplementedError(
-            f"window_attention: the CUDA kernel takes 8x8 windows or 16x16 "
-            f"windows, widths that are multiples of 4 and head dims <= 128 "
-            f"(got window {window}, {h}x{w}, c {c}, hd {c // num_heads})")
+            f"window_attention: the CUDA kernel takes {windows_text()}, "
+            f"widths that are multiples of 4 and head dims <= 128 (got "
+            f"window {window}, {h}x{w}, c {c}, hd {c // num_heads})")
     _build.require_bf16_cuda("window_attention", qkv, out)
     check_rows16("window_attention", qkv, out)
     check_bias("window_attention", bias, num_heads, window, card=True)
@@ -361,12 +382,16 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
     plan = window_attention_plan(c, num_heads, window=window)
     args = (qkv.data_ptr(), qkv.stride(0), out.data_ptr(), out.stride(0),
             bias.data_ptr(), None if mask is None else mask.data_ptr())
+    if window not in TILED_WINDOWS and stats is not None:
+        raise ValueError(f"window_attention: the kernel writes softmax "
+                         f"statistics at windows {TILED_WINDOWS} only")
     if window == KERNEL_WINDOW:
-        if stats is not None:
-            raise ValueError(f"window_attention: the kernel writes softmax "
-                             f"statistics at windows {TILED_WINDOWS} only")
         rc = _build.library().adsr_window_attention(
             *args, m // (h * w), h, w, c, num_heads, window, shift,
+            plan["smem_bytes"], _build.stream_ptr(qkv))
+    elif window == 4:
+        rc = _build.library().adsr_window_attention4(
+            *args, m // (h * w), h, w, c, num_heads, shift,
             plan["smem_bytes"], _build.stream_ptr(qkv))
     else:
         rc = _build.library().adsr_window_attention16(

@@ -29,9 +29,14 @@ the statistics, ``D = rowsum(dO o O)`` from ``dout`` and ``ctx``) and
 writes each row's (max, 1 / sum, D), then a ``dkv`` launch of two
 warpgroups per (group of windows, head, key tile) accumulates dK, dV and
 an f32 d(bias) tile of its keys in shared memory, one [nh, 256, 256]
-partial per group (at most 32 MiB a call); both count in ``launches``. No
-float atomics at either window. The kernel takes 8x8 and 16x16 windows
-(``KERNEL_WINDOWS``) like the forward, and ``qkv``, ``dout``, ``ctx`` and
+partial per group (at most 32 MiB a call); both count in ``launches``. At
+4x4 windows (N = 16, the 64/x4, 128/x8 and 32/x2 models;
+``csrc/window_attention_bwd4.cu``) one warp holds a whole window, so its
+dQ, dK and dV need no cross-warp sum: a block of four warps takes one head
+and a group of consecutive windows, four at a time (:func:`_plan4`), and
+sums its warps' d(bias) fragments in warp order into one [16, 16] partial
+per (group, head). No float atomics at any window. The kernel takes the
+forward's windows (``KERNEL_WINDOWS``), and ``qkv``, ``dout``, ``ctx`` and
 ``dqkv`` with 16-byte rows at their row strides (:func:`check_rows16`).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
@@ -49,7 +54,8 @@ from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels.window_attention import (ALIGN_SLACK,
                                                      BLOCK_RESERVED,
                                                      BLOCK_SHARED_MAX,
-                                                     KEY_TILE, KERNEL_WINDOW,
+                                                     GROUP4, KEY_TILE,
+                                                     KERNEL_WINDOW,
                                                      KERNEL_WINDOWS,
                                                      LABEL_BYTES, REGISTERS,
                                                      REL_TABLE_BYTES,
@@ -60,7 +66,8 @@ from adsr_tpu_torch.kernels.window_attention import (ALIGN_SLACK,
                                                      full_mask, head_tile,
                                                      stage_bytes,
                                                      swizzle_bytes,
-                                                     window_scores)
+                                                     window_scores,
+                                                     windows_text)
 from adsr_tpu_torch.models.drct import window_partition, window_reverse
 
 THREADS = 128          # 4 warps, 16 query (and key) rows each
@@ -91,7 +98,10 @@ def window_attention_bwd_plan(c: int, nh: int, b: int = 1, h: int = 8,
     memory and :func:`min_blocks`): one wave, as many blocks as fit, and
     G times fewer d(bias) partials, one per (group, head), than windows.
     The source refuses a launch whose shared memory differs from this
-    plan's. Read only (cached). ``window`` 16: :func:`_plan16`."""
+    plan's. Read only (cached). ``window`` 4: :func:`_plan4`; 16:
+    :func:`_plan16`."""
+    if window == 4:
+        return _plan4(c, nh, b, h, w, sms)
     if window != KERNEL_WINDOW:
         return _plan16(c, nh, b, h, w, window)
     hdp = head_tile(c // nh)
@@ -107,6 +117,45 @@ def window_attention_bwd_plan(c: int, nh: int, b: int = 1, h: int = 8,
             "blocks": groups * nh, "blocks_per_sm": per_sm,
             "max_registers": min(255, REGISTERS // (THREADS * per_sm)),
             "partial_bytes": groups * nh * _TOKENS * _TOKENS * 4}
+
+
+def min_blocks4(hdp: int) -> int:
+    """Blocks an SM holds by registers at 4x4 windows: the source's
+    ``__launch_bounds__`` minimum (128 registers a thread up to a head tile
+    of 80, else 168)."""
+    return 4 if hdp <= 80 else 3
+
+
+def _plan4(c: int, nh: int, b: int, h: int, w: int, sms: int) -> dict:
+    """Kernel (f) at 4x4 windows (N = 16): a block of ``THREADS`` takes
+    one head and ``group`` consecutive windows (a multiple of ``GROUP4``,
+    one a warp at a time) over the flat (image, window) index, the last
+    group possibly short (``last_group`` windows, which need not be a
+    multiple of 4); its shared memory holds the q, k, v and dO planes of
+    four windows [4][64][hdp + 8] and their bf16 P and dS tiles [2][64][24]
+    (the warps' d(bias) fragments go over the tiles at the end). ``group``
+    is the fewest windows a block (at most ``MAX_GROUP`` steps of four) for
+    which every block is resident at once, ``blocks_per_sm`` an SM (by
+    shared memory and :func:`min_blocks4`); one d(bias) partial [16, 16]
+    per (group, head)."""
+    hdp = head_tile(c // nh)
+    n = 16
+    smem = 4 * GROUP4 * n * (hdp + 8) * 2 + 2 * GROUP4 * n * (n + 8) * 2
+    per_sm = min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED),
+                 min_blocks4(hdp))
+    windows = b * (h // 4) * (w // 4)
+    quads = -(-windows // GROUP4)
+    steps = next((g for g in range(1, MAX_GROUP)
+                  if nh * -(-quads // g) <= per_sm * sms), MAX_GROUP)
+    group = GROUP4 * steps
+    groups = -(-windows // group)
+    return {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
+            "threads": THREADS, "tokens": n, "windows": windows,
+            "group": group, "groups": groups,
+            "last_group": windows - (groups - 1) * group,
+            "blocks": groups * nh, "blocks_per_sm": per_sm,
+            "max_registers": min(255, REGISTERS // (THREADS * per_sm)),
+            "partial_bytes": groups * nh * n * n * 4}
 
 
 def _plan16(c: int, nh: int, b: int, h: int, w: int, window: int) -> dict:
@@ -260,9 +309,9 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     if window not in KERNEL_WINDOWS or h % window or w % window \
             or c // num_heads > 128 or c % 4:
         raise NotImplementedError(
-            f"window_attention_bwd: the CUDA kernel takes 8x8 windows or "
-            f"16x16 windows, widths that are multiples of 4 and head dims "
-            f"<= 128 (got window {window}, c {c}, hd {c // num_heads})")
+            f"window_attention_bwd: the CUDA kernel takes {windows_text()}, "
+            f"widths that are multiples of 4 and head dims <= 128 (got "
+            f"window {window}, c {c}, hd {c // num_heads})")
     check_rows16("window_attention_bwd", qkv, dout, dqkv)
     _build.require_bf16_cuda("window_attention_bwd", qkv, dout, dqkv)
     check_bias("window_attention_bwd", bias, num_heads, window, card=True)
@@ -285,7 +334,14 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     part = torch.empty(plan["partial_bytes"] // 4, dtype=torch.float32,
                        device=qkv.device)
     lib = _build.library()
-    if window == KERNEL_WINDOW:
+    if window == 4:
+        rc = lib.adsr_window_attention_bwd4(
+            qkv.data_ptr(), qkv.stride(0), dout.data_ptr(), dout.stride(0),
+            bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            dqkv.data_ptr(), dqkv.stride(0), part.data_ptr(),
+            dbias.data_ptr(), b, h, w, c, num_heads, shift, plan["group"],
+            plan["smem_bytes"], _build.stream_ptr(qkv))
+    elif window == KERNEL_WINDOW:
         rc = lib.adsr_window_attention_bwd(
             qkv.data_ptr(), qkv.stride(0), dout.data_ptr(), dout.stride(0),
             bias.data_ptr(), None if mask is None else mask.data_ptr(),
@@ -308,8 +364,7 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
             _build.stream_ptr(qkv))
     _build.check_rc("window_attention_bwd", rc)
     # one for each of (f)'s own kernels (the partial sums not counted)
-    window_attention_bwd.launches += 1 if window == KERNEL_WINDOW \
-        else plan["launches"]
+    window_attention_bwd.launches += plan.get("launches", 1)
 
 
 window_attention_bwd.launches = 0

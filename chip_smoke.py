@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's DRCT x4 @128px serving and training paths and its
 train and evaluate CLIs on one GPU, then the window-16 geometry (256px/x4
-and 512/x8).
+and 512/x8) and the window-4 geometry (64/x4, 128/x8 and 32/x2).
 
     python3 chip_smoke.py
 
@@ -102,13 +102,35 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    LR px); phase 11 at that size; then 512 px at x8 (``drct_experiment(
    "grid", 512, 8)``): ``AnomalyServer`` scores one batch in each mode, the
    SR against eager f32, the rdg-mode forward and ``AnomalyServer`` through
-   their graphs against the launched route, and four train steps.
+   their graphs against the launched route, and four train steps;
+13. the window-4 geometry, lines "[w4] <phase>: ...": the full-width 64/x4
+   model (``drct_experiment("grid", 64, 4)``: LR 16 x 16, 4x4 windows, N =
+   16 keys, shifts 0 and 2, M = 4,096 token rows at batch 16) through
+   phases 2-11 at that size: the plans of (c), (g) and (f) (four windows a
+   block; the last group short at batch 5 on 20 x 20 tokens); kernels
+   (a)-(c), (g) and (d)-(f) against their plain versions (every block,
+   both shifts, every block also at batch 5 on 20 x 20 tokens, 125
+   windows; each (f) and (g) call twice, bitwise equal; (g) also against
+   the (a)-(c) composition); ``AnomalyServer`` scores 16 good + 16
+   defective 64 px images and a tail of 5 in both modes, both forwards RDG
+   by RDG against the eager f32 model; the timing of both forwards, each
+   kernel and the step; one RDG's gradients; the Trainer; ``cli.main
+   --resolution 64`` and ``cli.evaluate`` in both modes on 512 px test
+   images (8 x 8 tiles of 16 LR px at overlap 0); phase 11 at that size;
+   then 128/x8 (one ``AnomalyServer`` batch in each mode against eager
+   f32, the rdg forward's and the server's graphs against the launched
+   route, four train steps) and 32/x2 (the same without the steps).
+
+The build and the ptxas lines come from this process; each geometry
+(phases 3-11 of the flagship, 12, 13) runs in a process of its own, which
+this one starts and waits for (``--phase NAME OUT``).
 
 The last three lines are the kernels' JSON record (each kernel's
-window-16 readings under ``"w16"``, its launches on every main path under
-``"launches_by_path"``), the nvidia-smi line and ``{"ok": true, "device":
-{...}}``; a ``[report]`` line before them holds every number the run
-measured, as JSON (the window-16 phase's under ``"w16"``).
+window-16 readings under ``"w16"``, its window-4 readings under ``"w4"``,
+its launches on every main path under ``"launches_by_path"``), the
+nvidia-smi line and ``{"ok": true, "device": {...}}``; a ``[report]`` line
+before them holds every number the run measured, as JSON (the window-16
+phase's under ``"w16"``, the window-4 phase's under ``"w4"``).
 """
 
 from __future__ import annotations
@@ -304,6 +326,11 @@ W16_SOURCES = {"window_attention": "adsr_tpu_torch/csrc/window_attention16.cu",
                "window_attention_bwd":
                "adsr_tpu_torch/csrc/window_attention_bwd16.cu",
                "swin_block": "adsr_tpu_torch/csrc/swin_block16.cu"}
+# ... and their 4x4-window launches too
+W4_SOURCES = {"window_attention": "adsr_tpu_torch/csrc/window_attention4.cu",
+              "window_attention_bwd":
+              "adsr_tpu_torch/csrc/window_attention_bwd4.cu",
+              "swin_block": "adsr_tpu_torch/csrc/swin_block4.cu"}
 REPLACES = "adsr_tpu/ops/fused_rdg.py:573"
 REPLACES_TRAIN_FWD = "adsr_tpu/ops/fused_rdg_train.py:823"
 REPLACES_BWD = "adsr_tpu/ops/fused_rdg_train.py:968"
@@ -317,7 +344,8 @@ def expected_counts(per: dict, n: int) -> dict:
     return want
 
 
-# "w16" while the window-16 phase runs: its lines read "[w16] <phase>: ..."
+# "w16" / "w4" while the window-16 / window-4 phase runs: its lines read
+# "[w16] <phase>: ..."
 PREFIX = None
 
 
@@ -670,29 +698,35 @@ def phase_kernels(cfg, dev, check: Checker):
                   got, rdg_gemm_plain(blk["act"].float(), blk["w1"].float(),
                                       blk["b1"], epi), GEMM_ATOL)
     # every block at both shifts, then block 2 on the first 5 images (an
-    # odd batch: a grid that is no multiple of the batch of 16)
+    # odd batch: a grid that is no multiple of the batch of 16); at 4x4
+    # windows every block on 5 images of 20 x 20 tokens (125 windows: the
+    # last group of four holds one)
+    win, half = cfg.window_size, cfg.window_size // 2
+    side5 = 20 if win == 4 else h
+    masks5 = shift_masks(side5, side5, win, (half,), torch.device(dev))
     for k, blk in enumerate(blocks):
         c, nh = blk["c"], blk["nh"]
         atol = 2.0 ** -8 * blk["qkv"][:, 2 * c:].float().abs().max().item()
-        half = cfg.window_size // 2
-        for shift, rows in [(0, m), (half, m)] + ([(half, 5 * h * w)]
-                                                  if k == 1 else []):
-            mask = masks.get(shift)
-            kbias, kmask = attn_operands(blk, masks, h, w, shift,
-                                         cfg.window_size)
+        cases = [(0, h, m, masks), (half, h, m, masks)]
+        if k == 1 or win == 4:
+            cases.append((half, side5, 5 * side5 ** 2, masks5))
+        for shift, side, rows, mks in cases:
+            mask = mks.get(shift)
+            kbias, kmask = attn_operands(blk, mks, side, side, shift, win)
             qkv = blk["qkv"][:rows]
             out = pitched(rows, c, device=dev)
             # at 16x16 windows also the softmax statistics the training
             # backward's recompute asks for
-            stats = softmax_stats(qkv, h, w, nh, cfg.window_size)
+            stats = softmax_stats(qkv, side, side, nh, win)
             want_st = None if stats is None else torch.empty_like(stats)
-            window_attention(qkv, out, kbias, kmask, h, w, nh,
-                             cfg.window_size, shift, stats)
+            window_attention(qkv, out, kbias, kmask, side, side, nh, win,
+                             shift, stats)
             want = window_attention_plain(qkv.float(), blk["attn_bias"],
-                                          mask, h, w, nh, cfg.window_size,
-                                          shift, want_st)
+                                          mask, side, side, nh, win, shift,
+                                          want_st)
             label = (f"b{k + 1} c={c} heads={nh} hd={c // nh} shift={shift}"
-                     + ("" if rows == m else f" B={rows // (h * w)}"))
+                     + ("" if rows == m else
+                        f" B={rows // side ** 2} on {side}x{side}"))
             check("window_attention", label, out, want, atol)
             if stats is not None:
                 check("window_attention", f"{label} stats max",
@@ -716,9 +750,10 @@ def swin_case(blk):
 def phase_swin_block(cfg, dev, check: Checker):
     """Kernel (g) at the five block shapes of ``cfg`` against its plain f32
     version and against the (a)-(c) composition on the same inputs; at
-    16x16 windows also two launches bitwise equal, and each block at batch 5
-    on 32 x 32 tokens (4 windows an image: 20 clusters, a grid short of
-    the card's SMs)."""
+    16x16 and 4x4 windows also two launches bitwise equal, and each block at
+    batch 5 on 32 x 32 tokens at 16x16 windows (4 windows an image: 20
+    clusters, a grid short of the card's SMs) or on 20 x 20 at 4x4 (125
+    windows: the last block of four holds one)."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     cat, blocks, masks = make_case_inputs(cfg, dev, gen)
     g, m = flagship_shapes(cfg)
@@ -739,17 +774,18 @@ def phase_swin_block(cfg, dev, check: Checker):
               2 * SWIN_ATOL, 2 * RTOL)
         say("kernels", f"{'':20s} (a)-(c) composition vs plain max_abs "
                        f"{(comp.float() - want).abs().max().item():.3e}")
-        if cfg.window_size == 16:
+        if cfg.window_size in (4, 16):
             again = torch.empty_like(out)
             fused_swin_block(x, p, masks, cfg, h, w, k, again)
             if not torch.equal(out, again):
                 raise AssertionError(f"swin_block {case}: two launches differ")
-    if cfg.window_size != 16:
+    if cfg.window_size not in (4, 16):
         return
-    side = 32
+    side = 32 if cfg.window_size == 16 else 20
     rows = 5 * side * side
-    masks_s = {s: torch.as_tensor(shift_attn_mask(side, side, 16, s),
-                                  device=dev) for s in masks}
+    masks_s = {s: torch.as_tensor(shift_attn_mask(side, side, cfg.window_size,
+                                                  s), device=dev)
+               for s in masks}
     for k, blk in enumerate(blocks):
         c, p, x = blk["c"], swin_case(blk), cat[:rows, :blk["c"]]
         out = torch.empty(rows, c, dtype=torch.bfloat16, device=dev)
@@ -1014,13 +1050,21 @@ def phase_serving(exp, dev, report, n_good=16, n_bad=16, tail=5):
     return params, packed, x, model, server, lr_u8, hr_u8
 
 
-def phase_x8(dev, report, steps=4):
-    """512 px at x8 (LR 64 x 64: the window-16 token geometry, three pixel
-    shuffles in the tail): ``AnomalyServer`` scores one batch in each mode,
-    each forward against the eager f32 model, then ``steps`` train steps at
-    batch 16."""
-    exp = drct_experiment("grid", 512, 8, precision="bf16",
-                          batch_size=BATCH, run_tag="chip_smoke_x8")
+def phase_x8(dev, report, res=512, scale=8, steps=4, suffix="_x8",
+             per_step_want=None, bwd_launches=W16_BWD_LAUNCHES):
+    """Another tail on a geometry's tokens: ``drct_experiment("grid", res,
+    scale)`` (512/x8 by default: LR 64 x 64, the window-16 token geometry,
+    three pixel shuffles in the tail; 128/x8 and 32/x2 on the 64/x4 model's
+    window-4 tokens): ``AnomalyServer`` scores one batch in each mode, each
+    forward against the eager f32 model, the rdg-mode forward and
+    ``AnomalyServer`` through their graphs against the launched route, then
+    ``steps`` train steps at batch 16 (``per_step_want``: one step's
+    launches, default PER_TRAIN_STEP_W16; ``bwd_launches``: kernel (f)'s a
+    Swin block backward). Returns launches by path, each path's name ending
+    in ``suffix``."""
+    per_step_want = per_step_want or PER_TRAIN_STEP_W16
+    exp = drct_experiment("grid", res, scale, precision="bf16",
+                          batch_size=BATCH, run_tag=f"chip_smoke{suffix}")
     cfg = exp.model
     params, packed, x, model, server, lr_u8, hr_u8 = phase_serving(
         exp, dev, report, n_good=BATCH // 2, n_bad=BATCH // 2, tail=0)
@@ -1034,6 +1078,11 @@ def phase_x8(dev, report, steps=4):
     del fwd
     serving_graphs = check_server_graphs(exp, dev, params, lr_u8, hr_u8,
                                          "rdg", report, "serving_graphs")[0]
+    paths = {f"serving{suffix}": serving,
+             f"serving_block{suffix}": serving_block,
+             f"serving_graphs{suffix}": serving_graphs}
+    if not steps:
+        return paths
     bundle = make_train_step(exp, dev)
     state = bundle.init_state(torch.Generator().manual_seed(SEED + 21))
     lr = torch.as_tensor(to_float(lr_u8, 1, 255.0), dtype=torch.float32,
@@ -1052,12 +1101,12 @@ def phase_x8(dev, report, steps=4):
               f"x{cfg.upscale}): L1 " + " ".join(f"{v:.4f}" for v in losses)
         + f"; launches {got}")
     if not all(math.isfinite(v) for v in losses) \
-            or got != expected_counts(PER_TRAIN_STEP_W16, steps):
-        raise AssertionError(f"x8 train: losses {losses}, launches {got}")
-    check_operand_paths("train_x8", got, report, W16_BWD_LAUNCHES)
-    report["train_x8"] = {"losses": losses, "launches": got}
-    return {"serving_x8": serving, "serving_block_x8": serving_block,
-            "serving_graphs_x8": serving_graphs, "train_x8": got}
+            or got != expected_counts(per_step_want, steps):
+        raise AssertionError(f"x{scale} train: losses {losses}, launches "
+                             f"{got}")
+    check_operand_paths(f"train{suffix}", got, report, bwd_launches)
+    report[f"train{suffix}"] = {"losses": losses, "launches": got}
+    return {**paths, f"train{suffix}": got}
 
 
 def stream_errors(taps_k, sr_k, taps_p, sr_p):
@@ -1143,10 +1192,11 @@ def profile_forward(packed, cfg, x, reps: int = 3, mode: str = "rdg"):
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0:
-            # window_attention16_kernel: (c) at 16x16 windows
+            # window_attention16_kernel, window_attention4_kernel: (c) at
+            # 16x16 and 4x4 windows (swin_block16_, swin_block4_: (g))
             fam = next((k for k in KERNELS + BLOCK_KERNELS
-                        if k + "_kernel" in ev.key or k + "16_" in ev.key),
-                       "other")
+                        if k + "_kernel" in ev.key or k + "16_" in ev.key
+                        or k + "4_" in ev.key), "other")
             families[fam] = families.get(fam, 0.0) + us / 1e3 / reps
     return start.elapsed_time(end) / reps, families
 
@@ -1583,13 +1633,14 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
                 raise AssertionError("rdg_layernorm_bwd wrote past column c")
     # every block geometry at both shifts on the main batch, in the
     # training backward's 16-byte rows and the plan's windows a block; then
-    # two blocks at batch 5 whose plan ends on a short group: at window 8
+    # blocks at batch 5 whose plan ends on a short group: at window 8
     # blocks 1 and 4 on 40 x 40 tokens (125 windows, groups of 2), at
-    # window 16 blocks 2 and 5 on 64 x 64 (80 windows, groups of 3); every
-    # call twice, bitwise equal
+    # window 16 blocks 2 and 5 on 64 x 64 (80 windows, groups of 3), at
+    # window 4 every block on 20 x 20 (125 windows, groups of 4: the last
+    # holds one); every call twice, bitwise equal
     win = cfg.window_size
-    short, half = (5, 40 if win == 8 else 64), win // 2
-    short_blocks = (0, 3) if win == 8 else (1, 4)
+    short, half = (5, {4: 20, 8: 40}.get(win, 64)), win // 2
+    short_blocks = {4: range(5), 8: (0, 3)}.get(win, (1, 4))
     short_masks = shift_masks(short[1], short[1], win, (half,),
                               torch.device(dev))
     for k, blk in enumerate(blocks):
@@ -1875,11 +1926,13 @@ def profile_steps(fn, reps: int = 3):
             "dy_prep_kernel": "rdg_gemm_bwd dY prep",
             "sum_partials_kernel": "partial sums (d, e, f)"}
     fams.update({f"{k}_kernel": k for k in KERNELS + BWD_KERNELS[1:]})
-    # 16x16 windows: (c)'s kernel and (f)'s two launches
+    # 16x16 windows: (c)'s kernel and (f)'s two launches; 4x4: (c), (f)
     fams.update({"window_attention16_kernel": "window_attention",
                  "window_attention_bwd16_dq_kernel": "window_attention_bwd dq",
                  "window_attention_bwd16_dkv_kernel":
-                     "window_attention_bwd dkv"})
+                     "window_attention_bwd dkv",
+                 "window_attention4_kernel": "window_attention",
+                 "window_attention_bwd4_kernel": "window_attention_bwd"})
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -2629,37 +2682,76 @@ def phase_w16(dev, report):
     return paths, timings
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no CUDA device; this script needs one",
-              file=sys.stderr)
-        return 1
-    dev = torch.device(DEVICE)
-    # the plain f32 references run in full f32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # every phase names its serving mode; the CLI phase sets the switch
-    os.environ.pop("ADSR_TPU_RDG", None)
-    report = {}
-    t_start = time.perf_counter()
+W4_CLI_DIR = Path("workspace") / "chip_smoke_w4"
 
-    smi = nvidia_smi()
-    kind = torch.cuda.get_device_name(0)
-    say("device", f"{kind}; nvidia-smi name,power.limit: {smi}; torch "
-                  f"{torch.__version__}, CUDA {torch.version.cuda}, "
-                  f"{torch.cuda.device_count()} device(s)")
-    report["device"] = {"name": kind, "nvidia_smi": smi}
 
-    t0 = time.perf_counter()
-    lib = _build.library_path()
-    _build.library()
-    build_s = time.perf_counter() - t0
-    say("build", f"{lib.relative_to(_build.BUILD_ROOT.parent.parent)} ready "
-                 f"in {build_s:.1f} s")
-    for line in ptxas_summary(_build.build_log()):
-        say("build", line)
-    report["build_s"] = build_s
+def phase_w4(dev, report):
+    """The window-4 geometry (4x4 windows, N = 16 keys a window) at full
+    width: ``drct_experiment("grid", 64, 4)`` (LR 16 x 16, shifts 0 and 2,
+    M = 4,096 token rows a batch of 16) through the same checks as the
+    flagship (launch plans; kernels (a)-(c) and (g) against their plain
+    versions, also at batch 5 on 20 x 20 tokens; serving RDG by RDG in both
+    modes; timing; kernels (d)-(f); one RDG's gradients; the Trainer; the
+    CLIs; the graphs), then 128/x8 (four train steps too) and 32/x2 on the
+    same tokens. Its lines read "[w4] ...". Returns (launches by main path,
+    timings)."""
+    global PREFIX
+    PREFIX = "w4"
+    r4 = report.setdefault("w4", {})
+    exp = drct_experiment("grid", 64, 4, precision="bf16",
+                          batch_size=BATCH, run_tag="chip_smoke_w4")
+    cfg = exp.model
+    check = Checker()
+    print_plans(cfg, r4)
+    phase_kernels(cfg, dev, check)
+    phase_swin_block(cfg, dev, check)
+    params, packed, x, model, server, lr_u8, hr_u8 = phase_serving(exp, dev,
+                                                                   r4)
+    serving = r4["main_path_launches"]
+    serving_block = r4["main_path_launches_block"]
+    timings = phase_timing(exp, dev, packed, x, model, server, lr_u8, hr_u8,
+                           r4)
+    timings.update(phase_block_timing(exp, dev, packed, x, r4))
+    del model, server, packed
+    bwd_inputs = phase_bwd_kernels(cfg, dev, check)
+    say("kernels", f"{check.cases} cases within tolerance; max abs error "
+                   f"{check.max_abs}")
+    r4["max_abs_err"] = check.max_abs
+    phase_rdg(exp, dev, r4)
+    trainer, lrs, hr, train = phase_train(exp, dev, r4)
+    timings.update(phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs,
+                                      r4))
+    del trainer, bwd_inputs
+    cli = phase_cli(exp, dev, r4, W4_CLI_DIR, ("rdg", "block"), overlap=0)
+    graph_paths = phase_graphs(exp, dev, params, lr_u8, hr_u8, r4,
+                               W4_CLI_DIR, overlap=0, suffix="_w4")
+    tails = {**phase_x8(dev, r4.setdefault("128x8", {}), 128, 8, 4,
+                        "_128x8", PER_TRAIN_STEP, 1),
+             **phase_x8(dev, r4.setdefault("32x2", {}), 32, 2, 0, "_32x2")}
+    paths = {"serving_w4": serving, "serving_block_w4": serving_block,
+             "train_w4": train, "train_cli_w4": cli["train_cli"],
+             "evaluate_cli_w4": cli["evaluate_cli_rdg"],
+             "evaluate_cli_block_w4": cli["evaluate_cli_block"],
+             **graph_paths, **tails}
+    # (c) on both paths, (f) on the training path and (g) on the block-mode
+    # paths went through N = 16
+    for path, k in (("serving_w4", "window_attention"),
+                    ("train_w4", "window_attention"),
+                    ("train_w4", "window_attention_bwd"),
+                    ("serving_block_w4", "swin_block"),
+                    ("evaluate_cli_block_w4", "swin_block"),
+                    ("serving_block_128x8", "swin_block"),
+                    ("serving_block_32x2", "swin_block"),
+                    ("train_128x8", "window_attention_bwd")):
+        if not paths[path][k]:
+            raise AssertionError(f"{path}: {k} launched no time")
+    PREFIX = None
+    return paths, timings
 
+
+def phase_flagship(dev, report):
+    """The flagship, DRCT x4 @128px (phases 3-11): returns (launches by
+    main path, timings by kernel)."""
     exp = drct_experiment("grid", HR, SCALE, precision="bf16",
                           batch_size=BATCH, run_tag="chip_smoke")
     check = Checker()
@@ -2692,13 +2784,87 @@ def main() -> int:
     del trainer, bwd_inputs
     cli_launches = phase_cli(exp, dev, report)
     graph_paths = phase_graphs(exp, dev, params, lr_u8, hr_u8, report)
-    w16_paths, timings16 = phase_w16(dev, report)
+    paths = {"serving": main_launches, "serving_block": block_launches,
+             "train": train_launches, **cli_launches, **graph_paths}
+    return paths, timings
+
+
+PHASES = {"flagship": phase_flagship, "w16": phase_w16, "w4": phase_w4}
+
+
+def run_phase(name: str) -> dict:
+    """Phase ``name`` of ``PHASES`` in a process of its own (this script with
+    ``--phase name OUT``), so that each geometry starts with an empty
+    caching allocator: one process that ran them all held more device
+    memory in cached segments that ``torch.cuda.empty_cache`` did not
+    release with every phase (``scripts/torch_smoke_memory.py``: 31.5 GiB
+    after the flagship's phases, 75.5 after window 16's on an H100 80GB
+    HBM3), until the window-4 phase's tiled capture ran out of memory. Its
+    lines go to this process's output.
+    Returns its {"paths", "timings", "report"}."""
+    out = Path("workspace") / f"chip_smoke_{name}.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                         "--phase", name, str(out)]).returncode
+    if rc:
+        raise AssertionError(f"the {name} phase failed (exit {rc})")
+    return json.loads(out.read_text())
+
+
+def phase_child(name: str, out: str) -> int:
+    """The body of :func:`run_phase`'s process: phase ``name`` on the card,
+    its launches by path, timings and report written to ``out``."""
+    # the plain f32 references run in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # every phase names its serving mode; the CLI phase sets the switch
+    os.environ.pop("ADSR_TPU_RDG", None)
+    _build.library()
+    report = {}
+    paths, timings = PHASES[name](torch.device(DEVICE), report)
+    Path(out).write_text(json.dumps({"paths": paths, "timings": timings,
+                                     "report": report}))
+    return 0
+
+
+def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase":
+        return phase_child(sys.argv[2], sys.argv[3])
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no CUDA device; this script needs one",
+              file=sys.stderr)
+        return 1
+    report = {}
+    t_start = time.perf_counter()
+
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    say("device", f"{kind}; nvidia-smi name,power.limit: {smi}; torch "
+                  f"{torch.__version__}, CUDA {torch.version.cuda}, "
+                  f"{torch.cuda.device_count()} device(s)")
+    report["device"] = {"name": kind, "nvidia_smi": smi}
+
+    t0 = time.perf_counter()
+    lib = _build.library_path()
+    _build.library()
+    build_s = time.perf_counter() - t0
+    say("build", f"{lib.relative_to(_build.BUILD_ROOT.parent.parent)} ready "
+                 f"in {build_s:.1f} s")
+    for line in ptxas_summary(_build.build_log()):
+        say("build", line)
+    report["build_s"] = build_s
+
+    # each geometry in a process of its own (run_phase)
+    runs = {name: run_phase(name) for name in PHASES}
+    for run in runs.values():
+        report.update(run["report"])
+    timings, timings16, timings4 = (runs[name]["timings"] for name in PHASES)
 
     # launches by main path, each counted from 0 over that path's run (a
     # captured path's: its warm-up and its capture)
-    paths = {"serving": main_launches, "serving_block": block_launches,
-             "train": train_launches, **cli_launches, **graph_paths,
-             **w16_paths}
+    paths = {p: got for run in runs.values()
+             for p, got in run["paths"].items()}
     kernels = []
     for k in KERNELS + BWD_KERNELS + BLOCK_KERNELS:
         kernel_ms, plain_ms, library_ms, bound_ms, bound_by = timings[k]
@@ -2718,7 +2884,7 @@ def main() -> int:
                  "replaces": replaces,
                  "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
-                 "max_abs_err": check.max_abs[k], "ms": kernel_ms,
+                 "max_abs_err": report["max_abs_err"][k], "ms": kernel_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
                  "bound_by": bound_by, "library_ms": library_ms}
         if k in GEMMS:          # [TMA, cp.async] operands by main path
@@ -2732,6 +2898,13 @@ def main() -> int:
                             "bound_ms": bound_ms, "bound_by": bound_by,
                             "library_ms": library_ms,
                             "max_abs_err": report["w16"]["max_abs_err"][k]}
+        if k in timings4:       # at 4x4 windows, M = 4,096 token rows
+            kernel_ms, plain_ms, library_ms, bound_ms, bound_by = timings4[k]
+            entry["w4"] = {"source": W4_SOURCES.get(k, SOURCES[k]),
+                           "ms": kernel_ms, "plain_ms": plain_ms,
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "library_ms": library_ms,
+                           "max_abs_err": report["w4"]["max_abs_err"][k]}
         kernels.append(entry)
     report["total_s"] = time.perf_counter() - t_start
     say("report", json.dumps(report))

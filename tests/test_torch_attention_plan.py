@@ -242,11 +242,13 @@ def test_wrappers_refuse_the_card_route_for_unsupported_geometry():
     # metadata (a "meta" tensor is not on the CPU, so it takes the card's
     # route)
     meta = dict(device="meta", dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="8x8 windows"):
+    # window 2: the kernels take 4x4, 8x8 and 16x16 windows
+    with pytest.raises(NotImplementedError,
+                       match="4x4, 8x8 or 16x16 windows"):
         wa.window_attention(torch.empty(512, 36, **meta),
                             torch.empty(512, 12, **meta),
-                            torch.empty(2, 16, 16, device="meta"), None, 16,
-                            16, 2, 4, 0)
+                            torch.empty(2, 4, 4, device="meta"), None, 16,
+                            16, 2, 2, 0)
     with pytest.raises(NotImplementedError, match="head dims"):
         wa.window_attention(torch.empty(256, 3 * 136, **meta),
                             torch.empty(256, 136, **meta),

@@ -555,6 +555,34 @@ def test_block_mode_forward_tracks_rdg_mode_at_window16(dev):
     assert rel < 5e-2, rel
 
 
+def test_block_mode_forward_tracks_rdg_mode_at_window4(dev):
+    # a tiny model at 4x4 windows (head dims 6-14, widths 12-28: the
+    # kernels' narrow-head and 4-column-tail paths), both modes through
+    # kernels (c) and (g) at N = 16
+    cfg = DRCTModelConfig(upscale=2, img_size=16, window_size=4, in_chans=1,
+                          embed_dim=12, num_layers=2, num_heads=2, gc=4)
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    packed = prepack_drct(sd, cfg, 16, 16, dtype=torch.bfloat16, device=dev,
+                          mode="block")
+    x = 255 * torch.rand(3, 16, 16, 1, device=dev)
+    for fn in (rdg_layernorm, rdg_gemm, window_attention, fused_swin_block):
+        fn.launches = 0
+    with torch.no_grad():
+        block = fused_drct_apply(packed, cfg, x)
+        torch.cuda.synchronize()
+        counts = [fn.launches for fn in (rdg_layernorm, rdg_gemm,
+                                         window_attention, fused_swin_block)]
+        rdg = fused_drct_apply(packed, cfg, x, mode="rdg")
+        model = make_model(cfg, device=dev)
+        model.load_state_dict(sd)
+        eager = model(x)
+    assert counts == [0, 5 * cfg.num_layers, 0, 5 * cfg.num_layers]
+    assert window_attention.launches == 5 * cfg.num_layers
+    for got in (block, rdg):
+        rel = (got - eager).norm() / eager.norm()
+        assert rel < 1.5e-2, rel
+
+
 # ---- serving through CUDA graphs (core/graphs.py) ----
 
 WINDOW16 = DRCTModelConfig(upscale=2, img_size=32, window_size=16,
@@ -643,3 +671,99 @@ def test_capture_of_a_host_sync_raises(dev):
         with pytest.raises(RuntimeError):
             cc(x)
     assert cc.captured() == 0
+
+
+# ---- 4x4 windows (N = 16): the 64/x4 model's blocks (hd 30/53/122/46/77,
+# shifts 0 and 2), four windows a block; at batch 5 on 20 x 20 tokens (125
+# windows) the last group holds one window ----
+
+W4_CASES = [(212, 4, 2, 2, 16), (244, 2, 0, 2, 16), (180, 6, 2, 5, 20)]
+
+
+@pytest.mark.parametrize("c,nh,shift,b,h", W4_CASES)
+def test_window_attention_kernel_matches_plain_at_window4(dev, c, nh, shift,
+                                                          b, h):
+    # P rounds to bf16 once before P @ V: 2^-8 max|v| (the N = 64 bound);
+    # qkv and ctx column slices of wider 16-byte-row buffers, the context
+    # not written past its columns; a second launch bitwise equal
+    g = torch.Generator(device=dev).manual_seed(8)
+    m = b * h * h
+    qkv = pitched(m, 3 * c + 8, device=dev)[:, :3 * c]
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    bias = 0.5 * torch.randn(nh, 16, 16, generator=g, device=dev)
+    mask = torch.as_tensor(shift_attn_mask(h, h, 4, shift), device=dev) \
+        if shift else None
+    wide = torch.zeros(m, 320, dtype=torch.bfloat16, device=dev)
+    n0 = window_attention.launches
+    window_attention(qkv, wide[:, :c], bias, mask, h, h, nh, 4, shift)
+    assert window_attention.launches == n0 + 1
+    atol = 2.0 ** -8 * qkv[:, 2 * c:].float().abs().max().item()
+    _close(wide[:, :c], window_attention_plain(qkv, bias, mask, h, h, nh, 4,
+                                               shift), atol)
+    assert not wide[:, c:].any()
+    again = torch.zeros_like(wide)
+    window_attention(qkv, again[:, :c], bias, mask, h, h, nh, 4, shift)
+    assert torch.equal(again, wide)
+
+
+@pytest.mark.parametrize("c,nh,shift,b,h", W4_CASES)
+def test_window_attention_bwd_kernel_matches_plain_at_window4(dev, c, nh,
+                                                              shift, b, h):
+    # one launch and the partial sums: 2^-7 of each output's largest
+    # magnitude, d(bias) 2^-8 (the N = 64 bounds); a second call bitwise
+    # equal
+    g = torch.Generator(device=dev).manual_seed(9)
+    m = b * h * h
+    qkv = pitched(m, 3 * c, device=dev)
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    dout = pitched(m, c, device=dev)
+    dout.copy_(torch.randn(m, c, generator=g, device=dev))
+    bias = 0.5 * torch.randn(nh, 16, 16, generator=g, device=dev)
+    mask = torch.as_tensor(shift_attn_mask(h, h, 4, shift), device=dev) \
+        if shift else None
+    dqkv = pitched(m, 3 * c, device=dev)
+    dbias = torch.empty(nh, 16, 16, device=dev)
+    n0 = window_attention_bwd.launches
+    window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 4, shift, dqkv,
+                         dbias)
+    assert window_attention_bwd.launches == n0 + 1
+    want_q, want_b = window_attention_bwd_plain(qkv, dout, bias, mask, h, h,
+                                                nh, 4, shift)
+    for i in range(3):
+        part = want_q[:, i * c:(i + 1) * c]
+        _within(dqkv[:, i * c:(i + 1) * c], part,
+                2.0 ** -7 * (part.abs().max() + part.abs()))
+    _within(dbias, want_b, 2.0 ** -8 * want_b.abs().max())
+    dq2, db2 = pitched(m, 3 * c, device=dev), torch.empty_like(dbias)
+    window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 4, shift, dq2, db2)
+    assert torch.equal(dqkv, dq2) and torch.equal(dbias, db2)
+
+
+@pytest.mark.parametrize("k,b,side", [(1, 2, 16), (2, 2, 16), (3, 5, 20)])
+def test_swin_block_kernel_matches_plain_at_window4(dev, k, b, side):
+    # the 64/x4 model's blocks at 4x4 windows, four windows a thread block
+    # (at batch 5 on 20 x 20 tokens the last block holds one); the bound of
+    # the 8x8 case
+    cfg = DRCTModelConfig(upscale=4, img_size=side, window_size=4,
+                          in_chans=1, embed_dim=180, num_layers=1,
+                          num_heads=6, gc=32)
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(k)
+    sd = {n: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
+          for n, v in sd.items()}
+    packed = prepack_rdg_stack(sd, cfg, side, side, torch.bfloat16, dev)
+    blk = packed["rdgs"][0][k]
+    c = (180, 212, 244, 276, 308)[k]
+    m = b * side * side
+    x = torch.randn(m, 308, generator=gen).to(dev).to(torch.bfloat16)
+    out = torch.empty(m, c, dtype=torch.bfloat16, device=dev)
+    n0 = fused_swin_block.launches
+    fused_swin_block(x[:, :c], blk, packed["masks"], cfg, side, side, k, out)
+    assert fused_swin_block.launches == n0 + 1
+    want = fused_swin_block_plain(x[:, :c], blk, packed["masks"], cfg, side,
+                                  side, k)
+    _close(out, want, 4e-2)
+    again = torch.empty_like(out)      # no atomics: bitwise repeatable
+    fused_swin_block(x[:, :c], blk, packed["masks"], cfg, side, side, k,
+                     again)
+    assert torch.equal(out, again)

@@ -105,8 +105,9 @@ def test_swin_block_plan_at_window16(c, f, nh, b):
 
 
 def test_swin_block_plan_refuses_other_windows():
-    with pytest.raises(ValueError, match="window 4"):
-        fsb.swin_block_plan(180, 360, 6, 16, 64, 64, window=4)
+    # windows 4, 8 and 16 have plans; window 2 has none
+    with pytest.raises(ValueError, match="window 2"):
+        fsb.swin_block_plan(180, 360, 6, 16, 64, 64, window=2)
 
 
 def _win_rows(b, h, w, win, shift):

@@ -284,12 +284,14 @@ def _attn_meta(win, c=24, nh=2, side=32, b=2):
     return qkv, out, bias, side, m, n
 
 
-@pytest.mark.parametrize("win", [4, 32])
+@pytest.mark.parametrize("win", [2, 32])
 def test_card_route_refuses_windows_other_than_8_and_16(win):
+    # the kernels take 4x4, 8x8 and 16x16 windows (window 4:
+    # tests/test_torch_window4.py); 2 and 32 stay refused
     qkv, out, bias, side, m, n = _attn_meta(win)
-    with pytest.raises(NotImplementedError, match="8x8 windows or 16x16"):
+    with pytest.raises(NotImplementedError, match="4x4, 8x8 or 16x16 windows"):
         wa.window_attention(qkv, out, bias, None, side, side, 2, win, 0)
-    with pytest.raises(NotImplementedError, match="8x8 windows or 16x16"):
+    with pytest.raises(NotImplementedError, match="4x4, 8x8 or 16x16 windows"):
         wab.window_attention_bwd(qkv, out, bias, None, side, side, 2, win, 0,
                                  torch.empty(m, qkv.shape[1], **META),
                                  torch.empty(2, n, n, device="meta"))
@@ -334,10 +336,10 @@ def test_block_mode_takes_window16_to_the_device_check():
     assert fsb.fused_swin_block.launches == n0
 
 
-@pytest.mark.parametrize("win", [4, 32])
+@pytest.mark.parametrize("win", [2, 32])
 def test_block_mode_refuses_windows_other_than_8_and_16(win):
     fsb, cfg, x, p, out = _block_meta(win)
     n0 = fsb.fused_swin_block.launches
-    with pytest.raises(NotImplementedError, match="8x8 or 16x16 windows"):
+    with pytest.raises(NotImplementedError, match="4x4, 8x8 or 16x16 windows"):
         fsb.fused_swin_block(x, p, {}, cfg, 32, 32, 0, out)
     assert fsb.fused_swin_block.launches == n0

@@ -1,0 +1,290 @@
+"""The window-4 geometry (4x4 windows, N = 16 keys a window: the 64/x4,
+128/x8 and 32/x2 models) on the CPU: the plain versions of kernels (c)
+``window_attention`` and (f) ``window_attention_bwd`` at the five blocks'
+widths against the JAX attention and its ``jax.vjp``, the eager DRCT and
+the fused forward (plain versions, both serving modes) at full width
+against the JAX DRCT, the shipped configs, the launch plans of (c), (f) and
+(g) at window 4, the kernels' window-group row map against the JAX
+package's roll and window partition, and the card route's device check.
+The JAX side runs its plain (XLA) path. The kernels themselves run only on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from adsr_tpu.models import drct as jdrct
+
+from adsr_tpu_torch.core.config import drct_experiment
+from adsr_tpu_torch.kernels import fused_swin_block as fsb
+from adsr_tpu_torch.kernels import window_attention as wa
+from adsr_tpu_torch.kernels import window_attention_bwd as wab
+from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
+from adsr_tpu_torch.kernels.fused_rdg import rdg_geometry
+from adsr_tpu_torch.models.drct import relative_position_bias
+from adsr_tpu_torch.models.factory import make_model
+
+from torch_port_util import (ATOL, RTOL, jax_apply, jax_params,
+                             jax_window_attention, lr_input, port_state_dict)
+
+WIN, SIDE, BATCH = 4, 16, 2           # 16 windows an image, 32 a call
+N = WIN * WIN
+# drct_experiment("grid", 64, 4) (and 128/x8, 32/x2): (c, heads, shift) of
+# the five blocks, head dims 30/53/122/46/77
+BLOCKS = [(180, 6, 0), (212, 4, 2), (244, 2, 0), (276, 6, 2), (308, 4, 0)]
+PAIRS = [(c, nh) for c, nh, _ in BLOCKS]
+SMS = 132
+
+
+def _case(c, nh, shift, seed):
+    rng = np.random.RandomState(seed)
+    qkv = rng.randn(BATCH * SIDE * SIDE, 3 * c).astype(np.float32)
+    table = rng.randn((2 * WIN - 1) ** 2, nh).astype(np.float32)
+    bias = relative_position_bias(torch.from_numpy(table), WIN).contiguous()
+    mask = jdrct.shift_attn_mask(SIDE, SIDE, WIN, shift) if shift else None
+    return qkv, bias, mask
+
+
+def _mask_t(mask):
+    return None if mask is None else torch.from_numpy(mask)
+
+
+@pytest.mark.parametrize("c,nh", PAIRS)
+@pytest.mark.parametrize("shift", [0, 2])
+def test_plain_attention_matches_jax_at_window4(c, nh, shift):
+    qkv, bias, mask = _case(c, nh, shift, seed=51)
+    assert bias.shape == (nh, N, N)
+    want = np.asarray(jax_window_attention(
+        jnp.asarray(qkv), jnp.asarray(bias.numpy()), mask, BATCH, SIDE, SIDE,
+        nh, WIN, shift))
+    out = torch.empty(BATCH * SIDE * SIDE, c)
+    n0 = wa.window_attention.launches
+    wa.window_attention(torch.from_numpy(qkv), out, bias, _mask_t(mask), SIDE,
+                        SIDE, nh, WIN, shift)
+    assert wa.window_attention.launches == n0            # the CPU: plain
+    np.testing.assert_allclose(out.numpy(), want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("c,nh", PAIRS)
+@pytest.mark.parametrize("shift", [0, 2])
+def test_plain_attention_bwd_matches_jax_vjp_at_window4(c, nh, shift):
+    qkv, bias, mask = _case(c, nh, shift, seed=52)
+    g = np.random.RandomState(53).randn(BATCH * SIDE * SIDE, c) \
+        .astype(np.float32)
+    _, vjp = jax.vjp(lambda q, bb: jax_window_attention(
+        q, bb, mask, BATCH, SIDE, SIDE, nh, WIN, shift),
+        jnp.asarray(qkv), jnp.asarray(bias.numpy()))
+    want_q, want_b = (np.asarray(t) for t in vjp(jnp.asarray(g)))
+    got_q = torch.empty(BATCH * SIDE * SIDE, 3 * c)
+    got_b = torch.empty(nh, N, N)
+    n0 = wab.window_attention_bwd.launches
+    wab.window_attention_bwd(torch.from_numpy(qkv), torch.from_numpy(g), bias,
+                             _mask_t(mask), SIDE, SIDE, nh, WIN, shift, got_q,
+                             got_b)
+    assert wab.window_attention_bwd.launches == n0       # the CPU: plain
+    np.testing.assert_allclose(got_q.numpy(), want_q, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got_b.numpy(), want_b, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("mode", ["rdg", "block"])
+def test_eager_and_fused_forward_match_jax_at_window4(mode):
+    # embed 180, gc 32, heads 6 (the 64/x4 model's widths), one RDG, LR 16
+    jcfg, pcfg, params = jax_params("window4")
+    assert pcfg.window_size == WIN
+    assert rdg_geometry(pcfg)["shifts"] == (0, 2, 0, 2, 0)
+    x = lr_input(jcfg)
+    want = np.asarray(jax_apply("window4")({"params": params}, x))
+    assert want.shape == (2, 64, 64, 1)
+    packed = prepack_drct(port_state_dict("window4"), pcfg, SIDE, SIDE,
+                          dtype=torch.float32, device="cpu", mode=mode)
+    assert all(m.shape == (16, N, N) for m in packed["masks"].values())
+    model = make_model(pcfg, device="cpu")
+    model.load_state_dict(port_state_dict("window4"))
+    with torch.no_grad():
+        got = fused_drct_apply(packed, pcfg, torch.from_numpy(x)).numpy()
+        eager = model(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(eager, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("res,scale", [(64, 4), (128, 8), (32, 2)])
+def test_window4_models_match_the_shipped_configs(res, scale):
+    cfg = drct_experiment("grid", res, scale).model
+    g = rdg_geometry(cfg)
+    assert (cfg.img_size, cfg.window_size, cfg.upscale) == (16, WIN, scale)
+    assert (cfg.embed_dim, cfg.num_layers) == (180, 12)
+    assert list(zip(g["feats"], g["heads"], g["shifts"])) == BLOCKS
+    assert [c // nh for c, nh, _ in BLOCKS] == [30, 53, 122, 46, 77]
+
+
+# --------------------------------------------------------------------------
+# Launch plans of (c), (f) and (g) at the five blocks: batch 16 on 16 x 16
+# tokens (256 windows, 64 groups of 4) and batch 5 on 20 x 20 (125 windows:
+# the last group holds one)
+# --------------------------------------------------------------------------
+
+GEOMETRIES = [(16, 16), (5, 20)]
+
+
+@pytest.mark.parametrize("c,nh,shift", BLOCKS)
+@pytest.mark.parametrize("b,side", GEOMETRIES)
+def test_window_attention_plan_at_window4(c, nh, shift, b, side):
+    p = wa.window_attention_plan(c, nh, b, side, side, window=WIN)
+    windows = b * (side // WIN) ** 2
+    assert p["hdp"] % 16 == 0 and c // nh <= p["hdp"] < c // nh + 16
+    # four windows a block, one a warp: 64 rows of q/k/v planes
+    assert (p["group"], p["threads"], p["tokens"]) == (4, 128, N)
+    assert p["smem_bytes"] == 3 * 64 * (p["hdp"] + 8) * 2 \
+        <= wa.BLOCK_SHARED_MAX
+    assert p["groups"] == -(-windows // 4)
+    assert p["last_group"] == windows - 4 * (p["groups"] - 1)
+    assert p["last_group"] == (4 if b == 16 else 1)
+    # one block per (group, head), head fastest as the source decodes it
+    seen = {(bid // nh, bid % nh) for bid in range(p["blocks"])}
+    assert len(seen) == p["blocks"] == p["groups"] * nh
+    assert p["blocks_per_sm"] * (p["smem_bytes"] + wa.BLOCK_RESERVED) \
+        <= wa.SM_SHARED_BYTES
+
+
+@pytest.mark.parametrize("c,nh,shift", BLOCKS)
+@pytest.mark.parametrize("b,side", GEOMETRIES)
+def test_window_attention_bwd_plan_at_window4(c, nh, shift, b, side):
+    p = wab.window_attention_bwd_plan(c, nh, b, side, side, SMS, WIN)
+    windows = b * (side // WIN) ** 2
+    assert p["windows"] == windows and p.get("launches", 1) == 1
+    # q, k, v, dO planes of four windows and their P, dS tiles [64][24]
+    assert p["smem_bytes"] == 4 * 64 * (p["hdp"] + 8) * 2 + 2 * 64 * 24 * 2 \
+        <= wa.BLOCK_SHARED_MAX
+    assert p["blocks_per_sm"] == min(
+        wa.SM_SHARED_BYTES // (p["smem_bytes"] + wa.BLOCK_RESERVED),
+        4 if p["hdp"] <= 80 else 3)
+    # a multiple of four windows a block, the fewest that fit one wave
+    g = p["group"]
+    assert g % 4 == 0 and 4 <= g <= 4 * wab.MAX_GROUP
+    assert nh * p["groups"] <= p["blocks_per_sm"] * SMS or \
+        g == 4 * wab.MAX_GROUP
+    assert p["groups"] == -(-windows // g)
+    assert p["last_group"] == windows - (p["groups"] - 1) * g >= 1
+    # every (window, head) once, in its group's order
+    seen = []
+    for bid in range(p["blocks"]):
+        h, grp = bid % nh, bid // nh
+        seen += [(wi, h) for wi in range(grp * g, min(windows,
+                                                      (grp + 1) * g))]
+    assert sorted(seen) == [(wi, h) for wi in range(windows)
+                            for h in range(nh)]
+    assert p["partial_bytes"] == p["groups"] * nh * N * N * 4
+
+
+@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("b,side", GEOMETRIES)
+def test_swin_block_plan_at_window4(k, b, side):
+    geo = fsb.block_geometry(drct_experiment("grid", 64, 4).model, k)
+    c, f, nh = geo["c"], geo["hidden"], geo["heads"]
+    p = fsb.swin_block_plan(c, f, nh, b, side, side, window=WIN)
+    windows = b * (side // WIN) ** 2
+    assert (p["group"], p["cluster"], p["staging_bytes"]) == (4, 1, 0)
+    assert p["blocks"] == p["groups"] == -(-windows // 4)
+    assert p["last_group"] == (4 if b == 16 else 1)
+    # the 8x8 kernel's layout: the same 64 rows a block
+    p8 = fsb.swin_block_plan(c, f, nh, b, 4 * side, 4 * side, window=8)
+    assert (p["smem_bytes"], p["stages"], p["regions"]) == \
+        (p8["smem_bytes"], p8["stages"], p8["regions"])
+    assert p["smem_bytes"] <= wa.BLOCK_SHARED_MAX and p["stages"] >= 2
+
+
+def test_window4_plans_at_batch_16():
+    g = rdg_geometry(drct_experiment("grid", 64, 4).model)
+    plans = [wab.window_attention_bwd_plan(c, nh, 16, 16, 16, SMS, WIN)
+             for c, nh, _ in BLOCKS]
+    # 64 groups of four windows a head fit one wave: 4 windows a block
+    assert [p["group"] for p in plans] == [4] * 5
+    assert [p["blocks"] for p in plans] == [384, 256, 128, 384, 256]
+    # (g): 64 blocks of four windows on the card's 132 SMs
+    assert {fsb.swin_block_plan(c, f, nh, 16, 16, 16, window=WIN)["blocks"]
+            for c, f, nh in zip(g["feats"], g["hidden"], g["heads"])} == {64}
+
+
+# --------------------------------------------------------------------------
+# The kernels' row map (csrc/window_attention4.cu, window_attention_bwd4.cu,
+# swin_block4.cu ``token_row``) against the JAX package's roll and window
+# partition
+# --------------------------------------------------------------------------
+
+def _group_rows(b, h, w, shift):
+    """Raster row of row t of group g, -1 past the last window: window fw =
+    4 g + t // 16 over the flat (image, window) index, token tt = t % 16 at
+    ((wi * 4 + tt // 4 + shift) % h, (wj * 4 + tt % 4 + shift) % w), as the
+    sources compute it."""
+    nww, nw = w // WIN, (h // WIN) * (w // WIN)
+    windows = b * nw
+    rows = []
+    for g in range(-(-windows // 4)):
+        for t in range(64):
+            fw = 4 * g + t // N
+            if fw >= windows:
+                rows.append(-1)
+                continue
+            img, win = divmod(fw, nw)
+            wi, wj = divmod(win, nww)
+            tt = t % N
+            r = (wi * WIN + tt // WIN + shift) % h
+            s = (wj * WIN + tt % WIN + shift) % w
+            rows.append(img * h * w + r * w + s)
+    return np.array(rows)
+
+
+@pytest.mark.parametrize("b,side,shift", [(2, 16, 0), (2, 16, 2),
+                                          (5, 20, 2), (1, 8, 2)])
+def test_group_row_map_matches_jax_roll_and_partition(b, side, shift):
+    idx = jnp.arange(b * side * side).reshape(b, side, side, 1)
+    if shift:
+        idx = jnp.roll(idx, (-shift, -shift), axis=(1, 2))
+    want = np.asarray(jdrct.window_partition(idx, WIN)).reshape(-1)
+    got = _group_rows(b, side, side, shift)
+    windows = b * (side // WIN) ** 2
+    assert len(got) == 64 * -(-windows // 4)
+    np.testing.assert_array_equal(got[:windows * N], want)
+    assert (got[windows * N:] == -1).all()      # the short last group
+
+
+# --------------------------------------------------------------------------
+# The card route at window 4 reaches the device check (a meta tensor is not
+# CUDA) before any launch, for (c), (f) and (g)
+# --------------------------------------------------------------------------
+
+META = dict(device="meta", dtype=torch.bfloat16)
+
+
+def test_attention_takes_window4_to_the_device_check():
+    c, nh, m = 24, 2, 2 * SIDE * SIDE
+    qkv = torch.empty(m, 3 * c, **META)
+    bias = torch.empty(nh, N, N, device="meta")
+    n0, n1 = wa.window_attention.launches, wab.window_attention_bwd.launches
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        wa.window_attention(qkv, torch.empty(m, c, **META), bias, None, SIDE,
+                            SIDE, nh, WIN, 0)
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        wab.window_attention_bwd(qkv, torch.empty(m, c, **META), bias, None,
+                                 SIDE, SIDE, nh, WIN, 0,
+                                 torch.empty(m, 3 * c, **META),
+                                 torch.empty(nh, N, N, device="meta"))
+    assert wa.window_attention.launches == n0
+    assert wab.window_attention_bwd.launches == n1
+
+
+def test_block_mode_takes_window4_to_the_device_check():
+    from adsr_tpu_torch.core.config import DRCTModelConfig
+    cfg = DRCTModelConfig(upscale=4, img_size=SIDE, window_size=WIN,
+                          in_chans=1, embed_dim=12, num_layers=1,
+                          num_heads=2, gc=4)
+    m, c = 2 * SIDE * SIDE, 12
+    p = {n: torch.empty(c, c, **META) for n in fsb._MATRICES}
+    n0 = fsb.fused_swin_block.launches
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        fsb.fused_swin_block(torch.empty(m, c, **META), p, {}, cfg, SIDE,
+                             SIDE, 0, torch.empty(m, c, **META))
+    assert fsb.fused_swin_block.launches == n0

@@ -22,7 +22,7 @@ from adsr_tpu_torch.io.convert import drct_state_dict_from_jax
 # heads 3), one whose head count really changes per block (dims
 # 12/16/20/24/28 -> heads 3/2/1/3/2), window 8, RGB, window 16 (N = 256: 4
 # windows an image, shift 8) and window 16 with the x8 tail (three pixel
-# shuffles)
+# shuffles), and the 64/x4 model's full width at window 4 (one RDG)
 CONFIGS = {
     "tiny": dict(upscale=2, img_size=8, window_size=4, in_chans=1,
                  embed_dim=12, num_layers=2, num_heads=2, gc=4),
@@ -38,6 +38,9 @@ CONFIGS = {
                      embed_dim=12, num_layers=1, num_heads=2, gc=4),
     "window16x8": dict(upscale=8, img_size=32, window_size=16, in_chans=1,
                        embed_dim=12, num_layers=1, num_heads=2, gc=4),
+    # the 64/x4 model's widths at window 4 (N = 16), one RDG
+    "window4": dict(upscale=4, img_size=16, window_size=4, in_chans=1,
+                    embed_dim=180, num_layers=1, num_heads=6, gc=32),
 }
 
 ATOL, RTOL = 2e-3, 1e-3        # the JAX suite's f32 forward tolerance
