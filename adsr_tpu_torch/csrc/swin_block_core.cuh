@@ -1,11 +1,23 @@
-// The pieces of kernel (g) swin_block that its two window sizes share
-// (swin_block.cu: 8x8 windows, one thread block a window; swin_block16.cu:
+// The pieces of kernel (g) swin_block that its three window sizes share
+// (swin_block.cu: 8x8 windows, one thread block a window; swin_block4.cu:
+// 4x4 windows, four windows a block or a cluster of two; swin_block16.cu:
 // 16x16 windows, a cluster of four thread blocks a window): every thread
 // block holds 64 token rows (the M of every product) in an f32 residual
 // stream in shared memory, a producer warp streams the packed weights by TMA
 // into a ring of 64 x 64 tiles, and two consumer warpgroups run the products
 // on wgmma with their epilogues from the accumulators; the LayerNorm over
 // the 64 rows; the launch arguments and the weights' TMA maps.
+//
+// Two product paths. The 8x8 kernel splits every 64-column output tile
+// between the warpgroups (mma_tile: m64n32k16 each, the tile drained before
+// its epilogue); on the ping-pong path it measured 3% slower on the H100
+// (PERF.md). The 4x4 and 16x16 kernels run the ping-pong path (mma_tile64,
+// Turn, split_ring): each output tile belongs to one warpgroup
+// (m64n64k16), and the tiles of the block's products alternate between the
+// two in the order the producer streams them, each warpgroup's through a
+// ring of its own, so that one warpgroup's epilogue runs while the other's
+// mainloop keeps the tensor core busy (the pattern of CUTLASS's ping-pong
+// kernels); a stage is released by the four warps of its tile's owner.
 
 #pragma once
 
@@ -64,8 +76,54 @@ struct alignas(64) Maps {
   CUtensorMap qkv, proj, fc1, fc2;
 };
 
+// The sweep's profile build (scripts/torch_swin_block16_sweep.py compiles
+// the 4x4 and 16x16 sources with -DSWIN_PROFILE): the first thread of each
+// consumer warpgroup adds the SM clocks it spends in each kind of step into
+// adsr_swin_profile[slot] (the producer's leader its waits for empty
+// stages, slot kProfEmpty); without the macro a step is only the step.
+enum ProfileSlot {
+  kProfFull, kProfBarrier, kProfCluster, kProfExchange, kProfAttention,
+  kProfMainloop, kProfEpilogue, kProfNorm, kProfMerge, kProfSpan,
+  kProfEmpty, kProfRecords, kProfSlots
+};
+#ifdef SWIN_PROFILE
+__device__ unsigned long long adsr_swin_profile[kProfSlots];
+#define SWIN_TIMED(slot, ...)                                              \
+  do {                                                                     \
+    const long long t0_ = clock64();                                       \
+    __VA_ARGS__;                                                           \
+    if ((threadIdx.x & 127) == 0 &&                                        \
+        (threadIdx.x < kMathThreads) != ((slot) == kProfEmpty))            \
+      atomicAdd(&adsr_swin_profile[slot],                                  \
+                (unsigned long long)(clock64() - t0_));                    \
+  } while (0)
+// around a block (which may hold pragmas): a clock at its start, added
+// into the slot at its end
+#define SWIN_CLOCK_BEGIN(t) const long long t = clock64()
+#define SWIN_CLOCK_END(slot, t)                                            \
+  do {                                                                     \
+    if ((threadIdx.x & 127) == 0 && threadIdx.x < kMathThreads)            \
+      atomicAdd(&adsr_swin_profile[slot],                                  \
+                (unsigned long long)(clock64() - (t)));                    \
+  } while (0)
+// the consumer's whole span, and one record a warpgroup
+#define SWIN_SPAN_END(t)                                                   \
+  do {                                                                     \
+    SWIN_CLOCK_END(kProfSpan, t);                                          \
+    if ((threadIdx.x & 127) == 0)                                          \
+      atomicAdd(&adsr_swin_profile[kProfRecords], 1ull);                   \
+  } while (0)
+#else
+#define SWIN_TIMED(slot, ...) __VA_ARGS__
+#define SWIN_CLOCK_BEGIN(t)
+#define SWIN_CLOCK_END(slot, t)
+#define SWIN_SPAN_END(t)
+#endif
+
 __device__ __forceinline__ void math_barrier() {   // the consumer warpgroups
-  asm volatile("bar.sync 1, %0;\n" :: "n"(kMathThreads) : "memory");
+  SWIN_TIMED(kProfBarrier,
+             asm volatile("bar.sync 1, %0;\n" :: "n"(kMathThreads)
+                          : "memory"));
 }
 
 // generic-proxy writes of this thread visible to later wgmma reads
@@ -121,12 +179,256 @@ __device__ __forceinline__ void mma_tile(RingState& r, uint32_t a, int ksteps,
   if (lane == 0) mbar_arrive(r.empty(prev));
 }
 
+// ---- the ping-pong path ----
+
+constexpr int kOwnerWarps = 4;   // a stage's empty arrivals: its owner's warps
+constexpr int kMinRing = 2;      // stages a warpgroup's ring needs at least
+                                 // (mma_tile64 holds one, awaits the next)
+#ifndef SWIN_PRODUCTS
+#define SWIN_PRODUCTS 1          // the ping-pong products' wgmma (0: the
+#endif                           // stages awaited and released only)
+
+// Whose the block's next output tile is: tile i of the producer's order
+// belongs to warpgroup i % 2. Both warpgroups ask for every tile.
+struct Turn {
+  int n = 0;
+  __device__ bool mine() { return (n++ & 1) == (int)(threadIdx.x >> 7); }
+};
+
+// The ring of warpgroup ``w`` on the ping-pong path: the block's ``stages``
+// split in two (ceil and floor of a half), each half with its own full and
+// empty barriers; the producer streams tile i into ring i % 2. Each
+// warpgroup so waits on its own stages strictly in order: a wait on a
+// stage's full barrier never runs two fills ahead of it (one shared ring
+// would let a warpgroup that skips the other's tiles wait for a fill whose
+// predecessor, the other's, had not landed, and the phase parity would
+// pass).
+__device__ __forceinline__ RingState split_ring(uint32_t base, uint32_t bars,
+                                                int stages, int w) {
+  const int s0 = (stages + 1) / 2;
+  return w == 0 ? RingState{base, bars, s0, 0, 0u}
+                : RingState{base + (uint32_t)(s0 * kStageBytes),
+                            bars + 16u * s0, stages - s0, 0, 0u};
+}
+
+// the full (one arrival: the producer's) and empty (the owner's four
+// warps) barriers of both rings
+__device__ __forceinline__ void init_split_rings(uint32_t base, uint32_t bars,
+                                                 int stages) {
+  for (int w = 0; w < 2; ++w) {
+    const RingState r = split_ring(base, bars, stages, w);
+    for (int s = 0; s < r.stages; ++s) {
+      mbar_init(r.full(s), 1);
+      mbar_init(r.empty(s), kOwnerWarps);
+    }
+  }
+}
+
+// a stage released: one arrival a warp of the tile's owner
+__device__ __forceinline__ void release_stage(uint32_t bar) {
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
+}
+
+// acc = A[64 x 64 ksteps] @ (the next ksteps tiles of weight rows of the
+// owner's ring)^T by the tile's owner: m64n64k16, A a run of swizzled
+// K-major atoms at shared address ``a``, one group in flight while the next
+// stage is awaited, each stage released once the group that read it has
+// retired. A ragged tile leaves its last columns with products of stale
+// ring rows, which no epilogue reads (as mma_tile).
+__device__ __forceinline__ void mma_tile64(RingState& r, uint32_t a,
+                                           int ksteps, float (&acc)[32]) {
+  SWIN_CLOCK_BEGIN(t_main);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  int prev = -1;
+  for (int s = 0; s < ksteps; ++s) {
+    SWIN_TIMED(kProfFull, mbar_wait(r.full(r.stage), r.phase));
+    const uint32_t sb = r.base + r.stage * kStageBytes;
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (SWIN_PRODUCTS)
+        wgmma_n64<0, 0>(acc,
+                        smem_desc(a + s * kAtomBytes + kk * 32, 16, 1024),
+                        smem_desc(sb + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operand(acc);
+    if (prev >= 0) release_stage(r.empty(prev));
+    prev = r.stage;
+    r.advance();
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  release_stage(r.empty(prev));
+  SWIN_CLOCK_END(kProfMainloop, t_main);
+}
+
+// The same with A MN-major: ``KK`` k-steps of 16 rows (the reduction) x 64
+// token columns at shared address ``a`` (128-byte rows, swizzled), read
+// from (KK + 3) / 4 ring stages, the last one's k-steps past KK left out
+// (KK is a constant: the sequence has no branch). Kernel (g) at 16x16
+// windows multiplies its transposed context this way.
+template <int KK>
+__device__ __forceinline__ void mma_tile64_mn(RingState& r, uint32_t a,
+                                              float (&acc)[32]) {
+  SWIN_CLOCK_BEGIN(t_main);
+  constexpr int kStages = (KK + 3) / 4;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  int prev = -1;
+#pragma unroll
+  for (int s = 0; s < kStages; ++s) {
+    SWIN_TIMED(kProfFull, mbar_wait(r.full(r.stage), r.phase));
+    const uint32_t sb = r.base + r.stage * kStageBytes;
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (SWIN_PRODUCTS && 4 * s + kk < KK)
+        wgmma_n64<1, 0>(acc,
+                        smem_desc(a + (4 * s + kk) * 2048, kAtomBytes, 1024),
+                        smem_desc(sb + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_operand(acc);
+    if (prev >= 0) release_stage(r.empty(prev));
+    prev = r.stage;
+    r.advance();
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+  release_stage(r.empty(prev));
+  SWIN_CLOCK_END(kProfMainloop, t_main);
+}
+
+// v[j] = vec[n0 + 8 j + 2 (lane % 4) + {0, 1}] for the owner's 64 columns,
+// as load_cols
+__device__ __forceinline__ void load_cols64(float2 (&v)[8], const float* vec,
+                                            int n0, int rows, int lim) {
+  const int tq = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + 8 * j + 2 * tq;
+    const bool in = vec != nullptr && 8 * j < rows;
+    v[j] = make_float2(in && n < lim ? vec[n] : 0.f,
+                       in && n + 1 < lim ? vec[n + 1] : 0.f);
+  }
+}
+
+// X[row, n0 + cols] += acc + v for the columns below C: the epilogue of
+// proj and fc2 on the ping-pong path (one warpgroup's m64n64 accumulators:
+// rows 16 (warp % 4) + lane / 4 and + 8)
+__device__ __forceinline__ void add_into_stream64(float* X, int ldx, int n0,
+                                                  int rows, int C,
+                                                  const float (&acc)[32],
+                                                  const float2 (&v)[8]) {
+  SWIN_CLOCK_BEGIN(t_epi);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = 16 * (warp & 3) + (lane >> 2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + 8 * j + 2 * (lane & 3);
+    if (8 * j < rows && n < C) {     // C % 4 == 0: n + 1 < C too
+      float2* x0 = reinterpret_cast<float2*>(X + t * ldx + n);
+      float2* x1 = reinterpret_cast<float2*>(X + (t + 8) * ldx + n);
+      float2 u = *x0, w = *x1;
+      u.x += acc[4 * j] + v[j].x;
+      u.y += acc[4 * j + 1] + v[j].y;
+      w.x += acc[4 * j + 2] + v[j].x;
+      w.y += acc[4 * j + 3] + v[j].y;
+      *x0 = u;
+      *x1 = w;
+    }
+  }
+  SWIN_CLOCK_END(kProfEpilogue, t_epi);
+}
+
+// Columns [c0, c0 + 64) of a 128-wide hidden chunk ``Hb`` (two swizzled
+// atoms) = GELU(acc + b1) (exact erf) where hidden column f0 + c is below
+// F, else 0: fc1's epilogue on the ping-pong path (``rows`` the tile's
+// weight rows)
+__device__ __forceinline__ void gelu_into_chunk(bf16* Hb, int c0, int rows,
+                                                int f0, int F,
+                                                const float (&acc)[32],
+                                                const float2 (&v)[8]) {
+  SWIN_CLOCK_BEGIN(t_epi);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = 16 * (warp & 3) + (lane >> 2), tq = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int c = c0 + 8 * j + 2 * tq + x;
+      float u = 0.f, w = 0.f;
+      if (8 * j < rows && f0 + c < F) {
+        const float bb = x ? v[j].y : v[j].x;
+        u = acc[4 * j + x] + bb;
+        w = acc[4 * j + 2 + x] + bb;
+        u = 0.5f * u * (1.f + erff(u * 0.70710678118654752f));
+        w = 0.5f * w * (1.f + erff(w * 0.70710678118654752f));
+      }
+      Hb[swz(t, c)] = __float2bfloat16(u);
+      Hb[swz(t + 8, c)] = __float2bfloat16(w);
+    }
+  }
+  SWIN_CLOCK_END(kProfEpilogue, t_epi);
+}
+
+// ---- thread-block clusters (swin_block4.cu, swin_block16.cu) ----
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The cluster barrier, split. Arrive has release and wait acquire
+// semantics, so the shared-memory writes before an arrive are visible to
+// every block of the cluster after its wait. Every thread of the cluster
+// takes part; a warp arrives and waits as a whole (.aligned).
+__device__ __forceinline__ void cluster_arrive() {
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  SWIN_TIMED(kProfCluster,
+             asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory"));
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// the shared address ``a`` of this block in cluster block ``rank``
+__device__ __forceinline__ uint32_t peer_addr(uint32_t a, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ uint4 ld_cluster16(uint32_t a) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(a)
+               : "memory");
+  return v;
+}
+
 // Y (swizzled) = LayerNorm(X) over the true C (f32 two-pass statistics),
-// zero in columns [C, kp); each consumer warp takes 8 rows, four at a time
-// so that their shuffle reductions overlap.
+// zero in columns [C, kp), for the ROWS rows from ``row0``; each consumer
+// warp takes ROWS / 8 of them, four at a time so that their shuffle
+// reductions overlap.
+template <int ROWS = kBlockRows>
 __device__ void layer_norm(const float* X, int ldx, bf16* Y, int C, int kp,
                            const float* __restrict__ w,
-                           const float* __restrict__ b, float eps) {
+                           const float* __restrict__ b, float eps,
+                           int row0 = 0) {
+  SWIN_CLOCK_BEGIN(t_norm);
   constexpr int R = 4;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float wv[kMaxPerLane], bv[kMaxPerLane];   // the lane's columns, once
@@ -136,8 +438,10 @@ __device__ void layer_norm(const float* X, int ldx, bf16* Y, int C, int kp,
     wv[i] = c < C ? w[c] : 0.f;
     bv[i] = c < C ? b[c] : 0.f;
   }
-  constexpr int kRows = kBlockRows / (kMathThreads / 32);
-  for (int t0 = kRows * warp; t0 < kRows * warp + kRows; t0 += R) {
+  constexpr int kRows = ROWS / (kMathThreads / 32);
+  static_assert(kRows % R == 0, "whole groups of R rows a warp");
+  for (int t0 = row0 + kRows * warp; t0 < row0 + kRows * warp + kRows;
+       t0 += R) {
     float v[R][kMaxPerLane], mu[R], q[R];
 #pragma unroll
     for (int u = 0; u < R; ++u) {
@@ -182,6 +486,7 @@ __device__ void layer_norm(const float* X, int ldx, bf16* Y, int C, int kp,
       }
     }
   }
+  SWIN_CLOCK_END(kProfNorm, t_norm);
 }
 
 // v[j] = vec[n0 + 8 j + 2 (lane % 4) + {0, 1}] where the column is below

@@ -27,10 +27,8 @@
 // over NK keys). At 4x4 windows (N = 16, window_attention4.cu and
 // swin_block4.cu) a warp holds a whole window: attn_core<HDP, 16> on its 16
 // rows, S as two n8 tiles (each row's 16 scores 4 to a lane of the quad)
-// and P V one k16 step. Kernel (g) at 16x16 windows (N = 256,
-// swin_block16.cu) walks the window's keys in tiles of 64 with the same
-// pieces and its online-softmax step, online_softmax_tile; kernels (c) and
-// (f) at N = 256 run on wgmma (attn16.cuh).
+// and P V one k16 step. At 16x16 windows (N = 256) kernels (c), (f) and
+// (g) run on wgmma (attn16.cuh).
 
 #pragma once
 
@@ -165,64 +163,6 @@ __device__ __forceinline__ void pv_tile(const uint32_t (&p)[NK / 8][2],
       mma_16816(o[2 * jd + 1], a, b[2], b[3]);
     }
   }
-}
-
-// One key tile of FlashAttention-2's online softmax for the lane's two query
-// rows (r0 + lane / 4: values 0, 1 of s; r0 + lane / 4 + 8: values 2, 3).
-// ``s`` holds the tile's scaled and biased scores (qk_tile, add_bias). The
-// running row max ``mx`` grows to the tile's; the running row sum ``sum``
-// and the f32 context ``o`` are rescaled by exp(mx_old - mx) (0 at the
-// first tile, whose mx_old is -inf); e = exp(s - mx) joins the sums and,
-// rounded once to bf16, o += e V[0, 64) (``v``: the tile's V plane, ``ldb``
-// bytes a row). The caller divides o by the sum after the last tile.
-template <int HDP>
-__device__ __forceinline__ void online_softmax_tile(float (&s)[8][4],
-                                                    uint32_t v, uint32_t ldb,
-                                                    float (&mx)[2],
-                                                    float (&sum)[2],
-                                                    float (&o)[HDP / 8][4]) {
-  float t0 = mx[0], t1 = mx[1];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    t0 = fmaxf(t0, fmaxf(s[j][0], s[j][1]));
-    t1 = fmaxf(t1, fmaxf(s[j][2], s[j][3]));
-  }
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
-    t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, sh));
-    t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, sh));
-  }
-  const float a0 = expf(mx[0] - t0), a1 = expf(mx[1] - t1);  // 0 at tile 0
-  mx[0] = t0;
-  mx[1] = t1;
-  float e0 = 0.f, e1 = 0.f;
-  uint32_t p[8][2];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s[j][0] = expf(s[j][0] - t0);
-    s[j][1] = expf(s[j][1] - t0);
-    s[j][2] = expf(s[j][2] - t1);
-    s[j][3] = expf(s[j][3] - t1);
-    e0 += s[j][0] + s[j][1];
-    e1 += s[j][2] + s[j][3];
-    p[j][0] = pack_bf16x2(s[j][0], s[j][1]);
-    p[j][1] = pack_bf16x2(s[j][2], s[j][3]);
-  }
-#pragma unroll
-  for (int sh = 1; sh <= 2; sh <<= 1) {
-    e0 += __shfl_xor_sync(0xffffffffu, e0, sh);
-    e1 += __shfl_xor_sync(0xffffffffu, e1, sh);
-  }
-  sum[0] = sum[0] * a0 + e0;
-  sum[1] = sum[1] * a1 + e1;
-#pragma unroll
-  for (int j = 0; j < HDP / 8; ++j) {
-    o[j][0] *= a0;
-    o[j][1] *= a0;
-    o[j][2] *= a1;
-    o[j][3] *= a1;
-  }
-  pv_tile<HDP>(p, v, ldb, o);
 }
 
 // Rows [r0, r0 + 16) of one window and head, NK keys (64: an 8x8 window;

@@ -91,9 +91,11 @@ SIGNATURES["adsr_window_attention4"] = [_P, _L, _P, _L, _P, _P] + [_I] * 6 \
 SIGNATURES["adsr_window_attention_bwd4"] = [_P, _L, _P, _L, _P, _P, _P, _L,
                                             _P, _P] + [_I] * 7 + [_L, _P]
 # (g) at 16x16 windows (swin_block16.cu) and at 4x4 (swin_block4.cu):
-# adsr_swin_block's arguments
-SIGNATURES["adsr_swin_block16"] = SIGNATURES["adsr_swin_block"]
-SIGNATURES["adsr_swin_block4"] = SIGNATURES["adsr_swin_block"]
+# adsr_swin_block's arguments with ``cluster`` (blocks a window or a group)
+# after ``stages``
+SIGNATURES["adsr_swin_block16"] = SIGNATURES["adsr_swin_block"][:31] \
+    + [_I] + SIGNATURES["adsr_swin_block"][31:]
+SIGNATURES["adsr_swin_block4"] = SIGNATURES["adsr_swin_block16"]
 # hd, smem, int* out: the clusters the card holds at once
 SIGNATURES["adsr_swin_block16_clusters"] = [_I, _L, _P]
 

@@ -8,27 +8,36 @@ pallas_call ``:337``), which the JAX package's "block" serving mode
 ``csrc/swin_block4.cu`` (4x4 windows) and ``csrc/swin_block16.cu`` (16x16
 windows), on the ring, products and LayerNorm of
 ``csrc/swin_block_core.cuh`` (with ``hopper_gemm.cuh``'s TMA,
-mbarrier and wgmma wrappers) and the attention core of
-``window_attn_core.cuh``, shared with kernel (c). Bound on the H100:
-operations (the weights are re-read from L2 by every window; each window's
-activations are read and written once). Design: a thread block holds 64
-token rows through LN1, qkv, shifted-window attention, proj + residual,
-LN2, fc1 + GELU and fc2 + residual in shared memory, with the residual
-stream in f32; a producer warp streams the packed weights (16-byte rows) by
-TMA into a ring of 64 x 64 tiles, two consumer warpgroups run the products
-on wgmma (32 of a tile's 64 columns each) with their epilogues from the
-accumulators, and the attention core per head. At 8x8 windows one block
-per (image, window) holds the window. At 4x4 windows (N = 16) one block
-holds four consecutive windows over the flat (image, window) index, the
-last group possibly short, and each warp of the first warpgroup runs the
-16-key attention core on its own window. At 16x16 windows (N = 256) one
-cluster of ``CLUSTER`` blocks per (image, window), one 64-row query tile a
-block: each block computes its rows' q, k and v, and walks the window's four
-key tiles with kernel (c)'s online softmax, reading the peers' K and V
-tiles from their shared memory (distributed shared memory), with two
-cluster barriers a head. The cyclic shift is the raster-row map that
-``window_attention`` uses; head dims are zero-padded to multiples of 16;
-the numerics are the eager model's (stabilised softmax, exact-erf GELU).
+mbarrier and wgmma wrappers), the attention core of
+``window_attn_core.cuh`` (windows 4 and 8, shared with kernel (c)) and the
+lookups and register-A wgmma of ``attn16.cuh`` (window 16). Bound on the
+H100: operations (the weights are re-read from L2 by every window; each
+window's activations are read and written once). Design: a thread block
+holds 64 token rows through LN1, qkv, shifted-window attention, proj +
+residual, LN2, fc1 + GELU and fc2 + residual in shared memory, with the
+residual stream in f32; a producer warp streams the packed weights (16-byte
+rows) by TMA into a ring of 64 x 64 tiles and two consumer warpgroups run
+the products on wgmma with their epilogues from the accumulators. At 8x8
+windows one block per (image, window), each 64-column output tile split
+between the warpgroups. At 4x4 and 16x16 windows the ping-pong path: each
+tile belongs to one warpgroup (m64n64k16) and the tiles alternate, one
+warpgroup's epilogue under the other's mainloop; q, k and v of a head are
+one product, the MLP runs in 128-wide hidden chunks. At 4x4 windows (N =
+16) one block holds four consecutive windows over the flat (image,
+window) index, the last group possibly short, each warp of the first
+warpgroup attending its own window; where the groups leave half the card
+idle, a cluster of two blocks shares each group (half of the heads and
+hidden chunks each, the partial streams joined through distributed shared
+memory). At 16x16 windows (N = 256) one cluster of ``CLUSTER`` blocks per
+(image, window), one 64-row query tile a block: each block computes its
+rows' q, k and v (transposed), and both warpgroups walk the window's four
+key tiles on wgmma, 32 keys of each, with kernel (c)'s online softmax,
+pulling the peers' K and V tiles from their shared memory (each block
+streams every weight tile itself), with the bias as the head's relative-position table and the mask as the window's region
+labels (kernel (c)'s inputs at N = 256). The cyclic shift is the raster-row
+map that ``window_attention`` uses; head dims are zero-padded to multiples
+of 16; the numerics are the eager model's (stabilised softmax, exact-erf
+GELU).
 
 The block reads the packed block dict of ``kernels/fused_rdg.py``
 (``pack_swin`` / ``_pack_block``) as it is: no second packer and no second
@@ -52,8 +61,12 @@ from adsr_tpu_torch.kernels.rdg_gemm import rdg_gemm_plain
 from adsr_tpu_torch.kernels.rdg_layernorm import EPS, rdg_layernorm_plain
 from adsr_tpu_torch.kernels.window_attention import (BLOCK_SHARED_MAX,
                                                      GROUP4, KERNEL_WINDOW,
-                                                     KERNEL_WINDOWS, KEY_TILE,
-                                                     REGISTERS, check_rows16,
+                                                     KERNEL_WINDOWS,
+                                                     LABEL_BYTES,
+                                                     REGISTERS,
+                                                     REL_TABLE_BYTES,
+                                                     attn_operands,
+                                                     check_rows16,
                                                      head_tile,
                                                      window_attention_plain,
                                                      windows_text)
@@ -63,6 +76,8 @@ THREADS = 288          # two consumer warpgroups + one producer warp
 STAGE_BYTES = 64 * 128  # a ring stage: 64 weight rows x 64 bf16
 MAX_STAGES = 16
 CLUSTER = 4            # blocks a 16x16 window: one 64-row query tile each
+CHUNK = 128            # hidden columns of an MLP chunk (windows 4 and 16)
+H100_SMS = 132         # the card's SMs: the plans' default
 _VECTORS = ("ln1_w", "ln1_b", "bqkv", "attn_bias", "bproj", "ln2_w", "ln2_b",
             "b1", "b2")
 _MATRICES = ("wqkv", "wproj", "w1", "w2")
@@ -85,30 +100,46 @@ def pack_swin_weights(params: Mapping[str, Any], c: int, window: int,
 
 @functools.lru_cache(maxsize=None)
 def swin_block_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
-                    w: int = 8, window: int = KERNEL_WINDOW) -> Dict[str, int]:
+                    w: int = 8, window: int = KERNEL_WINDOW,
+                    sms: int = H100_SMS) -> Dict[str, int]:
     """What kernel (g) launches for width ``c``, hidden width ``f`` and
     ``nh`` heads at batch ``b``, ``h`` x ``w`` tokens and ``window`` x
-    ``window`` windows: ``cluster`` blocks of ``THREADS`` per (image,
-    window), each holding 64 token rows (one block at window 8, a cluster of
-    ``CLUSTER`` at window 16, one 64-row query tile a block); at window 4
-    one block per ``group`` consecutive windows (``last_group`` in the
-    last); ``blocks`` in all. A block's shared memory, ``regions`` in the
-    source's order after 1 KB of alignment room: the weight ``ring``, the
-    LayerNorm output (``ln``) as swizzled 64-column atoms, one head's
-    context (``ctx``) as such atoms (it starts at column (h hd) % 8, so that its share of Wproj
-    starts 16-byte aligned; at window 16 the region also holds a peer's K
-    and V tiles during the attention, ``staging_bytes``), the f32 residual
-    ``x`` [64][ldx], the block's rows of one head's q/k/v planes (``qkv``),
-    the ring's mbarriers (``bars``); with as many 8 KB ring stages as fit,
-    at most ``MAX_STAGES``. Also the 64-row weight tiles one block streams
-    (qkv per head and part, proj per head over its dims, fc1 and fc2 per 64
-    hidden columns) and one window (``window_weight_tiles``: every block of
-    a cluster streams them all; at window 4 a quarter of a block's), and
-    the registers a thread may use (one
+    ``window`` windows on a card of ``sms`` SMs: ``THREADS`` a block, each
+    holding 64 token rows (one block per window at window 8; a cluster of
+    ``CLUSTER`` per window at window 16, one 64-row query tile a block; at
+    window 4 one block, or a cluster of two, per ``group`` consecutive
+    windows, ``last_group`` in the last), ``blocks`` in all.
+
+    A block's shared memory, ``regions`` in the source's order after 1 KB
+    of alignment room: the weight ``ring``, the LayerNorm output (``ln``) as
+    swizzled 64-column atoms, the f32 residual ``x`` [64][ldx], the ring's
+    mbarriers (``bars``), as many 8 KB ring stages as fit (at most
+    ``MAX_STAGES``), and per window:
+
+    - 8: one head's context (``ctx``, hk atoms: it starts at column (h hd)
+      % 8, so that its share of Wproj starts 16-byte aligned) and the
+      block's rows of one head's q/k/v planes (``qkv``, [3][64][hdp + 8]);
+      each product's 64-column tile split between the two warpgroups;
+    - 4: the same, the context region at least two atoms (the MLP's
+      128-wide hidden chunk); the ping-pong products; ``cluster`` 2 (two
+      blocks a group, each half of the heads and hidden chunks, joined
+      through distributed shared memory) where that grid still fits one
+      wave (2 groups <= sms), else 1;
+    - 16: q, k and v of one head transposed (head dims as rows of 64
+      tokens: ``hdp`` x 128 bytes each; ``q`` over max(hdp, 16 ``ctx_ksteps``)
+      rows, where the context goes after the attention), the ``slot`` of a
+      peer's K or V tile (q and slot at least 16 KB: the hidden chunk),
+      ``k``, ``v``, the head's relative-position table (``tab``), the
+      window's region labels (``lab``) and the two warpgroups' row
+      statistics (``ml``); the ping-pong products.
+
+    Also the ring stages one block streams (``weight_tiles``: the stages of
+    its products, q/k/v of a head as one product, the MLP in chunks of 128
+    hidden columns at windows 4 and 16) and one window
+    (``window_weight_tiles``), and the registers a thread may use (one
     block an SM: each of the SM's four register quarters holds up to three
-    of its nine warps).
-    The source refuses a launch whose stages and shared memory differ from
-    its own layout. Read only (cached)."""
+    of its nine warps). The source refuses a launch whose stages, shared
+    memory or cluster differ from its own layout. Read only (cached)."""
     if window not in KERNEL_WINDOWS:
         raise ValueError(f"swin_block_plan: window {window}, the kernel "
                          f"takes {KERNEL_WINDOWS}")
@@ -117,31 +148,71 @@ def swin_block_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
     kp = -(-c // 64) * 64
     hk = -(-(hd + 7) // 64)     # a head's context from column (h hd) % 8
     ldx = c + (24 - c % 16) % 16
-    cluster = max(1, window * window // KEY_TILE)
-    staging = 2 * KEY_TILE * (hdp + 8) * 2 if cluster > 1 else 0
-    regions = {"ln": kp // 64 * STAGE_BYTES,
-               "ctx": max(hk * STAGE_BYTES, staging), "x": 64 * ldx * 4,
-               "qkv": 3 * 64 * (hdp + 8) * 2}
-    fixed = 1024 + sum(regions.values())
-    stages = min(MAX_STAGES, (BLOCK_SHARED_MAX - fixed) // (STAGE_BYTES + 16))
-    regions = {"ring": stages * STAGE_BYTES, **regions, "bars": 16 * stages}
     ks, nc = kp // 64, -(-c // 64)
-    tiles = 3 * nh * hk * ks + nh * nc * hk + -(-f // 64) * (ks + nc)
     windows = b * (h // window) * (w // window)
-    plan = {"hdp": hdp, "ldx": ldx, "stages": stages,
-            "smem_bytes": fixed + stages * (STAGE_BYTES + 16),
-            "regions": regions, "threads": THREADS, "cluster": cluster,
-            "windows": windows, "blocks": windows * cluster,
-            "staging_bytes": staging, "weight_tiles": tiles,
-            "window_weight_tiles": tiles * cluster,
+    regions = {"ln": kp // 64 * STAGE_BYTES}
+    plan = {"hdp": hdp, "ldx": ldx, "threads": THREADS, "windows": windows,
             "max_registers": min(255, REGISTERS // 4 // -(-THREADS // 128)
                                  // 32 // 8 * 8)}
-    if window == 4:             # GROUP4 windows a block: 64 token rows
+    if window == KERNEL_WINDOW:
+        regions.update(ctx=hk * STAGE_BYTES, x=64 * ldx * 4,
+                       qkv=3 * 64 * (hdp + 8) * 2)
+        tiles = 3 * nh * hk * ks + nh * nc * hk + -(-f // 64) * (ks + nc)
+        plan.update(cluster=1, blocks=windows, weight_tiles=tiles,
+                    window_weight_tiles=tiles)
+    elif window == 4:
+        regions.update(ctx=max(hk, 2) * STAGE_BYTES, x=64 * ldx * 4,
+                       qkv=3 * 64 * (hdp + 8) * 2)
         groups = -(-windows // GROUP4)
-        plan.update(group=GROUP4, groups=groups, blocks=groups,
+        split = 2 if 2 * groups <= sms else 1
+        heads = [len(range(r, nh, split)) for r in range(split)]
+        chunks = [range(CHUNK * r, f, CHUNK * split) for r in range(split)]
+        tiles = [heads[r] * (_tiles(3 * hdp) * ks + nc * hk)
+                 + _mlp_tiles(chunks[r], f, ks, nc) for r in range(split)]
+        plan.update(group=GROUP4, groups=groups, cluster=split,
+                    blocks=groups * split,
                     last_group=windows - (groups - 1) * GROUP4,
-                    window_weight_tiles=tiles / GROUP4)
+                    weight_tiles=tiles[0],
+                    window_weight_tiles=sum(tiles) / GROUP4)
+    else:
+        kk = ctx_ksteps(c, nh)
+        tile, qb = hdp * 128, max(hdp, 16 * kk) * 128
+        regions.update(q=qb, slot=max(tile, 2 * STAGE_BYTES - qb), k=tile,
+                       v=tile, x=64 * ldx * 4, tab=REL_TABLE_BYTES,
+                       lab=LABEL_BYTES, ml=2 * 64 * 8)
+        tiles = nh * (_tiles(3 * hdp) * ks + nc * -(-kk // 4)) \
+            + _mlp_tiles(range(0, f, CHUNK), f, ks, nc)
+        plan.update(cluster=CLUSTER, blocks=windows * CLUSTER,
+                    ctx_ksteps=kk, weight_tiles=tiles,
+                    window_weight_tiles=tiles * CLUSTER)
+    fixed = 1024 + sum(regions.values())
+    stages = min(MAX_STAGES, (BLOCK_SHARED_MAX - fixed) // (STAGE_BYTES + 16))
+    plan.update(stages=stages,
+                smem_bytes=fixed + stages * (STAGE_BYTES + 16),
+                regions={"ring": stages * STAGE_BYTES, **regions,
+                         "bars": 16 * stages})
     return plan
+
+
+def _tiles(n: int) -> int:
+    """Output tiles of 64 columns in ``n``."""
+    return -(-n // 64)
+
+
+def _mlp_tiles(starts, f: int, ks: int, nc: int) -> int:
+    """Ring stages of the MLP over the 128-wide hidden chunks that start at
+    ``starts``: fc1's tiles of the chunk over ``ks`` K steps, then fc2's
+    ``nc`` tiles over the chunk's K steps."""
+    return sum(_tiles(min(CHUNK, f - f0)) * (ks + nc) for f0 in starts)
+
+
+def ctx_ksteps(c: int, nh: int) -> int:
+    """K steps (16 rows each) of the transposed context kernel (g) keeps at
+    16x16 windows: the largest (h hd) % 8 + hd over the heads, rounded up
+    (its dims start at row (h hd) % 8, so that its share of Wproj starts
+    16-byte aligned)."""
+    hd = c // nh
+    return -(-max((h * hd) % 8 + hd for h in range(nh)) // 16)
 
 
 def swin_block16_clusters(c: int, f: int, nh: int) -> int:
@@ -228,21 +299,34 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                          f"{tuple(p['attn_bias'].shape)}, mask "
                          f"{None if mask is None else tuple(mask.shape)} at "
                          f"{win}x{win} windows of {h}x{w} tokens")
-    plan = swin_block_plan(c, geo["hidden"], geo["heads"], window=win)
+    # at 16x16 windows the bias as its table and the mask as region labels
+    bias, mask = attn_operands(p, masks, h, w, shift, win)
+    if win == 16 and (bias.shape != (geo["heads"], (2 * win - 1) ** 2)
+                      or not bias.is_contiguous()):
+        raise ValueError(f"fused_swin_block: the bias table "
+                         f"{tuple(bias.shape)} at {win}x{win} windows")
+    _build.require_f32_cuda("fused_swin_block", bias)
+    bsz = m // (h * w)
+    plan = swin_block_plan(c, geo["hidden"], geo["heads"], bsz, h, w,
+                           window=win, sms=_build.sm_count(x.device))
     lib = _build.library()
-    launch = {4: lib.adsr_swin_block4, KERNEL_WINDOW: lib.adsr_swin_block,
-              16: lib.adsr_swin_block16}[win]
-    rc = launch(
-        x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
-        p["ln1_w"].data_ptr(), p["ln1_b"].data_ptr(), p["wqkv"].data_ptr(),
-        p["wqkv"].stride(0), p["bqkv"].data_ptr(), p["attn_bias"].data_ptr(),
-        None if mask is None else mask.data_ptr(), p["wproj"].data_ptr(),
-        p["wproj"].stride(0), p["bproj"].data_ptr(), p["ln2_w"].data_ptr(),
-        p["ln2_b"].data_ptr(), p["w1"].data_ptr(), p["w1"].stride(0),
-        p["b1"].data_ptr(), p["w2"].data_ptr(), p["w2"].stride(0),
-        p["b2"].data_ptr(), m // (h * w), h, w, c, geo["hidden"],
-        geo["heads"], win, shift, plan["stages"], EPS, plan["smem_bytes"],
-        _build.stream_ptr(x))
+    args = [x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
+            p["ln1_w"].data_ptr(), p["ln1_b"].data_ptr(),
+            p["wqkv"].data_ptr(), p["wqkv"].stride(0), p["bqkv"].data_ptr(),
+            bias.data_ptr(), None if mask is None else mask.data_ptr(),
+            p["wproj"].data_ptr(), p["wproj"].stride(0),
+            p["bproj"].data_ptr(), p["ln2_w"].data_ptr(),
+            p["ln2_b"].data_ptr(), p["w1"].data_ptr(), p["w1"].stride(0),
+            p["b1"].data_ptr(), p["w2"].data_ptr(), p["w2"].stride(0),
+            p["b2"].data_ptr(), bsz, h, w, c, geo["hidden"], geo["heads"],
+            win, shift, plan["stages"]]
+    if win == KERNEL_WINDOW:
+        rc = lib.adsr_swin_block(*args, EPS, plan["smem_bytes"],
+                                 _build.stream_ptr(x))
+    else:
+        launch = lib.adsr_swin_block4 if win == 4 else lib.adsr_swin_block16
+        rc = launch(*args, plan["cluster"], EPS, plan["smem_bytes"],
+                    _build.stream_ptr(x))
     _build.check_rc("fused_swin_block", rc)
     fused_swin_block.launches += 1
     return out

@@ -616,9 +616,18 @@ def print_plans(cfg, report):
         c, f, nh = g["feats"][k], g["hidden"][k], g["heads"][k]
         win = cfg.window_size
         pa = window_attention_plan(c, nh, BATCH, side, side, window=win)
-        pg = swin_block_plan(c, f, nh, BATCH, side, side, window=win)
-        if win == 16:           # clusters of 4 blocks the card holds at once
-            pg = {**pg, "clusters_at_once": swin_block16_clusters(c, f, nh)}
+        pg = swin_block_plan(c, f, nh, BATCH, side, side, window=win,
+                             sms=sms)
+        # blocks in flight: one an SM (shared memory); at 16x16 windows the
+        # clusters of 4 the card holds at once; every block streams each
+        # weight tile itself by TMA (no multicast, at every window)
+        if win == 16:
+            at_once = swin_block16_clusters(c, f, nh)
+            pg = {**pg, "clusters_at_once": at_once,
+                  "in_flight": min(pg["blocks"], 4 * at_once)}
+        else:
+            pg = {**pg, "in_flight": min(pg["blocks"], sms)}
+        pg["multicast"] = False
         pf = window_attention_bwd_plan(c, nh, BATCH, side, side, sms, win)
         pe = rdg_layernorm_bwd_plan(m, c, sms)
         say("plan", f"b{k + 1} c={c} heads={nh}: window_attention {pa}; "
@@ -753,12 +762,25 @@ def phase_swin_block(cfg, dev, check: Checker):
     16x16 and 4x4 windows also two launches bitwise equal, and each block at
     batch 5 on 32 x 32 tokens at 16x16 windows (4 windows an image: 20
     clusters, a grid short of the card's SMs) or on 20 x 20 at 4x4 (125
-    windows: the last block of four holds one)."""
+    windows: the last block of four holds one); at 4x4 each case names the
+    plan's cluster (2 where two blocks a group fit one wave), and each
+    block also runs at batch 16 on 32 x 32 tokens (256 groups: cluster 1,
+    the route of the tiled CLI's crops), twice, bitwise equal."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
     cat, blocks, masks = make_case_inputs(cfg, dev, gen)
     g, m = flagship_shapes(cfg)
     h = w = cfg.img_size
     work = rdg_workspace(m, cfg, torch.bfloat16, dev)
+    sms = _build.sm_count(dev)
+
+    def cluster_of(blk, b, side):
+        """The plan's blocks a group at 4x4 windows, as a case's suffix"""
+        if cfg.window_size != 4:
+            return ""
+        plan = swin_block_plan(blk["c"], blk["f"], blk["nh"], b, side, side,
+                               window=4, sms=sms)
+        return f" cluster={plan['cluster']}"
+
     for k, blk in enumerate(blocks):
         c, nh, f = blk["c"], blk["nh"], blk["f"]
         p, x = swin_case(blk), cat[:, :c]
@@ -766,7 +788,7 @@ def phase_swin_block(cfg, dev, check: Checker):
         fused_swin_block(x, p, masks, cfg, h, w, k, out)
         want = fused_swin_block_plain(x, p, masks, cfg, h, w, k)
         case = f"b{k + 1} c={c} heads={nh} hd={c // nh} f={f} " \
-               f"shift={blk['shift']}"
+               f"shift={blk['shift']}" + cluster_of(blk, BATCH, h)
         check("swin_block", case, out, want, SWIN_ATOL)
         comp = swin_block_forward(x, p, block_buffers(work, m, c, f),
                                   masks, cfg, h, w, k)
@@ -791,9 +813,34 @@ def phase_swin_block(cfg, dev, check: Checker):
         out = torch.empty(rows, c, dtype=torch.bfloat16, device=dev)
         fused_swin_block(x, p, masks_s, cfg, side, side, k, out)
         check("swin_block", f"b{k + 1} c={c} shift={blk['shift']} B=5 on "
-              f"{side}x{side}", out,
+              f"{side}x{side}" + cluster_of(blk, 5, side), out,
               fused_swin_block_plain(x, p, masks_s, cfg, side, side, k),
               SWIN_ATOL)
+    if cfg.window_size != 4:
+        return
+    side = 32
+    rows = BATCH * side * side
+    masks_w = {s: torch.as_tensor(shift_attn_mask(side, side, 4, s),
+                                  device=dev) for s in masks}
+    wide = (torch.randn(rows, cat.shape[1], generator=gen, device=dev)
+            ).to(torch.bfloat16)
+    for k, blk in enumerate(blocks):
+        c, p, x = blk["c"], swin_case(blk), wide[:, :blk["c"]]
+        tag = cluster_of(blk, BATCH, side)
+        if tag != " cluster=1":
+            raise AssertionError(f"swin_block b{k + 1}: the plan at batch "
+                                 f"{BATCH} on {side}x{side} took{tag}")
+        case = f"b{k + 1} c={c} shift={blk['shift']} B={BATCH} on " \
+               f"{side}x{side}{tag}"
+        out = torch.empty(rows, c, dtype=torch.bfloat16, device=dev)
+        fused_swin_block(x, p, masks_w, cfg, side, side, k, out)
+        check("swin_block", case, out,
+              fused_swin_block_plain(x, p, masks_w, cfg, side, side, k),
+              SWIN_ATOL)
+        again = torch.empty_like(out)
+        fused_swin_block(x, p, masks_w, cfg, side, side, k, again)
+        if not torch.equal(out, again):
+            raise AssertionError(f"swin_block {case}: two launches differ")
 
 
 def synthetic_split(rng, n_good, n_bad, hr_px=None, scale=None):
@@ -1375,17 +1422,24 @@ def phase_timing(exp, dev, packed, x, model, server, lr_u8, hr_u8, report):
 
 def swin_bound(cfg, blocks, m, masks):
     """Least time (ms) of one RDG's five (g) launches: bytes (x read once,
-    the output written once, weights, vectors, bias tables and masks read
-    once) over the HBM rate against the products on the tensor cores plus
-    the softmax and LayerNorm work on the f32 units."""
-    n = cfg.window_size ** 2
+    the output written once, weights, vectors, the bias and the mask read
+    once: at 16x16 windows as the relative-position table and the region
+    labels the kernel reads, else [nh, N, N] and [nW, N, N]) over the HBM
+    rate against the products on the tensor cores plus the softmax and
+    LayerNorm work on the f32 units."""
+    win = cfg.window_size
+    n = win * win
     byt = tc = f32 = 0.0
     for blk in blocks:
         c, f, nh = blk["c"], blk["f"], blk["nh"]
         byt += 2 * m * c * 2 + (4 * c * c + 2 * c * f) * 2 \
-            + (3 * c + 7 * c + f) * 4 + nh * n * n * 4
-        if blk["shift"]:
-            byt += masks[blk["shift"]].numel() * 4
+            + (3 * c + 7 * c + f) * 4
+        mask = masks[blk["shift"]] if blk["shift"] else None
+        if win in TILED_WINDOWS:
+            byt += nh * (2 * win - 1) ** 2 * 4
+            byt += 0 if mask is None else mask.shape[0] * n * 4
+        else:
+            byt += nh * n * n * 4 + (0 if mask is None else mask.numel() * 4)
         tc += 2 * m * (4 * c * c + 2 * c * f) + 4 * m * n * c
         f32 += 6 * (m // n) * nh * n * n + 2 * 8 * m * c + 8 * m * f
     t_b, t_ops = byt / HBM_BYTES_PER_S, tc / BF16_TC_FLOPS + f32 / F32_FLOPS

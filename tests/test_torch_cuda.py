@@ -739,11 +739,13 @@ def test_window_attention_bwd_kernel_matches_plain_at_window4(dev, c, nh,
     assert torch.equal(dqkv, dq2) and torch.equal(dbias, db2)
 
 
-@pytest.mark.parametrize("k,b,side", [(1, 2, 16), (2, 2, 16), (3, 5, 20)])
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("b,side", [(2, 16), (5, 20), (16, 32)])
 def test_swin_block_kernel_matches_plain_at_window4(dev, k, b, side):
-    # the 64/x4 model's blocks at 4x4 windows, four windows a thread block
-    # (at batch 5 on 20 x 20 tokens the last block holds one); the bound of
-    # the 8x8 case
+    # the 64/x4 model's five blocks at 4x4 windows, four windows a group: a
+    # cluster of two blocks a group at 2 x 16 x 16 and 5 x 20 x 20 (there
+    # the last group holds one window), one block a group at 16 x 32 x 32
+    # (256 groups fill the card); the bound of the 8x8 case
     cfg = DRCTModelConfig(upscale=4, img_size=side, window_size=4,
                           in_chans=1, embed_dim=180, num_layers=1,
                           num_heads=6, gc=32)

@@ -70,22 +70,35 @@ def test_256px_blocks_match_the_shipped_config():
 @pytest.mark.parametrize("b", [16, 5])
 def test_swin_block_plan_at_window16(c, f, nh, b):
     p = fsb.swin_block_plan(c, f, nh, b, 64, 64, window=WIN)
-    assert 2 <= p["stages"] <= fsb.MAX_STAGES
+    assert 7 <= p["stages"] <= fsb.MAX_STAGES
     assert p["smem_bytes"] <= wa.BLOCK_SHARED_MAX
     assert p["stages"] == fsb.MAX_STAGES or \
         p["smem_bytes"] + fsb.STAGE_BYTES + 16 > wa.BLOCK_SHARED_MAX
-    # the 8x8 kernel's regions, the context region widened to the staged
-    # K and V tiles of a peer block ([2][64][hdp + 8] bf16)
+    # q, k and v transposed (hdp rows of 64 tokens, 128 bytes), the context
+    # over q (its dims from row (h hd) % 8: ctx_ksteps rows of 16), a peer's
+    # K or V tile in the slot, which also holds the merge's scratch (half
+    # the head dims of 64 rows in f32) and with q the 128-wide hidden chunk;
+    # the head's table, the window's labels, both warpgroups' (max, sum)
+    hd, hdp, kk = c // nh, p["hdp"], p["ctx_ksteps"]
+    assert kk == -(-max((h * hd) % 8 + hd for h in range(nh)) // 16)
+    assert hdp // 16 <= kk <= hdp // 16 + 1      # the source's two paths
+    r, tile = p["regions"], hdp * 128
+    assert (r["k"], r["v"]) == (tile, tile)
+    assert r["q"] == max(hdp, 16 * kk) * 128
+    assert r["slot"] >= tile >= 64 * (hdp // 2) * 4
+    assert r["q"] + r["slot"] >= 2 * 8192
+    assert (r["tab"], r["lab"], r["ml"]) == (wa.REL_TABLE_BYTES,
+                                             wa.LABEL_BYTES, 2 * 64 * 8)
     kp = -(-c // 64) * 64
-    hk = -(-(c // nh + 7) // 64)
-    staging = 2 * 64 * (p["hdp"] + 8) * 2
-    assert p["staging_bytes"] == staging
-    assert p["smem_bytes"] == (1024 + p["stages"] * (fsb.STAGE_BYTES + 16)
-                               + kp * 128 + max(hk * 8192, staging)
-                               + 64 * p["ldx"] * 4
-                               + 3 * 64 * (p["hdp"] + 8) * 2)
-    assert 1024 + sum(p["regions"].values()) == p["smem_bytes"]
-    assert p["regions"]["ctx"] >= staging
+    assert (r["ln"], r["x"]) == (kp * 128, 64 * p["ldx"] * 4)
+    assert 1024 + sum(r.values()) == p["smem_bytes"]
+    # one block's ring stages: q/k/v of a head as one product of 3 hdp
+    # columns, proj over the context's k-steps, the MLP in chunks of 128
+    ks = nc = kp // 64
+    mlp = sum(-(-min(128, f - f0) // 64) * (ks + nc)
+              for f0 in range(0, f, 128))
+    assert p["weight_tiles"] == nh * (-(-3 * hdp // 64) * ks
+                                      + nc * -(-kk // 4)) + mlp
     # every block of a cluster streams every weight tile of the block
     assert p["window_weight_tiles"] == 4 * p["weight_tiles"]
     # a cluster of 4 blocks a window: the grid is a multiple of the
@@ -98,10 +111,46 @@ def test_swin_block_plan_at_window16(c, f, nh, b):
     assert len(seen) == p["blocks"] == b * 16 * 4
     assert {s[0] for s in seen} == set(range(b))
     assert p["threads"] == 288
-    # the 8x8 plan is the window argument's default, without staging
+    # the 8x8 plan is the window argument's default: one block a window,
+    # its own layout
     p8 = fsb.swin_block_plan(c, f, nh, b, 64, 64)
     assert p8 == fsb.swin_block_plan(c, f, nh, b, 64, 64, window=8)
-    assert p8["cluster"] == 1 and p8["staging_bytes"] == 0
+    assert p8["cluster"] == 1 and set(p8["regions"]) == {
+        "ring", "ln", "ctx", "x", "qkv", "bars"}
+
+
+def _kernel_terms(table, labels):
+    """The bias [nh, 256, 256] and mask [nW, 256, 256] the 16x16 kernel (g)
+    adds to its scores, as numpy: the bias of query i and key j looked up in
+    the head's table at rel_pos(i) - rel_pos(j) + 480, rel_pos(i) = 31 (i //
+    16) + i % 16, and -100 between tokens of different region labels
+    (``csrc/swin_block16.cu`` with attn16.cuh's ``rel_pos`` and
+    ``mask_term``)."""
+    i = np.arange(256)
+    rel = 31 * (i // 16) + i % 16
+    bias = table[:, rel[:, None] - rel[None, :] + 480]
+    mask = None if labels is None else np.where(
+        labels[:, :, None] != labels[:, None, :], -100.0, 0.0)
+    return bias, mask
+
+
+# the 256px model's (heads, shift) of blocks 1-5 (the widths do not enter)
+@pytest.mark.parametrize("nh,shift", [(6, 0), (4, 8), (2, 0), (6, 8), (4, 0)])
+def test_window16_table_and_labels_are_the_plain_bias_and_mask(nh, shift):
+    c = 24
+    _, params, _ = jax_swin_block_case(c, nh, WIN, shift, SIDE, seed=nh)
+    p = fsb.pack_swin_weights(params, c, WIN)
+    masks = {shift: torch.from_numpy(shift_attn_mask(64, 64, WIN, shift))} \
+        if shift else {}
+    table, labels = wa.attn_operands(p, masks, 64, 64, shift, WIN)
+    assert table.shape == (nh, 961) and table.is_contiguous()
+    assert (labels is None) == (shift == 0)
+    bias, mask = _kernel_terms(table.numpy(),
+                               None if labels is None else labels.numpy())
+    np.testing.assert_array_equal(bias, p["attn_bias"].numpy())
+    if shift:
+        assert labels.dtype == torch.int32 and labels.shape == (16, 256)
+        np.testing.assert_array_equal(mask, masks[shift].numpy())
 
 
 def test_swin_block_plan_refuses_other_windows():

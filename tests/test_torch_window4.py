@@ -186,14 +186,23 @@ def test_swin_block_plan_at_window4(k, b, side):
     c, f, nh = geo["c"], geo["hidden"], geo["heads"]
     p = fsb.swin_block_plan(c, f, nh, b, side, side, window=WIN)
     windows = b * (side // WIN) ** 2
-    assert (p["group"], p["cluster"], p["staging_bytes"]) == (4, 1, 0)
-    assert p["blocks"] == p["groups"] == -(-windows // 4)
+    groups = -(-windows // 4)
+    # both geometries leave half the card idle at one block a group: a
+    # cluster of two blocks shares each group
+    assert (p["group"], p["groups"], p["cluster"]) == (4, groups, 2)
+    assert p["blocks"] == 2 * groups <= SMS
     assert p["last_group"] == (4 if b == 16 else 1)
-    # the 8x8 kernel's layout: the same 64 rows a block
+    # the 8x8 kernel's regions, the context region two atoms at least (the
+    # MLP's 128-wide hidden chunk)
     p8 = fsb.swin_block_plan(c, f, nh, b, 4 * side, 4 * side, window=8)
-    assert (p["smem_bytes"], p["stages"], p["regions"]) == \
-        (p8["smem_bytes"], p8["stages"], p8["regions"])
-    assert p["smem_bytes"] <= wa.BLOCK_SHARED_MAX and p["stages"] >= 2
+    hk = -(-(c // nh + 7) // 64)
+    assert p["regions"]["ctx"] == max(hk, 2) * 8192
+    for name in ("ln", "x", "qkv"):
+        assert p["regions"][name] == p8["regions"][name]
+    assert 1024 + sum(p["regions"].values()) == p["smem_bytes"]
+    assert p["smem_bytes"] <= wa.BLOCK_SHARED_MAX and p["stages"] >= 7
+    assert p["stages"] == fsb.MAX_STAGES or \
+        p["smem_bytes"] + fsb.STAGE_BYTES + 16 > wa.BLOCK_SHARED_MAX
 
 
 def test_window4_plans_at_batch_16():
@@ -203,9 +212,63 @@ def test_window4_plans_at_batch_16():
     # 64 groups of four windows a head fit one wave: 4 windows a block
     assert [p["group"] for p in plans] == [4] * 5
     assert [p["blocks"] for p in plans] == [384, 256, 128, 384, 256]
-    # (g): 64 blocks of four windows on the card's 132 SMs
+    # (g): 64 groups of four windows, two blocks each: 128 of the card's
+    # 132 SMs
     assert {fsb.swin_block_plan(c, f, nh, 16, 16, 16, window=WIN)["blocks"]
-            for c, f, nh in zip(g["feats"], g["hidden"], g["heads"])} == {64}
+            for c, f, nh in zip(g["feats"], g["hidden"], g["heads"])} == {128}
+
+
+@pytest.mark.parametrize("b,side,sms,split", [
+    (16, 16, SMS, 2),      # the 64/x4 forward: 64 groups
+    (2, 16, SMS, 2),       # 8 groups
+    (16, 24, SMS, 1),      # 144 groups: one block a group already fills
+    (1024, 16, SMS, 1),    # the 64/x4 CLI's tiled forward: 4,096 groups
+    (16, 16, 100, 1),      # a card of 100 SMs: 128 blocks would not fit
+])
+def test_window4_plan_splits_where_the_groups_leave_half_the_card(b, side,
+                                                                  sms, split):
+    p = fsb.swin_block_plan(180, 360, 6, b, side, side, window=WIN, sms=sms)
+    groups = -(-b * (side // WIN) ** 2 // 4)
+    assert (p["cluster"], p["blocks"]) == (split, groups * split)
+    assert (split == 2) == (2 * groups <= sms)
+
+
+def _split_counts(b, side, nh, f, c, split):
+    """How often the 4x4 kernel's blocks (csrc/swin_block4.cu) compute each
+    (group, head), each (group, hidden chunk of 128) and store each output
+    element, as a numpy model of its map: block bid is rank r = bid % split
+    of group bid // split; it takes heads r, r + split, ..., hidden chunks
+    starting at 128 r, 128 (r + split), ..., and stores rows [32 r, 32 r +
+    32) of the group (all 64 without a peer) where they hold a token
+    (:func:`_group_rows`), every column."""
+    rows = _group_rows(b, side, side, 0).reshape(-1, 64)
+    groups = rows.shape[0]
+    heads = np.zeros((groups, nh), int)
+    chunks = np.zeros((groups, -(-f // 128)), int)
+    out = np.zeros((b * side * side, c), int)
+    for bid in range(groups * split):
+        r, grp = bid % split, bid // split
+        for h in range(r, nh, split):
+            heads[grp, h] += 1
+        for f0 in range(128 * r, f, 128 * split):
+            chunks[grp, f0 // 128] += 1
+        lo, n = (32 * r, 32) if split > 1 else (0, 64)
+        live = rows[grp, lo:lo + n]
+        out[live[live >= 0]] += 1
+    return heads, chunks, out
+
+
+@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("b,side", [(16, 16), (5, 20), (16, 24)])
+def test_window4_split_computes_and_stores_everything_once(k, b, side):
+    geo = fsb.block_geometry(drct_experiment("grid", 64, 4).model, k)
+    c, f, nh = geo["c"], geo["hidden"], geo["heads"]
+    p = fsb.swin_block_plan(c, f, nh, b, side, side, window=WIN)
+    heads, chunks, out = _split_counts(b, side, nh, f, c, p["cluster"])
+    assert heads.shape[0] == p["groups"]
+    # every head and hidden chunk of every group once, every output element
+    # of every image once (the short last group of 5 x 20 x 20 included)
+    assert (heads == 1).all() and (chunks == 1).all() and (out == 1).all()
 
 
 # --------------------------------------------------------------------------
