@@ -9,33 +9,40 @@
 //
 // Replaces: the attention backward phases of the Pallas kernel _bwd_kernel
 // (adsr_tpu/ops/fused_rdg_train.py:405-770) at window 4.
-// Bound on H100: bytes. Each window reads 16 tokens x hd of q, k, v and dO
-// once and writes 16 x hd of dq, dk, dv; the five 16-token products are
-// ~25 flop per byte.
-// Design: as the forward, a window is one 16-row mma tile and one warp
-// holds it whole, so a window's dQ, dK and dV lie inside one warp with no
-// cross-warp sum. A block (4 warps) takes one head and a group of ``group``
-// consecutive windows over the flat (image, window) index
-// (kernels/window_attention_bwd.py ``window_attention_bwd_plan``: a
-// multiple of 4, the last group possibly short), four at a time:
-//   - gather: the 16-byte pieces of the four windows' 64 qkv rows that hold
-//     the head's q, k and v, and of their dO rows, eight loads in flight a
-//     thread, into bf16 planes [4][64][HDP + 8] (rows of windows past the
-//     last are neither read nor written);
-//   - each warp runs window_attn_bwd_core.cuh's attn_bwd_rows<HDP, 16> on
-//     its window (N = 64's numerics: P recomputed from S by the stabilised
-//     f32 softmax, D = rowsum(P o dP), P and dS rounded once to bf16 before
-//     the three output products), keeping its P and dS as [16][24] bf16
-//     tiles of its own, then dK = dS^T Q and dV = P^T dO from them
-//     (tile_t_times<HDP, 16>), each result over a plane row of its own
-//     window that it no longer reads;
-//   - the three results go back to dqkv in 16-byte stores (element stores
-//     where a piece is shared with a neighbouring head);
-//   - d(bias): each warp adds its windows' dS into a register fragment; at
-//     the end the four warps' fragments are summed in warp order through
-//     shared memory into one f32 [16 x 16] partial per (group, head), and
-//     partials.cuh sums the groups' partials in a fixed order: two calls
-//     are bitwise equal (no atomics).
+// Bound on H100: bytes. Each token row's qkv (3C) and dO (C) are read once
+// and its dqkv (3C) written once; the five 16-token products are ~25 flop
+// per byte.
+// Design: the forward's (window_attention4.cu, attn4.cuh): a block takes
+// every head of its windows and moves whole token rows, on a persistent
+// grid (kernels/window_attention_bwd.py ``window_attention_bwd_plan``) with
+// a ring of ``stages`` staged windows (mask, 16 rows of qkv, 16 of dO,
+// cp.async'd while the warps compute and store the window before):
+//   - 8 warps (all of them stage and store rows); they take a head slot
+//     each (heads slot, slot + 8, ... of each window), two warps a slot for
+//     four heads or fewer, else one (attn4.cuh ``warps_a_head``). Every
+//     operand is read straight from the staged rows, with no re-lay into
+//     planes: a pair of consecutive columns (4-byte loads) as the row
+//     operand of S = q k^T and dP = dO v^T, a pair of rows (two 2-byte
+//     loads) as the row-major operand of dQ = dS k, dK = dS^T q and dV =
+//     P^T dO;
+//   - the head's first warp computes S, dP, the stabilised f32 softmax (P
+//     recomputed), D = rowsum(P o dP) and dS = P o (dP - D) as
+//     window_attn_bwd_core.cuh's attn_bwd_rows<HDP, 16> does (the same
+//     products in the same order, P and dS rounded once to bf16 before the
+//     three output products, f32 accumulation), keeps the bf16 P and dS as
+//     tiles [16][24] of its slot and computes dQ = dS k from its dS
+//     registers, then dK = dS^T q while the head's second warp (or the
+//     first, where it is alone) computes dV = P^T dO, both from the tiles
+//     by ldmatrix.trans (tile_t_times<HDP, 16>'s products): a window's
+//     gradients need no cross-warp sum;
+//   - dq, dk and dv go into an output row buffer [16][3C] of the block, and
+//     after a block barrier whole rows of 3C go out to dqkv in 16-byte
+//     stores;
+//   - d(bias): a head's first warp adds each window's dS into the head's
+//     f32 [16][16] accumulator in shared memory (one warp a head, windows
+//     in the block's order); at the end the block writes one partial [nh][16 x
+//     16], and partials.cuh's column pass sums the blocks' partials in a
+//     fixed order: two calls are bitwise equal (no atomics).
 // No state survives a launch and nothing is allocated here, so a CUDA graph
 // can replay it.
 
@@ -45,228 +52,345 @@
 #include <cmath>
 #include <cstdint>
 
+#include "attn4.cuh"
 #include "partials.cuh"
 #include "window_attn_bwd_core.cuh"
-#include "window_tiles.cuh"   // Parts, put8, get8
 
 namespace {
 
-constexpr int kWin = 4;
-constexpr int N = kWin * kWin;     // tokens per window
-constexpr int kQuad = 4;           // windows a step: one a warp
-constexpr int kRows = kQuad * N;   // token rows a step
-constexpr int kThreads = 32 * kQuad;
-constexpr int kTileLd = bwd_tile_ld(N);
-constexpr int kBatch = 8;          // 16-byte loads in flight a thread
+constexpr int kMaxStages = 3;
+constexpr int kTileLd = bwd_tile_ld(kTok4);
 constexpr size_t kMaxSmem = 232448;
-
-// Blocks an SM must hold by registers (128 a thread up to a head tile of
-// 80, else 168); the plan sizes the grid to one wave of them.
-constexpr int min_blocks(int hdp) { return hdp <= 80 ? 4 : 3; }
+// what scripts/torch_attention4_sweep.py turns off (timing only)
+constexpr bool kLoad = true;
+constexpr bool kCompute = true;
+constexpr bool kCore = true;
+constexpr bool kStore = true;
 
 typedef __nv_bfloat16 bf16;
 
-// Shared memory of one block: q, k, v, dO planes of 64 rows and the P, dS
-// tiles of 64 rows (each warp its window's 16); at the end the warps'
-// d(bias) fragments [4][16][16] f32 over the tiles
-__host__ __device__ inline size_t smem_bytes(int hdp) {
-  return (size_t)4 * kRows * (hdp + 8) * 2 + (size_t)2 * kRows * kTileLd * 2;
-}
-static_assert(2 * kRows * kTileLd * 2 >= kQuad * N * N * 4,
-              "the d(bias) fragments fit over the tiles");
+// Bytes of one head slot's bf16 P and dS tiles
+constexpr int kSlotBytes = 2 * kTok4 * kTileLd * 2;
 
-// The raster row of row t of the step whose first window is ``fw0`` (window
-// fw0 + t / 16, token t % 16), or -1 past the last window
-__device__ __forceinline__ long long token_row(int fw0, int t, int windows,
-                                               int nw, int nww, int H, int W,
-                                               int shift) {
-  const int fw = fw0 + t / N;
-  if (fw >= windows) return -1;
-  const int b = fw / nw, win = fw - b * nw;
-  const int wi = win / nww, wj = win - wi * nww;
-  const int tt = t % N;
-  const int row = (wi * kWin + tt / kWin + shift) % H;
-  const int col = (wj * kWin + tt % kWin + shift) % W;
-  return (long long)b * H * W + (long long)row * W + col;
+// Shared memory of one block: the heads' bias and d(bias) accumulators,
+// ``stages`` staged windows (mask, 16 rows of qkv, 16 of dO), the output
+// rows [16][3C] and each head slot's tiles
+__host__ __device__ inline size_t smem_bytes(int hdp, int C, int nh,
+                                             int stages) {
+  return (size_t)2 * nh * kBiasBytes4
+         + (size_t)stages * stage_bytes4(3 * C, C)
+         + (size_t)kTok4 * 2 * raw_pitch(3 * C)
+         + (size_t)head_slots(nh) * kSlotBytes;
+}
+
+// Y = T^T X for a [16][kTileLd] bf16 tile T (P or dS) at ``tile``: the A
+// fragment of T^T by ldmatrix.trans, as tile_t_times<HDP, 16> takes it
+__device__ __forceinline__ void tile_t_frag(uint32_t tile, uint32_t (&a)[4]) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(tile + ((lane & 7) + (lane >> 4) * 8) * (2u * kTileLd)
+                    + ((lane >> 3) & 1) * 16, a);
+}
+
+// S = q k^T and dP = dO v^T [16 x 16] over HDP dims of one head of one
+// window, as attn_bwd_rows<HDP, 16> computes them (the same products in
+// the same order): q, k, v from elements sq, sq + C, sq + 2C of the staged
+// qkv rows ``raw`` (``pitch`` bytes a row), dO from sg of ``graw``
+// (``gpitch``), read in pairs of columns with dims [hd, HDP) zero. s[j] and
+// dp[j] hold mma's C layout of keys [8j, 8j + 8).
+template <int HDP>
+__device__ __forceinline__ void s_dp_staged(const unsigned char* raw,
+                                            uint32_t pitch,
+                                            const unsigned char* graw,
+                                            uint32_t gpitch, int sq, int C,
+                                            int sg, int hd, float (&s)[2][4],
+                                            float (&dp)[2][4]) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  const bool odd = sq & 1, godd = sg & 1;
+  const int sk = sq + C, sv = sq + 2 * C;
+  const unsigned char* r0 = raw + gr * pitch;      // token gr
+  const unsigned char* r1 = r0 + 8 * pitch;        // token gr + 8
+  const unsigned char* g0 = graw + gr * gpitch;
+  const unsigned char* g1 = g0 + 8 * gpitch;
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < HDP / 16; ++kk) {
+    const int d = 16 * kk + 2 * t;
+    // only the last step holds dims past the head
+    const bool last = kk + 1 == HDP / 16;
+    const int d0 = last ? d : 0, d8 = last ? d + 8 : 0, lim = last ? hd : 16;
+    const uint32_t a[4] = {row_pair(r0, sq + d, odd, d0, lim),
+                           row_pair(r1, sq + d, odd, d0, lim),
+                           row_pair(r0, sq + d + 8, odd, d8, lim),
+                           row_pair(r1, sq + d + 8, odd, d8, lim)};
+    const uint32_t ag[4] = {row_pair(g0, sg + d, godd, d0, lim),
+                            row_pair(g1, sg + d, godd, d0, lim),
+                            row_pair(g0, sg + d + 8, godd, d8, lim),
+                            row_pair(g1, sg + d + 8, godd, d8, lim)};
+    // keys gr (tile 0) and gr + 8 (tile 1) as mma's "col" B
+    mma_16816(s[0], a, row_pair(r0, sk + d, odd, d0, lim),
+              row_pair(r0, sk + d + 8, odd, d8, lim));
+    mma_16816(s[1], a, row_pair(r1, sk + d, odd, d0, lim),
+              row_pair(r1, sk + d + 8, odd, d8, lim));
+    mma_16816(dp[0], ag, row_pair(r0, sv + d, odd, d0, lim),
+              row_pair(r0, sv + d + 8, odd, d8, lim));
+    mma_16816(dp[1], ag, row_pair(r1, sv + d, odd, d0, lim),
+              row_pair(r1, sv + d + 8, odd, d8, lim));
+  }
+}
+
+// From S and dP of one head of one window on, as attn_bwd_rows<HDP, 16>
+// computes it (rows r0 = 0): the softmax (bias and mask f32 [16][16] from
+// shared memory), D and dS; dS added into ``dbias``; P and dS into the
+// tiles ``pt`` and ``dst`` (bf16 [16][24]) and dS as the A fragment ``ds``
+// of dQ = dS K
+__device__ __forceinline__ void softmax_ds(float (&s)[2][4],
+                                           float (&dp)[2][4],
+                                           const float* bias,
+                                           const float* mask, float scale,
+                                           uint32_t pt, uint32_t dst,
+                                           float (&dbias)[2][4],
+                                           uint32_t (&ds)[4]) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t = lane & 3;
+  // the stabilised softmax of rows gr (values 0, 1) and gr + 8 (2, 3)
+  const float* b0 = bias + gr * kTok4 + 2 * t;
+  const float* m0 = mask != nullptr ? mask + gr * kTok4 + 2 * t : nullptr;
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float2 u = *reinterpret_cast<const float2*>(b0 + 8 * j);
+    const float2 w = *reinterpret_cast<const float2*>(b0 + 8 * kTok4 + 8 * j);
+    s[j][0] = s[j][0] * scale + u.x;
+    s[j][1] = s[j][1] * scale + u.y;
+    s[j][2] = s[j][2] * scale + w.x;
+    s[j][3] = s[j][3] * scale + w.y;
+    if (m0 != nullptr) {
+      const float2 mu = *reinterpret_cast<const float2*>(m0 + 8 * j);
+      const float2 mw = *reinterpret_cast<const float2*>(m0 + 8 * kTok4
+                                                         + 8 * j);
+      s[j][0] += mu.x;
+      s[j][1] += mu.y;
+      s[j][2] += mw.x;
+      s[j][3] += mw.y;
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+    mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+  }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, sh));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, sh));
+  }
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    s[j][0] = expf(s[j][0] - mx0);
+    s[j][1] = expf(s[j][1] - mx0);
+    s[j][2] = expf(s[j][2] - mx1);
+    s[j][3] = expf(s[j][3] - mx1);
+    sum0 += s[j][0] + s[j][1];
+    sum1 += s[j][2] + s[j][3];
+  }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    sum0 += __shfl_xor_sync(0xffffffffu, sum0, sh);
+    sum1 += __shfl_xor_sync(0xffffffffu, sum1, sh);
+  }
+  const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+
+  // P in f32, D = rowsum(P o dP)
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    s[j][0] *= inv0;
+    s[j][1] *= inv0;
+    s[j][2] *= inv1;
+    s[j][3] *= inv1;
+    d0 += s[j][0] * dp[j][0] + s[j][1] * dp[j][1];
+    d1 += s[j][2] * dp[j][2] + s[j][3] * dp[j][3];
+  }
+#pragma unroll
+  for (int sh = 1; sh <= 2; sh <<= 1) {
+    d0 += __shfl_xor_sync(0xffffffffu, d0, sh);
+    d1 += __shfl_xor_sync(0xffffffffu, d1, sh);
+  }
+
+  // dS = P o (dP - D) in f32 into d(bias); P and dS once to bf16, into the
+  // tiles and, for dS, as the A fragment of dS K
+  const uint32_t tl0 = (gr * kTileLd + 2 * t) * 2u;
+  const uint32_t tl1 = tl0 + 8u * kTileLd * 2u;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    dp[j][0] = s[j][0] * (dp[j][0] - d0);
+    dp[j][1] = s[j][1] * (dp[j][1] - d0);
+    dp[j][2] = s[j][2] * (dp[j][2] - d1);
+    dp[j][3] = s[j][3] * (dp[j][3] - d1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dbias[j][i] += dp[j][i];
+    sts_b32(pt + tl0 + 16u * j, pack_bf16x2(s[j][0], s[j][1]));
+    sts_b32(pt + tl1 + 16u * j, pack_bf16x2(s[j][2], s[j][3]));
+    ds[2 * j] = pack_bf16x2(dp[j][0], dp[j][1]);
+    ds[2 * j + 1] = pack_bf16x2(dp[j][2], dp[j][3]);
+    sts_b32(dst + tl0 + 16u * j, ds[2 * j]);
+    sts_b32(dst + tl1 + 16u * j, ds[2 * j + 1]);
+  }
 }
 
 template <int HDP>
-__global__ void __launch_bounds__(kThreads, min_blocks(HDP))
+__global__ void __launch_bounds__(32 * kWarps4, 2)
 window_attention_bwd4_kernel(const bf16* __restrict__ qkv, long long ldq,
                              const bf16* __restrict__ dctx, long long ldg,
                              const float* __restrict__ bias,
                              const float* __restrict__ mask,
                              bf16* __restrict__ dqkv, long long ldd,
-                             float* __restrict__ part, int windows,
-                             int group, int H, int W, int C, int nh, int hd,
-                             int shift, float scale) {
-  constexpr int LD = HDP + 8;
-  constexpr int kPlane = kRows * LD;      // elements of one plane
+                             float* __restrict__ part, int windows, int H,
+                             int W, int C, int nh, int hd, int shift,
+                             int stages, float scale) {
+  constexpr uint32_t kTile = 2u * kTok4 * kTileLd;      // bytes of a tile
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* planes = reinterpret_cast<bf16*>(smem);   // q, k, v, dO
-  const uint32_t sp = (uint32_t)__cvta_generic_to_shared(planes);
-  const uint32_t tp = sp + 8u * kPlane;                  // P tiles
-  const uint32_t tds = tp + 2u * kRows * kTileLd;        // dS tiles
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, g = lane >> 2, tq = lane & 3;
+  const int wph = warps_a_head(nh), slot = warp / wph;   // head slot
+  const int role = warp - slot * wph;                     // 0: its leader
+  const int width = 3 * C;
+  const uint32_t pitch = 2u * raw_pitch(width), gpitch = 2u * raw_pitch(C);
+  const uint32_t base = smem_addr(smem);
+  const float* sbias = reinterpret_cast<const float*>(smem);
+  float* acc = reinterpret_cast<float*>(smem) + nh * kTok4 * kTok4;
+  const uint32_t stage0 = base + 2 * nh * kBiasBytes4;
+  const uint32_t sbytes = stage_bytes4(width, C);
+  const uint32_t graw_at = kMaskBytes4 + kTok4 * pitch;   // dO in a slot
+  const uint32_t out = stage0 + stages * sbytes;   // the output rows
+  const uint32_t tiles0 = out + kTok4 * pitch;      // slot w's tiles
 
-  const int h = blockIdx.x % nh;
-  const int grp = blockIdx.x / nh;
-  const int w_end = min(windows, (grp + 1) * group);
-  const int nww = W / kWin;
-  const int nw = (H / kWin) * nww;
-  const int C3 = 3 * C;
-  const Parts pc(h, hd, C);
-  const int chunks = pc.begin[4];
-  const int total = kRows * chunks;
-
-  if (HDP > hd) {                         // the padded head dims are zero
-    const int pad = HDP - hd;
-    for (int i = threadIdx.x; i < 4 * kRows * pad; i += kThreads) {
-      const int row = i / pad;            // (plane, token)
-      planes[row * LD + hd + (i - row * pad)] = __float2bfloat16(0.f);
+  // stage window fw in slot s: its mask, qkv rows and dO rows
+  auto stage = [&](int fw, int s) {
+    const uint32_t st = stage0 + s * sbytes;
+    const Win4 rows(fw, H, W, shift);
+    if (mask != nullptr)
+      for (int i = threadIdx.x; i < kMaskBytes4 / 16; i += blockDim.x)
+        cp_async16(st + 16u * i, mask + (size_t)rows.win * 256 + 4 * i, 16);
+    if (kLoad) {
+      stage_rows(st + kMaskBytes4, qkv, ldq, width, rows, warp, warps,
+                 lane);
+      stage_rows(st + graw_at, dctx, ldg, C, rows, warp, warps, lane);
     }
+  };
+
+  ATTN4_MARK(0, true);
+  ATTN4_MARK(1, true);
+  for (int i = threadIdx.x; i < nh * kBiasBytes4 / 16; i += blockDim.x)
+    cp_async16(base + 16u * i, bias + 4 * i, 16);
+  for (int i = threadIdx.x; i < nh * kTok4 * kTok4; i += blockDim.x)
+    acc[i] = 0.f;
+  for (int s = 0; s < stages; ++s) {
+    const int fw = blockIdx.x + s * gridDim.x;
+    if (fw < windows) stage(fw, s);
+    cp_commit();
   }
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = N * warp, g = lane >> 2, tq = lane & 3;
-  // this warp's window rows in the planes and the tiles (byte offsets)
-  const uint32_t prow = 2u * r0 * LD, trow = 2u * r0 * kTileLd;
-  float dbias[N / 8][4];
+  int s = 0;
+  for (int fw = blockIdx.x; fw < windows; fw += gridDim.x) {
+    cp_wait(stages - 1);
+    __syncthreads();
+    ATTN4_MARK(2, fw == (int)blockIdx.x);
+    const uint32_t st = stage0 + s * sbytes, raw = st + kMaskBytes4;
+    const float* smask = mask != nullptr
+        ? reinterpret_cast<const float*>(smem + (st - base)) : nullptr;
+    if (kCompute) {
+      const uint32_t tp = tiles0 + slot * kSlotBytes, tds = tp + kTile;
+      const unsigned char* rw = smem + (raw - base);
+      const unsigned char* gw = smem + (st - base) + graw_at;
+      unsigned char* ow = smem + (out - base);
+      // the head's first warp: S, dP, the softmax, dS, dQ, then dK; its
+      // second (or the first where it is alone): dV
+      const int dv_role = wph > 1 ? 1 : 0;
+      for (int h = slot; h < nh; h += head_slots(nh)) {
+        const bool first = fw == (int)blockIdx.x && h == slot;
+        const int sq = h * hd, sg = h * hd;
+        float res[HDP / 8][4];
+        uint32_t a[4];
+        if (role == 0) {
+          float sc[2][4], dp[2][4];
+          if (kCore) s_dp_staged<HDP>(rw, pitch, gw, gpitch, sq, C, sg, hd,
+                                      sc, dp);
+          ATTN4_MARK(8, first);
+          // the head's d(bias) accumulator, in mma's C layout
+          float* ah = acc + h * kTok4 * kTok4 + g * kTok4 + 2 * tq;
+          float db[kTok4 / 8][4];
 #pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dbias[j][i] = 0.f;
-
-  for (int fw0 = grp * group; fw0 < w_end; fw0 += kQuad) {
-    // gather the head's q, k, v and dO of the four windows' 64 tokens
-    for (int base = threadIdx.x; base < total; base += kThreads * kBatch) {
-      uint4 v[kBatch];
-      int dst[kBatch], j0[kBatch];
-#pragma unroll
-      for (int j = 0; j < kBatch; ++j) {
-        const int i = base + j * kThreads;
-        dst[j] = -1;
-        if (i < total) {
-          const int t = i / chunks, k = i - t * chunks;
-          const long long row = token_row(fw0, t, w_end, nw, nww, H, W,
-                                          shift);
-          if (row >= 0) {
-            const int p = pc.part(k);
-            const int c0 = pc.first(k, p);
-            const bf16* src = p < 3 ? qkv + row * ldq + c0
-                                    : dctx + row * ldg + c0;
-            if (c0 + 8 <= (p < 3 ? C3 : C)) {
-              v[j] = __ldg(reinterpret_cast<const uint4*>(src));
-            } else {                      // 4 columns at the end of a row
-              const uint2 u = __ldg(reinterpret_cast<const uint2*>(src));
-              v[j] = make_uint4(u.x, u.y, 0u, 0u);
-            }
-            dst[j] = p * kPlane + t * LD;
-            j0[j] = c0 - Parts::pick(pc.start, p);
+          for (int j = 0; j < kTok4 / 8; ++j) {
+            const float2 lo = *reinterpret_cast<const float2*>(ah + 8 * j);
+            const float2 hi = *reinterpret_cast<const float2*>(
+                ah + 8 * kTok4 + 8 * j);
+            db[j][0] = lo.x;
+            db[j][1] = lo.y;
+            db[j][2] = hi.x;
+            db[j][3] = hi.y;
           }
-        }
-      }
+          if (kCore) {
+            softmax_ds(sc, dp, sbias + h * kTok4 * kTok4, smask, scale, tp,
+                       tds, db, a);
+            times_rows<HDP>(a, rw, pitch, C + sq, res);   // dQ = dS K
+          }
 #pragma unroll
-      for (int j = 0; j < kBatch; ++j)
-        if (dst[j] >= 0) put8(planes + dst[j], j0[j], hd, v[j]);
+          for (int j = 0; j < kTok4 / 8; ++j) {
+            *reinterpret_cast<float2*>(ah + 8 * j) = make_float2(db[j][0],
+                                                                 db[j][1]);
+            *reinterpret_cast<float2*>(ah + 8 * kTok4 + 8 * j) =
+                make_float2(db[j][2], db[j][3]);
+          }
+          ATTN4_MARK(9, first);
+          put_frag<HDP>(ow, pitch, sq, hd, res, scale);
+        }
+        head_sync(slot, wph);   // the head's P and dS tiles are whole
+        ATTN4_MARK(10, first);
+        if (role == 0) {        // dK = dS^T Q * scale
+          tile_t_frag(tds, a);
+          if (kCore) times_rows<HDP>(a, rw, pitch, sq, res);
+          put_frag<HDP>(ow, pitch, C + sq, hd, res, scale);
+        }
+        if (role == dv_role) {  // dV = P^T dO
+          tile_t_frag(tp, a);
+          if (kCore) times_rows<HDP>(a, gw, gpitch, sg, res);
+          put_frag<HDP>(ow, pitch, 2 * C + sq, hd, res, 1.f);
+        }
+        head_sync(slot, wph);   // every read of the tiles is done
+        ATTN4_MARK(11, first);
+      }
     }
     __syncthreads();
-
-    const int fw = fw0 + warp;
-    if (fw < w_end) {
-      const int win = fw % nw;
-      const uint32_t sq = sp + prow, sk = sq + 2u * kPlane,
-                     sv = sq + 4u * kPlane, sg = sq + 6u * kPlane;
-      float acc[HDP / 8][4];
-      attn_bwd_rows<HDP, N>(sq, sk, sv, sg, LD, tp + trow, tds + trow, 0,
-                            bias + (size_t)h * N * N,
-                            mask != nullptr ? mask + (size_t)win * N * N
-                                            : nullptr,
-                            scale, dbias, acc);
-      __syncwarp();   // the warp's P and dS tiles are whole
-      // the results of part p go over plane (p + 1) % 3 of the warp's own
-      // rows, each free when it is written: dQ * scale over k (read last
-      // by dQ), dK * scale over v (read last by dP), dV over q (read last
-      // by dK)
-#pragma unroll
-      for (int which = 0; which < 3; ++which) {
-        if (which > 0) {
-          tile_t_times<HDP, N>(which == 1 ? tds + trow : tp + trow,
-                               which == 1 ? sq : sg, LD, 0, acc);
-          __syncwarp();   // every lane's reads of q are done (dV over q)
-        }
-        const float mul = which < 2 ? scale : 1.f;
-        bf16* o = planes + (which + 1) % 3 * kPlane + (r0 + g) * LD;
-#pragma unroll
-        for (int j = 0; j < HDP / 8; ++j) {
-          const int d = 8 * j + 2 * tq;
-#pragma unroll
-          for (int x = 0; x < 2; ++x) {
-            if (d + x < hd) {
-              o[d + x] = __float2bfloat16(acc[j][x] * mul);
-              o[8 * LD + d + x] = __float2bfloat16(acc[j][2 + x] * mul);
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // dq, dk, dv: columns [start_p, start_p + hd) of part p of each live row
-    const int pieces = pc.begin[3];
-    for (int i = threadIdx.x; i < kRows * pieces; i += kThreads) {
-      const int t = i / pieces, k = i - t * pieces;
-      const long long row = token_row(fw0, t, w_end, nw, nww, H, W, shift);
-      if (row < 0) continue;
-      const int p = pc.part(k);
-      const int c0 = pc.first(k, p);
-      const int s0 = Parts::pick(pc.start, p);
-      const int n = min(8, C3 - c0);      // 4 at the end of a row 4 past 8
-      const bf16* src = planes + (p + 1) % 3 * kPlane + t * LD;
-      bf16* dst = dqkv + row * ldd + c0;
-      if (c0 >= s0 && c0 + n <= s0 + hd) {
-        const uint4 v = get8(src, c0 - s0, n);
-        if (n == 8)
-          *reinterpret_cast<uint4*>(dst) = v;
-        else
-          *reinterpret_cast<uint2*>(dst) = make_uint2(v.x, v.y);
-      } else {                            // a piece shared with a neighbour
-#pragma unroll
-        for (int x = 0; x < 8; ++x)
-          if (x < n && c0 + x >= s0 && c0 + x < s0 + hd)
-            dst[x] = src[c0 - s0 + x];
-      }
-    }
-    __syncthreads();   // the next step's gather overwrites the planes
+    ATTN4_MARK(3, fw == (int)blockIdx.x);
+    if (kStore)
+      store_rows(dqkv, ldd, width, out, pitch, Win4(fw, H, W, shift), warp,
+                 warps, lane);
+    __syncthreads();    // slot s is free
+    ATTN4_MARK(4, fw == (int)blockIdx.x);
+    const int next = fw + stages * gridDim.x;
+    if (next < windows) stage(next, s);
+    cp_commit();
+    s = s + 1 == stages ? 0 : s + 1;
   }
-
-  // this block's d(bias) partial, row (group, head) of [groups * nh][16 x
-  // 16]: the four warps' fragments over the tiles, summed in warp order
-  float* frag = reinterpret_cast<float*>(smem + 2u * 4u * kPlane);
-  float* mine = frag + warp * N * N + g * N + 2 * tq;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    *reinterpret_cast<float2*>(mine + 8 * j) =
-        make_float2(dbias[j][0], dbias[j][1]);
-    *reinterpret_cast<float2*>(mine + 8 * N + 8 * j) =
-        make_float2(dbias[j][2], dbias[j][3]);
-  }
+  cp_wait(0);
   __syncthreads();
-  float* pr = part + ((size_t)grp * nh + h) * N * N;
-  for (int i = threadIdx.x; i < N * N; i += kThreads) {
-    float sum = frag[i];
-#pragma unroll
-    for (int w = 1; w < kQuad; ++w) sum += frag[w * N * N + i];
-    pr[i] = sum;
-  }
+
+  // this block's d(bias) partial, row blockIdx.x of [grid][nh * 16 * 16]
+  float* pr = part + (size_t)blockIdx.x * nh * kTok4 * kTok4;
+  for (int i = threadIdx.x; i < nh * kTok4 * kTok4; i += blockDim.x)
+    pr[i] = acc[i];
+  ATTN4_MARK(5, true);
+  ATTN4_MARK(6, true);
 }
 
 template <int HDP>
 int launch(const void* qkv, long long ldq, const void* dctx, long long ldg,
            const void* bias, const void* mask, void* dqkv, long long ldd,
-           void* part, void* dbias, int B, int H, int W, int C, int nh,
-           int hd, int shift, int group, long long smem,
+           void* part, void* dbias, long long windows, int H, int W, int C,
+           int nh, int hd, int shift, int stages, int grid, long long smem,
            cudaStream_t stream) {
-  const size_t bytes = smem_bytes(HDP);
+  const size_t bytes = smem_bytes(HDP, C, nh, stages);
   if ((long long)bytes != smem || bytes > kMaxSmem)
     return (int)cudaErrorInvalidValue;
   static size_t configured = 0;   // per template instance
@@ -277,59 +401,59 @@ int launch(const void* qkv, long long ldq, const void* dctx, long long ldg,
     if (e != cudaSuccess) return (int)e;
     configured = bytes;
   }
-  const long long windows = (long long)B * (H / kWin) * (W / kWin);
-  const long long groups = (windows + group - 1) / group;
-  if (windows > 0x7fffffffll || groups * nh > 0x7fffffffll)
-    return (int)cudaErrorInvalidValue;
   window_attention_bwd4_kernel<HDP>
-      <<<(unsigned)(groups * nh), kThreads, bytes, stream>>>(
+      <<<(unsigned)grid, 32 * kWarps4, bytes, stream>>>(
           (const bf16*)qkv, ldq, (const bf16*)dctx, ldg, (const float*)bias,
           (const float*)mask, (bf16*)dqkv, ldd, (float*)part, (int)windows,
-          group, H, W, C, nh, hd, shift,
+          H, W, C, nh, hd, shift, stages,
           (float)(1.0 / std::sqrt((double)hd)));
   const int rc = (int)cudaGetLastError();
   if (rc) return rc;
-  // d(bias)[i] = sum over the groups of part[group][i], i < nh * 16 * 16
+  // d(bias)[j] = sum over the blocks of part[block][j], j < nh * 16 * 16,
+  // by partials.cuh's column pass (eight warps a 32 columns, in order)
   return sum_partials(nullptr, 0, 0, nullptr, 0, nullptr, stream,
-                      (const float*)part, (int)groups, nh * N * N,
+                      (const float*)part, grid, nh * kTok4 * kTok4,
                       (float*)dbias);
 }
 
 }  // namespace
 
-// ``group`` (windows a block, a multiple of 4) and ``smem`` are what the
-// caller planned (kernels/window_attention_bwd.py
-// ``window_attention_bwd_plan``); a launch whose shared memory differs from
-// this file's layout is refused. ``part`` holds ceil(windows / group) * nh
-// * 16 * 16 f32.
+// ``stages``, ``grid`` and ``smem`` are what the caller planned
+// (kernels/window_attention_bwd.py ``window_attention_bwd_plan``); a launch
+// whose shared memory differs from this file's layout is refused. ``part``
+// holds grid * nh * 16 * 16 f32.
 extern "C" int adsr_window_attention_bwd4(const void* qkv, long long ldq,
                                           const void* dctx, long long ldg,
                                           const void* bias, const void* mask,
                                           void* dqkv, long long ldd,
                                           void* part, void* dbias, int B,
                                           int H, int W, int C, int nh,
-                                          int shift, int group,
+                                          int shift, int stages, int grid,
                                           long long smem, void* stream) {
-  if (H % kWin || W % kWin || nh <= 0 || C % nh || C % 4 || B < 0 ||
-      shift < 0 || shift >= kWin || (shift > 0) != (mask != nullptr) ||
-      group < kQuad || group % kQuad || ldq % 8 || ldg % 8 || ldd % 8 ||
+  const long long windows = (long long)B * (H / 4) * (W / 4);
+  if (H % 4 || W % 4 || nh <= 0 || C % nh || C % 4 || B < 0 ||
+      shift < 0 || shift >= 4 || (shift > 0) != (mask != nullptr) ||
+      stages < 1 || stages > kMaxStages || grid < 1 ||
+      windows > 0x7fffffffll || ldq % 8 || ldg % 8 || ldd % 8 ||
       ldq < 3ll * C || ldg < C || ldd < 3ll * C ||
       reinterpret_cast<uintptr_t>(qkv) % 16 ||
       reinterpret_cast<uintptr_t>(dctx) % 16 ||
-      reinterpret_cast<uintptr_t>(dqkv) % 16)
+      reinterpret_cast<uintptr_t>(dqkv) % 16 ||
+      reinterpret_cast<uintptr_t>(bias) % 16 ||
+      reinterpret_cast<uintptr_t>(mask) % 16)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const int hd = C / nh;
   cudaStream_t s = (cudaStream_t)stream;
   switch ((hd + 15) / 16) {
-    case 1: return launch<16>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
-    case 2: return launch<32>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
-    case 3: return launch<48>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
-    case 4: return launch<64>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
-    case 5: return launch<80>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
-    case 6: return launch<96>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
-    case 7: return launch<112>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
-    case 8: return launch<128>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh, hd, shift, group, smem, s);
+    case 1: return launch<16>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, windows, H, W, C, nh, hd, shift, stages, grid, smem, s);
+    case 2: return launch<32>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, windows, H, W, C, nh, hd, shift, stages, grid, smem, s);
+    case 3: return launch<48>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, windows, H, W, C, nh, hd, shift, stages, grid, smem, s);
+    case 4: return launch<64>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, windows, H, W, C, nh, hd, shift, stages, grid, smem, s);
+    case 5: return launch<80>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, windows, H, W, C, nh, hd, shift, stages, grid, smem, s);
+    case 6: return launch<96>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, windows, H, W, C, nh, hd, shift, stages, grid, smem, s);
+    case 7: return launch<112>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, windows, H, W, C, nh, hd, shift, stages, grid, smem, s);
+    case 8: return launch<128>(qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, windows, H, W, C, nh, hd, shift, stages, grid, smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -3,7 +3,7 @@
 // (cyclically shifted) window, the 16-byte slots a staged tile takes and
 // the cp.async group calls (the gathers themselves are attn16.cuh's and
 // swin_block16.cu's). Parts, put8 and get8 are kernel (f)'s gather and
-// store of 16-byte pieces at N = 64 and N = 16.
+// store of 16-byte pieces at N = 64.
 
 #pragma once
 

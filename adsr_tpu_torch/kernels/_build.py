@@ -82,14 +82,14 @@ SIGNATURES = {
                         _P, _P, _P, _P, _L, _P, _P, _L, _P] + [_I] * 9
                        + [_F, _L, _P],
 }
-# qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, shift, smem, stream (4x4
-# windows)
-SIGNATURES["adsr_window_attention4"] = [_P, _L, _P, _L, _P, _P] + [_I] * 6 \
+# qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, shift, stages, grid, smem,
+# stream (4x4 windows)
+SIGNATURES["adsr_window_attention4"] = [_P, _L, _P, _L, _P, _P] + [_I] * 8 \
     + [_L, _P]
 # qkv, ldq, dctx, ldg, bias, mask, dqkv, ldd, part, dbias, B, H, W, C, nh,
-# shift, group, smem, stream (4x4 windows)
+# shift, stages, grid, smem, stream (4x4 windows)
 SIGNATURES["adsr_window_attention_bwd4"] = [_P, _L, _P, _L, _P, _P, _P, _L,
-                                            _P, _P] + [_I] * 7 + [_L, _P]
+                                            _P, _P] + [_I] * 8 + [_L, _P]
 # (g) at 16x16 windows (swin_block16.cu) and at 4x4 (swin_block4.cu):
 # adsr_swin_block's arguments with ``cluster`` (blocks a window or a group)
 # after ``stages``

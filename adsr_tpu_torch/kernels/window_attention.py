@@ -13,11 +13,12 @@ out) into q/k/v planes in shared memory (head dims zero-padded to a
 multiple of 16); each warp runs the register-resident core (mma.sync
 scores, bias and mask, stabilised f32 softmax, P @ V) on 16 query rows; the
 context goes back in 16-byte stores. At 4x4 windows (N = 16,
-``csrc/window_attention4.cu``) one warp holds a whole window (16 query
-rows against 16 keys, the core templated on the key count) and a block of
-four warps takes one head and a group of four consecutive windows over
-the flat (image, window) index, so it still fills 64 plane rows; the last
-group may be short (:func:`window_attention_plan`). At 16x16 windows (N =
+``csrc/window_attention4.cu`` on ``csrc/attn4.cuh``) a block takes every
+head of its windows: it stages whole token rows by ``cp.async`` (a ring of
+``stages`` windows on a persistent grid, :func:`plan4`), one warp a head
+holds the whole window (16 query rows against 16 keys) and reads q, k and
+v in place from the staged rows, and whole rows of the context go back in
+16-byte stores. At 16x16 windows (N =
 256, ``csrc/window_attention16.cu`` on ``csrc/attn16.cuh``) one block of two
 warpgroups per (image, window, head) gathers the window's K and V once
 into swizzled tiles and each warpgroup walks them for two of the four
@@ -54,7 +55,18 @@ KERNEL_WINDOW = 8      # the CUDA kernel's first window: 8x8 (N = 64)
 KERNEL_WINDOWS = (4, 8, 16)  # the windows it takes: N = 16, 64 and 256
 KEY_TILE = 64          # keys (and query rows) a tile at N = 256
 THREADS = 128          # 4 warps a block, 16 query rows each
-GROUP4 = 4             # windows a block at 4x4 windows: one a warp
+GROUP4 = 4             # windows a block of kernel (g) at 4x4 windows
+# (c) and (f) at 4x4 windows (N = 16; csrc/attn4.cuh): a block of WARPS4
+# warps takes every head of its windows (at most WARPS4 at once), on a ring
+# of at most MAX_STAGES4 staged windows; the sources' __launch_bounds__ keep
+# a thread within REGISTERS4
+WARPS4 = 8
+MAX_STAGES4 = 3
+REGISTERS4 = 128
+TILE_BYTES4 = 16 * 16 * 4  # a window's f32 mask, a head's f32 bias
+BWD_TILE_LD4 = 24      # (f)'s bf16 P and dS tiles [16][24] a head slot
+SMS = 132              # the H100's SMs
+THREADS_PER_SM = 2048
 WARPGROUPS16 = 2       # consumer warpgroups a block at N = 256
 # the windows whose kernels walk 64-token tiles on wgmma (N = 256): they
 # take the bias as its table and the shift mask as region labels, and (c)
@@ -84,16 +96,93 @@ def head_tile(hd: int) -> int:
     return -(-hd // 16) * 16
 
 
+def raw_pitch(width: int) -> int:
+    """Elements a staged token row of ``width`` takes at 4x4 windows
+    (``csrc/attn4.cuh`` ``raw_pitch``): 32-byte pieces and 16 bytes more."""
+    return -(-width // 16) * 16 + 8
+
+
+def attn4_smem(c: int, nh: int, stages: int, bwd: bool = False) -> int:
+    """Shared memory of one block of (c) (or, ``bwd``, (f)) at 4x4 windows,
+    as the sources lay it out: the heads' f32 bias (and (f)'s d(bias)
+    accumulators), ``stages`` staged windows (the mask, 16 rows of qkv and,
+    for (f), 16 of dO), and for (f) the output rows [16][3c] and each head
+    slot's bf16 P and dS tiles [2][16][24]."""
+    stage = TILE_BYTES4 + 16 * 2 * (raw_pitch(3 * c)
+                                    + (raw_pitch(c) if bwd else 0))
+    if not bwd:
+        return nh * TILE_BYTES4 + stages * stage
+    return 2 * nh * TILE_BYTES4 + stages * stage \
+        + 16 * 2 * raw_pitch(3 * c) \
+        + min(nh, WARPS4) * 2 * 16 * BWD_TILE_LD4 * 2
+
+
+def plan4(c: int, nh: int, b: int, h: int, w: int, sms: int,
+          bwd: bool = False) -> dict:
+    """The launch of (c) (or, ``bwd``, (f)) at 4x4 windows: a block of
+    ``WARPS4`` warps takes every head of one window at a time (``group``
+    1; a warp a head, (f) two for four heads or fewer) and walks windows
+    blockIdx.x, + ``grid``, ... over the flat (image, window) index,
+    staging the next ``stages`` - 1 while it computes one. Where the card
+    holds a block for
+    every window (``blocks_per_sm`` by shared memory, threads and the
+    sources' ``__launch_bounds__`` registers, ``REGISTERS4`` a thread), one
+    window a block and one stage; else a persistent grid of every block the
+    card holds, at the stages (2 or 3) that keep the most windows in
+    flight. (f) writes one d(bias) partial [nh][16][16] a block."""
+    hdp, warps = head_tile(c // nh), WARPS4
+    threads, regs = 32 * warps, REGISTERS4
+    windows = b * (h // 4) * (w // 4)
+
+    def per_sm(stages):
+        smem = attn4_smem(c, nh, stages, bwd)
+        if smem > BLOCK_SHARED_MAX:
+            return 0
+        return min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED),
+                   THREADS_PER_SM // threads, REGISTERS // (threads * regs))
+
+    if not per_sm(1):
+        raise ValueError(f"plan4: c {c}, {nh} heads: one staged window "
+                         f"takes {attn4_smem(c, nh, 1, bwd)} bytes of shared "
+                         f"memory, more than {BLOCK_SHARED_MAX}")
+    stages = 1
+    if windows > per_sm(1) * sms:
+        stages = max((s for s in range(2, MAX_STAGES4 + 1) if per_sm(s)),
+                     key=lambda s: (per_sm(s) * s, -s), default=1)
+    grid = max(1, min(windows, per_sm(stages) * sms))
+    plan = {"hdp": hdp, "ld": hdp + 8, "c": c, "heads": nh,
+            "smem_bytes": attn4_smem(c, nh, stages, bwd),
+            "threads": threads, "warps": warps, "tokens": 16,
+            "windows": windows, "group": 1, "stages": stages, "grid": grid,
+            "blocks": grid, "windows_per_block": -(-windows // grid),
+            "blocks_per_sm": per_sm(stages), "max_registers": regs,
+            "raw_pitch": raw_pitch(3 * c)}
+    if bwd:
+        plan.update(raw_pitch_dout=raw_pitch(c),
+                    partial_bytes=grid * nh * 16 * 16 * 4)
+    return plan
+
+
+def plan4_at(plan: dict, stages: int, grid: int) -> dict:
+    """The keys of a window-4 ``plan`` that change at another ring depth
+    and grid (``scripts/torch_attention4_sweep.py`` times them)."""
+    bwd = "partial_bytes" in plan
+    out = {"stages": stages, "grid": grid, "blocks": grid,
+           "smem_bytes": attn4_smem(plan["c"], plan["heads"], stages, bwd)}
+    if bwd:
+        out["partial_bytes"] = grid * plan["heads"] * 16 * 16 * 4
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def window_attention_plan(c: int, nh: int, b: int = 1, h: int = 8,
-                          w: int = 8, window: int = KERNEL_WINDOW) -> dict:
+                          w: int = 8, window: int = KERNEL_WINDOW,
+                          sms: int = SMS) -> dict:
     """What kernel (c) launches for width ``c`` and ``nh`` heads at batch
     ``b``, ``h`` x ``w`` tokens and ``window`` x ``window`` windows. At
     window 8 one block of ``THREADS`` per (image, window, head), its shared
-    memory the head's q/k/v planes [3][64][hdp + 8] bf16. At window 4 one
-    block of ``THREADS`` per (group of ``GROUP4`` windows, head), the same
-    planes (16 rows a window), ``group`` windows a block over the flat
-    (image, window) index and ``last_group`` in the last. At window 16 one
+    memory the head's q/k/v planes [3][64][hdp + 8] bf16. At window 4
+    :func:`plan4` on a card of ``sms`` SMs. At window 16 one
     block of ``WARPGROUPS16`` warpgroups per (image, window, head): the
     window's K and V (four 64-key tiles each) and one Q tile a warpgroup as
     swizzled tiles (:func:`swizzle_bytes`), the staging of one K and one V
@@ -112,20 +201,16 @@ def window_attention_plan(c: int, nh: int, b: int = 1, h: int = 8,
     hdp = head_tile(c // nh)
     n = window * window
     windows = b * (h // window) * (w // window)
-    if window not in TILED_WINDOWS:
+    if window == 4:
+        return plan4(c, nh, b, h, w, sms)
+    if window == KERNEL_WINDOW:
         smem = 3 * KEY_TILE * (hdp + 8) * 2
         threads = THREADS
         per_sm = SM_SHARED_BYTES // (smem + BLOCK_RESERVED)
-        plan = {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
+        return {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
                 "threads": threads, "tokens": n, "key_tiles": 1,
                 "blocks": windows * nh, "blocks_per_sm": per_sm,
                 "max_registers": min(255, REGISTERS // (threads * per_sm))}
-        if window == KERNEL_WINDOW:
-            return plan
-        groups = -(-windows // GROUP4)
-        return {**plan, "group": GROUP4, "groups": groups,
-                "last_group": windows - (groups - 1) * GROUP4,
-                "blocks": groups * nh}
     smem = (ALIGN_SLACK + 10 * swizzle_bytes(hdp) + 2 * stage_bytes(hdp)
             + REL_TABLE_BYTES + LABEL_BYTES)
     threads = 128 * WARPGROUPS16
@@ -379,7 +464,10 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
                              or not mask.is_contiguous()):
         raise ValueError("window_attention: mask must be contiguous on the "
                          "card")
-    plan = window_attention_plan(c, num_heads, window=window)
+    b = m // (h * w)
+    plan = window_attention_plan(c, num_heads, b, h, w, window,
+                                 _build.sm_count(qkv.device)) \
+        if window == 4 else window_attention_plan(c, num_heads, window=window)
     args = (qkv.data_ptr(), qkv.stride(0), out.data_ptr(), out.stride(0),
             bias.data_ptr(), None if mask is None else mask.data_ptr())
     if window not in TILED_WINDOWS and stats is not None:
@@ -387,16 +475,16 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
                          f"statistics at windows {TILED_WINDOWS} only")
     if window == KERNEL_WINDOW:
         rc = _build.library().adsr_window_attention(
-            *args, m // (h * w), h, w, c, num_heads, window, shift,
+            *args, b, h, w, c, num_heads, window, shift,
             plan["smem_bytes"], _build.stream_ptr(qkv))
     elif window == 4:
         rc = _build.library().adsr_window_attention4(
-            *args, m // (h * w), h, w, c, num_heads, shift,
-            plan["smem_bytes"], _build.stream_ptr(qkv))
+            *args, b, h, w, c, num_heads, shift, plan["stages"],
+            plan["grid"], plan["smem_bytes"], _build.stream_ptr(qkv))
     else:
         rc = _build.library().adsr_window_attention16(
             *args, None if stats is None else stats.data_ptr(),
-            m // (h * w), h, w, c, num_heads, shift, plan["smem_bytes"],
+            b, h, w, c, num_heads, shift, plan["smem_bytes"],
             _build.stream_ptr(qkv))
     _build.check_rc("window_attention", rc)
     window_attention.launches += 1

@@ -31,11 +31,14 @@ warpgroups per (group of windows, head, key tile) accumulates dK, dV and
 an f32 d(bias) tile of its keys in shared memory, one [nh, 256, 256]
 partial per group (at most 32 MiB a call); both count in ``launches``. At
 4x4 windows (N = 16, the 64/x4, 128/x8 and 32/x2 models;
-``csrc/window_attention_bwd4.cu``) one warp holds a whole window, so its
-dQ, dK and dV need no cross-warp sum: a block of four warps takes one head
-and a group of consecutive windows, four at a time (:func:`_plan4`), and
-sums its warps' d(bias) fragments in warp order into one [16, 16] partial
-per (group, head). No float atomics at any window. The kernel takes the
+``csrc/window_attention_bwd4.cu`` on ``csrc/attn4.cuh``) the forward's map
+(:func:`~adsr_tpu_torch.kernels.window_attention.plan4`): a block takes
+every head of its windows and stages whole token rows of qkv and dO, a
+head's warp (two for four heads or fewer) holds a whole window, so its
+dQ, dK and dV need no cross-warp sum, whole rows of dqkv go back in
+16-byte stores, and each block writes
+one d(bias) partial [nh, 16, 16], summed by ``partials.cuh``'s column
+pass. No float atomics at any window. The kernel takes the
 forward's windows (``KERNEL_WINDOWS``), and ``qkv``, ``dout``, ``ctx`` and
 ``dqkv`` with 16-byte rows at their row strides (:func:`check_rows16`).
 
@@ -51,30 +54,18 @@ from typing import Optional, Tuple
 import torch
 
 from adsr_tpu_torch.kernels import _build
-from adsr_tpu_torch.kernels.window_attention import (ALIGN_SLACK,
-                                                     BLOCK_RESERVED,
-                                                     BLOCK_SHARED_MAX,
-                                                     GROUP4, KEY_TILE,
-                                                     KERNEL_WINDOW,
-                                                     KERNEL_WINDOWS,
-                                                     LABEL_BYTES, REGISTERS,
-                                                     REL_TABLE_BYTES,
-                                                     SM_SHARED_BYTES,
-                                                     TILED_WINDOWS,
-                                                     check_bias, check_mask,
-                                                     check_rows16, full_bias,
-                                                     full_mask, head_tile,
-                                                     stage_bytes,
-                                                     swizzle_bytes,
-                                                     window_scores,
-                                                     windows_text)
+from adsr_tpu_torch.kernels.window_attention import (
+    ALIGN_SLACK, BLOCK_RESERVED, BLOCK_SHARED_MAX, KEY_TILE, KERNEL_WINDOW,
+    KERNEL_WINDOWS, LABEL_BYTES, REGISTERS, REL_TABLE_BYTES, SM_SHARED_BYTES,
+    SMS, TILED_WINDOWS, check_bias, check_mask, check_rows16, full_bias,
+    full_mask, head_tile, plan4, stage_bytes, swizzle_bytes,
+    window_scores, windows_text)
 from adsr_tpu_torch.models.drct import window_partition, window_reverse
 
 THREADS = 128          # 4 warps, 16 query (and key) rows each
 MAX_GROUP = 8          # windows a block
 _TOKENS = KERNEL_WINDOW ** 2
 _TILE_LD = _TOKENS + 8          # bf16 pitch of the P and dS tiles
-_SMS = 132                      # the H100's SMs
 MAX_PARTIAL_BYTES = 32 << 20    # d(bias) partials a call at 16x16 windows
 
 
@@ -86,7 +77,7 @@ def min_blocks(hdp: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def window_attention_bwd_plan(c: int, nh: int, b: int = 1, h: int = 8,
-                              w: int = 8, sms: int = _SMS,
+                              w: int = 8, sms: int = SMS,
                               window: int = KERNEL_WINDOW) -> dict:
     """What kernel (f) launches for width ``c`` and ``nh`` heads at batch
     ``b`` and ``h`` x ``w`` tokens. A block of ``THREADS`` takes one head
@@ -98,10 +89,11 @@ def window_attention_bwd_plan(c: int, nh: int, b: int = 1, h: int = 8,
     memory and :func:`min_blocks`): one wave, as many blocks as fit, and
     G times fewer d(bias) partials, one per (group, head), than windows.
     The source refuses a launch whose shared memory differs from this
-    plan's. Read only (cached). ``window`` 4: :func:`_plan4`; 16:
+    plan's. Read only (cached). ``window`` 4:
+    :func:`~adsr_tpu_torch.kernels.window_attention.plan4`; 16:
     :func:`_plan16`."""
     if window == 4:
-        return _plan4(c, nh, b, h, w, sms)
+        return plan4(c, nh, b, h, w, sms, bwd=True)
     if window != KERNEL_WINDOW:
         return _plan16(c, nh, b, h, w, window)
     hdp = head_tile(c // nh)
@@ -117,45 +109,6 @@ def window_attention_bwd_plan(c: int, nh: int, b: int = 1, h: int = 8,
             "blocks": groups * nh, "blocks_per_sm": per_sm,
             "max_registers": min(255, REGISTERS // (THREADS * per_sm)),
             "partial_bytes": groups * nh * _TOKENS * _TOKENS * 4}
-
-
-def min_blocks4(hdp: int) -> int:
-    """Blocks an SM holds by registers at 4x4 windows: the source's
-    ``__launch_bounds__`` minimum (128 registers a thread up to a head tile
-    of 80, else 168)."""
-    return 4 if hdp <= 80 else 3
-
-
-def _plan4(c: int, nh: int, b: int, h: int, w: int, sms: int) -> dict:
-    """Kernel (f) at 4x4 windows (N = 16): a block of ``THREADS`` takes
-    one head and ``group`` consecutive windows (a multiple of ``GROUP4``,
-    one a warp at a time) over the flat (image, window) index, the last
-    group possibly short (``last_group`` windows, which need not be a
-    multiple of 4); its shared memory holds the q, k, v and dO planes of
-    four windows [4][64][hdp + 8] and their bf16 P and dS tiles [2][64][24]
-    (the warps' d(bias) fragments go over the tiles at the end). ``group``
-    is the fewest windows a block (at most ``MAX_GROUP`` steps of four) for
-    which every block is resident at once, ``blocks_per_sm`` an SM (by
-    shared memory and :func:`min_blocks4`); one d(bias) partial [16, 16]
-    per (group, head)."""
-    hdp = head_tile(c // nh)
-    n = 16
-    smem = 4 * GROUP4 * n * (hdp + 8) * 2 + 2 * GROUP4 * n * (n + 8) * 2
-    per_sm = min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED),
-                 min_blocks4(hdp))
-    windows = b * (h // 4) * (w // 4)
-    quads = -(-windows // GROUP4)
-    steps = next((g for g in range(1, MAX_GROUP)
-                  if nh * -(-quads // g) <= per_sm * sms), MAX_GROUP)
-    group = GROUP4 * steps
-    groups = -(-windows // group)
-    return {"hdp": hdp, "ld": hdp + 8, "smem_bytes": smem,
-            "threads": THREADS, "tokens": n, "windows": windows,
-            "group": group, "groups": groups,
-            "last_group": windows - (groups - 1) * group,
-            "blocks": groups * nh, "blocks_per_sm": per_sm,
-            "max_registers": min(255, REGISTERS // (THREADS * per_sm)),
-            "partial_bytes": groups * nh * n * n * 4}
 
 
 def _plan16(c: int, nh: int, b: int, h: int, w: int, window: int) -> dict:
@@ -339,8 +292,8 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
             qkv.data_ptr(), qkv.stride(0), dout.data_ptr(), dout.stride(0),
             bias.data_ptr(), None if mask is None else mask.data_ptr(),
             dqkv.data_ptr(), dqkv.stride(0), part.data_ptr(),
-            dbias.data_ptr(), b, h, w, c, num_heads, shift, plan["group"],
-            plan["smem_bytes"], _build.stream_ptr(qkv))
+            dbias.data_ptr(), b, h, w, c, num_heads, shift, plan["stages"],
+            plan["grid"], plan["smem_bytes"], _build.stream_ptr(qkv))
     elif window == KERNEL_WINDOW:
         rc = lib.adsr_window_attention_bwd(
             qkv.data_ptr(), qkv.stride(0), dout.data_ptr(), dout.stride(0),

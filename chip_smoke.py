@@ -106,12 +106,15 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 13. the window-4 geometry, lines "[w4] <phase>: ...": the full-width 64/x4
    model (``drct_experiment("grid", 64, 4)``: LR 16 x 16, 4x4 windows, N =
    16 keys, shifts 0 and 2, M = 4,096 token rows at batch 16) through
-   phases 2-11 at that size: the plans of (c), (g) and (f) (four windows a
-   block; the last group short at batch 5 on 20 x 20 tokens); kernels
-   (a)-(c), (g) and (d)-(f) against their plain versions (every block,
-   both shifts, every block also at batch 5 on 20 x 20 tokens, 125
-   windows; each (f) and (g) call twice, bitwise equal; (g) also against
-   the (a)-(c) composition); ``AnomalyServer`` scores 16 good + 16
+   phases 2-11 at that size: the plans of (c), (g) and (f) ((c) and (f):
+   every head of a window a block, one window a block at batch 16, a
+   persistent grid of staged windows at the tiled CLI's 1,024 crops; (g):
+   four windows a block, the last group short at batch 5 on 20 x 20
+   tokens); kernels (a)-(c), (g) and (d)-(f) against their plain versions
+   (every block, both shifts, every block also at batch 5 on 20 x 20
+   tokens, 125 windows, and (c) on the tiled CLI's 1,024 crops and (f) at
+   batch 64, the persistent route; each (c), (f) and (g) call twice,
+   bitwise equal; (g) also against the (a)-(c) composition); ``AnomalyServer`` scores 16 good + 16
    defective 64 px images and a tail of 5 in both modes, both forwards RDG
    by RDG against the eager f32 model; the timing of both forwards, each
    kernel and the step; one RDG's gradients; the Trainer; ``cli.main
@@ -331,6 +334,13 @@ W4_SOURCES = {"window_attention": "adsr_tpu_torch/csrc/window_attention4.cu",
               "window_attention_bwd":
               "adsr_tpu_torch/csrc/window_attention_bwd4.cu",
               "swin_block": "adsr_tpu_torch/csrc/swin_block4.cu"}
+# kernels (c) and (f) at 4x4 windows take a persistent grid of staged
+# windows where the card cannot hold a block for every window: the 64/x4
+# tiled CLI's forward of 1,024 crops of 16 x 16 tokens (16 images of 512 px
+# in 8 x 8 tiles); (f) is checked there at a batch of 64 crops (1,024
+# windows), which takes the same route
+TILED_CROPS4 = 1024
+PERSISTENT_BATCH4 = 64
 REPLACES = "adsr_tpu/ops/fused_rdg.py:573"
 REPLACES_TRAIN_FWD = "adsr_tpu/ops/fused_rdg_train.py:823"
 REPLACES_BWD = "adsr_tpu/ops/fused_rdg_train.py:968"
@@ -615,7 +625,8 @@ def print_plans(cfg, report):
     for k in range(5):
         c, f, nh = g["feats"][k], g["hidden"][k], g["heads"][k]
         win = cfg.window_size
-        pa = window_attention_plan(c, nh, BATCH, side, side, window=win)
+        pa = window_attention_plan(c, nh, BATCH, side, side, window=win,
+                                   sms=sms)
         pg = swin_block_plan(c, f, nh, BATCH, side, side, window=win,
                              sms=sms)
         # blocks in flight: one an SM (shared memory); at 16x16 windows the
@@ -637,6 +648,16 @@ def print_plans(cfg, report):
         plans[f"b{k + 1}"] = {"window_attention": pa, "swin_block": pg,
                               "window_attention_bwd": pf,
                               "rdg_layernorm_bwd": pe}
+        if win == 4:            # the tiled CLI's persistent grid
+            pt = window_attention_plan(c, nh, TILED_CROPS4, side, side,
+                                       window=win, sms=sms)
+            pft = window_attention_bwd_plan(c, nh, PERSISTENT_BATCH4, side,
+                                            side, sms, win)
+            say("plan", f"b{k + 1} c={c} heads={nh}: window_attention at "
+                        f"{TILED_CROPS4} crops {pt}; window_attention_bwd at "
+                        f"batch {PERSISTENT_BATCH4} {pft}")
+            plans[f"b{k + 1}"].update(window_attention_tiled=pt,
+                                      window_attention_bwd_persistent=pft)
     report["plans"] = plans
 
 
@@ -710,19 +731,31 @@ def phase_kernels(cfg, dev, check: Checker):
     # odd batch: a grid that is no multiple of the batch of 16); at 4x4
     # windows every block on 5 images of 20 x 20 tokens (125 windows: the
     # last group of four holds one)
+    # ... and at 4x4 windows every block also on the tiled CLI's 1,024
+    # crops (the plan's persistent grid, the block's own shift), each call
+    # twice, bitwise equal
     win, half = cfg.window_size, cfg.window_size // 2
     side5 = 20 if win == 4 else h
     masks5 = shift_masks(side5, side5, win, (half,), torch.device(dev))
+    sms = _build.sm_count(dev)
     for k, blk in enumerate(blocks):
         c, nh = blk["c"], blk["nh"]
         atol = 2.0 ** -8 * blk["qkv"][:, 2 * c:].float().abs().max().item()
         cases = [(0, h, m, masks), (half, h, m, masks)]
         if k == 1 or win == 4:
             cases.append((half, side5, 5 * side5 ** 2, masks5))
+        if win == 4:
+            cases.append((blk["shift"], h, TILED_CROPS4 * h * w, masks))
         for shift, side, rows, mks in cases:
             mask = mks.get(shift)
             kbias, kmask = attn_operands(blk, mks, side, side, shift, win)
-            qkv = blk["qkv"][:rows]
+            if rows > m:        # fresh rows at the bound of the main case
+                qkv = pitched(rows, 3 * c, device=dev)
+                qkv.copy_(torch.randn(rows, 3 * c, generator=gen,
+                                      device=dev))
+                atol = 2.0 ** -8 * qkv[:, 2 * c:].float().abs().max().item()
+            else:
+                qkv = blk["qkv"][:rows]
             out = pitched(rows, c, device=dev)
             # at 16x16 windows also the softmax statistics the training
             # backward's recompute asks for
@@ -736,7 +769,22 @@ def phase_kernels(cfg, dev, check: Checker):
             label = (f"b{k + 1} c={c} heads={nh} hd={c // nh} shift={shift}"
                      + ("" if rows == m else
                         f" B={rows // side ** 2} on {side}x{side}"))
+            if win == 4:
+                plan = window_attention_plan(c, nh, rows // side ** 2, side,
+                                             side, window=4, sms=sms)
+                label += f" grid={plan['grid']} stages={plan['stages']}"
+                if (rows > m) != (plan["stages"] > 1):
+                    raise AssertionError(f"window_attention {label}: not the "
+                                         "route this case is for")
             check("window_attention", label, out, want, atol)
+            if win == 4:
+                again = pitched(rows, c, device=dev)
+                window_attention(qkv, again, kbias, kmask, side, side, nh,
+                                 win, shift)
+                if not torch.equal(out, again):
+                    raise AssertionError(f"window_attention {label}: two "
+                                         "launches differ")
+            del want
             if stats is not None:
                 check("window_attention", f"{label} stats max",
                       stats[..., 0], want_st[..., 0], STATS_TOL, STATS_TOL)
@@ -1212,9 +1260,11 @@ def set_bounds(cfg, blocks, m, masks):
 
 
 def achieved(kernel_ms: float, bound) -> str:
-    """The bound's bytes and operations over the measured time."""
+    """The bound's bytes and operations over the measured time, and the
+    bound over the time."""
     return (f"achieved {bound[2] / kernel_ms / 1e9:.3f} TB/s, "
-            f"{bound[3] / kernel_ms / 1e9:.1f} TFLOP/s")
+            f"{bound[3] / kernel_ms / 1e9:.1f} TFLOP/s, bound / time "
+            f"{bound[0] / kernel_ms:.3f}")
 
 
 def profile_forward(packed, cfg, x, reps: int = 3, mode: str = "rdg"):
@@ -1690,8 +1740,10 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
     # blocks at batch 5 whose plan ends on a short group: at window 8
     # blocks 1 and 4 on 40 x 40 tokens (125 windows, groups of 2), at
     # window 16 blocks 2 and 5 on 64 x 64 (80 windows, groups of 3), at
-    # window 4 every block on 20 x 20 (125 windows, groups of 4: the last
-    # holds one); every call twice, bitwise equal
+    # window 4 every block on 20 x 20 (125 windows, one a block), and at
+    # window 4 every block also at batch 64 (1,024 windows: the plan's
+    # persistent grid of staged windows, the block's own shift); every call
+    # twice, bitwise equal
     win = cfg.window_size
     short, half = (5, {4: 20, 8: 40}.get(win, 64)), win // 2
     short_blocks = {4: range(5), 8: (0, 3)}.get(win, (1, 4))
@@ -1699,17 +1751,26 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
                               torch.device(dev))
     for k, blk in enumerate(blocks):
         c, nh = blk["c"], blk["nh"]
-        cases = [(shift, h, masks) for shift in (0, half)]
+        cases = [(shift, h, masks, BATCH) for shift in (0, half)]
         if k in short_blocks and short[0] * short[1] ** 2 <= m:
-            cases.append((half, short[1], short_masks))
-        for shift, side, mks in cases:
+            cases.append((half, short[1], short_masks, short[0]))
+        if win == 4:
+            cases.append((blk["shift"], h, masks, PERSISTENT_BATCH4))
+        for shift, side, mks, batch in cases:
             # the full mask for the plain version, the kernels' own form
             mask = mks.get(shift)
             kbias, kmask = attn_operands(blk, mks, side, side, shift, win)
-            rows = m if side == h else short[0] * side * side
-            plan = window_attention_bwd_plan(c, nh, rows // side ** 2, side,
-                                             side, window=win)
-            qkv, dctx = blk["qkv"][:rows], blk["dctx"][:rows]
+            rows = batch * side * side
+            plan = window_attention_bwd_plan(c, nh, batch, side, side,
+                                             _build.sm_count(dev), win)
+            if rows > m:        # fresh rows as the main case's
+                qkv = pitched(rows, 3 * c, device=dev)
+                qkv.copy_(torch.randn(rows, 3 * c, generator=gen,
+                                      device=dev))
+                dctx = pitched(rows, c, device=dev)
+                dctx.copy_(torch.randn(rows, c, generator=gen, device=dev))
+            else:
+                qkv, dctx = blk["qkv"][:rows], blk["dctx"][:rows]
             # at 16x16 windows (f) reads kernel (c)'s own context and
             # softmax statistics, as the training backward's recompute
             # leaves them
@@ -1730,9 +1791,17 @@ def phase_bwd_kernels(cfg, dev, check: Checker):
                                      dqkv, dbias, *fwd)
                 runs.append((dqkv, dbias))
             (dqkv, dbias), again = runs
-            tag = "" if side == h else (
-                f" {side}x{side} B={rows // side ** 2} groups of "
-                f"{plan['group']}, last {plan['last_group']}")
+            if win == 4:
+                tag = (f" B={batch} on {side}x{side} grid={plan['grid']} "
+                       f"stages={plan['stages']}")
+                if (rows > m) != (plan["stages"] > 1):
+                    raise AssertionError(f"window_attention_bwd b{k + 1}"
+                                         f"{tag}: not the route this case "
+                                         "is for")
+            else:
+                tag = "" if side == h else (
+                    f" {side}x{side} B={batch} groups of "
+                    f"{plan['group']}, last {plan['last_group']}")
             if not (torch.equal(dqkv, again[0])
                     and torch.equal(dbias, again[1])):
                 raise AssertionError(f"window_attention_bwd b{k + 1} shift="

@@ -29,9 +29,11 @@ from adsr_tpu_torch.kernels.rdg_layernorm_bwd import (rdg_layernorm_bwd,
 from adsr_tpu_torch.kernels.window_attention import (full_bias, full_mask,
                                                      softmax_stats,
                                                      window_attention,
-                                                     window_attention_plain)
+                                                     window_attention_plain,
+                                                     window_attention_plan)
 from adsr_tpu_torch.kernels.window_attention_bwd import (
-    window_attention_bwd, window_attention_bwd_plain)
+    window_attention_bwd, window_attention_bwd_plain,
+    window_attention_bwd_plan)
 from adsr_tpu_torch.models.drct import shift_attn_mask, shift_region_labels
 from adsr_tpu_torch.metrics import _LUMA_COEFFS, to_luma
 from adsr_tpu_torch.models.factory import init_sr_params, make_model
@@ -674,10 +676,23 @@ def test_capture_of_a_host_sync_raises(dev):
 
 
 # ---- 4x4 windows (N = 16): the 64/x4 model's blocks (hd 30/53/122/46/77,
-# shifts 0 and 2), four windows a block; at batch 5 on 20 x 20 tokens (125
-# windows) the last group holds one window ----
+# shifts 0 and 2); (c) and (f) take every head of a window a block: one
+# window a block at batch 2 and 16 on 16 x 16 tokens and at batch 5 on 20 x
+# 20 (125 windows), a persistent grid of staged windows at batch 128 (2,048
+# windows, the route of the tiled CLI's crops) ----
 
-W4_CASES = [(212, 4, 2, 2, 16), (244, 2, 0, 2, 16), (180, 6, 2, 5, 20)]
+W4_CASES = [(212, 4, 2, 2, 16), (244, 2, 0, 2, 16), (180, 6, 2, 5, 20),
+            (308, 4, 0, 16, 16), (276, 6, 2, 16, 16), (244, 2, 2, 128, 16),
+            (180, 6, 0, 128, 16)]
+
+
+def _w4_route(plan, b):
+    """The route the window-4 plan took: staged windows on a persistent
+    grid at batch 128, one window a block below."""
+    assert (plan["stages"] > 1) == (b == 128), plan
+    assert plan["grid"] == min(plan["windows"],
+                               plan["blocks_per_sm"] * _build.sm_count(
+                                   torch.device("cuda")))
 
 
 @pytest.mark.parametrize("c,nh,shift,b,h", W4_CASES)
@@ -686,6 +701,8 @@ def test_window_attention_kernel_matches_plain_at_window4(dev, c, nh, shift,
     # P rounds to bf16 once before P @ V: 2^-8 max|v| (the N = 64 bound);
     # qkv and ctx column slices of wider 16-byte-row buffers, the context
     # not written past its columns; a second launch bitwise equal
+    _w4_route(window_attention_plan(c, nh, b, h, h, window=4,
+                                    sms=_build.sm_count(dev)), b)
     g = torch.Generator(device=dev).manual_seed(8)
     m = b * h * h
     qkv = pitched(m, 3 * c + 8, device=dev)[:, :3 * c]
@@ -704,6 +721,7 @@ def test_window_attention_kernel_matches_plain_at_window4(dev, c, nh, shift,
     again = torch.zeros_like(wide)
     window_attention(qkv, again[:, :c], bias, mask, h, h, nh, 4, shift)
     assert torch.equal(again, wide)
+    assert window_attention.launches == n0 + 2
 
 
 @pytest.mark.parametrize("c,nh,shift,b,h", W4_CASES)
@@ -712,6 +730,8 @@ def test_window_attention_bwd_kernel_matches_plain_at_window4(dev, c, nh,
     # one launch and the partial sums: 2^-7 of each output's largest
     # magnitude, d(bias) 2^-8 (the N = 64 bounds); a second call bitwise
     # equal
+    _w4_route(window_attention_bwd_plan(c, nh, b, h, h,
+                                        _build.sm_count(dev), 4), b)
     g = torch.Generator(device=dev).manual_seed(9)
     m = b * h * h
     qkv = pitched(m, 3 * c, device=dev)
@@ -737,6 +757,7 @@ def test_window_attention_bwd_kernel_matches_plain_at_window4(dev, c, nh,
     dq2, db2 = pitched(m, 3 * c, device=dev), torch.empty_like(dbias)
     window_attention_bwd(qkv, dout, bias, mask, h, h, nh, 4, shift, dq2, db2)
     assert torch.equal(dqkv, dq2) and torch.equal(dbias, db2)
+    assert window_attention_bwd.launches == n0 + 2
 
 
 @pytest.mark.parametrize("k", [0, 1, 2, 3, 4])

@@ -4,8 +4,10 @@
 widths against the JAX attention and its ``jax.vjp``, the eager DRCT and
 the fused forward (plain versions, both serving modes) at full width
 against the JAX DRCT, the shipped configs, the launch plans of (c), (f) and
-(g) at window 4, the kernels' window-group row map against the JAX
-package's roll and window partition, and the card route's device check.
+(g) at window 4, a numpy model of (c)'s and (f)'s work map, the kernels'
+row maps ((c) and (f) a window at a time, (g) a group of four) against the
+JAX package's roll, window partition and shift-mask regions, and the card
+route's device check.
 The JAX side runs its plain (XLA) path. The kernels themselves run only on
 the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
@@ -129,54 +131,67 @@ def test_window4_models_match_the_shipped_configs(res, scale):
 GEOMETRIES = [(16, 16), (5, 20)]
 
 
+# (c) and (f) also at the 64/x4 CLI's tiled forward: 1,024 crops of 16 x 16
+# tokens (16,384 windows), where the grid is persistent
+ATTN_GEOMETRIES = GEOMETRIES + [(1024, 16)]
+
+
+def _check_plan4(p, c, nh, b, side, bwd):
+    """What (c)'s and (f)'s window-4 plans promise (kernels/window_attention
+    ``plan4``): a block of 8 warps takes every head of one window at a time,
+    walking windows over a grid that the card holds at once; one stage
+    where that grid gives every window a block, else a persistent grid of
+    2 or 3 stages."""
+    windows = b * (side // WIN) ** 2
+    hdp = p["hdp"]
+    assert hdp % 16 == 0 and c // nh <= hdp < c // nh + 16
+    assert (p["tokens"], p["group"], p["windows"]) == (N, 1, windows)
+    assert (p["warps"], p["threads"]) == (8, 256)
+    # the shared memory of the sources' layout (csrc/attn4.cuh)
+    pitch = lambda width: -(-width // 16) * 16 + 8
+    stage = 1024 + 32 * (pitch(3 * c) + (pitch(c) if bwd else 0))
+    # (f): the output rows and each head slot's P and dS tiles
+    slot = 2 * N * 24 * 2 if bwd else 0
+    out = 32 * pitch(3 * c) if bwd else 0
+    assert p["smem_bytes"] == (2 if bwd else 1) * nh * 1024 \
+        + p["stages"] * stage + out + min(nh, 8) * slot \
+        <= wa.BLOCK_SHARED_MAX
+    per_sm = p["blocks_per_sm"]
+    # by shared memory, and by registers at the sources' 128 a thread
+    assert per_sm >= 1 and per_sm * (p["smem_bytes"] + wa.BLOCK_RESERVED) \
+        <= wa.SM_SHARED_BYTES and per_sm * p["threads"] * 128 <= 65536
+    # a grid the 132-SM card holds at once; one window a block where it can
+    assert p["grid"] == p["blocks"] == min(windows, per_sm * SMS)
+    if windows <= per_sm * SMS:
+        assert p["stages"] == 1 and p["windows_per_block"] == 1
+    else:
+        assert p["stages"] in (2, 3) and p["grid"] == per_sm * SMS
+        assert p["windows_per_block"] == -(-windows // p["grid"]) > 1
+    if bwd:     # one d(bias) partial a block, under the 32 MiB cap
+        assert p["partial_bytes"] == p["grid"] * nh * N * N * 4 \
+            <= wab.MAX_PARTIAL_BYTES
+
+
 @pytest.mark.parametrize("c,nh,shift", BLOCKS)
-@pytest.mark.parametrize("b,side", GEOMETRIES)
+@pytest.mark.parametrize("b,side", ATTN_GEOMETRIES)
 def test_window_attention_plan_at_window4(c, nh, shift, b, side):
     p = wa.window_attention_plan(c, nh, b, side, side, window=WIN)
-    windows = b * (side // WIN) ** 2
-    assert p["hdp"] % 16 == 0 and c // nh <= p["hdp"] < c // nh + 16
-    # four windows a block, one a warp: 64 rows of q/k/v planes
-    assert (p["group"], p["threads"], p["tokens"]) == (4, 128, N)
-    assert p["smem_bytes"] == 3 * 64 * (p["hdp"] + 8) * 2 \
-        <= wa.BLOCK_SHARED_MAX
-    assert p["groups"] == -(-windows // 4)
-    assert p["last_group"] == windows - 4 * (p["groups"] - 1)
-    assert p["last_group"] == (4 if b == 16 else 1)
-    # one block per (group, head), head fastest as the source decodes it
-    seen = {(bid // nh, bid % nh) for bid in range(p["blocks"])}
-    assert len(seen) == p["blocks"] == p["groups"] * nh
-    assert p["blocks_per_sm"] * (p["smem_bytes"] + wa.BLOCK_RESERVED) \
-        <= wa.SM_SHARED_BYTES
+    _check_plan4(p, c, nh, b, side, bwd=False)
+    assert "partial_bytes" not in p
+    # a block for every window at batch 16 and batch 5, a persistent grid of
+    # staged windows at the CLI's 1,024 crops
+    assert (p["stages"] == 1) == (b < 1024)
+    assert p["grid"] == {16: 256, 5: 125}.get(b, p["grid"])
 
 
 @pytest.mark.parametrize("c,nh,shift", BLOCKS)
-@pytest.mark.parametrize("b,side", GEOMETRIES)
+@pytest.mark.parametrize("b,side", ATTN_GEOMETRIES)
 def test_window_attention_bwd_plan_at_window4(c, nh, shift, b, side):
     p = wab.window_attention_bwd_plan(c, nh, b, side, side, SMS, WIN)
-    windows = b * (side // WIN) ** 2
-    assert p["windows"] == windows and p.get("launches", 1) == 1
-    # q, k, v, dO planes of four windows and their P, dS tiles [64][24]
-    assert p["smem_bytes"] == 4 * 64 * (p["hdp"] + 8) * 2 + 2 * 64 * 24 * 2 \
-        <= wa.BLOCK_SHARED_MAX
-    assert p["blocks_per_sm"] == min(
-        wa.SM_SHARED_BYTES // (p["smem_bytes"] + wa.BLOCK_RESERVED),
-        4 if p["hdp"] <= 80 else 3)
-    # a multiple of four windows a block, the fewest that fit one wave
-    g = p["group"]
-    assert g % 4 == 0 and 4 <= g <= 4 * wab.MAX_GROUP
-    assert nh * p["groups"] <= p["blocks_per_sm"] * SMS or \
-        g == 4 * wab.MAX_GROUP
-    assert p["groups"] == -(-windows // g)
-    assert p["last_group"] == windows - (p["groups"] - 1) * g >= 1
-    # every (window, head) once, in its group's order
-    seen = []
-    for bid in range(p["blocks"]):
-        h, grp = bid % nh, bid // nh
-        seen += [(wi, h) for wi in range(grp * g, min(windows,
-                                                      (grp + 1) * g))]
-    assert sorted(seen) == [(wi, h) for wi in range(windows)
-                            for h in range(nh)]
-    assert p["partial_bytes"] == p["groups"] * nh * N * N * 4
+    assert p.get("launches", 1) == 1
+    _check_plan4(p, c, nh, b, side, bwd=True)
+    assert (p["stages"] == 1) == (b < 1024)
+    assert p["grid"] == {16: 256, 5: 125}.get(b, p["grid"])
 
 
 @pytest.mark.parametrize("k", range(5))
@@ -207,15 +222,118 @@ def test_swin_block_plan_at_window4(k, b, side):
 
 def test_window4_plans_at_batch_16():
     g = rdg_geometry(drct_experiment("grid", 64, 4).model)
-    plans = [wab.window_attention_bwd_plan(c, nh, 16, 16, 16, SMS, WIN)
+    fwd = [wa.window_attention_plan(c, nh, 16, 16, 16, window=WIN)
+           for c, nh, _ in BLOCKS]
+    bwd = [wab.window_attention_bwd_plan(c, nh, 16, 16, 16, SMS, WIN)
+           for c, nh, _ in BLOCKS]
+    # 256 windows, one a block: at least 132 blocks, every head of a window
+    # in one block, two blocks an SM
+    for plans in (fwd, bwd):
+        assert [p["grid"] for p in plans] == [256] * 5
+        assert [p["stages"] for p in plans] == [1] * 5
+    assert [p["blocks_per_sm"] for p in fwd + bwd] == [2] * 10
+    # the tiled CLI's 1,024 crops: a persistent grid of whole waves of the
+    # card, each block walking 21-63 windows
+    tiled = [wa.window_attention_plan(c, nh, 1024, 16, 16, window=WIN)
              for c, nh, _ in BLOCKS]
-    # 64 groups of four windows a head fit one wave: 4 windows a block
-    assert [p["group"] for p in plans] == [4] * 5
-    assert [p["blocks"] for p in plans] == [384, 256, 128, 384, 256]
+    assert all(p["stages"] > 1 and p["grid"] % SMS == 0 for p in tiled)
+    assert [p["windows_per_block"] for p in tiled] == [
+        -(-16384 // p["grid"]) for p in tiled]
     # (g): 64 groups of four windows, two blocks each: 128 of the card's
     # 132 SMs
     assert {fsb.swin_block_plan(c, f, nh, 16, 16, 16, window=WIN)["blocks"]
             for c, f, nh in zip(g["feats"], g["hidden"], g["heads"])} == {128}
+
+
+def _window_rows(b, h, w, shift):
+    """[windows, 16] raster rows of each window's tokens as
+    ``csrc/attn4.cuh`` ``Win4`` computes them: window fw over the flat
+    (image, window) index, token t at ((wi * 4 + t // 4 + shift) mod h,
+    (wj * 4 + t % 4 + shift) mod w), the wrap a subtraction."""
+    nww, nw = w // WIN, (h // WIN) * (w // WIN)
+    fw = np.arange(b * nw)
+    img, win = fw // nw, fw % nw
+    wi, wj = win // nww, win % nww
+    t = np.arange(N)
+    r = (wi * WIN + shift)[:, None] + t // WIN
+    s = (wj * WIN + shift)[:, None] + t % WIN
+    r = np.where(r >= h, r - h, r)
+    s = np.where(s >= w, s - w, s)
+    return (img * h * w)[:, None] + r * w + s
+
+
+def _attn4_map(p, rows, width):
+    """A numpy model of (c)'s and (f)'s work map at 4x4 windows
+    (``csrc/window_attention4.cu``, ``window_attention_bwd4.cu``): block
+    ``blk`` of ``grid`` takes windows blk, blk + grid, ...; its warp w
+    computes heads w, w + warps, ... of each; it stages the window's 16
+    rows and stores each row's ``width`` columns in pieces of 8 elements
+    (the last 4 where ``width`` is 4 past a multiple of 8). Returns how
+    often each (window, head) is computed, each token row gathered and each
+    (row, piece) stored, and the block of each row's stores."""
+    windows, nh = rows.shape[0], p["heads"]
+    pieces = -(-width // 8)
+    units = np.zeros((windows, nh), int)
+    gathered = np.zeros(rows.max() + 1, int)
+    stored = np.zeros((rows.max() + 1, pieces), int)
+    owner = np.full(rows.max() + 1, -1)
+    widths = [min(8, width - 8 * k) for k in range(pieces)]
+    assert sum(widths) == width and set(widths) <= {4, 8}
+    for blk in range(p["grid"]):
+        for fw in range(blk, windows, p["grid"]):
+            for warp in range(p["warps"]):
+                for h in range(warp, nh, p["warps"]):
+                    units[fw, h] += 1
+            gathered[rows[fw]] += 1
+            stored[rows[fw]] += 1
+            owner[rows[fw]] = blk
+    return units, gathered, stored, owner
+
+
+@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("b,side,shift", [(16, 16, 0), (16, 16, 2),
+                                          (5, 20, 2), (64, 16, 2)])
+def test_window4_attention_map_computes_and_stores_everything_once(k, b, side,
+                                                                   shift):
+    c, nh, _ = BLOCKS[k]
+    rows = _window_rows(b, side, side, shift)
+    for p, width in ((wa.window_attention_plan(c, nh, b, side, side,
+                                               window=WIN), c),
+                     (wab.window_attention_bwd_plan(c, nh, b, side, side,
+                                                    SMS, WIN), 3 * c)):
+        units, gathered, stored, owner = _attn4_map(p, rows, width)
+        # every (window, head) once; every token row gathered by one block
+        # a launch and every 16-byte piece of every output row stored once,
+        # by that block (the short last wave of 125 windows included)
+        assert (units == 1).all()
+        assert (gathered == 1).all() and len(gathered) == b * side * side
+        assert (stored == 1).all() and (owner >= 0).all()
+
+
+@pytest.mark.parametrize("b,side,shift", [(2, 16, 0), (2, 16, 2),
+                                          (5, 20, 2), (1, 8, 2)])
+def test_window4_rows_match_jax_partition_and_mask_regions(b, side, shift):
+    rows = _window_rows(b, side, side, shift)
+    idx = jnp.arange(b * side * side).reshape(b, side, side, 1)
+    if shift:
+        idx = jnp.roll(idx, (-shift, -shift), axis=(1, 2))
+    want = np.asarray(jdrct.window_partition(idx, WIN)).reshape(-1, N)
+    np.testing.assert_array_equal(rows, want)
+    if not shift:
+        return
+    # the mask row the kernels read for window fw (fw mod nW) separates the
+    # tokens of its rows by the region of their place in the rolled image
+    mask = np.asarray(jdrct.shift_attn_mask(side, side, WIN, shift))
+    nw = mask.shape[0]
+    r, s = rows % (side * side) // side, rows % side
+    rr, ss = (r - shift) % side, (s - shift) % side
+
+    def region(x):
+        return (x >= side - WIN).astype(int) + (x >= side - shift)
+
+    label = 3 * region(rr) + region(ss)
+    got = np.where(label[:, :, None] != label[:, None, :], -100.0, 0.0)
+    np.testing.assert_array_equal(got, mask[np.arange(len(rows)) % nw])
 
 
 @pytest.mark.parametrize("b,side,sms,split", [
@@ -272,9 +390,8 @@ def test_window4_split_computes_and_stores_everything_once(k, b, side):
 
 
 # --------------------------------------------------------------------------
-# The kernels' row map (csrc/window_attention4.cu, window_attention_bwd4.cu,
-# swin_block4.cu ``token_row``) against the JAX package's roll and window
-# partition
+# Kernel (g)'s group row map (csrc/swin_block4.cu ``token_row``) against the
+# JAX package's roll and window partition
 # --------------------------------------------------------------------------
 
 def _group_rows(b, h, w, shift):
