@@ -40,8 +40,10 @@ _F = ctypes.c_float
 
 # C entry points: name -> argtypes; each returns cudaGetLastError() as int
 SIGNATURES = {
-    # x, ldx, weight, bias, y, ldy, M, C, eps, stream
-    "adsr_rdg_layernorm": [_P, _L, _P, _P, _P, _L, _I, _I, _F, _P],
+    # x, ldx, weight, bias, y, ldy, M, C, piece, ahead, blocks, eps, stream
+    "adsr_rdg_layernorm": [_P, _L, _P, _P, _P, _L] + [_I] * 5 + [_F, _P],
+    # piece, int* out: blocks an SM holds without and with a row ahead
+    "adsr_rdg_layernorm_blocks_per_sm": [_I, _P],
     # A, lda, W, ldw, bias, out, ldo, res, ldr, row_scale, scale_stride,
     # rows_per_scale, aux, ldaux, M, N, K, epilogue, bn, stream
     "adsr_rdg_gemm": [_P, _L, _P, _L, _P, _P, _L, _P, _L, _P, _L, _I, _P, _L,

@@ -3,9 +3,13 @@
 Replaces the LayerNorm phases of the Pallas kernel ``_rdg_kernel_impl``
 (``adsr_tpu/ops/fused_rdg.py:708-714, 860``). Source:
 ``adsr_tpu_torch/csrc/rdg_layernorm.cu``. Bound on the H100: bytes (one bf16
-read and one bf16 write per element). Design: one warp per row, the row in
-registers, two-pass f32 statistics, reading the concat prefix in place at its
-row stride (see the source for details).
+read and one bf16 write per element). Design: a group of lanes a row (a
+half-warp for 8-byte pieces, two rows in flight a warp), the row in
+registers in 8-byte or 2-byte pieces as the layout allows
+(:func:`check_ln_layout`), gamma and beta loaded once a lane, two-pass f32
+statistics, the concat prefix read in place at its row stride, and a grid
+of :func:`rdg_layernorm_plan`'s blocks looping over the rows, the next row
+loaded while this one is normalised (see the source for details).
 
 ``rdg_layernorm`` dispatches by device: a CPU tensor goes to
 ``rdg_layernorm_plain``, a CUDA tensor to the kernel (or the call raises).
@@ -13,11 +17,76 @@ row stride (see the source for details).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from adsr_tpu_torch.kernels import _build
 
 EPS = 1e-6
+MAX_C = 320            # 20 values a lane of a half-warp
+THREADS = 128          # 4 warps a block
+# piece bytes -> lanes a row, as the source takes them (``kLanes``): a
+# half-warp for 8-byte pieces, a warp for single values
+LANES = {8: 16, 2: 32}
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(piece: int) -> tuple:
+    """Blocks of ``THREADS`` an SM holds at once of the built kernel for
+    ``piece`` bytes, without and with a row loaded ahead
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``: what the registers
+    ptxas gave each instance allow). Needs the card."""
+    n = (ctypes.c_int * 2)()
+    _build.check_rc("rdg_layernorm_blocks_per_sm",
+                    _build.library().adsr_rdg_layernorm_blocks_per_sm(
+                        piece, ctypes.addressof(n)))
+    return tuple(n)
+
+
+@functools.lru_cache(maxsize=None)
+def rdg_layernorm_plan(m: int, c: int, sms: int, piece: int,
+                       per_sm: tuple) -> dict:
+    """What kernel (a) launches for ``m`` rows of width ``c`` (any width up
+    to ``MAX_C`` takes the same registers) in pieces of ``piece`` bytes
+    (:func:`check_ln_layout`): ``LANES[piece]`` lanes a row, so blocks of
+    ``THREADS`` take ``rows_per_step`` rows a step; one row ahead where a
+    block takes more than one step; as many blocks as the card holds at once
+    (``per_sm``: :func:`blocks_per_sm` without and with a row ahead, on each
+    of ``sms`` SMs) or one a step where fewer, so a small ``m`` spreads a
+    step a block over every SM. Read only (cached)."""
+    lanes = LANES[piece]
+    rows_per_step = THREADS // lanes
+    steps = -(-m // rows_per_step)
+    ahead = int(steps > sms * per_sm[0])
+    blocks = max(1, min(steps, sms * per_sm[ahead]))
+    return {"piece": piece, "lanes": lanes, "ahead": ahead,
+            "threads": THREADS, "rows_per_step": rows_per_step,
+            "blocks": blocks, "steps_per_block": -(-steps // blocks)}
+
+
+def check_ln_layout(name: str, x: torch.Tensor, out: torch.Tensor) -> int:
+    """The kernel's layout rules, on tensor metadata only (no card needed),
+    and the piece (bytes) it takes ``x`` and ``out`` [m, c] in: c from 1 to
+    ``MAX_C``, unit column stride and (m > 1) a row stride of at least c,
+    or the call raises; 8-byte pieces where both bases are 8-byte aligned
+    and c and both row strides are multiples of 4 (16-byte pieces, where
+    the rows allow them, read 4-28% slower on the H100: PERF.md §6), 2-byte
+    pieces otherwise."""
+    m, c = x.shape
+    if not 1 <= c <= MAX_C:
+        raise ValueError(f"{name}: the kernel takes widths from 1 to {MAX_C}, "
+                         f"got {c}")
+    for t in (x, out):
+        if t.stride(-1) != 1 or (m > 1 and t.stride(0) < c):
+            raise ValueError(f"{name}: needs unit column stride and a row "
+                             f"stride of at least {c}, got strides "
+                             f"{tuple(t.stride())}")
+    if c % 4 == 0 and (x.data_ptr() | out.data_ptr()) % 8 == 0 \
+            and (x.stride(0) | out.stride(0)) % 4 == 0:
+        return 8
+    return 2
 
 
 def rdg_layernorm_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -39,11 +108,15 @@ def rdg_layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if x.device.type == "cpu":
         out.copy_(rdg_layernorm_plain(x, weight, bias, eps))
         return out
-    _build.require_bf16_cuda("rdg_layernorm", x, out)
+    _build.require_bf16_cuda("rdg_layernorm", x, out, layout=False)
     _build.require_f32_cuda("rdg_layernorm", weight, bias)
+    piece = check_ln_layout("rdg_layernorm", x, out)
+    plan = rdg_layernorm_plan(m, c, _build.sm_count(x.device), piece,
+                              blocks_per_sm(piece))
     rc = _build.library().adsr_rdg_layernorm(
         x.data_ptr(), x.stride(0), weight.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), out.stride(0), m, c, eps, _build.stream_ptr(x))
+        out.data_ptr(), out.stride(0), m, c, piece, plan["ahead"],
+        plan["blocks"], eps, _build.stream_ptr(x))
     _build.check_rc("rdg_layernorm", rc)
     rdg_layernorm.launches += 1
     return out

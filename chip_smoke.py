@@ -11,12 +11,17 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds every kernel of ``adsr_tpu_torch/csrc`` (timed) and
    ptxas's registers, shared memory and spills of each kernel are printed,
-   then the launch plans of window_attention (c), swin_block (g),
-   window_attention_bwd (f) and rdg_layernorm_bwd (e) at the five flagship
-   blocks (blocks, threads, shared memory, (g)'s ring, (f)'s windows a
-   block);
+   then the launch plans of rdg_layernorm (a), window_attention (c),
+   swin_block (g), window_attention_bwd (f) and rdg_layernorm_bwd (e) at
+   the five flagship blocks (blocks, threads, shared memory, (a)'s pieces,
+   lanes a row and rows ahead, (g)'s ring, (f)'s windows a block);
 3. kernels against their plain PyTorch versions at the flagship shapes
-   (batch 16, 1024 tokens): rdg_layernorm at every block width, rdg_gemm at
+   (batch 16, 1024 tokens): rdg_layernorm at every block width (and, last
+   in each geometry, after the timed phases, on every layout the main path
+   and the wrapper hand it: the concat prefix at strides 308 and 312,
+   ``x1`` contiguous and pitched, into 16-byte rows and into a contiguous
+   [m, c] out, a ragged M and M = 1, and the 2-byte path, each call twice,
+   bitwise equal), rdg_gemm at
    every product and epilogue of the five Swin blocks (the training
    forward's drop-path and GELU-with-pre-activation epilogues included, and
    the redesign's edges: an M that is not a multiple of the 128-row tile,
@@ -183,8 +188,11 @@ from adsr_tpu_torch.kernels.fused_rdg_train import (fused_drct_train_forward,
                                                     rdg_train_plain)
 from adsr_tpu_torch.kernels.rdg_gemm import (pitched, rdg_gemm,
                                              rdg_gemm_plain, row_pitch)
-from adsr_tpu_torch.kernels.rdg_layernorm import (rdg_layernorm,
-                                                  rdg_layernorm_plain)
+from adsr_tpu_torch.kernels.rdg_layernorm import (blocks_per_sm,
+                                                  check_ln_layout,
+                                                  rdg_layernorm,
+                                                  rdg_layernorm_plain,
+                                                  rdg_layernorm_plan)
 from adsr_tpu_torch.kernels.rdg_layernorm_bwd import (rdg_layernorm_bwd,
                                                       rdg_layernorm_bwd_plain,
                                                       rdg_layernorm_bwd_plan)
@@ -609,11 +617,27 @@ def gemm_cases(cfg, cat, blk, k):
     return cases
 
 
+def main_path_ln_pieces(cfg, k: int) -> tuple:
+    """The piece widths (bytes) kernel (a) takes on the main path at block
+    ``k``: LN1 over the concat prefix (``fused_drct``'s concat buffer at its
+    plain stride) and LN2 over ``x1``, both into 16-byte rows
+    (``rdg_workspace`` / ``block_buffers``; their layouts at two rows on
+    the host, the rule is the same at any M)."""
+    g = rdg_geometry(cfg)
+    c, f = g["feats"][k], g["hidden"][k]
+    bufs = block_buffers(rdg_workspace(2, cfg, torch.bfloat16, "cpu"), 2, c,
+                         f)
+    cat = torch.empty(2, g["cat_width"], dtype=torch.bfloat16)
+    return (check_ln_layout("rdg_layernorm", cat[:, :c], bufs["ln1"]),
+            check_ln_layout("rdg_layernorm", bufs["x1"], bufs["ln2"]))
+
+
 def print_plans(cfg, report):
-    """The launch plans of kernels (c), (g), (f) and (e) at the five
-    blocks of ``cfg`` (kernels/window_attention.py,
+    """The launch plans of kernels (a), (c), (g), (f) and (e) at the five
+    blocks of ``cfg`` (kernels/rdg_layernorm.py, kernels/window_attention.py,
     kernels/fused_swin_block.py, kernels/window_attention_bwd.py,
-    kernels/rdg_layernorm_bwd.py): blocks, threads, shared memory, (g)'s
+    kernels/rdg_layernorm_bwd.py): blocks, threads, shared memory, (a)'s
+    piece bytes, lanes a row and rows a step for LN1 and LN2, (g)'s
     ring stages, weight tiles a block and (at 16x16 windows) cluster size
     and the clusters the card holds at once, (f)'s windows a block and
     d(bias) partials, (e)'s grid."""
@@ -624,6 +648,10 @@ def print_plans(cfg, report):
     plans = {}
     for k in range(5):
         c, f, nh = g["feats"][k], g["hidden"][k], g["heads"][k]
+        pl1, pl2 = (rdg_layernorm_plan(m, c, sms, piece,
+                                       blocks_per_sm(piece))
+                    for piece in main_path_ln_pieces(cfg, k))
+        say("plan", f"b{k + 1} c={c}: rdg_layernorm LN1 {pl1}; LN2 {pl2}")
         win = cfg.window_size
         pa = window_attention_plan(c, nh, BATCH, side, side, window=win,
                                    sms=sms)
@@ -645,7 +673,8 @@ def print_plans(cfg, report):
                     f"swin_block {pg}")
         say("plan", f"b{k + 1} c={c} heads={nh}: window_attention_bwd {pf}; "
                     f"rdg_layernorm_bwd {pe}")
-        plans[f"b{k + 1}"] = {"window_attention": pa, "swin_block": pg,
+        plans[f"b{k + 1}"] = {"rdg_layernorm": {"ln1": pl1, "ln2": pl2},
+                              "window_attention": pa, "swin_block": pg,
                               "window_attention_bwd": pf,
                               "rdg_layernorm_bwd": pe}
         if win == 4:            # the tiled CLI's persistent grid
@@ -659,6 +688,91 @@ def print_plans(cfg, report):
             plans[f"b{k + 1}"].update(window_attention_tiled=pt,
                                       window_attention_bwd_persistent=pft)
     report["plans"] = plans
+
+
+def ln_cases(cat, blocks, m, dev) -> list:
+    """Kernel (a)'s layouts, (label, x, weight, bias, out layout): at every
+    block the concat prefix at the main path's stride (``cat``, 308) and at
+    16-byte rows (312), into 16-byte rows (the main path's ``ln1``) and
+    into a contiguous [m, c] out (8-byte rows: the next row starts right
+    after column c), ``x1`` contiguous (the main path's) and pitched; the
+    concat prefix at a ragged M (m - 40) and at M = 1 for blocks 1 and 5;
+    and the 2-byte path: a base 4 bytes past alignment and c = 178."""
+    wide = pitched(m, cat.shape[1], device=dev)
+    wide.copy_(cat)
+    cases = []
+    for k, blk in enumerate(blocks):
+        c, wt, bs = blk["c"], blk["ln_w"], blk["ln_b"]
+        x1p = pitched(m, c, device=dev)
+        x1p.copy_(blk["x1"])
+        tag = f"b{k + 1} c={c}"
+        cases += [
+            (f"{tag} concat prefix, stride {cat.shape[1]}", cat[:, :c], wt,
+             bs, "pitched"),
+            (f"{tag} concat prefix, stride {wide.stride(0)}", wide[:, :c], wt,
+             bs, "pitched"),
+            (f"{tag} concat prefix -> [m, c] out", cat[:, :c], wt, bs,
+             "contiguous"),
+            (f"{tag} x1 contiguous", blk["x1"], wt, bs, "pitched"),
+            (f"{tag} x1 pitched", x1p, wt, bs, "pitched")]
+        if k in (0, 4):
+            cases += [(f"{tag} concat prefix, M = {rows}", cat[:rows, :c], wt,
+                       bs, "contiguous") for rows in (m - 40, 1)]
+    blk = blocks[0]
+    cases += [
+        ("b1 c=180 base 4 bytes past alignment", cat[:, 2:182], blk["ln_w"],
+         blk["ln_b"], "contiguous"),
+        ("c=178", wide[:, :178], blk["ln_w"][:178].contiguous(),
+         blk["ln_b"][:178].contiguous(), "pitched")]
+    return cases
+
+
+def check_ln_layouts(cat, blocks, m, dev, check: Checker) -> None:
+    """Kernel (a) on every layout of :func:`ln_cases` against its plain
+    version, each call twice (bitwise equal); a pitched out's pad columns
+    hold NaN before and must after (no store past column c)."""
+    for label, x, wt, bs, layout in ln_cases(cat, blocks, m, dev):
+        rows, c = x.shape
+        outs = []
+        for _ in range(2):
+            if layout == "pitched":
+                pitch = row_pitch(c)
+                flat = torch.full(((rows - 1) * pitch + c,), float("nan"),
+                                  dtype=torch.bfloat16, device=dev)
+                out = flat.as_strided((rows, c), (pitch, 1))
+            else:
+                flat, out = None, torch.empty(rows, c, dtype=torch.bfloat16,
+                                              device=dev)
+            rdg_layernorm(x, wt, bs, out)
+            if flat is not None and rows > 1 and not bool(
+                    flat[:(rows - 1) * pitch].view(rows - 1, pitch)[:, c:]
+                    .isnan().all()):
+                raise AssertionError(f"rdg_layernorm {label}: a store past "
+                                     f"column {c}")
+            outs.append(out)
+        piece = check_ln_layout("rdg_layernorm", x, outs[0])
+        check("rdg_layernorm", f"{label} ({piece}-byte pieces)", outs[0],
+              rdg_layernorm_plain(x.float(), wt, bs), LN_ATOL)
+        if not torch.equal(outs[0], outs[1]):
+            raise AssertionError(f"rdg_layernorm {label}: two launches "
+                                 "differ")
+
+
+def phase_ln_layouts(cfg, dev, check: Checker) -> None:
+    """Kernel (a) on every layout of :func:`ln_cases` at the geometry's M,
+    on the kernels phase's inputs made again from the seed. Each geometry
+    runs it last: its buffers, made before the timing phases, moved the
+    allocations those phases reuse (kernel (e) read up to 5% slower), and
+    they go back to the card when it ends."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    cat, blocks, _ = make_case_inputs(cfg, dev, gen)
+    n0 = check.cases
+    check_ln_layouts(cat, blocks, flagship_shapes(cfg)[1], dev, check)
+    say("kernels", f"rdg_layernorm: {check.cases - n0} layouts within "
+                   f"tolerance, each twice bitwise equal; max abs error "
+                   f"{check.max_abs['rdg_layernorm']}")
+    del cat, blocks
+    torch.cuda.empty_cache()
 
 
 def phase_kernels(cfg, dev, check: Checker):
@@ -2786,6 +2900,7 @@ def phase_w16(dev, report):
     graph_paths = phase_graphs(exp, dev, params, lr_u8, hr_u8, r16,
                                W16_CLI_DIR, overlap=0, suffix="_w16")
     x8 = phase_x8(dev, r16.setdefault("x8", {}))
+    phase_ln_layouts(cfg, dev, check)
     paths = {"serving_w16": serving, "serving_block_w16": serving_block,
              "train_w16": train, "train_cli_w16": cli["train_cli"],
              "evaluate_cli_w16": cli["evaluate_cli_rdg"],
@@ -2851,6 +2966,7 @@ def phase_w4(dev, report):
     tails = {**phase_x8(dev, r4.setdefault("128x8", {}), 128, 8, 4,
                         "_128x8", PER_TRAIN_STEP, 1),
              **phase_x8(dev, r4.setdefault("32x2", {}), 32, 2, 0, "_32x2")}
+    phase_ln_layouts(cfg, dev, check)
     paths = {"serving_w4": serving, "serving_block_w4": serving_block,
              "train_w4": train, "train_cli_w4": cli["train_cli"],
              "evaluate_cli_w4": cli["evaluate_cli_rdg"],
@@ -2907,6 +3023,7 @@ def phase_flagship(dev, report):
     del trainer, bwd_inputs
     cli_launches = phase_cli(exp, dev, report)
     graph_paths = phase_graphs(exp, dev, params, lr_u8, hr_u8, report)
+    phase_ln_layouts(exp.model, dev, check)
     paths = {"serving": main_launches, "serving_block": block_launches,
              "train": train_launches, **cli_launches, **graph_paths}
     return paths, timings

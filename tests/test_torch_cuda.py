@@ -72,6 +72,20 @@ def test_kernels_match_plain(dev):
     rdg_layernorm(cat[:, :c], w, b, out)
     assert rdg_layernorm.launches == n0 + 1
     _close(out, rdg_layernorm_plain(cat[:, :c].float(), w, b), 1e-4)
+    # kernel (a)'s other pieces: the 4x4-window geometry's M (4,096 rows,
+    # one step a block) from 16-byte rows into the unaligned contiguous
+    # [m, 180] out (8-byte rows), and the 2-byte path (c = 178, a base
+    # 4 bytes past alignment), each twice, bitwise equal
+    wide = pitched(16 * 256, 312, device=dev)
+    wide.copy_(torch.randn(16 * 256, 312, generator=g, device=dev))
+    for x in (wide[:, :180], wide[:, :178], wide[:, 2:182]):
+        wc, bc = w[:x.shape[1]].contiguous(), b[:x.shape[1]].contiguous()
+        got = [torch.empty(x.shape, dtype=torch.bfloat16, device=dev)
+               for _ in range(2)]
+        for o in got:
+            rdg_layernorm(x, wc, bc, o)
+        _close(got[0], rdg_layernorm_plain(x.float(), wc, bc), 1e-4)
+        assert torch.equal(got[0], got[1])
 
     wt = (0.05 * torch.randn(32, c, generator=g, device=dev)).to(torch.bfloat16)
     bias = torch.randn(32, generator=g, device=dev)
