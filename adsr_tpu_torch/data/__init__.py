@@ -1,1 +1,2 @@
-"""Data loading (CPU, PIL) and the numpy synthetic textures."""
+"""Dataset preparation, loading and the synthetic MVTec fixtures (numpy,
+no PIL)."""

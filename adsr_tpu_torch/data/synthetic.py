@@ -1,14 +1,30 @@
-"""Procedural MVTec-like textures and defects (numpy only).
+"""Procedural MVTec-like fixtures, the port of ``adsr_tpu/data/synthetic.py``,
+so the full prepare -> train -> evaluate pipeline runs hermetically, with no
+real (non-redistributable) MVTec data and no PIL.
 
-The texture and defect functions of ``adsr_tpu/data/synthetic.py:26-96``,
-copied so that ``chip_smoke.py`` can make realistic grid inputs without files
-or PIL: 'grid' is two sine lattices plus speckle, 'carpet' low-pass colored
-noise; defects are blobs, scratches, tears or faint blobs.
+``generate_synthetic_mvtec`` writes a source tree shaped like the raw MVTec AD
+layout the prep tool consumes (reference
+scripts/prepare_mvtec_data.py:161-203):
+
+    <root>/<classe>/train/good/*.png
+    <root>/<classe>/test/good/*.png
+    <root>/<classe>/test/<defect>/*.png
+
+'grid' is two sine lattices plus speckle, 'carpet' low-pass colored noise;
+defects are blobs, scratches, tears or faint blobs that an SR model trained
+only on good textures reconstructs poorly. The textures also feed
+``chip_smoke.py``'s in-memory inputs.
 """
 
 from __future__ import annotations
 
+import zlib
+from pathlib import Path
+from typing import Sequence
+
 import numpy as np
+
+from adsr_tpu_torch.io.png import write_png
 
 
 def grid_texture(rng: np.random.RandomState, size: int) -> np.ndarray:
@@ -77,3 +93,43 @@ def inject_defect(rng: np.random.RandomState, img: np.ndarray,
         img[m] = np.clip(img[m].astype(int) + rng.choice([-1, 1])
                          * rng.randint(8, 14), 0, 255)
     return img
+
+
+# defect kinds per class; the 'hard' variants carry only the faint
+# low-contrast defect, so detectors do not saturate at AUC 1.0
+DEFECTS = {"grid": ("blob", "scratch"), "carpet": ("blob", "tear"),
+           "grid-hard": ("faint",), "carpet-hard": ("faint",)}
+
+
+def class_offset(classe: str) -> int:
+    """The per-class seed offset. The JAX package adds ``hash(classe) %
+    1000``, which Python salts per process; a CRC of the name gives every
+    process the same tree for one seed."""
+    return zlib.crc32(classe.encode()) % 1000
+
+
+def generate_synthetic_mvtec(root: str,
+                             classes: Sequence[str] = ("grid", "carpet"),
+                             n_train: int = 24, n_test_good: int = 6,
+                             n_test_bad_per_defect: int = 3, size: int = 256,
+                             seed: int = 0) -> None:
+    """Write a synthetic MVTec-style source tree under ``root``, drawing each
+    class's images in the JAX package's order from
+    ``RandomState(seed + class_offset(classe))``."""
+    for classe in classes:
+        rng = np.random.RandomState(seed + class_offset(classe))
+        tex = grid_texture if classe.startswith("grid") else carpet_texture
+
+        def save(img: np.ndarray, rel: str) -> None:
+            p = Path(root) / classe / rel
+            p.parent.mkdir(parents=True, exist_ok=True)
+            write_png(p, img)
+
+        for i in range(n_train):
+            save(tex(rng, size), f"train/good/{i:03d}.png")
+        for i in range(n_test_good):
+            save(tex(rng, size), f"test/good/{i:03d}.png")
+        for defect in DEFECTS.get(classe, ("blob",)):
+            for i in range(n_test_bad_per_defect):
+                save(inject_defect(rng, tex(rng, size), defect),
+                     f"test/{defect}/{i:03d}.png")

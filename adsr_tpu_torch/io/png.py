@@ -9,8 +9,13 @@ every device.
 palette images (palettes also at 1, 2 or 4 bits) with all five row filters,
 and returns the array ``np.asarray(PIL.Image.open(path))`` gives: [H, W] for
 gray and palette (the palette indices, as PIL's mode "P"), [H, W, C]
-otherwise, uint8. A 16-bit, low-bit gray or interlaced file raises a
-``ValueError`` that names the file. ``write_png`` writes 8-bit gray and RGB.
+otherwise, uint8. ``read_png_rgb`` returns what
+``PIL.Image.open(path).convert("RGB")`` gives for the same files: gray
+replicated to three channels, alpha dropped, palette indices looked up in
+the ``PLTE`` chunk. A 16-bit, low-bit gray or interlaced file raises a
+``ValueError`` that names the file, as does a palette image without a
+``PLTE`` chunk or with an index past its end. ``write_png`` writes 8-bit
+gray and RGB.
 
 Unfiltering: rows with the None, Sub and Up filters are undone a row at a
 time with whole-row numpy operations; an image with an Average or Paeth row
@@ -74,12 +79,13 @@ def _unfilter_diagonals(ftypes: np.ndarray, data: np.ndarray,
     return out[1:, 1:].reshape(h, stride)
 
 
-def read_png(path: PathLike) -> np.ndarray:
-    """Decode a PNG file to the uint8 array PIL's ``np.asarray`` gives."""
+def _decode(path: PathLike):
+    """(the array ``read_png`` returns, the colour type, the PLTE body or
+    None)."""
     data = Path(path).read_bytes()
     if data[:8] != SIGNATURE:
         raise ValueError(f"{path}: not a PNG file")
-    pos, ihdr, idat = 8, None, []
+    pos, ihdr, idat, plte = 8, None, [], None
     while pos + 8 <= len(data):
         n = int.from_bytes(data[pos:pos + 4], "big")
         kind = data[pos + 4:pos + 8]
@@ -89,6 +95,8 @@ def read_png(path: PathLike) -> np.ndarray:
             ihdr = body
         elif kind == b"IDAT":
             idat.append(body)
+        elif kind == b"PLTE":
+            plte = body
         elif kind == b"IEND":
             break
     if ihdr is None or not idat:
@@ -120,9 +128,37 @@ def read_png(path: PathLike) -> np.ndarray:
     if depth < 8:                   # palette indices packed MSB first
         bits_row = np.unpackbits(pix, axis=1).reshape(h, -1, depth)
         weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
-        return (bits_row * weights).sum(axis=2).astype(np.uint8)[:, :w]
+        idx = (bits_row * weights).sum(axis=2).astype(np.uint8)[:, :w]
+        return idx, color, plte
     img = pix.reshape(h, w, ch)
-    return img[:, :, 0] if ch == 1 else img
+    return (img[:, :, 0] if ch == 1 else img), color, plte
+
+
+def read_png(path: PathLike) -> np.ndarray:
+    """Decode a PNG file to the uint8 array PIL's ``np.asarray`` gives."""
+    return _decode(path)[0]
+
+
+def read_png_rgb(path: PathLike) -> np.ndarray:
+    """Decode a PNG file to the uint8 [H, W, 3] array that
+    ``PIL.Image.open(path).convert("RGB")`` gives."""
+    img, color, plte = _decode(path)
+    if color == 0:                                  # gray
+        return np.repeat(img[:, :, None], 3, axis=2)
+    if color == 4:                                  # gray + alpha
+        return np.repeat(img[:, :, :1], 3, axis=2)
+    if color == 6:                                  # RGBA
+        return np.ascontiguousarray(img[:, :, :3])
+    if color == 3:
+        if plte is None or len(plte) % 3 or not plte:
+            raise ValueError(f"{path}: palette image without a valid PLTE "
+                             "chunk")
+        palette = np.frombuffer(plte, np.uint8).reshape(-1, 3)
+        if img.size and int(img.max()) >= len(palette):
+            raise ValueError(f"{path}: palette index {int(img.max())} past "
+                             f"the {len(palette)} PLTE entries")
+        return palette[img]
+    return img
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's DRCT x4 @128px serving and training paths and its
 train and evaluate CLIs on one GPU, then the window-16 geometry (256px/x4
-and 512/x8) and the window-4 geometry (64/x4, 128/x8 and 32/x2).
+and 512/x8), the window-4 geometry (64/x4, 128/x8 and 32/x2) and the
+end-to-end smoke CLI (prepare -> train -> evaluate).
 
     python3 chip_smoke.py
 
@@ -32,7 +33,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    (a)-(c) composition;
 4. main path: the flagship DRCT (27.4M params, random weights from a seed,
    bf16) registered with ``AnomalyServer`` scores 16 good + 16 defective
-   synthetic grid images and a tail of 5, in rdg mode and in block mode,
+   synthetic grid images (LR by the prep tool's LANCZOS resize) and a
+   tail of 5, in rdg mode and in block mode,
    with the launch counters of every kernel checked; both forwards run
    against the eager f32 model on the card RDG by RDG; the array core of
    ``evaluate_anomaly`` turns a test split into AUCs;
@@ -69,7 +71,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    library calls (the SDPA backward replayed as a CUDA graph, or the median
    of 20 launched runs where it cannot be captured);
 10. the CLIs: a synthetic data root written with the port's PNG writer
-   (under ``workspace/chip_smoke``), ``cli.main`` trains the flagship for
+   (under ``workspace/chip_smoke``; HR and its LANCZOS ``LR_4``, the prep
+   tool's layout), ``cli.main`` trains the flagship for
    one epoch (16 steps at batch 16) into a run dir, then ``cli.evaluate``
    scores 8 + 8 test images of 512 px, auto-tiled (25 tiles of 32 LR px an
    image), in rdg mode and with ``ADSR_TPU_RDG=0``; launch counters, run-dir
@@ -127,18 +130,25 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    images (8 x 8 tiles of 16 LR px at overlap 0); phase 11 at that size;
    then 128/x8 (one ``AnomalyServer`` batch in each mode against eager
    f32, the rdg forward's and the server's graphs against the launched
-   route, four train steps) and 32/x2 (the same without the steps).
+   route, four train steps) and 32/x2 (the same without the steps);
+14. smoke, lines "[smoke] ...": ``python -m adsr_tpu_torch.cli.smoke
+   --resolution 128 --full-size --epochs 1 --device cuda``: the synthetic
+   MVTec grid source, ``cli.prepare``'s LANCZOS tree, ``cli.main`` trains the
+   flagship one epoch and ``cli.evaluate`` scores the test split, each step
+   a process of its own; each step's wall, the prepared tree, the train
+   log's device and parameter count, the AUCs.
 
 The build and the ptxas lines come from this process; each geometry
-(phases 3-11 of the flagship, 12, 13) runs in a process of its own, which
-this one starts and waits for (``--phase NAME OUT``).
+(phases 3-11 of the flagship, 12, 13) and the smoke (14) runs in a process
+of its own, which this one starts and waits for (``--phase NAME OUT``).
 
 The last three lines are the kernels' JSON record (each kernel's
 window-16 readings under ``"w16"``, its window-4 readings under ``"w4"``,
 its launches on every main path under ``"launches_by_path"``), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``; a ``[report]`` line
 before them holds every number the run measured, as JSON (the window-16
-phase's under ``"w16"``, the window-4 phase's under ``"w4"``).
+phase's under ``"w16"``, the window-4 phase's under ``"w4"``, the smoke's
+under ``"smoke"``).
 """
 
 from __future__ import annotations
@@ -161,8 +171,10 @@ import torch.nn.functional as F
 
 from adsr_tpu_torch.cli import evaluate as cli_eval
 from adsr_tpu_torch.cli import main as cli_main
+from adsr_tpu_torch.cli import smoke as cli_smoke
 from adsr_tpu_torch.core.config import drct_experiment
 from adsr_tpu_torch.data.pipeline import SRDataset, load_sr_dataset, set_channel
+from adsr_tpu_torch.data.prepare import lr_from_hr
 from adsr_tpu_torch.data.synthetic import grid_texture, inject_defect
 from adsr_tpu_torch.eval.evaluate import (evaluate_anomaly,
                                           evaluate_anomaly_arrays)
@@ -170,7 +182,7 @@ from adsr_tpu_torch.eval.rundir import resolve_checkpoint
 from adsr_tpu_torch.eval.serving import AnomalyServer
 from adsr_tpu_torch.eval.tiled import tile_starts
 from adsr_tpu_torch.io.journal import load_state_dict
-from adsr_tpu_torch.io.png import write_png
+from adsr_tpu_torch.io.png import read_png, write_png
 from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
 from adsr_tpu_torch.kernels import rdg_gemm_bwd as gbwd
@@ -1007,17 +1019,15 @@ def phase_swin_block(cfg, dev, check: Checker):
 
 def synthetic_split(rng, n_good, n_bad, hr_px=None, scale=None):
     """uint8 RGB HR [N, hr_px, hr_px, 3] (default HR) and LR at 1 / scale
-    (default SCALE). The LR is block averaging, a stand-in for the
-    reference's Lanczos prep, which waits for the data slice of the port."""
+    (default SCALE), made by the prep tool's LANCZOS resize (``lr_from_hr``,
+    Pillow's bytes)."""
     hr_px, scale = hr_px or HR, scale or SCALE
     good = [grid_texture(rng, hr_px) for _ in range(n_good)]
     kinds = ("blob", "scratch")
     bad = [inject_defect(rng, grid_texture(rng, hr_px), kinds[i % 2])
            for i in range(n_bad)]
     hr = np.stack(good + bad)
-    s = hr_px // scale
-    lr = hr.reshape(hr.shape[0], s, scale, s, scale, 3) \
-        .astype(np.float64).mean(axis=(2, 4)).round().astype(np.uint8)
+    lr = np.stack([lr_from_hr(im, scale) for im in hr])
     return lr, hr
 
 
@@ -2471,20 +2481,18 @@ CLI_BATCH = 8                                 # the evaluate CLI's default
 
 
 def write_split(base: Path, rng, n: int, hr: int, defect: bool = False):
-    """Synthetic grid images with the port's PNG writer: HR and its 4x4
-    block-averaged LR (a stand-in for the reference's Lanczos prep)."""
+    """Synthetic grid images with the port's PNG writer: HR and, as the prep
+    tool lays it out, its LANCZOS LR at 1 / SCALE under ``LR_{SCALE}``."""
     (base / "HR").mkdir(parents=True)
-    (base / "LR_bicubic" / f"X{SCALE}").mkdir(parents=True)
+    (base / f"LR_{SCALE}").mkdir(parents=True)
     kinds = ("blob", "scratch")
     for i in range(n):
         img = grid_texture(rng, hr)
         if defect:
             img = inject_defect(rng, img, kinds[i % 2])
-        lr = img.reshape(hr // SCALE, SCALE, hr // SCALE, SCALE, 3) \
-            .astype(np.float64).mean(axis=(1, 3)).round().astype(np.uint8)
         write_png(base / "HR" / f"{i:03d}.png", img)
-        write_png(base / "LR_bicubic" / f"X{SCALE}" / f"{i:03d}x{SCALE}.png",
-                  lr)
+        write_png(base / f"LR_{SCALE}" / f"{i:03d}.png",
+                  lr_from_hr(img, SCALE))
 
 
 def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
@@ -2988,6 +2996,84 @@ def phase_w4(dev, report):
     return paths, timings
 
 
+# --------------------------------------------------------------------------- #
+# The user's whole path from raw images: cli.smoke (prepare -> train ->
+# evaluate, each step a process of its own)
+# --------------------------------------------------------------------------- #
+
+SMOKE_DIR = Path("workspace") / "chip_smoke" / "smoke"
+SMOKE_ARGS = ["--workdir", str(SMOKE_DIR), "--resolution", str(HR),
+              "--full-size", "--epochs", "1", "--device", DEVICE]
+# cli.prepare's split of the 24 + 6 + 2 x 3 synthetic grid images (val 0.1)
+SMOKE_SPLITS = {"train/good": 22, "val/good": 2, "test/good": 6,
+                "test/bad": 6}
+
+
+def phase_smoke(dev, report):
+    """``python -m adsr_tpu_torch.cli.smoke --workdir workspace/chip_smoke/
+    smoke --resolution 128 --full-size --epochs 1 --device cuda``, run as
+    ``cli.smoke.main`` with those flags: ``cli.prepare`` writes the
+    synthetic MVTec grid source (256 px) and its LANCZOS tree at 128 px (LR_2
+    and LR_4), ``cli.main`` trains the flagship at full width (27.4M
+    params, 12 RDGs at embed 180, window 8) one epoch of 64 steps at batch 4
+    through kernels (a)-(f), then ``cli.evaluate`` scores the 6 + 6 test
+    images through (a)-(c). Each step is a process of its own (a grandchild
+    of this script), so its kernel launches are counted there and not here:
+    this phase adds no launches to the kernels line. Checks the prepared
+    tree (counts, sizes, every LR the LANCZOS resize of its HR), the train
+    log (the card, the flagship's parameter count, a whole epoch and the
+    seconds its steps took), the checkpoint and the AUCs; a failed step exits this process non-zero. Returns ({}, {})."""
+    shutil.rmtree(SMOKE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    res = cli_smoke.main(SMOKE_ARGS)
+    wall = time.perf_counter() - t0
+    data = SMOKE_DIR / "data" / f"mvtec_{HR}" / "grid"
+    for split, n in SMOKE_SPLITS.items():
+        names = sorted(p.name for p in (data / split / "HR").glob("*.png"))
+        if len(names) != n:
+            raise AssertionError(f"smoke: {split} has {len(names)} HR "
+                                 f"images, expected {n}")
+        for name in names:
+            hr = read_png(data / split / "HR" / name)
+            for s in (2, 4):
+                lr = read_png(data / split / f"LR_{s}" / name)
+                if hr.shape != (HR, HR, 3) or \
+                        not np.array_equal(lr, lr_from_hr(hr, s)):
+                    raise AssertionError(f"smoke: {split}/{name}: HR "
+                                         f"{hr.shape}, LR_{s} {lr.shape} "
+                                         "is not its LANCZOS resize")
+    log = (Path(res["run_dir"]) / "log.txt").read_text()
+    n_params = re.search(r"number of parameters is ([0-9.]+)M", log)
+    n_params = float(n_params.group(1)) * 1e6 if n_params else 0.0
+    # the epoch's last progress line: samples seen, then the seconds spent
+    # in the train step and in the sampler
+    epoch = re.findall(r"\[(\d+)/(\d+)\]\t.*\t([0-9.]+)\+([0-9.]+)s", log)
+    if not epoch or epoch[-1][0] != epoch[-1][1]:
+        raise AssertionError(f"smoke: no whole epoch in the train log "
+                             f"{log[-2000:]}")
+    step_s, data_s = float(epoch[-1][2]), float(epoch[-1][3])
+    ckpt = resolve_checkpoint(res["run_dir"])
+    aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
+    if "Using devices: cuda" not in log \
+            or not PARAMS_RANGE[0] < n_params < PARAMS_RANGE[1] \
+            or not ckpt.endswith("model_best.pt") \
+            or not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs):
+        raise AssertionError(f"smoke: params {n_params}, checkpoint {ckpt}, "
+                             f"AUCs {aucs}, log {log[-2000:]}")
+    walls = res["walls_s"]
+    say("smoke", f"cli.smoke {' '.join(SMOKE_ARGS)}: prepare "
+                 f"{walls['prepare']:.1f} s, train {walls['train']:.1f} s, "
+                 f"evaluate {walls['evaluate']:.1f} s wall ({wall:.1f} s in "
+                 f"all); the epoch's {epoch[-1][0]} samples: {step_s:.1f} s "
+                 f"in the train step, {data_s:.1f} s in the sampler; "
+                 f"{n_params / 1e6:.2f}M params; AUC ssim/mse/psnr "
+                 f"{aucs[0]:.4f}/{aucs[1]:.4f}/{aucs[2]:.4f}")
+    report["smoke"] = {"args": SMOKE_ARGS, "walls_s": walls, "wall_s": wall,
+                       "epoch_step_s": step_s, "epoch_data_s": data_s,
+                       "params": n_params, "aucs": aucs}
+    return {}, {}
+
+
 def phase_flagship(dev, report):
     """The flagship, DRCT x4 @128px (phases 3-11): returns (launches by
     main path, timings by kernel)."""
@@ -3029,7 +3115,8 @@ def phase_flagship(dev, report):
     return paths, timings
 
 
-PHASES = {"flagship": phase_flagship, "w16": phase_w16, "w4": phase_w4}
+PHASES = {"flagship": phase_flagship, "w16": phase_w16, "w4": phase_w4,
+          "smoke": phase_smoke}
 
 
 def run_phase(name: str) -> dict:
@@ -3099,7 +3186,8 @@ def main() -> int:
     runs = {name: run_phase(name) for name in PHASES}
     for run in runs.values():
         report.update(run["report"])
-    timings, timings16, timings4 = (runs[name]["timings"] for name in PHASES)
+    timings, timings16, timings4 = (runs[name]["timings"]
+                                    for name in ("flagship", "w16", "w4"))
 
     # launches by main path, each counted from 0 over that path's run (a
     # captured path's: its warm-up and its capture)

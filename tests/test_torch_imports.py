@@ -1,6 +1,6 @@
 """The port stands alone: no module of adsr_tpu_torch, and not chip_smoke.py,
-imports jax, flax or the JAX package, and the package imports with them
-blocked."""
+imports jax, flax or the JAX package, nor PIL or matplotlib (the card's
+machine has no PIL), and the package imports with them blocked."""
 
 import ast
 import subprocess
@@ -11,6 +11,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "flax", "adsr_tpu"}
+NOT_ON_THE_CARD = {"PIL", "matplotlib"}
 FILES = sorted((REPO / "adsr_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -30,9 +31,18 @@ def test_no_jax_imports(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_pil_or_matplotlib_imports(path):
+    bad = set(_imported_roots(path)) & NOT_ON_THE_CARD
+    assert not bad, f"{path} imports {bad}"
+
+
 def test_entry_point_and_io_modules_are_covered():
     names = {str(p.relative_to(REPO)) for p in FILES}
     assert {"adsr_tpu_torch/cli/main.py", "adsr_tpu_torch/cli/evaluate.py",
+            "adsr_tpu_torch/cli/prepare.py", "adsr_tpu_torch/cli/smoke.py",
+            "adsr_tpu_torch/data/prepare.py",
+            "adsr_tpu_torch/data/synthetic.py",
             "adsr_tpu_torch/io/png.py", "adsr_tpu_torch/io/journal.py",
             "adsr_tpu_torch/eval/tiled.py", "adsr_tpu_torch/eval/rundir.py",
             "adsr_tpu_torch/kernels/fused_swin_block.py"} <= names
@@ -41,7 +51,7 @@ def test_entry_point_and_io_modules_are_covered():
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys, importlib, pkgutil\n"
-        "for name in ('jax', 'flax', 'adsr_tpu'):\n"
+        "for name in ('jax', 'flax', 'adsr_tpu', 'PIL', 'matplotlib'):\n"
         "    sys.modules[name] = None\n"
         "import adsr_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(adsr_tpu_torch.__path__,"
