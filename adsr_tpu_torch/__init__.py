@@ -1,5 +1,6 @@
-"""PyTorch + CUDA port of adsr_tpu: DRCT super-resolution anomaly detection
-(training, serving, evaluation and their command-line entry points).
+"""PyTorch + CUDA port of adsr_tpu: DRCT and DRN-L super-resolution anomaly
+detection (training, serving, evaluation and their command-line entry
+points).
 
 Mirrors the JAX package's layout (``cli/``, ``core/``, ``models/``,
 ``eval/``, ``train/``, ``io/``, ``data/``, ``metrics.py``) with ``kernels/``

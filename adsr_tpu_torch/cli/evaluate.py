@@ -3,13 +3,15 @@
 
     python -m adsr_tpu_torch.cli.evaluate --run-dir workspace/experiment/drct/mvtec_grid_128_X4...
 
-Infers model/class/resolution/scale from the run dir (name pattern, then
-config.txt), resolves ``model_best.pt`` then ``model_latest.pt``, and runs the
+Infers model (DRCT or DRN-L, with the capacity its config.txt records) /
+class / resolution / scale from the run dir (name pattern, then config.txt),
+resolves ``model_best.pt`` then ``model_latest.pt``, and runs the
 anomaly AUC pass over ``test/good`` + ``test/bad`` (tiled when the test
 images are larger than the model's input). Writes ``scores.txt`` (and
 ``--json-out``) and, unless ``--no-save-images``, the SR images. Runs on the
-card unless ``--device cpu``; ``ADSR_TPU_RDG=0`` selects the per-block
-serving mode, as in the JAX package.
+card unless ``--device cpu``; ``ADSR_TPU_RDG=0`` selects DRCT's per-block
+serving mode, as in the JAX package. A DRN-L run auto-tiles at its
+train-crop LR (``patch_size // scale``).
 """
 
 from __future__ import annotations
@@ -54,8 +56,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--precision", type=str, default="bf16",
                    choices=["bf16", "fp32"],
                    help="bf16 (default, unlike the JAX CLI's fp32): the "
-                        "card's kernels are bf16 only (fp32 kernels are "
-                        "ROADMAP.md Queue 1 item 8); fp32 runs on the CPU")
+                        "card's DRCT kernels are bf16 only (fp32 kernels are "
+                        "ROADMAP.md Queue 1 item 8); DRCT fp32 runs on the "
+                        "CPU, DRN-L fp32 anywhere")
     p.add_argument("--workers", type=int, default=0)  # compat; unused
     p.add_argument("--tile", type=int, default=0,
                    help="LR tile size for overlapped-tile serving; 0 = "
@@ -77,7 +80,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None):
     args = parse_args(argv)
-    from adsr_tpu_torch.core.config import drct_experiment
+    from adsr_tpu_torch.core.config import drct_experiment, drn_experiment
     from adsr_tpu_torch.core.device import resolve_device
     from adsr_tpu_torch.eval.auc import roc_auc
     from adsr_tpu_torch.eval.evaluate import (evaluate_anomaly,
@@ -106,14 +109,16 @@ def main(argv: Optional[List[str]] = None):
                      else f"workspace/{ds}")
 
     if model_type == "drn-l":
-        raise NotImplementedError(
-            "--model-type drn-l: DRN-L waits for ROADMAP.md Queue 1 item 10 "
-            "(DRN-L with dual models)")
-    capacity = {k: inf[k] for k in ("embed_dim", "num_layers", "num_heads",
-                                    "gc") if k in inf}
-    exp = drct_experiment(classe=classe, resolution=resolution, scale=scale,
-                          data_root=data_root, precision=args.precision,
-                          **capacity)
+        capacity = {k: inf[k] for k in ("n_blocks", "n_feats") if k in inf}
+        exp = drn_experiment(classe=classe, resolution=resolution,
+                             scale=scale, data_root=data_root,
+                             precision=args.precision, **capacity)
+    else:
+        capacity = {k: inf[k] for k in ("embed_dim", "num_layers",
+                                        "num_heads", "gc") if k in inf}
+        exp = drct_experiment(classe=classe, resolution=resolution,
+                              scale=scale, data_root=data_root,
+                              precision=args.precision, **capacity)
 
     dev = resolve_device(args.device)
     ckpt = resolve_checkpoint(args.run_dir, args.checkpoint)

@@ -3,17 +3,26 @@ flag surface, src/main.py:207-241):
 
     python -m adsr_tpu_torch.cli.main --model-type drct --classe grid \
         --resolution 128 --scale 4 --epochs 2 --batch-size 16
+    python -m adsr_tpu_torch.cli.main --model-type drn-l --classe carpet \
+        --resolution 128 --scale 4 --epochs 2 --batch-size 16
 
 Writes a run dir (``io/journal.py``): log, config dump, per-epoch metrics,
-``model_latest.pt`` / ``model_best.pt`` and the full train state every
+``model_latest.pt`` / ``model_best.pt`` (DRN-L: ``dual_model_latest.pt`` /
+``dual_model_best.pt`` too) and the full train state every
 ``--ckpt-every`` epochs, for ``--resume``. SIGTERM / SIGINT finish the epoch,
 checkpoint and stop resumable. After training, the model is tested on
 ``val/good`` (PSNR/SSIM). Runs on the card (``--device cuda``, the default)
 or, for small configurations, on the CPU with the plain PyTorch path.
+DRCT trains through the card's kernels in bf16; DRN-L (``drn_experiment``)
+through cuDNN convolutions in bf16 or, with ``--precision fp32``, in f32
+with TF32 off; ``--n-blocks`` / ``--n-feats`` shrink it for a small CPU run.
+``--pretrain`` starts from ``workspace/pretrained_model_weights/``
+(``drct_latest.pt``; ``DRNL{s}x.pt`` and ``DRNL{s}x_dual.pt``, reference
+``.pt`` files, read when present).
 
-DRCT only: ``--model-type drn-l`` (ROADMAP.md Queue 1 item 10), ``--dp`` /
-``--tp`` > 1 (Queue 1 item 11) and ``--remat-policy dots`` (Queue 1 item 9)
-raise ``NotImplementedError``. ``--workers`` is accepted and ignored.
+``--dp`` / ``--tp`` > 1 (ROADMAP.md Queue 1 item 11) and ``--remat-policy
+dots`` (Queue 1 item 9) raise ``NotImplementedError``. ``--workers`` is
+accepted and ignored.
 """
 
 from __future__ import annotations
@@ -27,10 +36,12 @@ from typing import List, Optional
 
 import torch
 
-from adsr_tpu_torch.core.config import Experiment, MeshConfig, drct_experiment
+from adsr_tpu_torch.core.config import (Experiment, MeshConfig,
+                                        drct_experiment, drn_experiment)
 from adsr_tpu_torch.core.device import resolve_device
 
-PRETRAINED = "workspace/pretrained_model_weights/drct_latest.pt"
+PRETRAINED_DIR = "workspace/pretrained_model_weights"
+PRETRAINED = f"{PRETRAINED_DIR}/drct_latest.pt"
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -59,15 +70,16 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--data-root", type=str, default="auto")
     p.add_argument("--save-dir", type=str, default="./workspace/experiment")
     p.add_argument("--pretrain", action="store_true",
-                   help=f"start from {PRETRAINED} (a reference .pt)")
+                   help=f"start from {PRETRAINED} (DRN-L: DRNL<s>x.pt and "
+                        "DRNL<s>x_dual.pt there; reference .pt files)")
     p.add_argument("--test-only", action="store_true")
     p.add_argument("--workers", type=int, default=0)  # compat; unused
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--precision", type=str, default="bf16",
                    choices=["bf16", "fp32"],
-                   help="bf16 (default): the card's kernels are bf16 only "
-                        "(fp32 kernels are ROADMAP.md Queue 1 item 8); fp32 "
-                        "runs on the CPU")
+                   help="bf16 (default): the card's DRCT kernels are bf16 "
+                        "only (fp32 kernels are ROADMAP.md Queue 1 item 8); "
+                        "DRCT fp32 runs on the CPU, DRN-L fp32 anywhere")
     p.add_argument("--dp", type=int, default=-1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--resume", action="store_true",
@@ -83,6 +95,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    choices=["full", "dots"],
                    help="backward recompute granularity: 'full' (each RDG "
                         "recomputes from its saved concat buffer)")
+    p.add_argument("--n-blocks", type=int, default=None,
+                   help="DRN-L RCABs an up phase (default: the scale's "
+                        "table, 40 at x4)")
+    p.add_argument("--n-feats", type=int, default=None,
+                   help="DRN-L base width (default: the scale's table, 20 "
+                        "at x4)")
 
     if pre_args.config is not None and os.path.isfile(pre_args.config):
         import yaml
@@ -94,10 +112,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def build_experiment(args: argparse.Namespace) -> Experiment:
-    if args.model_type == "drn-l":
-        raise NotImplementedError(
-            "--model-type drn-l: DRN-L waits for ROADMAP.md Queue 1 item 10 "
-            "(DRN-L with dual models)")
     if args.dp > 1 or args.tp > 1:
         raise NotImplementedError(
             f"--dp {args.dp} --tp {args.tp}: the port trains on one card; "
@@ -106,16 +120,25 @@ def build_experiment(args: argparse.Namespace) -> Experiment:
         raise NotImplementedError(
             f"--remat-policy {args.remat_policy}: ROADMAP.md Queue 1 item 9 "
             "(the port's backward recomputes each RDG from its concat)")
-    pre = PRETRAINED if args.pretrain else "."
-    exp = drct_experiment(
+    common = dict(
         dataset=args.dataset, classe=args.classe, resolution=args.resolution,
         scale=args.scale, epochs=args.epochs, batch_size=args.batch_size,
         lr=args.lr, data_root=args.data_root, save_dir=args.save_dir,
         no_augment=args.no_augment, seed=args.seed,
         mesh=MeshConfig(dp=args.dp, tp=args.tp), precision=args.precision,
-        run_tag=args.run_tag, pre_train=pre, embed_dim=args.embed_dim,
-        num_layers=args.num_layers, num_heads=args.num_heads,
-        remat_policy=args.remat_policy)
+        run_tag=args.run_tag)
+    if args.model_type == "drn-l":
+        pre = f"{PRETRAINED_DIR}/DRNL{args.scale}x"
+        exp = drn_experiment(
+            pre_train=f"{pre}.pt" if args.pretrain else ".",
+            pre_train_dual=f"{pre}_dual.pt" if args.pretrain else ".",
+            n_blocks=args.n_blocks, n_feats=args.n_feats, **common)
+    else:
+        exp = drct_experiment(
+            pre_train=PRETRAINED if args.pretrain else ".",
+            embed_dim=args.embed_dim, num_layers=args.num_layers,
+            num_heads=args.num_heads, remat_policy=args.remat_policy,
+            **common)
     exp = dataclasses.replace(exp, ckpt_every=args.ckpt_every)
     if args.test_only:
         exp = dataclasses.replace(exp, test_only=True)
@@ -143,13 +166,21 @@ def train(exp: Experiment, resume: bool = False, device="cuda") -> str:
         train_ds = load_sr_dataset(exp.data.data_dir, exp.data.scale,
                                    exp.data.n_colors, exp.data.rgb_range)
     trainer = Trainer(exp, train_ds, None, journal=journal, device=dev)
-    n_params = sum(p.numel() for p in trainer.state.model.parameters())
+    state = trainer.state
+    n_params = sum(p.numel() for group in state.optimizer.param_groups
+                   for p in group["params"])      # primal and duals
     journal.write_log(f"The number of parameters is {n_params / 1e6:.2f}M")
 
     if exp.pre_train != "." and os.path.isfile(exp.pre_train):
         journal.write_log(f"Loading model from {exp.pre_train}")
-        trainer.state.model.load_state_dict(load_state_dict(exp.pre_train,
-                                                            dev))
+        state.model.load_state_dict(load_state_dict(exp.pre_train, dev))
+    if (exp.pre_train_dual != "." and os.path.isfile(exp.pre_train_dual)
+            and state.duals is not None):
+        # the reference's dual_model_*.pt: a list of state_dicts
+        journal.write_log(f"Loading dual model from {exp.pre_train_dual}")
+        for dual, sd in zip(state.duals,
+                            load_state_dict(exp.pre_train_dual, dev)):
+            dual.load_state_dict(sd)
     if resume:
         try:
             trainer.load_train_state()

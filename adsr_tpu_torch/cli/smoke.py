@@ -9,11 +9,15 @@ across process boundaries. Everything is written under ``--workdir``.
     python -m adsr_tpu_torch.cli.smoke --workdir workspace/smoke --full-size
     python -m adsr_tpu_torch.cli.smoke --device cpu     # tiny DRCT, f32
 
-``--device cuda`` (the default) trains and serves through the card's
-kernels and fails without a card; ``--device cpu`` runs the plain PyTorch
-path in f32 (``--precision fp32`` to both CLIs). Without ``--full-size`` the
-model is a tiny DRCT (embed 24, one RDG, two heads). A failed step exits
-non-zero. The last line is ``SMOKE OK`` with the three AUCs.
+    python -m adsr_tpu_torch.cli.smoke --model-type drn-l --resolution 128
+
+``--device cuda`` (the default) trains and serves through the card (DRCT
+through its kernels) and fails without a card; ``--device cpu`` runs the
+plain PyTorch path in f32 (``--precision fp32`` to both CLIs). Without
+``--full-size`` a DRCT is a tiny one (embed 24, one RDG, two heads); DRN-L
+always runs at full width, as in the JAX smoke (its run dir also holds
+``dual_model_latest.pt``). A failed step exits non-zero. The last line is
+``SMOKE OK`` with the three AUCs.
 """
 
 from __future__ import annotations
@@ -55,10 +59,6 @@ def main(argv=None) -> dict:
     p.add_argument("--full-size", action="store_true",
                    help="use reference-size DRCT instead of the tiny smoke one")
     args = p.parse_args(argv)
-    if args.model_type == "drn-l":
-        raise NotImplementedError(
-            "--model-type drn-l: DRN-L waits for ROADMAP.md Queue 1 item 10 "
-            "(DRN-L with dual models)")
 
     wd = Path(args.workdir).absolute()
     wd.mkdir(parents=True, exist_ok=True)
@@ -82,7 +82,7 @@ def main(argv=None) -> dict:
                  str(args.resolution), "--scale", "4", "--epochs",
                  str(args.epochs), "--batch-size", "4", "--device",
                  args.device, "--run-tag", "smoke"] + precision
-    if not args.full_size:
+    if args.model_type == "drct" and not args.full_size:
         train_cmd += TINY
     walls["train"] = run(train_cmd, wd, env)
 

@@ -1,9 +1,12 @@
-"""Typed, frozen experiment configuration (the DRCT serving slice).
+"""Typed, frozen experiment configuration.
 
 A field-for-field copy of the JAX package's config dataclasses that the DRCT
-path needs, kept here so the port imports nothing of ``adsr_tpu``. The
-derivation rules are the reference's (reference src/main.py:243-294, 414-448):
+and DRN-L paths need, kept here so the port imports nothing of ``adsr_tpu``.
+The derivation rules are the reference's (reference src/main.py:170-294,
+414-448):
 
+- DRN progressive scale list ``[2, 4, ...]`` and the scale->(n_blocks,
+  n_feats) table x2->(44,40), x4->(40,20), x8->(36,10);
 - DRCT ``img_size = resolution // scale``, ``window_size = img_size // 4``;
 - channel rule: mvtec carpet -> RGB(3), anything else -> gray(1);
 - mvtec ``test_every = 256 // batch_size``;
@@ -15,7 +18,27 @@ from __future__ import annotations
 import dataclasses
 import datetime
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
+
+
+@dataclass(frozen=True)
+class DRNModelConfig:
+    """DRN-L dual-regression SR network (reference src/drn.py:160-270)."""
+    model_name: str = "drn-l"
+    scale: Tuple[int, ...] = (2, 4)  # progressive: (2, 4) x4, (2, 4, 8) x8
+    n_blocks: int = 40
+    n_feats: int = 20
+    n_colors: int = 1
+    negval: float = 0.2
+    rgb_range: float = 255.0
+    dual: bool = True
+    # the JAX package scans each up-phase's RCABs; kept for field-for-field
+    # parity of the config (the port always loops)
+    scan_blocks: bool = True
+
+    @property
+    def max_scale(self) -> int:
+        return max(self.scale)
 
 
 @dataclass(frozen=True)
@@ -50,6 +73,9 @@ class DRCTModelConfig:
     @property
     def n_colors(self) -> int:
         return self.in_chans
+
+
+ModelConfig = Union[DRNModelConfig, DRCTModelConfig]
 
 
 @dataclass(frozen=True)
@@ -93,7 +119,7 @@ class MeshConfig:
 
 @dataclass(frozen=True)
 class Experiment:
-    model: DRCTModelConfig
+    model: ModelConfig
     data: DataConfig
     optim: OptimConfig = OptimConfig()
     mesh: MeshConfig = MeshConfig()
@@ -127,6 +153,15 @@ class Experiment:
         return out
 
 
+_DRN_SCALE_TABLE = {2: (44, 40), 4: (40, 20), 8: (36, 10)}
+
+
+def progressive_scales(scale: int) -> Tuple[int, ...]:
+    """x4 -> (2, 4); x8 -> (2, 4, 8)  (reference main.py:170)."""
+    n = int(scale).bit_length() - 1
+    return tuple(2 ** (s + 1) for s in range(n))
+
+
 def _dataset_paths(dataset: str, classe: str, resolution: int, data_root: str,
                    save_dir: str, model_name: str, run_tag: Optional[str]
                    ) -> Tuple[str, str, str]:
@@ -149,6 +184,45 @@ def _dataset_paths(dataset: str, classe: str, resolution: int, data_root: str,
 def _mvtec_cadence(classe: str, batch_size: int) -> int:
     dataset_length = 256  # reference main.py:440
     return max(1, dataset_length // batch_size)
+
+
+def drn_experiment(classe: str = "grid", resolution: int = 128, scale: int = 4,
+                   epochs: int = 2, batch_size: int = 4, lr: float = 1e-4,
+                   data_root: str = "auto",
+                   save_dir: str = "./workspace/experiment",
+                   no_augment: bool = False, loss: str = "1*L1",
+                   pre_train: str = ".", pre_train_dual: str = ".",
+                   seed: int = 1, mesh: MeshConfig = MeshConfig(),
+                   precision: str = "bf16", run_tag: Optional[str] = None,
+                   weight_decay: float = 1e-8,
+                   dataset: str = "mvtec",
+                   n_blocks: Optional[int] = None,
+                   n_feats: Optional[int] = None) -> Experiment:
+    """The JAX ``drn_experiment``; ``n_blocks`` / ``n_feats`` override the
+    scale table's capacity (None keeps it), as ``embed_dim`` and friends do
+    for DRCT."""
+    n_colors = 3 if (dataset == "mvtec" and classe == "carpet") else 1
+    table_blocks, table_feats = _DRN_SCALE_TABLE[scale]
+    scales = progressive_scales(scale)
+    root, data_dir, save = _dataset_paths(dataset, classe, resolution,
+                                          data_root, save_dir, "drn-l",
+                                          run_tag)
+    test_every = _mvtec_cadence(classe, batch_size)
+    model = DRNModelConfig(
+        scale=scales, n_blocks=table_blocks if n_blocks is None else n_blocks,
+        n_feats=table_feats if n_feats is None else n_feats,
+        n_colors=n_colors)
+    data = DataConfig(dataset=dataset, classe=classe, data_dir=data_dir,
+                      data_root=root,
+                      resolution=resolution, patch_size=resolution,
+                      scale=scales, n_colors=n_colors, batch_size=batch_size,
+                      test_every=test_every, no_augment=no_augment)
+    optim = OptimConfig(lr=lr, epochs=epochs, loss=loss,
+                        weight_decay=weight_decay)
+    return Experiment(model=model, data=data, optim=optim, mesh=mesh,
+                      save=save.format(scale=scale), seed=seed,
+                      precision=precision, print_every=test_every,
+                      pre_train=pre_train, pre_train_dual=pre_train_dual)
 
 
 def drct_experiment(classe: str = "grid", resolution: int = 128, scale: int = 4,

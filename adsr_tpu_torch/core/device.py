@@ -6,6 +6,9 @@ no card raises: nothing moves to the CPU unless the caller asks for it.
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator
+
 import torch
 
 
@@ -20,3 +23,19 @@ def resolve_device(device="cuda") -> torch.device:
 
 def compute_dtype(precision: str) -> torch.dtype:
     return torch.bfloat16 if precision == "bf16" else torch.float32
+
+
+@contextlib.contextmanager
+def full_f32() -> Iterator[None]:
+    """f32 convolutions and matmuls in full f32 inside the block: TF32 off
+    for cuDNN and cuBLAS, the previous settings restored on exit (the JAX
+    package's f32 is f32, and its bicubic einsums run at HIGHEST)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

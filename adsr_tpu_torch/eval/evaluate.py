@@ -2,10 +2,11 @@
 ``adsr_tpu/eval/evaluate.py``).
 
 Forward over each split (tiled when the test LR exceeds the model's input
-size) -> crop -> TRUNCATING uint8 conversion (the reference's ``.byte()``,
-evaluate.py:214) -> per-image SSIM at every window size of the sweep (odd
-sizes 3, 13, ... up to min_dim-3, evaluate.py:233-248, optionally capped to
-``sweep_windows`` evenly spaced sizes) plus MSE and PSNR on the device ->
+size: DRCT's ``img_size``, a DRN's train-crop LR) -> crop -> TRUNCATING
+uint8 conversion (the reference's ``.byte()``, evaluate.py:214) ->
+per-image SSIM at every window size of the sweep (odd sizes 3, 13, ... up
+to min_dim-3, evaluate.py:233-248, optionally capped to ``sweep_windows``
+evenly spaced sizes) plus MSE and PSNR on the device ->
 ROC-AUC per score and the specificity at the perfect-recall threshold on the
 host. On the card the forward serves through one CUDA graph per LR shape
 (the tail is padded, so one graph an evaluation; ``graphs=False`` launches
@@ -26,7 +27,7 @@ from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from adsr_tpu_torch.core.config import Experiment
+from adsr_tpu_torch.core.config import DRCTModelConfig, Experiment
 from adsr_tpu_torch.core.device import resolve_device
 from adsr_tpu_torch.data.pipeline import load_sr_dataset
 from adsr_tpu_torch.eval.auc import roc_auc
@@ -112,10 +113,14 @@ def make_split_forward(exp: Experiment, params: Mapping[str, torch.Tensor],
                        tile_overlap: int = 8, mode: Optional[str] = None,
                        log=print, graphs: bool = True) -> Callable:
     """The raw-float SR forward of an evaluation: tiled when ``tile > 0`` or
-    when the LR input (``lr_size``) exceeds the model's ``img_size``
+    when the LR input (``lr_size``) exceeds the model's tile, DRCT's
+    ``img_size`` or a DRN's train-crop LR ``patch_size // scale``
     (evaluate.py:143-165), else the whole-image serving forward; on the card
     a CUDA graph per LR shape unless ``graphs=False``."""
-    train_tile = exp.model.img_size
+    if isinstance(exp.model, DRCTModelConfig):
+        train_tile = exp.model.img_size
+    else:
+        train_tile = max(1, exp.data.patch_size // max(exp.data.scale))
     if tile > 0 or lr_size > train_tile:
         log(f"Tiled serving: tile={tile or train_tile} "
             f"overlap={tile_overlap} for {lr_size}px LR input")

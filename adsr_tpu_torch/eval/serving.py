@@ -3,12 +3,14 @@
 
 Per registered class: uint8 LR/HR batch -> channel conversion + pixel scaling
 (the prep pipeline's math, reference data.py:11-19/52-65) -> SR forward
-(``make_serving_forward``: packed once at registration, the RDGs through the
-hand-written kernels on CUDA) -> uint8 quantisation round-trip -> per-image
-anomaly scores (1-SSIM at a configured window, MSE, -PSNR, reference
-evaluate.py:250-261). Tail batches are padded to the configured batch size,
-so each class has one input shape. On the card the whole scoring call runs
-as one CUDA graph per class (``core/graphs.py``), as the JAX ``register``
+(``make_serving_forward``: a DRCT class packed once at registration, its
+RDGs through the hand-written kernels on CUDA; a DRN-L class, RGB
+included, its eager module on the registered weights and its full-scale
+output) -> uint8 quantisation round-trip -> per-image anomaly scores (1-SSIM
+at a configured window, MSE, -PSNR, reference evaluate.py:250-261). Tail
+batches are padded to the configured batch size, so each class has one
+input shape. On the card the whole scoring call of each class, DRCT or
+DRN, runs as one CUDA graph (``core/graphs.py``), as the JAX ``register``
 jits it: the uint8 requests are copied into its static inputs and the
 [B, 3] scores come back with one device-to-host copy. ``graphs=False``
 launches every kernel from Python on every call.
@@ -42,10 +44,10 @@ class AnomalyServer:
     def register(self, name: str, exp: Experiment,
                  params: Mapping[str, torch.Tensor],
                  mode: Optional[str] = None) -> None:
-        """Pack ``params`` once for class ``name``; ``mode`` is the fused
-        forward's (``"rdg"`` or ``"block"``; ``None`` reads
-        ``ADSR_TPU_RDG``, as the JAX ``register`` does through
-        ``prepack_drct``)."""
+        """Prepare ``params`` once for class ``name`` (DRCT: packed; DRN:
+        loaded into its module); ``mode`` is DRCT's fused forward's
+        (``"rdg"`` or ``"block"``; ``None`` reads ``ADSR_TPU_RDG``, as the
+        JAX ``register`` does through ``prepack_drct``)."""
         forward = make_serving_forward(exp, params, device=self.device,
                                        quantize_out=False, mode=mode,
                                        graphs=False)

@@ -8,14 +8,18 @@
       loss_log.json, psnr_ssim_log.json
       model/
         model_latest.pt            the model's state_dict (model_best.pt too)
-        train_state_latest.pt      model, Adam state, step, epoch and the
-                                   dropout generator's state: a true resume
+        dual_model_latest.pt       DRN: the dual models' state_dicts, a list
+                                   (dual_model_best.pt too)
+        train_state_latest.pt      model, duals, Adam state, step, epoch and
+                                   the dropout generator's state: a true
+                                   resume
       results/<data_test>/x<s>/    SR PNG dumps
 
 The ``.pt`` files hold the port's ``state_dict``, whose names are the
 reference torch module names: a reference ``model_*.pt`` loads as it is, and
 ``adsr_tpu/io/torch_convert.py`` (``convert_drct`` + ``stack_scan_layers``)
-maps the port's into the JAX model. The loss and PSNR/SSIM plots (matplotlib
+maps the port's into the JAX model (``convert_drn`` + ``stack_drn_rcabs``
+for DRN-L). The loss and PSNR/SSIM plots (matplotlib
 PDFs in the JAX package) wait for a later slice.
 """
 
@@ -24,7 +28,7 @@ from __future__ import annotations
 import datetime
 import json
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -33,13 +37,18 @@ from adsr_tpu_torch.core.config import Experiment
 from adsr_tpu_torch.io.png import write_png
 
 
+def _host(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().cpu() for k, v in state_dict.items()}
+
+
 def save_state_dict(path: Path, state_dict: Mapping[str, torch.Tensor]) -> None:
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, path)
+    torch.save(_host(state_dict), path)
 
 
-def load_state_dict(path, device="cpu") -> Dict[str, torch.Tensor]:
-    """A ``.pt`` state_dict (the port's or a reference checkpoint's)."""
+def load_state_dict(path, device="cpu"):
+    """A ``.pt`` state_dict (the port's or a reference checkpoint's), or a
+    ``dual_model_*.pt`` list of them."""
     return torch.load(path, map_location=device, weights_only=True)
 
 
@@ -81,20 +90,33 @@ class Journal:
     # ---------------------------- checkpoints --------------------------- #
 
     def save_model(self, state_dict: Mapping[str, torch.Tensor],
-                   is_best: bool = False) -> None:
-        save_state_dict(self.dir / "model" / "model_latest.pt", state_dict)
-        if is_best:
-            save_state_dict(self.dir / "model" / "model_best.pt", state_dict)
+                   is_best: bool = False,
+                   duals: Optional[Sequence[Mapping[str, torch.Tensor]]] = None
+                   ) -> None:
+        """``model_latest.pt`` (and ``model_best.pt``); with ``duals``
+        (DRN), ``dual_model_latest.pt`` (and ``dual_model_best.pt``): the
+        list of the dual models' state_dicts, the reference's layout
+        (src/model.py:123-147)."""
+        names = ("latest", "best") if is_best else ("latest",)
+        for name in names:
+            save_state_dict(self.dir / "model" / f"model_{name}.pt",
+                            state_dict)
+            if duals is not None:
+                torch.save([_host(sd) for sd in duals],
+                           self.dir / "model" / f"dual_model_{name}.pt")
 
     def save_train_state(self, state, epoch: int,
                          generator: Optional[torch.Generator] = None,
                          error_last: Optional[float] = None) -> None:
-        """Full state for a true resume: the model, the Adam state, the step,
-        the epoch reached, the drop-path generator and the last epoch loss
-        (the loss-spike skip's reference)."""
+        """Full state for a true resume: the model, DRN's duals, the Adam
+        state (one over primal and duals), the step, the epoch reached, the
+        drop-path generator and the last epoch loss (the loss-spike skip's
+        reference)."""
         path = self.dir / "model" / "train_state_latest.pt"
-        torch.save({"model": {k: v.detach().cpu() for k, v in
-                              state.model.state_dict().items()},
+        duals = state.dual_state_dicts()
+        torch.save({"model": _host(state.model.state_dict()),
+                    "duals": None if duals is None
+                    else [_host(sd) for sd in duals],
                     "optimizer": state.optimizer.state_dict(),
                     "step": state.step, "epoch": epoch,
                     "generator": None if generator is None
@@ -104,14 +126,18 @@ class Journal:
     def load_train_state(self, state,
                          generator: Optional[torch.Generator] = None
                          ) -> Dict[str, Any]:
-        """Restore ``state`` (model, optimizer, step) and ``generator`` in
-        place from ``train_state_latest.pt``; returns ``{"epoch",
-        "error_last"}``. Raises ``FileNotFoundError`` without one."""
+        """Restore ``state`` (model, duals, optimizer, step) and
+        ``generator`` in place from ``train_state_latest.pt``; returns
+        ``{"epoch", "error_last"}``. Raises ``FileNotFoundError`` without
+        one."""
         path = self.dir / "model" / "train_state_latest.pt"
         if not path.is_file():
             raise FileNotFoundError(f"no train state at {path}")
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         state.model.load_state_dict(ckpt["model"])
+        if state.duals is not None:
+            for dual, sd in zip(state.duals, ckpt["duals"]):
+                dual.load_state_dict(sd)
         state.optimizer.load_state_dict(ckpt["optimizer"])
         state.step = int(ckpt["step"])
         if generator is not None and ckpt["generator"] is not None:
@@ -120,7 +146,8 @@ class Journal:
 
     def save(self, trainer, is_best: bool = False) -> None:
         """End-of-training bundle (src/checkpoint.py:30-48 equivalent)."""
-        self.save_model(trainer.state.model.state_dict(), is_best=is_best)
+        self.save_model(trainer.state.model.state_dict(), is_best=is_best,
+                        duals=trainer.state.dual_state_dicts())
         self.save_train_state(trainer.state, trainer.epoch,
                               trainer.dropout_gen, trainer.error_last)
         with open(self.dir / "loss_log.json", "w") as f:

@@ -1,1 +1,2 @@
-"""Eager PyTorch models (the plain versions of the fused serving path)."""
+"""Eager PyTorch models: DRCT (the plain version of the fused serving
+path) and DRN-L with its dual models."""

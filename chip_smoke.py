@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's DRCT x4 @128px serving and training paths and its
 train and evaluate CLIs on one GPU, then the window-16 geometry (256px/x4
-and 512/x8), the window-4 geometry (64/x4, 128/x8 and 32/x2) and the
-end-to-end smoke CLI (prepare -> train -> evaluate).
+and 512/x8), the window-4 geometry (64/x4, 128/x8 and 32/x2), the
+end-to-end smoke CLI (prepare -> train -> evaluate) and DRN-L x4 @128px with
+its dual models.
 
     python3 chip_smoke.py
 
@@ -136,11 +137,28 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    MVTec grid source, ``cli.prepare``'s LANCZOS tree, ``cli.main`` trains the
    flagship one epoch and ``cli.evaluate`` scores the test split, each step
    a process of its own; each step's wall, the prepared tree, the train
-   log's device and parameter count, the AUCs.
+   log's device and parameter count, the AUCs;
+15. DRN-L, lines "[drn] ...": ``drn_experiment("grid", 128, 4)`` at full
+   width (scales (2, 4), 40 RCABs an up phase at 20 features, 9.82M params,
+   720 in the two duals; random weights from the seed; bf16; batch 16; LR
+   pyramid by the prep's LANCZOS): the bf16 forward against the eager f32
+   one (TF32 off), each of the three SRs; one dual-regression train step in
+   bf16 against f32 from the same state (loss terms, gradients); 20 steps
+   on one batch; the serving forward launched and through its CUDA graph
+   (bitwise equal); ``AnomalyServer`` with the flagship DRCT grid class and
+   a full-width DRN-L carpet class (3 channels), 16 + 16 + 5 requests each,
+   every replay bitwise equal to the launched route; ``evaluate_anomaly`` on
+   8 + 8 images of 512 px, auto-tiled at 32 LR px; ``cli.smoke --model-type
+   drn-l --resolution 128 --epochs 1`` (its run dir holds
+   ``dual_model_latest.pt``); the forward's and the step's times and the
+   step's idle share. DRN's convolutions are cuDNN's: its path launches
+   none of the port's kernels, which the kernels line records as its
+   ``"drn"`` path, all 0s.
 
 The build and the ptxas lines come from this process; each geometry
-(phases 3-11 of the flagship, 12, 13) and the smoke (14) runs in a process
-of its own, which this one starts and waits for (``--phase NAME OUT``).
+(phases 3-11 of the flagship, 12, 13), the smoke (14) and DRN-L (15) runs
+in a process of its own, which this one starts and waits for (``--phase
+NAME OUT``).
 
 The last three lines are the kernels' JSON record (each kernel's
 window-16 readings under ``"w16"``, its window-4 readings under ``"w4"``,
@@ -148,7 +166,7 @@ its launches on every main path under ``"launches_by_path"``), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``; a ``[report]`` line
 before them holds every number the run measured, as JSON (the window-16
 phase's under ``"w16"``, the window-4 phase's under ``"w4"``, the smoke's
-under ``"smoke"``).
+under ``"smoke"``, DRN-L's under ``"drn"``).
 """
 
 from __future__ import annotations
@@ -172,10 +190,12 @@ import torch.nn.functional as F
 from adsr_tpu_torch.cli import evaluate as cli_eval
 from adsr_tpu_torch.cli import main as cli_main
 from adsr_tpu_torch.cli import smoke as cli_smoke
-from adsr_tpu_torch.core.config import drct_experiment
+from adsr_tpu_torch.core.config import (drct_experiment,
+                                        drn_experiment)
 from adsr_tpu_torch.data.pipeline import SRDataset, load_sr_dataset, set_channel
 from adsr_tpu_torch.data.prepare import lr_from_hr
-from adsr_tpu_torch.data.synthetic import grid_texture, inject_defect
+from adsr_tpu_torch.data.synthetic import (carpet_texture, grid_texture,
+                                           inject_defect)
 from adsr_tpu_torch.eval.evaluate import (evaluate_anomaly,
                                           evaluate_anomaly_arrays)
 from adsr_tpu_torch.eval.rundir import resolve_checkpoint
@@ -220,6 +240,7 @@ from adsr_tpu_torch.kernels.window_attention_bwd import (
     window_attention_bwd, window_attention_bwd_plain,
     window_attention_bwd_plan)
 from adsr_tpu_torch.models.drct import RDG, drop_path_mults, shift_attn_mask
+from adsr_tpu_torch.models.drn import apply_dual
 from adsr_tpu_torch.models.factory import (init_sr_params, init_weights_,
                                            make_model)
 from adsr_tpu_torch.train.trainer import (Trainer, make_serving_forward,
@@ -1017,14 +1038,15 @@ def phase_swin_block(cfg, dev, check: Checker):
             raise AssertionError(f"swin_block {case}: two launches differ")
 
 
-def synthetic_split(rng, n_good, n_bad, hr_px=None, scale=None):
-    """uint8 RGB HR [N, hr_px, hr_px, 3] (default HR) and LR at 1 / scale
-    (default SCALE), made by the prep tool's LANCZOS resize (``lr_from_hr``,
-    Pillow's bytes)."""
+def synthetic_split(rng, n_good, n_bad, hr_px=None, scale=None,
+                    texture=grid_texture):
+    """uint8 RGB HR [N, hr_px, hr_px, 3] (default HR; grid images unless
+    ``texture`` says otherwise) and LR at 1 / scale (default SCALE), made by
+    the prep tool's LANCZOS resize (``lr_from_hr``, Pillow's bytes)."""
     hr_px, scale = hr_px or HR, scale or SCALE
-    good = [grid_texture(rng, hr_px) for _ in range(n_good)]
+    good = [texture(rng, hr_px) for _ in range(n_good)]
     kinds = ("blob", "scratch")
-    bad = [inject_defect(rng, grid_texture(rng, hr_px), kinds[i % 2])
+    bad = [inject_defect(rng, texture(rng, hr_px), kinds[i % 2])
            for i in range(n_bad)]
     hr = np.stack(good + bad)
     lr = np.stack([lr_from_hr(im, scale) for im in hr])
@@ -3074,6 +3096,359 @@ def phase_smoke(dev, report):
     return {}, {}
 
 
+# --------------------------------------------------------------------------- #
+# DRN-L x4 @128px with its dual models: the model, dual-regression training,
+# AnomalyServer beside a DRCT class, tiled evaluation and cli.smoke. DRN's
+# convolutions, bicubic products and pixel shuffles are cuDNN / PyTorch, as
+# the JAX package computes them in XLA: no kernel of the port is on its path
+# --------------------------------------------------------------------------- #
+
+DRN_PARAMS = 9_821_907        # the grid model (1 channel)
+DRN_DUAL_PARAMS = 720         # its two dual models
+DRN_RGB_PARAMS = 9_825_893    # the carpet twin (3 channels)
+DRN_STEP_REL = 1.5e-2         # bf16 against f32: each loss term of a step
+DRN_STEPS = 20
+DRN_EVAL_DIR = Path("workspace") / "chip_smoke" / "drn"
+DRN_TEST = 8                  # good and as many defective 512 px images
+DRN_SMOKE_DIR = Path("workspace") / "chip_smoke" / "drn_smoke"
+DRN_SMOKE_ARGS = ["--model-type", "drn-l", "--workdir", str(DRN_SMOKE_DIR),
+                  "--resolution", str(HR), "--epochs", "1", "--device",
+                  DEVICE]
+
+
+def drn_forward_flops(model, x) -> int:
+    """The multiply-adds x 2 of every convolution of ``model`` on ``x``,
+    counted from the shapes by forward hooks (the bicubic products, the
+    CALayers' means and the elementwise work are left out: under 1%)."""
+    total = [0]
+
+    def hook(mod, inputs, out):
+        total[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(x, dtype=torch.bfloat16)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def flat_grads(modules) -> torch.Tensor:
+    return torch.cat([p.grad.flatten() for m in modules
+                      for p in m.parameters()])
+
+
+def phase_drn(dev, report):
+    """DRN-L x4 @128px (``drn_experiment("grid", 128, 4)``: scales (2, 4),
+    40 RCABs an up phase at 20 features, 9.82M params; random weights from
+    the seed; bf16) at batch 16 on synthetic grid images whose LR pyramid
+    (LR_4, LR_2) is the prep's LANCZOS: the bf16 forward against the eager
+    f32 forward (TF32 off), SR by SR; one dual-regression train step in
+    bf16 against f32 from the same state (loss terms, gradients); 20 steps
+    on one batch; ``AnomalyServer`` with the flagship DRCT grid class and a
+    full-width DRN-L carpet class (3 channels), 16 + 16 + 5 requests each,
+    every captured replay bitwise equal to the launched route;
+    ``evaluate_anomaly`` on 512 px test images (auto-tiled at 32 LR px);
+    ``cli.smoke --model-type drn-l``; the forward and step times. Every
+    part but the DRCT class runs with the launch counters at 0 and must
+    leave them there: the "drn" path of the kernels line. Returns (launches
+    by path, {})."""
+    t_phase = time.perf_counter()
+    exp = drn_experiment("grid", HR, SCALE, precision="bf16",
+                         batch_size=BATCH, run_tag="chip_smoke_drn")
+    cfg = exp.model
+    params, dual_sds = init_sr_params(
+        cfg, torch.Generator().manual_seed(SEED + 30), device=dev)
+    n_params = sum(v.numel() for v in params.values())
+    n_dual = sum(v.numel() for d in dual_sds for v in d.values())
+    say("drn", f"DRN-L x{cfg.max_scale} @{HR}px: scales {cfg.scale}, "
+               f"{cfg.n_blocks} RCABs an up phase, {cfg.n_feats} features, "
+               f"{n_params} params ({n_params / 1e6:.2f}M) + {n_dual} in "
+               f"{len(dual_sds)} duals, {exp.precision}")
+    if n_params != DRN_PARAMS or n_dual != DRN_DUAL_PARAMS:
+        raise AssertionError(f"DRN params {n_params} + {n_dual}, expected "
+                             f"{DRN_PARAMS} + {DRN_DUAL_PARAMS}")
+    drn_launches = {k: 0 for k in WRAPPERS}
+
+    def counted(fn):
+        """``fn()`` with the counters from 0; its launches join the drn
+        path's."""
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in counts().items():
+            drn_launches[k] += v
+        return out
+
+    rng = np.random.RandomState(SEED + 31)
+    hr_u8 = np.stack([grid_texture(rng, HR) for _ in range(BATCH)])
+    lrs = [torch.as_tensor(to_float(np.stack([lr_from_hr(im, s)
+                                              for im in hr_u8]), 1, 255.0),
+                           dtype=torch.float32, device=dev)
+           for s in sorted(cfg.scale, reverse=True)]
+    hr = torch.as_tensor(to_float(hr_u8, 1, 255.0), dtype=torch.float32,
+                         device=dev)
+
+    # the bf16 forward against the eager f32 one (TF32 off), SR by SR
+    model = make_model(cfg, dev)
+    model.load_state_dict(params)
+    model.eval()
+    with torch.no_grad():
+        sr_b = counted(lambda: model(lrs[0], dtype=torch.bfloat16))
+        sr_f = model(lrs[0], dtype=torch.float32)
+    errs = [rel_l2(b, f) for b, f in zip(sr_b, sr_f)]
+    shapes = [tuple(t.shape) for t in sr_b]
+    say("drn", f"forward bf16 vs eager f32 (TF32 off), relative L2 of the "
+               f"SRs {shapes}: " + " ".join(f"{e:.3e}" for e in errs))
+    if len(errs) != 3 or max(errs) > SR_REL_L2 \
+            or not all(torch.isfinite(t.float()).all() for t in sr_b) \
+            or shapes[-1] != (BATCH, HR, HR, 1):
+        raise AssertionError(f"DRN forward: {shapes}, rel L2 {errs} > "
+                             f"{SR_REL_L2} or not finite")
+    del sr_b, sr_f
+
+    # one dual-regression step in bf16 and in f32 from the same state
+    bundles, states = {}, {}
+    for prec in ("bf16", "fp32"):
+        bundles[prec] = make_train_step(dataclasses.replace(
+            exp, precision=prec), dev)
+        state = bundles[prec].init_state(torch.Generator().manual_seed(0))
+        state.model.load_state_dict(params)
+        for dual, sd in zip(state.duals, dual_sds):
+            dual.load_state_dict(sd)
+        states[prec] = state
+    gen = torch.Generator().manual_seed(SEED + 32)
+    step_metrics = {}
+    for prec in ("bf16", "fp32"):
+        states[prec], m = counted(lambda: bundles[prec].step(
+            states[prec], lrs, hr, exp.optim.lr, gen))
+        step_metrics[prec] = {k: float(v) for k, v in m.items()}
+    terms = {k: abs(step_metrics["bf16"][k] / step_metrics["fp32"][k] - 1)
+             for k in ("total", "primary", "dual")}
+    grad_err = {
+        "primal": rel_l2(flat_grads([states["bf16"].model]),
+                         flat_grads([states["fp32"].model])),
+        "duals": rel_l2(flat_grads(states["bf16"].duals),
+                        flat_grads(states["fp32"].duals))}
+    say("drn", f"one step, bf16 vs f32 from the same state: loss terms "
+               f"{step_metrics['bf16']} vs {step_metrics['fp32']}, relative "
+               f"differences " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in terms.items())
+        + f"; gradients' relative L2: primal {grad_err['primal']:.3e}, "
+          f"duals {grad_err['duals']:.3e}")
+    if max(terms.values()) > DRN_STEP_REL \
+            or not all(math.isfinite(v) for v in grad_err.values()):
+        raise AssertionError(f"DRN step: loss terms {terms} > "
+                             f"{DRN_STEP_REL}, gradients {grad_err}")
+    del bundles["fp32"], states["fp32"]
+
+    # 20 steps on one batch (bf16): the loss falls, everything finite
+    bundle, state = bundles["bf16"], states["bf16"]
+
+    def steps():
+        nonlocal state
+        out = []
+        for _ in range(DRN_STEPS):
+            state, m = bundle.step(state, lrs, hr, exp.optim.lr, gen)
+            out.append({k: float(v) for k, v in m.items()})
+        return out
+
+    t0 = time.perf_counter()
+    losses = counted(steps)
+    steps_wall = time.perf_counter() - t0
+    totals = [m["total"] for m in losses]
+    finite = all(torch.isfinite(p).all() for mod in [state.model,
+                                                     *state.duals]
+                 for p in mod.parameters())
+    drop = totals[0] - totals[-1]
+    say("drn", f"{DRN_STEPS} steps on one batch at LR {exp.optim.lr}: total "
+               f"{totals[0]:.4f} -> {totals[-1]:.4f} (drop {drop:.4f}, "
+               f"{drop / totals[0]:.4f} of the first); primary {losses[0]['primary']:.4f} -> "
+               f"{losses[-1]['primary']:.4f}, dual {losses[0]['dual']:.4f} -> "
+               f"{losses[-1]['dual']:.4f}; {steps_wall:.2f} s wall")
+    if not finite or not all(math.isfinite(v) for v in totals) \
+            or not totals[-1] < totals[0]:
+        raise AssertionError(f"DRN steps: totals {totals}, params finite "
+                             f"{finite}")
+
+    # timings (not claims): the serving forward (make_serving_forward, raw
+    # SR) launched and through its CUDA graph, its replays bitwise equal to
+    # the launched route; the step and its device idle share
+    x = lrs[0]
+    flops = drn_forward_flops(model, x)
+    serve = {g: make_serving_forward(exp, params, dev, quantize_out=False,
+                                     graphs=g) for g in (True, False)}
+    fwd_launched = counted(lambda: cuda_ms(lambda: serve[False](x), 10))
+    fwd_graph = counted(lambda: cuda_ms(lambda: serve[True](x), 10))
+    for xi in forward_inputs(x):
+        if not torch.equal(serve[True](xi), serve[False](xi)):
+            raise AssertionError("DRN serving forward: a replay differs "
+                                 "from the launched route")
+    del serve
+    step_fn = lambda: bundle.step(state, lrs, hr, exp.optim.lr, gen)  # noqa
+    step_ms = counted(lambda: cuda_ms(step_fn, 5))
+    step_wall, fams = profile_steps(step_fn)
+    busy = sum(fams.values())
+    idle = max(0.0, 1.0 - busy / step_wall)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    bound_ms = flops / BF16_TC_FLOPS * 1e3
+    say("drn", f"serving forward at batch {BATCH}: {flops / 1e9:.1f} GFLOP "
+               f"(bf16 compute bound {bound_ms:.3f} ms); {fwd_launched:.3f} "
+               f"ms launched, {fwd_graph:.3f} ms through its CUDA graph "
+               f"(CUDA events; {flops / fwd_graph / 1e9:.1f} TFLOP/s), "
+               f"replays bitwise equal to the launched route; train step "
+               f"{step_ms:.3f} ms (CUDA events), profiled {step_wall:.3f} ms "
+               f"with {busy:.3f} ms of device time: idle share {idle:.3f} "
+               f"under the profiler, {max(0.0, 1 - busy / step_ms):.3f} "
+               f"against the unprofiled step; peak allocated {peak:.2f} GiB")
+    del bundle, bundles, states
+
+    # AnomalyServer: the flagship DRCT grid class beside a DRN-L carpet class
+    drct = drct_experiment("grid", HR, SCALE, precision="bf16",
+                           batch_size=BATCH, run_tag="chip_smoke_drn_server")
+    carpet = drn_experiment("carpet", HR, SCALE, precision="bf16",
+                            batch_size=BATCH, run_tag="chip_smoke_drn_server")
+    drct_params = seeded_params(drct.model, dev)
+    carpet_params, _ = init_sr_params(
+        carpet.model, torch.Generator().manual_seed(SEED + 33), device=dev)
+    n_rgb = sum(v.numel() for v in carpet_params.values())
+    if n_rgb != DRN_RGB_PARAMS:
+        raise AssertionError(f"carpet DRN params {n_rgb}, expected "
+                             f"{DRN_RGB_PARAMS}")
+    order = list(range(16)) + list(range(21, 37)) + list(range(16, 21))
+    requests = {}
+    for name, texture in (("grid", grid_texture), ("carpet", carpet_texture)):
+        lr_u8, hr_u8 = synthetic_split(rng, 16 + 5, 16, texture=texture)
+        requests[name] = (lr_u8[order], hr_u8[order])   # good, bad, tail
+    servers = {}
+    for graphs in (True, False):
+        servers[graphs] = AnomalyServer(batch_size=BATCH, ssim_window=11,
+                                        device=dev, graphs=graphs)
+        servers[graphs].register("grid", drct, drct_params, mode="rdg")
+        servers[graphs].register("carpet", carpet, carpet_params)
+    n_calls = math.ceil(len(order) / BATCH)
+    launched = {"carpet": counted(lambda: servers[False].score(
+        "carpet", *requests["carpet"]))}
+    reset_counts()
+    launched["grid"] = servers[False].score("grid", *requests["grid"])
+    torch.cuda.synchronize()
+    grid_launched = counts()
+    if grid_launched != expected_counts(PER_FORWARD, n_calls):
+        raise AssertionError(f"two-class server, DRCT class launches "
+                             f"{grid_launched}, expected {PER_FORWARD} x "
+                             f"{n_calls}")
+    # through the captured calls: twice, so every batch replays at least once
+    graphed = {"carpet": counted(lambda: [servers[True].score(
+        "carpet", *requests["carpet"]) for _ in range(2)])}
+    reset_counts()
+    graphed["grid"] = [servers[True].score("grid", *requests["grid"])
+                       for _ in range(2)]
+    torch.cuda.synchronize()
+    grid_graphs = counts()
+    if grid_graphs != expected_counts(PER_FORWARD, 2):
+        raise AssertionError(f"two-class server, DRCT class captured "
+                             f"launches {grid_graphs}")
+    server_report = {}
+    for name in ("grid", "carpet"):
+        want = launched[name]
+        for got in graphed[name]:
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    f"two-class server, {name}: a replay differs from the "
+                    f"launched route by {np.abs(got - want).max(0)}")
+        if want.shape != (len(order), 3) or not np.isfinite(want).all():
+            raise AssertionError(f"{name} scores {want.shape} not finite")
+        mib = servers[True]._entries[name].reserved_bytes() / 2 ** 20
+        means = [want[:16].mean(0).round(5).tolist(),
+                 want[16:32].mean(0).round(5).tolist()]
+        say("drn", f"AnomalyServer class {name} "
+                   f"({'DRCT' if name == 'grid' else 'DRN-L, 3 channels'}): "
+                   f"{len(order)} requests in {n_calls} calls, twice through "
+                   f"its CUDA graph, every replay bitwise equal to the "
+                   f"launched route; mean scores (1-SSIM, MSE, -PSNR) good "
+                   f"{means[0]} bad {means[1]}; the capture reserved "
+                   f"{mib:.1f} MiB")
+        server_report[name] = {"bitwise_equal": True, "reserved_mib": mib,
+                               "mean_scores_good_bad": means}
+    server_report["grid"]["launches"] = grid_launched
+    server_report["grid"]["launches_graphs"] = grid_graphs
+    del servers, drct_params, carpet_params
+
+    # evaluate_anomaly on 512 px test images: auto-tiled at 32 LR px
+    shutil.rmtree(DRN_EVAL_DIR, ignore_errors=True)
+    for split, defect in (("good", False), ("bad", True)):
+        write_split(DRN_EVAL_DIR / "grid" / "test" / split, rng, DRN_TEST,
+                    CLI_TEST_HR, defect=defect)
+    logs = []
+    t0 = time.perf_counter()
+    res = counted(lambda: evaluate_anomaly(
+        exp, params, str(DRN_EVAL_DIR), "grid", out_dir=None,
+        save_images=False, batch=CLI_BATCH, device=dev, log=logs.append))
+    eval_wall = time.perf_counter() - t0
+    aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
+    tiled = f"Tiled serving: tile=32 overlap=8 for {CLI_TEST_HR // SCALE}px " \
+            "LR input"
+    say("drn", f"evaluate_anomaly on {DRN_TEST} + {DRN_TEST} images of "
+               f"{CLI_TEST_HR} px: '{tiled}' "
+               f"{'logged' if tiled in logs else 'NOT logged'}; AUC "
+               f"ssim/mse/psnr {aucs[0]:.4f}/{aucs[1]:.4f}/{aucs[2]:.4f} "
+               f"(random weights: only the range is checked), best window "
+               f"{res['best_ws']}; {eval_wall:.2f} s wall")
+    if tiled not in logs or not all(math.isfinite(a) and 0.0 <= a <= 1.0
+                                    for a in aucs):
+        raise AssertionError(f"DRN evaluate: logs {logs}, AUCs {aucs}")
+
+    # the user's whole path: cli.smoke --model-type drn-l
+    shutil.rmtree(DRN_SMOKE_DIR, ignore_errors=True)
+    t0 = time.perf_counter()
+    smoke = cli_smoke.main(DRN_SMOKE_ARGS)
+    smoke_wall = time.perf_counter() - t0
+    run_dir = Path(smoke["run_dir"])
+    log = (run_dir / "log.txt").read_text()
+    epoch = re.findall(r"\[(\d+)/(\d+)\]\t.*\t([0-9.]+)\+([0-9.]+)s", log)
+    smoke_aucs = [smoke["auc_ssim"], smoke["auc_mse"], smoke["auc_psnr"]]
+    walls = smoke["walls_s"]
+    say("drn", f"cli.smoke {' '.join(DRN_SMOKE_ARGS)}: prepare "
+               f"{walls['prepare']:.1f} s, train {walls['train']:.1f} s, "
+               f"evaluate {walls['evaluate']:.1f} s wall ({smoke_wall:.1f} s "
+               f"in all); the epoch's samples {epoch[-1][0] if epoch else '?'}"
+               f": {epoch[-1][2] if epoch else '?'} s in the train step; AUC "
+               f"ssim/mse/psnr " + "/".join(f"{a:.4f}" for a in smoke_aucs))
+    if not (run_dir / "model" / "dual_model_latest.pt").is_file() \
+            or "Using devices: cuda" not in log \
+            or "number of parameters is 9.82M" not in log \
+            or not epoch or epoch[-1][0] != epoch[-1][1] \
+            or not all(math.isfinite(a) and 0.0 <= a <= 1.0
+                       for a in smoke_aucs):
+        raise AssertionError(f"DRN smoke: run dir {run_dir}, AUCs "
+                             f"{smoke_aucs}, log {log[-2000:]}")
+
+    if any(drn_launches.values()):
+        raise AssertionError(f"the DRN path launched kernels of the port: "
+                             f"{drn_launches}")
+    wall = time.perf_counter() - t_phase
+    say("drn", f"the DRN path launched none of the port's kernels "
+               f"{drn_launches}; phase wall {wall:.1f} s")
+    report["drn"] = {
+        "params": n_params, "dual_params": n_dual,
+        "rel_l2_sr_bf16_vs_f32": errs, "step_terms_bf16": step_metrics["bf16"],
+        "step_terms_fp32": step_metrics["fp32"], "step_term_rel": terms,
+        "grad_rel_l2": grad_err, "fixed_batch": losses,
+        "forward_gflop": flops / 1e9, "forward_bound_ms": bound_ms,
+        "forward_ms": {"launched": fwd_launched, "graph": fwd_graph},
+        "step_ms": step_ms, "step_profiled_ms": step_wall,
+        "step_device_ms": busy, "step_idle_share": idle,
+        "peak_allocated_gib": peak, "server": server_report,
+        "evaluate": {"aucs": aucs, "best_ws": res["best_ws"],
+                     "wall_s": eval_wall},
+        "smoke": {"args": DRN_SMOKE_ARGS, "walls_s": walls,
+                  "wall_s": smoke_wall, "aucs": smoke_aucs},
+        "launches": drn_launches, "wall_s": wall}
+    return {"drn": drn_launches, "two_class_server": grid_launched,
+            "two_class_server_graphs": grid_graphs}, {}
+
+
 def phase_flagship(dev, report):
     """The flagship, DRCT x4 @128px (phases 3-11): returns (launches by
     main path, timings by kernel)."""
@@ -3116,7 +3491,7 @@ def phase_flagship(dev, report):
 
 
 PHASES = {"flagship": phase_flagship, "w16": phase_w16, "w4": phase_w4,
-          "smoke": phase_smoke}
+          "smoke": phase_smoke, "drn": phase_drn}
 
 
 def run_phase(name: str) -> dict:
@@ -3199,14 +3574,15 @@ def main() -> int:
         names = ("rdg_gemm_dgrad", "rdg_gemm_wgrad") \
             if k == "rdg_gemm_bwd" else (k,)
         by_path = {p: sum(got[n] for n in names) for p, got in paths.items()}
-        by_path = {p: n for p, n in by_path.items() if n}
+        # the DRN path stays in the record with its 0s: it runs no kernel
+        by_path = {p: n for p, n in by_path.items() if n or p == "drn"}
         if k in KERNELS:
             replaces = f"{REPLACES}; {REPLACES_TRAIN_FWD}"
         elif k in BWD_KERNELS:
             replaces = REPLACES_BWD
         else:
             replaces = REPLACES_BLOCK
-        if not by_path:
+        if not any(by_path.values()):
             raise AssertionError(f"{k}: launched on no main path")
         entry = {"name": k, "route": "cuda", "source": SOURCES[k],
                  "replaces": replaces,

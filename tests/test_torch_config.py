@@ -9,8 +9,9 @@ from adsr_tpu.core import config as jcfg
 from adsr_tpu_torch.core import config as pcfg
 
 
-@pytest.mark.parametrize("cls", ["DRCTModelConfig", "DataConfig",
-                                 "OptimConfig", "MeshConfig", "Experiment"])
+@pytest.mark.parametrize("cls", ["DRCTModelConfig", "DRNModelConfig",
+                                 "DataConfig", "OptimConfig", "MeshConfig",
+                                 "Experiment"])
 def test_same_fields_and_defaults(cls):
     ours, theirs = getattr(pcfg, cls), getattr(jcfg, cls)
     ours_f = [(f.name, f.default) for f in dataclasses.fields(ours)]

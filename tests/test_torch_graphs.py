@@ -1,9 +1,10 @@
 """Serving through captured calls (``adsr_tpu_torch/core/graphs.py``) on the
-CPU: what each path would capture makes no tensor from host data and never
-waits for the device, ``CapturedCall`` runs its function as it is on the
-CPU, ``AnomalyServer`` gives each class one input shape, the capture state
-machine (warm-up, capture, replay) on a stand-in for ``torch.cuda``, and the
-one-transfer SSIM window sweep against the JAX package's."""
+CPU: what each path would capture (DRCT's and DRN-L's) makes no tensor from
+host data and never waits for the device, ``CapturedCall`` runs its function
+as it is on the CPU, ``AnomalyServer`` gives each class one input shape, the
+capture state machine (warm-up, capture, replay) on a stand-in for
+``torch.cuda``, and the one-transfer SSIM window sweep against the JAX
+package's."""
 
 import contextlib
 
@@ -21,7 +22,7 @@ from adsr_tpu_torch.train.trainer import (make_serving_forward,
                                           make_tiled_serving_forward)
 
 from torch_port_util import CONFIGS, port_state_dict
-from test_torch_serving import _experiments, _weights
+from test_torch_serving import _drn_carpet, _experiments, _weights
 
 HOST_DATA = ("tensor", "as_tensor", "from_numpy")
 HOST_SYNCS = ("item", "cpu", "numpy", "tolist")
@@ -65,6 +66,20 @@ def _captured_body(path):
     _, pexp = _experiments()
     _, sd = _weights()
     rng = np.random.RandomState(0)
+    if path.endswith("_drn"):
+        # a tiny DRN-L x4 carpet class (RGB): the eager module, bicubic
+        # matrices built on the device
+        _, pexp, _, sd = _drn_carpet()
+        lr = torch.from_numpy((rng.rand(4, 4, 4, 3) * 255).astype(np.float32))
+        if path == "serving_drn":
+            return make_serving_forward(pexp, sd, device="cpu").fn, (lr,)
+        if path == "tiled_drn":
+            return make_tiled_serving_forward(
+                pexp, sd, tile=2, overlap=1, device="cpu").fn, (lr,)
+        server = AnomalyServer(batch_size=4, ssim_window=5, device="cpu")
+        server.register("carpet", pexp, sd)
+        hr = torch.from_numpy(rng.randint(0, 256, (4, 16, 16, 3), np.uint8))
+        return server._entries["carpet"].fn, (lr.to(torch.uint8), hr)
     if path in ("serving_rdg", "serving_block"):
         fwd = make_serving_forward(pexp, sd, device="cpu",
                                    mode=path.split("_")[1])
@@ -87,7 +102,8 @@ def _captured_body(path):
 
 @pytest.mark.parametrize("path", ["serving_rdg", "serving_block",
                                   "tiled_rdg", "tiled_block", "server_gray",
-                                  "server_rgb"])
+                                  "server_rgb", "serving_drn", "tiled_drn",
+                                  "server_drn"])
 def test_captured_body_makes_no_host_tensor_and_never_syncs(path,
                                                            monkeypatch):
     fn, inputs = _captured_body(path)

@@ -45,6 +45,7 @@ def test_entry_point_and_io_modules_are_covered():
             "adsr_tpu_torch/data/synthetic.py",
             "adsr_tpu_torch/io/png.py", "adsr_tpu_torch/io/journal.py",
             "adsr_tpu_torch/eval/tiled.py", "adsr_tpu_torch/eval/rundir.py",
+            "adsr_tpu_torch/models/drn.py",
             "adsr_tpu_torch/kernels/fused_swin_block.py"} <= names
 
 

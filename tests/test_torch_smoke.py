@@ -3,8 +3,10 @@ adsr_tpu_torch.cli.smoke --device cpu`` prepares a synthetic grid tree,
 trains a tiny DRCT through ``cli.main`` and scores it through
 ``cli.evaluate``, each a process of its own, and ends with ``SMOKE OK``;
 ``--device cuda`` without a card fails at the train step (nothing falls back
-to the CPU), and DRN-L is refused. The subprocesses run on one thread: the
-tiny model's operations are too small to share."""
+to the CPU); ``--model-type drn-l`` builds the full-width DRN-L train and
+evaluate commands (their steps stubbed here: a full-width DRN epoch is the
+card's work, ``chip_smoke.py``'s ``[drn]`` phase). The subprocesses run on
+one thread: the tiny model's operations are too small to share."""
 
 import json
 import os
@@ -57,8 +59,36 @@ def test_smoke_cli_fails_at_the_train_step_without_a_card(tmp_path):
     assert not (tmp_path / "smoke_eval.json").exists()
 
 
-def test_smoke_cli_refuses_drn_l(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        smoke.main(["--model-type", "drn-l", "--device", "cpu",
-                    "--workdir", str(tmp_path)])
-    assert not any(tmp_path.iterdir())
+def test_smoke_cli_builds_the_drn_l_commands(tmp_path, monkeypatch):
+    """``--model-type drn-l`` passes through to both CLIs at full width (no
+    DRCT capacity flags), reads the newest run dir under ``drn-l/`` and
+    reports the evaluation's AUCs; the steps are stubbed."""
+    cmds = []
+
+    def fake_run(cmd, cwd, env):
+        cmds.append(cmd)
+        if "adsr_tpu_torch.cli.main" in cmd:
+            run_dir = Path(cwd) / "workspace" / "experiment" / "drn-l" / \
+                "mvtec_grid_128_X4smoke"
+            (run_dir / "model").mkdir(parents=True)
+        if "adsr_tpu_torch.cli.evaluate" in cmd:
+            out = Path(cmd[cmd.index("--json-out") + 1])
+            out.write_text(json.dumps({"auc_ssim": 0.5, "auc_mse": 0.75,
+                                       "auc_psnr": 1.0}))
+        return 0.0
+
+    monkeypatch.setattr(smoke, "run", fake_run)
+    res = smoke.main(["--model-type", "drn-l", "--resolution", "128",
+                      "--epochs", "1", "--workdir", str(tmp_path)])
+    prepare, train, evaluate = cmds
+    assert prepare[2] == "adsr_tpu_torch.cli.prepare"
+    assert prepare[prepare.index("--scales") + 1] == "4"   # LR_2 and LR_4
+    assert train[2] == "adsr_tpu_torch.cli.main"
+    assert train[train.index("--model-type") + 1] == "drn-l"
+    assert train[train.index("--device") + 1] == "cuda"
+    assert "--embed-dim" not in train and "--precision" not in train
+    assert evaluate[2] == "adsr_tpu_torch.cli.evaluate"
+    assert evaluate[evaluate.index("--run-dir") + 1] == res["run_dir"]
+    assert res["run_dir"].endswith("drn-l/mvtec_grid_128_X4smoke")
+    assert (res["auc_ssim"], res["auc_mse"], res["auc_psnr"]) == \
+        (0.5, 0.75, 1.0)

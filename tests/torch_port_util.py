@@ -123,3 +123,27 @@ def jax_swin_block_case(c, nh, win, shift, h, seed=0):
         lambda a: np.asarray(a, np.float32)
         + 0.02 * rng.randn(*np.shape(a)).astype(np.float32), params)
     return blk, params, x
+
+
+@functools.lru_cache(maxsize=None)
+def drn_jax_params(scale=(2, 4), n_colors: int = 1, n_blocks: int = 2,
+                   n_feats: int = 8, scan_blocks: bool = True, seed: int = 0):
+    """A tiny DRN-L for both packages: (jax cfg, port cfg, numpy primal
+    tree, tuple of numpy dual trees), every leaf of the seeded init plus a
+    seeded N(0, 0.02), so biases and the MeanShift weights are not
+    trivial."""
+    from adsr_tpu.core.config import DRNModelConfig as JaxDRNConfig
+    from adsr_tpu.models.factory import init_sr_params as jax_init
+
+    from adsr_tpu_torch.core.config import DRNModelConfig as PortDRNConfig
+
+    kw = dict(scale=tuple(scale), n_blocks=n_blocks, n_feats=n_feats,
+              n_colors=n_colors, scan_blocks=scan_blocks)
+    primal, duals = jax_init(JaxDRNConfig(**kw), jax.random.key(seed))
+    rng = np.random.RandomState(seed)
+    perturb = functools.partial(
+        jax.tree_util.tree_map,
+        lambda a: (np.asarray(a, np.float32)
+                   + 0.02 * rng.randn(*np.shape(a)).astype(np.float32)))
+    return (JaxDRNConfig(**kw), PortDRNConfig(**kw), perturb(primal),
+            tuple(perturb(d) for d in duals))
