@@ -17,7 +17,9 @@ Output layout per class:
 
 Prep is host work in numpy: the card's machine has no PIL, so the files are
 read and written with ``io/png.py`` and resized by :func:`resize_lanczos`,
-which gives Pillow's LANCZOS output byte for byte.
+which gives Pillow's LANCZOS output byte for byte. :func:`resize_bilinear`
+does the same for Pillow's BILINEAR filter, which the EfficientAD loaders
+use (``train/efficientad.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from adsr_tpu_torch.io.png import read_png_rgb, write_png
 
 PRECISION_BITS = 22          # Pillow's 8-bit resampler: 32 - 8 - 2 bits
 LANCZOS_SUPPORT = 3.0
+BILINEAR_SUPPORT = 1.0
 
 
 def _sinc(x: float) -> float:
@@ -49,24 +52,33 @@ def _lanczos(x: float) -> float:
     return 0.0
 
 
-@functools.lru_cache(maxsize=64)
-def lanczos_taps(in_size: int, out_size: int) -> np.ndarray:
-    """Pillow's fixed-point LANCZOS coefficients (``Resample.c``
-    ``precompute_coeffs`` then ``normalize_coeffs_8bpc``) for ``in_size`` ->
-    ``out_size`` as a dense read-only float64 [out, in] matrix of integer
-    taps. Each output pixel's weights are computed in Pillow's order, in
-    doubles (Python floats are C doubles and ``math.sin`` is the C library's),
-    summed one after another, normalised and rounded to 22-bit fixed point."""
+def _bilinear(x: float) -> float:
+    if x < 0.0:
+        x = -x
+    if x < 1.0:
+        return 1.0 - x
+    return 0.0
+
+
+def _filter_taps(in_size: int, out_size: int, kernel, support: float
+                 ) -> np.ndarray:
+    """Pillow's fixed-point coefficients (``Resample.c``
+    ``precompute_coeffs`` then ``normalize_coeffs_8bpc``) of the filter
+    ``kernel`` with support ``support`` for ``in_size`` -> ``out_size`` as a
+    dense read-only float64 [out, in] matrix of integer taps. Each output
+    pixel's weights are computed in Pillow's order, in doubles (Python
+    floats are C doubles and ``math.sin`` is the C library's), summed one
+    after another, normalised and rounded to 22-bit fixed point."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = LANCZOS_SUPPORT * filterscale
+    support = support * filterscale
     ss = 1.0 / filterscale
     taps = np.zeros((out_size, in_size), np.float64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size)
-        w = [_lanczos((x - center + 0.5) * ss) for x in range(xmin, xmax)]
+        w = [kernel((x - center + 0.5) * ss) for x in range(xmin, xmax)]
         ww = 0.0
         for v in w:                  # in order: no compensated sum()
             ww += v
@@ -79,6 +91,20 @@ def lanczos_taps(in_size: int, out_size: int) -> np.ndarray:
     return taps
 
 
+@functools.lru_cache(maxsize=64)
+def lanczos_taps(in_size: int, out_size: int) -> np.ndarray:
+    """Pillow's LANCZOS taps for ``in_size`` -> ``out_size``
+    (:func:`_filter_taps`)."""
+    return _filter_taps(in_size, out_size, _lanczos, LANCZOS_SUPPORT)
+
+
+@functools.lru_cache(maxsize=64)
+def bilinear_taps(in_size: int, out_size: int) -> np.ndarray:
+    """Pillow's BILINEAR taps (``bilinear_filter``: 1 - |x| on (-1, 1),
+    support 1) for ``in_size`` -> ``out_size`` (:func:`_filter_taps`)."""
+    return _filter_taps(in_size, out_size, _bilinear, BILINEAR_SUPPORT)
+
+
 def _to_uint8(acc: np.ndarray) -> np.ndarray:
     """Pillow's ``clip8``: (acc + 2^21) >> 22, clipped to [0, 255]. Every
     ``acc`` is an integer below 2^53, so the float64 division is exact."""
@@ -87,30 +113,45 @@ def _to_uint8(acc: np.ndarray) -> np.ndarray:
                    0, 255)
 
 
-def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
-    """Pillow's ``Image.resize((width, height), Image.LANCZOS)`` of a uint8
-    [H, W] or [H, W, 3] image, byte for byte: the horizontal pass rounded
-    to uint8, then the vertical pass; a dimension that keeps its size skips
-    its pass, as in Pillow. The taps are integers and every partial sum of
-    a pass stays below 2^53, so float64 BLAS products are exact."""
+def _resize(img: np.ndarray, width: int, height: int, taps, name: str
+            ) -> np.ndarray:
+    """Pillow's 8-bit two-pass resample of a uint8 [H, W] or [H, W, 3]
+    image with the tap matrices ``taps(in, out)``: the horizontal pass
+    rounded to uint8, then the vertical pass; a dimension that keeps its
+    size skips its pass, as in Pillow. The taps are integers and every
+    partial sum of a pass stays below 2^53, so float64 BLAS products are
+    exact."""
     a = np.asarray(img)
     if a.dtype != np.uint8 or a.ndim not in (2, 3) or (
             a.ndim == 3 and a.shape[2] != 3):
-        raise ValueError(f"resize_lanczos takes uint8 [H, W] or [H, W, 3], "
+        raise ValueError(f"{name} takes uint8 [H, W] or [H, W, 3], "
                          f"got {a.dtype} {a.shape}")
     if width < 1 or height < 1:
-        raise ValueError(f"resize_lanczos: target size {width} x {height}")
+        raise ValueError(f"{name}: target size {width} x {height}")
     h, w = a.shape[:2]
     c = 1 if a.ndim == 2 else 3
     x = a.reshape(h, w, c).astype(np.float64)
     if w != width:                   # [h, c, w] rows times the taps
         rows = x.transpose(0, 2, 1).reshape(h * c, w)
-        x = _to_uint8(rows @ lanczos_taps(w, width).T) \
+        x = _to_uint8(rows @ taps(w, width).T) \
             .reshape(h, c, width).transpose(0, 2, 1)
     if h != height:
-        x = _to_uint8(lanczos_taps(h, height) @ x.reshape(h, -1)) \
+        x = _to_uint8(taps(h, height) @ x.reshape(h, -1)) \
             .reshape(height, width, c)
     return x.astype(np.uint8).reshape((height, width) + a.shape[2:])
+
+
+def resize_lanczos(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Pillow's ``Image.resize((width, height), Image.LANCZOS)`` of a uint8
+    [H, W] or [H, W, 3] image, byte for byte (:func:`_resize`)."""
+    return _resize(img, width, height, lanczos_taps, "resize_lanczos")
+
+
+def resize_bilinear(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """Pillow's ``Image.resize((width, height), Image.BILINEAR)`` of a uint8
+    [H, W] or [H, W, 3] image, byte for byte (:func:`_resize`): what the
+    JAX package's EfficientAD loaders do after ``convert("RGB")``."""
+    return _resize(img, width, height, bilinear_taps, "resize_bilinear")
 
 
 def resize_image(path: Path, target: Tuple[int, int]) -> np.ndarray:

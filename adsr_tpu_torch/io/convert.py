@@ -26,6 +26,13 @@
 ``tail.{idx}``. ``drn_duals_from_jax`` maps the dual models' trees the same
 way (``dual_module.{s}.0`` and the projection).
 
+``pdn_state_dict_from_jax`` and ``autoencoder_state_dict_from_jax`` are the
+inverses of ``convert_pdn`` and ``convert_autoencoder``
+(``torch_convert.py:193, 219``): the EfficientAD networks' ``conv{i}`` ->
+``{index}`` of the small (0/3/6/8) or medium (0/3/6/8/10/12) PDN stack,
+``enc{i}`` / ``dec{i}`` -> the autoencoder's 0/2/4/6/8/10 and
+12/16/20/24/28/32/36/38.
+
 The tree is a nested dict of arrays (numpy or anything ``np.asarray`` reads).
 """
 
@@ -191,3 +198,36 @@ def drn_duals_from_jax(dual_params, cfg: DRNModelConfig
         _down_block(tree, "", sd)
         out.append(sd)
     return tuple(out)
+
+
+PDN_CONVS = {"small": (0, 3, 6, 8), "medium": (0, 3, 6, 8, 10, 12)}
+AUTOENCODER_CONVS = {"enc0": 0, "enc1": 2, "enc2": 4, "enc3": 6, "enc4": 8,
+                     "enc5": 10, "dec0": 12, "dec1": 16, "dec2": 20,
+                     "dec3": 24, "dec4": 28, "dec5": 32, "dec6": 36,
+                     "dec7": 38}
+
+
+def _sequential(params: Mapping[str, Any], index: Mapping[str, int],
+                what: str) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for path, v in _flatten(params):
+        name, _, leaf = path.partition("/")
+        if name not in index or leaf not in ("kernel", "bias"):
+            raise KeyError(f"unmapped JAX {what} param: {path}")
+        suffix, arr = _leaf(leaf, v)
+        out[f"{index[name]}.{suffix}"] = _tensor(arr)
+    return out
+
+
+def pdn_state_dict_from_jax(params: Mapping[str, Any], size: str = "small"
+                            ) -> Dict[str, torch.Tensor]:
+    """JAX ``PDN`` params -> the port's (and the reference's) ``state_dict``."""
+    index = {f"conv{i}": seq for i, seq in enumerate(PDN_CONVS[size])}
+    return _sequential(params, index, f"PDN-{size}")
+
+
+def autoencoder_state_dict_from_jax(params: Mapping[str, Any]
+                                    ) -> Dict[str, torch.Tensor]:
+    """JAX ``Autoencoder`` params -> the port's (and the reference's)
+    ``state_dict``."""
+    return _sequential(params, AUTOENCODER_CONVS, "autoencoder")

@@ -2,8 +2,8 @@
 """Drive the PyTorch port's DRCT x4 @128px serving and training paths and its
 train and evaluate CLIs on one GPU, then the window-16 geometry (256px/x4
 and 512/x8), the window-4 geometry (64/x4, 128/x8 and 32/x2), the
-end-to-end smoke CLI (prepare -> train -> evaluate) and DRN-L x4 @128px with
-its dual models.
+end-to-end smoke CLI (prepare -> train -> evaluate), DRN-L x4 @128px with
+its dual models and EfficientAD at 256 px.
 
     python3 chip_smoke.py
 
@@ -153,11 +153,28 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    ``dual_model_latest.pt``); the forward's and the step's times and the
    step's idle share. DRN's convolutions are cuDNN's: its path launches
    none of the port's kernels, which the kernels line records as its
-   ``"drn"`` path, all 0s.
+   ``"drn"`` path, all 0s;
+16. EfficientAD, lines "[ead] ...": ``EADConfig()`` at full width (the
+   PDN-small teacher at 384 channels, the student at 768, the autoencoder;
+   256 px; random weights from the seed; f32 with TF32 off): the teacher's,
+   student's, autoencoder's and the distillation oracle's (medium PDN)
+   forwards on the card against the CPU on the same weights and inputs;
+   one train step on the card against the CPU from the same state and
+   draws, without and with a penalty batch (the loss terms, and each
+   student and autoencoder leaf's gradient and Adam update); 20 steps on
+   one batch of 12; ``map_normalization``, ``test_auc`` and
+   ``final_metrics`` on synthetic grid images; the step's time, idle share
+   and share of its f32 bound (its convolutions' FLOPs from the shapes)
+   and ``predict_maps``' img/s at batch 12; ``cli.efficientad
+   --teacher scratch`` (40 distillation and 40 train steps) on a synthetic
+   MVTec grid tree of 200 px PNGs, so the loaders' bilinear resize runs.
+   EfficientAD's convolutions are cuDNN's: its path launches none of the
+   port's kernels, which the kernels line records as its ``"efficientad"``
+   path, all 0s.
 
 The build and the ptxas lines come from this process; each geometry
-(phases 3-11 of the flagship, 12, 13), the smoke (14) and DRN-L (15) runs
-in a process of its own, which this one starts and waits for (``--phase
+(phases 3-11 of the flagship, 12, 13), the smoke (14), DRN-L (15) and
+EfficientAD (16) runs in a process of its own, which this one starts and waits for (``--phase
 NAME OUT``).
 
 The last three lines are the kernels' JSON record (each kernel's
@@ -166,11 +183,13 @@ its launches on every main path under ``"launches_by_path"``), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``; a ``[report]`` line
 before them holds every number the run measured, as JSON (the window-16
 phase's under ``"w16"``, the window-4 phase's under ``"w4"``, the smoke's
-under ``"smoke"``, DRN-L's under ``"drn"``).
+under ``"smoke"``, DRN-L's under ``"drn"``, EfficientAD's under
+``"ead"``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -187,15 +206,18 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adsr_tpu_torch.cli import efficientad as cli_ead
 from adsr_tpu_torch.cli import evaluate as cli_eval
 from adsr_tpu_torch.cli import main as cli_main
 from adsr_tpu_torch.cli import smoke as cli_smoke
 from adsr_tpu_torch.core.config import (drct_experiment,
                                         drn_experiment)
+from adsr_tpu_torch.core.device import full_f32
 from adsr_tpu_torch.data.pipeline import SRDataset, load_sr_dataset, set_channel
 from adsr_tpu_torch.data.prepare import lr_from_hr
-from adsr_tpu_torch.data.synthetic import (carpet_texture, grid_texture,
-                                           inject_defect)
+from adsr_tpu_torch.data.synthetic import (carpet_texture,
+                                           generate_synthetic_mvtec,
+                                           grid_texture, inject_defect)
 from adsr_tpu_torch.eval.evaluate import (evaluate_anomaly,
                                           evaluate_anomaly_arrays)
 from adsr_tpu_torch.eval.rundir import resolve_checkpoint
@@ -241,8 +263,12 @@ from adsr_tpu_torch.kernels.window_attention_bwd import (
     window_attention_bwd_plan)
 from adsr_tpu_torch.models.drct import RDG, drop_path_mults, shift_attn_mask
 from adsr_tpu_torch.models.drn import apply_dual
+from adsr_tpu_torch.models.efficientad import PDN, init_efficientad_
 from adsr_tpu_torch.models.factory import (init_sr_params, init_weights_,
                                            make_model)
+from adsr_tpu_torch.train.efficientad import (EADConfig, EfficientADTrainer,
+                                              StepDraws, final_metrics,
+                                              normalize_imagenet)
 from adsr_tpu_torch.train.trainer import (Trainer, make_serving_forward,
                                           make_tiled_serving_forward,
                                           make_train_step)
@@ -3116,19 +3142,20 @@ DRN_SMOKE_ARGS = ["--model-type", "drn-l", "--workdir", str(DRN_SMOKE_DIR),
                   DEVICE]
 
 
-def drn_forward_flops(model, x) -> int:
-    """The multiply-adds x 2 of every convolution of ``model`` on ``x``,
-    counted from the shapes by forward hooks (the bicubic products, the
-    CALayers' means and the elementwise work are left out: under 1%)."""
+def conv_flops(module, run) -> int:
+    """The multiply-adds x 2 of every convolution of ``module`` while
+    ``run()`` runs, counted from the shapes by forward hooks (for DRN-L the
+    bicubic products, the CALayers' means and the elementwise work are left
+    out: under 1%)."""
     total = [0]
 
     def hook(mod, inputs, out):
         total[0] += 2 * out.numel() * mod.weight[0].numel()
 
-    hooks = [m.register_forward_hook(hook) for m in model.modules()
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
              if isinstance(m, torch.nn.Conv2d)]
     with torch.no_grad():
-        model(x, dtype=torch.bfloat16)
+        run()
     for h in hooks:
         h.remove()
     return total[0]
@@ -3276,7 +3303,7 @@ def phase_drn(dev, report):
     # SR) launched and through its CUDA graph, its replays bitwise equal to
     # the launched route; the step and its device idle share
     x = lrs[0]
-    flops = drn_forward_flops(model, x)
+    flops = conv_flops(model, lambda: model(x, dtype=torch.bfloat16))
     serve = {g: make_serving_forward(exp, params, dev, quantize_out=False,
                                      graphs=g) for g in (True, False)}
     fwd_launched = counted(lambda: cuda_ms(lambda: serve[False](x), 10))
@@ -3449,6 +3476,347 @@ def phase_drn(dev, report):
             "two_class_server_graphs": grid_graphs}, {}
 
 
+# --------------------------------------------------------------------------- #
+# EfficientAD at full width: the teacher PDN-small (384 channels), the
+# student (768) and the autoencoder at 256 px, the student-teacher trainer,
+# scratch-teacher distillation and cli.efficientad. The JAX package computes
+# it with XLA convolutions (no pallas_call); the port with cuDNN's in f32,
+# TF32 off: no kernel of the port is on its path
+# --------------------------------------------------------------------------- #
+
+EAD_SIZE = 256
+EAD_BATCH = 12                # the CLI's default batch
+EAD_CPU_BATCH = 4             # the card-against-CPU comparisons
+# parameters: teacher, student, autoencoder, the distillation's oracle
+EAD_PARAMS = {"teacher": 2_694_144, "student": 4_267_392,
+              "autoencoder": 1_096_320, "oracle": 8_026_624}
+EAD_FWD_REL_L2 = 1e-4         # f32 (TF32 off) on the card against the CPU's
+EAD_TERM_REL = 1e-4           # each loss term of one f32 step, card vs CPU
+# each student and autoencoder gradient leaf after that step, card vs CPU,
+# relative L2: the first convolutions' weight gradients, each a sum over
+# 4 x 128 x 128 positions taken in another order on each side, read up to
+# 1.1e-4 (the other leaves up to 6.4e-5) on an H100 80GB HBM3 at 700 W
+EAD_GRAD_REL_L2 = 5e-4
+# Adam's first update is lr g / (|g| + eps), g with the weight decay: a sign
+# where |g| >> eps, so where g lies within the two sides' f32 noise of 0 the
+# update may flip (2 lr apart; one flipped element of a leaf read 2.8e-3 of
+# its update's L2). The update is held where g is resolved: where the two
+# gradients' difference d moves it by eps d / (|g| (|g| + eps)) <= 1e-5 of
+# itself, so the update agrees but for the rounding of p + update
+EAD_UPDATE_REL_L2 = 1e-4
+EAD_ADAM_EPS = 1e-8
+EAD_RESOLVED = 1e-5
+EAD_RESOLVED_SHARE = 0.5      # of each network's elements, at the least
+EAD_STEPS = 20
+EAD_CLI_DIR = Path("workspace") / "chip_smoke" / "ead"
+EAD_CLI_SRC = 200             # the synthetic tree's size: the loaders resize
+EAD_CLI_ARGS = ["--dataset-path", str(EAD_CLI_DIR / "data"),
+                "--subdataset", "grid", "--train-steps", "40",
+                "--batch-size", str(EAD_BATCH), "--teacher", "scratch",
+                "--distill-steps", "40", "--eval-after", "20",
+                "--eval-every", "10", "--output-dir",
+                str(EAD_CLI_DIR / "out"), "--device", DEVICE]
+EAD_CHECKPOINTS = ("teacher_distilled", "student_tmp", "autoencoder_tmp",
+                   "teacher_final", "student_final", "autoencoder_final")
+
+
+def ead_pair(weights, mean_std, dev, cfg):
+    """A trainer on the card and one on the CPU, both from ``weights`` (the
+    three networks' state_dicts) and the card's teacher statistics, each
+    with a fresh Adam."""
+    pair = []
+    for d in (dev, torch.device("cpu")):
+        tr = EfficientADTrainer(cfg, log=lambda *_: None, device=d)
+        for name, sd in weights.items():
+            getattr(tr, name).load_state_dict(sd)
+        tr.teacher_mean, tr.teacher_std = (t.to(d) for t in mean_std)
+        pair.append(tr)
+    return pair
+
+
+def ead_step_state(card, cpu, weights):
+    """After one step of ``card`` and ``cpu`` from ``weights``, for the
+    student and the autoencoder: the largest relative L2 over their leaves
+    of the card's gradient against the CPU's and of its Adam update where
+    the gradient is resolved (``EAD_UPDATE_REL_L2``), each as {network:
+    [reading, leaf]}, and the share of each network's elements resolved."""
+    wd = cpu.cfg.weight_decay
+    readings = {"grad": {}, "update": {}}
+    resolved = {}
+    for name in ("student", "autoencoder"):
+        on_cpu = dict(getattr(cpu, name).named_parameters())
+        n_res = n_all = 0
+        for leaf, p in getattr(card, name).named_parameters():
+            q = on_cpu[leaf]
+            before = weights[name][leaf].cpu()
+            g_card, g_cpu = p.grad.cpu() + wd * before, q.grad + wd * before
+            ok = EAD_ADAM_EPS * (g_card - g_cpu).abs() <= EAD_RESOLVED \
+                * g_cpu.abs() * (g_cpu.abs() + EAD_ADAM_EPS)
+            moved, want = p.detach().cpu() - before, q.detach() - before
+            n_res += int(ok.sum())
+            n_all += ok.numel()
+            for key, v in (("grad", rel_l2(p.grad.cpu(), q.grad)),
+                           ("update", rel_l2(moved[ok], want[ok])
+                            if ok.any() else 0.0)):
+                readings[key].setdefault(name, []).append([v, leaf])
+        resolved[name] = n_res / n_all
+    # the largest of each, a NaN above every number
+    worst = {key: {name: max(got, key=lambda r: (not r[0] <= math.inf,
+                                                 r[0]))
+                   for name, got in by_net.items()}
+             for key, by_net in readings.items()}
+    worst["resolved_share"] = resolved
+    return worst
+
+
+def ead_step_flops(trainer, x) -> int:
+    """The convolutions' multiply-adds x 2 of one train step without a
+    penalty batch on ``x`` ([B, 3, H, W]): the teacher's two forwards; the
+    student's two calls, each a forward, a weight gradient and (but for its
+    first convolution, whose input needs none) an input gradient, its last
+    convolution counted at the half of its channels that call reads; the
+    autoencoder's one call alike."""
+    t, s, a = trainer.teacher, trainer.student, trainer.autoencoder
+    fwd = {k: conv_flops(m, lambda m=m: m(x)) for k, m in (
+        ("t", t), ("s", s), ("a", a))}
+    first = {k: conv_flops(m[0], lambda m=m: m(x)) for k, m in (
+        ("s", s), ("a", a))}
+    s_last = conv_flops(s[-1], lambda: s(x))
+    return (2 * fwd["t"] + 2 * (3 * (fwd["s"] - s_last // 2) - first["s"])
+            + 3 * fwd["a"] - first["a"])
+
+
+def phase_ead(dev, report):
+    """EfficientAD at full width (``EADConfig()``: PDN-small teacher at 384
+    channels, student at 768, the autoencoder; 256 px; random weights from
+    the seed; f32, TF32 off): the four networks' forwards on the card
+    against the CPU on the same weights and inputs; one train step on the
+    card against the CPU from the same state and draws, without and with a
+    penalty batch (loss terms, gradients, Adam updates); 20 steps on one batch (batch 12); map normalisation,
+    ``test_auc`` and ``final_metrics`` on synthetic grid images; the step's
+    time and idle share and ``predict_maps``' img/s; ``cli.efficientad
+    --teacher scratch`` on a synthetic MVTec tree of 200 px images. Every
+    part runs with the launch counters at 0 and must leave them there: the
+    "efficientad" path of the kernels line. Returns (launches by path,
+    {})."""
+    t_phase = time.perf_counter()
+    cfg = EADConfig(batch_size=EAD_BATCH, seed=SEED + 40)
+    reset_counts()
+    trainer = EfficientADTrainer(cfg, log=lambda *_: None, device=dev)
+    oracle = init_efficientad_(
+        PDN(cfg.out_channels, "medium"),
+        torch.Generator().manual_seed(SEED + 41)).to(dev)
+    nets = {"teacher": trainer.teacher, "student": trainer.student,
+            "autoencoder": trainer.autoencoder, "oracle": oracle}
+    n_params = {k: sum(p.numel() for p in m.parameters())
+                for k, m in nets.items()}
+    say("ead", f"EfficientAD {cfg.model_size} @{cfg.image_size}px, "
+               f"{cfg.out_channels} channels, batch {cfg.batch_size}, f32 "
+               f"(TF32 off): params {n_params}")
+    if n_params != EAD_PARAMS:
+        raise AssertionError(f"EfficientAD params {n_params}, expected "
+                             f"{EAD_PARAMS}")
+
+    rng = np.random.RandomState(SEED + 42)
+    _, hr_u8 = synthetic_split(rng, EAD_BATCH, EAD_BATCH, hr_px=EAD_SIZE)
+    test_imgs = hr_u8.astype(np.float32) / np.float32(255.0)
+    labels = ["good"] * EAD_BATCH + ["crack"] * EAD_BATCH
+    train_imgs, val_imgs = (
+        synthetic_split(rng, EAD_BATCH, 0, hr_px=EAD_SIZE)[1]
+        .astype(np.float32) / np.float32(255.0) for _ in range(2))
+    batch = torch.as_tensor(train_imgs, device=dev)
+    trainer.teacher_normalization(train_imgs)
+
+    # the forwards, card against CPU on the same weights and inputs
+    x = normalize_imagenet(torch.as_tensor(
+        train_imgs[:EAD_CPU_BATCH])).permute(0, 3, 1, 2).contiguous()
+    fwd_err = {}
+    with torch.no_grad(), full_f32():
+        for name, net in nets.items():
+            cpu = copy.deepcopy(net).cpu()
+            fwd_err[name] = rel_l2(net(x.to(dev)).cpu(), cpu(x))
+    say("ead", f"forwards on the card vs the CPU at batch {EAD_CPU_BATCH}, "
+               f"relative L2: " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in fwd_err.items())
+        + f" (limit {EAD_FWD_REL_L2})")
+    if not all(v <= EAD_FWD_REL_L2 for v in fwd_err.values()):
+        raise AssertionError(f"EfficientAD forwards {fwd_err} > "
+                             f"{EAD_FWD_REL_L2}")
+    del oracle, nets
+
+    # one step, card against CPU, from the same state and draws
+    weights = {k: {n: v.clone() for n, v in getattr(
+        trainer, k).state_dict().items()}
+        for k in ("teacher", "student", "autoencoder")}
+    mean_std = (trainer.teacher_mean, trainer.teacher_std)
+    step_cfg = dataclasses.replace(cfg, batch_size=EAD_CPU_BATCH)
+    gen = torch.Generator().manual_seed(SEED + 43)
+    small = train_imgs[:EAD_CPU_BATCH]
+    pen = test_imgs[-EAD_CPU_BATCH:]
+    step_terms, step_rel, step_state = {}, {}, {}
+    for label, penalty in (("plain", None), ("penalty", pen)):
+        draws = StepDraws.sample(EAD_CPU_BATCH, gen,
+                                 penalty=penalty is not None)
+        card, cpu = ead_pair(weights, mean_std, dev, step_cfg)
+        got = card.train_step(small, small, draws, penalty)
+        want = cpu.train_step(small, small, draws, penalty)
+        step_terms[label] = {"card": got, "cpu": want}
+        step_rel[label] = {k: abs(got[k] / want[k] - 1) for k in want}
+        step_state[label] = ead_step_state(card, cpu, weights)
+        del card, cpu
+    say("ead", f"one step at batch {EAD_CPU_BATCH}, card vs CPU from the "
+               f"same state and draws: " + "; ".join(
+                   f"{label} {step_terms[label]['card']} vs "
+                   f"{step_terms[label]['cpu']}, relative "
+                   + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+                   for label, rel in step_rel.items())
+        + f" (limit {EAD_TERM_REL})")
+    if set(step_rel["penalty"]) != {"total", "hard", "penalty", "ae",
+                                    "stae"} \
+            or max(v for rel in step_rel.values()
+                   for v in rel.values()) > EAD_TERM_REL:
+        raise AssertionError(f"EfficientAD step terms {step_rel}")
+    say("ead", "after that step, card vs CPU, the largest over each "
+               "network's leaves: " + "; ".join(
+                   f"{label} gradient relative L2 "
+                   + ", ".join(f"{n} {v:.3e} ({leaf})" for n, (v, leaf)
+                               in st["grad"].items())
+                   + f" (limit {EAD_GRAD_REL_L2}), Adam update relative L2 "
+                     f"where g is resolved "
+                   + ", ".join(f"{n} {v:.3e} ({leaf})" for n, (v, leaf)
+                               in st["update"].items())
+                   + f" (limit {EAD_UPDATE_REL_L2}), resolved "
+                   + ", ".join(f"{n} {v:.4f}" for n, v
+                               in st["resolved_share"].items())
+                   + f" of the elements (limit >= {EAD_RESOLVED_SHARE})"
+                   for label, st in step_state.items()))
+    for st in step_state.values():
+        for key, limit in (("grad", EAD_GRAD_REL_L2),
+                           ("update", EAD_UPDATE_REL_L2)):
+            if not all(v <= limit for v, _ in st[key].values()):
+                raise AssertionError(f"EfficientAD step state {key}: "
+                                     f"{st[key]} > {limit}")
+        if not all(v >= EAD_RESOLVED_SHARE
+                   for v in st["resolved_share"].values()):
+            raise AssertionError(f"EfficientAD step: resolved "
+                                 f"{st['resolved_share']}")
+
+    # the main path with the counters from 0: 20 steps on one batch (one
+    # set of draws, so each step sees the same images), then scoring
+    reset_counts()
+    draws = StepDraws.sample(EAD_BATCH, gen)
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(batch, batch, draws)
+              for _ in range(EAD_STEPS)]
+    torch.cuda.synchronize()
+    steps_wall = time.perf_counter() - t0
+    totals = [m["total"] for m in losses]
+    finite = all(torch.isfinite(p).all() for m in (trainer.student,
+                                                   trainer.autoencoder)
+                 for p in m.parameters())
+    say("ead", f"{EAD_STEPS} steps on one batch of {EAD_BATCH} at LR "
+               f"{cfg.lr}: total {totals[0]:.4f} -> {totals[-1]:.4f} (drop "
+               f"{(totals[0] - totals[-1]) / totals[0]:.4f} of the first); "
+               f"hard {losses[0]['hard']:.4f} -> {losses[-1]['hard']:.4f}, "
+               f"ae {losses[0]['ae']:.4f} -> {losses[-1]['ae']:.4f}, stae "
+               f"{losses[0]['stae']:.5f} -> {losses[-1]['stae']:.5f}; "
+               f"{steps_wall:.2f} s wall")
+    if not finite or not all(math.isfinite(v) for v in totals) \
+            or not totals[-1] < totals[0]:
+        raise AssertionError(f"EfficientAD steps: totals {totals}, params "
+                             f"finite {finite}")
+
+    q = trainer.map_normalization(val_imgs)
+    auc, y_true, y_score = trainer.test_auc(test_imgs, labels, q)
+    fm = final_metrics(y_true, y_score)
+    say("ead", f"map_normalization quantiles (st 0.9 / 0.995, ae 0.9 / "
+               f"0.995) {[round(v, 6) for v in q]}; test_auc on "
+               f"{EAD_BATCH} + {EAD_BATCH} images {auc:.4f} (random "
+               f"teacher: only the range is checked); final_metrics {fm}")
+    if not (q[0] <= q[1] and q[2] <= q[3]) \
+            or not all(math.isfinite(v) for v in q + tuple(fm.values())) \
+            or not 0.0 <= auc <= 1.0:
+        raise AssertionError(f"EfficientAD scoring: q {q}, auc {auc}, {fm}")
+
+    # timings: the step (CUDA events; its idle share under the profiler)
+    # and predict_maps at batch 12
+    step_fn = lambda: trainer.train_step(batch, batch, draws)  # noqa: E731
+    step_ms = cuda_ms(step_fn, 5)
+    step_wall, fams = profile_steps(step_fn)
+    busy = sum(fams.values())
+    idle = max(0.0, 1.0 - busy / step_wall)
+    maps_ms = cuda_ms(lambda: trainer.predict_maps(batch), 10)
+    x_full = batch.permute(0, 3, 1, 2)
+    maps_flops = sum(conv_flops(m, lambda m=m: m(x_full)) for m in (
+        trainer.teacher, trainer.student, trainer.autoencoder))
+    maps_bound = maps_flops / F32_FLOPS * 1e3
+    step_flops = ead_step_flops(trainer, x_full)
+    step_bound = step_flops / F32_FLOPS * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("ead", f"train step at batch {EAD_BATCH}: {step_ms:.3f} ms (CUDA "
+               f"events), profiled {step_wall:.3f} ms with {busy:.3f} ms of "
+               f"device time: idle share {idle:.3f} under the profiler, "
+               f"{max(0.0, 1 - busy / step_ms):.3f} against the unprofiled "
+               f"step, {step_flops / 1e9:.1f} GFLOP (f32 bound "
+               f"{step_bound:.3f} ms: {step_bound / step_ms:.3f} of it); "
+               f"predict_maps at batch {EAD_BATCH}: {maps_ms:.3f} ms, "
+               f"{EAD_BATCH / maps_ms * 1e3:.1f} img/s, "
+               f"{maps_flops / 1e9:.1f} GFLOP (f32 bound {maps_bound:.3f} "
+               f"ms at {F32_FLOPS / 1e12:.0f} TFLOP/s; "
+               f"{maps_flops / maps_ms / 1e9:.1f} TFLOP/s); peak allocated "
+               f"{peak:.2f} GiB")
+    del trainer, batch
+
+    # the user's path: cli.efficientad --teacher scratch on a synthetic
+    # MVTec tree of 200 px PNGs (the loaders' bilinear resize to 256 runs)
+    shutil.rmtree(EAD_CLI_DIR, ignore_errors=True)
+    generate_synthetic_mvtec(str(EAD_CLI_DIR / "data"), classes=("grid",),
+                             size=EAD_CLI_SRC, seed=SEED + 44)
+    t0 = time.perf_counter()
+    cli_auc = cli_ead.main(EAD_CLI_ARGS)
+    cli_wall = time.perf_counter() - t0
+    run, = (EAD_CLI_DIR / "out").iterdir()     # <subdataset>_<steps>
+    fm_cli = json.loads((run / "final_metrics.json").read_text())
+    ckpts = sorted(p.name for p in run.glob("*.pt"))
+    say("ead", f"cli.efficientad {' '.join(EAD_CLI_ARGS)}: AUC "
+               f"{cli_auc:.4f}, final_metrics.json {fm_cli}, checkpoints "
+               f"{ckpts}; {cli_wall:.1f} s wall")
+    if ckpts != sorted(f"{n}.pt" for n in EAD_CHECKPOINTS) \
+            or fm_cli["auc"] != cli_auc or not 0.0 <= cli_auc <= 1.0 \
+            or set(fm_cli) != {"auc", "threshold", "accuracy", "precision",
+                               "recall", "f1", "train_time_h"}:
+        raise AssertionError(f"cli.efficientad: {ckpts}, {fm_cli}")
+
+    torch.cuda.synchronize()
+    launches = counts()
+    if any(launches.values()):
+        raise AssertionError(f"the EfficientAD path launched kernels of the "
+                             f"port: {launches}")
+    wall = time.perf_counter() - t_phase
+    say("ead", f"the EfficientAD path launched none of the port's kernels "
+               f"{launches}; phase wall {wall:.1f} s")
+    report["ead"] = {
+        "params": n_params, "fwd_rel_l2_card_vs_cpu": fwd_err,
+        "step_terms": step_terms, "step_term_rel": step_rel,
+        "step_state_card_vs_cpu": step_state,
+        "fixed_batch": losses, "quantiles": list(q), "auc": auc,
+        "final_metrics": fm, "step_ms": step_ms,
+        "step_profiled_ms": step_wall, "step_device_ms": busy,
+        "step_idle_share": idle, "step_gflop": step_flops / 1e9,
+        "step_f32_bound_ms": step_bound,
+        "step_bound_share": step_bound / step_ms,
+        "predict_maps_ms": maps_ms,
+        "predict_maps_img_s": EAD_BATCH / maps_ms * 1e3,
+        "predict_maps_gflop": maps_flops / 1e9,
+        "predict_maps_f32_bound_ms": maps_bound,
+        "peak_allocated_gib": peak,
+        "cli": {"args": EAD_CLI_ARGS, "auc": cli_auc,
+                "final_metrics": fm_cli, "checkpoints": ckpts,
+                "wall_s": cli_wall},
+        "launches": launches, "wall_s": wall}
+    return {"efficientad": launches}, {}
+
+
 def phase_flagship(dev, report):
     """The flagship, DRCT x4 @128px (phases 3-11): returns (launches by
     main path, timings by kernel)."""
@@ -3491,7 +3859,7 @@ def phase_flagship(dev, report):
 
 
 PHASES = {"flagship": phase_flagship, "w16": phase_w16, "w4": phase_w4,
-          "smoke": phase_smoke, "drn": phase_drn}
+          "smoke": phase_smoke, "drn": phase_drn, "ead": phase_ead}
 
 
 def run_phase(name: str) -> dict:
@@ -3574,8 +3942,10 @@ def main() -> int:
         names = ("rdg_gemm_dgrad", "rdg_gemm_wgrad") \
             if k == "rdg_gemm_bwd" else (k,)
         by_path = {p: sum(got[n] for n in names) for p, got in paths.items()}
-        # the DRN path stays in the record with its 0s: it runs no kernel
-        by_path = {p: n for p, n in by_path.items() if n or p == "drn"}
+        # the DRN and EfficientAD paths stay in the record with their 0s:
+        # they run no kernel of the port
+        by_path = {p: n for p, n in by_path.items()
+                   if n or p in ("drn", "efficientad")}
         if k in KERNELS:
             replaces = f"{REPLACES}; {REPLACES_TRAIN_FWD}"
         elif k in BWD_KERNELS:

@@ -46,7 +46,11 @@ def test_entry_point_and_io_modules_are_covered():
             "adsr_tpu_torch/io/png.py", "adsr_tpu_torch/io/journal.py",
             "adsr_tpu_torch/eval/tiled.py", "adsr_tpu_torch/eval/rundir.py",
             "adsr_tpu_torch/models/drn.py",
-            "adsr_tpu_torch/kernels/fused_swin_block.py"} <= names
+            "adsr_tpu_torch/kernels/fused_swin_block.py",
+            "adsr_tpu_torch/cli/efficientad.py",
+            "adsr_tpu_torch/models/efficientad.py",
+            "adsr_tpu_torch/train/efficientad.py",
+            "adsr_tpu_torch/train/distill.py"} <= names
 
 
 def test_package_imports_with_jax_blocked():
