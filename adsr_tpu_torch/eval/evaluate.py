@@ -15,12 +15,13 @@ JAX version's one compiled sweep does.
 
 ``evaluate_anomaly_arrays`` is the array core (no files); ``evaluate_anomaly``
 loads ``test/good`` and ``test/bad`` with the port's PNG decoder, calls it,
-and writes the SR images when asked. The ROC-curve and heatmap figures
-(``eval/visual.py``, matplotlib) wait for a later slice.
+writes the SR images when asked and, with an ``out_dir``, the ROC curves and
+the heatmaps (``eval/visual.py``, as the JAX version does).
 """
 
 from __future__ import annotations
 
+import time
 from pathlib import Path
 from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -32,6 +33,7 @@ from adsr_tpu_torch.core.device import resolve_device
 from adsr_tpu_torch.data.pipeline import load_sr_dataset
 from adsr_tpu_torch.eval.auc import roc_auc
 from adsr_tpu_torch.eval.disk import specificity_report
+from adsr_tpu_torch.eval.visual import save_heatmaps, save_roc_curves
 from adsr_tpu_torch.io.png import write_png
 from adsr_tpu_torch.metrics import mse_eval, psnr_eval, ssim_map, to_luma
 from adsr_tpu_torch.train.trainer import (make_serving_forward,
@@ -136,7 +138,7 @@ def make_split_forward(exp: Experiment, params: Mapping[str, torch.Tensor],
 
 def _evaluate(exp, params, lr_good, hr_good, lr_bad, hr_bad, batch, device,
               log, tile, tile_overlap, sweep_windows, mode, graphs
-              ) -> Tuple[Dict[str, object], np.ndarray]:
+              ) -> Tuple[Dict[str, object], np.ndarray, np.ndarray]:
     dev = resolve_device(device)
     if len(lr_good) == 0 or len(lr_bad) == 0:
         raise ValueError("AUCs need good and defective test images "
@@ -179,7 +181,7 @@ def _evaluate(exp, params, lr_good, hr_good, lr_bad, hr_bad, batch, device,
         "scores_ssim": scores_ssim.tolist(),
         "scores_mse": scores_mse.tolist(),
         "scores_psnr": scores_psnr.tolist(),
-    }, sr_u8
+    }, sr_u8, hr_u8
 
 
 def evaluate_anomaly_arrays(exp: Experiment, params: Mapping[str, torch.Tensor],
@@ -213,7 +215,10 @@ def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
     ``ADSR_TPU_RDG``). On the card the forward serves through a CUDA graph
     per LR shape; ``graphs=False`` launches it. With ``out_dir`` and
     ``save_images`` the uint8 SR images go to
-    ``out_dir/{good,bad}/x{scale}/{name}.png``."""
+    ``out_dir/{good,bad}/x{scale}/{name}.png``; with ``out_dir`` alone,
+    ``out_dir/roc_curve.pdf`` (1-SSIM, MSE, -PSNR) and the heatmaps
+    ``out_dir/heatmaps/{split}/{name}.png`` at the best window, and
+    ``figures_s``, the seconds that took, in the result."""
     scale = max(exp.data.scale)
 
     def load(split: str):
@@ -222,9 +227,11 @@ def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
                                exp.data.rgb_range)
 
     ds_good, ds_bad = load("good"), load("bad")
-    out, sr_u8 = _evaluate(exp, params, ds_good.lrs[0], ds_good.hr,
-                           ds_bad.lrs[0], ds_bad.hr, batch, device, log, tile,
-                           tile_overlap, sweep_windows, mode, graphs)
+    dev = resolve_device(device)
+    out, sr_u8, hr_u8 = _evaluate(exp, params, ds_good.lrs[0], ds_good.hr,
+                                  ds_bad.lrs[0], ds_bad.hr, batch, dev, log,
+                                  tile, tile_overlap, sweep_windows, mode,
+                                  graphs)
     out["filenames"] = ds_good.filenames + ds_bad.filenames
     out["splits"] = ["good"] * ds_good.n + ["bad"] * ds_bad.n
     if save_images and out_dir:
@@ -232,6 +239,19 @@ def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
             d = Path(out_dir) / split / f"x{scale}"
             d.mkdir(parents=True, exist_ok=True)
             write_png(d / f"{name}.png", img)
+    if out_dir:
+        # ROC curves + difference/SSIM heatmaps (helpers.py:436-451;
+        # notebooks/test.ipynb cells 11-21)
+        t0 = time.perf_counter()
+        save_roc_curves(str(Path(out_dir) / "roc_curve.pdf"), out["y_true"], {
+            "1-SSIM": out["scores_ssim"],
+            "MSE": out["scores_mse"],
+            "-PSNR": [-p for p in out["scores_psnr"]],
+        })
+        n = save_heatmaps(out_dir, hr_u8, sr_u8, out["filenames"],
+                          out["splits"], window=out["best_ws"], device=dev)
+        out["figures_s"] = time.perf_counter() - t0
+        log(f"Saved ROC curve and {n} heatmap figures to {out_dir}")
     return out
 
 

@@ -14,13 +14,16 @@
                                    the dropout generator's state: a true
                                    resume
       results/<data_test>/x<s>/    SR PNG dumps
+      loss_<key>.pdf               a curve per loss term (total; DRN:
+                                   primary and dual too)
+      test_<data_test>_psnr_ssim.pdf   the validation PSNR and SSIM
 
 The ``.pt`` files hold the port's ``state_dict``, whose names are the
 reference torch module names: a reference ``model_*.pt`` loads as it is, and
 ``adsr_tpu/io/torch_convert.py`` (``convert_drct`` + ``stack_scan_layers``)
 maps the port's into the JAX model (``convert_drn`` + ``stack_drn_rcabs``
-for DRN-L). The loss and PSNR/SSIM plots (matplotlib
-PDFs in the JAX package) wait for a later slice.
+for DRN-L). The plots are vector PDFs drawn by ``io/pdf.py`` in the JAX
+package's matplotlib layout (the card's machine has no matplotlib).
 """
 
 from __future__ import annotations
@@ -28,12 +31,13 @@ from __future__ import annotations
 import datetime
 import json
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from adsr_tpu_torch.core.config import Experiment
+from adsr_tpu_torch.io.pdf import Page, line_panel, write_pdf
 from adsr_tpu_torch.io.png import write_png
 
 
@@ -154,9 +158,8 @@ class Journal:
             json.dump(trainer.loss_history, f)
         with open(self.dir / "psnr_ssim_log.json", "w") as f:
             json.dump(trainer.psnr_ssim_history, f)
-        self.write_log("Loss and PSNR/SSIM plots: not written (eval/visual.py "
-                       "is a later slice of the port); the numbers are in "
-                       "loss_log.json and psnr_ssim_log.json")
+        self.plot_loss(trainer.loss_history)
+        self.plot_psnr_ssim(trainer.psnr_ssim_history)
 
     # ----------------------------- artifacts ---------------------------- #
 
@@ -170,3 +173,33 @@ class Journal:
         u8 = np.clip(arr * (255.0 / self.exp.data.rgb_range), 0, 255
                      ).astype(np.uint8)
         write_png(out_dir / f"{filename}.png", u8)
+
+    def plot_loss(self, history: List[Dict[str, float]]) -> None:
+        """``loss_{key}.pdf`` for each loss term of the epoch history: its
+        mean per epoch (the JAX layout, journal.py:176-189)."""
+        if not history:
+            return
+        axis = list(range(1, len(history) + 1))
+        for k in sorted(history[0]):
+            page = Page(460.8, 345.6)       # matplotlib's default 6.4 x 4.8 in
+            line_panel(page, (58.0, 46.0, 445.0, 318.0), axis,
+                       [h[k] for h in history], f"{k} Loss", "Epochs", "Loss",
+                       f"{k} Loss")
+            write_pdf(self.dir / f"loss_{k}.pdf", [page])
+
+    def plot_psnr_ssim(self, history: List[Tuple[float, float]]) -> None:
+        """``test_{data_test}_psnr_ssim.pdf``: PSNR and SSIM per validation
+        test, side by side (journal.py:191-212)."""
+        if not history:
+            self.write_log("No evaluation logs available; skipping PSNR/SSIM plot")
+            return
+        axis = list(range(1, len(history) + 1))
+        data = self.exp.data
+        page = Page(720.0, 360.0)           # 10 x 5 in
+        for i, name in enumerate(("PSNR", "SSIM")):
+            left = 360.0 * i
+            line_panel(page, (left + 62.0, 46.0, left + 350.0, 330.0), axis,
+                       [h[i] for h in history],
+                       f"SR on {data.data_test} - {name}", "Epochs", name,
+                       f"Scale {max(data.scale)}")
+        write_pdf(self.dir / f"test_{data.data_test}_psnr_ssim.pdf", [page])

@@ -166,9 +166,9 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
 
 
-def write_png(path: PathLike, img: np.ndarray) -> None:
+def write_png(path: PathLike, img: np.ndarray, level: int = 6) -> None:
     """Write a uint8 [H, W], [H, W, 1] (8-bit gray) or [H, W, 3] (RGB)
-    image, every row with filter None."""
+    image, every row with filter None, deflated at zlib ``level``."""
     a = np.asarray(img)
     if a.ndim == 3 and a.shape[2] == 1:
         a = a[:, :, 0]
@@ -183,5 +183,5 @@ def write_png(path: PathLike, img: np.ndarray) -> None:
     Path(path).write_bytes(
         SIGNATURE
         + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color, 0, 0, 0))
-        + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
+        + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level))
         + _chunk(b"IEND", b""))

@@ -4,7 +4,8 @@ Anomaly scores ARE metric values (1-SSIM, MSE, -PSNR), so these reproduce the
 JAX package's device metrics (``adsr_tpu/metrics.py``): uniform box kernel,
 *reflect* padding, BT.601 luma with no offset, data range 1.0. The training
 side's validation metrics (``psnr_shave4``, ``ssim_shave4``, metrics.py:182-217)
-shave a 4-px border and pad the SSIM box filter with zeros.
+shave a 4-px border and pad the SSIM box filter with zeros. ``psnr_np`` is
+the host (numpy) PSNR of the disk sweeps (``eval/disk.py``).
 
 The box filters run in float32 as separable ``avg_pool2d`` passes over the
 reflect-padded image: a pooling sum never goes through TF32, so this is the
@@ -14,12 +15,31 @@ counterpart of the JAX package's ``Precision.HIGHEST`` depthwise convolutions
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 # BT.601 luma coefficients as used by the reference (metrics.py:37, 93):
 # weighted sum only — no +16 offset.
 _LUMA_COEFFS = (65.738 / 256.0, 129.057 / 256.0, 25.064 / 256.0)
+
+
+def psnr_np(img_ref: np.ndarray, img: np.ndarray,
+            data_range: Optional[float] = None) -> float:
+    """PSNR between two host arrays (the JAX ``psnr_np``, parity with the
+    reference's psnr_numpy, metrics.py:15-23): f32, ``data_range`` 1.0 when
+    not given (the reference checks the dtype after its f32 cast), inf where
+    the arrays are equal."""
+    ref = np.asarray(img_ref, dtype=np.float32)
+    out = np.asarray(img, dtype=np.float32)
+    if data_range is None:
+        data_range = 1.0
+    mse = float(np.mean((ref - out) ** 2))
+    if mse == 0:
+        return float("inf")
+    return 10.0 * float(np.log10((data_range ** 2) / mse))
 
 
 def _uniform_filter_nchw(x: torch.Tensor, win: int,

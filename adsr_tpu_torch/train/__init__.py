@@ -1,1 +1,2 @@
-"""Serving forward (training waits for a later slice)."""
+"""Training (the SR trainer and its losses, EfficientAD and its teacher
+distillation) and the serving forwards."""

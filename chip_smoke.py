@@ -77,7 +77,11 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    one epoch (16 steps at batch 16) into a run dir, then ``cli.evaluate``
    scores 8 + 8 test images of 512 px, auto-tiled (25 tiles of 32 LR px an
    image), in rdg mode and with ``ADSR_TPU_RDG=0``; launch counters, run-dir
-   files, AUCs, specificity and tiled img/s in both modes;
+   files (the loss and PSNR/SSIM PDFs among them), AUCs, specificity and
+   tiled img/s in both modes; each evaluation's figures
+   (``roc_curve.pdf``, min(16, n) heatmaps a split) and their wall, one
+   heatmap a split decoded and its 1-SSIM panel held to a CPU recompute
+   from the same uint8 pair (``HEATMAP_EQUAL``);
 11. graphs: serving through CUDA graphs, the entry points' default
    (``core/graphs.py``; phases 4-10 check the launched route,
    ``graphs=False``): ``make_serving_forward`` in both modes, ``AnomalyServer``
@@ -137,7 +141,10 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    MVTec grid source, ``cli.prepare``'s LANCZOS tree, ``cli.main`` trains the
    flagship one epoch and ``cli.evaluate`` scores the test split, each step
    a process of its own; each step's wall, the prepared tree, the train
-   log's device and parameter count, the AUCs;
+   log's device and parameter count, the AUCs, the run dir's loss PDFs, the
+   evaluation's figures (as in phase 10); then ``analyze_window_sizes(...,
+   device="cuda")`` over the saved SR folders and the HR as the evaluation
+   read it, its best window and AUCs beside ``cli.evaluate``'s;
 15. DRN-L, lines "[drn] ...": ``drn_experiment("grid", 128, 4)`` at full
    width (scales (2, 4), 40 RCABs an up phase at 20 features, 9.82M params,
    720 in the two duals; random weights from the seed; bf16; batch 16; LR
@@ -150,7 +157,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    every replay bitwise equal to the launched route; ``evaluate_anomaly`` on
    8 + 8 images of 512 px, auto-tiled at 32 LR px; ``cli.smoke --model-type
    drn-l --resolution 128 --epochs 1`` (its run dir holds
-   ``dual_model_latest.pt``); the forward's and the step's times and the
+   ``dual_model_latest.pt`` and ``loss_{total,primary,dual}.pdf``); the
+   forward's and the step's times and the
    step's idle share. DRN's convolutions are cuDNN's: its path launches
    none of the port's kernels, which the kernels line records as its
    ``"drn"`` path, all 0s;
@@ -218,11 +226,14 @@ from adsr_tpu_torch.data.prepare import lr_from_hr
 from adsr_tpu_torch.data.synthetic import (carpet_texture,
                                            generate_synthetic_mvtec,
                                            grid_texture, inject_defect)
+from adsr_tpu_torch.eval.disk import analyze_window_sizes
 from adsr_tpu_torch.eval.evaluate import (evaluate_anomaly,
                                           evaluate_anomaly_arrays)
 from adsr_tpu_torch.eval.rundir import resolve_checkpoint
 from adsr_tpu_torch.eval.serving import AnomalyServer
 from adsr_tpu_torch.eval.tiled import tile_starts
+from adsr_tpu_torch.eval.visual import (heatmap_panel, index_agreement,
+                                        lut_indices, one_minus_ssim)
 from adsr_tpu_torch.io.journal import load_state_dict
 from adsr_tpu_torch.io.png import read_png, write_png
 from adsr_tpu_torch.kernels import _build
@@ -2543,6 +2554,86 @@ def write_split(base: Path, rng, n: int, hr: int, defect: bool = False):
                   lr_from_hr(img, SCALE))
 
 
+HEATMAPS_PER_SPLIT = 16     # save_heatmaps' max_images, as the JAX package
+# a heatmap's 1-SSIM panel, decoded, against its CPU recompute from the same
+# uint8 pair: every pixel at most one table index apart, and at least this
+# share equal
+HEATMAP_EQUAL = 0.99
+
+
+def eval_hr_u8(exp, data_root: Path, classe: str, split: str):
+    """The HR of ``{data_root}/{classe}/test/{split}`` as ``evaluate_anomaly``
+    scores it (read to floats, then the truncating uint8 conversion), and
+    the file stems."""
+    scale = max(exp.data.scale)
+    ds = load_sr_dataset(str(data_root / classe / "test" / split), (scale,),
+                         exp.data.n_colors, exp.data.rgb_range)
+    hr = np.clip(ds.hr * (255.0 / exp.data.rgb_range), 0, 255).astype(np.uint8)
+    return hr, ds.filenames
+
+
+def check_figures(exp, out_dir: Path, data_root: Path, classe: str,
+                  res: dict) -> dict:
+    """``cli.evaluate``'s figures in ``out_dir``: ``roc_curve.pdf`` and, a
+    split, min(HEATMAPS_PER_SPLIT, n) heatmaps named as the split's first
+    images; the first heatmap of each split decoded, its 1-SSIM panel held to
+    a CPU recompute from the same uint8 pair (the saved SR, the HR as the
+    evaluation read it) at the best window. Returns the figure step's wall
+    and each split's panel agreement."""
+    roc = (out_dir / "roc_curve.pdf").read_bytes()
+    if not roc.startswith(b"%PDF-1.4") or not roc.endswith(b"%%EOF\n"):
+        raise AssertionError(f"{out_dir}/roc_curve.pdf is not a whole PDF")
+    scale, ws = max(exp.data.scale), res["best_ws"]
+    agreement = {}
+    for split in ("good", "bad"):
+        names = [f for f, s in zip(res["filenames"], res["splits"])
+                 if s == split][:HEATMAPS_PER_SPLIT]
+        got = sorted(p.stem for p in (out_dir / "heatmaps" / split)
+                     .glob("*.png"))
+        if got != sorted(names):
+            raise AssertionError(f"{out_dir}/heatmaps/{split}: {got}, "
+                                 f"expected {names}")
+        hr, stems = eval_hr_u8(exp, data_root, classe, split)
+        hr = hr[stems.index(names[0])]
+        sr = read_png(out_dir / split / f"x{scale}" / f"{names[0]}.png")
+        sr = sr.reshape(hr.shape)
+        want = lut_indices(one_minus_ssim(hr[None], sr[None], ws, "cpu")[0])
+        fig = read_png(out_dir / "heatmaps" / split / f"{names[0]}.png")
+        equal, near = index_agreement(
+            heatmap_panel(fig, hr.shape[0], hr.shape[1], ws, 2), want)
+        agreement[split] = equal
+        if not near or equal < HEATMAP_EQUAL:
+            raise AssertionError(
+                f"heatmap {split}/{names[0]}: 1-SSIM panel against the CPU "
+                f"recompute: {equal:.6f} of the pixels equal (limit "
+                f"{HEATMAP_EQUAL}), every pixel within one index: {near}")
+    say("figures", f"{out_dir}: roc_curve.pdf and {len(res['filenames'])} "
+                   f"images' heatmaps (at most {HEATMAPS_PER_SPLIT} a split) "
+                   f"in {res['figures_s']:.3f} s; each split's first "
+                   f"heatmap's 1-SSIM panel (ws={ws}) against its CPU "
+                   f"recompute: share of pixels equal {agreement}, every "
+                   "pixel within one table index")
+    return {"figures_s": res["figures_s"], "ssim_panel_equal": agreement}
+
+
+def check_run_dir_plots(run: Path, keys) -> list:
+    """The run dir's ``loss_{k}.pdf`` for every loss term of its history
+    (``keys`` among them) and, after a validation test,
+    ``test_{data_test}_psnr_ssim.pdf``: whole PDFs. Returns their names."""
+    losses = json.loads((run / "loss_log.json").read_text())
+    history = json.loads((run / "psnr_ssim_log.json").read_text())
+    want = {f"loss_{k}.pdf" for k in losses[0]}
+    got = sorted(p.name for p in run.glob("*.pdf"))
+    psnr = [n for n in got if n.startswith("test_")
+            and n.endswith("_psnr_ssim.pdf")]
+    whole = all((run / n).read_bytes().endswith(b"%%EOF\n") for n in got)
+    if not set(keys) <= set(losses[0]) or set(got) != want | set(psnr) \
+            or len(psnr) != (1 if history else 0) or not whole:
+        raise AssertionError(f"run dir {run}: PDFs {got}, loss terms "
+                             f"{sorted(losses[0])}, {len(history)} tests")
+    return got
+
+
 def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
               per_step_want=None, bwd_launches=1, overlap=8):
     """``cli.main`` trains ``exp``'s model (the flagship by default) for one
@@ -2607,8 +2698,9 @@ def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
                f"{sorted(model_files)}; epoch loss {losses[0]}; val/good "
                f"PSNR/SSIM {history[0]}; resolve_checkpoint -> "
                f"{Path(ckpt).name}")
+    plots = check_run_dir_plots(run, ("total",))
 
-    results, walls, launches = {}, {}, {}
+    results, walls, launches, figures = {}, {}, {}, {}
     # cli.evaluate serves through one CUDA graph per LR shape (both splits
     # pad to the batch: one shape): its warm-up and its capture count one
     # forward's launches each, its replays none
@@ -2644,6 +2736,8 @@ def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
                 or not res["checkpoint"].endswith("model_best.pt"):
             raise AssertionError(f"evaluate CLI ({mode}): AUCs {aucs}, "
                                  f"{len(lines)} score lines, {res}")
+        figures[mode] = check_figures(exp, cli_dir / f"eval_{mode}", root,
+                                      "grid", res)
         results[mode] = res
     os.environ.pop("ADSR_TPU_RDG")
     diff = None
@@ -2674,8 +2768,9 @@ def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
                    f"one forward of {n_tiles * lr.shape[0]} tiles) in "
                    f"{ms:.3f} ms = {tiled[mode]['img_per_s']:.1f} img/s")
     report["cli"] = {"train_wall_s": train_wall,
-                     "train_launches": train_launches,
+                     "train_launches": train_launches, "run_dir_pdfs": plots,
                      "eval_wall_s": walls, "eval_launches": launches,
+                     "figures": figures,
                      "aucs": {m: [r["auc_ssim"], r["auc_mse"], r["auc_psnr"]]
                               for m, r in results.items()},
                      "specificity": {m: r["specificity"]
@@ -3109,6 +3204,43 @@ def phase_smoke(dev, report):
         raise AssertionError(f"smoke: params {n_params}, checkpoint {ckpt}, "
                              f"AUCs {aucs}, log {log[-2000:]}")
     walls = res["walls_s"]
+    run = Path(res["run_dir"])
+    plots = check_run_dir_plots(run, ("total",))
+    say("smoke", f"run dir {run.name}: {plots}")
+    # the evaluation's figures, then the disk sweep over its saved SR
+    # folders against the HR as the evaluation read it (the prepared tree's
+    # HR is RGB; the flagship scores its Y channel, truncated to uint8)
+    ev = json.loads((SMOKE_DIR / "smoke_eval.json").read_text())
+    exp = drct_experiment("grid", HR, SCALE)
+    root = SMOKE_DIR / "data" / f"mvtec_{HR}"
+    out_dir = run / "eval_results"
+    figures = check_figures(exp, out_dir, root, "grid", ev)
+    hr_dir = SMOKE_DIR / "hr_eval"
+    for split in ("good", "bad"):
+        hr, stems = eval_hr_u8(exp, root, "grid", split)
+        (hr_dir / split).mkdir(parents=True, exist_ok=True)
+        for img, name in zip(hr, stems):
+            write_png(hr_dir / split / f"{name}.png", img)
+    t0 = time.perf_counter()
+    sweep = analyze_window_sizes(
+        str(out_dir / "good" / f"x{SCALE}"), str(hr_dir / "good"),
+        str(out_dir / "bad" / f"x{SCALE}"), str(hr_dir / "bad"),
+        device=DEVICE)
+    sweep_wall = time.perf_counter() - t0
+    sweep_aucs = [sweep["auc_ssim"], sweep["auc_mse"], sweep["auc_psnr"]]
+    say("smoke", f"analyze_window_sizes on the card over {out_dir.name}/"
+                 f"{{good,bad}}/x{SCALE} and {hr_dir.name}/{{good,bad}}: best "
+                 f"window {sweep['best_ws']}, AUC ssim/mse/psnr "
+                 + "/".join(f"{a:.6f}" for a in sweep_aucs)
+                 + f" in {sweep_wall:.3f} s; cli.evaluate's: best window "
+                 f"{ev['best_ws']}, AUC ssim/mse/psnr "
+                 + "/".join(f"{ev[k]:.6f}" for k in
+                            ("auc_ssim", "auc_mse", "auc_psnr")))
+    if sweep["best_ws"] != ev["best_ws"] \
+            or sweep["auc_ssim"] != ev["auc_ssim"] \
+            or sweep["names"] != ev["filenames"]:
+        raise AssertionError(f"analyze_window_sizes {sweep} against "
+                             f"cli.evaluate's {ev}")
     say("smoke", f"cli.smoke {' '.join(SMOKE_ARGS)}: prepare "
                  f"{walls['prepare']:.1f} s, train {walls['train']:.1f} s, "
                  f"evaluate {walls['evaluate']:.1f} s wall ({wall:.1f} s in "
@@ -3118,7 +3250,11 @@ def phase_smoke(dev, report):
                  f"{aucs[0]:.4f}/{aucs[1]:.4f}/{aucs[2]:.4f}")
     report["smoke"] = {"args": SMOKE_ARGS, "walls_s": walls, "wall_s": wall,
                        "epoch_step_s": step_s, "epoch_data_s": data_s,
-                       "params": n_params, "aucs": aucs}
+                       "params": n_params, "aucs": aucs,
+                       "run_dir_pdfs": plots, "figures": figures,
+                       "analyze_window_sizes": {
+                           "best_ws": sweep["best_ws"], "aucs": sweep_aucs,
+                           "wall_s": sweep_wall}}
     return {}, {}
 
 
@@ -3450,6 +3586,8 @@ def phase_drn(dev, report):
                        for a in smoke_aucs):
         raise AssertionError(f"DRN smoke: run dir {run_dir}, AUCs "
                              f"{smoke_aucs}, log {log[-2000:]}")
+    smoke_plots = check_run_dir_plots(run_dir, ("total", "primary", "dual"))
+    say("drn", f"run dir {run_dir.name}: {smoke_plots}")
 
     if any(drn_launches.values()):
         raise AssertionError(f"the DRN path launched kernels of the port: "
@@ -3470,7 +3608,8 @@ def phase_drn(dev, report):
         "evaluate": {"aucs": aucs, "best_ws": res["best_ws"],
                      "wall_s": eval_wall},
         "smoke": {"args": DRN_SMOKE_ARGS, "walls_s": walls,
-                  "wall_s": smoke_wall, "aucs": smoke_aucs},
+                  "wall_s": smoke_wall, "aucs": smoke_aucs,
+                  "run_dir_pdfs": smoke_plots},
         "launches": drn_launches, "wall_s": wall}
     return {"drn": drn_launches, "two_class_server": grid_launched,
             "two_class_server_graphs": grid_graphs}, {}

@@ -4,6 +4,8 @@ config.txt keys, ``.pt`` checkpoints that carry into the JAX model, a true
 resume, and the same run-dir inference (f32, CPU, tiny configs)."""
 
 import dataclasses
+import re
+import types
 
 import numpy as np
 import pytest
@@ -157,3 +159,66 @@ def test_resolve_checkpoint_order_and_msgpack_error(tmp_path):
     (model / "model_best.pt").write_bytes(b"")
     assert prundir.resolve_checkpoint(str(tmp_path)).endswith("model_best.pt")
     assert prundir.resolve_checkpoint(str(tmp_path), "x.pt") == "x.pt"
+
+
+class _StubState:
+    """What ``Journal.save`` reads of a Trainer's state, with or without
+    DRN's dual models."""
+
+    def __init__(self, duals: bool):
+        self.model = torch.nn.Linear(3, 2)
+        self.duals = [torch.nn.Linear(2, 2)] if duals else None
+        self.optimizer = torch.optim.Adam(self.model.parameters())
+        self.step = 3
+
+    def dual_state_dicts(self):
+        return None if self.duals is None else [d.state_dict()
+                                                for d in self.duals]
+
+
+@pytest.mark.parametrize("kind", ["drct", "drn"])
+def test_save_writes_the_jax_plots(tmp_path, kind):
+    jexp, pexp = _experiments()
+    keys = ("total",) if kind == "drct" else ("total", "primary", "dual")
+    losses = [{k: 0.5 / (e + 1) + 0.01 * i for i, k in enumerate(keys)}
+              for e in range(3)]
+    psnr_ssim = [(21.5, 0.61), (22.25, 0.66), (23.0, 0.7)]
+    trainer = types.SimpleNamespace(
+        state=_StubState(kind == "drn"), epoch=3, dropout_gen=None,
+        error_last=losses[-1]["total"], loss_history=losses,
+        psnr_ssim_history=psnr_ssim)
+    journal = Journal(pexp, save_dir=str(tmp_path / "port"))
+    journal.save(trainer)
+    journal.done()
+    jj = JaxJournal(jexp, save_dir=str(tmp_path / "jax"))
+    jj.plot_loss(losses)
+    jj.plot_psnr_ssim(psnr_ssim)
+    jj.done()
+
+    def pdfs(root):
+        return sorted(p.name for p in root.glob("*.pdf"))
+    want = sorted([f"loss_{k}.pdf" for k in keys]
+                  + [f"test_{pexp.data.data_test}_psnr_ssim.pdf"])
+    assert pdfs(tmp_path / "port") == pdfs(tmp_path / "jax") == want
+    # each loss curve: one point an epoch, its heights in the data's order
+    for k in keys:
+        data = (tmp_path / "port" / f"loss_{k}.pdf").read_bytes()
+        content = re.search(rb"stream\n(.*?)\nendstream", data, re.S).group(1)
+        curve = re.search(rb"0.1216 0.4667 0.7059 RG 1.500 w \[\] 0 d (.*) S",
+                          content).group(1).split()
+        heights = [float(v) for v in curve[1::3]]
+        assert len(heights) == 3 and heights[0] > heights[1] > heights[2]
+        assert f"({k} Loss) Tj".encode() in content
+
+
+def test_empty_psnr_history_logs_the_jax_message(tmp_path):
+    jexp, pexp = _experiments()
+    for cls, exp, name in ((Journal, pexp, "port"), (JaxJournal, jexp, "jax")):
+        j = cls(exp, save_dir=str(tmp_path / name))
+        j.plot_psnr_ssim([])
+        j.plot_loss([])
+        j.done()
+    for name in ("port", "jax"):
+        assert (tmp_path / name / "log.txt").read_text() == \
+            "No evaluation logs available; skipping PSNR/SSIM plot\n"
+        assert not list((tmp_path / name).glob("*.pdf"))
