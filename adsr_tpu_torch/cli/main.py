@@ -20,9 +20,15 @@ with TF32 off; ``--n-blocks`` / ``--n-feats`` shrink it for a small CPU run.
 (``drct_latest.pt``; ``DRNL{s}x.pt`` and ``DRNL{s}x_dual.pt``, reference
 ``.pt`` files, read when present).
 
-``--dp`` / ``--tp`` > 1 (ROADMAP.md Queue 1 item 11) and ``--remat-policy
-dots`` (Queue 1 item 9) raise ``NotImplementedError``. ``--workers`` is
-accepted and ignored.
+``--dp`` / ``--tp`` > 1 (and ``MeshConfig.dcn``) train over a device mesh
+(``core/mesh.py``): under ``torchrun`` (``WORLD_SIZE`` in the environment)
+each process joins its group, otherwise this command spawns dcn * dp * tp
+ranks itself (``parallel/launch.py``), over NCCL on the cards (``cuda:0``,
+``cuda:1``, ...) or gloo with ``--device cpu``. The batch is split over the
+data ranks (the batch size must divide by dcn * dp), DRCT's heads and MLP
+width over the tp ranks; rank 0 writes the run dir, in the same layout as
+one card's. ``--remat-policy dots`` (ROADMAP.md Queue 1 item 9) raises
+``NotImplementedError``. ``--workers`` is accepted and ignored.
 """
 
 from __future__ import annotations
@@ -34,11 +40,19 @@ import signal
 import time
 from typing import List, Optional
 
+from pathlib import Path
+
 import torch
+import torch.distributed as dist
 
 from adsr_tpu_torch.core.config import (Experiment, MeshConfig,
                                         drct_experiment, drn_experiment)
 from adsr_tpu_torch.core.device import resolve_device
+from adsr_tpu_torch.core.mesh import (Mesh, explicit_mesh, make_mesh,
+                                      mesh_layout)
+from adsr_tpu_torch.parallel.launch import (TRAIN_GROUP_TIMEOUT,
+                                            join_torchrun, run_ranks,
+                                            under_torchrun)
 
 PRETRAINED_DIR = "workspace/pretrained_model_weights"
 PRETRAINED = f"{PRETRAINED_DIR}/drct_latest.pt"
@@ -112,10 +126,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def build_experiment(args: argparse.Namespace) -> Experiment:
-    if args.dp > 1 or args.tp > 1:
-        raise NotImplementedError(
-            f"--dp {args.dp} --tp {args.tp}: the port trains on one card; "
-            "data parallel is ROADMAP.md Queue 1 item 11")
+    if args.dp > 1 and args.batch_size % args.dp:
+        raise ValueError(
+            f"--batch-size {args.batch_size} does not divide by the mesh's "
+            f"{args.dp} data ranks (--dp)")
     if args.remat_policy != "full":
         raise NotImplementedError(
             f"--remat-policy {args.remat_policy}: ROADMAP.md Queue 1 item 9 "
@@ -151,43 +165,58 @@ def _device_summary(dev: torch.device) -> str:
     return str(dev)
 
 
-def train(exp: Experiment, resume: bool = False, device="cuda") -> str:
-    """Train ``exp`` into its run dir; returns the run dir."""
+def train(exp: Experiment, resume: bool = False, device="cuda",
+          mesh: Optional[Mesh] = None) -> str:
+    """Train ``exp`` into its run dir; returns the run dir. On a ``mesh``
+    every rank calls it and rank 0 alone writes the run dir."""
     from adsr_tpu_torch.data.pipeline import load_sr_dataset
     from adsr_tpu_torch.io.journal import Journal, load_state_dict
     from adsr_tpu_torch.train.trainer import Trainer
 
-    dev = resolve_device(device)
-    journal = Journal(exp)
-    journal.write_log(f"Using devices: {_device_summary(dev)}")
+    dev = resolve_device(device if mesh is None else mesh.device)
+    journal = Journal(exp) if mesh is None or mesh.rank == 0 else None
+
+    def log(msg: str) -> None:
+        if journal is not None:
+            journal.write_log(msg)
+
+    summary = _device_summary(dev)
+    if mesh is not None:
+        summary += (f" x {mesh.world_size} ranks, mesh "
+                    f"{mesh.layout} over {mesh.backend}")
+    log(f"Using devices: {summary}")
 
     train_ds = None
     if not exp.test_only:
         train_ds = load_sr_dataset(exp.data.data_dir, exp.data.scale,
                                    exp.data.n_colors, exp.data.rgb_range)
-    trainer = Trainer(exp, train_ds, None, journal=journal, device=dev)
+    trainer = Trainer(exp, train_ds, None, journal=journal, device=dev,
+                      mesh=mesh)
     state = trainer.state
-    n_params = sum(p.numel() for group in state.optimizer.param_groups
-                   for p in group["params"])      # primal and duals
-    journal.write_log(f"The number of parameters is {n_params / 1e6:.2f}M")
+    n_params = sum(v.numel() for v in trainer.model_state_dict().values())
+    if state.duals is not None:
+        n_params += sum(p.numel() for p in state.duals.parameters())
+    log(f"The number of parameters is {n_params / 1e6:.2f}M")
 
     if exp.pre_train != "." and os.path.isfile(exp.pre_train):
-        journal.write_log(f"Loading model from {exp.pre_train}")
-        state.model.load_state_dict(load_state_dict(exp.pre_train, dev))
+        log(f"Loading model from {exp.pre_train}")
+        trainer.load_model_state_dict(load_state_dict(exp.pre_train, dev))
     if (exp.pre_train_dual != "." and os.path.isfile(exp.pre_train_dual)
             and state.duals is not None):
         # the reference's dual_model_*.pt: a list of state_dicts
-        journal.write_log(f"Loading dual model from {exp.pre_train_dual}")
+        log(f"Loading dual model from {exp.pre_train_dual}")
         for dual, sd in zip(state.duals,
                             load_state_dict(exp.pre_train_dual, dev)):
             dual.load_state_dict(sd)
     if resume:
+        if mesh is not None:
+            mesh.barrier()      # rank 0 made the run dir
         try:
             trainer.load_train_state()
-            journal.write_log(f"Resumed at step {trainer.state.step} "
-                              f"(epoch {trainer.epoch})")
+            log(f"Resumed at step {trainer.state.step} "
+                f"(epoch {trainer.epoch})")
         except FileNotFoundError:
-            journal.write_log("No train state to resume; starting fresh")
+            log("No train state to resume; starting fresh")
 
     # preemption: SIGTERM/SIGINT finish the current epoch, save the full
     # train state and exit resumable
@@ -195,8 +224,7 @@ def train(exp: Experiment, resume: bool = False, device="cuda") -> str:
 
     def _on_signal(signum, frame):
         preempted["flag"] = True
-        journal.write_log(f"Signal {signum}: will checkpoint and stop after "
-                          "this epoch")
+        log(f"Signal {signum}: will checkpoint and stop after this epoch")
 
     old_handlers = {s: signal.signal(s, _on_signal)
                     for s in (signal.SIGTERM, signal.SIGINT)}
@@ -205,21 +233,23 @@ def train(exp: Experiment, resume: bool = False, device="cuda") -> str:
         start = time.time()
         while not trainer.terminate():
             trainer.train_one_epoch()
+            if mesh is not None:     # every rank stops after the same epoch
+                preempted["flag"] = mesh.any(preempted["flag"])
             if (ck and trainer.epoch % ck == 0) or preempted["flag"]:
                 trainer.save_train_state()
-            journal.log_metrics({"epoch": trainer.epoch,
-                                 "step": trainer.state.step,
-                                 **trainer.loss_history[-1]})
+            if journal is not None:
+                journal.log_metrics({"epoch": trainer.epoch,
+                                     "step": trainer.state.step,
+                                     **trainer.loss_history[-1]})
             if preempted["flag"]:
-                journal.write_log("Preempted: state saved; resume with "
-                                  "--resume")
-                journal.done()
-                return str(journal.dir)
+                log("Preempted: state saved; resume with --resume")
+                if journal is not None:
+                    journal.done()
+                return str(Path(exp.save))
     finally:
         for s, h in old_handlers.items():
             signal.signal(s, h)
-    journal.write_log(
-        f"Total Training Time: {(time.time() - start) / 3600:.2f}")
+    log(f"Total Training Time: {(time.time() - start) / 3600:.2f}")
 
     # post-train PSNR/SSIM eval on val/good (src/main.py:317-332, 368-383)
     try:
@@ -232,14 +262,40 @@ def train(exp: Experiment, resume: bool = False, device="cuda") -> str:
                      save_results_fn=(
                          lambda name, sr: journal.save_result_image(
                              name, sr, max(exp.data.scale), "mvtec_val_good"))
-                     if exp.save_results else None)
+                     if exp.save_results and journal is not None else None)
     except Exception as e:  # parity: evaluation failures are non-fatal
-        journal.write_log(f"Evaluation skipped due to error: {e}")
+        log(f"Evaluation skipped due to error: {e}")
 
-    journal.write_log("Skipping anomaly AUC on validation (good-only split)")
-    journal.save(trainer, is_best=True)
-    journal.done()
-    return str(journal.dir)
+    log("Skipping anomaly AUC on validation (good-only split)")
+    full = trainer.checkpoint_state()
+    if journal is not None:
+        journal.save(trainer, is_best=True, state=full)
+        journal.done()
+    return str(Path(exp.save))
+
+
+def mesh_world(cfg: MeshConfig, device: str) -> int:
+    """The ranks this command trains on: on the cards, every card
+    (``mesh_layout`` raises when the sizes do not cover them, as the JAX
+    mesh does); on the CPU, dcn * dp * tp with dp = -1 as one."""
+    if torch.device(device).type == "cpu":
+        return max(1, cfg.dcn) * max(1, cfg.dp) * max(1, cfg.tp)
+    mesh_layout(cfg, torch.cuda.device_count())
+    return torch.cuda.device_count()
+
+
+def train_rank(exp: Experiment, resume: bool, device: str) -> str:
+    """One rank's part of ``train`` on the initialised process group: its
+    mesh (``cuda:<local rank>``, or the CPU) and the epochs."""
+    devices = ["cpu"] * dist.get_world_size() \
+        if torch.device(device).type == "cpu" else None
+    mesh = make_mesh(exp.mesh, devices=devices)
+    return train(exp, resume, mesh.device, mesh)
+
+
+def _spawned_rank(rank: int, exp: Experiment, resume: bool,
+                  device: str) -> str:
+    return train_rank(exp, resume, device)
 
 
 def main(argv: Optional[List[str]] = None) -> str:
@@ -250,6 +306,24 @@ def main(argv: Optional[List[str]] = None) -> str:
     print(f"Resolution: {args.resolution}")
     print(f"Scale: {args.scale}")
     exp = build_experiment(args)
+    if under_torchrun():
+        dev = join_torchrun(args.device)
+        # one run dir for every rank: rank 0's timestamped path
+        box = [exp]
+        dist.broadcast_object_list(box, src=0)
+        try:
+            return train_rank(box[0], args.resume, dev)
+        finally:
+            dist.destroy_process_group()
+    if explicit_mesh(exp.mesh):
+        world = mesh_world(exp.mesh, args.device)
+        devices = ["cpu"] * world if args.device == "cpu" \
+            else [f"cuda:{i}" for i in range(world)]
+        # a training run has no deadline; SIGTERM / SIGINT reach every
+        # rank, which checkpoints after its epoch and stops resumable
+        return run_ranks(_spawned_rank, world, devices, None, exp,
+                         args.resume, args.device, timeout=None,
+                         group_timeout=TRAIN_GROUP_TIMEOUT)[0]
     return train(exp, resume=args.resume, device=args.device)
 
 

@@ -1,1 +1,1 @@
-"""Configuration and device selection."""
+"""Configuration, device selection, captured calls and the device mesh."""

@@ -8,8 +8,10 @@ per-image SSIM at every window size of the sweep (odd sizes 3, 13, ... up
 to min_dim-3, evaluate.py:233-248, optionally capped to ``sweep_windows``
 evenly spaced sizes) plus MSE and PSNR on the device ->
 ROC-AUC per score and the specificity at the perfect-recall threshold on the
-host. On the card the forward serves through one CUDA graph per LR shape
-(the tail is padded, so one graph an evaluation; ``graphs=False`` launches
+host. Over a device mesh the forward is batch-parallel: each data rank runs
+its rows of every batch and the SR rows are gathered (evaluate.py:33-63). On
+the card the forward serves through one CUDA graph per LR shape (the tail is
+padded, so one graph an evaluation; ``graphs=False`` launches
 it), and the SSIM of every window size comes back in one transfer, as the
 JAX version's one compiled sweep does.
 
@@ -30,6 +32,7 @@ import torch
 
 from adsr_tpu_torch.core.config import DRCTModelConfig, Experiment
 from adsr_tpu_torch.core.device import resolve_device
+from adsr_tpu_torch.core.mesh import Mesh, ShardedCall
 from adsr_tpu_torch.data.pipeline import load_sr_dataset
 from adsr_tpu_torch.eval.auc import roc_auc
 from adsr_tpu_torch.eval.disk import specificity_report
@@ -41,11 +44,19 @@ from adsr_tpu_torch.train.trainer import (make_serving_forward,
 
 
 def _forward_split(forward: Callable, exp: Experiment, lr: np.ndarray,
-                   hr: np.ndarray, batch: int
+                   hr: np.ndarray, batch: int, mesh: Optional[Mesh] = None
                    ) -> Tuple[np.ndarray, np.ndarray]:
     """SR over one split; returns (sr_u8, hr_u8) as [N,H,W,C] uint8.
     ``lr`` / ``hr`` are float arrays in [0, rgb_range]; the tail is padded to
-    ``batch`` with the last image, as the JAX version does."""
+    ``batch`` with the last image, as the JAX version does. With a ``mesh``
+    each chunk is split over the data ranks (``batch`` must divide by
+    ``n_data``), each runs its rows through ``forward`` (an unsharded
+    forward) and the SR rows are gathered (evaluate.py:33-63)."""
+    if mesh is not None:
+        if batch % mesh.n_data:
+            raise ValueError(f"evaluation batch {batch} does not divide by "
+                             f"the mesh's {mesh.n_data} data ranks")
+        forward = ShardedCall(forward, mesh)
     n = lr.shape[0]
     outs = []
     for i in range(0, n, batch):
@@ -137,7 +148,7 @@ def make_split_forward(exp: Experiment, params: Mapping[str, torch.Tensor],
 
 
 def _evaluate(exp, params, lr_good, hr_good, lr_bad, hr_bad, batch, device,
-              log, tile, tile_overlap, sweep_windows, mode, graphs
+              log, tile, tile_overlap, sweep_windows, mode, graphs, mesh
               ) -> Tuple[Dict[str, object], np.ndarray, np.ndarray]:
     dev = resolve_device(device)
     if len(lr_good) == 0 or len(lr_bad) == 0:
@@ -146,8 +157,8 @@ def _evaluate(exp, params, lr_good, hr_good, lr_bad, hr_bad, batch, device,
     lr_size = max(lr_good.shape[1], lr_good.shape[2])
     forward = make_split_forward(exp, params, lr_size, dev, tile,
                                  tile_overlap, mode, log, graphs)
-    sr_g, hr_g = _forward_split(forward, exp, lr_good, hr_good, batch)
-    sr_b, hr_b = _forward_split(forward, exp, lr_bad, hr_bad, batch)
+    sr_g, hr_g = _forward_split(forward, exp, lr_good, hr_good, batch, mesh)
+    sr_b, hr_b = _forward_split(forward, exp, lr_bad, hr_bad, batch, mesh)
     sr_u8 = np.concatenate([sr_g, sr_b])
     hr_u8 = np.concatenate([hr_g, hr_b])
     y_true = [0] * len(sr_g) + [1] * len(sr_b)
@@ -191,13 +202,14 @@ def evaluate_anomaly_arrays(exp: Experiment, params: Mapping[str, torch.Tensor],
                             tile: int = 0, tile_overlap: int = 8,
                             sweep_windows: int = 0,
                             mode: Optional[str] = None,
-                            graphs: bool = True) -> Dict[str, object]:
+                            graphs: bool = True,
+                            mesh: Optional[Mesh] = None) -> Dict[str, object]:
     """The array core of :func:`evaluate_anomaly`: LR/HR float arrays in
     [0, rgb_range] (NHWC) for the good and defective test images ->
     AUCs, best SSIM window, per-image scores and the specificity report."""
     return _evaluate(exp, params, lr_good, hr_good, lr_bad, hr_bad, batch,
                      device, log, tile, tile_overlap, sweep_windows, mode,
-                     graphs)[0]
+                     graphs, mesh)[0]
 
 
 def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
@@ -206,7 +218,8 @@ def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
                      batch: int = 8, device="cuda", log=print, tile: int = 0,
                      tile_overlap: int = 8, sweep_windows: int = 0,
                      mode: Optional[str] = None,
-                     graphs: bool = True) -> Dict[str, object]:
+                     graphs: bool = True,
+                     mesh: Optional[Mesh] = None) -> Dict[str, object]:
     """Full anomaly pass over ``{data_root}/{classe}/test/{good,bad}``
     (reference evaluate.py:138-267). ``tile > 0`` forces tiled serving with
     that LR tile; 0 tiles when the test LR exceeds the model's input size.
@@ -218,7 +231,10 @@ def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
     ``out_dir/{good,bad}/x{scale}/{name}.png``; with ``out_dir`` alone,
     ``out_dir/roc_curve.pdf`` (1-SSIM, MSE, -PSNR) and the heatmaps
     ``out_dir/heatmaps/{split}/{name}.png`` at the best window, and
-    ``figures_s``, the seconds that took, in the result."""
+    ``figures_s``, the seconds that took, in the result. With a ``mesh``
+    (every rank calls it, on the mesh's device) each batch is split over
+    the data ranks and gathered, so every rank scores the whole split, and
+    rank 0 alone writes the files; ``batch`` must divide by ``n_data``."""
     scale = max(exp.data.scale)
 
     def load(split: str):
@@ -227,13 +243,15 @@ def evaluate_anomaly(exp: Experiment, params: Mapping[str, torch.Tensor],
                                exp.data.rgb_range)
 
     ds_good, ds_bad = load("good"), load("bad")
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.device)
     out, sr_u8, hr_u8 = _evaluate(exp, params, ds_good.lrs[0], ds_good.hr,
                                   ds_bad.lrs[0], ds_bad.hr, batch, dev, log,
                                   tile, tile_overlap, sweep_windows, mode,
-                                  graphs)
+                                  graphs, mesh)
     out["filenames"] = ds_good.filenames + ds_bad.filenames
     out["splits"] = ["good"] * ds_good.n + ["bad"] * ds_bad.n
+    if mesh is not None and mesh.rank != 0:
+        return out          # rank 0 writes the files
     if save_images and out_dir:
         for img, name, split in zip(sr_u8, out["filenames"], out["splits"]):
             d = Path(out_dir) / split / f"x{scale}"

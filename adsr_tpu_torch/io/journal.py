@@ -50,6 +50,9 @@ def save_state_dict(path: Path, state_dict: Mapping[str, torch.Tensor]) -> None:
     torch.save(_host(state_dict), path)
 
 
+TRAIN_STATE = "train_state_latest.pt"
+
+
 def load_state_dict(path, device="cpu"):
     """A ``.pt`` state_dict (the port's or a reference checkpoint's), or a
     ``dual_model_*.pt`` list of them."""
@@ -116,7 +119,7 @@ class Journal:
         state (one over primal and duals), the step, the epoch reached, the
         drop-path generator and the last epoch loss (the loss-spike skip's
         reference)."""
-        path = self.dir / "model" / "train_state_latest.pt"
+        path = self.dir / "model" / TRAIN_STATE
         duals = state.dual_state_dicts()
         torch.save({"model": _host(state.model.state_dict()),
                     "duals": None if duals is None
@@ -130,29 +133,18 @@ class Journal:
     def load_train_state(self, state,
                          generator: Optional[torch.Generator] = None
                          ) -> Dict[str, Any]:
-        """Restore ``state`` (model, duals, optimizer, step) and
-        ``generator`` in place from ``train_state_latest.pt``; returns
-        ``{"epoch", "error_last"}``. Raises ``FileNotFoundError`` without
-        one."""
-        path = self.dir / "model" / "train_state_latest.pt"
-        if not path.is_file():
-            raise FileNotFoundError(f"no train state at {path}")
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        state.model.load_state_dict(ckpt["model"])
-        if state.duals is not None:
-            for dual, sd in zip(state.duals, ckpt["duals"]):
-                dual.load_state_dict(sd)
-        state.optimizer.load_state_dict(ckpt["optimizer"])
-        state.step = int(ckpt["step"])
-        if generator is not None and ckpt["generator"] is not None:
-            generator.set_state(ckpt["generator"])
-        return {"epoch": int(ckpt["epoch"]), "error_last": ckpt["error_last"]}
+        """:func:`load_train_state` from this run dir."""
+        return load_train_state(self.dir / "model" / TRAIN_STATE, state,
+                                generator)
 
-    def save(self, trainer, is_best: bool = False) -> None:
-        """End-of-training bundle (src/checkpoint.py:30-48 equivalent)."""
-        self.save_model(trainer.state.model.state_dict(), is_best=is_best,
-                        duals=trainer.state.dual_state_dicts())
-        self.save_train_state(trainer.state, trainer.epoch,
+    def save(self, trainer, is_best: bool = False, state=None) -> None:
+        """End-of-training bundle (src/checkpoint.py:30-48 equivalent).
+        ``state`` (default ``trainer.state``) is the train state in the
+        full layout (``Trainer.checkpoint_state()`` at tp > 1)."""
+        state = state if state is not None else trainer.state
+        self.save_model(state.model.state_dict(), is_best=is_best,
+                        duals=state.dual_state_dicts())
+        self.save_train_state(state, trainer.epoch,
                               trainer.dropout_gen, trainer.error_last)
         with open(self.dir / "loss_log.json", "w") as f:
             json.dump(trainer.loss_history, f)
@@ -203,3 +195,23 @@ class Journal:
                        f"SR on {data.data_test} - {name}", "Epochs", name,
                        f"Scale {max(data.scale)}")
         write_pdf(self.dir / f"test_{data.data_test}_psnr_ssim.pdf", [page])
+
+
+def load_train_state(path, state, generator: Optional[torch.Generator] = None
+                     ) -> Dict[str, Any]:
+    """Restore ``state`` (model, duals, optimizer, step) and ``generator``
+    in place from a ``train_state_latest.pt``; returns ``{"epoch",
+    "error_last"}``. Raises ``FileNotFoundError`` without one."""
+    path = Path(path)
+    if not path.is_file():
+        raise FileNotFoundError(f"no train state at {path}")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    state.model.load_state_dict(ckpt["model"])
+    if state.duals is not None:
+        for dual, sd in zip(state.duals, ckpt["duals"]):
+            dual.load_state_dict(sd)
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step"])
+    if generator is not None and ckpt["generator"] is not None:
+        generator.set_state(ckpt["generator"])
+    return {"epoch": int(ckpt["epoch"]), "error_last": ckpt["error_last"]}

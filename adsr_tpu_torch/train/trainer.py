@@ -27,11 +27,24 @@ L(dual_i(sr[i-n_d]), lrs[i]), total = primary + dual_weight * dual, and
 one Adam over the primal and dual parameters. The init and drop-path
 streams are separate generators seeded from ``exp.seed``, in the role of
 the JAX package's ``prng.stream(key, "init" | "dropout")``: the same
-distributions, not the same bits. Single device: no mesh (ROADMAP Queue 1
-item 11). With a ``Journal`` (``io/journal.py``) the Trainer logs into the
-run dir, saves ``model_latest.pt`` / ``model_best.pt`` (and DRN's
-``dual_model_*.pt``) at every test and checkpoints its full state for a
-true resume; without one it logs with ``print``.
+distributions, not the same bits. With a ``Journal`` (``io/journal.py``)
+the Trainer logs into the run dir, saves ``model_latest.pt`` /
+``model_best.pt`` (and DRN's ``dual_model_*.pt``) at every test and
+checkpoints its full state for a true resume; without one it logs with
+``print``.
+
+Over a device mesh (``core/mesh.py``, trainer.py:289-330, 522-674): each
+data rank runs the step on its ``B / n_data`` rows with the loss built at
+the local batch size, then one ``all_reduce`` of a flat gradient bucket
+and one of the metrics, both divided by ``n_data``, so every rank takes
+the same Adam step and the same loss-spike decision. Every rank draws the
+drop-path multipliers of the whole batch from the one generator and keeps
+its rows, so the draws are the single-card step's. With tp > 1 the step
+runs the eager model (f32, TF32 off) with DRCT's attention and MLP split
+over the tp ranks (``parallel/tensor.py``), as the JAX package leaves its
+fused step for the XLA model there. The Trainer splits its batches and its
+test over the data ranks; only the rank given a Journal writes, and
+checkpoints keep the full reference layout at any tp.
 
 The serving forwards (``make_serving_forward``, ``make_eval_forward``,
 ``make_tiled_serving_forward``) take the full-scale SR ``sr[-1]`` of a DRN
@@ -41,7 +54,10 @@ as the JAX package does. On the card ``make_serving_forward`` and
 ``make_tiled_serving_forward`` serve through one CUDA graph per LR shape
 (``core/graphs.py``), as the JAX versions jit theirs; ``graphs=False``
 launches every kernel from Python on every call. ``make_eval_forward``
-takes new params on every call, so it launches.
+takes new params on every call, so it launches. With a ``mesh`` both serve
+batch-parallel (``core/mesh.py`` ``ShardedCall``, trainer.py:441-452):
+each data rank runs its rows through its own captured call and the SR rows
+are gathered in rank order.
 """
 
 from __future__ import annotations
@@ -51,6 +67,7 @@ import hashlib
 import math
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -61,15 +78,24 @@ from adsr_tpu_torch.core.config import (DRCTModelConfig, DRNModelConfig,
 from adsr_tpu_torch.core.device import (compute_dtype, full_f32,
                                         resolve_device)
 from adsr_tpu_torch.core.graphs import CapturedCall
+from adsr_tpu_torch.core.mesh import (Mesh, ShardedCall, gather_rows,
+                                      mean_over_data, n_data, shard_batch,
+                                      shard_rows)
 from adsr_tpu_torch.data.pipeline import EpochSampler, SRDataset
 from adsr_tpu_torch.eval.tiled import feather_weights, tiled_sr_forward
-from adsr_tpu_torch.io.journal import Journal
+from adsr_tpu_torch.io.journal import TRAIN_STATE, Journal, load_train_state
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
 from adsr_tpu_torch.kernels.fused_rdg_train import fused_drct_train_forward
 from adsr_tpu_torch.metrics import psnr_shave4, quantize, ssim_shave4
 from adsr_tpu_torch.models.drct import drop_path_mults
 from adsr_tpu_torch.models.drn import apply_dual, make_dual_models
 from adsr_tpu_torch.models.factory import init_sr_params, make_model
+from adsr_tpu_torch.parallel.sharding import (gather_optimizer_state,
+                                              gather_state_dict,
+                                              param_shardings,
+                                              shard_optimizer_state,
+                                              shard_state_dict)
+from adsr_tpu_torch.parallel.tensor import shard_model_
 from adsr_tpu_torch.train.losses import make_loss
 
 
@@ -119,8 +145,8 @@ def _sr_function(exp: Experiment, params: Mapping[str, torch.Tensor],
 def make_serving_forward(exp: Experiment,
                          params: Mapping[str, torch.Tensor],
                          device="cuda", quantize_out: bool = True,
-                         mode: Optional[str] = None, graphs: bool = True
-                         ) -> CapturedCall:
+                         mode: Optional[str] = None, graphs: bool = True,
+                         mesh: Optional[Mesh] = None):
     """Fixed-params inference: LR batch NHWC float -> SR batch (quantized to
     the 0-255 grid unless ``quantize_out=False``).
 
@@ -132,8 +158,11 @@ def make_serving_forward(exp: Experiment,
     and ignores ``mode``. On the card the forward runs as one CUDA graph per
     LR shape (the JAX version's jit, trainer.py:447-454); ``graphs=False``
     launches its kernels on every call. ``forward(lr)`` takes a numpy array
-    or a tensor on any device."""
-    dev = resolve_device(device)
+    or a tensor on any device. With a ``mesh`` (on the mesh's device) each
+    data rank serves its rows of the batch, which must divide by
+    ``n_data``, and every rank returns the whole SR batch
+    (trainer.py:441-452)."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     check_serving_precision(exp, dev)
     sr_of = _sr_function(exp, params, dev, mode)
 
@@ -142,7 +171,8 @@ def make_serving_forward(exp: Experiment,
         sr = sr_of(lr)
         return quantize(sr, exp.data.rgb_range) if quantize_out else sr
 
-    return CapturedCall(forward, dev, capture=graphs)
+    call = CapturedCall(forward, dev, capture=graphs)
+    return call if mesh is None else ShardedCall(call, mesh)
 
 
 def make_eval_forward(exp: Experiment, device="cuda",
@@ -180,7 +210,8 @@ def make_tiled_serving_forward(exp: Experiment,
                                tile: int = 0, overlap: int = 8,
                                quantize_out: bool = True, device="cuda",
                                mode: Optional[str] = None,
-                               graphs: bool = True) -> CapturedCall:
+                               graphs: bool = True,
+                               mesh: Optional[Mesh] = None):
     """Serving forward for LR inputs larger than the model's tile
     (trainer.py:460-515): the LR batch is cut into overlapping ``tile``-sized
     crops, all of them go through one forward (DRCT's packed at the tile
@@ -188,8 +219,9 @@ def make_tiled_serving_forward(exp: Experiment,
     defaults to DRCT's ``img_size`` and to 32 for a DRN (trainer.py:479-480).
     Returns ``forward(lr)``: on the card the whole call (crops, forward,
     blend, quantisation) runs as one CUDA graph per LR shape, as the JAX
-    version jits it; ``graphs=False`` launches it."""
-    dev = resolve_device(device)
+    version jits it; ``graphs=False`` launches it. With a ``mesh``, batch-
+    parallel as :func:`make_serving_forward`."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     check_serving_precision(exp, dev)
     cfg = exp.model
     scale = max(exp.data.scale)
@@ -211,7 +243,8 @@ def make_tiled_serving_forward(exp: Experiment,
         sr = tiled_sr_forward(sr_of, lr, tile, overlap, scale, mask)
         return quantize(sr, exp.data.rgb_range) if quantize_out else sr
 
-    return CapturedCall(forward, dev, capture=graphs)
+    call = CapturedCall(forward, dev, capture=graphs)
+    return call if mesh is None else ShardedCall(call, mesh)
 
 
 def cosine_lr(epoch: int, lr0: float, eta_min: float, epochs: int) -> float:
@@ -233,6 +266,9 @@ class TrainState:
     model: torch.nn.Module
     optimizer: torch.optim.Adam
     duals: Optional[torch.nn.ModuleList] = None     # DRN's dual models
+    # the full state_dict's tp splits (parallel/sharding.py), when the
+    # model holds this rank's shards; None when it holds the whole model
+    specs: Optional[Dict] = None
 
     def dual_state_dicts(self) -> Optional[List[Dict[str, torch.Tensor]]]:
         """The dual models' ``state_dict``s (the reference's
@@ -244,55 +280,90 @@ class TrainState:
 
 class TrainStepBundle:
     """``step(state, lrs, hr, lr_rate, generator, error_last) -> (state,
-    metrics)`` and ``init_state(generator) -> TrainState``."""
+    metrics)``, ``init_state(generator) -> TrainState`` and
+    ``assemble(model, duals) -> TrainState`` (a step-0 state with a new
+    Adam over those modules)."""
 
-    def __init__(self, step, init_state, use_fused_train: bool):
+    def __init__(self, step, init_state, assemble, use_fused_train: bool):
         self.step = step
         self.init_state = init_state
+        self.assemble = assemble
         self.use_fused_train = use_fused_train
 
 
-def make_train_step(exp: Experiment, device="cuda") -> TrainStepBundle:
-    """Build the train step of an experiment on ``device``.
+def make_train_step(exp: Experiment, device="cuda",
+                    mesh: Optional[Mesh] = None) -> TrainStepBundle:
+    """Build the train step of an experiment on ``device`` (the mesh's
+    device when a ``mesh`` is given).
 
     ``lrs`` is the LR pyramid in descending scale (``lrs[0]`` is the model
     input); ``generator`` (a CPU ``torch.Generator``) draws the step's
     drop-path multipliers (DRCT; a DRN draws none). The metrics are 0-d
     tensors on the device: 'total' and one per loss term for DRCT,
     'total', 'primary' and 'dual' for DRN, and 'skipped' when the
-    loss-spike skip is on."""
-    dev = resolve_device(device)
+    loss-spike skip is on.
+
+    With a ``mesh``, ``lrs`` and ``hr`` are this rank's rows
+    (``shard_batch``) and the gradients and metrics are averaged over the
+    data ranks (trainer.py:289-330); a batch size that does not divide by
+    ``n_data`` raises ``ValueError``. tp > 1 runs the eager model split
+    over the tp ranks."""
+    dev = resolve_device(device if mesh is None else mesh.device)
     check_serving_precision(exp, dev)
     cfg = exp.model
     is_dual = isinstance(cfg, DRNModelConfig)
-    fused = dev.type == "cuda" and not is_dual
+    nd = n_data(mesh)
+    tp = 1 if mesh is None else mesh.tp
+    # tp > 1 leaves the kernels for the eager model (trainer.py:188-196)
+    fused = dev.type == "cuda" and not is_dual and tp == 1
+    if exp.data.batch_size % nd:
+        raise ValueError(
+            f"batch_size {exp.data.batch_size} must divide by the mesh's "
+            f"data-axis product {nd}")
     dtype = compute_dtype(exp.precision)
-    loss_fn = make_loss(exp.optim.loss, batch_size=exp.data.batch_size,
+    # the loss of this rank's rows: its terms are local means, and the
+    # mean of equal-sized local means is the global mean (trainer.py:302-304)
+    loss_fn = make_loss(exp.optim.loss, batch_size=exp.data.batch_size // nd,
                         scale=max(exp.data.scale),
                         rgb_range=exp.data.rgb_range)
     skip_threshold = exp.optim.skip_threshold
     o = exp.optim
 
-    def init_state(generator: torch.Generator) -> TrainState:
-        primal, dual_sds = init_sr_params(cfg, generator, device=dev)
-        model = make_model(cfg, device=dev)
-        model.load_state_dict(primal)
+    def assemble(model: torch.nn.Module,
+                 duals: Optional[torch.nn.ModuleList]) -> TrainState:
         params = list(model.parameters())
-        duals = None
-        if is_dual:
-            duals = make_dual_models(cfg).to(dev)
-            for d, sd in zip(duals, dual_sds):
-                d.load_state_dict(sd)
+        if duals is not None:
             params += list(duals.parameters())
         # one Adam over primal and duals (trainer.py:338-345)
         opt = make_optimizer(params, o.beta1, o.beta2, o.epsilon,
                              o.weight_decay)
         return TrainState(step=0, model=model, optimizer=opt, duals=duals)
 
+    def init_state(generator: torch.Generator) -> TrainState:
+        primal, dual_sds = init_sr_params(cfg, generator, device=dev)
+        model = make_model(cfg, device=dev)
+        model.load_state_dict(primal)
+        specs = param_shardings(model.state_dict(), mesh) if tp > 1 else {}
+        if any(specs.values()):
+            shard_model_(model, mesh, specs)
+        duals = None
+        if is_dual:
+            duals = make_dual_models(cfg).to(dev)
+            for d, sd in zip(duals, dual_sds):
+                d.load_state_dict(sd)
+        state = assemble(model, duals)
+        state.specs = specs if any(specs.values()) else None
+        return state
+
     def drct_loss(state: TrainState, lrs, hr, generator):
         lr0 = torch.as_tensor(lrs[0], device=dev)
-        dp = drop_path_mults(generator, cfg, hr.shape[0],
-                             deterministic=False).to(dev)
+        # the whole batch's multipliers, this rank's rows: the draws of
+        # the single-card step
+        dp = drop_path_mults(generator, cfg, hr.shape[0] * nd,
+                             deterministic=False)
+        if mesh is not None:
+            dp = shard_rows(mesh, dp, dim=1)
+        dp = dp.to(dev)
         if fused:
             sr = fused_drct_train_forward(
                 dict(state.model.named_parameters()), cfg, lr0, dp, dtype)
@@ -322,16 +393,27 @@ def make_train_step(exp: Experiment, device="cuda") -> TrainStepBundle:
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         opt = state.optimizer
         hr = torch.as_tensor(hr, device=dev)
-        # DRN's f32 convs and products in full f32, the backward's too
-        with full_f32() if is_dual else contextlib.nullcontext():
+        # the eager models' f32 convs and products in full f32, the
+        # backward's too
+        with contextlib.nullcontext() if fused else full_f32():
             total, metrics = loss_of(state, lrs, hr, generator)
             opt.zero_grad(set_to_none=True)
             total.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            params = [p for g in opt.param_groups for p in g["params"]]
+            grads = mean_over_data(mesh, [
+                torch.zeros_like(p) if p.grad is None else p.grad
+                for p in params])
+            for p, g in zip(params, grads):
+                p.grad = g
+            metrics = dict(zip(metrics, mean_over_data(
+                mesh, list(metrics.values()))))
         take = True
         if skip_threshold > 0:
-            # loss-spike skip (reference trainer.py:190, 207-210; opt-in)
-            take = total.item() < skip_threshold * error_last
+            # loss-spike skip (reference trainer.py:190, 207-210; opt-in),
+            # on the averaged total: every rank decides alike
+            take = metrics["total"].item() < skip_threshold * error_last
             metrics["skipped"] = torch.tensor(0.0 if take else 1.0,
                                               device=dev)
         if take:
@@ -341,7 +423,7 @@ def make_train_step(exp: Experiment, device="cuda") -> TrainStepBundle:
         state.step += 1
         return state, metrics
 
-    return TrainStepBundle(step, init_state, fused)
+    return TrainStepBundle(step, init_state, assemble, fused)
 
 
 def stream_seed(seed: int, name: str) -> int:
@@ -351,18 +433,30 @@ def stream_seed(seed: int, name: str) -> int:
 
 
 class Trainer:
-    """Epoch driver with the reference's terminate/test cadence."""
+    """Epoch loop with the reference's terminate/test cadence.
+
+    On a ``mesh`` (the caller's: ``cli/main.py`` builds it from
+    ``exp.mesh``; without one the Trainer is single-stream whatever
+    ``exp.mesh`` says), every rank's sampler draws
+    the same global batch and keeps its rows, the test's chunk is rounded
+    to a multiple of ``n_data`` and its PSNR / SSIM lists are gathered, and
+    only a rank given a ``journal`` logs and writes (rank 0, by the CLI).
+    Every rank must call ``test``, ``save_train_state`` and
+    ``load_train_state`` together: at tp > 1 they gather or split the
+    state."""
 
     def __init__(self, exp: Experiment, train_ds: Optional[SRDataset],
                  test_ds: Optional[SRDataset],
-                 journal: Optional[Journal] = None, device="cuda"):
+                 journal: Optional[Journal] = None, device="cuda",
+                 mesh: Optional[Mesh] = None):
         if journal is not None and not isinstance(journal, Journal):
             raise TypeError(f"Trainer: journal must be an io.journal.Journal, "
                             f"got {type(journal).__name__}")
         self.exp = exp
         self.journal = journal
-        self.device = resolve_device(device)
-        self._bundle = make_train_step(exp, self.device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        self._bundle = make_train_step(exp, self.device, mesh)
         self.train_step = self._bundle.step
         self.eval_forward = make_eval_forward(exp, self.device)
         self.state = self._bundle.init_state(
@@ -385,22 +479,71 @@ class Trainer:
     def _log(self, msg: str) -> None:
         if self.journal is not None:
             self.journal.write_log(msg)
-        else:
+        elif self.mesh is None or self.mesh.rank == 0:
             print(msg, flush=True)
+
+    # ------------------- the state in the full layout ------------------- #
+
+    def _param_names(self) -> List[str]:
+        return [n for n, _ in self.state.model.named_parameters()]
+
+    def model_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's ``state_dict`` in the full reference layout (at tp >
+        1 gathered over the tp ranks: every rank calls it)."""
+        sd = self.state.model.state_dict()
+        if self.state.specs is None:
+            return sd
+        return gather_state_dict(sd, self.mesh, self.state.specs)
+
+    def load_model_state_dict(self, sd: Mapping[str, torch.Tensor]) -> None:
+        """Load a full-layout ``state_dict`` (this rank's shard at tp > 1)."""
+        if self.state.specs is not None:
+            sd = shard_state_dict(sd, self.mesh, self.state.specs)
+        self.state.model.load_state_dict(sd)
+
+    def checkpoint_state(self) -> TrainState:
+        """The train state in the full layout: the state itself, or at tp >
+        1 a whole model and Adam gathered from the tp ranks."""
+        st = self.state
+        if st.specs is None:
+            return st
+        model = make_model(self.exp.model, device=self.device)
+        model.load_state_dict(self.model_state_dict())
+        full = self._bundle.assemble(model, st.duals)
+        full.optimizer.load_state_dict(gather_optimizer_state(
+            st.optimizer.state_dict(), self._param_names(), st.specs,
+            self.mesh))
+        full.step = st.step
+        return full
 
     def save_train_state(self) -> None:
         """Checkpoint everything a resume needs through the Journal."""
-        self.journal.save_train_state(self.state, self.epoch,
-                                      self.dropout_gen, self.error_last)
+        full = self.checkpoint_state()
+        if self.journal is not None:
+            self.journal.save_train_state(full, self.epoch, self.dropout_gen,
+                                          self.error_last)
 
     def load_train_state(self) -> None:
-        """Resume from the Journal's ``train_state_latest.pt``: the model,
+        """Resume from the run dir's ``train_state_latest.pt`` (the
+        Journal's, or ``exp.save``'s on a rank without one): the model,
         Adam, step, epoch, drop-path generator and last epoch loss, so the
         next step is the one an uninterrupted run would take."""
-        extra = self.journal.load_train_state(self.state, self.dropout_gen)
+        root = self.journal.dir if self.journal is not None \
+            else Path(self.exp.save)
+        full = self.checkpoint_state()
+        extra = load_train_state(root / "model" / TRAIN_STATE, full,
+                                 self.dropout_gen)
+        if full is not self.state:      # this rank's shards of it
+            self.load_model_state_dict(full.model.state_dict())
+            self.state.optimizer.load_state_dict(shard_optimizer_state(
+                full.optimizer.state_dict(), self._param_names(),
+                self.state.specs, self.mesh))
+            self.state.step = full.step
         self.epoch = extra["epoch"]
         if extra["error_last"] is not None:
             self.error_last = extra["error_last"]
+
+    # ------------------------------------------------------------------ #
 
     def train_one_epoch(self) -> Dict[str, float]:
         if self.sampler is None:
@@ -416,6 +559,9 @@ class Trainer:
         acc: Dict[str, torch.Tensor] = {}
         n_batches = 0
         for lrs, hr in self.sampler.epoch(self.epoch):
+            if self.mesh is not None:     # every rank drew the same batch
+                lrs, hr = shard_batch(self.mesh, lrs), shard_batch(self.mesh,
+                                                                   hr)
             t1 = time.time()
             t_data += t1 - t0
             self.state, metrics = self.train_step(
@@ -447,23 +593,41 @@ class Trainer:
         With a Journal, the model is saved as ``model_latest.pt`` and, when
         this PSNR is the best so far, as ``model_best.pt`` (a DRN's duals
         as ``dual_model_latest.pt`` / ``dual_model_best.pt``).
-        ``save_results_fn(filename, sr)`` receives every SR image."""
+        ``save_results_fn(filename, sr)`` receives every SR image. On a
+        mesh each chunk (a multiple of ``n_data``, the last one padded with
+        its last image) is split over the data ranks and the scores and SR
+        rows are gathered."""
         ds = test_ds if test_ds is not None else self.test_ds
         if ds is None:
             raise ValueError("Trainer.test: no test dataset")
         self._log("\nEvaluation:")
         exp = self.exp
+        mesh = self.mesh
         lrs_dev, hr_dev = ds.device_arrays(self.device)
         t0 = time.time()
-        params = self.state.model.state_dict()
+        params = self.model_state_dict()
         bsz = max(1, min(exp.data.batch_size, ds.n))
+        nd = n_data(mesh)
+        if mesh is not None:
+            bsz = max(nd, bsz // nd * nd)
         psnrs, ssims = [], []
         for i in range(0, ds.n, bsz):
-            hr = hr_dev[i:i + bsz]
-            sr = self.eval_forward(params, lrs_dev[0][i:i + bsz])
+            lr, hr = lrs_dev[0][i:i + bsz], hr_dev[i:i + bsz]
+            n_real = hr.shape[0]
+            if mesh is not None:
+                pad = bsz - n_real
+                lr, hr = (torch.cat([t, t[-1:].expand(pad, *t.shape[1:])])
+                          if pad else t for t in (lr, hr))
+                lr, hr = shard_rows(mesh, lr), shard_rows(mesh, hr)
+            sr = self.eval_forward(params, lr)
             sr = sr[:, :hr.shape[1], :hr.shape[2], :]
-            psnrs.extend(psnr_shave4(sr, hr, exp.data.rgb_range).tolist())
-            ssims.extend(ssim_shave4(sr, hr, exp.data.rgb_range).tolist())
+            p_b = psnr_shave4(sr, hr, exp.data.rgb_range)
+            s_b = ssim_shave4(sr, hr, exp.data.rgb_range)
+            if mesh is not None:
+                p_b, s_b, sr = (gather_rows(mesh, t)[:n_real]
+                                for t in (p_b, s_b, sr))
+            psnrs.extend(p_b.tolist())
+            ssims.extend(s_b.tolist())
             if save_results_fn is not None:
                 for j in range(sr.shape[0]):
                     save_results_fn(ds.filenames[i + j], sr[j])

@@ -3,7 +3,8 @@
 train and evaluate CLIs on one GPU, then the window-16 geometry (256px/x4
 and 512/x8), the window-4 geometry (64/x4, 128/x8 and 32/x2), the
 end-to-end smoke CLI (prepare -> train -> evaluate), DRN-L x4 @128px with
-its dual models and EfficientAD at 256 px.
+its dual models, EfficientAD at 256 px and the device mesh (world 1, and
+world 2 on the one card).
 
     python3 chip_smoke.py
 
@@ -178,12 +179,28 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    MVTec grid tree of 200 px PNGs, so the loaders' bilinear resize runs.
    EfficientAD's convolutions are cuDNN's: its path launches none of the
    port's kernels, which the kernels line records as its ``"efficientad"``
-   path, all 0s.
+   path, all 0s;
+17. the device mesh, lines "[mesh] ...": the flagship at global batch 8
+   over ``core/mesh.py``, each world in spawned ranks
+   (``parallel/launch.py``): world 1 over NCCL, where
+   ``make_parallel_trainer``'s two steps equal ``make_train_step``'s from
+   the same state and draws bit for bit; world 2 over gloo, both ranks on
+   the one card (NCCL refuses two ranks on one device): two steps of the
+   fused kernel step on 4 rows a rank, each rank's launches the single
+   step's, the ranks' parameters bitwise equal, a second run of the two
+   steps from the same state bitwise equal to the first, the loss terms,
+   the step-1 gradients and the parameters after step 2 against the
+   world-1 step at the global batch (``RDG_REL_L2`` by class, loss terms
+   at its ``out/dx`` limit); the batch-parallel serving forward through
+   graphs bitwise equal to the unsharded one; a ``Trainer`` on the mesh
+   (one epoch of two steps, a test of 8); the step's wall at both world
+   sizes and the share of one all-reduce of the gradient bucket in it
+   (gloo's goes through the host: no speed claim).
 
 The build and the ptxas lines come from this process; each geometry
-(phases 3-11 of the flagship, 12, 13), the smoke (14), DRN-L (15) and
-EfficientAD (16) runs in a process of its own, which this one starts and waits for (``--phase
-NAME OUT``).
+(phases 3-11 of the flagship, 12, 13), the smoke (14), DRN-L (15),
+EfficientAD (16) and the mesh (17) runs in a process of its own, which
+this one starts and waits for (``--phase NAME OUT``).
 
 The last three lines are the kernels' JSON record (each kernel's
 window-16 readings under ``"w16"``, its window-4 readings under ``"w4"``,
@@ -192,13 +209,16 @@ nvidia-smi line and ``{"ok": true, "device": {...}}``; a ``[report]`` line
 before them holds every number the run measured, as JSON (the window-16
 phase's under ``"w16"``, the window-4 phase's under ``"w4"``, the smoke's
 under ``"smoke"``, DRN-L's under ``"drn"``, EfficientAD's under
-``"ead"``).
+``"ead"``, the mesh's under ``"mesh"``; the mesh's launches are the
+kernels line's ``"mesh_w1"``, ``"mesh_w2"`` (both ranks' steps),
+``"mesh_w2_serving"`` and ``"mesh_w2_trainer"`` paths).
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -212,15 +232,17 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from adsr_tpu_torch.cli import efficientad as cli_ead
 from adsr_tpu_torch.cli import evaluate as cli_eval
 from adsr_tpu_torch.cli import main as cli_main
 from adsr_tpu_torch.cli import smoke as cli_smoke
-from adsr_tpu_torch.core.config import (drct_experiment,
+from adsr_tpu_torch.core.config import (MeshConfig, drct_experiment,
                                         drn_experiment)
 from adsr_tpu_torch.core.device import full_f32
+from adsr_tpu_torch.core.mesh import default_backend, make_mesh
 from adsr_tpu_torch.data.pipeline import SRDataset, load_sr_dataset, set_channel
 from adsr_tpu_torch.data.prepare import lr_from_hr
 from adsr_tpu_torch.data.synthetic import (carpet_texture,
@@ -277,12 +299,14 @@ from adsr_tpu_torch.models.drn import apply_dual
 from adsr_tpu_torch.models.efficientad import PDN, init_efficientad_
 from adsr_tpu_torch.models.factory import (init_sr_params, init_weights_,
                                            make_model)
+from adsr_tpu_torch.parallel.launch import run_ranks
+from adsr_tpu_torch.parallel.sharding import make_parallel_trainer
 from adsr_tpu_torch.train.efficientad import (EADConfig, EfficientADTrainer,
                                               StepDraws, final_metrics,
                                               normalize_imagenet)
 from adsr_tpu_torch.train.trainer import (Trainer, make_serving_forward,
                                           make_tiled_serving_forward,
-                                          make_train_step)
+                                          make_train_step, stream_seed)
 
 SEED = 0
 DEVICE = "cuda"
@@ -3956,6 +3980,369 @@ def phase_ead(dev, report):
     return {"efficientad": launches}, {}
 
 
+# --------------------------------------------------------------------------- #
+# [mesh]: the device mesh (core/mesh.py, parallel/): world 1 over NCCL, world
+# 2 over gloo on the one card
+# --------------------------------------------------------------------------- #
+
+MESH_BATCH = 8          # the global batch: 4 rows a rank at world 2
+MESH_STEPS = 2
+MESH_TIMED = 5          # steps (and all-reduces) timed a world size
+MESH_TEST = 8
+MESH_TIMEOUT = 600      # seconds, each launch of ranks
+
+
+def card_setup() -> None:
+    """What every process of this script sets before it works on the card:
+    full f32 for the plain references, no serving-mode switch, the built
+    kernels loaded."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.environ.pop("ADSR_TPU_RDG", None)
+    _build.library()
+
+
+def mesh_experiment(dp: int):
+    """The flagship at the [mesh] phase's batch, on ``MeshConfig(dp=dp)``."""
+    exp = drct_experiment("grid", HR, SCALE, precision="bf16",
+                          batch_size=MESH_BATCH, run_tag="chip_smoke_mesh")
+    return dataclasses.replace(
+        exp, mesh=MeshConfig(dp=dp),
+        data=dataclasses.replace(exp.data, test_every=MESH_STEPS),
+        optim=dataclasses.replace(exp.optim, epochs=1), print_every=1)
+
+
+def mesh_data():
+    """The steps' global batches (LR pyramid, HR as numpy) and the
+    Trainer's train and test sets, the same in every process."""
+    rng = np.random.RandomState(SEED + 20)
+    ds = train_dataset(rng, MESH_BATCH * MESH_STEPS)
+    b = MESH_BATCH
+    batches = [([ds.lrs[0][i * b:(i + 1) * b]], ds.hr[i * b:(i + 1) * b])
+               for i in range(MESH_STEPS)]
+    return batches, train_dataset(rng, 2 * MESH_BATCH), \
+        train_dataset(rng, MESH_TEST)
+
+
+def init_generator(exp) -> torch.Generator:
+    """The init stream ``make_parallel_trainer`` seeds from ``exp.seed``."""
+    return torch.Generator().manual_seed(stream_seed(exp.seed, "init"))
+
+
+def dropout_generator() -> torch.Generator:
+    return torch.Generator().manual_seed(stream_seed(SEED, "dropout"))
+
+
+def host(tensors: dict) -> dict:
+    return {k: v.detach().float().cpu().clone() for k, v in tensors.items()}
+
+
+def fingerprint(model) -> str:
+    """sha256 of every parameter's bytes: equal only if bitwise equal."""
+    h = hashlib.sha256()
+    for _, p in model.named_parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def step_wall_ms(step, barrier=None) -> float:
+    """Median host wall (ms) of ``MESH_TIMED`` calls of ``step``, each
+    between device syncs (and, on a mesh, after a barrier)."""
+    times = []
+    for _ in range(MESH_TIMED):
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def bucket_all_reduce_ms(n: int, dev, group) -> float:
+    """Median host wall (ms) of one all_reduce of an f32 bucket of ``n``
+    elements on the card (the step's gradient bucket) over ``group``."""
+    bucket = torch.zeros(n, device=dev)
+    return step_wall_ms(lambda: dist.all_reduce(bucket, group=group),
+                        dist.barrier)
+
+
+def mesh_world1(rank: int, batches):
+    """World 1 over NCCL: the single-process ``make_train_step`` and
+    ``make_parallel_trainer`` take the same two steps from the same state;
+    returns both runs' metrics, whether the parameters are bitwise equal,
+    the launches of the mesh's steps, the global-batch gradients of step 1
+    and parameters after step 2 (for world 2), and the times."""
+    card_setup()
+    dev = torch.device(DEVICE)
+    exp = mesh_experiment(1)
+    lr_rate = exp.optim.lr
+    bundle = make_train_step(dataclasses.replace(exp, mesh=MeshConfig()), dev)
+    ref = bundle.init_state(init_generator(exp))
+    gen = dropout_generator()
+    ref_metrics, grads1 = [], None
+    for lrs, hr in batches:
+        ref, m = bundle.step(ref, lrs, hr, lr_rate, gen)
+        ref_metrics.append({k: float(v) for k, v in m.items()})
+        if grads1 is None:
+            grads1 = host({n: p.grad for n, p in
+                           ref.model.named_parameters()})
+    mesh = make_mesh(exp.mesh, devices=[dev])
+    trainer = make_parallel_trainer(exp, mesh)
+    gen = dropout_generator()
+    reset_counts()
+    metrics = [{k: float(v) for k, v in trainer.step(lrs, hr, lr_rate,
+                                                     gen).items()}
+               for lrs, hr in batches]
+    torch.cuda.synchronize()
+    launches = counts()
+    report = {}
+    check_operand_paths("mesh_w1", launches, report)
+    ref_params = dict(ref.model.named_parameters())
+    bitwise = all(torch.equal(p, ref_params[n])
+                  for n, p in trainer.state.model.named_parameters())
+    n_params = sum(p.numel() for p in ref_params.values())
+    params2 = host(ref_params)          # before the timed steps move them
+    lrs, hr = batches[0]
+    step_ms = step_wall_ms(lambda: trainer.step(lrs, hr, lr_rate, gen))
+    single_ms = step_wall_ms(lambda: bundle.step(ref, lrs, hr, lr_rate, gen))
+    return {"metrics": metrics, "ref_metrics": ref_metrics,
+            "bitwise": bitwise, "launches": launches,
+            "grads1": grads1, "params2": params2,
+            "n_params": n_params, "step_ms": step_ms,
+            "single_step_ms": single_ms,
+            "all_reduce_ms": bucket_all_reduce_ms(n_params, dev, None)}
+
+
+def mesh_world2(rank: int, batches):
+    """World 2 over gloo, both ranks on the one card: two steps of the
+    fused kernel step on 4 rows a rank (launches, averaged metrics, rank
+    0's step-1 gradients and step-2 parameters, every rank's parameter
+    fingerprint), the batch-parallel serving forward through graphs against
+    the unsharded one, a Trainer's short epoch and test, and the times."""
+    card_setup()
+    dev = torch.device(DEVICE)
+    exp = mesh_experiment(2)
+    lr_rate = exp.optim.lr
+    mesh = make_mesh(exp.mesh, devices=[dev, dev])
+    trainer = make_parallel_trainer(exp, mesh)
+    gen = dropout_generator()
+    reset_counts()
+    metrics, grads1 = [], None
+    for lrs, hr in batches:
+        metrics.append({k: float(v) for k, v in
+                        trainer.step(lrs, hr, lr_rate, gen).items()})
+        if grads1 is None and rank == 0:
+            grads1 = host({n: p.grad for n, p in
+                           trainer.state.model.named_parameters()})
+    torch.cuda.synchronize()
+    launches = counts()
+    report = {}
+    check_operand_paths(f"mesh_w2 rank {rank}", launches, report)
+    out = {"metrics": metrics, "launches": launches,
+           "fingerprint": fingerprint(trainer.state.model)}
+    if rank == 0:
+        out["grads1"] = grads1
+        out["params2"] = host(dict(trainer.state.model.named_parameters()))
+    # a second run of the same steps from the same state: the gloo sum and
+    # the kernels are deterministic from run to run
+    again = make_parallel_trainer(exp, mesh)
+    gen = dropout_generator()
+    out["metrics_again"] = [
+        {k: float(v) for k, v in again.step(lrs, hr, lr_rate, gen).items()}
+        for lrs, hr in batches]
+    out["fingerprint_again"] = fingerprint(again.state.model)
+    del again
+    gen = dropout_generator()
+
+    # serving: each rank its 4 rows through its own graph, gathered
+    params = trainer.state.model.state_dict()
+    x = batches[0][0][0]
+    reset_counts()
+    served = make_serving_forward(exp, params, dev, mesh=mesh)
+    got = [served(x) for _ in range(3)]      # warm-up, capture, replay
+    torch.cuda.synchronize()
+    out["serving_launches"] = counts()
+    alone = make_serving_forward(exp, params, dev)
+    want = [alone(x) for _ in range(3)]
+    out["serving_bitwise"] = all(torch.equal(a, b) for a, b in zip(got, want))
+    out["serving_max_abs"] = max((a - b).abs().max().item()
+                                 for a, b in zip(got, want))
+    out["serving_captured"] = served.fn.captured()
+    del served, alone, got, want
+
+    # a Trainer on the mesh: one epoch of two steps and a test of 8
+    _, train_ds, test_ds = mesh_data()
+    tr = Trainer(exp, train_ds, test_ds, device=dev, mesh=mesh)
+    reset_counts()
+    t0 = time.perf_counter()
+    mean = tr.train_one_epoch()
+    psnr, ssim = tr.test()
+    torch.cuda.synchronize()
+    out["trainer"] = {"mean": mean, "psnr": psnr, "ssim": ssim,
+                      "launches": counts(),
+                      "wall_s": time.perf_counter() - t0}
+    del tr
+
+    lrs, hr = batches[0]
+    out["step_ms"] = step_wall_ms(
+        lambda: trainer.step(lrs, hr, lr_rate, gen), dist.barrier)
+    n_params = sum(p.numel() for p in trainer.state.model.parameters())
+    out["all_reduce_ms"] = bucket_all_reduce_ms(n_params, dev,
+                                                mesh.data_group)
+    return out
+
+
+def mesh_tensor_class(name: str) -> str:
+    """The RDG_REL_L2 class of a full-model parameter: an RDG's by its
+    block, the head's and tail's as the RDG's output."""
+    m = re.match(r"layers\.\d+\.(.*)", name)
+    return rdg_tensor_class(m.group(1)) if m else "out/dx"
+
+
+def mesh_rel_l2(got: dict, want: dict) -> dict:
+    """The largest relative L2 of ``got`` against ``want`` in each class;
+    raises where a tensor is beyond its class's limit."""
+    worst = {}
+    for name, w in want.items():
+        cls = mesh_tensor_class(name)
+        err = rel_l2(got[name], w)
+        worst[cls] = max(worst.get(cls, 0.0), err)
+        if not err <= RDG_REL_L2[cls]:
+            raise AssertionError(f"mesh: {name} relative L2 {err:.3e} > "
+                                 f"{RDG_REL_L2[cls]} ({cls})")
+    return worst
+
+
+def phase_mesh(dev, report):
+    """The [mesh] phase: world 1 over NCCL (bitwise against the
+    single-process step), world 2 over gloo on the one card (the fused
+    step on 4 rows a rank within the train limits of the global-batch
+    step, launch counts, batch-parallel serving through graphs, a
+    Trainer), the step's wall at both world sizes and the all-reduce's
+    share. Returns its launches by path."""
+    smi = nvidia_smi()
+    t_phase = time.perf_counter()
+    batches, _, _ = mesh_data()
+    # NCCL refuses two ranks on one device: world 2 shares the card over
+    # gloo
+    w1 = run_ranks(mesh_world1, 1, [DEVICE], default_backend(DEVICE),
+                   batches, timeout=MESH_TIMEOUT)[0]
+    say("mesh", f"world 1 (NCCL): make_parallel_trainer {MESH_STEPS} steps "
+                f"of batch {MESH_BATCH}: losses "
+                + " ".join(f"{m['total']:.6f}" for m in w1["metrics"])
+                + f"; bitwise equal to make_train_step: {w1['bitwise']}; "
+                f"launches {w1['launches']}")
+    if not w1["bitwise"] or w1["metrics"] != w1["ref_metrics"]:
+        raise AssertionError("mesh: the world-1 step is not the "
+                             "single-process step bit for bit")
+    want = expected_counts(PER_TRAIN_STEP, MESH_STEPS)
+    if w1["launches"] != want:
+        raise AssertionError(f"mesh world 1 launches {w1['launches']}, "
+                             f"expected {want}")
+
+    w2 = run_ranks(mesh_world2, 2, [DEVICE, DEVICE], "gloo", batches,
+                   timeout=MESH_TIMEOUT)
+    for rank, r in enumerate(w2):
+        say("mesh", f"world 2 (gloo, one card) rank {rank}: {MESH_STEPS} "
+                    f"steps of {MESH_BATCH // 2} rows: losses "
+                    + " ".join(f"{m['total']:.6f}" for m in r["metrics"])
+                    + f"; launches {r['launches']}")
+        if r["launches"] != want:
+            raise AssertionError(f"mesh world 2 rank {rank} launches "
+                                 f"{r['launches']}, expected {want}")
+    if w2[0]["fingerprint"] != w2[1]["fingerprint"] \
+            or w2[0]["metrics"] != w2[1]["metrics"]:
+        raise AssertionError("mesh: the two ranks' parameters or metrics "
+                             "differ after the steps")
+    again = all(r["fingerprint_again"] == r["fingerprint"]
+                and r["metrics_again"] == r["metrics"] for r in w2)
+    say("mesh", f"world 2: a second run of the {MESH_STEPS} steps from the "
+                f"same state bitwise equal to the first on both ranks: "
+                f"{again}")
+    if not again:
+        raise AssertionError("mesh: two world-2 runs of the same steps "
+                             "differ")
+    # against the world-1 step at the global batch
+    terms = {}
+    for step, (got, ref) in enumerate(zip(w2[0]["metrics"],
+                                          w1["ref_metrics"])):
+        for k, v in ref.items():
+            err = abs(got[k] - v) / max(abs(v), 1e-30)
+            terms[f"step{step + 1}.{k}"] = err
+            if not err <= RDG_REL_L2["out/dx"]:
+                raise AssertionError(f"mesh: step {step + 1} {k} {got[k]} "
+                                     f"against {v} (relative {err:.3e})")
+    grads = mesh_rel_l2(w2[0]["grads1"], w1["grads1"])
+    params = mesh_rel_l2(w2[0]["params2"], w1["params2"])
+    say("mesh", "world 2 against the global-batch step: loss terms relative "
+                + ", ".join(f"{k} {v:.3e}" for k, v in terms.items())
+                + "; step-1 gradients rel. L2 by class "
+                + ", ".join(f"{k} {v:.3e}" for k, v in grads.items())
+                + "; parameters after step 2 "
+                + ", ".join(f"{k} {v:.3e}" for k, v in params.items())
+                + f" (limits {RDG_REL_L2})")
+
+    serve_want = expected_counts(PER_FORWARD, 2)
+    for rank, r in enumerate(w2):
+        say("mesh", f"rank {rank}: serving forward over the mesh (batch "
+                    f"{MESH_BATCH}, 4 rows a rank, graphs): bitwise equal to "
+                    f"the unsharded forward: {r['serving_bitwise']} (max abs "
+                    f"{r['serving_max_abs']:.3e}), {r['serving_captured']} "
+                    f"graph(s); launches {r['serving_launches']}")
+        if not r["serving_bitwise"]:
+            raise AssertionError(f"mesh rank {rank}: the batch-parallel "
+                                 "serving forward differs from the "
+                                 "unsharded one")
+        if r["serving_launches"] != serve_want:
+            raise AssertionError(f"mesh rank {rank}: serving launches "
+                                 f"{r['serving_launches']}, expected "
+                                 f"{serve_want}")
+        t = r["trainer"]
+        t_want = expected_counts(PER_TRAIN_STEP, MESH_STEPS)
+        for k, v in PER_FORWARD.items():
+            t_want[k] += v
+        say("mesh", f"rank {rank}: Trainer on the mesh: {MESH_STEPS} steps "
+                    f"+ test of {MESH_TEST}: {t['wall_s']:.1f} s, loss "
+                    f"{t['mean']['total']:.4f}, PSNR {t['psnr']:.3f} SSIM "
+                    f"{t['ssim']:.4f}; launches {t['launches']}")
+        if t["launches"] != t_want or not (
+                math.isfinite(t["mean"]["total"]) and math.isfinite(t["psnr"])
+                and math.isfinite(t["ssim"])):
+            raise AssertionError(f"mesh rank {rank}: Trainer {t}")
+    share1 = w1["all_reduce_ms"] / w1["step_ms"]
+    step2 = max(r["step_ms"] for r in w2)
+    reduce2 = max(r["all_reduce_ms"] for r in w2)
+    share2 = reduce2 / step2
+    wall = time.perf_counter() - t_phase
+    say("mesh", f"step wall at batch {MESH_BATCH} (host clock, median of "
+                f"{MESH_TIMED}): single process {w1['single_step_ms']:.2f} "
+                f"ms, world 1 (NCCL) {w1['step_ms']:.2f} ms, world 2 (gloo, "
+                f"two ranks on one card) {step2:.2f} ms; all_reduce of the "
+                f"{w1['n_params']} f32 gradient bucket: world 1 "
+                f"{w1['all_reduce_ms']:.3f} ms (share {share1:.3f}), world 2 "
+                f"{reduce2:.2f} ms (share {share2:.3f}; gloo goes through the "
+                f"host: no speed claim); {smi}; phase {wall:.1f} s")
+    report["mesh"] = {
+        "nvidia_smi": smi, "world1": {k: w1[k] for k in (
+            "metrics", "launches", "step_ms", "single_step_ms",
+            "all_reduce_ms")},
+        "world2": [{k: r[k] for k in ("metrics", "launches", "step_ms",
+                                      "all_reduce_ms", "serving_launches",
+                                      "serving_max_abs", "trainer")}
+                   for r in w2],
+        "loss_terms_rel": terms, "grads1_rel_l2": grads,
+        "params2_rel_l2": params, "share_w1": share1, "share_w2": share2,
+        "n_params": w1["n_params"], "wall_s": wall}
+    total = lambda key: {k: sum(r[key][k] for r in w2) for k in want}
+    paths = {"mesh_w1": w1["launches"], "mesh_w2": total("launches"),
+             "mesh_w2_serving": total("serving_launches"),
+             "mesh_w2_trainer": {k: sum(r["trainer"]["launches"][k]
+                                        for r in w2) for k in want}}
+    return paths, {}
+
+
 def phase_flagship(dev, report):
     """The flagship, DRCT x4 @128px (phases 3-11): returns (launches by
     main path, timings by kernel)."""
@@ -3998,7 +4385,8 @@ def phase_flagship(dev, report):
 
 
 PHASES = {"flagship": phase_flagship, "w16": phase_w16, "w4": phase_w4,
-          "smoke": phase_smoke, "drn": phase_drn, "ead": phase_ead}
+          "smoke": phase_smoke, "drn": phase_drn, "ead": phase_ead,
+          "mesh": phase_mesh}
 
 
 def run_phase(name: str) -> dict:
@@ -4024,12 +4412,7 @@ def run_phase(name: str) -> dict:
 def phase_child(name: str, out: str) -> int:
     """The body of :func:`run_phase`'s process: phase ``name`` on the card,
     its launches by path, timings and report written to ``out``."""
-    # the plain f32 references run in full f32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # every phase names its serving mode; the CLI phase sets the switch
-    os.environ.pop("ADSR_TPU_RDG", None)
-    _build.library()
+    card_setup()
     report = {}
     paths, timings = PHASES[name](torch.device(DEVICE), report)
     Path(out).write_text(json.dumps({"paths": paths, "timings": timings,

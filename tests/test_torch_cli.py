@@ -135,11 +135,13 @@ def test_train_cli_resume_continues_from_the_checkpoint(run, capsys):
     assert len(open(f"{run_dir}/metrics.jsonl").read().splitlines()) == 2
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--dp", "2"], "Queue 1 item 11"),
-    (["--remat-policy", "dots"], "Queue 1 item 9")])
-def test_train_cli_refuses_what_the_port_lacks(flags, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flags,error,match", [
+    # a batch that does not divide by the mesh's data ranks, before any
+    # rank starts
+    (["--dp", "3", "--batch-size", "4"], ValueError, "data ranks"),
+    (["--remat-policy", "dots"], NotImplementedError, "Queue 1 item 9")])
+def test_train_cli_refuses_what_the_port_lacks(flags, error, match):
+    with pytest.raises(error, match=match):
         cli_main.build_experiment(cli_main.parse_args(flags))
 
 

@@ -53,7 +53,11 @@ def test_entry_point_and_io_modules_are_covered():
             "adsr_tpu_torch/train/distill.py",
             "adsr_tpu_torch/eval/visual.py", "adsr_tpu_torch/eval/disk.py",
             "adsr_tpu_torch/io/pdf.py", "adsr_tpu_torch/utils/image.py",
-            "adsr_tpu_torch/utils/profiling.py"} <= names
+            "adsr_tpu_torch/utils/profiling.py",
+            "adsr_tpu_torch/core/mesh.py",
+            "adsr_tpu_torch/parallel/launch.py",
+            "adsr_tpu_torch/parallel/sharding.py",
+            "adsr_tpu_torch/parallel/tensor.py"} <= names
 
 
 def test_package_imports_with_jax_blocked():
