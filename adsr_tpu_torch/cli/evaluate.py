@@ -9,8 +9,10 @@ resolves ``model_best.pt`` then ``model_latest.pt``, and runs the
 anomaly AUC pass over ``test/good`` + ``test/bad`` (tiled when the test
 images are larger than the model's input). Writes ``scores.txt`` (and
 ``--json-out``) and, unless ``--no-save-images``, the SR images. Runs on the
-card unless ``--device cpu``; ``ADSR_TPU_RDG=0`` selects DRCT's per-block
-serving mode, as in the JAX package. A DRN-L run auto-tiles at its
+card unless ``--device cpu``, in ``--precision fp32`` unless asked
+otherwise, as the JAX CLI (DRCT's f32 kernels); ``ADSR_TPU_RDG=0`` selects
+DRCT's per-block serving mode, as in the JAX package (bf16 only on the
+card: pass ``--precision bf16``). A DRN-L run auto-tiles at its
 train-crop LR (``patch_size // scale``).
 """
 
@@ -53,12 +55,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="patch-grouped part scoring: group filenames by "
                         "int(name.split('_')[0]) // group-div and take the "
                         "max score per part (GKD workflow, helpers.py:232-319)")
-    p.add_argument("--precision", type=str, default="bf16",
+    p.add_argument("--precision", type=str, default="fp32",
                    choices=["bf16", "fp32"],
-                   help="bf16 (default, unlike the JAX CLI's fp32): the "
-                        "card's DRCT kernels are bf16 only (fp32 kernels are "
-                        "ROADMAP.md Queue 1 item 8); DRCT fp32 runs on the "
-                        "CPU, DRN-L fp32 anywhere")
+                   help="fp32 (default, as the JAX CLI): DRCT scores through "
+                        "the f32 kernels on the card (rdg mode; block mode, "
+                        "ADSR_TPU_RDG=0, is bf16 only: ROADMAP.md Queue 1 "
+                        "item 18) or the plain path on the CPU; bf16 "
+                        "through the bf16 kernels; DRN-L takes both "
+                        "anywhere")
     p.add_argument("--workers", type=int, default=0)  # compat; unused
     p.add_argument("--tile", type=int, default=0,
                    help="LR tile size for overlapped-tile serving; 0 = "

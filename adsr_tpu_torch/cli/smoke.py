@@ -12,8 +12,10 @@ across process boundaries. Everything is written under ``--workdir``.
     python -m adsr_tpu_torch.cli.smoke --model-type drn-l --resolution 128
 
 ``--device cuda`` (the default) trains and serves through the card (DRCT
-through its kernels) and fails without a card; ``--device cpu`` runs the
-plain PyTorch path in f32 (``--precision fp32`` to both CLIs). Without
+through its kernels) and fails without a card, each CLI at its default
+precision as the JAX smoke: ``cli.main`` trains in bf16 and
+``cli.evaluate`` scores in fp32 (DRCT's f32 kernels); ``--device cpu``
+runs the plain PyTorch path in f32 (``--precision fp32`` to both CLIs). Without
 ``--full-size`` a DRCT is a tiny one (embed 24, one RDG, two heads); DRN-L
 always runs at full width, as in the JAX smoke (its run dir also holds
 ``dual_model_latest.pt``). A failed step exits non-zero. The last line is

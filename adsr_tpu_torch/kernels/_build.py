@@ -100,6 +100,15 @@ SIGNATURES["adsr_swin_block16"] = SIGNATURES["adsr_swin_block"][:31] \
 SIGNATURES["adsr_swin_block4"] = SIGNATURES["adsr_swin_block16"]
 # hd, smem, int* out: the clusters the card holds at once
 SIGNATURES["adsr_swin_block16_clusters"] = [_I, _L, _P]
+# the f32 instances of (a), (b) and (c) (the fp32 serving forward):
+# (a)'s arguments as adsr_rdg_layernorm's (piece 16 or 4 bytes); (b)'s as
+# adsr_rdg_gemm's without the tile width; (c)'s as adsr_window_attention's,
+# one entry a window (8x8, 4x4, 16x16)
+SIGNATURES["adsr_rdg_layernorm_f32"] = SIGNATURES["adsr_rdg_layernorm"]
+SIGNATURES["adsr_rdg_gemm_f32"] = SIGNATURES["adsr_rdg_gemm"][:18] + [_P]
+for _name in ("adsr_window_attention_f32", "adsr_window_attention4_f32",
+              "adsr_window_attention16_f32"):
+    SIGNATURES[_name] = SIGNATURES["adsr_window_attention"]
 
 
 def sources() -> List[Path]:
@@ -189,22 +198,46 @@ def check_rc(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
-def require_bf16_cuda(name: str, *tensors: torch.Tensor,
-                      layout: bool = True) -> None:
-    """The wrappers' input check for the kernel route; ``layout=False``
+BF16 = (torch.bfloat16,)
+BF16_F32 = (torch.bfloat16, torch.float32)
+# where the backward kernels' f32 instances stand (require_cuda's note)
+NO_F32_BWD = ("; f32 instances of the backward kernels (d)-(f) are "
+              "ROADMAP.md Queue 1 item 17, 'fp32 training'")
+_DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def kernel_dtype(name: str, dtypes: tuple, *tensors: torch.Tensor,
+                 note: str = "") -> torch.dtype:
+    """The one dtype of ``tensors`` if it is among ``dtypes`` (``BF16``, or
+    ``BF16_F32`` where the kernel has f32 instances), else
+    ``NotImplementedError`` naming what the kernels take and ``note``
+    (where the missing instances stand in ROADMAP.md)."""
+    got = {t.dtype for t in tensors}
+    if len(got) != 1 or not got <= set(dtypes):
+        takes = " or ".join(_DTYPE_NAMES[d] for d in dtypes)
+        raise NotImplementedError(
+            f"{name}: the CUDA kernels take {takes} (all operands of one "
+            f"type), got {sorted(map(str, got))}{note} (on the CPU the "
+            "plain path takes any float type)")
+    return got.pop()
+
+
+def require_cuda(name: str, dtypes: tuple, *tensors: torch.Tensor,
+                 layout: bool = True, note: str = "") -> torch.dtype:
+    """The wrappers' input check for the kernel route, and the one dtype of
+    ``tensors``: every tensor on CUDA (checked first, else ``ValueError``),
+    of one dtype among ``dtypes`` (:func:`kernel_dtype`). ``layout=False``
     leaves unit column stride and alignment to the caller's own layout
     check."""
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}, kernel needs CUDA")
-        if t.dtype != torch.bfloat16:
-            raise NotImplementedError(
-                f"{name}: the CUDA kernels take bf16, got {t.dtype} (fp32 "
-                "kernels are ROADMAP.md Queue 1 item 8, 'fp32 serving "
-                "kernels'; on the CPU fp32 runs the plain path)")
+    dtype = kernel_dtype(name, dtypes, *tensors, note=note)
+    for t in tensors:
         if layout and (t.stride(-1) != 1 or t.data_ptr() % 8):
             raise ValueError(f"{name}: needs unit column stride and an 8-byte "
                              "aligned base pointer")
+    return dtype
 
 
 def require_f32_cuda(name: str, *tensors: torch.Tensor,

@@ -81,6 +81,9 @@ H100_SMS = 132         # the card's SMs: the plans' default
 _VECTORS = ("ln1_w", "ln1_b", "bqkv", "attn_bias", "bproj", "ln2_w", "ln2_b",
             "b1", "b2")
 _MATRICES = ("wqkv", "wproj", "w1", "w2")
+# where kernel (g)'s f32 instance stands (its refusal's note)
+NO_F32 = ("; an f32 (g) for block mode in fp32 is ROADMAP.md Queue 1 item "
+          "18")
 
 
 def pack_swin_weights(params: Mapping[str, Any], c: int, window: int,
@@ -282,8 +285,8 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
             f"fused_swin_block: the CUDA kernel takes {windows_text()}, "
             f"widths <= {MAX_WIDTH} and multiples of 4, head dims <= 128 (got "
             f"window {win}, {h}x{w}, c {c}, hidden {geo['hidden']})")
-    _build.require_bf16_cuda("fused_swin_block", x, out,
-                             *(p[n] for n in _MATRICES))
+    _build.require_cuda("fused_swin_block", _build.BF16, x, out,
+                        *(p[n] for n in _MATRICES), note=NO_F32)
     _build.require_f32_cuda("fused_swin_block", *(p[n] for n in _VECTORS))
     if mask is not None:
         _build.require_f32_cuda("fused_swin_block", mask)

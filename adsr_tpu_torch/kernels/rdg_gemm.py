@@ -15,6 +15,15 @@ lane at any row stride that is a multiple of 4, so adjust 1-4 land straight
 in their concat columns and adjust 5 lands in place over the RDG input (see
 the source).
 
+f32 operands go to a kernel of their own, ``csrc/rdg_gemm_f32.cu`` (the TPU
+kernel at dtype f32, which takes f32 operands with an f32 result): the same
+function and epilogues in full f32 with FFMA on the CUDA cores (no TF32).
+Bound on the H100: operations (one flagship RDG's 25 products are 72.3
+GFLOP, 1.08 ms at 67 TFLOP/s). Design: a tiled SIMT GEMM, 128 x 64 output
+tiles of 8 x 8 outputs a thread, K in steps of 16 staged by 16-byte
+``cp.async`` through a 3-stage ring (:func:`gemm_f32_plan`). Its launches
+count in ``rdg_gemm.launches_f32``, the bf16 ones in ``launches``.
+
 Epilogues (the TPU kernels', unfolded): ``none`` (qkv), ``residual`` (proj,
 fc2), ``gelu`` (fc1, exact erf), ``leaky_relu`` (adjust 1-4, slope 0.2),
 ``scaled_residual`` (adjust 5: ``0.2 * acc + x_in``, fused_rdg.py:934-938),
@@ -51,22 +60,47 @@ def n_tile(n: int, widths: tuple = (192, 128, 64, 32)) -> int:
 
 def check_gemm_layout(name: str, k: int, a: torch.Tensor, w: torch.Tensor,
                       *outs: torch.Tensor) -> None:
-    """The kernel's layout rules, on tensor metadata only (no card needed):
-    K and the row strides of A and W multiples of 4 (8-byte cp.async rows),
-    and ``outs`` (out, residual, aux) with N and their row strides
+    """The kernel's layout rules, on tensor metadata only (no card needed).
+    bf16: K and the row strides of A and W multiples of 4 (8-byte cp.async
+    rows), and ``outs`` (out, residual, aux) with N and their row strides
     multiples of 4 (the epilogue moves 4 bf16 a lane); every operand with
-    unit column stride and an 8-byte aligned base. W may be a column
-    prefix of a wider buffer (its row stride a multiple of 4)."""
-    for t in (a, w) + outs:
-        if t.stride(-1) != 1 or t.data_ptr() % 8:
-            raise ValueError(f"{name}: needs unit column stride and an 8-byte "
-                             "aligned base pointer")
+    unit column stride and an 8-byte aligned base. f32 (the SIMT kernel):
+    A and W with 16-byte aligned bases and K and their row strides
+    multiples of 4 (16-byte cp.async pieces); ``outs`` with unit column
+    stride at any row stride (the epilogue stores one float a thread). W
+    may be a column prefix of a wider buffer, and every operand a column
+    slice (a base at a column that is a multiple of 4)."""
+    f32 = a.dtype == torch.float32
+    align = 16 if f32 else 8
+    for t, base in [(a, align), (w, align)] + [(t, 4 if f32 else 8)
+                                               for t in outs]:
+        if t.stride(-1) != 1 or t.data_ptr() % base:
+            raise ValueError(f"{name}: needs unit column stride and a "
+                             f"{base}-byte aligned base pointer")
     if k % 4 or a.stride(0) % 4 or w.stride(0) % 4:
         raise ValueError(f"{name}: needs K % 4 == 0 and row strides of A "
                          "and W that are multiples of 4")
-    if w.shape[0] % 4 or any(t.stride(0) % 4 for t in outs):
+    if not f32 and (w.shape[0] % 4 or any(t.stride(0) % 4 for t in outs)):
         raise ValueError(f"{name}: needs N and the row strides of out, "
                          "residual and aux to be multiples of 4")
+
+
+# the f32 kernel's output tile and threads (csrc/rdg_gemm_f32.cu)
+F32_TILE = (128, 64)
+F32_THREADS = 128
+
+
+def gemm_f32_plan(m: int, n: int, k: int) -> dict:
+    """What the f32 kernel launches for ``m`` x ``n`` outputs over ``k``: a
+    block of ``F32_THREADS`` a 128 x 64 output tile (8 x 8 outputs a
+    thread), a grid of (n-tiles, m-tiles), K in steps of 16 through a
+    3-stage ring of A and W tiles in static shared memory."""
+    bm, bn = F32_TILE
+    grid = (-(-n // bn), -(-m // bm))
+    return {"tile": F32_TILE, "threads": F32_THREADS, "grid": grid,
+            "blocks": grid[0] * grid[1], "k_steps": -(-k // 16),
+            "smem_bytes": 3 * (bm + bn) * 20 * 4,
+            "padded_flops": 2 * grid[0] * bn * grid[1] * bm * k}
 
 
 def row_pitch(n: int) -> int:
@@ -149,25 +183,34 @@ def rdg_gemm(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         return out
     tensors = (a, w, out) + ((residual,) if needs_res else ()) \
         + ((aux,) if aux is not None else ())
-    _build.require_bf16_cuda("rdg_gemm", *tensors, layout=False)
+    f32 = _build.require_cuda("rdg_gemm", _build.BF16_F32, *tensors,
+                              layout=False) == torch.float32
     _build.require_f32_cuda("rdg_gemm", bias)
     if drop:
         _build.require_f32_cuda("rdg_gemm", row_scale, contiguous=False)
     check_gemm_layout("rdg_gemm", k, a, w, *tensors[2:])
-    rc = _build.library().adsr_rdg_gemm(
-        a.data_ptr(), a.stride(0), w.data_ptr(), w.stride(0), bias.data_ptr(),
-        out.data_ptr(), out.stride(0),
-        residual.data_ptr() if needs_res else None,
-        residual.stride(0) if needs_res else 0,
-        row_scale.data_ptr() if drop else None,
-        row_scale.stride(0) if drop else 0,
-        m // row_scale.shape[0] if drop else 0,
-        aux.data_ptr() if aux is not None else None,
-        aux.stride(0) if aux is not None else 0,
-        m, n, k, EPILOGUES[epilogue], n_tile(n), _build.stream_ptr(a))
+    args = (a.data_ptr(), a.stride(0), w.data_ptr(), w.stride(0),
+            bias.data_ptr(), out.data_ptr(), out.stride(0),
+            residual.data_ptr() if needs_res else None,
+            residual.stride(0) if needs_res else 0,
+            row_scale.data_ptr() if drop else None,
+            row_scale.stride(0) if drop else 0,
+            m // row_scale.shape[0] if drop else 0,
+            aux.data_ptr() if aux is not None else None,
+            aux.stride(0) if aux is not None else 0,
+            m, n, k, EPILOGUES[epilogue])
+    lib = _build.library()
+    if f32:
+        rc = lib.adsr_rdg_gemm_f32(*args, _build.stream_ptr(a))
+    else:
+        rc = lib.adsr_rdg_gemm(*args, n_tile(n), _build.stream_ptr(a))
     _build.check_rc("rdg_gemm", rc)
-    rdg_gemm.launches += 1
+    if f32:
+        rdg_gemm.launches_f32 += 1
+    else:
+        rdg_gemm.launches += 1
     return out
 
 
 rdg_gemm.launches = 0
+rdg_gemm.launches_f32 = 0

@@ -160,7 +160,8 @@ def _check(name: str, dy, slope_src, row_scale, k: int, *bf16, out=None):
         raise ValueError(f"{name}: dy and out must be on CUDA, got "
                          f"{dy.device}")
     operands = bf16 + ((slope_src,) if slope_src is not None else ())
-    _build.require_bf16_cuda(name, *operands, layout=False)
+    _build.require_cuda(name, _build.BF16, *operands, layout=False,
+                        note=_build.NO_F32_BWD)
     check_bwd_layout(name, dy, k, *operands, out=out)
     if row_scale is not None:
         _build.require_f32_cuda(name, row_scale, contiguous=False)

@@ -118,7 +118,8 @@ def rdg_layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
         dbias.copy_(gb)
         return
     check_ln_bwd_layout("rdg_layernorm_bwd", x, dy, dx, residual, weight)
-    _build.require_bf16_cuda("rdg_layernorm_bwd", x)
+    _build.require_cuda("rdg_layernorm_bwd", _build.BF16, x,
+                        note=_build.NO_F32_BWD)
     _build.require_f32_cuda("rdg_layernorm_bwd", weight, dweight, dbias)
     strided = (dy, dx) + ((residual,) if residual is not None else ())
     _build.require_f32_cuda("rdg_layernorm_bwd", *strided, contiguous=False)

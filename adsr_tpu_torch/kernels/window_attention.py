@@ -32,6 +32,19 @@ softmax is the stabilised f32 one (the TPU kernel's unstabilised exp2 form,
 its score-bound guard and its window pairs with -1e30 off-diagonal terms
 are not carried over).
 
+f32 operands go to a kernel of their own, ``csrc/window_attention_f32.cuh``
+(the TPU kernel at dtype f32), templated on N = 16, 64 and 256 and the
+padded head dim (one source a window: ``window_attention4_f32.cu``,
+``window_attention_f32.cu``, ``window_attention16_f32.cu``): a block of
+``F32_THREADS`` per (image, window, head, query tile of min(N, 64) rows)
+stages its query rows and walks the window's keys in tiles of min(N, 64)
+with an online softmax in full f32
+(``expf``; P stays f32), the bias and mask in the forms
+:func:`attn_operands` gives (:func:`window_attention_f32_plan`). It writes
+no softmax statistics (only the training backward reads them). Its
+launches count in ``window_attention.launches_f32``, the bf16 ones in
+``launches``.
+
 Also here, for packing and the plain version: the additive attention term
 (relative-position bias plus shift mask) in its per-window form, the JAX
 ``build_attn_term`` (``adsr_tpu/ops/fused_swin_block.py:157``) without pair
@@ -81,6 +94,10 @@ SM_SHARED_BYTES = 233472     # an H100 SM's shared memory
 BLOCK_SHARED_MAX = 232448    # the most one block may take
 BLOCK_RESERVED = 1024        # what the runtime keeps per resident block
 REGISTERS = 65536            # 32-bit registers an SM
+F32_THREADS = 256            # a block of the f32 kernel
+# the f32 kernel's C entry a window (a source a window, built in parallel)
+F32_ENTRIES = {8: "adsr_window_attention_f32", 4: "adsr_window_attention4_f32",
+               16: "adsr_window_attention16_f32"}
 
 
 def windows_text() -> str:
@@ -225,6 +242,36 @@ def window_attention_plan(c: int, nh: int, b: int = 1, h: int = 8,
             "stats_bytes": windows * nh * n * 8}
 
 
+@functools.lru_cache(maxsize=None)
+def window_attention_f32_plan(c: int, nh: int, b: int = 1, h: int = 8,
+                              w: int = 8, window: int = KERNEL_WINDOW
+                              ) -> dict:
+    """What the f32 kernel (``csrc/window_attention_f32.cuh``) launches for
+    width ``c`` and ``nh`` heads at batch ``b`` on ``h`` x ``w`` tokens:
+    one block of ``F32_THREADS`` per (image, window, head, query tile of
+    ``rows`` = min(N, 64) rows), whose shared memory holds the q, k and v
+    planes [rows][hdp + 4] f32 (the head dim padded to a multiple of 16,
+    each row 4 floats more so that eight consecutive rows start in eight
+    bank groups), the scores of one key tile [rows][rows + 4] and each
+    row's running max, sum and rescale factor. The source refuses a launch
+    whose shared memory differs from this plan's. Also the blocks an SM
+    holds by shared memory and threads. Read only (cached)."""
+    if window not in KERNEL_WINDOWS:
+        raise ValueError(f"window_attention_f32_plan: window {window}, the "
+                         f"kernel takes {KERNEL_WINDOWS}")
+    hdp = head_tile(c // nh)
+    n = window * window
+    rows = min(n, KEY_TILE)
+    pitch = hdp + 4
+    smem = 4 * (3 * rows * pitch + rows * (rows + 4) + 3 * rows)
+    tiles = n // rows
+    return {"hdp": hdp, "pitch": pitch, "tokens": n, "rows": rows,
+            "key_tiles": tiles, "threads": F32_THREADS, "smem_bytes": smem,
+            "blocks": b * (h // window) * (w // window) * nh * tiles,
+            "blocks_per_sm": min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED),
+                                 THREADS_PER_SM // F32_THREADS)}
+
+
 def swizzle_cols(hdp: int) -> int:
     """Head dims a swizzled tile stores at N = 256: whole atoms of
     ``SWIZZLE_COLS``."""
@@ -245,14 +292,15 @@ def stage_bytes(hdp: int) -> int:
 def check_rows16(name: str, *tensors: torch.Tensor) -> None:
     """The layout rule of ``qkv`` and the context of kernel (c) and of the
     weights of kernel (g), on tensor metadata only (no card needed): 16-byte
-    rows, that is unit column stride, a row stride that is a multiple of 8
-    elements and a 16-byte aligned base."""
+    rows, that is unit column stride, a row stride that is a multiple of 16
+    bytes (8 bf16, 4 f32) and a 16-byte aligned base."""
     for t in tensors:
-        if t.stride(-1) != 1 or t.stride(0) % 8 or t.data_ptr() % 16:
+        if t.stride(-1) != 1 or t.stride(0) * t.element_size() % 16 \
+                or t.data_ptr() % 16:
             raise ValueError(f"{name}: needs 16-byte rows (unit column "
-                             "stride, a row stride that is a multiple of 8 "
-                             f"and a 16-byte aligned base), got strides "
-                             f"{tuple(t.stride())}")
+                             "stride, a row stride that is a multiple of "
+                             "16 bytes and a 16-byte aligned base), got "
+                             f"strides {tuple(t.stride())}")
 
 def build_attn_term(bias: torch.Tensor, h: int, w: int, window: int,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -453,7 +501,8 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
             f"window_attention: the CUDA kernel takes {windows_text()}, "
             f"widths that are multiples of 4 and head dims <= 128 (got "
             f"window {window}, {h}x{w}, c {c}, hd {c // num_heads})")
-    _build.require_bf16_cuda("window_attention", qkv, out)
+    f32 = _build.require_cuda("window_attention", _build.BF16_F32, qkv,
+                              out) == torch.float32
     check_rows16("window_attention", qkv, out)
     check_bias("window_attention", bias, num_heads, window, card=True)
     check_mask("window_attention", mask, nw, window, card=True)
@@ -473,6 +522,19 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
     if window not in TILED_WINDOWS and stats is not None:
         raise ValueError(f"window_attention: the kernel writes softmax "
                          f"statistics at windows {TILED_WINDOWS} only")
+    if f32:
+        if stats is not None:
+            raise NotImplementedError(
+                "window_attention: the f32 kernel writes no softmax "
+                "statistics (only the training backward reads them: "
+                "ROADMAP.md Queue 1 item 17, 'fp32 training')")
+        plan = window_attention_f32_plan(c, num_heads, b, h, w, window)
+        entry = getattr(_build.library(), F32_ENTRIES[window])
+        rc = entry(*args, b, h, w, c, num_heads, window, shift,
+                   plan["smem_bytes"], _build.stream_ptr(qkv))
+        _build.check_rc("window_attention", rc)
+        window_attention.launches_f32 += 1
+        return out
     if window == KERNEL_WINDOW:
         rc = _build.library().adsr_window_attention(
             *args, b, h, w, c, num_heads, window, shift,
@@ -492,3 +554,4 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
 
 
 window_attention.launches = 0
+window_attention.launches_f32 = 0

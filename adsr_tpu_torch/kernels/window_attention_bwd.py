@@ -266,7 +266,8 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
             f"widths that are multiples of 4 and head dims <= 128 (got "
             f"window {window}, c {c}, hd {c // num_heads})")
     check_rows16("window_attention_bwd", qkv, dout, dqkv)
-    _build.require_bf16_cuda("window_attention_bwd", qkv, dout, dqkv)
+    _build.require_cuda("window_attention_bwd", _build.BF16, qkv, dout,
+                        dqkv, note=_build.NO_F32_BWD)
     check_bias("window_attention_bwd", bias, num_heads, window, card=True)
     check_mask("window_attention_bwd", mask, nw, window, card=True)
     params = (bias, dbias) + ((mask,) if mask is not None
@@ -302,7 +303,8 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
             dbias.data_ptr(), b, h, w, c, num_heads, window, shift,
             plan["group"], plan["smem_bytes"], _build.stream_ptr(qkv))
     else:
-        _build.require_bf16_cuda("window_attention_bwd", ctx)
+        _build.require_cuda("window_attention_bwd", _build.BF16, qkv, ctx,
+                            note=_build.NO_F32_BWD)
         check_rows16("window_attention_bwd", ctx)
         _build.require_f32_cuda("window_attention_bwd", stats)
         stats4 = torch.empty(plan["stats_bytes"] // 4, dtype=torch.float32,

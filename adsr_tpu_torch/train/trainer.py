@@ -16,7 +16,8 @@ Reproduced semantics (trainer.py:100-113, 148-351, 354-398, 518-704):
 
 DRCT: on the card the step runs the fused training forward and backward
 (``kernels/fused_rdg_train.py``: every RDG on the hand-written kernels, the
-head, tail, loss and Adam in PyTorch), bf16 only. On the CPU it runs the
+head, tail, loss and Adam in PyTorch), bf16 only (fp32 training on the
+card is refused: :func:`check_training_precision`). On the CPU it runs the
 eager f32 model under autograd (the plain version of the same function).
 DRN-L (``models/drn.py``, convolutions in cuDNN / PyTorch, as the JAX
 package computes them in XLA) runs the same eager module on both devices,
@@ -50,10 +51,13 @@ The serving forwards (``make_serving_forward``, ``make_eval_forward``,
 ``make_tiled_serving_forward``) take the full-scale SR ``sr[-1]`` of a DRN
 and, for DRCT, ``mode``: ``"rdg"`` runs each RDG on kernels (a)-(c),
 ``"block"`` each Swin block on kernel (g); ``None`` reads ``ADSR_TPU_RDG``
-as the JAX package does. On the card ``make_serving_forward`` and
-``make_tiled_serving_forward`` serve through one CUDA graph per LR shape
-(``core/graphs.py``), as the JAX versions jit theirs; ``graphs=False``
-launches every kernel from Python on every call. ``make_eval_forward``
+as the JAX package does. They serve in the experiment's precision: bf16,
+or fp32 through the f32 instances of kernels (a)-(c) in rdg mode (block
+mode has no f32 kernel (g) yet: :func:`check_serving_precision`). On the
+card ``make_serving_forward`` and ``make_tiled_serving_forward`` serve
+through one CUDA graph per LR shape (``core/graphs.py``), as the JAX
+versions jit theirs; ``graphs=False`` launches every kernel from Python on
+every call. ``make_eval_forward``
 takes new params on every call, so it launches. With a ``mesh`` both serve
 batch-parallel (``core/mesh.py`` ``ShardedCall``, trainer.py:441-452):
 each data rank runs its rows through its own captured call and the SR rows
@@ -84,7 +88,9 @@ from adsr_tpu_torch.core.mesh import (Mesh, ShardedCall, gather_rows,
 from adsr_tpu_torch.data.pipeline import EpochSampler, SRDataset
 from adsr_tpu_torch.eval.tiled import feather_weights, tiled_sr_forward
 from adsr_tpu_torch.io.journal import TRAIN_STATE, Journal, load_train_state
-from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
+from adsr_tpu_torch.kernels.fused_drct import (check_block_dtype,
+                                               fused_drct_apply, prepack_drct,
+                                               resolve_mode)
 from adsr_tpu_torch.kernels.fused_rdg_train import fused_drct_train_forward
 from adsr_tpu_torch.metrics import psnr_shave4, quantize, ssim_shave4
 from adsr_tpu_torch.models.drct import drop_path_mults
@@ -99,19 +105,36 @@ from adsr_tpu_torch.parallel.tensor import shard_model_
 from adsr_tpu_torch.train.losses import make_loss
 
 
-def check_serving_precision(exp: Experiment, device: torch.device) -> None:
-    """The CUDA kernels are bf16; DRCT's fp32 runs only on the CPU plain
-    path. DRN-L runs no kernel of the port and takes both precisions."""
+def check_serving_precision(exp: Experiment, device: torch.device,
+                            mode: Optional[str] = None) -> None:
+    """DRCT serves bf16 and fp32 on the card in rdg mode (kernels (a)-(c)
+    have bf16 and f32 instances); fp32 in block mode (``mode``, or
+    ``ADSR_TPU_RDG=0`` when None) is refused there, as kernel (g) is bf16
+    only (ROADMAP.md Queue 1 item 18). The CPU's plain path takes both.
+    DRN-L runs no kernel of the port and takes both precisions."""
     if isinstance(exp.model, DRNModelConfig):
         return
     if not isinstance(exp.model, DRCTModelConfig):
         raise NotImplementedError(
             f"the port has no model for {type(exp.model).__name__}")
-    if device.type == "cuda" and exp.precision != "bf16":
+    check_block_dtype(resolve_mode(mode), compute_dtype(exp.precision),
+                      device)
+
+
+def check_training_precision(exp: Experiment, device: torch.device) -> None:
+    """DRCT trains on the card in bf16 only: the backward kernels (d)-(f)
+    have no f32 instances yet (ROADMAP.md Queue 1 item 17, 'fp32
+    training'), and fp32 training there is refused at any mesh, before any
+    data is read. The CPU's eager model trains in both; DRN-L takes both
+    everywhere."""
+    check_serving_precision(exp, device, mode="rdg")
+    if isinstance(exp.model, DRCTModelConfig) and device.type == "cuda" \
+            and exp.precision != "bf16":
         raise NotImplementedError(
-            f"precision {exp.precision!r} on CUDA: the kernels are bf16 only; "
-            "fp32 kernels are ROADMAP.md Queue 1 item 8, 'fp32 serving "
-            "kernels' (on the CPU, fp32 runs the plain path)")
+            f"DRCT training in {exp.precision!r} on CUDA: the backward "
+            "kernels are bf16 only; fp32 training is ROADMAP.md Queue 1 "
+            "item 17 (fp32 serves on the card; on the CPU fp32 trains on "
+            "the plain path)")
 
 
 def drn_sr(model: torch.nn.Module, exp: Experiment,
@@ -163,7 +186,7 @@ def make_serving_forward(exp: Experiment,
     ``n_data``, and every rank returns the whole SR batch
     (trainer.py:441-452)."""
     dev = resolve_device(device if mesh is None else mesh.device)
-    check_serving_precision(exp, dev)
+    check_serving_precision(exp, dev, mode)
     sr_of = _sr_function(exp, params, dev, mode)
 
     @torch.no_grad()
@@ -185,7 +208,7 @@ def make_eval_forward(exp: Experiment, device="cuda",
     compiled train step (ROADMAP.md Queue 1 item 2). A DRN loads
     ``params`` into one module and returns ``sr[-1]``."""
     dev = resolve_device(device)
-    check_serving_precision(exp, dev)
+    check_serving_precision(exp, dev, mode)
     if isinstance(exp.model, DRNModelConfig):
         model = make_model(exp.model, dev).eval()
 
@@ -222,7 +245,7 @@ def make_tiled_serving_forward(exp: Experiment,
     version jits it; ``graphs=False`` launches it. With a ``mesh``, batch-
     parallel as :func:`make_serving_forward`."""
     dev = resolve_device(device if mesh is None else mesh.device)
-    check_serving_precision(exp, dev)
+    check_serving_precision(exp, dev, mode)
     cfg = exp.model
     scale = max(exp.data.scale)
     if isinstance(cfg, DRCTModelConfig):
@@ -309,7 +332,7 @@ def make_train_step(exp: Experiment, device="cuda",
     ``n_data`` raises ``ValueError``. tp > 1 runs the eager model split
     over the tp ranks."""
     dev = resolve_device(device if mesh is None else mesh.device)
-    check_serving_precision(exp, dev)
+    check_training_precision(exp, dev)
     cfg = exp.model
     is_dual = isinstance(cfg, DRNModelConfig)
     nd = n_data(mesh)

@@ -75,7 +75,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 10. the CLIs: a synthetic data root written with the port's PNG writer
    (under ``workspace/chip_smoke``; HR and its LANCZOS ``LR_4``, the prep
    tool's layout), ``cli.main`` trains the flagship for
-   one epoch (16 steps at batch 16) into a run dir, then ``cli.evaluate``
+   one epoch (16 steps at batch 16) into a run dir, then ``cli.evaluate
+   --precision bf16`` (the bf16 kernels; phase 11a runs its fp32 default)
    scores 8 + 8 test images of 512 px, auto-tiled (25 tiles of 32 LR px an
    image), in rdg mode and with ``ADSR_TPU_RDG=0``; launch counters, run-dir
    files (the loss and PSNR/SSIM PDFs among them), AUCs, specificity and
@@ -94,6 +95,22 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    median and spread): the forward, request latency, tiled img/s and the
    wall of ``evaluate_anomaly`` (the core of ``cli.evaluate``) on phase 10's
    data root;
+11a. fp32 serving, lines "[fp32] <phase>: ...": the f32 instances of
+   kernels (a)-(c) (the TPU kernel at dtype f32) against their plain f32
+   versions on the card (TF32 off): (a) on the concat prefix, ``x1`` and
+   the 4-byte path, (b) at every flagship product and epilogue (the
+   training ones too, adjust 5 in place), (c) at every block at both
+   shifts, at windows 8, 4 (64/x4) and 16 (256px/x4; the table and region
+   labels), each within ``F32_REL_L2`` / ``F32_MAX_ABS``; the flagship's
+   fp32 forward (``prepack_drct(..., dtype=float32)``) against the eager
+   f32 model and the CPU's forward RDG by RDG; its launches (40 f32 a RDG,
+   no bf16) through the forward, ``AnomalyServer`` and
+   ``evaluate_anomaly``; the forward, server and tiled forward through
+   their graphs bitwise equal to the launched route, with the capture's
+   memory; scores and AUCs against the CPU's; ``cli.evaluate`` at its fp32
+   default on phase 10's run dir; each f32 kernel's ms per RDG at the three
+   geometries beside its bound, plain version and library call, and the
+   fp32 forward's ms against its bound;
 12. the window-16 geometry, lines "[w16] <phase>: ...": the full-width
    256px model (``drct_experiment("grid", 256, 4)``: LR 64 x 64, 16x16
    windows, N = 256 keys, shifts 0 and 8, M = 65,536 token rows at batch
@@ -198,15 +215,19 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    (gloo's goes through the host: no speed claim).
 
 The build and the ptxas lines come from this process; each geometry
-(phases 3-11 of the flagship, 12, 13), the smoke (14), DRN-L (15),
+(phases 3-11 of the flagship, 11a in fp32, 12, 13), the smoke (14), DRN-L (15),
 EfficientAD (16) and the mesh (17) runs in a process of its own, which
 this one starts and waits for (``--phase NAME OUT``).
 
 The last three lines are the kernels' JSON record (each kernel's
 window-16 readings under ``"w16"``, its window-4 readings under ``"w4"``,
 its launches on every main path under ``"launches_by_path"``), the
-nvidia-smi line and ``{"ok": true, "device": {...}}``; a ``[report]`` line
-before them holds every number the run measured, as JSON (the window-16
+nvidia-smi line and ``{"ok": true, "device": {...}}``; the f32 instances are
+the kernels line's ``rdg_layernorm_f32``, ``rdg_gemm_f32`` and
+``window_attention_f32``, their windows 4 and 16 under ``"w4"`` / ``"w16"``;
+a ``[report]`` line
+before them holds every number the run measured, as JSON (the fp32
+phase's under ``"fp32"``, the window-16
 phase's under ``"w16"``, the window-4 phase's under ``"w4"``, the smoke's
 under ``"smoke"``, DRN-L's under ``"drn"``, EfficientAD's under
 ``"ead"``, the mesh's under ``"mesh"``; the mesh's launches are the
@@ -409,6 +430,22 @@ WRAPPERS = {"rdg_layernorm": rdg_layernorm, "rdg_gemm": rdg_gemm,
             "window_attention_bwd": window_attention_bwd,
             "swin_block": fused_swin_block}
 PER_FORWARD = {"rdg_layernorm": 120, "rdg_gemm": 300, "window_attention": 60}
+# the f32 instances of (a)-(c) (fp32 serving, csrc/rdg_layernorm.cu's f32
+# instances, rdg_gemm_f32.cu, window_attention*_f32.cu): counted apart, in
+# each wrapper's ``launches_f32``; 40 a RDG, as the bf16 route
+F32_KERNELS = ("rdg_layernorm_f32", "rdg_gemm_f32", "window_attention_f32")
+F32_WRAPPERS = {"rdg_layernorm_f32": rdg_layernorm, "rdg_gemm_f32": rdg_gemm,
+                "window_attention_f32": window_attention}
+PER_FORWARD_F32 = {"rdg_layernorm_f32": 120, "rdg_gemm_f32": 300,
+                   "window_attention_f32": 60}
+F32_SOURCES = {"rdg_layernorm_f32": "adsr_tpu_torch/csrc/rdg_layernorm.cu",
+               "rdg_gemm_f32": "adsr_tpu_torch/csrc/rdg_gemm_f32.cu",
+               "window_attention_f32":
+               "adsr_tpu_torch/csrc/window_attention_f32.cu"}
+# (c)'s f32 instances have a source a window, on window_attention_f32.cuh
+F32_WINDOW_SOURCES = {
+    "w4": "adsr_tpu_torch/csrc/window_attention4_f32.cu",
+    "w16": "adsr_tpu_torch/csrc/window_attention16_f32.cu"}
 # block mode: per RDG five (g) launches and five adjust products
 PER_FORWARD_BLOCK = {"swin_block": 60, "rdg_gemm": 60}
 # one train step, 12 RDGs: forward 10 / 25 / 5 a RDG; the backward
@@ -451,7 +488,7 @@ REPLACES_BLOCK = "adsr_tpu/ops/fused_swin_block.py:337"
 
 def expected_counts(per: dict, n: int) -> dict:
     """Launch counts of every wrapper after ``n`` runs of ``per``."""
-    want = {k: 0 for k in WRAPPERS}
+    want = {k: 0 for k in (*WRAPPERS, *F32_WRAPPERS)}
     want.update({k: v * n for k, v in per.items()})
     return want
 
@@ -478,7 +515,7 @@ def nvidia_smi() -> str:
 def kernel_name(mangled: str) -> str:
     """``rdg_gemm_kernel<128,6>`` from an Itanium-mangled kernel name (the
     length-prefixed identifier that ends in ``_kernel``, and its integer
-    template arguments)."""
+    and element-type template arguments: ``rdg_layernorm_kernel<float,4,0>``)."""
     found = re.search(r"_kernel(?=I|E|v)", mangled)
     if found is None:
         return mangled
@@ -486,10 +523,13 @@ def kernel_name(mangled: str) -> str:
     for start in range(end - 1, 0, -1):
         digits = str(end - start)
         if mangled[start - len(digits):start] == digits:
-            args = re.match(r"I((?:Li\d+E)+)E", mangled[end:])
-            return mangled[start:end] + (
-                "<" + ",".join(re.findall(r"Li(\d+)E", args.group(1))) + ">"
-                if args else "")
+            args = re.match(r"I((?:Li\d+E|f|13__nv_bfloat16)+)E",
+                            mangled[end:])
+            names = [n or ("float" if f else "bf16") for n, f, _ in
+                     re.findall(r"Li(\d+)E|(f)|(13__nv_bfloat16)",
+                                args.group(1))] if args else []
+            return mangled[start:end] + (f"<{','.join(names)}>"
+                                         if names else "")
     return mangled
 
 
@@ -517,13 +557,18 @@ def reset_counts() -> None:
     by load path, to 0."""
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in F32_WRAPPERS.values():
+        fn.launches_f32 = 0
     for k in GEMMS:
         _build.operand_paths(k)[:] = [0, 0]
     gbwd.dy_eff_copies = 0
 
 
 def counts() -> dict:
-    return {k: fn.launches for k, fn in WRAPPERS.items()}
+    """Every wrapper's launches since :func:`reset_counts`: the bf16
+    kernels' by name, the f32 instances' under ``F32_KERNELS``."""
+    return {**{k: fn.launches for k, fn in WRAPPERS.items()},
+            **{k: fn.launches_f32 for k, fn in F32_WRAPPERS.items()}}
 
 
 def operand_paths() -> dict:
@@ -1497,10 +1542,17 @@ def profile_forward(packed, cfg, x, reps: int = 3, mode: str = "rdg"):
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0:
             # window_attention16_kernel, window_attention4_kernel: (c) at
-            # 16x16 and 4x4 windows (swin_block16_, swin_block4_: (g))
-            fam = next((k for k in KERNELS + BLOCK_KERNELS
-                        if k + "_kernel" in ev.key or k + "16_" in ev.key
-                        or k + "4_" in ev.key), "other")
+            # 16x16 and 4x4 windows (swin_block16_, swin_block4_: (g));
+            # the f32 instances: rdg_gemm_f32_kernel,
+            # window_attention_f32_kernel, rdg_layernorm_kernel<float
+            fam = next((k for k in F32_KERNELS if k + "_kernel" in ev.key),
+                       None)
+            if fam is None and "rdg_layernorm_kernel<float" in ev.key:
+                fam = "rdg_layernorm_f32"
+            fam = fam or next((k for k in KERNELS + BLOCK_KERNELS
+                               if k + "_kernel" in ev.key
+                               or k + "16_" in ev.key
+                               or k + "4_" in ev.key), "other")
             families[fam] = families.get(fam, 0.0) + us / 1e3 / reps
     return start.elapsed_time(end) / reps, families
 
@@ -2734,8 +2786,10 @@ def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
         os.environ["ADSR_TPU_RDG"] = flag
         reset_counts()
         t0 = time.perf_counter()
+        # the bf16 kernels (block mode has no f32 kernel (g));
+        # phase_fp32 runs the CLI at its fp32 default
         res = cli_eval.main(["--run-dir", run_dir, "--data-root", str(root),
-                             "--sweep-windows", "9",
+                             "--precision", "bf16", "--sweep-windows", "9",
                              "--tile-overlap", str(overlap),
                              "--output-dir", str(cli_dir / f"eval_{mode}")])
         torch.cuda.synchronize()
@@ -2894,12 +2948,14 @@ def forward_inputs(x: torch.Tensor) -> list:
 
 
 def check_server_graphs(exp, dev, params, lr_u8, hr_u8, mode, report,
-                        label: str):
+                        label: str, per=None):
     """``AnomalyServer`` scores ``lr_u8`` / ``hr_u8`` (tail padded) through
-    its captured call and launched: the capture's launches, scores equal
-    bit for bit (twice, so every batch replays once). Returns (launches,
-    graphed server, launched server)."""
-    per = PER_FORWARD if mode == "rdg" else PER_FORWARD_BLOCK
+    its captured call and launched: the capture's launches (``per`` a
+    forward, by default ``mode``'s bf16 ones), scores equal bit for bit
+    (twice, so every batch replays once). Returns (launches, graphed
+    server, launched server)."""
+    if per is None:
+        per = PER_FORWARD if mode == "rdg" else PER_FORWARD_BLOCK
     servers = {}
     for graphs in (True, False):
         servers[graphs] = AnomalyServer(batch_size=BATCH, ssim_window=11,
@@ -3356,7 +3412,7 @@ def phase_drn(dev, report):
     if n_params != DRN_PARAMS or n_dual != DRN_DUAL_PARAMS:
         raise AssertionError(f"DRN params {n_params} + {n_dual}, expected "
                              f"{DRN_PARAMS} + {DRN_DUAL_PARAMS}")
-    drn_launches = {k: 0 for k in WRAPPERS}
+    drn_launches = {k: 0 for k in (*WRAPPERS, *F32_WRAPPERS)}
 
     def counted(fn):
         """``fn()`` with the counters from 0; its launches join the drn
@@ -4384,9 +4440,529 @@ def phase_flagship(dev, report):
     return paths, timings
 
 
-PHASES = {"flagship": phase_flagship, "w16": phase_w16, "w4": phase_w4,
-          "smoke": phase_smoke, "drn": phase_drn, "ead": phase_ead,
-          "mesh": phase_mesh}
+# --------------------------------------------------------------------------- #
+# fp32 serving: the f32 instances of kernels (a)-(c) (the TPU kernel at dtype
+# f32), the fp32 forward, AnomalyServer, evaluate_anomaly and cli.evaluate
+# at its fp32 default
+# --------------------------------------------------------------------------- #
+
+# Limits of the f32 route. Kernels against their plain f32 versions on the
+# same f32 inputs on the card (TF32 off): both sum exact f32 products in
+# f32, in another order (~1e-7 relative a value): relative L2 1e-5, and a
+# max-abs of 1e-5 of the scale (the largest reference value; for the GEMM
+# plus the largest sum of |products|, sum_k |a_k| |w_k|). The fp32 forward
+# against the eager f32 model on the card and against the CPU's forward
+# from the same params: relative L2 1e-4 on the token stream after each RDG
+# and on the float SR, 1e-3 on each RDG's increment (out - in, smaller than
+# the stream it is taken from). Scores against the CPU's: the SR is
+# quantised to the 0-255 grid, so an SR value within ~1e-6 of a rounding
+# boundary may round the other way: rtol 1e-3, atol 1e-4 (the CPU suite's
+# limits against the JAX package); each AUC within 1 / (n_good * n_bad), one
+# swapped pair of ranks.
+F32_REL_L2 = 1e-5
+F32_MAX_ABS = 1e-5
+F32_FWD_REL_L2 = 1e-4
+F32_INCREMENT_REL_L2 = 1e-3
+F32_SCORE_RTOL, F32_SCORE_ATOL = 1e-3, 1e-4
+F32_CPU_BATCH = 4             # images of the card-against-CPU comparisons
+F32_CPU_SPLIT = 8             # good and as many defective images
+
+
+def as_f32(t: torch.Tensor, gen) -> torch.Tensor:
+    """An f32 copy of a bf16 case tensor at its own strides (16-byte rows
+    stay 16-byte rows), its values moved off the bf16 grid by a relative
+    2^-9 so every mantissa bit is exercised."""
+    if t.dtype != torch.bfloat16:
+        return t
+    out = torch.empty_strided(t.shape, t.stride(), dtype=torch.float32,
+                              device=t.device)
+    out.copy_(t.float() * (1 + 2.0 ** -9 * torch.randn(
+        t.shape, generator=gen, device=t.device)))
+    return out
+
+
+def f32_case_inputs(cfg, dev, gen):
+    """:func:`make_case_inputs` in f32: the same layouts (the concat
+    buffer, 16-byte rows for the GEMM operands, qkv and the context)."""
+    cat, blocks, masks = make_case_inputs(cfg, dev, gen)
+    cat = as_f32(cat, gen)
+    blocks = [{k: as_f32(v, gen) if torch.is_tensor(v) else v
+               for k, v in blk.items() if k not in ("dqkv", "dctx")}
+              for blk in blocks]
+    for blk in blocks:
+        blk["ctx"] = blk["act"]
+    return cat, blocks, masks
+
+
+def check_f32(errs: dict, kernel: str, case: str, got, want, scale) -> None:
+    """``got`` within ``F32_REL_L2`` relative L2 and ``F32_MAX_ABS * scale``
+    elementwise of ``want``; the largest reading joins ``errs``."""
+    torch.cuda.synchronize()
+    got = got.float()
+    max_abs = (got - want).abs().max().item()
+    rel = rel_l2(got, want)
+    limit = F32_MAX_ABS * float(scale)
+    say("kernels", f"{kernel:21s} {case:44s} max_abs {max_abs:.3e} (limit "
+                   f"{limit:.3e}) rel_l2 {rel:.3e}")
+    if not torch.isfinite(got).all() or max_abs > limit \
+            or rel > F32_REL_L2:
+        raise AssertionError(f"{kernel} {case}: max_abs {max_abs:.3e} > "
+                             f"{limit:.3e} or rel_l2 {rel:.3e} > {F32_REL_L2}")
+    errs[kernel] = max(errs.get(kernel, 0.0), max_abs)
+
+
+def f32_bounds(cfg, blocks, m, masks):
+    """:func:`set_bounds` for the f32 instances: 4 bytes an element, every
+    operation at the f32 peak (no tensor cores)."""
+    ln_b = ln_ops = mm_b = mm_ops = at_b = at_ops = 0.0
+    n = cfg.window_size ** 2
+    for k, blk in enumerate(blocks):
+        c, f, a, nh = blk["c"], blk["f"], blk["a"], blk["nh"]
+        ln_b += 2 * (2 * m * c * 4 + 2 * c * 4)
+        ln_ops += 2 * 8 * m * c
+        for n_out, n_in, res in ((3 * c, c, False), (c, c, True),
+                                 (f, c, False), (c, f, True), (a, c, k == 4)):
+            mm_b += (m * n_in * 4 + n_out * n_in * 4 + n_out * 4
+                     + m * n_out * 4 * (2 if res else 1))
+            mm_ops += 2 * m * n_out * n_in
+        at_b += m * 3 * c * 4 + m * c * 4 \
+            + attn_operand_bytes(blk, cfg, masks)
+        at_ops += 4 * m * n * c + 6 * (m // n) * nh * n * n
+    out = {}
+    for name, byt, ops in (("rdg_layernorm_f32", ln_b, ln_ops),
+                           ("rdg_gemm_f32", mm_b, mm_ops),
+                           ("window_attention_f32", at_b, at_ops)):
+        t_b, t_ops = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
+        out[name] = (max(t_b, t_ops) * 1e3,
+                     "bytes" if t_b >= t_ops else "operations", byt, ops)
+    return out
+
+
+def f32_geometry(cfg, dev, errs: dict, label: str, full: bool):
+    """The f32 instances at ``cfg``'s shapes (batch ``BATCH``): each against
+    its plain f32 version (with ``full`` every LayerNorm piece and every
+    GEMM product and epilogue, else the attention's), then one RDG's
+    launches of each timed beside its bound, its plain version and its
+    library call (``F.layer_norm``, ``F.linear`` in f32 with TF32 off,
+    ``scaled_dot_product_attention`` in f32 with a float mask). Returns
+    {kernel: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    cat, blocks, masks = f32_case_inputs(cfg, dev, gen)
+    g, m = flagship_shapes(cfg)
+    h = w = cfg.img_size
+    win, d = cfg.window_size, cfg.embed_dim
+    say("kernels", f"{label}: f32 kernels against their plain f32 versions "
+                   f"at M = {m} token rows, window {win}")
+    if full:
+        for k, blk in enumerate(blocks):
+            c = blk["c"]
+            layouts = [("concat prefix", cat[:, :c], 16),
+                       ("x1 contiguous", blk["x1"], 16)]
+            if k == 0:    # single values: a base one float past alignment
+                layouts.append(("4-byte pieces", cat[:, 1:1 + c], 4))
+            for name, x, piece in layouts:
+                out = pitched(m, x.shape[1], dtype=torch.float32, device=dev)
+                got_piece = check_ln_layout("rdg_layernorm", x, out)
+                if got_piece != piece:
+                    raise AssertionError(f"rdg_layernorm f32 {name}: piece "
+                                         f"{got_piece}, expected {piece}")
+                rdg_layernorm(x, blk["ln_w"], blk["ln_b"], out)
+                want = rdg_layernorm_plain(x, blk["ln_w"], blk["ln_b"])
+                check_f32(errs, "rdg_layernorm_f32",
+                          f"c={x.shape[1]} {name} ({piece}-byte pieces)",
+                          out, want, want.abs().max())
+        dp = torch.full((BATCH, 10), 1.0 / 0.9, device=dev)
+        dp[1, 0::2] = dp[BATCH - 1, 1::2] = dp[BATCH // 2] = 0.0
+        for k, blk in enumerate(blocks):
+            c = blk["c"]
+            cases = [(label_, a, wt, bias, epi, res, None)
+                     for label_, a, wt, bias, epi, res
+                     in gemm_cases(cfg, cat, blk, k)]
+            cases += [("proj", blk["ctx"], blk["wproj"], blk["bproj"],
+                       "drop_residual", cat[:, :c], 2 * k),
+                      ("fc2", blk["hid"], blk["w2"], blk["b2"],
+                       "drop_residual", blk["x1"], 2 * k + 1),
+                      ("fc1", blk["act"], blk["w1"], blk["b1"], "gelu_aux",
+                       None, None)]
+            for name, a, wt, bias, epi, res, col in cases:
+                scale = None if col is None else dp[:, col]
+                want = rdg_gemm_plain(a, wt, bias, epi, res, scale)
+                aux = torch.empty(m, wt.shape[0], device=dev) \
+                    if epi == "gelu_aux" else None
+                if name == "adjust":
+                    # adjust 1-4 into the concat columns, adjust 5 in place
+                    # over the RDG input (out aliases residual)
+                    dst = cat.clone()
+                    out = dst[:, c:c + cfg.gc] if k < 4 else dst[:, :d]
+                    res = None if k < 4 else out
+                else:
+                    out = pitched(m, wt.shape[0], dtype=torch.float32,
+                                  device=dev)
+                rdg_gemm(a, wt, bias, out, epi, res, scale, aux)
+                size = (a.abs() @ wt.abs().t()).max() + want.abs().max()
+                check_f32(errs, "rdg_gemm_f32", f"b{k + 1} {name} {m}x"
+                          f"{wt.shape[0]}x{wt.shape[1]} {epi}", out, want,
+                          size)
+                if aux is not None:
+                    check_f32(errs, "rdg_gemm_f32", f"b{k + 1} {name} aux",
+                              aux, rdg_gemm_plain(a, wt, bias), size)
+    for k, blk in enumerate(blocks):
+        c, nh = blk["c"], blk["nh"]
+        for shift in (0, win // 2):
+            kbias, kmask = attn_operands(blk, masks, h, w, shift, win)
+            out = pitched(m, c, dtype=torch.float32, device=dev)
+            window_attention(blk["qkv"], out, kbias, kmask, h, w, nh, win,
+                             shift)
+            want = window_attention_plain(blk["qkv"], blk["attn_bias"],
+                                          masks.get(shift), h, w, nh, win,
+                                          shift)
+            check_f32(errs, "window_attention_f32", f"b{k + 1} c={c} "
+                      f"heads={nh} hd={c // nh} shift={shift}", out, want,
+                      want.abs().max())
+            again = pitched(m, c, dtype=torch.float32, device=dev)
+            window_attention(blk["qkv"], again, kbias, kmask, h, w, nh, win,
+                             shift)
+            if not torch.equal(out, again):
+                raise AssertionError(f"window_attention_f32 b{k + 1} shift "
+                                     f"{shift}: two launches differ")
+
+    scratch = torch.empty(m * row_pitch(3 * max(g["feats"])),
+                          dtype=torch.float32, device=dev)
+
+    def rows(n_cols):           # 16-byte rows, as the main path's buffers
+        return scratch.as_strided((m, n_cols), (row_pitch(n_cols), 1))
+
+    def ln_set(mode="kernel"):
+        for blk in blocks:
+            c = blk["c"]
+            for src in (cat[:, :c], blk["x1"]):
+                if mode == "library":
+                    F.layer_norm(src, (c,), blk["ln_w"], blk["ln_b"],
+                                 eps=1e-6)
+                elif mode == "plain":
+                    rdg_layernorm_plain(src, blk["ln_w"], blk["ln_b"])
+                else:
+                    rdg_layernorm(src, blk["ln_w"], blk["ln_b"], rows(c))
+
+    def gemm_set(mode="kernel"):
+        for k, blk in enumerate(blocks):
+            for _, a, wt, bias, epi, res in gemm_cases(cfg, cat, blk, k):
+                if mode == "library":
+                    F.linear(a, wt, bias)
+                elif mode == "plain":
+                    rdg_gemm_plain(a, wt, bias, epi, res)
+                else:
+                    rdg_gemm(a, wt, bias, rows(wt.shape[0]), epi, res)
+
+    nw = (h // win) * (w // win)
+    sdpa_in = []
+    for blk in blocks:
+        hd = blk["c"] // blk["nh"]
+        q, k_, v = (torch.randn(BATCH, nw, blk["nh"], win * win, hd,
+                                generator=gen, device=dev) for _ in range(3))
+        term = build_attn_term(blk["attn_bias"], h, w, win,
+                               masks.get(blk["shift"]))
+        sdpa_in.append((q, k_, v, term.contiguous()))
+
+    def attn_set(mode="kernel"):
+        for k, blk in enumerate(blocks):
+            c, nh, shift = blk["c"], blk["nh"], blk["shift"]
+            if mode == "library":
+                F.scaled_dot_product_attention(*sdpa_in[k][:3],
+                                               attn_mask=sdpa_in[k][3])
+            elif mode == "plain":
+                window_attention_plain(blk["qkv"], blk["attn_bias"],
+                                       masks.get(shift), h, w, nh, win, shift)
+            else:
+                window_attention(blk["qkv"], rows(c),
+                                 *attn_operands(blk, masks, h, w, shift, win),
+                                 h, w, nh, win, shift)
+
+    bounds = f32_bounds(cfg, blocks, m, masks)
+    timings = {}
+    for name, fn in (("rdg_layernorm_f32", ln_set), ("rdg_gemm_f32", gemm_set),
+                     ("window_attention_f32", attn_set)):
+        kernel_ms = graph_ms(fn, iters=10)
+        plain_ms = graph_ms(lambda: fn("plain"), iters=3)
+        library_ms = graph_ms(lambda: fn("library"), iters=10)
+        timings[name] = (kernel_ms, plain_ms, library_ms) + bounds[name][:2]
+        say("timing", f"{label} {name:20s} one RDG's launches: kernel "
+                      f"{kernel_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
+                      f"({bounds[name][1]}; {achieved(kernel_ms, bounds[name])}"
+                      f"), plain f32 {plain_ms:.4f} ms, library "
+                      f"{library_ms:.4f} ms (device time, CUDA graph)")
+    return timings
+
+
+def f32_cpu_pair(exp, params):
+    """The CPU's fp32 forward of ``params`` (the plain versions of (a)-(c)
+    and PyTorch's CPU convolutions): a packing on the CPU."""
+    cfg = exp.model
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    return cpu_params, prepack_drct(cpu_params, cfg, cfg.img_size,
+                                    cfg.img_size, dtype=torch.float32,
+                                    device="cpu", mode="rdg")
+
+
+def phase_fp32(dev, report):
+    """fp32 DRCT serving on the card (kernels (a)-(c) in f32), in a process
+    of its own after the flagship's: the f32 kernels against their plain
+    versions at windows 8 (the flagship), 4 and 16 and their times; the
+    flagship's fp32 forward against the eager f32 model and the CPU; its
+    launches (40 f32 a RDG, no bf16) through ``AnomalyServer`` and
+    ``evaluate_anomaly``; the captured forward, server and tiled forward
+    bitwise equal to the launched route; scores and AUCs against the CPU's;
+    ``cli.evaluate`` at its fp32 default on the flagship phase's run dir;
+    the forward's time against its bound. Returns (launches by path, the
+    flagship's kernel timings)."""
+    global PREFIX
+    PREFIX = "fp32"
+    t_phase = time.perf_counter()
+    out = report.setdefault("fp32", {})
+    exp = drct_experiment("grid", HR, SCALE, precision="fp32",
+                          batch_size=BATCH, run_tag="chip_smoke_fp32")
+    cfg = exp.model
+    errs = {}
+    reset_counts()
+    timings = f32_geometry(cfg, dev, errs, "w8", full=True)
+    out["max_abs_err"] = dict(errs)
+    for tag, geo in (("w4", (64, 4)), ("w16", (256, 4))):
+        e = {}
+        t = f32_geometry(drct_experiment("grid", *geo, precision="fp32",
+                                         run_tag="t").model,
+                         dev, e, tag, full=False)
+        out[f"timings_{tag}"] = {k: list(v) for k, v in t.items()}
+        out[f"max_abs_err_{tag}"] = e
+        torch.cuda.empty_cache()
+    if any(counts().get(k) for k in WRAPPERS):
+        raise AssertionError(f"the f32 kernel cases launched bf16 kernels: "
+                             f"{counts()}")
+
+    # the flagship's fp32 forward: launches, the eager f32 model, the CPU
+    params = seeded_params(cfg, dev)
+    rng = np.random.RandomState(SEED + 40)
+    lr_u8, hr_u8 = synthetic_split(rng, 16 + 5, 16)
+    order = list(range(16)) + list(range(21, 37)) + list(range(16, 21))
+    lr_u8, hr_u8 = lr_u8[order], hr_u8[order]
+    rgb = exp.data.rgb_range
+    x = torch.as_tensor(to_float(lr_u8[:BATCH], cfg.in_chans, rgb),
+                        dtype=torch.float32, device=dev)
+    packed = prepack_drct(params, cfg, cfg.img_size, cfg.img_size,
+                          dtype=torch.float32, device=dev, mode="rdg")
+    with torch.no_grad():
+        reset_counts()
+        taps_k = []
+        sr_k = fused_drct_apply(packed, cfg, x, taps=taps_k)
+        torch.cuda.synchronize()
+        got = counts()
+        if got != expected_counts(PER_FORWARD_F32, 1):
+            raise AssertionError(f"fp32 forward launches {got}, expected "
+                                 f"{PER_FORWARD_F32} and no bf16 kernel")
+        model = make_model(cfg, device=dev)
+        model.load_state_dict(params)
+        taps_p = []
+        with full_f32():
+            sr_p = model(x, taps=taps_p)
+        cpu_params, packed_cpu = f32_cpu_pair(exp, params)
+        taps_c = []
+        sr_c = fused_drct_apply(packed_cpu, cfg, x[:F32_CPU_BATCH].cpu(),
+                                taps=taps_c)
+    errors = {}
+    for name, taps, sr, rows in (("eager", taps_p, sr_p, BATCH),
+                                 ("cpu", taps_c, sr_c, F32_CPU_BATCH)):
+        tok, inc, sr_err = stream_errors(
+            [t[:rows].cpu() for t in taps_k], sr_k[:rows].cpu(),
+            [t.cpu() for t in taps], sr.cpu())
+        errors[name] = {"tokens": tok, "increments": inc, "sr": sr_err}
+        say("main", f"fp32 forward (f32 kernels) vs the {name} f32 forward "
+                    f"({rows} images), relative L2 of the token stream after "
+                    "each RDG: " + " ".join(f"{e:.2e}" for e in tok)
+                    + "; of each RDG's increment: "
+                    + " ".join(f"{e:.2e}" for e in inc)
+                    + f"; of the float SR: {sr_err:.3e}")
+        if max(tok) > F32_FWD_REL_L2 or sr_err > F32_FWD_REL_L2 \
+                or max(inc) > F32_INCREMENT_REL_L2 \
+                or not torch.isfinite(sr_k).all():
+            raise AssertionError(
+                f"fp32 forward vs {name}: tokens {max(tok):.3e} or SR "
+                f"{sr_err:.3e} > {F32_FWD_REL_L2}, or increments "
+                f"{max(inc):.3e} > {F32_INCREMENT_REL_L2}")
+    out["forward_rel_l2"] = errors
+    say("main", f"fp32 forward launches {got}: 40 f32 kernels a RDG, no "
+                "bf16 kernel")
+    del model, taps_p, taps_k, taps_c
+
+    # AnomalyServer and evaluate_anomaly in fp32, launched: 40 f32 launches
+    # a RDG, no bf16 one
+    server = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev,
+                           graphs=False)
+    server.register("grid", exp, params, mode="rdg")
+    reset_counts()
+    scores = server.score("grid", lr_u8, hr_u8)
+    torch.cuda.synchronize()
+    n_fwd = math.ceil(len(lr_u8) / BATCH)
+    serving = counts()
+    if serving != expected_counts(PER_FORWARD_F32, n_fwd) \
+            or scores.shape != (len(lr_u8), 3) or not np.isfinite(scores).all():
+        raise AssertionError(f"fp32 AnomalyServer launches {serving}, "
+                             f"expected {PER_FORWARD_F32} x {n_fwd}; scores "
+                             f"{scores.shape}")
+    say("main", f"fp32 AnomalyServer scored {len(lr_u8)} requests in {n_fwd} "
+                f"forwards; launches {serving}")
+    lr_f = to_float(lr_u8, cfg.in_chans, rgb)
+    hr_f = to_float(hr_u8, cfg.in_chans, rgb)
+    good = list(range(16)) + list(range(32, 37))
+    bad = list(range(16, 32))
+    reset_counts()
+    res = evaluate_anomaly_arrays(exp, params, lr_f[good], hr_f[good],
+                                  lr_f[bad], hr_f[bad], batch=BATCH,
+                                  device=dev, log=lambda s: None, mode="rdg",
+                                  graphs=False)
+    torch.cuda.synchronize()
+    evaluate = counts()
+    n_eval = math.ceil(len(good) / BATCH) + math.ceil(len(bad) / BATCH)
+    aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
+    if evaluate != expected_counts(PER_FORWARD_F32, n_eval) \
+            or not all(0.0 <= a <= 1.0 for a in aucs):
+        raise AssertionError(f"fp32 evaluate_anomaly launches {evaluate}, "
+                             f"expected {PER_FORWARD_F32} x {n_eval}; AUCs "
+                             f"{aucs}")
+    say("main", f"fp32 evaluate_anomaly core: AUC ssim/mse/psnr "
+                f"{aucs[0]:.4f}/{aucs[1]:.4f}/{aucs[2]:.4f}; launches "
+                f"{evaluate}")
+
+    # scores and AUCs against the CPU's fp32 path from the same params
+    n = F32_CPU_SPLIT
+    pick = list(range(n)) + list(range(16, 16 + n))
+    card_scores, cpu_scores = (
+        AnomalyServer(batch_size=F32_CPU_BATCH, ssim_window=11, device=d,
+                      graphs=False) for d in (dev, "cpu"))
+    card_scores.register("grid", exp, params, mode="rdg")
+    cpu_scores.register("grid", exp, cpu_params, mode="rdg")
+    s_card = card_scores.score("grid", lr_u8[pick], hr_u8[pick])
+    s_cpu = cpu_scores.score("grid", lr_u8[pick], hr_u8[pick])
+    score_diff = np.abs(s_card - s_cpu).max(0).tolist()
+    sel_g, sel_b = list(range(n)), list(range(16, 16 + n))
+    res_card, res_cpu = (evaluate_anomaly_arrays(
+        exp, p, lr_f[sel_g], hr_f[sel_g], lr_f[sel_b], hr_f[sel_b],
+        batch=F32_CPU_BATCH, device=d, log=lambda s: None, mode="rdg",
+        graphs=False) for p, d in ((params, dev), (cpu_params, "cpu")))
+    auc_diff = [abs(res_card[k] - res_cpu[k])
+                for k in ("auc_ssim", "auc_mse", "auc_psnr")]
+    say("main", f"fp32 card vs CPU on {n} + {n} images: largest score "
+                f"difference (1-SSIM, MSE, -PSNR) {score_diff}; AUC "
+                f"differences {auc_diff} (limit {1 / n ** 2:.4f}); best "
+                f"window {res_card['best_ws']} / {res_cpu['best_ws']}")
+    np.testing.assert_allclose(s_card, s_cpu, rtol=F32_SCORE_RTOL,
+                               atol=F32_SCORE_ATOL)
+    if max(auc_diff) > 1.0 / n ** 2:
+        raise AssertionError(f"fp32 AUCs differ from the CPU's by {auc_diff}")
+    out.update(score_diff_vs_cpu=score_diff, auc_diff_vs_cpu=auc_diff,
+               aucs=aucs)
+    del card_scores, cpu_scores, server
+
+    # the captured route: the forward, AnomalyServer and the tiled forward
+    # bitwise equal to the launched route; the capture's memory
+    paths = {"serving_fp32": serving, "evaluate_fp32": evaluate}
+    fwd = {gr: make_serving_forward(exp, params, dev, mode="rdg", graphs=gr)
+           for gr in (True, False)}
+    check_replays("forward_fp32", fwd[True], fwd[False], forward_inputs(x),
+                  PER_FORWARD_F32, report)
+    del fwd
+    launches, _, _ = check_server_graphs(exp, dev, params, lr_u8, hr_u8,
+                                         "rdg", report, "serving_fp32_graphs",
+                                         per=PER_FORWARD_F32)
+    paths["serving_fp32_graphs"] = launches
+    rng = np.random.RandomState(SEED + 30)
+    lr_t, _ = synthetic_split(rng, BATCH // 2, BATCH // 2, CLI_TEST_HR, SCALE)
+    xt = torch.as_tensor(to_float(lr_t, cfg.in_chans, rgb),
+                         dtype=torch.float32, device=dev)
+    tiled = {gr: make_tiled_serving_forward(exp, params, quantize_out=False,
+                                            device=dev, mode="rdg",
+                                            graphs=gr)
+             for gr in (True, False)}
+    paths["tiled_fp32_graphs"] = check_replays(
+        "tiled_fp32", tiled[True], tiled[False], forward_inputs(xt)[:3],
+        PER_FORWARD_F32, report)
+    tiled_ms = cuda_ms(lambda: tiled[True](xt), iters=3, warmup=1)
+    say("graphs", f"fp32 tiled serving through its graph: {BATCH} images of "
+                  f"{CLI_TEST_HR} px in {tiled_ms:.3f} ms = "
+                  f"{BATCH * 1e3 / tiled_ms:.1f} img/s")
+    out["tiled_ms"] = tiled_ms
+    del tiled
+
+    # cli.evaluate at its default (fp32) on the flagship phase's run dir:
+    # 8 + 8 test images of 512 px, auto-tiled; its captured call's warm-up
+    # and capture count one forward's f32 launches each
+    run_dir = max((CLI_DIR / "runs" / "drct").glob("*"),
+                  key=lambda q: q.stat().st_mtime)
+    root = CLI_DIR / "data"
+    os.environ["ADSR_TPU_RDG"] = "1"
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli_eval.main(["--run-dir", str(run_dir), "--data-root", str(root),
+                         "--sweep-windows", "9",
+                         "--output-dir", str(CLI_DIR / "eval_fp32")])
+    torch.cuda.synchronize()
+    cli_wall = time.perf_counter() - t0
+    os.environ.pop("ADSR_TPU_RDG")
+    cli_launches = counts()
+    cli_aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
+    lines = (CLI_DIR / "eval_fp32" / "scores.txt").read_text().splitlines()
+    flagship = Path("workspace") / "chip_smoke_flagship.json"
+    bf16_aucs = json.loads(flagship.read_text())["report"]["cli"]["aucs"] \
+        .get("rdg") if flagship.exists() else None
+    say("cli", f"cli.evaluate at its default precision (fp32) on "
+               f"{run_dir.name}: AUC ssim/mse/psnr "
+               f"{cli_aucs[0]:.4f}/{cli_aucs[1]:.4f}/{cli_aucs[2]:.4f} (bf16 "
+               f"kernels in the flagship phase: {bf16_aucs}), best window "
+               f"{res['best_ws']}; {cli_wall:.1f} s wall; launches "
+               f"{cli_launches}")
+    if cli_launches != expected_counts(PER_FORWARD_F32, 2) \
+            or not all(math.isfinite(a) and 0.0 <= a <= 1.0
+                       for a in cli_aucs) or len(lines) != 2 * CLI_TEST:
+        raise AssertionError(f"fp32 evaluate CLI: launches {cli_launches}, "
+                             f"expected {PER_FORWARD_F32} x 2; AUCs "
+                             f"{cli_aucs}; {len(lines)} score lines")
+    figures = check_figures(exp, CLI_DIR / "eval_fp32", root, "grid", res)
+    paths["evaluate_cli_fp32"] = cli_launches
+    out["cli"] = {"aucs": cli_aucs, "bf16_aucs": bf16_aucs,
+                  "wall_s": cli_wall, "figures": figures}
+
+    # the fp32 forward's time at batch 16, launched and as a graph, against
+    # its bound (the three kernels' bounds x 12 RDGs)
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: fused_drct_apply(packed, cfg, x), iters=5,
+                         warmup=1)
+        fwd_graph_ms = graph_ms(lambda: fused_drct_apply(packed, cfg, x),
+                                iters=5)
+    bound_ms = cfg.num_layers * sum(t[3] for t in timings.values())
+    wall, families = profile_forward(packed, cfg, x, reps=2)
+    busy = sum(families.values())
+    say("timing", f"fp32 forward, batch {BATCH}: {fwd_ms:.3f} ms launched, "
+                  f"{fwd_graph_ms:.3f} ms as a CUDA graph = "
+                  f"{BATCH * 1e3 / fwd_graph_ms:.1f} img/s; the kernels' "
+                  f"bounds x {cfg.num_layers} RDGs {bound_ms:.3f} ms (bound / "
+                  f"time {bound_ms / fwd_graph_ms:.3f}); profiler, device ms "
+                  "per forward: " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(
+                          families.items(), key=lambda kv: -kv[1]))
+                  + f"; busy {busy:.3f} of {wall:.3f} ms wall")
+    out.update(forward_ms=fwd_ms, forward_graph_ms=fwd_graph_ms,
+               forward_bound_ms=bound_ms,
+               profile={"wall_ms": wall, "device_ms": families},
+               phase_wall_s=time.perf_counter() - t_phase)
+    out["per_rdg_ms"] = {k: {"ms": v[0], "plain_ms": v[1], "library_ms": v[2],
+                             "bound_ms": v[3], "bound_by": v[4]}
+                         for k, v in timings.items()}
+    say("done", f"fp32 phase in {out['phase_wall_s']:.1f} s")
+    PREFIX = None
+    return paths, timings
+
+
+PHASES = {"flagship": phase_flagship, "fp32": phase_fp32, "w16": phase_w16,
+          "w4": phase_w4, "smoke": phase_smoke, "drn": phase_drn,
+          "ead": phase_ead, "mesh": phase_mesh}
 
 
 def run_phase(name: str) -> dict:
@@ -4501,6 +5077,32 @@ def main() -> int:
                            "bound_ms": bound_ms, "bound_by": bound_by,
                            "library_ms": library_ms,
                            "max_abs_err": report["w4"]["max_abs_err"][k]}
+        kernels.append(entry)
+    # the f32 instances of (a)-(c): the fp32 phase's readings at the
+    # flagship (window 8), and under "w4" / "w16" at those geometries
+    f32 = report["fp32"]
+    for k in F32_KERNELS:
+        kernel_ms, plain_ms, library_ms, bound_ms, bound_by = \
+            runs["fp32"]["timings"][k]
+        by_path = {p: got[k] for p, got in paths.items() if got.get(k)}
+        if not by_path:
+            raise AssertionError(f"{k}: launched on no main path")
+        entry = {"name": k, "route": "cuda", "source": F32_SOURCES[k],
+                 "replaces": f"{REPLACES} (dtype f32)",
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": f32["max_abs_err"][k], "ms": kernel_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms}
+        for tag in ("w4", "w16"):
+            kernel_ms, plain_ms, library_ms, bound_ms, bound_by = \
+                f32[f"timings_{tag}"][k]
+            entry[tag] = {"source": F32_WINDOW_SOURCES[tag]
+                          if k == "window_attention_f32" else F32_SOURCES[k],
+                          "ms": kernel_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms,
+                          "max_abs_err": f32[f"max_abs_err_{tag}"].get(k)}
         kernels.append(entry)
     report["total_s"] = time.perf_counter() - t_start
     say("report", json.dumps(report))

@@ -243,11 +243,12 @@ def test_drn_pretrain_loads_reference_pt_files(drn_run, tmp_path,
 
 
 def test_evaluate_cli_defaults_to_the_card(drn_run):
-    """The card is the default; ``--device cpu`` evaluates a DRN-L run dir
-    (its model type and capacity read from the run dir, the 64 px test
-    images tiled at the train crop's LR), against the JAX pass."""
+    """The card is the default, in fp32 as the JAX CLI (DRCT's f32
+    kernels); ``--device cpu`` evaluates a DRN-L run dir (its model type
+    and capacity read from the run dir, the 64 px test images tiled at the
+    train crop's LR), against the JAX pass."""
     args = cli_eval.parse_args([])
-    assert args.device == "cuda" and args.precision == "bf16"
+    assert args.device == "cuda" and args.precision == "fp32"
     tmp, root, run_dir = drn_run
     got = cli_eval.main(["--run-dir", run_dir, "--data-root", str(root),
                          "--device", "cpu", "--precision", "fp32",

@@ -204,11 +204,14 @@ def test_block_mode_forward_tracks_rdg_mode(dev):
     assert rel < 5e-2, rel
 
 
-def test_fp32_on_the_card_raises(dev):
-    x = torch.zeros(64, 12, device=dev)
-    with pytest.raises(NotImplementedError, match="fp32 serving kernels"):
+def test_fp16_on_the_card_raises(dev):
+    # kernels (a)-(c) take bf16 or f32; fp16 raises before any launch
+    x = torch.zeros(64, 12, dtype=torch.float16, device=dev)
+    n0 = rdg_layernorm.launches, rdg_layernorm.launches_f32
+    with pytest.raises(NotImplementedError, match="bf16 or f32"):
         rdg_layernorm(x, torch.ones(12, device=dev), torch.zeros(12, device=dev),
                       torch.empty_like(x))
+    assert (rdg_layernorm.launches, rdg_layernorm.launches_f32) == n0
     assert _build.library() is not None
 
 
@@ -804,3 +807,184 @@ def test_swin_block_kernel_matches_plain_at_window4(dev, k, b, side):
     fused_swin_block(x[:, :c], blk, packed["masks"], cfg, side, side, k,
                      again)
     assert torch.equal(out, again)
+
+
+# ---- the f32 instances of (a)-(c) (fp32 serving) ----
+#
+# Each against its plain f32 version on the same inputs on the card (TF32
+# off in the fixture): both sum exact f32 products in f32 in another order,
+# ~1e-7 relative a value; the limits are relative L2 1e-5 and a max-abs
+# of 1e-5 of the largest reference value (attention, LayerNorm) or of the
+# sum of |products| (GEMM).
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want).norm() / want.norm()).item()
+
+
+def _f32_close(got, want, scale=None):
+    scale = want.abs().max() if scale is None else scale
+    assert torch.isfinite(got).all()
+    assert _rel_l2(got, want) <= 1e-5
+    _within(got, want, 1e-5 * scale)
+
+
+@pytest.mark.parametrize("c,stride,off", [(180, 308, 0), (212, 308, 0),
+                                          (308, 308, 0), (178, 308, 1),
+                                          (244, 244, 0)])
+def test_f32_layernorm_matches_plain(dev, c, stride, off):
+    # the concat prefix at stride 308 (16-byte pieces), a contiguous x1, and
+    # the 4-byte path (c = 178 from a base one float past alignment)
+    g = torch.Generator(device=dev).manual_seed(c)
+    m = 2 * 1024 + 7
+    cat = 2 * torch.randn(m, stride + off, generator=g, device=dev) + 0.5
+    x = cat[:, off:off + c]
+    w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    b = 0.1 * torch.randn(c, generator=g, device=dev)
+    out = pitched(m, c, dtype=torch.float32, device=dev)
+    n0 = rdg_layernorm.launches, rdg_layernorm.launches_f32
+    rdg_layernorm(x, w, b, out)
+    assert (rdg_layernorm.launches, rdg_layernorm.launches_f32) == \
+        (n0[0], n0[1] + 1)
+    _f32_close(out, rdg_layernorm_plain(x, w, b))
+    again = torch.empty_like(out)
+    rdg_layernorm(x, w, b, again)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("n,k", [(32, 180), (540, 180), (180, 360),
+                                 (924, 308), (308, 616), (180, 308)])
+@pytest.mark.parametrize("epi", ["none", "residual", "gelu", "leaky_relu",
+                                 "scaled_residual", "drop_residual",
+                                 "gelu_aux"])
+def test_f32_gemm_matches_plain(dev, n, k, epi):
+    # the flagship's product shapes at an M that is not a multiple of the
+    # 128-row tile, A a column prefix of a wider buffer, out a column slice
+    # at an odd stride, residual aliased by out where the epilogue reads it
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    b = 3
+    m = b * 1004
+    wide = torch.randn(m, k + 12, generator=g, device=dev)
+    a = wide[:, :k]
+    w = pitched(n, k, dtype=torch.float32, device=dev)
+    w.copy_(0.05 * torch.randn(n, k, generator=g, device=dev))
+    bias = 0.05 * torch.randn(n, generator=g, device=dev)
+    dst = torch.randn(m, n + 9, generator=g, device=dev)
+    out = dst[:, 5:5 + n]
+    res = out.clone() if epi in ("residual", "scaled_residual",
+                                 "drop_residual") else None
+    scale = torch.tensor([1.1, 0.0, 1.1], device=dev) if \
+        epi == "drop_residual" else None
+    aux = torch.empty(m, n, device=dev) if epi == "gelu_aux" else None
+    want = rdg_gemm_plain(a, w, bias, epi, res, scale)
+    before = dst.clone()
+    n0 = rdg_gemm.launches, rdg_gemm.launches_f32
+    rdg_gemm(a, w, bias, out, epi, out if res is not None else None, scale,
+             aux)
+    assert (rdg_gemm.launches, rdg_gemm.launches_f32) == (n0[0], n0[1] + 1)
+    size = (a.abs() @ w.abs().t()).max()
+    _f32_close(out, want, size + want.abs().max())
+    if aux is not None:
+        _f32_close(aux, rdg_gemm_plain(a, w, bias), size)
+    # columns outside the slice are untouched
+    assert torch.equal(dst[:, :5], before[:, :5])
+    assert torch.equal(dst[:, 5 + n:], before[:, 5 + n:])
+
+
+F32_ATTN = [(180, 6), (212, 4), (244, 2), (276, 6), (308, 4)]
+
+
+@pytest.mark.parametrize("win", [4, 8, 16])
+@pytest.mark.parametrize("c,nh", F32_ATTN)
+def test_f32_attention_matches_plain(dev, win, c, nh):
+    # the flagship's five block geometries (head dims 30/53/122/46/77) at
+    # windows 4, 8 and 16, shift 0 and half the window, in the forms
+    # attn_operands gives (the table and region labels at window 16)
+    g = torch.Generator(device=dev).manual_seed(win * c)
+    side = 2 * win if win == 16 else 4 * win
+    b = 2
+    m = b * side * side
+    n = win * win
+    qkv = pitched(m, 3 * c, dtype=torch.float32, device=dev)
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    if win == 16:
+        bias = 0.5 * torch.randn(nh, 961, generator=g, device=dev)
+    else:
+        bias = 0.5 * torch.randn(nh, n, n, generator=g, device=dev)
+    for shift in (0, win // 2):
+        mask = None
+        if shift and win == 16:
+            mask = torch.as_tensor(shift_region_labels(side, side, win, shift),
+                                   device=dev)
+        elif shift:
+            mask = torch.as_tensor(shift_attn_mask(side, side, win, shift),
+                                   device=dev)
+        out = pitched(m, c, dtype=torch.float32, device=dev)
+        n0 = window_attention.launches, window_attention.launches_f32
+        window_attention(qkv, out, bias, mask, side, side, nh, win, shift)
+        assert (window_attention.launches, window_attention.launches_f32) \
+            == (n0[0], n0[1] + 1)
+        want = window_attention_plain(qkv, bias, mask, side, side, nh, win,
+                                      shift)
+        _f32_close(out, want)
+        again = pitched(m, c, dtype=torch.float32, device=dev)
+        window_attention(qkv, again, bias, mask, side, side, nh, win, shift)
+        assert torch.equal(out, again)
+    if win == 16:       # the f32 kernel writes no softmax statistics
+        with pytest.raises(NotImplementedError, match="statistics"):
+            window_attention(qkv, out, bias, None, side, side, nh, win, 0,
+                             softmax_stats(qkv, side, side, nh, win))
+
+
+def _f32_experiment(cfg):
+    hr = cfg.img_size * cfg.upscale
+    return Experiment(model=cfg, data=DataConfig(
+        resolution=hr, patch_size=hr, scale=(cfg.upscale,),
+        n_colors=cfg.in_chans, batch_size=4), precision="fp32")
+
+
+@pytest.mark.parametrize("cfg", [CFG, WINDOW16], ids=["window8", "window16"])
+def test_f32_forward_tracks_eager_and_launches_only_f32(dev, cfg):
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(1)
+    sd = {k: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
+          for k, v in sd.items()}
+    side = cfg.img_size
+    packed = prepack_drct(sd, cfg, side, side, dtype=torch.float32,
+                          device=dev, mode="rdg")
+    g = torch.Generator(device=dev).manual_seed(2)
+    x = 255 * torch.rand(2, side, side, 1, generator=g, device=dev)
+    fns = (rdg_layernorm, rdg_gemm, window_attention)
+    n0 = [(fn.launches, fn.launches_f32) for fn in fns]
+    with torch.no_grad():
+        got = fused_drct_apply(packed, cfg, x)
+        torch.cuda.synchronize()
+        counts = [(fn.launches - a, fn.launches_f32 - b)
+                  for fn, (a, b) in zip(fns, n0)]
+        model = make_model(cfg, device=dev)
+        model.load_state_dict(sd)
+        want = model(x)
+    per = cfg.num_layers
+    assert counts == [(0, 10 * per), (0, 25 * per), (0, 5 * per)]
+    assert _rel_l2(got, want) <= 1e-5
+    # block mode has no f32 kernel (g): refused before any launch
+    n1 = fused_swin_block.launches
+    with pytest.raises(NotImplementedError, match="item 18"):
+        fused_drct_apply(packed, cfg, x, mode="block")
+    assert fused_swin_block.launches == n1
+
+
+def test_f32_serving_replay_equals_launched_bitwise(dev):
+    sd, _ = init_sr_params(CFG, torch.Generator().manual_seed(0), device=dev)
+    exp = _f32_experiment(CFG)
+    graphed = make_serving_forward(exp, sd, dev, mode="rdg")
+    launched = make_serving_forward(exp, sd, dev, mode="rdg", graphs=False)
+    g = torch.Generator(device=dev).manual_seed(3)
+    xs = [255 * torch.rand(2, 16, 16, 1, generator=g, device=dev)
+          for _ in range(4)]
+    outs = [graphed(x) for x in xs]
+    assert graphed.captured() == 1
+    for x, got in zip(xs, outs):
+        assert torch.equal(got, launched(x))
+    with pytest.raises(NotImplementedError, match="item 18"):
+        make_serving_forward(exp, sd, dev, mode="block")

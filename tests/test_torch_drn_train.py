@@ -219,8 +219,9 @@ def test_serving_forwards_take_the_full_scale_output():
 
 def test_drn_precision_on_the_card_and_no_fallback():
     """DRN runs no kernel of the port: both precisions pass the card's
-    check (DRCT's fp32 refusal stays, tests/test_torch_serving.py); and a
-    DRN request on the card without one raises."""
+    check (DRCT's fp32 refusals in block mode and training stay,
+    tests/test_torch_serving.py); and a DRN request on the card without one
+    raises."""
     _, pexp, params, _ = _exps()
     for precision in ("bf16", "fp32"):
         ptrainer.check_serving_precision(

@@ -1,0 +1,304 @@
+"""fp32 DRCT serving and evaluation: the route rule on each device, the
+evaluation CLI's default precision against the JAX CLI's, the f32 kernels'
+launch plans and layout rules on tensor metadata (no card needed), and the
+port's fp32 ``AnomalyServer`` and ``evaluate_anomaly`` against the JAX
+package's at windows 8 and 16 (window 4: ``tests/test_torch_serving.py``)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from adsr_tpu.cli import evaluate as jax_cli_eval
+from adsr_tpu.core import config as jc
+from adsr_tpu.eval.evaluate import evaluate_anomaly as jax_evaluate
+from adsr_tpu.eval.serving import AnomalyServer as JaxServer
+
+from adsr_tpu_torch.cli import evaluate as cli_eval
+from adsr_tpu_torch.cli import main as cli_main
+from adsr_tpu_torch.core import config as pc
+from adsr_tpu_torch.eval.evaluate import evaluate_anomaly
+from adsr_tpu_torch.eval.serving import AnomalyServer
+from adsr_tpu_torch.io.convert import drct_state_dict_from_jax
+from adsr_tpu_torch.kernels import _build
+from adsr_tpu_torch.kernels import rdg_gemm as gemm_mod
+from adsr_tpu_torch.kernels import rdg_layernorm as ln_mod
+from adsr_tpu_torch.kernels import window_attention as attn_mod
+from adsr_tpu_torch.kernels.fused_rdg import (block_buffers, rdg_geometry,
+                                              rdg_workspace)
+from adsr_tpu_torch.train.trainer import (check_serving_precision,
+                                          check_training_precision)
+
+from torch_port_util import CONFIGS, jax_params
+
+FLAGSHIP = pc.drct_experiment("grid", 128, 4, run_tag="t").model
+WRAPPERS = (ln_mod.rdg_layernorm, gemm_mod.rdg_gemm,
+            attn_mod.window_attention)
+
+
+def _launches():
+    return [(fn.launches, fn.launches_f32) for fn in WRAPPERS]
+
+
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("mode", ["rdg", "block"])
+@pytest.mark.parametrize("precision", ["bf16", "fp32"])
+def test_route_rule(precision, mode, device):
+    """Serving: the card takes bf16 in both modes and fp32 in rdg mode;
+    fp32 block mode is refused there (item 18). Training: the card takes
+    bf16 only (item 17). The CPU's plain path takes everything."""
+    exp = pc.drct_experiment("grid", 128, 4, run_tag="t",
+                             precision=precision)
+    dev = torch.device(device)
+    card_fp32 = device == "cuda" and precision == "fp32"
+    if card_fp32 and mode == "block":
+        with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+            check_serving_precision(exp, dev, mode)
+    else:
+        check_serving_precision(exp, dev, mode)
+    if card_fp32:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+            check_training_precision(exp, dev)
+    else:
+        check_training_precision(exp, dev)
+
+
+def test_route_rule_reads_adsr_tpu_rdg(monkeypatch):
+    exp = pc.drct_experiment("grid", 128, 4, run_tag="t", precision="fp32")
+    monkeypatch.setenv("ADSR_TPU_RDG", "0")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        check_serving_precision(exp, torch.device("cuda"))
+    monkeypatch.setenv("ADSR_TPU_RDG", "1")
+    check_serving_precision(exp, torch.device("cuda"))
+
+
+def test_evaluate_cli_default_precision_is_the_jax_clis():
+    assert cli_eval.parse_args([]).precision == \
+        jax_cli_eval.parse_args([]).precision == "fp32"
+
+
+def test_train_cli_refuses_fp32_on_the_card_before_reading_data(tmp_path):
+    # no data root exists: the refusal comes first
+    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+        cli_main.main(["--precision", "fp32", "--device", "cuda",
+                       "--data-root", str(tmp_path / "missing"),
+                       "--save-dir", str(tmp_path / "runs")])
+    assert not (tmp_path / "runs").exists()
+
+
+@pytest.mark.parametrize("window", [4, 8, 16])
+@pytest.mark.parametrize("c,nh", [(180, 6), (212, 4), (244, 2), (276, 6),
+                                  (308, 4), (12, 2), (16, 2)])
+def test_f32_attention_plan_fits_the_card(window, c, nh):
+    side = 16 if window == 4 else (32 if window == 8 else 64)
+    plan = attn_mod.window_attention_f32_plan(c, nh, 16, side, side, window)
+    n = window * window
+    rows = min(n, 64)
+    hdp = -(-(c // nh) // 16) * 16
+    assert plan["rows"] == rows and plan["key_tiles"] == n // rows
+    assert plan["hdp"] == hdp and plan["pitch"] == hdp + 4
+    assert plan["smem_bytes"] == 4 * (3 * rows * (hdp + 4)
+                                      + rows * (rows + 4) + 3 * rows)
+    assert plan["smem_bytes"] <= attn_mod.BLOCK_SHARED_MAX
+    assert plan["blocks_per_sm"] >= 1
+    windows = 16 * (side // window) ** 2
+    assert plan["blocks"] == windows * nh * (n // rows)
+    # eight consecutive staged rows start in eight 16-byte bank groups
+    assert len({(r * plan["pitch"] * 4) % 128 for r in range(8)}) == 8
+
+
+def test_f32_gemm_plan_covers_the_flagships_products():
+    g = rdg_geometry(FLAGSHIP)
+    m = 16 * 32 * 32
+    flops = 0
+    for c, f, a in zip(g["feats"], g["hidden"], g["adj_out"]):
+        for n_out, k in ((3 * c, c), (c, c), (f, c), (c, f), (a, c)):
+            plan = gemm_mod.gemm_f32_plan(m, n_out, k)
+            assert plan["grid"] == (-(-n_out // 64), m // 128)
+            assert plan["grid"][1] <= 65535
+            assert plan["smem_bytes"] <= 48 * 1024     # static shared memory
+            assert plan["padded_flops"] >= 2 * m * n_out * k
+            flops += 2 * m * n_out * k
+    # one flagship RDG's 25 products are 72.3 GFLOP (the f32 bound's count)
+    assert flops / 1e9 == pytest.approx(72.3, abs=0.05)
+    assert gemm_mod.gemm_f32_plan(4 * m, 924, 308)["grid"][1] == 512
+
+
+def test_main_path_f32_layouts_take_wide_pieces():
+    """Every buffer an f32 kernel of the main path loads has 16-byte rows:
+    (a) takes 16-byte pieces on the concat prefix and on x1, (c) the
+    16-byte rows rule on qkv and ctx, and (b) its rules on every operand."""
+    g = rdg_geometry(FLAGSHIP)
+    m = 2 * 32 * 32
+    work = rdg_workspace(m, FLAGSHIP, torch.float32, "cpu")
+    cat = torch.empty(m, g["cat_width"], dtype=torch.float32)
+    for c, f in zip(g["feats"], g["hidden"]):
+        bufs = block_buffers(work, m, c, f)
+        assert ln_mod.check_ln_layout("t", cat[:, :c], bufs["ln1"]) == 16
+        assert ln_mod.check_ln_layout("t", bufs["x1"], bufs["ln2"]) == 16
+        attn_mod.check_rows16("t", bufs["qkv"], bufs["ctx"])
+        w = torch.empty(c, 3 * c)
+        gemm_mod.check_gemm_layout("t", c, bufs["ln1"], w, bufs["qkv"])
+        gemm_mod.check_gemm_layout("t", f, bufs["hid"], torch.empty(c, f),
+                                   bufs["x2"], bufs["x1"])
+        gemm_mod.check_gemm_layout("t", c, bufs["x2"], torch.empty(32, c),
+                                   cat[:, c:c + 32])
+
+
+def test_f32_layout_rules():
+    x = torch.empty(64, 312, dtype=torch.float32)
+    out = torch.empty(64, 180, dtype=torch.float32)
+    # a base one float past alignment: single values
+    assert ln_mod.check_ln_layout("t", x[:, 1:181], out) == 4
+    assert ln_mod.check_ln_layout("t", x[:, 4:184], out) == 16
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gemm_mod.check_gemm_layout("t", 180, x[:, 2:182],
+                                   torch.empty(32, 180), out[:, :32])
+    # an f32 output may sit at any row stride (one float a thread)
+    gemm_mod.check_gemm_layout("t", 180, x[:, :180], torch.empty(30, 180),
+                               torch.empty(64, 37)[:, 3:33])
+    with pytest.raises(ValueError, match="16-byte rows"):
+        attn_mod.check_rows16("t", torch.empty(64, 3 * 178)[:, :534])
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_other_dtypes_are_refused_on_the_card_route(dtype):
+    # the kernels' type rule names bf16 and f32; on the card's route
+    # ("meta" tensors take it) a tensor of another type raises in each of
+    # (a), (b) and (c) before any launch (meta is not CUDA: the device
+    # check comes first), and the launch counters do not move
+    with pytest.raises(NotImplementedError, match="take bf16 or f32"):
+        _build.kernel_dtype("t", _build.BF16_F32,
+                            torch.empty(4, 4, dtype=dtype))
+    meta = dict(device="meta", dtype=dtype)
+    f32 = dict(device="meta")
+    n0 = _launches()
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        ln_mod.rdg_layernorm(torch.empty(16, 8, **meta),
+                             torch.empty(8, **f32), torch.empty(8, **f32),
+                             torch.empty(16, 8, **meta))
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        gemm_mod.rdg_gemm(torch.empty(16, 8, **meta), torch.empty(4, 8, **meta),
+                          torch.empty(4, **f32), torch.empty(16, 4, **meta))
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        attn_mod.window_attention(torch.empty(128, 36, **meta),
+                                  torch.empty(128, 12, **meta),
+                                  torch.empty(2, 64, 64, **f32), None, 8, 16,
+                                  2, 8, 0)
+    assert _launches() == n0
+
+
+@pytest.mark.parametrize("wrapper", ["rdg_layernorm", "rdg_gemm",
+                                     "window_attention"])
+def test_f32_reaches_the_device_check(wrapper):
+    # f32 passes the type check of (a), (b) and (c) and stops at the device
+    # check (meta is not CUDA)
+    meta = dict(device="meta")
+    calls = {
+        "rdg_layernorm": lambda: ln_mod.rdg_layernorm(
+            torch.empty(16, 8, **meta), torch.empty(8, **meta),
+            torch.empty(8, **meta), torch.empty(16, 8, **meta)),
+        "rdg_gemm": lambda: gemm_mod.rdg_gemm(
+            torch.empty(16, 8, **meta), torch.empty(4, 8, **meta),
+            torch.empty(4, **meta), torch.empty(16, 4, **meta)),
+        "window_attention": lambda: attn_mod.window_attention(
+            torch.empty(128, 36, **meta), torch.empty(128, 12, **meta),
+            torch.empty(2, 64, 64, **meta), None, 8, 16, 2, 8, 0)}
+    n0 = _launches()
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        calls[wrapper]()
+    assert _launches() == n0
+
+
+def test_kernel_dtype_takes_one_dtype_of_the_listed_ones():
+    assert _build.kernel_dtype("t", _build.BF16_F32,
+                               torch.empty(4, dtype=torch.float32),
+                               torch.empty(2, 4)) == torch.float32
+    assert _build.kernel_dtype("t", _build.BF16, torch.empty(
+        4, dtype=torch.bfloat16)) == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="take bf16 .*item 17"):
+        _build.kernel_dtype("t", _build.BF16,
+                            torch.empty(4, 4, dtype=torch.float32),
+                            note=_build.NO_F32_BWD)
+    with pytest.raises(NotImplementedError, match="one type"):
+        _build.kernel_dtype("t", _build.BF16_F32,
+                            torch.empty(4, 4, dtype=torch.float32),
+                            torch.empty(4, 4, dtype=torch.bfloat16))
+    # the device check comes first
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        _build.require_cuda("t", _build.BF16_F32,
+                            torch.empty(4, 4, dtype=torch.float16))
+
+
+# ---- fp32 AnomalyServer and evaluate_anomaly against the JAX package ----
+
+SR_OFFSET = 100.0      # lifts the SR off 0, as tests/test_torch_serving.py
+
+
+def _pair(name, batch=4):
+    jcfg, pcfg, params = jax_params(name)
+    params = dict(params)
+    params["conv_last"] = dict(params["conv_last"])
+    params["conv_last"]["bias"] = params["conv_last"]["bias"] + SR_OFFSET
+    hr = pcfg.img_size * pcfg.upscale
+    kw = dict(resolution=hr, patch_size=hr, scale=(pcfg.upscale,),
+              n_colors=1, batch_size=batch, test_every=1)
+    jexp = jc.Experiment(model=jc.DRCTModelConfig(**CONFIGS[name]),
+                         data=jc.DataConfig(**kw), precision="fp32")
+    pexp = pc.Experiment(model=dataclasses.replace(pcfg),
+                         data=pc.DataConfig(**kw), precision="fp32")
+    return jexp, pexp, params, drct_state_dict_from_jax(params, pcfg)
+
+
+@pytest.mark.parametrize("name", ["window8", "window16"])
+def test_fp32_server_matches_jax(name):
+    jexp, pexp, params, sd = _pair(name)
+    side = pexp.model.img_size
+    hr_side = side * pexp.model.upscale
+    rng = np.random.RandomState(3)
+    lr = rng.randint(0, 256, (5, side, side, 3), np.uint8)
+    hr = rng.randint(0, 256, (5, hr_side, hr_side, 3), np.uint8)
+    theirs = JaxServer(batch_size=4, ssim_window=5)
+    theirs.register("grid", jexp, params)
+    ours = AnomalyServer(batch_size=4, ssim_window=5, device="cpu")
+    ours.register("grid", pexp, sd, mode="rdg")
+    want = theirs.score("grid", lr, hr)
+    got = ours.score("grid", lr, hr)
+    assert got.shape == (5, 3) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+
+def _write_split(root, split, n, side, scale, rng, defect):
+    from PIL import Image
+    base = root / "grid" / "test" / split
+    (base / "HR").mkdir(parents=True)
+    (base / "LR_bicubic" / f"X{scale}").mkdir(parents=True)
+    for i in range(n):
+        hr = rng.randint(60, 200, (side, side, 3)).astype(np.uint8)
+        if defect:
+            hr[side // 4:side // 2, side // 4:side // 2] ^= 255
+        lr = hr.reshape(side // scale, scale, side // scale, scale, 3) \
+            .mean(axis=(1, 3)).astype(np.uint8)
+        Image.fromarray(hr).save(base / "HR" / f"{i:03d}.png")
+        Image.fromarray(lr).save(base / "LR_bicubic" / f"X{scale}"
+                                 / f"{i:03d}x{scale}.png")
+
+
+def test_fp32_evaluate_anomaly_matches_jax_at_window16(tmp_path):
+    jexp, pexp, params, sd = _pair("window16")
+    side = pexp.model.img_size * pexp.model.upscale
+    rng = np.random.RandomState(4)
+    _write_split(tmp_path, "good", 4, side, pexp.model.upscale, rng, False)
+    _write_split(tmp_path, "bad", 3, side, pexp.model.upscale, rng, True)
+    want = jax_evaluate(jexp, params, str(tmp_path), "grid", out_dir=None,
+                        save_images=False, batch=4, log=lambda s: None)
+    got = evaluate_anomaly(pexp, sd, str(tmp_path), "grid", batch=4,
+                           device="cpu", log=lambda s: None)
+    assert got["best_ws"] == want["best_ws"]
+    assert got["y_true"] == want["y_true"]
+    swap = 1.0 / (4 * 3)   # one swapped rank pair moves an AUC by this
+    for key in ("auc_ssim", "auc_mse", "auc_psnr"):
+        assert abs(got[key] - want[key]) <= swap, key
+    for key in ("scores_ssim", "scores_mse", "scores_psnr"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-3, atol=1e-4)

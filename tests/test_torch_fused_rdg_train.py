@@ -279,8 +279,10 @@ def test_bwd_wrappers_raise_rather_than_fall_back_off_the_cpu():
 
 
 def test_fp32_train_step_on_cuda_is_refused():
+    # the backward kernels are bf16 only: fp32 training on the card is
+    # ROADMAP.md Queue 1 item 17 (fp32 serving runs the f32 kernels)
     from adsr_tpu_torch.core.config import drct_experiment
-    from adsr_tpu_torch.train.trainer import check_serving_precision
+    from adsr_tpu_torch.train.trainer import check_training_precision
     exp = dataclasses.replace(drct_experiment(run_tag="t"), precision="fp32")
-    with pytest.raises(NotImplementedError, match="fp32"):
-        check_serving_precision(exp, torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="fp32.*item 17"):
+        check_training_precision(exp, torch.device("cuda"))

@@ -16,7 +16,8 @@ from adsr_tpu_torch.eval.evaluate import evaluate_anomaly, evaluate_anomaly_arra
 from adsr_tpu_torch.eval.serving import AnomalyServer
 from adsr_tpu_torch.io.convert import (drct_state_dict_from_jax,
                                        drn_state_dict_from_jax)
-from adsr_tpu_torch.train.trainer import check_serving_precision
+from adsr_tpu_torch.train.trainer import (check_serving_precision,
+                                          check_training_precision)
 
 from torch_port_util import CONFIGS, drn_jax_params, jax_params
 
@@ -117,10 +118,19 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
 
 
 def test_fp32_on_cuda_is_not_implemented():
+    # fp32 serves on the card in rdg mode (the f32 kernels); what is still
+    # not implemented there: block mode in fp32 (an f32 kernel (g), ROADMAP
+    # item 18) and fp32 training (f32 backward kernels, item 17)
     _, pexp = _experiments()
-    with pytest.raises(NotImplementedError, match="fp32 serving kernels"):
-        check_serving_precision(pexp, torch.device("cuda"))
-    check_serving_precision(pexp, torch.device("cpu"))   # plain path: fine
+    cuda = torch.device("cuda")
+    check_serving_precision(pexp, cuda, mode="rdg")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        check_serving_precision(pexp, cuda, mode="block")
+    with pytest.raises(NotImplementedError, match="item 17"):
+        check_training_precision(pexp, cuda)
+    for mode in ("rdg", "block"):                      # plain path: fine
+        check_serving_precision(pexp, torch.device("cpu"), mode=mode)
+    check_training_precision(pexp, torch.device("cpu"))
 
 
 def _drn_carpet(patch=16, batch=4):
