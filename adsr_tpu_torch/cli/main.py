@@ -13,9 +13,10 @@ Writes a run dir (``io/journal.py``): log, config dump, per-epoch metrics,
 checkpoint and stop resumable. After training, the model is tested on
 ``val/good`` (PSNR/SSIM). Runs on the card (``--device cuda``, the default)
 or, for small configurations, on the CPU with the plain PyTorch path.
-DRCT trains through the card's kernels in bf16 (``--precision fp32`` with
-``--device cuda`` raises ``NotImplementedError`` before any data is read:
-ROADMAP.md Queue 1 item 17); DRN-L (``drn_experiment``)
+DRCT trains through the card's kernels in bf16, or with ``--precision
+fp32`` through their f32 instances, the head and tail convs in f32 with
+TF32 off; ``--device cuda`` on a machine without a card fails before any
+data is read and never falls back to the CPU. DRN-L (``drn_experiment``)
 through cuDNN convolutions in bf16 or, with ``--precision fp32``, in f32
 with TF32 off; ``--n-blocks`` / ``--n-feats`` shrink it for a small CPU run.
 ``--pretrain`` starts from ``workspace/pretrained_model_weights/``
@@ -93,11 +94,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--precision", type=str, default="bf16",
                    choices=["bf16", "fp32"],
-                   help="bf16 (default): DRCT trains on the card in bf16 "
-                        "only (fp32 training needs f32 backward kernels, "
-                        "ROADMAP.md Queue 1 item 17, and is refused up "
-                        "front); DRCT fp32 trains on the CPU, DRN-L fp32 "
-                        "anywhere")
+                   help="bf16 (default) or fp32: DRCT trains on the card "
+                        "through the kernels' bf16 or f32 instances, on the "
+                        "CPU through the plain path; DRN-L through cuDNN "
+                        "(fp32 with TF32 off)")
     p.add_argument("--dp", type=int, default=-1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--resume", action="store_true",
@@ -312,6 +312,7 @@ def main(argv: Optional[List[str]] = None) -> str:
     exp = build_experiment(args)
     from adsr_tpu_torch.train.trainer import check_training_precision
     check_training_precision(exp, torch.device(args.device))
+    resolve_device(args.device)    # no card: fail here, before any data
     if under_torchrun():
         dev = join_torchrun(args.device)
         # one run dir for every rank: rank 0's timestamped path

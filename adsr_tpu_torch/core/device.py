@@ -39,3 +39,19 @@ def full_f32() -> Iterator[None]:
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def deterministic_f32() -> Iterator[None]:
+    """:func:`full_f32`, and cuDNN's deterministic algorithms inside the
+    block (the previous setting restored on exit): the fused fp32 train
+    step, whose kernels sum in a fixed order, so that its whole backward
+    repeats bitwise (cuDNN's f32 filter gradients may otherwise sum with
+    atomics)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with full_f32():
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = saved

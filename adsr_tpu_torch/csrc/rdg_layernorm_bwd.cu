@@ -1,5 +1,5 @@
 // rdg_layernorm_bwd: backward of the row LayerNorm over the first C columns
-// of a row-strided bf16 buffer (eps 1e-6, affine unfolded).
+// of a row-strided bf16 or f32 buffer (eps 1e-6, affine unfolded).
 //
 //   x^ = (x - mean) * inv,  dy^ = gamma * dy
 //   dx += inv * (dy^ - mean(dy^) - x^ * mean(dy^ * x^))  [+ dres]
@@ -8,14 +8,15 @@
 // Replaces: the LayerNorm backward phases of the Pallas kernel _bwd_kernel
 // (adsr_tpu/ops/fused_rdg_train.py:405-770), which fold the affine into
 // the next matmul and so need no dgamma/dbeta; the port keeps the affine
-// unfolded and emits them.
-// Bound on H100: bytes (x in bf16, dy, dres and dx in f32, read once, dx
-// written once; a few f32 ops an element).
+// unfolded and emits them. The float instance (adsr_rdg_layernorm_bwd_f32)
+// is that kernel at dtype f32, for fp32 training.
+// Bound on H100: bytes (x in bf16 or f32, dy, dres and dx in f32, read
+// once, dx written once; a few f32 ops an element).
 // Design: a half-warp per row, so each warp has two rows' loads in flight;
 // a lane holds four columns of each 64 (C <= 320: five float4 a lane),
-// loads x as 8-byte bf16x4, dy, dres and dx as float4 (C, the f32 row
-// strides and the bf16 one are multiples of 4), and reads gamma once for
-// all its rows. Statistics are recomputed from x in f32, two passes (mean,
+// loads x as 8-byte bf16x4 (the f32 instance as float4), dy, dres and dx
+// as float4 (C and every row stride are multiples of 4), and reads gamma
+// once for all its rows. Statistics are recomputed from x in f32, two passes (mean,
 // then the centred sum of squares), so nothing of the forward is saved;
 // the four row sums are half-warp shuffles. dx is ADDED into a strided f32
 // buffer (the concat gradient's prefix dcat[:, :c_k], or the residual-stream
@@ -59,12 +60,21 @@ __device__ __forceinline__ float4 load_bf16x4(const __nv_bfloat16* p) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
+__device__ __forceinline__ float4 load_x4(const __nv_bfloat16* p) {
+  return load_bf16x4(p);
+}
+
+__device__ __forceinline__ float4 load_x4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
 __device__ __forceinline__ float sum4(float4 v) {
   return v.x + v.y + v.z + v.w;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-rdg_layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, long long ldx,
+rdg_layernorm_bwd_kernel(const T* __restrict__ x, long long ldx,
                          const float* __restrict__ dy, long long ldy,
                          const float* __restrict__ w,
                          const float* __restrict__ dres, long long ldr,
@@ -93,7 +103,7 @@ rdg_layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, long long ldx,
     for (int i = 0; i < kVec; ++i) {
       const int q = l + 16 * i;
       const bool in = ok && q < C4;
-      v[i] = in ? load_bf16x4(x + row * ldx + 4 * q)
+      v[i] = in ? load_x4(x + row * ldx + 4 * q)
                 : make_float4(0.f, 0.f, 0.f, 0.f);
       g[i] = in ? *reinterpret_cast<const float4*>(dy + row * ldy + 4 * q)
                 : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -195,10 +205,35 @@ rdg_layernorm_bwd_kernel(const __nv_bfloat16* __restrict__ x, long long ldx,
   }
 }
 
+template <typename T>
+int run(const void* x, long long ldx, const void* dy, long long ldy,
+        const void* w, const void* dres, long long ldr, void* dx,
+        long long ldo, void* part, void* dgamma, void* dbeta, int M, int C,
+        int blocks, float eps, void* stream) {
+  if (C <= 0 || C > kMaxC || C % 4 || M <= 0 || blocks < 1 || ldx % 4 ||
+      ldy % 4 || ldo % 4 || (dres != nullptr && ldr % 4) ||
+      reinterpret_cast<uintptr_t>(x) % (4 * sizeof(T)) ||
+      reinterpret_cast<uintptr_t>(dy) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 ||
+      reinterpret_cast<uintptr_t>(dx) % 16 ||
+      reinterpret_cast<uintptr_t>(dres) % 16)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  rdg_layernorm_bwd_kernel<T><<<blocks, kThreads, 0, s>>>(
+      (const T*)x, ldx, (const float*)dy, ldy, (const float*)w,
+      (const float*)dres, ldr, (float*)dx, ldo, (float*)part, M, C, eps);
+  const int rc = (int)cudaGetLastError();
+  if (rc) return rc;
+  return sum_partials(nullptr, 0, 0, nullptr, 0, nullptr, s,
+                      (const float*)part, blocks, 2 * C, (float*)dgamma, C,
+                      (float*)dbeta);
+}
+
 }  // namespace
 
 // ``blocks`` is the grid the caller planned (kernels/rdg_layernorm_bwd.py
-// ``rdg_layernorm_bwd_plan``); ``part`` holds blocks * 2 * C f32.
+// ``rdg_layernorm_bwd_plan``); ``part`` holds blocks * 2 * C f32. x is
+// bf16 with an 8-byte aligned base.
 extern "C" int adsr_rdg_layernorm_bwd(const void* x, long long ldx,
                                       const void* dy, long long ldy,
                                       const void* w, const void* dres,
@@ -206,21 +241,19 @@ extern "C" int adsr_rdg_layernorm_bwd(const void* x, long long ldx,
                                       void* part, void* dgamma, void* dbeta,
                                       int M, int C, int blocks, float eps,
                                       void* stream) {
-  if (C <= 0 || C > kMaxC || C % 4 || M <= 0 || blocks < 1 || ldx % 4 ||
-      ldy % 4 || ldo % 4 || (dres != nullptr && ldr % 4) ||
-      reinterpret_cast<uintptr_t>(x) % 8 ||
-      reinterpret_cast<uintptr_t>(dy) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16 ||
-      reinterpret_cast<uintptr_t>(dx) % 16 ||
-      reinterpret_cast<uintptr_t>(dres) % 16)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  rdg_layernorm_bwd_kernel<<<blocks, kThreads, 0, s>>>(
-      (const __nv_bfloat16*)x, ldx, (const float*)dy, ldy, (const float*)w,
-      (const float*)dres, ldr, (float*)dx, ldo, (float*)part, M, C, eps);
-  const int rc = (int)cudaGetLastError();
-  if (rc) return rc;
-  return sum_partials(nullptr, 0, 0, nullptr, 0, nullptr, s,
-                      (const float*)part, blocks, 2 * C, (float*)dgamma, C,
-                      (float*)dbeta);
+  return run<__nv_bfloat16>(x, ldx, dy, ldy, w, dres, ldr, dx, ldo, part,
+                            dgamma, dbeta, M, C, blocks, eps, stream);
+}
+
+// The same on an f32 x (fp32 training) with a 16-byte aligned base.
+extern "C" int adsr_rdg_layernorm_bwd_f32(const void* x, long long ldx,
+                                          const void* dy, long long ldy,
+                                          const void* w, const void* dres,
+                                          long long ldr, void* dx,
+                                          long long ldo, void* part,
+                                          void* dgamma, void* dbeta, int M,
+                                          int C, int blocks, float eps,
+                                          void* stream) {
+  return run<float>(x, ldx, dy, ldy, w, dres, ldr, dx, ldo, part, dgamma,
+                    dbeta, M, C, blocks, eps, stream);
 }

@@ -10,6 +10,6 @@ extern "C" int adsr_window_attention_f32(
     const void* qkv, long long ldq, void* ctx, long long ldc,
     const void* bias, const void* mask, int B, int H, int W, int C, int nh,
     int win, int shift, long long smem, void* stream) {
-  return entry<8>(qkv, ldq, ctx, ldc, bias, mask, B, H, W, C, nh, win,
-                  shift, smem, stream);
+  return entry<8>(qkv, ldq, ctx, ldc, bias, mask, nullptr, B, H, W, C, nh,
+                  win, shift, smem, stream);
 }

@@ -29,8 +29,11 @@
 // come in the forms kernels/window_attention.py ``attn_operands`` gives: the
 // full [nh, N, N] bias and [nW, N, N] mask at N = 16 and 64, the
 // relative-position table [nh, 31 * 31] and the region labels [nW, 256]
-// (int32, -100 between regions) at N = 256. No atomics: bitwise
-// repeatable; nothing survives a launch (graph-capturable).
+// (int32, -100 between regions) at N = 256. At N = 256, for the training
+// backward, it also writes each query row's softmax statistics (max, 1 /
+// sum of exp(score - max)) into ``stats`` [B * nW, nh, N, 2] when given
+// one, as the bf16 kernel does (kernel (f) reads them). No atomics:
+// bitwise repeatable; nothing survives a launch (graph-capturable).
 //
 // The kernel and its launch live here; one source a window includes it
 // (window_attention4_f32.cu, window_attention_f32.cu and
@@ -136,7 +139,8 @@ __global__ void __launch_bounds__(kThreads)
 window_attention_f32_kernel(const float* __restrict__ qkv, long long ldq,
                             float* __restrict__ ctx, long long ldc,
                             const float* __restrict__ bias,
-                            const void* __restrict__ mask, int H, int W,
+                            const void* __restrict__ mask,
+                            float* __restrict__ stats, int H, int W,
                             int C, int nh, int hd, int shift, float scale) {
   using G = Geo<N>;
   constexpr int R = G::R, SP = G::kSP, P = kPitch<HDP>;
@@ -304,6 +308,14 @@ window_attention_f32_kernel(const float* __restrict__ qkv, long long ldq,
     __syncthreads();                      // before the next tile's loads
   }
 
+  // each query row's (max, 1 / sum), the statistics kernel (f) reads
+  if (stats != nullptr) {
+    for (int r = tid; r < R; r += kThreads) {
+      float2* st = reinterpret_cast<float2*>(stats)
+                   + ((size_t)(b * nw + win) * nh + h) * N + qt * R + r;
+      *st = make_float2(row_max[r], 1.f / row_sum[r]);
+    }
+  }
   // the context: this thread's rows, head dims 4 dg .. 4 dg + 3 below hd
   if (pv) {
 #pragma unroll
@@ -322,7 +334,8 @@ window_attention_f32_kernel(const float* __restrict__ qkv, long long ldq,
 
 template <int N, int HDP>
 int launch(const void* qkv, long long ldq, void* ctx, long long ldc,
-           const void* bias, const void* mask, int B, int H, int W, int C,
+           const void* bias, const void* mask, void* stats, int B, int H,
+           int W, int C,
            int nh, int hd, int shift, long long smem, cudaStream_t stream) {
   constexpr size_t bytes = smem_bytes<N, HDP>();
   static_assert(bytes <= kMaxSmem, "window_attention_f32: shared memory");
@@ -342,18 +355,20 @@ int launch(const void* qkv, long long ldq, void* ctx, long long ldc,
   window_attention_f32_kernel<N, HDP>
       <<<(unsigned)blocks, kThreads, bytes, stream>>>(
           (const float*)qkv, ldq, (float*)ctx, ldc, (const float*)bias, mask,
-          H, W, C, nh, hd, shift, (float)(1.0 / std::sqrt((double)hd)));
+          (float*)stats, H, W, C, nh, hd, shift,
+          (float)(1.0 / std::sqrt((double)hd)));
   return (int)cudaGetLastError();
 }
 
 template <int N>
 int by_head(int hd, const void* qkv, long long ldq, void* ctx, long long ldc,
-            const void* bias, const void* mask, int B, int H, int W, int C,
-            int nh, int shift, long long smem, cudaStream_t s) {
+            const void* bias, const void* mask, void* stats, int B, int H,
+            int W, int C, int nh, int shift, long long smem,
+            cudaStream_t s) {
   switch ((hd + 15) / 16) {
 #define ADSR_HDP(K) \
-    case K: return launch<N, 16 * K>(qkv, ldq, ctx, ldc, bias, mask, B, H, \
-                                     W, C, nh, hd, shift, smem, s);
+    case K: return launch<N, 16 * K>(qkv, ldq, ctx, ldc, bias, mask, stats, \
+                                     B, H, W, C, nh, hd, shift, smem, s);
     ADSR_HDP(1) ADSR_HDP(2) ADSR_HDP(3) ADSR_HDP(4)
     ADSR_HDP(5) ADSR_HDP(6) ADSR_HDP(7) ADSR_HDP(8)
 #undef ADSR_HDP
@@ -368,19 +383,24 @@ int by_head(int hd, const void* qkv, long long ldq, void* ctx, long long ldc,
 // (kernels/window_attention.py ``window_attention_f32_plan``): a launch
 // whose plan differs from this file's layout is refused. qkv and ctx have
 // 16-byte aligned bases and row strides that are multiples of 4 floats.
+// ``stats`` (or null) takes the softmax statistics, at N = 256 only.
 template <int kWin>
 int entry(const void* qkv, long long ldq, void* ctx, long long ldc,
-          const void* bias, const void* mask, int B, int H, int W, int C,
-          int nh, int win, int shift, long long smem, void* stream) {
+          const void* bias, const void* mask, void* stats, int B, int H,
+          int W, int C, int nh, int win, int shift, long long smem,
+          void* stream) {
   if (win != kWin || H % win || W % win || nh <= 0 || C % nh || C % 4 ||
       B < 0 || shift < 0 || shift >= win || (shift > 0) != (mask != nullptr) ||
       ldq % 4 || ldc % 4 || ldq < 3ll * C || ldc < C || C / nh > 128 ||
+      (stats != nullptr && kWin != 16) ||
+      reinterpret_cast<uintptr_t>(stats) % 8 ||
       reinterpret_cast<uintptr_t>(qkv) % 16 ||
       reinterpret_cast<uintptr_t>(ctx) % 16)
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  return by_head<kWin * kWin>(C / nh, qkv, ldq, ctx, ldc, bias, mask, B, H,
-                              W, C, nh, shift, smem, (cudaStream_t)stream);
+  return by_head<kWin * kWin>(C / nh, qkv, ldq, ctx, ldc, bias, mask, stats,
+                              B, H, W, C, nh, shift, smem,
+                              (cudaStream_t)stream);
 }
 
 }  // namespace

@@ -106,9 +106,29 @@ SIGNATURES["adsr_swin_block16_clusters"] = [_I, _L, _P]
 # one entry a window (8x8, 4x4, 16x16)
 SIGNATURES["adsr_rdg_layernorm_f32"] = SIGNATURES["adsr_rdg_layernorm"]
 SIGNATURES["adsr_rdg_gemm_f32"] = SIGNATURES["adsr_rdg_gemm"][:18] + [_P]
-for _name in ("adsr_window_attention_f32", "adsr_window_attention4_f32",
-              "adsr_window_attention16_f32"):
+for _name in ("adsr_window_attention_f32", "adsr_window_attention4_f32"):
     SIGNATURES[_name] = SIGNATURES["adsr_window_attention"]
+# (c) f32 at 16x16 windows: adsr_window_attention's with the softmax
+# statistics after ``mask`` (null for none)
+SIGNATURES["adsr_window_attention16_f32"] = \
+    SIGNATURES["adsr_window_attention"][:6] + [_P] \
+    + SIGNATURES["adsr_window_attention"][6:]
+# the f32 instances of (d), (e) and (f) (fp32 training): (e)'s arguments as
+# adsr_rdg_layernorm_bwd's; (f)'s as the bf16 entries' of each window
+SIGNATURES["adsr_rdg_layernorm_bwd_f32"] = SIGNATURES["adsr_rdg_layernorm_bwd"]
+for _name in ("adsr_window_attention_bwd_f32",
+              "adsr_window_attention_bwd4_f32"):
+    SIGNATURES[_name] = SIGNATURES["adsr_window_attention_bwd"]
+SIGNATURES["adsr_window_attention_bwd16_f32"] = \
+    SIGNATURES["adsr_window_attention_bwd16"]
+# (d): dy, ldy, alpha, slope, lds, scale, scale_stride, rows_per_scale, W,
+# ldw, pre, ldp, out, ldo, A, lda, eff, lde, eff_t, ldt, part, db_part,
+# splits, rows_per_split, dW, db, M, N, K, stream (a null out skips dgrad,
+# a null dW wgrad)
+SIGNATURES["adsr_rdg_gemm_grads_f32"] = [_P, _L, _F, _P, _L, _P, _L, _I, _P,
+                                         _L, _P, _L, _P, _L, _P, _L, _P, _L,
+                                         _P, _L, _P, _P, _I, _I, _P, _P, _I,
+                                         _I, _I, _P]
 
 
 def sources() -> List[Path]:
@@ -200,9 +220,6 @@ def check_rc(name: str, rc: int) -> None:
 
 BF16 = (torch.bfloat16,)
 BF16_F32 = (torch.bfloat16, torch.float32)
-# where the backward kernels' f32 instances stand (require_cuda's note)
-NO_F32_BWD = ("; f32 instances of the backward kernels (d)-(f) are "
-              "ROADMAP.md Queue 1 item 17, 'fp32 training'")
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 

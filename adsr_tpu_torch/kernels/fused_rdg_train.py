@@ -5,7 +5,10 @@ The port of ``adsr_tpu/ops/fused_rdg_train.py``: ``_rdg_train_fwd_call``
 ``:823`` (``_fwd_kernel`` ``:266``) and ``_rdg_train_bwd`` ``:968``
 (``_bwd_kernel`` ``:405``) and ``fused_drct_train_forward`` ``:1127``; the
 JAX ``pack_train`` ``:1048`` is ``prepack_rdg_stack(..., detach=False)``
-(``kernels/fused_rdg.py``). Each RDG is one
+(``kernels/fused_rdg.py``). The kernels run in the compute dtype, as the
+TPU kernels do (``fused_rdg_train.py:1146``): bf16, or f32 for fp32
+training, where every launch of (a)-(f) is an f32 instance (each wrapper's
+``launches_f32``) and every buffer below is f32. Each RDG is one
 ``torch.autograd.Function``:
 
 - forward: the serving RDG's launches (kernels (a)-(c), ``fused_rdg``) with
@@ -27,8 +30,9 @@ JAX ``pack_train`` ``:1048`` is ``prepack_rdg_stack(..., detach=False)``
   of adjust k are complete when block k is reached, and adjust 1-4's
   LeakyReLU derivative is read from the sign of the saved ``cat`` columns.
 
-Packing stays outside the Function, in differentiable torch: the bf16 casts
-of the f32 master weights and the relative-position-bias gather, so autograd
+Packing stays outside the Function, in differentiable torch: the casts of
+the f32 master weights to the compute dtype and the relative-position-bias
+gather, so autograd
 carries the gradients to the raw parameters, the bias tables included (the
 JAX custom-VJP boundary at the packed operands, :44-48, 1048-1080). The
 softmax is always the stabilised one: the JAX exp2 fast path and its guard

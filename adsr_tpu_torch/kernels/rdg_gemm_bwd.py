@@ -33,6 +33,19 @@ as the MN-major B, wgrad with dY_eff^T and the activation both MN-major
 more, about one block per SM over the output tiles; a fixed-order pass sums
 the partials.
 
+f32 operands (fp32 training: the TPU kernel at dtype f32, whose staging is
+f32 with f32 accumulators) go to a kernel of their own,
+``adsr_tpu_torch/csrc/rdg_gemm_bwd_f32.cu`` (C entry
+``adsr_rdg_gemm_grads_f32``): the same function in full f32 with FFMA on
+the CUDA cores (no TF32, dY_eff kept f32). Bound on the H100: operations
+(one flagship RDG's 50 products are ~145 GFLOP, ~2.2 ms at 67 TFLOP/s).
+Design: a pre-pass writes dY_eff (where wgrad cannot read dY in place), its
+transpose for dgrad and the db partials; then one SIMT GEMM with both
+operands reduction-major, 128 x 64 output tiles of 8 x 8 outputs a thread,
+a 3-stage ``cp.async`` ring, wgrad in splits of M summed in a fixed order
+(:func:`gemm_bwd_f32_plan`). Its launches count in ``launches_f32`` on
+``rdg_gemm_dgrad`` and ``rdg_gemm_wgrad``, the bf16 ones in ``launches``.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 the call raises.
 """
@@ -49,9 +62,17 @@ from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels.rdg_gemm import n_tile, per_row
 
 _BM, _BK = 128, 64           # the mainloop's output rows and reduction step
-_PREP_ROWS = 32              # rows of one db partial (dy_prep_kernel)
+_PREP_ROWS = 32              # rows of one db partial (both pre-passes; the
+                             # f32 one's blocks take 32 x 32 of dY)
 _SMS = 132                   # the H100's SMs
 _MN_WIDTHS = (192, 128, 64)  # tile widths of an MN-major B (whole atoms)
+# the f32 kernel (csrc/rdg_gemm_bwd_f32.cu): output tile, threads, the
+# reduction step, blocks an SM (its __launch_bounds__), static shared memory
+F32_TILE = (128, 64)
+F32_THREADS = 128
+F32_BK = 16
+F32_BLOCKS_PER_SM = 3
+F32_SMEM_BYTES = 3 * F32_BK * (128 + 64) * 4
 
 
 def gelu_grad(x: torch.Tensor) -> torch.Tensor:
@@ -153,18 +174,43 @@ def check_bwd_layout(name: str, dy: torch.Tensor, k: int,
                          "a 4-element aligned base")
 
 
-def _check(name: str, dy, slope_src, row_scale, k: int, *bf16, out=None):
-    """The device and type rules, then :func:`check_bwd_layout`."""
+def check_bwd_f32_layout(name: str, dy: torch.Tensor, k: int,
+                         *f32: torch.Tensor,
+                         out: Optional[torch.Tensor] = None) -> None:
+    """The f32 kernel's layout rules, on tensor metadata only (no card
+    needed): dY, every operand (W, A, the GELU and LeakyReLU sources) and
+    ``out``, all f32, with unit column stride, a row stride that is a
+    multiple of 4 and a 16-byte aligned base (16-byte loads and stores);
+    N and K multiples of 4."""
+    for t in (dy,) + f32 + ((out,) if out is not None else ()):
+        if t.dtype != torch.float32 or t.stride(-1) != 1 \
+                or t.stride(0) % 4 or t.data_ptr() % 16:
+            raise ValueError(f"{name}: the f32 kernel needs f32 tensors with "
+                             "unit column stride, a row stride that is a "
+                             "multiple of 4 and a 16-byte aligned base, got "
+                             f"{t.dtype} strides {tuple(t.stride())}")
+    if dy.shape[1] % 4 or k % 4:
+        raise ValueError(f"{name}: N and K must be multiples of 4")
+
+
+def _check(name: str, dy, slope_src, row_scale, k: int, *operands,
+           out=None) -> bool:
+    """The device and type rules, then the layout of the route the
+    operands' dtype picks; True for the f32 kernel."""
     if dy.device.type != "cuda" or \
             (out is not None and out.device.type != "cuda"):
         raise ValueError(f"{name}: dy and out must be on CUDA, got "
                          f"{dy.device}")
-    operands = bf16 + ((slope_src,) if slope_src is not None else ())
-    _build.require_cuda(name, _build.BF16, *operands, layout=False,
-                        note=_build.NO_F32_BWD)
-    check_bwd_layout(name, dy, k, *operands, out=out)
+    operands = operands + ((slope_src,) if slope_src is not None else ())
+    f32 = _build.require_cuda(name, _build.BF16_F32, *operands,
+                              layout=False) == torch.float32
+    if f32:
+        check_bwd_f32_layout(name, dy, k, *operands, out=out)
+    else:
+        check_bwd_layout(name, dy, k, *operands, out=out)
     if row_scale is not None:
         _build.require_f32_cuda(name, row_scale, contiguous=False)
+    return f32
 
 
 def _check_shapes(name, dy, slope_src, row_scale):
@@ -202,16 +248,60 @@ def _ld(t: Optional[torch.Tensor]) -> int:
     return t.stride(0) if t is not None else 0
 
 
+@functools.lru_cache(maxsize=None)
+def gemm_bwd_f32_plan(m: int, n: int, k: int, sms: int = _SMS,
+                      dgrad: bool = True, wgrad: bool = True,
+                      prep: bool = True) -> dict:
+    """What the f32 kernel (``csrc/rdg_gemm_bwd_f32.cu``) launches for dY
+    [m, n] and W [n, k]: the pre-pass, a block per 32 x 32 tile of dY
+    (``prep_grid``); dgrad, a block of ``F32_THREADS`` a 128 x 64 tile of
+    dA [m, k] (``dgrad_grid``); wgrad, a block a 128 x 64 tile of dW [n, k]
+    and a split of the m rows (``wgrad_grid``: about ``F32_BLOCKS_PER_SM``
+    blocks an SM over the output tiles, each split at least 256 rows and a
+    multiple of the 16-row step). Its scratch, in byte offsets (each
+    region 256-byte aligned): dY_eff [m, n] f32 when ``prep`` (wgrad cannot
+    read dY in place) from 0, dY_eff^T [n, ldt] (ldt: m rounded up to 4)
+    when ``dgrad`` at ``eff_t``, the split partials [splits, n, k] at
+    ``part`` and the db partials [ceil(m / 32), n] at ``db_part`` when
+    ``wgrad``; ``bytes`` in all. Read only (cached)."""
+    def up(x):
+        return -(-x // 256) * 256
+    bm, bn = F32_TILE
+    tiles = -(-n // bm) * -(-k // bn)
+    s = max(1, min(sms * F32_BLOCKS_PER_SM // tiles, m // 256))
+    rows = -(-(-(-m // s)) // F32_BK) * F32_BK if m else F32_BK
+    splits = max(1, -(-m // rows)) if wgrad else 0
+    ldt = -(-m // 4) * 4
+    eff_t = up(m * n * 4) if prep and wgrad else 0
+    part = eff_t + (up(n * ldt * 4) if dgrad else 0)
+    db_part = part + (up(splits * n * k * 4) if wgrad else 0)
+    end = db_part + (-(-m // _PREP_ROWS) * n * 4 if wgrad else 0)
+    return {"tile": F32_TILE, "threads": F32_THREADS,
+            "smem_bytes": F32_SMEM_BYTES,
+            "prep_grid": (-(-n // _PREP_ROWS), -(-m // _PREP_ROWS)),
+            "dgrad_grid": (-(-k // bn), -(-m // bm), 1) if dgrad else None,
+            "wgrad_grid": (-(-k // bn), -(-n // bm), splits) if wgrad
+            else None,
+            "splits": splits, "rows_per_split": rows if wgrad else 0,
+            "ldt": ldt, "eff_t": eff_t, "part": part, "db_part": db_part,
+            "bytes": end, "flops": 2 * m * n * k * (int(dgrad) + int(wgrad))}
+
+
 def _launch(name: str, dy, alpha, slope_src, row_scale, w=None, out=None,
-            gelu_pre=None, a=None, dw=None, db=None) -> None:
+            gelu_pre=None, a=None, dw=None, db=None) -> bool:
     """The card's route of the three wrappers: dgrad when ``out`` is given,
-    wgrad when ``dw`` is, through the one C entry point."""
+    wgrad when ``dw`` is, through the one C entry point of the operands'
+    dtype. True for the f32 kernel."""
     m, n = dy.shape
     k = (w if out is not None else a).shape[1]
-    _check(name, dy, slope_src, row_scale, k,
-           *(t for t in (w, gelu_pre, a) if t is not None), out=out)
+    f32 = _check(name, dy, slope_src, row_scale, k,
+                 *(t for t in (w, gelu_pre, a) if t is not None), out=out)
     if dw is not None:
         _build.require_f32_cuda(name, dw, db)
+    if f32:
+        _launch_f32(name, dy, alpha, slope_src, row_scale, w, out, gelu_pre,
+                    a, dw, db)
+        return True
     splits, rows = (wgrad_splits(m, n, k, _build.sm_count(dy.device))
                     if dw is not None else (0, 0))
     prep = needs_prep(dy, alpha, slope_src, row_scale)
@@ -231,6 +321,33 @@ def _launch(name: str, dy, alpha, slope_src, row_scale, w=None, out=None,
         base + db_part if splits else None, splits, rows, _ptr(dw), _ptr(db),
         m, n, k, n_tile(k, _MN_WIDTHS), _build.stream_ptr(dy))
     _build.check_rc(name, rc)
+    return False
+
+
+def _launch_f32(name, dy, alpha, slope_src, row_scale, w, out, gelu_pre, a,
+                dw, db) -> None:
+    """The f32 kernel's launch (``adsr_rdg_gemm_grads_f32``)."""
+    m, n = dy.shape
+    k = (w if out is not None else a).shape[1]
+    prep = alpha != 1.0 or slope_src is not None or row_scale is not None
+    plan = gemm_bwd_f32_plan(m, n, k, _build.sm_count(dy.device),
+                             out is not None, dw is not None, prep)
+    scratch = torch.empty(plan["bytes"], dtype=torch.uint8, device=dy.device)
+    base = scratch.data_ptr()
+    wgrad = dw is not None
+    rc = _build.library().adsr_rdg_gemm_grads_f32(
+        dy.data_ptr(), dy.stride(0), float(alpha), _ptr(slope_src),
+        _ld(slope_src), _ptr(row_scale),
+        row_scale.stride(0) if row_scale is not None else 0,
+        m // row_scale.shape[0] if row_scale is not None else 0,
+        _ptr(w), _ld(w), _ptr(gelu_pre), _ld(gelu_pre), _ptr(out), _ld(out),
+        _ptr(a), _ld(a), base if prep and wgrad else None, n,
+        base + plan["eff_t"] if out is not None else None, plan["ldt"],
+        base + plan["part"] if wgrad else None,
+        base + plan["db_part"] if wgrad else None, plan["splits"],
+        plan["rows_per_split"], _ptr(dw), _ptr(db), m, n, k,
+        _build.stream_ptr(dy))
+    _build.check_rc(name, rc)
 
 
 def rdg_gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
@@ -246,9 +363,9 @@ def rdg_gemm_dgrad(dy: torch.Tensor, w: torch.Tensor, out: torch.Tensor,
         out.copy_(rdg_gemm_dgrad_plain(dy, w, alpha, slope_src, row_scale,
                                        gelu_pre))
         return out
-    _launch("rdg_gemm_dgrad", dy, alpha, slope_src, row_scale, w=w, out=out,
-            gelu_pre=gelu_pre)
-    rdg_gemm_dgrad.launches += 1
+    f32 = _launch("rdg_gemm_dgrad", dy, alpha, slope_src, row_scale, w=w,
+                  out=out, gelu_pre=gelu_pre)
+    _count(rdg_gemm_dgrad, f32)
     return out
 
 
@@ -265,9 +382,9 @@ def rdg_gemm_wgrad(dy: torch.Tensor, a: torch.Tensor, dw: torch.Tensor,
         dw.copy_(gw)
         db.copy_(gb)
         return
-    _launch("rdg_gemm_wgrad", dy, alpha, slope_src, row_scale, a=a, dw=dw,
-            db=db)
-    rdg_gemm_wgrad.launches += 1
+    f32 = _launch("rdg_gemm_wgrad", dy, alpha, slope_src, row_scale, a=a,
+                  dw=dw, db=db)
+    _count(rdg_gemm_wgrad, f32)
 
 
 def rdg_gemm_grads(dy: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -287,15 +404,23 @@ def rdg_gemm_grads(dy: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         rdg_gemm_wgrad(dy, a, dw, db, alpha, slope_src, row_scale)
         return rdg_gemm_dgrad(dy, w, out, alpha, slope_src, row_scale,
                               gelu_pre)
-    _launch("rdg_gemm_grads", dy, alpha, slope_src, row_scale, w=w, out=out,
-            gelu_pre=gelu_pre, a=a, dw=dw, db=db)
-    rdg_gemm_dgrad.launches += 1
-    rdg_gemm_wgrad.launches += 1
+    f32 = _launch("rdg_gemm_grads", dy, alpha, slope_src, row_scale, w=w,
+                  out=out, gelu_pre=gelu_pre, a=a, dw=dw, db=db)
+    _count(rdg_gemm_dgrad, f32)
+    _count(rdg_gemm_wgrad, f32)
     return out
 
 
-rdg_gemm_dgrad.launches = 0
-rdg_gemm_wgrad.launches = 0
-# card calls whose dY went through the dY_eff pre-pass into a bf16 copy
-# (:func:`needs_prep`), as opposed to being read in place; settable to 0
+def _count(wrapper, f32: bool) -> None:
+    if f32:
+        wrapper.launches_f32 += 1
+    else:
+        wrapper.launches += 1
+
+
+rdg_gemm_dgrad.launches = rdg_gemm_dgrad.launches_f32 = 0
+rdg_gemm_wgrad.launches = rdg_gemm_wgrad.launches_f32 = 0
+# bf16 card calls whose dY went through the dY_eff pre-pass into a bf16
+# copy (:func:`needs_prep`), as opposed to being read in place; settable to
+# 0 (the f32 kernel's calls are not counted: its pre-pass always runs)
 dy_eff_copies = 0

@@ -11,9 +11,13 @@ Replaces the LayerNorm backward phases of the Pallas kernel ``_bwd_kernel``
 (``adsr_tpu/ops/fused_rdg_train.py:405-770``); the TPU kernel folds the LN
 affine into the next matmul and needs no dgamma / dbeta, the port keeps the
 affine unfolded and emits them. Source:
-``adsr_tpu_torch/csrc/rdg_layernorm_bwd.cu``. Bound on the H100: bytes.
-Design: a half-warp per row (two rows in flight a warp), x as 8-byte bf16x4
-and the f32 tensors as float4 loads, gamma read once a thread, a grid of
+``adsr_tpu_torch/csrc/rdg_layernorm_bwd.cu``, templated on x's element
+type: bf16, and f32 for fp32 training (the TPU kernel at dtype f32; C entry
+``adsr_rdg_layernorm_bwd_f32``, its launches counted in
+``rdg_layernorm_bwd.launches_f32``, the bf16 ones in ``launches``). Bound on
+the H100: bytes. Design: a half-warp per row (two rows in flight a warp), x
+as 8-byte bf16x4 (f32: float4) and the f32 tensors as float4 loads, gamma
+read once a thread, a grid of
 :func:`rdg_layernorm_bwd_plan`'s blocks looping over the rows; dx is
 accumulated in place into a strided f32 buffer (a column prefix of the
 concat gradient); dgamma/dbeta as one fixed-order partial row a block, summed
@@ -61,15 +65,17 @@ def check_ln_bwd_layout(name: str, x: torch.Tensor, dy: torch.Tensor,
                         weight: Optional[torch.Tensor] = None) -> None:
     """The kernel's layout rules, on tensor metadata only (no card needed):
     c a multiple of 4 up to ``MAX_C``; every tensor with unit column stride
-    and a row stride that is a multiple of 4; ``x`` (bf16) with an 8-byte
-    aligned base, ``dy``, ``dx``, ``residual`` and ``weight`` (f32) with a
-    16-byte aligned base (4-wide loads and stores)."""
+    and a row stride that is a multiple of 4; ``x`` with a base aligned to
+    its four elements (8 bytes bf16, 16 bytes f32), ``dy``, ``dx``,
+    ``residual`` and ``weight`` (f32) with a 16-byte aligned base (4-wide
+    loads and stores)."""
     c = x.shape[1]
     if c % 4 or c > MAX_C:
         raise ValueError(f"{name}: the kernel takes widths that are "
                          f"multiples of 4 up to {MAX_C}, got {c}")
     f32 = (dy, dx) + tuple(t for t in (residual, weight) if t is not None)
-    for t, align in ((x, 8),) + tuple((t, 16) for t in f32):
+    for t, align in ((x, 4 * x.element_size()),) + tuple((t, 16)
+                                                         for t in f32):
         if t.stride(-1) != 1 or (t.dim() > 1 and t.stride(0) % 4) \
                 or t.data_ptr() % align:
             raise ValueError(f"{name}: needs unit column stride, a row "
@@ -102,7 +108,7 @@ def rdg_layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
                       eps: float = EPS) -> None:
     """``dx`` [M, c] (f32) += the input gradient (+ ``residual`` [M, c]
     f32); ``dweight``, ``dbias`` [c] f32 are written. ``x`` [M, c] is the
-    forward's input (bf16 on CUDA), ``dy`` [M, c] f32 the output's
+    forward's input (bf16 or f32 on CUDA), ``dy`` [M, c] f32 the output's
     gradient. Any strides on the CPU; on the card the rows of
     :func:`check_ln_bwd_layout`."""
     m, c = x.shape
@@ -118,15 +124,18 @@ def rdg_layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
         dbias.copy_(gb)
         return
     check_ln_bwd_layout("rdg_layernorm_bwd", x, dy, dx, residual, weight)
-    _build.require_cuda("rdg_layernorm_bwd", _build.BF16, x,
-                        note=_build.NO_F32_BWD)
+    f32 = _build.require_cuda("rdg_layernorm_bwd", _build.BF16_F32,
+                              x) == torch.float32
     _build.require_f32_cuda("rdg_layernorm_bwd", weight, dweight, dbias)
     strided = (dy, dx) + ((residual,) if residual is not None else ())
     _build.require_f32_cuda("rdg_layernorm_bwd", *strided, contiguous=False)
     plan = rdg_layernorm_bwd_plan(m, c, _build.sm_count(x.device))
     part = torch.empty(plan["blocks"] * 2 * c, dtype=torch.float32,
                        device=x.device)
-    rc = _build.library().adsr_rdg_layernorm_bwd(
+    lib = _build.library()
+    entry = lib.adsr_rdg_layernorm_bwd_f32 if f32 else \
+        lib.adsr_rdg_layernorm_bwd
+    rc = entry(
         x.data_ptr(), x.stride(0), dy.data_ptr(), dy.stride(0),
         weight.data_ptr(),
         residual.data_ptr() if residual is not None else None,
@@ -134,7 +143,11 @@ def rdg_layernorm_bwd(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
         dx.data_ptr(), dx.stride(0), part.data_ptr(), dweight.data_ptr(),
         dbias.data_ptr(), m, c, plan["blocks"], eps, _build.stream_ptr(x))
     _build.check_rc("rdg_layernorm_bwd", rc)
-    rdg_layernorm_bwd.launches += 1
+    if f32:
+        rdg_layernorm_bwd.launches_f32 += 1
+    else:
+        rdg_layernorm_bwd.launches += 1
 
 
 rdg_layernorm_bwd.launches = 0
+rdg_layernorm_bwd.launches_f32 = 0

@@ -40,10 +40,11 @@ padded head dim (one source a window: ``window_attention4_f32.cu``,
 stages its query rows and walks the window's keys in tiles of min(N, 64)
 with an online softmax in full f32
 (``expf``; P stays f32), the bias and mask in the forms
-:func:`attn_operands` gives (:func:`window_attention_f32_plan`). It writes
-no softmax statistics (only the training backward reads them). Its
-launches count in ``window_attention.launches_f32``, the bf16 ones in
-``launches``.
+:func:`attn_operands` gives (:func:`window_attention_f32_plan`). At
+``TILED_WINDOWS`` it writes each query row's softmax statistics when given
+a ``stats`` buffer, as the bf16 kernel does (fp32 training's recompute;
+kernel (f) f32 reads them). Its launches count in
+``window_attention.launches_f32``, the bf16 ones in ``launches``.
 
 Also here, for packing and the plain version: the additive attention term
 (relative-position bias plus shift mask) in its per-window form, the JAX
@@ -523,13 +524,10 @@ def window_attention(qkv: torch.Tensor, out: torch.Tensor, bias: torch.Tensor,
         raise ValueError(f"window_attention: the kernel writes softmax "
                          f"statistics at windows {TILED_WINDOWS} only")
     if f32:
-        if stats is not None:
-            raise NotImplementedError(
-                "window_attention: the f32 kernel writes no softmax "
-                "statistics (only the training backward reads them: "
-                "ROADMAP.md Queue 1 item 17, 'fp32 training')")
         plan = window_attention_f32_plan(c, num_heads, b, h, w, window)
         entry = getattr(_build.library(), F32_ENTRIES[window])
+        if window in TILED_WINDOWS:     # (max, 1 / sum) a query row
+            args += (None if stats is None else stats.data_ptr(),)
         rc = entry(*args, b, h, w, c, num_heads, window, shift,
                    plan["smem_bytes"], _build.stream_ptr(qkv))
         _build.check_rc("window_attention", rc)

@@ -42,6 +42,21 @@ pass. No float atomics at any window. The kernel takes the
 forward's windows (``KERNEL_WINDOWS``), and ``qkv``, ``dout``, ``ctx`` and
 ``dqkv`` with 16-byte rows at their row strides (:func:`check_rows16`).
 
+f32 operands (fp32 training: the TPU kernel at dtype f32) go to a kernel
+of their own, ``csrc/window_attention_bwd_f32.cuh`` (one source a window:
+``window_attention_bwd4_f32.cu``, ``window_attention_bwd_f32.cu``,
+``window_attention_bwd16_f32.cu``): every product in f32 FFMA on the CUDA
+cores, a block's head staged from the 16-byte pieces that hold it into
+f32 planes; at N = 16 and 64 one launch, a block per (group of windows,
+head) recomputing the softmax; at N = 256 the forward's context and
+statistics (kernel (c) f32's) and two launches, ``dq`` per (window, head,
+query tile) and ``dkv`` per (group of windows, head, key tile)
+(:func:`window_attention_bwd_f32_plan`); one d(bias) partial a (group,
+head), summed in a fixed order. Bound on the H100: bytes at N = 16 and
+64, operations at N = 256. Its launches count in
+``window_attention_bwd.launches_f32`` (two a call at N = 256), the bf16
+ones in ``launches``.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 the call raises.
 """
@@ -55,11 +70,11 @@ import torch
 
 from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels.window_attention import (
-    ALIGN_SLACK, BLOCK_RESERVED, BLOCK_SHARED_MAX, KEY_TILE, KERNEL_WINDOW,
-    KERNEL_WINDOWS, LABEL_BYTES, REGISTERS, REL_TABLE_BYTES, SM_SHARED_BYTES,
-    SMS, TILED_WINDOWS, check_bias, check_mask, check_rows16, full_bias,
-    full_mask, head_tile, plan4, stage_bytes, swizzle_bytes,
-    window_scores, windows_text)
+    ALIGN_SLACK, BLOCK_RESERVED, BLOCK_SHARED_MAX, F32_THREADS, KEY_TILE,
+    KERNEL_WINDOW, KERNEL_WINDOWS, LABEL_BYTES, REGISTERS, REL_TABLE_BYTES,
+    SM_SHARED_BYTES, SMS, THREADS_PER_SM, TILED_WINDOWS, check_bias,
+    check_mask, check_rows16, full_bias, full_mask, head_tile, plan4,
+    stage_bytes, swizzle_bytes, window_scores, windows_text)
 from adsr_tpu_torch.models.drct import window_partition, window_reverse
 
 THREADS = 128          # 4 warps, 16 query (and key) rows each
@@ -67,6 +82,10 @@ MAX_GROUP = 8          # windows a block
 _TOKENS = KERNEL_WINDOW ** 2
 _TILE_LD = _TOKENS + 8          # bf16 pitch of the P and dS tiles
 MAX_PARTIAL_BYTES = 32 << 20    # d(bias) partials a call at 16x16 windows
+# the f32 kernel's C entry a window (a source a window, built in parallel)
+F32_ENTRIES = {8: "adsr_window_attention_bwd_f32",
+               4: "adsr_window_attention_bwd4_f32",
+               16: "adsr_window_attention_bwd16_f32"}
 
 
 def min_blocks(hdp: int) -> int:
@@ -168,6 +187,69 @@ def _plan16(c: int, nh: int, b: int, h: int, w: int, window: int) -> dict:
             "stats_bytes": windows * nh * n * 16, "launches": 2}
 
 
+@functools.lru_cache(maxsize=None)
+def window_attention_bwd_f32_plan(c: int, nh: int, b: int = 1, h: int = 8,
+                                  w: int = 8, window: int = KERNEL_WINDOW,
+                                  sms: int = SMS) -> dict:
+    """What the f32 kernel (``csrc/window_attention_bwd_f32.cuh``) launches
+    for width ``c`` and ``nh`` heads at batch ``b`` on ``h`` x ``w`` tokens.
+    Blocks of ``F32_THREADS``; shared memory (the source's layout) of q, k,
+    v and dO planes [rows][hdp + 4] f32 (rows = min(N, 64)), P and dS tiles
+    [rows][rows + 4] and, at N = 256, each row's max, 1 / sum and D. At N
+    = 16 and 64 one launch, a block per (group of ``group`` windows, head):
+    ``group`` is the fewest windows a block (at most ``MAX_GROUP``) for
+    which every block is resident at once (``blocks_per_sm`` by shared
+    memory and the source's two blocks a ``__launch_bounds__``). At N =
+    256 two: ``dq`` a block per (window, head, query tile), shared memory
+    ``smem_dq_bytes`` (no P tile), and ``dkv`` a block per (group, head,
+    key tile), ``group`` the fewest windows that keep the partials within
+    ``MAX_PARTIAL_BYTES``; ``dsum_bytes`` the scratch of each query row's D.
+    One d(bias) partial [nh, N, N] a group (``partial_bytes``). The source
+    refuses a launch whose shared memory differs from this plan's. Read
+    only (cached)."""
+    if window not in KERNEL_WINDOWS:
+        raise ValueError(f"window_attention_bwd_f32_plan: window {window}, "
+                         f"the kernel takes {KERNEL_WINDOWS}")
+    hdp = head_tile(c // nh)
+    n = window * window
+    rows = min(n, KEY_TILE)
+    planes = 4 * rows * (hdp + 4) * 4
+    tile = rows * (rows + 4) * 4
+    windows = b * (h // window) * (w // window)
+
+    def per_sm(smem, most):
+        return min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED),
+                   THREADS_PER_SM // F32_THREADS, most)
+
+    plan = {"hdp": hdp, "pitch": hdp + 4, "tokens": n, "rows": rows,
+            "threads": F32_THREADS, "windows": windows}
+    if n <= KEY_TILE:
+        smem = planes + 2 * tile
+        fit = per_sm(smem, 2)
+        group = next((g for g in range(1, MAX_GROUP)
+                      if nh * -(-windows // g) <= fit * sms), MAX_GROUP)
+        groups = -(-windows // group)
+        plan.update(smem_bytes=smem, blocks_per_sm=fit, launches=1,
+                    blocks=groups * nh)
+    else:
+        smem = planes + 2 * tile + 3 * rows * 4
+        smem_dq = planes + tile + 3 * rows * 4
+        per_group = nh * n * n * 4
+        group = max(1, -(-windows // max(1, MAX_PARTIAL_BYTES // per_group)))
+        groups = -(-windows // group)
+        tiles = n // rows
+        plan.update(smem_bytes=smem, smem_dq_bytes=smem_dq,
+                    blocks_per_sm=per_sm(smem, 1),
+                    dq_blocks_per_sm=per_sm(smem_dq, 2), launches=2,
+                    blocks=groups * nh * tiles,
+                    dq_blocks=windows * nh * tiles,
+                    dsum_bytes=windows * nh * n * 4)
+    plan.update(group=group, groups=groups,
+                last_group=windows - (groups - 1) * group,
+                partial_bytes=groups * nh * n * n * 4)
+    return plan
+
+
 def window_attention_bwd_plain(qkv: torch.Tensor, dout: torch.Tensor,
                                bias: torch.Tensor,
                                mask: Optional[torch.Tensor], h: int, w: int,
@@ -266,8 +348,8 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
             f"widths that are multiples of 4 and head dims <= 128 (got "
             f"window {window}, c {c}, hd {c // num_heads})")
     check_rows16("window_attention_bwd", qkv, dout, dqkv)
-    _build.require_cuda("window_attention_bwd", _build.BF16, qkv, dout,
-                        dqkv, note=_build.NO_F32_BWD)
+    f32 = _build.require_cuda("window_attention_bwd", _build.BF16_F32, qkv,
+                              dout, dqkv) == torch.float32
     check_bias("window_attention_bwd", bias, num_heads, window, card=True)
     check_mask("window_attention_bwd", mask, nw, window, card=True)
     params = (bias, dbias) + ((mask,) if mask is not None
@@ -283,6 +365,15 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
                          f"{TILED_WINDOWS}, and only there (window "
                          f"{window})")
     b = m // (h * w)
+    if window in TILED_WINDOWS:
+        _build.require_cuda("window_attention_bwd", _build.BF16_F32, qkv,
+                            ctx)
+        check_rows16("window_attention_bwd", ctx)
+        _build.require_f32_cuda("window_attention_bwd", stats)
+    if f32:
+        _launch_f32(qkv, dout, bias, mask, h, w, num_heads, window, shift,
+                    dqkv, dbias, ctx, stats)
+        return
     plan = window_attention_bwd_plan(c, num_heads, b, h, w,
                                      _build.sm_count(qkv.device), window)
     part = torch.empty(plan["partial_bytes"] // 4, dtype=torch.float32,
@@ -303,10 +394,6 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
             dbias.data_ptr(), b, h, w, c, num_heads, window, shift,
             plan["group"], plan["smem_bytes"], _build.stream_ptr(qkv))
     else:
-        _build.require_cuda("window_attention_bwd", _build.BF16, qkv, ctx,
-                            note=_build.NO_F32_BWD)
-        check_rows16("window_attention_bwd", ctx)
-        _build.require_f32_cuda("window_attention_bwd", stats)
         stats4 = torch.empty(plan["stats_bytes"] // 4, dtype=torch.float32,
                              device=qkv.device)
         rc = lib.adsr_window_attention_bwd16(
@@ -322,4 +409,37 @@ def window_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
     window_attention_bwd.launches += plan.get("launches", 1)
 
 
+def _launch_f32(qkv, dout, bias, mask, h, w, num_heads, window, shift, dqkv,
+                dbias, ctx, stats) -> None:
+    """The f32 kernel's launch (one C entry a window), counted in
+    ``launches_f32``."""
+    m, c3 = qkv.shape
+    c, b = c3 // 3, m // (h * w)
+    plan = window_attention_bwd_f32_plan(c, num_heads, b, h, w, window,
+                                         _build.sm_count(qkv.device))
+    part = torch.empty(plan["partial_bytes"] // 4, dtype=torch.float32,
+                       device=qkv.device)
+    entry = getattr(_build.library(), F32_ENTRIES[window])
+    mask_ptr = None if mask is None else mask.data_ptr()
+    if window in TILED_WINDOWS:
+        dsum = torch.empty(plan["dsum_bytes"] // 4, dtype=torch.float32,
+                           device=qkv.device)
+        rc = entry(qkv.data_ptr(), qkv.stride(0), dout.data_ptr(),
+                   dout.stride(0), ctx.data_ptr(), ctx.stride(0),
+                   bias.data_ptr(), mask_ptr, stats.data_ptr(),
+                   dqkv.data_ptr(), dqkv.stride(0), dsum.data_ptr(),
+                   part.data_ptr(), dbias.data_ptr(), b, h, w, c, num_heads,
+                   shift, plan["group"], plan["smem_dq_bytes"],
+                   plan["smem_bytes"], _build.stream_ptr(qkv))
+    else:
+        rc = entry(qkv.data_ptr(), qkv.stride(0), dout.data_ptr(),
+                   dout.stride(0), bias.data_ptr(), mask_ptr,
+                   dqkv.data_ptr(), dqkv.stride(0), part.data_ptr(),
+                   dbias.data_ptr(), b, h, w, c, num_heads, window, shift,
+                   plan["group"], plan["smem_bytes"], _build.stream_ptr(qkv))
+    _build.check_rc("window_attention_bwd", rc)
+    window_attention_bwd.launches_f32 += plan["launches"]
+
+
 window_attention_bwd.launches = 0
+window_attention_bwd.launches_f32 = 0

@@ -79,8 +79,8 @@ import torch
 
 from adsr_tpu_torch.core.config import (DRCTModelConfig, DRNModelConfig,
                                         Experiment)
-from adsr_tpu_torch.core.device import (compute_dtype, full_f32,
-                                        resolve_device)
+from adsr_tpu_torch.core.device import (compute_dtype, deterministic_f32,
+                                        full_f32, resolve_device)
 from adsr_tpu_torch.core.graphs import CapturedCall
 from adsr_tpu_torch.core.mesh import (Mesh, ShardedCall, gather_rows,
                                       mean_over_data, n_data, shard_batch,
@@ -122,19 +122,11 @@ def check_serving_precision(exp: Experiment, device: torch.device,
 
 
 def check_training_precision(exp: Experiment, device: torch.device) -> None:
-    """DRCT trains on the card in bf16 only: the backward kernels (d)-(f)
-    have no f32 instances yet (ROADMAP.md Queue 1 item 17, 'fp32
-    training'), and fp32 training there is refused at any mesh, before any
-    data is read. The CPU's eager model trains in both; DRN-L takes both
-    everywhere."""
+    """DRCT trains on the card in bf16 and fp32 at any mesh (kernels (a)-(f)
+    have bf16 and f32 instances; at tp > 1 the eager model runs in f32);
+    its validation forward serves in rdg mode, which takes both. The CPU's
+    eager model trains in both; DRN-L takes both everywhere."""
     check_serving_precision(exp, device, mode="rdg")
-    if isinstance(exp.model, DRCTModelConfig) and device.type == "cuda" \
-            and exp.precision != "bf16":
-        raise NotImplementedError(
-            f"DRCT training in {exp.precision!r} on CUDA: the backward "
-            "kernels are bf16 only; fp32 training is ROADMAP.md Queue 1 "
-            "item 17 (fp32 serves on the card; on the CPU fp32 trains on "
-            "the plain path)")
 
 
 def drn_sr(model: torch.nn.Module, exp: Experiment,
@@ -416,9 +408,18 @@ def make_train_step(exp: Experiment, device="cuda",
              ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         opt = state.optimizer
         hr = torch.as_tensor(hr, device=dev)
-        # the eager models' f32 convs and products in full f32, the
-        # backward's too
-        with contextlib.nullcontext() if fused else full_f32():
+        # f32 convs and products in full f32 (TF32 off), the backward's
+        # too: the eager models', and the fused fp32 step's head and tail
+        # convs, there with cuDNN's deterministic algorithms so that the
+        # whole backward repeats bitwise as its kernels do (the bf16 fused
+        # step's convs run in bf16)
+        if not fused:
+            context = full_f32()
+        elif dtype == torch.float32:
+            context = deterministic_f32()
+        else:
+            context = contextlib.nullcontext()
+        with context:
             total, metrics = loss_of(state, lrs, hr, generator)
             opt.zero_grad(set_to_none=True)
             total.backward()

@@ -111,6 +111,23 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    default on phase 10's run dir; each f32 kernel's ms per RDG at the three
    geometries beside its bound, plain version and library call, and the
    fp32 forward's ms against its bound;
+11b. fp32 training, lines "[fp32_train] <phase>: ...": the f32 instances
+   of the backward kernels (d)-(f) (TPU kernel 3 at dtype f32) against their
+   plain f32 versions on the card (TF32 off): (d) at every flagship product
+   and dY transform through ``rdg_gemm_grads``, (e) at both LayerNorms of
+   every block, (f) at every block and both shifts at windows 8, 4 (64/x4)
+   and 16 (256px/x4; fed kernel (c) f32's context and softmax statistics,
+   which are checked too), every call twice, bitwise equal, each within
+   ``F32_REL_L2`` / ``F32_MAX_ABS``; one RDG in f32 against eager f32
+   autograd (``F32_RDG_REL_L2``), twice bitwise; a fp32 ``Trainer`` (two
+   steps, a test, 20 steps on one batch: the loss falls, every launch of
+   (a)-(f) f32 and none bf16, the step's convolutions with cuDNN TF32 off,
+   its backward twice bitwise); the fp32 step's ms, idle share and bound;
+   ``cli.main --precision fp32`` one epoch on phase 10's data root and
+   ``cli.evaluate`` at fp32 on its run dir; each f32 backward kernel's ms
+   per RDG at the three geometries beside its bound, plain version and
+   library call (``torch.matmul`` x 2, ATen's LayerNorm backward, SDPA's
+   f32 backward);
 12. the window-16 geometry, lines "[w16] <phase>: ...": the full-width
    256px model (``drct_experiment("grid", 256, 4)``: LR 64 x 64, 16x16
    windows, N = 256 keys, shifts 0 and 8, M = 65,536 token rows at batch
@@ -215,7 +232,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    (gloo's goes through the host: no speed claim).
 
 The build and the ptxas lines come from this process; each geometry
-(phases 3-11 of the flagship, 11a in fp32, 12, 13), the smoke (14), DRN-L (15),
+(phases 3-11 of the flagship, 11a and 11b in fp32, 12, 13), the smoke (14),
+DRN-L (15),
 EfficientAD (16) and the mesh (17) runs in a process of its own, which
 this one starts and waits for (``--phase NAME OUT``).
 
@@ -224,10 +242,13 @@ window-16 readings under ``"w16"``, its window-4 readings under ``"w4"``,
 its launches on every main path under ``"launches_by_path"``), the
 nvidia-smi line and ``{"ok": true, "device": {...}}``; the f32 instances are
 the kernels line's ``rdg_layernorm_f32``, ``rdg_gemm_f32`` and
-``window_attention_f32``, their windows 4 and 16 under ``"w4"`` / ``"w16"``;
+``window_attention_f32``, and of (d)-(f) ``rdg_gemm_bwd_f32``,
+``rdg_layernorm_bwd_f32`` and ``window_attention_bwd_f32`` (their launches
+each wrapper's ``launches_f32``), their windows 4 and 16 under ``"w4"`` /
+``"w16"``;
 a ``[report]`` line
 before them holds every number the run measured, as JSON (the fp32
-phase's under ``"fp32"``, the window-16
+phases' under ``"fp32"`` and ``"fp32_train"``, the window-16
 phase's under ``"w16"``, the window-4 phase's under ``"w4"``, the smoke's
 under ``"smoke"``, DRN-L's under ``"drn"``, EfficientAD's under
 ``"ead"``, the mesh's under ``"mesh"``; the mesh's launches are the
@@ -262,7 +283,7 @@ from adsr_tpu_torch.cli import main as cli_main
 from adsr_tpu_torch.cli import smoke as cli_smoke
 from adsr_tpu_torch.core.config import (MeshConfig, drct_experiment,
                                         drn_experiment)
-from adsr_tpu_torch.core.device import full_f32
+from adsr_tpu_torch.core.device import deterministic_f32, full_f32
 from adsr_tpu_torch.core.mesh import default_backend, make_mesh
 from adsr_tpu_torch.data.pipeline import SRDataset, load_sr_dataset, set_channel
 from adsr_tpu_torch.data.prepare import lr_from_hr
@@ -435,7 +456,11 @@ PER_FORWARD = {"rdg_layernorm": 120, "rdg_gemm": 300, "window_attention": 60}
 # each wrapper's ``launches_f32``; 40 a RDG, as the bf16 route
 F32_KERNELS = ("rdg_layernorm_f32", "rdg_gemm_f32", "window_attention_f32")
 F32_WRAPPERS = {"rdg_layernorm_f32": rdg_layernorm, "rdg_gemm_f32": rdg_gemm,
-                "window_attention_f32": window_attention}
+                "window_attention_f32": window_attention,
+                "rdg_gemm_dgrad_f32": gbwd.rdg_gemm_dgrad,
+                "rdg_gemm_wgrad_f32": gbwd.rdg_gemm_wgrad,
+                "rdg_layernorm_bwd_f32": rdg_layernorm_bwd,
+                "window_attention_bwd_f32": window_attention_bwd}
 PER_FORWARD_F32 = {"rdg_layernorm_f32": 120, "rdg_gemm_f32": 300,
                    "window_attention_f32": 60}
 F32_SOURCES = {"rdg_layernorm_f32": "adsr_tpu_torch/csrc/rdg_layernorm.cu",
@@ -446,6 +471,20 @@ F32_SOURCES = {"rdg_layernorm_f32": "adsr_tpu_torch/csrc/rdg_layernorm.cu",
 F32_WINDOW_SOURCES = {
     "w4": "adsr_tpu_torch/csrc/window_attention4_f32.cu",
     "w16": "adsr_tpu_torch/csrc/window_attention16_f32.cu"}
+# the f32 instances of (d)-(f) (fp32 training: rdg_gemm_bwd_f32.cu,
+# rdg_layernorm_bwd.cu's f32 instance, window_attention_bwd*_f32.cu on
+# window_attention_bwd_f32.cuh, a source a window), counted in each
+# wrapper's ``launches_f32``
+F32_BWD_KERNELS = ("rdg_gemm_bwd_f32", "rdg_layernorm_bwd_f32",
+                   "window_attention_bwd_f32")
+F32_BWD_SOURCES = {
+    "rdg_gemm_bwd_f32": "adsr_tpu_torch/csrc/rdg_gemm_bwd_f32.cu",
+    "rdg_layernorm_bwd_f32": "adsr_tpu_torch/csrc/rdg_layernorm_bwd.cu",
+    "window_attention_bwd_f32":
+    "adsr_tpu_torch/csrc/window_attention_bwd_f32.cu"}
+F32_BWD_WINDOW_SOURCES = {
+    "w4": "adsr_tpu_torch/csrc/window_attention_bwd4_f32.cu",
+    "w16": "adsr_tpu_torch/csrc/window_attention_bwd16_f32.cu"}
 # block mode: per RDG five (g) launches and five adjust products
 PER_FORWARD_BLOCK = {"swin_block": 60, "rdg_gemm": 60}
 # one train step, 12 RDGs: forward 10 / 25 / 5 a RDG; the backward
@@ -459,6 +498,9 @@ PER_TRAIN_STEP = {"rdg_layernorm": 240, "rdg_gemm": 540,
 # over groups of windows), so 120 a step; the other counts are the
 # flagship's (the same launches a block at any window)
 PER_TRAIN_STEP_W16 = {**PER_TRAIN_STEP, "window_attention_bwd": 120}
+# one fp32 train step at the flagship: the same launches, every one an f32
+# instance
+PER_TRAIN_STEP_F32 = {f"{k}_f32": v for k, v in PER_TRAIN_STEP.items()}
 W16_BWD_LAUNCHES = 2
 SOURCES = {k: f"adsr_tpu_torch/csrc/{k}.cu"
            for k in KERNELS + BWD_KERNELS + BLOCK_KERNELS}
@@ -2303,10 +2345,22 @@ def profile_steps(fn, reps: int = 3):
     node (every RDG Function) is also charged to that node's CPU event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fams = {"dgrad_kernel": "rdg_gemm_bwd dgrad",
-            "wgrad_kernel": "rdg_gemm_bwd wgrad",
-            "dy_prep_kernel": "rdg_gemm_bwd dY prep",
-            "sum_partials_kernel": "partial sums (d, e, f)"}
+    # the f32 instances first: "rdg_gemm_f32_kernel<0>" holds
+    # "gemm_f32_kernel<0>"
+    fams = {"rdg_gemm_f32_kernel": "rdg_gemm_f32",
+            "gemm_f32_kernel<0>": "rdg_gemm_bwd_f32 dgrad",
+            "gemm_f32_kernel<1>": "rdg_gemm_bwd_f32 wgrad",
+            "dy_prep_f32_kernel": "rdg_gemm_bwd_f32 dY prep",
+            "rdg_layernorm_kernel<float": "rdg_layernorm_f32",
+            "rdg_layernorm_bwd_kernel<float": "rdg_layernorm_bwd_f32",
+            "window_attention_f32_kernel": "window_attention_f32",
+            "attn_bwd_f32_kernel": "window_attention_bwd_f32",
+            "attn_bwd16_dq_f32_kernel": "window_attention_bwd_f32 dq",
+            "attn_bwd16_dkv_f32_kernel": "window_attention_bwd_f32 dkv"}
+    fams.update({"dgrad_kernel": "rdg_gemm_bwd dgrad",
+                 "wgrad_kernel": "rdg_gemm_bwd wgrad",
+                 "dy_prep_kernel": "rdg_gemm_bwd dY prep",
+                 "sum_partials_kernel": "partial sums (d, e, f)"})
     fams.update({f"{k}_kernel": k for k in KERNELS + BWD_KERNELS[1:]})
     # 16x16 windows: (c)'s kernel and (f)'s two launches; 4x4: (c), (f)
     fams.update({"window_attention16_kernel": "window_attention",
@@ -2338,12 +2392,14 @@ def profile_steps(fn, reps: int = 3):
     return start.elapsed_time(end) / reps, families
 
 
-def sdpa_bwd_ms(sdpa, launched, runs: int = 20):
+def sdpa_bwd_ms(sdpa, launched, runs: int = 20, capture: bool = True):
     """(ms, how) of the SDPA backward of one RDG's five attentions, the
     library call beside kernel (f): replayed as a CUDA graph, its forward
     captured first into a graph of its own on the same stream and pool (as
     ``torch.cuda.make_graphed_callables`` does), so that autograd runs the
-    backward on the capturing stream; where capture fails, the median of
+    backward on the capturing stream; where capture fails, or without
+    ``capture`` (a failed capture leaves the default CUDA generator unable
+    to draw: "Offset increment outside graph capture"), the median of
     ``runs`` launched runs of ``launched``, with their spread."""
     def forward():
         return [F.scaled_dot_product_attention(*ins, attn_mask=term)
@@ -2354,6 +2410,8 @@ def sdpa_bwd_ms(sdpa, launched, runs: int = 20):
             torch.autograd.grad(o, ins, do)
 
     try:
+        if not capture:
+            raise RuntimeError("not asked to capture")
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -2373,10 +2431,11 @@ def sdpa_bwd_ms(sdpa, launched, runs: int = 20):
     except RuntimeError as err:
         torch.cuda.synchronize()
         times = sorted(cuda_ms(launched, iters=1) for _ in range(runs))
+        why = (f"; graph capture failed: {str(err).splitlines()[0][:160]}"
+               if capture else "")
         return times[runs // 2], (
             f"launched, median of {runs} runs (min {times[0]:.4f}, max "
-            f"{times[-1]:.4f} ms); graph capture failed: "
-            f"{str(err).splitlines()[0][:160]}")
+            f"{times[-1]:.4f} ms){why}")
 
 
 def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report,
@@ -4960,9 +5019,649 @@ def phase_fp32(dev, report):
     return paths, timings
 
 
-PHASES = {"flagship": phase_flagship, "fp32": phase_fp32, "w16": phase_w16,
-          "w4": phase_w4, "smoke": phase_smoke, "drn": phase_drn,
-          "ead": phase_ead, "mesh": phase_mesh}
+# --------------------------------------------------------------------------- #
+# fp32 training: the f32 instances of kernels (d)-(f) (TPU kernel 3 at dtype
+# f32) beside the training forward's (a)-(c) (TPU kernel 2 at dtype f32), one
+# RDG's gradients, the Trainer, cli.main --precision fp32 and cli.evaluate
+# --------------------------------------------------------------------------- #
+
+# Limits of fp32 training (written before its first run): each f32 backward
+# kernel against its plain f32 version as the forward ones (``F32_REL_L2``,
+# ``F32_MAX_ABS`` of the scale: the largest reference value, or for the
+# GEMM products the largest sum of |products|); one RDG's output, input
+# gradient and every parameter gradient against eager f32 autograd (TF32
+# off): relative L2 1e-4 (both sum exact f32 products in another order, and
+# an adjust pre-activation within ~1e-7 of 0 may take the other LeakyReLU
+# slope); the loss of 20 steps on one batch falls by ``FIXED_BATCH_MIN_DROP``.
+F32_RDG_REL_L2 = 1e-4
+F32_TRAIN_DIR = CLI_DIR / "fp32_train"
+
+
+def f32_bwd_case(errs, label, dy, wt, a, kw):
+    """One product's backward through ``rdg_gemm_grads`` in f32, twice
+    (bitwise equal), against the plain f32 versions."""
+    m = dy.shape[0]
+    runs = []
+    for _ in range(2):
+        got = (torch.empty(m, wt.shape[1], device=dy.device),
+               torch.empty(wt.shape, device=dy.device),
+               torch.empty(wt.shape[0], device=dy.device))
+        gbwd.rdg_gemm_grads(dy, wt, a, *got, **kw)
+        runs.append(got)
+    (out, dw, db), again = runs
+    if not all(torch.equal(x, y) for x, y in zip(again, (out, dw, db))):
+        raise AssertionError(f"rdg_gemm_bwd f32 {label}: a second call "
+                             "differs")
+    wkw = {key: v for key, v in kw.items() if key != "gelu_pre"}
+    eff = gbwd.dy_effective(dy, kw.get("alpha", 1.0), kw.get("slope_src"),
+                            kw.get("row_scale"))
+    want = gbwd.rdg_gemm_dgrad_plain(dy, wt, **kw)
+    bound = eff.abs() @ wt.abs()
+    if "gelu_pre" in kw:
+        bound = bound * gbwd.gelu_grad(kw["gelu_pre"]).abs()
+    check_f32(errs, "rdg_gemm_bwd_f32", f"{label} dgrad {m}x{wt.shape[0]}"
+              f"->{wt.shape[1]}", out, want, bound.max() + want.abs().max())
+    want_w, want_b = gbwd.rdg_gemm_wgrad_plain(dy, a, **wkw)
+    check_f32(errs, "rdg_gemm_bwd_f32", f"{label} wgrad dW "
+              f"{tuple(wt.shape)}", dw, want_w,
+              (eff.abs().t() @ a.abs()).max())
+    check_f32(errs, "rdg_gemm_bwd_f32", f"{label} wgrad db", db, want_b,
+              eff.abs().sum(0).max())
+
+
+def f32_bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
+    """:func:`bwd_bounds` for the f32 instances: 4 bytes an element, every
+    operation at the f32 peak."""
+    n = cfg.window_size ** 2
+    gm_b = gm_ops = ln_b = ln_ops = at_b = at_ops = 0.0
+    for k, blk in enumerate(blocks):
+        c, nh = blk["c"], blk["nh"]
+        for _, dy, wt, a, kw, _ in bwd_cases(cfg, cat, dcat, blk, k, extra):
+            nn_, kk = wt.shape
+            gm_b += 4 * (m * nn_ + nn_ * kk + m * kk)               # dgrad
+            gm_b += 4 * (m * nn_ if "slope_src" in kw else 0) \
+                + 4 * (m * kk if "gelu_pre" in kw else 0)
+            gm_b += 4 * (m * kk + nn_ * kk + nn_)                   # wgrad
+            gm_ops += 2 * (2 * m * nn_ * kk)
+        for residual in (True, False):
+            ln_b += m * c * (4 + 4 + 2 * 4 + (4 if residual else 0)) \
+                + 3 * c * 4
+            ln_ops += 12 * m * c
+        at_b += 4 * (2 * m * 3 * c + m * c + nh * n * n) \
+            + attn_operand_bytes(blk, cfg, masks)
+        at_ops += 10 * m * n * c + 10 * (m // n) * nh * n * n
+    out = {}
+    for name, byt, ops in (("rdg_gemm_bwd_f32", gm_b, gm_ops),
+                           ("rdg_layernorm_bwd_f32", ln_b, ln_ops),
+                           ("window_attention_bwd_f32", at_b, at_ops)):
+        t_b, t_ops = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
+        out[name] = (max(t_b, t_ops) * 1e3,
+                     "bytes" if t_b >= t_ops else "operations", byt, ops)
+    return out
+
+
+def f32_bwd_geometry(cfg, dev, errs: dict, label: str, full: bool):
+    """The f32 instances of (d)-(f) at ``cfg``'s shapes (batch ``BATCH``):
+    with ``full`` (d) at every product of the five blocks and (e) at both
+    LayerNorms of each, then (f) at every block and both shifts (at 16x16
+    windows fed kernel (c) f32's context and softmax statistics, which are
+    checked too), each call twice, bitwise equal; then one RDG's launches
+    of each timed beside its bound, its plain version and its library call
+    (``torch.matmul`` x 2 in f32 with TF32 off, ATen's LayerNorm backward,
+    ``scaled_dot_product_attention``'s f32 backward). Returns {kernel: (ms,
+    plain_ms, library_ms, bound_ms, bound_by)}."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    cat, blocks, masks = f32_case_inputs(cfg, dev, gen)
+    for blk in blocks:          # qkv's and act's values, 16-byte rows
+        blk["dqkv"], blk["dctx"] = blk["qkv"], blk["act"]
+    extra = make_bwd_extra(cfg, dev, gen, cat)
+    extra["g"], extra["pre"] = extra["g"].float(), extra["pre"].float()
+    dcat = extra["dcat"]
+    g, m = flagship_shapes(cfg)
+    h = w = cfg.img_size
+    win = cfg.window_size
+    say("kernels", f"{label}: f32 backward kernels against their plain f32 "
+                   f"versions at M = {m} token rows, window {win}")
+    if full:
+        for k, blk in enumerate(blocks):
+            for name, dy, wt, a, kw, _ in bwd_cases(cfg, cat, dcat, blk, k,
+                                                    extra):
+                f32_bwd_case(errs, f"b{k + 1} {name}", dy, wt, a, kw)
+        for k, blk in enumerate(blocks):
+            c = blk["c"]
+            dy = extra["res"][:, :c].contiguous()
+            for name, x, residual in (("ln1 into dcat[:, :c]", cat[:, :c],
+                                       extra["res"][:, :c]),
+                                      ("ln2 into the stream grad", blk["x1"],
+                                       None)):
+                runs = []
+                for _ in range(2):
+                    acc = dcat.clone()
+                    dw, db = (torch.empty(c, device=dev) for _ in range(2))
+                    rdg_layernorm_bwd(x, dy, blk["ln_w"], acc[:, :c], dw, db,
+                                      residual=residual)
+                    runs.append((acc, dw, db))
+                if not all(torch.equal(p, q) for p, q in zip(*runs)):
+                    raise AssertionError(f"rdg_layernorm_bwd f32 b{k + 1} "
+                                         f"{name}: a second call differs")
+                acc, dw, db = runs[0]
+                gx, gw, gb_ = rdg_layernorm_bwd_plain(x, dy, blk["ln_w"])
+                want = dcat[:, :c] + gx + (0.0 if residual is None
+                                           else residual)
+                for part, got, ref in (("dx", acc[:, :c], want),
+                                       ("dgamma", dw, gw), ("dbeta", db, gb_)):
+                    check_f32(errs, "rdg_layernorm_bwd_f32",
+                              f"b{k + 1} c={c} {name} {part}", got, ref,
+                              ref.abs().max())
+                if not torch.equal(acc[:, c:], dcat[:, c:]):
+                    raise AssertionError("rdg_layernorm_bwd f32 wrote past "
+                                         "column c")
+    attn_fwd = []
+    for k, blk in enumerate(blocks):
+        c, nh = blk["c"], blk["nh"]
+        for shift in (0, win // 2):
+            kbias, kmask = attn_operands(blk, masks, h, w, shift, win)
+            fwd = ()
+            if win in TILED_WINDOWS:
+                ctx = pitched(m, c, dtype=torch.float32, device=dev)
+                stats = softmax_stats(blk["qkv"], h, w, nh, win)
+                want_s = torch.empty_like(stats)
+                window_attention(blk["qkv"], ctx, kbias, kmask, h, w, nh, win,
+                                 shift, stats)
+                window_attention_plain(blk["qkv"], blk["attn_bias"],
+                                       masks.get(shift), h, w, nh, win, shift,
+                                       want_s)
+                for i, part in enumerate(("max", "1/sum")):
+                    check_f32(errs, "window_attention_f32", f"b{k + 1} "
+                              f"shift={shift} statistics {part}",
+                              stats[..., i], want_s[..., i],
+                              want_s[..., i].abs().max())
+                fwd = (ctx, stats)
+                if shift == blk["shift"]:
+                    attn_fwd.append(fwd)
+            elif shift == blk["shift"]:
+                attn_fwd.append(())
+            runs = []
+            for _ in range(2):
+                dqkv = pitched(m, 3 * c, dtype=torch.float32, device=dev)
+                dbias = torch.empty(blk["attn_bias"].shape, device=dev)
+                window_attention_bwd(blk["qkv"], blk["dctx"], kbias, kmask, h,
+                                     w, nh, win, shift, dqkv, dbias, *fwd)
+                runs.append((dqkv, dbias))
+            if not all(torch.equal(p, q) for p, q in zip(*runs)):
+                raise AssertionError(f"window_attention_bwd f32 b{k + 1} "
+                                     f"shift={shift}: a second call differs")
+            dqkv, dbias = runs[0]
+            want_q, want_b = window_attention_bwd_plain(
+                blk["qkv"], blk["dctx"], blk["attn_bias"], masks.get(shift),
+                h, w, nh, win, shift, *fwd)
+            for i, part in enumerate("qkv"):
+                ref = want_q[:, i * c:(i + 1) * c]
+                check_f32(errs, "window_attention_bwd_f32", f"b{k + 1} c={c} "
+                          f"heads={nh} shift={shift} d{part}",
+                          dqkv[:, i * c:(i + 1) * c], ref, ref.abs().max())
+            check_f32(errs, "window_attention_bwd_f32", f"b{k + 1} "
+                      f"shift={shift} dbias", dbias, want_b,
+                      want_b.abs().max())
+            del runs, dqkv, dbias, want_q, want_b
+
+    # one RDG's launches of each, timed
+    cases = [bwd_cases(cfg, cat, dcat, blk, k, extra)
+             for k, blk in enumerate(blocks)]
+    outs = {(k, i): (torch.empty(m, wt.shape[1], device=dev),
+                     torch.empty(wt.shape, device=dev),
+                     torch.empty(wt.shape[0], device=dev))
+            for k, cs in enumerate(cases)
+            for i, (_, _, wt, _, _, _) in enumerate(cs)}
+    lib_dy = {id(dy): dy.contiguous() for cs in cases for _, dy, *_ in cs}
+
+    def gemm_bwd_set(mode="kernel"):
+        for k, cs in enumerate(cases):
+            for i, (_, dy, wt, a, kw, _) in enumerate(cs):
+                if mode == "library":
+                    torch.matmul(lib_dy[id(dy)], wt)
+                    torch.matmul(lib_dy[id(dy)].t(), a)
+                elif mode == "plain":
+                    gbwd.rdg_gemm_dgrad_plain(dy, wt, **kw)
+                    gbwd.rdg_gemm_wgrad_plain(
+                        dy, a, **{key: v for key, v in kw.items()
+                                  if key != "gelu_pre"})
+                else:
+                    gbwd.rdg_gemm_grads(dy, wt, a, *outs[k, i], **kw)
+
+    ln_in = []
+    for blk in blocks:
+        c = blk["c"]
+        dy = extra["res"][:, :c].contiguous()
+        lib = []
+        for x in (cat[:, :c], blk["x1"]):
+            xc = x.contiguous()
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                xc, [c], blk["ln_w"], blk["ln_b"], 1e-6)
+            lib.append((x, xc, mean, rstd))
+        ln_in.append((blk, dy, lib, torch.empty(c, device=dev),
+                      torch.empty(c, device=dev)))
+    acc = dcat.clone()
+
+    def ln_bwd_set(mode="kernel"):
+        for blk, dy, lib, dw, db in ln_in:
+            c = blk["c"]
+            for j, (x, xc, mean, rstd) in enumerate(lib):
+                if mode == "library":
+                    torch.ops.aten.native_layer_norm_backward(
+                        dy, xc, [c], mean, rstd, blk["ln_w"], blk["ln_b"],
+                        [True, True, True])
+                elif mode == "plain":
+                    rdg_layernorm_bwd_plain(x, dy, blk["ln_w"])
+                else:
+                    rdg_layernorm_bwd(x, dy, blk["ln_w"], acc[:, :c], dw, db,
+                                      residual=dy if j == 0 else None)
+
+    nw = (h // win) * (w // win)
+    gen_t = torch.Generator(device=dev).manual_seed(SEED + 14)
+    sdpa = []
+    for blk in blocks:
+        hd = blk["c"] // blk["nh"]
+        q, k_, v = (torch.randn(BATCH, nw, blk["nh"], win * win, hd,
+                                generator=gen_t, device=dev)
+                    .requires_grad_(True) for _ in range(3))
+        term = build_attn_term(blk["attn_bias"], h, w, win,
+                               masks.get(blk["shift"])).contiguous()
+        o = F.scaled_dot_product_attention(q, k_, v, attn_mask=term)
+        sdpa.append((o, (q, k_, v), torch.randn(o.shape, generator=gen_t,
+                                                device=dev), term))
+    attn_out = [(pitched(m, 3 * blk["c"], dtype=torch.float32, device=dev),
+                 torch.empty(blk["attn_bias"].shape, device=dev))
+                for blk in blocks]
+
+    def attn_bwd_set(mode="kernel"):
+        for k, blk in enumerate(blocks):
+            nh, shift = blk["nh"], blk["shift"]
+            geo = (h, w, nh, win, shift)
+            if mode == "library":
+                o, ins, do, _ = sdpa[k]
+                torch.autograd.grad(o, ins, do, retain_graph=True)
+            elif mode == "plain":
+                window_attention_bwd_plain(blk["qkv"], blk["dctx"],
+                                           blk["attn_bias"], masks.get(shift),
+                                           *geo, *attn_fwd[k])
+            else:
+                window_attention_bwd(blk["qkv"], blk["dctx"],
+                                     *attn_operands(blk, masks, h, w, shift,
+                                                    win),
+                                     *geo, *attn_out[k], *attn_fwd[k])
+
+    bounds = f32_bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks)
+    timings = {}
+    for name, fn in (("rdg_gemm_bwd_f32", gemm_bwd_set),
+                     ("rdg_layernorm_bwd_f32", ln_bwd_set),
+                     ("window_attention_bwd_f32", attn_bwd_set)):
+        kernel_ms = graph_ms(fn, iters=10)
+        plain_ms = graph_ms(lambda: fn("plain"), iters=3)
+        how = "CUDA graph"
+        if name == "window_attention_bwd_f32":
+            library_ms, how = sdpa_bwd_ms(sdpa, lambda: fn("library"),
+                                          capture=False)
+        else:
+            library_ms = graph_ms(lambda: fn("library"), iters=10)
+        timings[name] = (kernel_ms, plain_ms, library_ms) + bounds[name][:2]
+        say("timing", f"{label} {name:24s} one RDG's launches: kernel "
+                      f"{kernel_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
+                      f"({bounds[name][1]}; {achieved(kernel_ms, bounds[name])}"
+                      f"), plain f32 {plain_ms:.4f} ms, library "
+                      f"{library_ms:.4f} ms (device time; library: {how})")
+    return timings
+
+
+def phase_rdg_f32(exp, dev, out):
+    """One RDG at full width and batch 16 in f32 (the perturbed seeded
+    weights, drop-path zeros): the autograd Function's output and every
+    gradient against the eager f32 RDG under autograd with TF32 off, each
+    within ``F32_RDG_REL_L2``; two passes bitwise equal; every launch an
+    f32 instance."""
+    cfg = exp.model
+    cfg1 = dataclasses.replace(cfg, num_layers=1)
+    g, m = flagship_shapes(cfg)
+    h = w = cfg.img_size
+    layer = perturbed_rdg(cfg, dev)
+    params = {f"layers.0.{k}": p for k, p in layer.named_parameters()}
+    gen = torch.Generator().manual_seed(SEED + 6)
+    x = torch.randn(m, cfg.embed_dim, generator=gen).to(dev)
+    gout = torch.randn(m, cfg.embed_dim, generator=gen).to(dev)
+    dp = drop_path_mults(torch.Generator().manual_seed(SEED + 7), cfg, BATCH,
+                         deterministic=False)[-1].to(dev)
+    dp[0, 1] = dp[BATCH // 2, 4] = dp[-1, 9] = 0.0
+    runs = []
+    for _ in range(2):
+        layer.zero_grad(set_to_none=True)
+        xk = x.clone().requires_grad_(True)
+        reset_counts()
+        packed = prepack_rdg_stack(params, cfg1, h, w, torch.float32, dev,
+                                   detach=False)
+        res = fused_rdg_train(xk, packed["rdgs"][0], packed["masks"], cfg, h,
+                              w, dp)
+        torch.autograd.backward(res, gout)
+        torch.cuda.synchronize()
+        launched = counts()
+        runs.append((res.detach(), xk.grad.clone(),
+                     {k: p.grad.clone() for k, p in params.items()}))
+    want_launches = expected_counts(
+        {k: v // cfg.num_layers for k, v in PER_TRAIN_STEP_F32.items()}, 1)
+    if launched != want_launches:
+        raise AssertionError(f"one f32 RDG launched {launched}, expected "
+                             f"{want_launches} (f32 only)")
+    same = torch.equal(runs[0][0], runs[1][0]) and \
+        torch.equal(runs[0][1], runs[1][1]) and \
+        all(torch.equal(runs[0][2][k], runs[1][2][k]) for k in params)
+    if not same:
+        raise AssertionError("the f32 backward is not deterministic")
+    got, gx, grads = runs[0]
+    layer.zero_grad(set_to_none=True)
+    xp = x.clone().requires_grad_(True)
+    with full_f32():
+        ref = rdg_train_plain(layer, xp, h, w, dp)
+        torch.autograd.backward(ref, gout)
+    torch.cuda.synchronize()
+    readings = {"out": rel_l2(got, ref.detach()), "dx": rel_l2(gx, xp.grad)}
+    for k, p in params.items():
+        readings[k[len("layers.0."):]] = rel_l2(grads[k], p.grad)
+    worst = max(readings, key=readings.get)
+    say("rdg", f"one RDG in f32, batch {BATCH}: f32 kernels vs eager f32 "
+               f"autograd (TF32 off), relative L2 of {len(readings)} tensors: "
+               f"largest {worst} {readings[worst]:.3e} (limit "
+               f"{F32_RDG_REL_L2}), out {readings['out']:.3e}, dx "
+               f"{readings['dx']:.3e}, median "
+               f"{sorted(readings.values())[len(readings) // 2]:.3e}; two "
+               f"passes bitwise equal; launches {launched}")
+    out["rdg_rel_l2"] = readings
+    if not readings[worst] <= F32_RDG_REL_L2:
+        raise AssertionError(f"one f32 RDG vs eager f32: {worst} relative L2 "
+                             f"{readings[worst]:.3e} > {F32_RDG_REL_L2}")
+
+
+class _ConvTF32(torch.overrides.TorchFunctionMode):
+    """Records cuDNN's TF32 switch at every ``conv2d`` call inside it."""
+
+    def __init__(self):
+        super().__init__()
+        self.seen = set()
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is F.conv2d:
+            self.seen.add(torch.backends.cudnn.allow_tf32)
+        return func(*args, **(kwargs or {}))
+
+
+def phase_train_f32(exp, dev, out):
+    """A fp32 ``Trainer`` on the flagship (drop path live): one epoch of two
+    steps and a test of 8, then 20 steps on one batch; every launch f32 and
+    per step ``PER_TRAIN_STEP_F32``; the step's convolutions with TF32 off
+    although cuDNN's default allows it; one batch's backward twice, bitwise
+    equal. Returns (launches, trainer, lrs, hr)."""
+    exp = dataclasses.replace(
+        exp, data=dataclasses.replace(exp.data, test_every=2),
+        optim=dataclasses.replace(exp.optim, epochs=1), print_every=1)
+    cfg = exp.model
+    rng = np.random.RandomState(SEED + 15)
+    trainer = Trainer(exp, train_dataset(rng, 32), train_dataset(rng, 8),
+                      device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    while not trainer.terminate():
+        trainer.train_one_epoch()
+    psnr, ssim = trainer.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = expected_counts(PER_TRAIN_STEP_F32, exp.data.test_every)
+    for k, v in PER_FORWARD_F32.items():
+        want[k] += v                      # Trainer.test: one forward of 8
+    say("train", f"fp32 Trainer: {exp.data.test_every} steps of batch {BATCH}"
+                 f" + test of 8: {wall:.1f} s wall (first calls); test PSNR "
+                 f"{psnr:.3f} SSIM {ssim:.4f}; launches {got}")
+    if got != want or not (math.isfinite(psnr) and math.isfinite(ssim)):
+        raise AssertionError(f"fp32 train launches {got}, expected {want}; "
+                             f"test {psnr} {ssim}")
+
+    lrs, hr = next(trainer.sampler.epoch(99))
+    step, lr_rate = trainer.train_step, exp.optim.lr
+    fixed = []
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True       # cuDNN's own default
+    convs = _ConvTF32()
+    reset_counts()
+    for i in range(FIXED_BATCH_STEPS):
+        if i == 0:
+            with convs:
+                trainer.state, metrics = step(trainer.state, lrs, hr, lr_rate,
+                                              trainer.dropout_gen)
+            torch.cuda.synchronize()
+            per_step = counts()
+        else:
+            trainer.state, metrics = step(trainer.state, lrs, hr, lr_rate,
+                                          trainer.dropout_gen)
+        fixed.append(float(metrics["total"]))
+    torch.backends.cudnn.allow_tf32 = saved
+    drop = 1.0 - fixed[-1] / fixed[0]
+    say("train", f"fp32: {FIXED_BATCH_STEPS} steps on one batch at LR "
+                 f"{lr_rate}: L1 {fixed[0]:.4f} -> {fixed[-1]:.4f} (drop "
+                 f"{drop:.3f}); launches per step {per_step}; cuDNN TF32 "
+                 f"inside the step's convolutions {sorted(convs.seen)} (its "
+                 "default outside: True)")
+    if per_step != expected_counts(PER_TRAIN_STEP_F32, 1):
+        raise AssertionError(f"fp32 launches per step {per_step}, expected "
+                             f"{PER_TRAIN_STEP_F32}")
+    if convs.seen != {False}:
+        raise AssertionError(f"fp32 step convolutions with cuDNN TF32 "
+                             f"{convs.seen}")
+    if not all(math.isfinite(v) for v in fixed) or drop <= FIXED_BATCH_MIN_DROP:
+        raise AssertionError(f"fp32 fixed batch: loss {fixed[0]} -> "
+                             f"{fixed[-1]}, drop {drop} <= "
+                             f"{FIXED_BATCH_MIN_DROP}")
+
+    # the step's backward twice from one state and one set of draws, in the
+    # step's own context (cuDNN's deterministic algorithms, TF32 off)
+    params = dict(trainer.state.model.named_parameters())
+    dp = drop_path_mults(torch.Generator().manual_seed(SEED + 16), cfg, BATCH,
+                         deterministic=False).to(dev)
+    grads = []
+    for _ in range(2):
+        for p in params.values():
+            p.grad = None
+        with deterministic_f32():
+            F.l1_loss(fused_drct_train_forward(params, cfg, lrs[0], dp,
+                                               torch.float32), hr).backward()
+        grads.append({k: p.grad.clone() for k, p in params.items()})
+    differ = {k: rel_l2(grads[0][k], grads[1][k]) for k in params
+              if not torch.equal(grads[0][k], grads[1][k])}
+    if differ:
+        raise AssertionError(f"the fp32 step's backward is not bitwise "
+                             f"repeatable: {len(differ)} gradients differ, "
+                             f"relative L2 {differ}")
+    say("train", f"fp32 backward of one batch twice: {len(params)} gradients "
+                 "bitwise equal")
+    for p in params.values():
+        p.grad = None
+    out["train"] = {"losses_test": [psnr, ssim], "launches": got,
+                    "wall_s": wall, "fixed_batch": fixed, "drop": drop,
+                    "launches_per_step": per_step}
+    return got, trainer, lrs, hr
+
+
+def f32_step_timing(exp, dev, trainer, lrs, hr, out):
+    """The fp32 step at batch 16 (CUDA events), its forward and backward,
+    its peak memory, a profiler breakdown and idle share, and its bound:
+    every product's flops at the f32 peak."""
+    cfg = exp.model
+    g, m = flagship_shapes(cfg)
+    state, step = trainer.state, trainer._bundle.step
+    gen = trainer.dropout_gen
+    lr_rate = exp.optim.lr
+
+    def train_step():
+        step(state, lrs, hr, lr_rate, gen)
+
+    params = dict(state.model.named_parameters())
+    dp = drop_path_mults(gen, cfg, BATCH, deterministic=False).to(dev)
+
+    def forward_only():
+        with deterministic_f32():
+            return F.l1_loss(fused_drct_train_forward(params, cfg, lrs[0], dp,
+                                                      torch.float32), hr)
+
+    def forward_backward():
+        loss = forward_only()
+        with deterministic_f32():
+            loss.backward()
+
+    step_ms = cuda_ms(train_step, iters=10, warmup=2)
+    fwd_ms = cuda_ms(forward_only, iters=10, warmup=1)
+    fb_ms = cuda_ms(forward_backward, iters=10, warmup=1)
+    for p in params.values():
+        p.grad = None
+    torch.cuda.reset_peak_memory_stats()
+    train_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    wall, families = profile_steps(train_step)
+    busy = sum(families.values())
+    flops = cfg.num_layers * rdg_train_flops(cfg, m)
+    packed = prepack_drct(state.model.state_dict(), cfg, cfg.img_size,
+                          cfg.img_size, dtype=torch.float32, device=dev)
+    head = 3 * head_tail_flops(packed, cfg, BATCH)
+    bound_ms = (flops + head) / F32_FLOPS * 1e3
+    idle = max(0.0, 1 - busy / wall)
+    say("train-timing", f"fp32 train step, batch {BATCH}: {step_ms:.3f} ms = "
+                        f"{BATCH * 1e3 / step_ms:.1f} img/s; training forward "
+                        f"+ loss {fwd_ms:.3f} ms, forward + backward "
+                        f"{fb_ms:.3f} ms (backward {fb_ms - fwd_ms:.3f} ms); "
+                        f"peak device memory {peak / 2 ** 30:.2f} GiB; step "
+                        f"flops {(flops + head) / 1e9:.1f} GFLOP, bound at the "
+                        f"f32 peak {bound_ms:.3f} ms (bound / time "
+                        f"{bound_ms / step_ms:.3f})")
+    say("train-timing", "fp32 profiler, device ms per step: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(families.items(),
+                                          key=lambda kv: -kv[1]))
+        + f"; busy {busy:.3f} of {wall:.3f} ms wall under the profiler (idle "
+          f"share {idle:.3f})")
+    out["step"] = {"step_ms": step_ms, "img_per_s": BATCH * 1e3 / step_ms,
+                   "forward_ms": fwd_ms, "forward_backward_ms": fb_ms,
+                   "peak_bytes": peak, "step_gflop": (flops + head) / 1e9,
+                   "bound_ms": bound_ms, "profile_wall_ms": wall,
+                   "profile_device_ms": families, "idle_share": idle}
+
+
+def phase_cli_f32(exp, dev, out):
+    """``cli.main --precision fp32`` trains the flagship one epoch on the
+    flagship phase's synthetic data root (16 steps, every launch f32, the
+    val/good test), then ``cli.evaluate`` at its fp32 default scores 8 + 8
+    test images of 512 px from that run dir. Returns the launches by
+    path."""
+    root = CLI_DIR / "data"
+    if not (root / "grid" / "train" / "good").is_dir():
+        raise AssertionError(f"{root}: the flagship phase's data root is "
+                             "missing")
+    shutil.rmtree(F32_TRAIN_DIR, ignore_errors=True)
+    os.environ["ADSR_TPU_RDG"] = "1"
+    reset_counts()
+    t0 = time.perf_counter()
+    run_dir = cli_main.main(["--resolution", str(HR), "--scale", str(SCALE),
+                             "--epochs", "1", "--batch-size", str(BATCH),
+                             "--data-root", str(root), "--precision", "fp32",
+                             "--save-dir", str(F32_TRAIN_DIR / "runs"),
+                             "--run-tag", "chip_fp32"])
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train = counts()
+    steps = 256 // BATCH                  # the reference's mvtec cadence
+    want = expected_counts(PER_TRAIN_STEP_F32, steps)
+    for k, v in PER_FORWARD_F32.items():  # the val/good test: one forward
+        want[k] += v
+    run = Path(run_dir)
+    log = (run / "log.txt").read_text()
+    losses = json.loads((run / "loss_log.json").read_text())
+    say("cli", f"cli.main --precision fp32: {steps} steps at batch {BATCH} and "
+               f"the val/good test in {train_wall:.1f} s wall (first calls); "
+               f"epoch loss {losses[0]}; launches {train}")
+    if train != want or "Using devices: cuda" not in log \
+            or not all(math.isfinite(v) for v in losses[0].values()) \
+            or not (run / "model" / "model_best.pt").exists():
+        raise AssertionError(f"fp32 train CLI: launches {train}, expected "
+                             f"{want}; run dir {run}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cli_eval.main(["--run-dir", run_dir, "--data-root", str(root),
+                         "--sweep-windows", "9",
+                         "--output-dir", str(F32_TRAIN_DIR / "eval")])
+    torch.cuda.synchronize()
+    eval_wall = time.perf_counter() - t0
+    os.environ.pop("ADSR_TPU_RDG")
+    evaluate = counts()
+    aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
+    lines = (F32_TRAIN_DIR / "eval" / "scores.txt").read_text().splitlines()
+    say("cli", f"cli.evaluate at fp32 on the fp32 run dir {run.name}: AUC "
+               f"ssim/mse/psnr {aucs[0]:.4f}/{aucs[1]:.4f}/{aucs[2]:.4f}, best "
+               f"window {res['best_ws']}; {eval_wall:.1f} s wall; launches "
+               f"{evaluate}")
+    if evaluate != expected_counts(PER_FORWARD_F32, 2) \
+            or not all(math.isfinite(a) and 0.0 <= a <= 1.0 for a in aucs) \
+            or len(lines) != 2 * CLI_TEST:
+        raise AssertionError(f"fp32 evaluate CLI: launches {evaluate}, "
+                             f"expected {PER_FORWARD_F32} x 2; AUCs {aucs}; "
+                             f"{len(lines)} score lines")
+    out["cli"] = {"train_wall_s": train_wall, "epoch_loss": losses[0],
+                  "eval_wall_s": eval_wall, "aucs": aucs}
+    return {"train_cli_fp32": train, "evaluate_cli_fp32_train": evaluate}
+
+
+def phase_fp32_train(dev, report):
+    """fp32 DRCT training on the card (kernels (a)-(f) in f32), in a process
+    of its own after the fp32 serving phase: the f32 backward kernels
+    against their plain versions at windows 8 (the flagship), 4 and 16 and
+    their times; one RDG's gradients against eager f32; a fp32 ``Trainer``;
+    the fp32 step's time and idle share; ``cli.main --precision fp32`` and
+    ``cli.evaluate`` on its run dir. Returns (launches by path, the
+    flagship's kernel timings)."""
+    global PREFIX
+    PREFIX = "fp32_train"
+    t_phase = time.perf_counter()
+    out = report.setdefault("fp32_train", {})
+    exp = drct_experiment("grid", HR, SCALE, precision="fp32",
+                          batch_size=BATCH, run_tag="chip_smoke_fp32_train")
+    errs = {}
+    reset_counts()
+    timings = f32_bwd_geometry(exp.model, dev, errs, "w8", full=True)
+    out["max_abs_err"] = dict(errs)
+    for tag, geo in (("w4", (64, 4)), ("w16", (256, 4))):
+        e = {}
+        t = f32_bwd_geometry(drct_experiment("grid", *geo, precision="fp32",
+                                             run_tag="t").model,
+                             dev, e, tag, full=False)
+        out[f"timings_{tag}"] = {k: list(v) for k, v in t.items()}
+        out[f"max_abs_err_{tag}"] = e
+        torch.cuda.empty_cache()
+    if any(counts().get(k) for k in WRAPPERS):
+        raise AssertionError(f"the f32 backward cases launched bf16 kernels: "
+                             f"{counts()}")
+    phase_rdg_f32(exp, dev, out)
+    launches, trainer, lrs, hr = phase_train_f32(exp, dev, out)
+    f32_step_timing(exp, dev, trainer, lrs, hr, out)
+    del trainer
+    torch.cuda.empty_cache()
+    paths = {"train_fp32": launches, **phase_cli_f32(exp, dev, out)}
+    out["per_rdg_ms"] = {k: {"ms": v[0], "plain_ms": v[1], "library_ms": v[2],
+                             "bound_ms": v[3], "bound_by": v[4]}
+                         for k, v in timings.items()}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    say("done", f"fp32_train phase in {out['phase_wall_s']:.1f} s")
+    PREFIX = None
+    return paths, timings
+
+
+PHASES = {"flagship": phase_flagship, "fp32": phase_fp32,
+          "fp32_train": phase_fp32_train, "w16": phase_w16, "w4": phase_w4,
+          "smoke": phase_smoke, "drn": phase_drn, "ead": phase_ead,
+          "mesh": phase_mesh}
 
 
 def run_phase(name: str) -> dict:
@@ -5088,7 +5787,7 @@ def main() -> int:
         if not by_path:
             raise AssertionError(f"{k}: launched on no main path")
         entry = {"name": k, "route": "cuda", "source": F32_SOURCES[k],
-                 "replaces": f"{REPLACES} (dtype f32)",
+                 "replaces": f"{REPLACES}; {REPLACES_TRAIN_FWD} (dtype f32)",
                  "launches": sum(by_path.values()),
                  "launches_by_path": by_path,
                  "max_abs_err": f32["max_abs_err"][k], "ms": kernel_ms,
@@ -5103,6 +5802,39 @@ def main() -> int:
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": library_ms,
                           "max_abs_err": f32[f"max_abs_err_{tag}"].get(k)}
+        kernels.append(entry)
+    # the f32 instances of (d)-(f): the fp32_train phase's readings at the
+    # flagship, and under "w4" / "w16" at those geometries; their launches
+    # are each wrapper's ``launches_f32``
+    ft = report["fp32_train"]
+    for k in F32_BWD_KERNELS:
+        kernel_ms, plain_ms, library_ms, bound_ms, bound_by = \
+            runs["fp32_train"]["timings"][k]
+        names = ("rdg_gemm_dgrad_f32", "rdg_gemm_wgrad_f32") \
+            if k == "rdg_gemm_bwd_f32" else (k,)
+        by_path = {p: sum(got.get(n, 0) for n in names)
+                   for p, got in paths.items()}
+        by_path = {p: n for p, n in by_path.items() if n}
+        if not by_path:
+            raise AssertionError(f"{k}: launched on no main path")
+        entry = {"name": k, "route": "cuda", "source": F32_BWD_SOURCES[k],
+                 "replaces": f"{REPLACES_BWD} (dtype f32)",
+                 "counter": "launches_f32",
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": ft["max_abs_err"][k], "ms": kernel_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "library_ms": library_ms}
+        for tag in ("w4", "w16"):
+            kernel_ms, plain_ms, library_ms, bound_ms, bound_by = \
+                ft[f"timings_{tag}"][k]
+            entry[tag] = {"source": F32_BWD_WINDOW_SOURCES[tag]
+                          if k == "window_attention_bwd_f32"
+                          else F32_BWD_SOURCES[k],
+                          "ms": kernel_ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": library_ms,
+                          "max_abs_err": ft[f"max_abs_err_{tag}"].get(k)}
         kernels.append(entry)
     report["total_s"] = time.perf_counter() - t_start
     say("report", json.dumps(report))

@@ -32,8 +32,8 @@ from adsr_tpu_torch.kernels.window_attention import (full_bias, full_mask,
                                                      window_attention_plain,
                                                      window_attention_plan)
 from adsr_tpu_torch.kernels.window_attention_bwd import (
-    window_attention_bwd, window_attention_bwd_plain,
-    window_attention_bwd_plan)
+    window_attention_bwd, window_attention_bwd_f32_plan,
+    window_attention_bwd_plain, window_attention_bwd_plan)
 from adsr_tpu_torch.models.drct import shift_attn_mask, shift_region_labels
 from adsr_tpu_torch.metrics import _LUMA_COEFFS, to_luma
 from adsr_tpu_torch.models.factory import init_sr_params, make_model
@@ -899,7 +899,8 @@ F32_ATTN = [(180, 6), (212, 4), (244, 2), (276, 6), (308, 4)]
 def test_f32_attention_matches_plain(dev, win, c, nh):
     # the flagship's five block geometries (head dims 30/53/122/46/77) at
     # windows 4, 8 and 16, shift 0 and half the window, in the forms
-    # attn_operands gives (the table and region labels at window 16)
+    # attn_operands gives (the table and region labels at window 16); at
+    # window 16 also the softmax statistics the training recompute asks for
     g = torch.Generator(device=dev).manual_seed(win * c)
     side = 2 * win if win == 16 else 4 * win
     b = 2
@@ -930,10 +931,173 @@ def test_f32_attention_matches_plain(dev, win, c, nh):
         again = pitched(m, c, dtype=torch.float32, device=dev)
         window_attention(qkv, again, bias, mask, side, side, nh, win, shift)
         assert torch.equal(out, again)
-    if win == 16:       # the f32 kernel writes no softmax statistics
-        with pytest.raises(NotImplementedError, match="statistics"):
-            window_attention(qkv, out, bias, None, side, side, nh, win, 0,
-                             softmax_stats(qkv, side, side, nh, win))
+    if win == 16:       # with a buffer, each query row's (max, 1 / sum)
+        stats = softmax_stats(qkv, side, side, nh, win)
+        want_s = torch.empty_like(stats)
+        window_attention(qkv, out, bias, mask, side, side, nh, win, shift,
+                         stats)
+        want = window_attention_plain(qkv, bias, mask, side, side, nh, win,
+                                      shift, want_s)
+        _f32_close(out, want)
+        for i in range(2):
+            _f32_close(stats[..., i], want_s[..., i])
+
+
+# ---- the f32 instances of (d)-(f) (fp32 training) ----
+#
+# The limits of the f32 forward kernels above: both sides sum exact f32
+# products in f32 in another order.
+
+
+@pytest.mark.parametrize("n,k", [(32, 180), (96, 212), (924, 308),
+                                 (180, 360), (180, 308)])
+def test_f32_gemm_bwd_matches_plain(dev, n, k):
+    # products of the flagship's shapes (adjust 1-4, a narrow one, qkv of
+    # block 5, fc2 of block 1, adjust 5) at an M that is not a multiple of
+    # the 128-row tile, dY and the LeakyReLU source f32 column slices of
+    # wider buffers; every dY transform of the training backward
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    f32 = torch.float32
+    m = 2 * 1004
+    wide = torch.randn(m, n + 44, generator=g, device=dev)
+    src = torch.randn(m, n + 44, generator=g, device=dev)
+    w = pitched(n, k, dtype=f32, device=dev)
+    w.copy_(0.05 * torch.randn(n, k, generator=g, device=dev))
+    a = pitched(m, k, dtype=f32, device=dev)
+    a.copy_(torch.randn(m, k, generator=g, device=dev))
+    pre = torch.randn(m, k, generator=g, device=dev)
+    scale = torch.tensor([1.1, 0.0], device=dev)
+    dy, slope = wide[:, 40:40 + n], src[:, 40:40 + n]
+    for kw in ({}, {"slope_src": slope}, {"alpha": 0.2},
+               {"row_scale": scale}, {"row_scale": scale, "gelu_pre": pre}):
+        wkw = {key: v for key, v in kw.items() if key != "gelu_pre"}
+        runs = []
+        for _ in range(2):          # twice: bitwise equal
+            got = (torch.empty(m, k, device=dev), torch.empty(n, k, device=dev),
+                   torch.empty(n, device=dev))
+            n0 = [(fn.launches, fn.launches_f32)
+                  for fn in (gb.rdg_gemm_dgrad, gb.rdg_gemm_wgrad)]
+            gb.rdg_gemm_grads(dy, w, a, *got, **kw)
+            assert [(fn.launches, fn.launches_f32)
+                    for fn in (gb.rdg_gemm_dgrad, gb.rdg_gemm_wgrad)] == \
+                [(x, y + 1) for x, y in n0]
+            runs.append(got)
+        (out, dw, db), again = runs
+        assert all(torch.equal(x, y) for x, y in zip(again, (out, dw, db)))
+        eff = gb.dy_effective(dy, kw.get("alpha", 1.0), kw.get("slope_src"),
+                              kw.get("row_scale"))
+        want = gb.rdg_gemm_dgrad_plain(dy, w, **kw)
+        bound = eff.abs() @ w.abs()
+        if "gelu_pre" in kw:
+            bound = bound * gb.gelu_grad(pre).abs()
+        _f32_close(out, want, bound.max() + want.abs().max())
+        want_w, want_b = gb.rdg_gemm_wgrad_plain(dy, a, **wkw)
+        _f32_close(dw, want_w, (eff.abs().t() @ a.abs()).max())
+        _f32_close(db, want_b, eff.abs().sum(0).max())
+        # dgrad and wgrad alone: the same products
+        alone = torch.empty_like(out)
+        gb.rdg_gemm_dgrad(dy, w, alone, **kw)
+        dw2, db2 = torch.empty_like(dw), torch.empty_like(db)
+        gb.rdg_gemm_wgrad(dy, a, dw2, db2, **wkw)
+        assert torch.equal(alone, out) and torch.equal(dw2, dw) \
+            and torch.equal(db2, db)
+
+
+@pytest.mark.parametrize("c,stride", [(180, 308), (244, 308), (308, 308),
+                                      (212, 212)])
+def test_f32_layernorm_bwd_matches_plain(dev, c, stride):
+    # the concat prefix at stride 308 and a contiguous x1, accumulating into
+    # the strided f32 concat gradient, with and without a second gradient
+    g = torch.Generator(device=dev).manual_seed(c + stride)
+    m = 2 * 1024 + 7
+    cat = 1 + 2 * torch.randn(m, stride, generator=g, device=dev)
+    w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+    dy = torch.randn(m, c, generator=g, device=dev)
+    res = torch.randn(m, c, generator=g, device=dev)
+    dcat = torch.randn(m, 308, generator=g, device=dev)
+    x = cat[:, :c]
+    gx, gw, gbias = rdg_layernorm_bwd_plain(x, dy, w)
+    for residual in (res, None):
+        runs = []
+        for _ in range(2):          # twice: bitwise equal
+            acc = dcat.clone()
+            dw, db = torch.empty(c, device=dev), torch.empty(c, device=dev)
+            n0 = rdg_layernorm_bwd.launches, rdg_layernorm_bwd.launches_f32
+            rdg_layernorm_bwd(x, dy, w, acc[:, :c], dw, db, residual=residual)
+            assert (rdg_layernorm_bwd.launches,
+                    rdg_layernorm_bwd.launches_f32) == (n0[0], n0[1] + 1)
+            runs.append((acc, dw, db))
+        assert all(torch.equal(p, q) for p, q in zip(*runs))
+        acc, dw, db = runs[0]
+        want = dcat[:, :c] + gx + (0.0 if residual is None else residual)
+        _f32_close(acc[:, :c], want)
+        assert torch.equal(acc[:, c:], dcat[:, c:])
+        _f32_close(dw, gw)
+        _f32_close(db, gbias)
+
+
+F32_BWD_CASES = [(win, c, nh, 2) for win in (4, 8, 16)
+                 for c, nh in F32_ATTN] + [(8, 180, 6, 5), (4, 212, 4, 5)]
+
+
+@pytest.mark.parametrize("win,c,nh,b", F32_BWD_CASES)
+def test_f32_attention_bwd_matches_plain(dev, win, c, nh, b):
+    # the flagship's five block geometries at windows 4, 8 and 16, shift 0
+    # and half the window, qkv, dO and dqkv in 16-byte rows as the training
+    # backward lays them out; at window 16 fed kernel (c) f32's own context
+    # and softmax statistics; at batch 5 on 40 x 40 (window 8) and 20 x 20
+    # (window 4) tokens the plan's last group of windows is short
+    g = torch.Generator(device=dev).manual_seed(win * c + b)
+    f32 = torch.float32
+    side = 2 * win if win == 16 else (4 * win if b == 2 else 5 * win)
+    m = b * side * side
+    n = win * win
+    qkv = pitched(m, 3 * c, dtype=f32, device=dev)
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    dout = pitched(m, c, dtype=f32, device=dev)
+    dout.copy_(torch.randn(m, c, generator=g, device=dev))
+    if win == 16:
+        bias = 0.5 * torch.randn(nh, 961, generator=g, device=dev)
+    else:
+        bias = 0.5 * torch.randn(nh, n, n, generator=g, device=dev)
+    plan = window_attention_bwd_f32_plan(c, nh, b, side, side, win,
+                                         _build.sm_count(dev))
+    assert plan["groups"] * plan["group"] >= plan["windows"]
+    for shift in (0, win // 2):
+        mask = None
+        if shift and win == 16:
+            mask = torch.as_tensor(shift_region_labels(side, side, win, shift),
+                                   device=dev)
+        elif shift:
+            mask = torch.as_tensor(shift_attn_mask(side, side, win, shift),
+                                   device=dev)
+        fwd = ()
+        if win == 16:
+            ctx = pitched(m, c, dtype=f32, device=dev)
+            stats = softmax_stats(qkv, side, side, nh, win)
+            window_attention(qkv, ctx, bias, mask, side, side, nh, win, shift,
+                             stats)
+            fwd = (ctx, stats)
+        runs = []
+        for _ in range(2):          # twice: bitwise equal
+            dqkv = pitched(m, 3 * c, dtype=f32, device=dev)
+            dbias = torch.empty(nh, n, n, device=dev)
+            n0 = window_attention_bwd.launches, \
+                window_attention_bwd.launches_f32
+            window_attention_bwd(qkv, dout, bias, mask, side, side, nh, win,
+                                 shift, dqkv, dbias, *fwd)
+            assert (window_attention_bwd.launches,
+                    window_attention_bwd.launches_f32) == \
+                (n0[0], n0[1] + plan["launches"])
+            runs.append((dqkv, dbias))
+        assert all(torch.equal(p, q) for p, q in zip(*runs))
+        dqkv, dbias = runs[0]
+        want_q, want_b = window_attention_bwd_plain(
+            qkv, dout, bias, mask, side, side, nh, win, shift, *fwd)
+        for i in range(3):
+            _f32_close(dqkv[:, i * c:(i + 1) * c],
+                       want_q[:, i * c:(i + 1) * c])
+        _f32_close(dbias, want_b)
 
 
 def _f32_experiment(cfg):

@@ -25,6 +25,7 @@ from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels import rdg_gemm as gemm_mod
 from adsr_tpu_torch.kernels import rdg_layernorm as ln_mod
 from adsr_tpu_torch.kernels import window_attention as attn_mod
+from adsr_tpu_torch.kernels.fused_swin_block import NO_F32
 from adsr_tpu_torch.kernels.fused_rdg import (block_buffers, rdg_geometry,
                                               rdg_workspace)
 from adsr_tpu_torch.train.trainer import (check_serving_precision,
@@ -47,7 +48,8 @@ def _launches():
 def test_route_rule(precision, mode, device):
     """Serving: the card takes bf16 in both modes and fp32 in rdg mode;
     fp32 block mode is refused there (item 18). Training: the card takes
-    bf16 only (item 17). The CPU's plain path takes everything."""
+    both (the f32 instances of (a)-(f)). The CPU's plain path takes
+    everything."""
     exp = pc.drct_experiment("grid", 128, 4, run_tag="t",
                              precision=precision)
     dev = torch.device(device)
@@ -57,11 +59,7 @@ def test_route_rule(precision, mode, device):
             check_serving_precision(exp, dev, mode)
     else:
         check_serving_precision(exp, dev, mode)
-    if card_fp32:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-            check_training_precision(exp, dev)
-    else:
-        check_training_precision(exp, dev)
+    check_training_precision(exp, dev)
 
 
 def test_route_rule_reads_adsr_tpu_rdg(monkeypatch):
@@ -79,8 +77,11 @@ def test_evaluate_cli_default_precision_is_the_jax_clis():
 
 
 def test_train_cli_refuses_fp32_on_the_card_before_reading_data(tmp_path):
-    # no data root exists: the refusal comes first
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
+    # fp32 trains on the card; without one the device error comes first (no
+    # data root exists, no run dir is made, nothing falls back to the CPU)
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: --device cuda would train")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_main.main(["--precision", "fp32", "--device", "cuda",
                        "--data-root", str(tmp_path / "missing"),
                        "--save-dir", str(tmp_path / "runs")])
@@ -217,10 +218,10 @@ def test_kernel_dtype_takes_one_dtype_of_the_listed_ones():
                                torch.empty(2, 4)) == torch.float32
     assert _build.kernel_dtype("t", _build.BF16, torch.empty(
         4, dtype=torch.bfloat16)) == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="take bf16 .*item 17"):
+    with pytest.raises(NotImplementedError, match="take bf16 .*item 18"):
         _build.kernel_dtype("t", _build.BF16,
                             torch.empty(4, 4, dtype=torch.float32),
-                            note=_build.NO_F32_BWD)
+                            note=NO_F32)
     with pytest.raises(NotImplementedError, match="one type"):
         _build.kernel_dtype("t", _build.BF16_F32,
                             torch.empty(4, 4, dtype=torch.float32),

@@ -279,10 +279,20 @@ def test_bwd_wrappers_raise_rather_than_fall_back_off_the_cpu():
 
 
 def test_fp32_train_step_on_cuda_is_refused():
-    # the backward kernels are bf16 only: fp32 training on the card is
-    # ROADMAP.md Queue 1 item 17 (fp32 serving runs the f32 kernels)
+    # fp32 training on the card is accepted (the backward kernels have f32
+    # instances); what an f32 backward wrapper refuses off the card is the
+    # device, never the type, and it falls back to nothing
     from adsr_tpu_torch.core.config import drct_experiment
     from adsr_tpu_torch.train.trainer import check_training_precision
     exp = dataclasses.replace(drct_experiment(run_tag="t"), precision="fp32")
-    with pytest.raises(NotImplementedError, match="fp32.*item 17"):
-        check_training_precision(exp, torch.device("cuda"))
+    check_training_precision(exp, torch.device("cuda"))
+    meta = dict(device="meta", dtype=torch.float32)
+    dy = torch.empty(16, 8, **meta)
+    with pytest.raises(ValueError, match="on CUDA"):
+        gb.rdg_gemm_dgrad(dy, torch.empty(8, 4, **meta),
+                          torch.empty(16, 4, **meta))
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        lb.rdg_layernorm_bwd(dy, dy, torch.empty(8, **meta), dy,
+                             torch.empty(8, **meta), torch.empty(8, **meta))
+    assert [(fn.launches, fn.launches_f32) for fn in BWD_WRAPPERS] == \
+        [(0, 0)] * 4

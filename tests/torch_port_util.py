@@ -41,6 +41,9 @@ CONFIGS = {
     # the 64/x4 model's widths at window 4 (N = 16), one RDG
     "window4": dict(upscale=4, img_size=16, window_size=4, in_chans=1,
                     embed_dim=180, num_layers=1, num_heads=6, gc=32),
+    # the JAX suite's gradient test (tests/test_fused_rdg_train.py:51-53)
+    "train1": dict(upscale=2, img_size=8, window_size=4, in_chans=1,
+                   embed_dim=12, num_layers=1, num_heads=2, gc=4),
 }
 
 ATOL, RTOL = 2e-3, 1e-3        # the JAX suite's f32 forward tolerance
