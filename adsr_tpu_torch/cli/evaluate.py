@@ -11,8 +11,8 @@ images are larger than the model's input). Writes ``scores.txt`` (and
 ``--json-out``) and, unless ``--no-save-images``, the SR images. Runs on the
 card unless ``--device cpu``, in ``--precision fp32`` unless asked
 otherwise, as the JAX CLI (DRCT's f32 kernels); ``ADSR_TPU_RDG=0`` selects
-DRCT's per-block serving mode, as in the JAX package (bf16 only on the
-card: pass ``--precision bf16``). A DRN-L run auto-tiles at its
+DRCT's per-block serving mode (kernel (g), in either precision), as in
+the JAX package. A DRN-L run auto-tiles at its
 train-crop LR (``patch_size // scale``).
 """
 
@@ -58,11 +58,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--precision", type=str, default="fp32",
                    choices=["bf16", "fp32"],
                    help="fp32 (default, as the JAX CLI): DRCT scores through "
-                        "the f32 kernels on the card (rdg mode; block mode, "
-                        "ADSR_TPU_RDG=0, is bf16 only: ROADMAP.md Queue 1 "
-                        "item 18) or the plain path on the CPU; bf16 "
-                        "through the bf16 kernels; DRN-L takes both "
-                        "anywhere")
+                        "the f32 kernels on the card (kernels (a)-(c) in "
+                        "rdg mode, kernel (g) in block mode, ADSR_TPU_RDG=0) "
+                        "or the plain path on the CPU; bf16 through the "
+                        "bf16 kernels; DRN-L takes both anywhere")
     p.add_argument("--workers", type=int, default=0)  # compat; unused
     p.add_argument("--tile", type=int, default=0,
                    help="LR tile size for overlapped-tile serving; 0 = "

@@ -38,7 +38,8 @@
 // The kernel and its launch live here; one source a window includes it
 // (window_attention4_f32.cu, window_attention_f32.cu and
 // window_attention16_f32.cu), so nvcc builds the three windows' instances
-// in parallel.
+// in parallel. Its key-tile body (attend_scores, attend_pv) is also kernel
+// (g) f32's attention (swin_block_f32.cuh).
 
 #pragma once
 
@@ -134,6 +135,171 @@ __device__ __forceinline__ float attn_term(const float* __restrict__ bias,
   }
 }
 
+// The thread maps of the online-softmax core (attend_scores, attend_pv) for
+// N keys a window and head dims padded to HDP, on a block of kThreads
+// threads
+template <int N, int HDP>
+struct Attend {
+  static constexpr int R = Geo<N>::R, SP = Geo<N>::kSP, P = kPitch<HDP>;
+  // scores: a 16 x 16 grid of threads, SR x SR scores each
+  static constexpr int SR = R / 16;
+  // softmax: TPR lanes a row, KPT keys each
+  static constexpr int TPR = kThreads / R, KPT = R / TPR;
+  // P @ V: a thread takes four head dims (group dg of G4) of RPT rows RS
+  // apart
+  static constexpr int G4 = HDP / 4, RS = kThreads / G4;
+  static constexpr int RPT = (R + RS - 1) / RS;
+};
+
+// One key tile of the online softmax, the core of kernel (c) f32 and of
+// kernel (g) f32 (swin_block_f32.cuh), in two halves. attend_scores: the R
+// query rows of ``qs`` (window tokens q0 ..) against the R keys of ``ks``
+// (window tokens k0 ..), planes [R][P] zero past the head dim: S = scale q
+// k^T + bias (+ mask) into ``ss`` as P = exp(S - max), each row's running
+// max and sum updated and its rescale factor in ``row_alpha``. The caller
+// has synchronised the block after filling the planes and setting row_max
+// to -inf and row_sum to 0; this ends with a barrier, so ``ks`` may be
+// refilled after it. attend_pv: the context ``o`` (this thread's rows and
+// four head dims) rescaled and accumulated over the tile's values ``vs``;
+// it ends with a barrier, so ``vs`` and ``ss`` may be refilled after it.
+template <int N, int HDP>
+__device__ __forceinline__ void attend_scores(
+    const float* qs, const float* ks, float* ss, float* row_max,
+    float* row_sum, float* row_alpha, const float* __restrict__ bias,
+    const void* __restrict__ mask, int h, int win, int q0, int k0,
+    float scale) {
+  using A = Attend<N, HDP>;
+  constexpr int SP = A::SP, P = A::P, SR = A::SR;
+  constexpr int TPR = A::TPR, KPT = A::KPT;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;          // scores
+  const int srow = tid / TPR, spart = tid % TPR;   // softmax
+
+  // S = scale * q k^T + bias (+ mask)
+  float s[SR][SR];
+#pragma unroll
+  for (int i = 0; i < SR; ++i)
+#pragma unroll
+    for (int j = 0; j < SR; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < HDP; d += 4) {
+    float4 q4[SR], k4[SR];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+      q4[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * P + d);
+#pragma unroll
+    for (int j = 0; j < SR; ++j)
+      k4[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * P + d);
+#pragma unroll
+    for (int i = 0; i < SR; ++i) {
+#pragma unroll
+      for (int j = 0; j < SR; ++j) {
+        float v = s[i][j];
+        v = fmaf(q4[i].x, k4[j].x, v);
+        v = fmaf(q4[i].y, k4[j].y, v);
+        v = fmaf(q4[i].z, k4[j].z, v);
+        s[i][j] = fmaf(q4[i].w, k4[j].w, v);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < SR; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < SR; ++j) {
+      const int c = tx + 16 * j;
+      ss[r * SP + c] = s[i][j] * scale
+                       + attn_term<N>(bias, mask, h, win, q0 + r, k0 + c);
+    }
+  }
+  __syncthreads();
+
+  // the online softmax of each row over this tile: TPR lanes a row
+  {
+    float* sr = ss + srow * SP;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) mx = fmaxf(mx, sr[spart + TPR * j]);
+#pragma unroll
+    for (int off = TPR / 2; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    const float m_old = row_max[srow];
+    const float m_new = fmaxf(m_old, mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < KPT; ++j) {
+      const float e = expf(sr[spart + TPR * j] - m_new);
+      sr[spart + TPR * j] = e;
+      sum += e;
+    }
+#pragma unroll
+    for (int off = TPR / 2; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    __syncwarp();
+    if (spart == 0) {
+      const float alpha = expf(m_old - m_new);    // 0 on the first tile
+      row_alpha[srow] = alpha;
+      row_sum[srow] = row_sum[srow] * alpha + sum;
+      row_max[srow] = m_new;
+    }
+  }
+  __syncthreads();
+}
+
+template <int N, int HDP>
+__device__ __forceinline__ void attend_pv(
+    const float* vs, const float* ss, const float* row_alpha,
+    float (&o)[Attend<N, HDP>::RPT][4]) {
+  using A = Attend<N, HDP>;
+  constexpr int R = A::R, SP = A::SP, P = A::P, G4 = A::G4, RS = A::RS;
+  constexpr int RPT = A::RPT;
+  const int tid = threadIdx.x;
+  const int dg = tid % G4, r0 = tid / G4;
+  const bool pv = tid < RS * G4;
+
+  // o = alpha o + P v over this tile's keys
+  if (pv) {
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = r0 + RS * i;
+      if (r < R) {
+        const float alpha = row_alpha[r];
+#pragma unroll
+        for (int x = 0; x < 4; ++x) o[i][x] *= alpha;
+      }
+    }
+#pragma unroll 4
+    for (int k = 0; k < R; ++k) {
+      const float4 v = *reinterpret_cast<const float4*>(vs + k * P + 4 * dg);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = r0 + RS * i;
+        if (r < R) {
+          const float pk = ss[r * SP + k];
+          o[i][0] = fmaf(pk, v.x, o[i][0]);
+          o[i][1] = fmaf(pk, v.y, o[i][1]);
+          o[i][2] = fmaf(pk, v.z, o[i][2]);
+          o[i][3] = fmaf(pk, v.w, o[i][3]);
+        }
+      }
+    }
+  }
+  __syncthreads();                        // before the next tile's loads
+}
+
+// a whole key tile: attend_scores, then attend_pv
+template <int N, int HDP>
+__device__ __forceinline__ void attend_tile(
+    const float* qs, const float* ks, const float* vs, float* ss,
+    float* row_max, float* row_sum, float* row_alpha,
+    float (&o)[Attend<N, HDP>::RPT][4], const float* __restrict__ bias,
+    const void* __restrict__ mask, int h, int win, int q0, int k0,
+    float scale) {
+  attend_scores<N, HDP>(qs, ks, ss, row_max, row_sum, row_alpha, bias, mask,
+                        h, win, q0, k0, scale);
+  attend_pv<N, HDP>(vs, ss, row_alpha, o);
+}
+
 template <int N, int HDP>
 __global__ void __launch_bounds__(kThreads)
 window_attention_f32_kernel(const float* __restrict__ qkv, long long ldq,
@@ -143,15 +309,9 @@ window_attention_f32_kernel(const float* __restrict__ qkv, long long ldq,
                             float* __restrict__ stats, int H, int W,
                             int C, int nh, int hd, int shift, float scale) {
   using G = Geo<N>;
+  using A = Attend<N, HDP>;
   constexpr int R = G::R, SP = G::kSP, P = kPitch<HDP>;
-  // scores: a 16 x 16 grid of threads, SR x SR scores each
-  constexpr int SR = R / 16;
-  // softmax: TPR lanes a row, KPT keys each
-  constexpr int TPR = kThreads / R, KPT = R / TPR;
-  // P @ V: a thread takes four head dims (group dg of G4) of RPT rows RS
-  // apart
-  constexpr int G4 = HDP / 4, RS = kThreads / G4;
-  constexpr int RPT = (R + RS - 1) / RS;
+  constexpr int G4 = A::G4, RS = A::RS, RPT = A::RPT;
   extern __shared__ __align__(16) float smem[];
   float* qs = smem;
   float* ks = qs + R * P;
@@ -190,8 +350,6 @@ window_attention_f32_kernel(const float* __restrict__ qkv, long long ldq,
   const int col = h * hd;
   stage_rows<N, HDP>(qs, qkv, ldq, b, wi, wj, qt * R, H, W, shift, col, hd);
 
-  const int ty = tid / 16, tx = tid % 16;          // scores
-  const int srow = tid / TPR, spart = tid % TPR;   // softmax
   const int dg = tid % G4, r0 = tid / G4;          // P @ V
   const bool pv = tid < RS * G4;
   float o[RPT][4];
@@ -206,106 +364,8 @@ window_attention_f32_kernel(const float* __restrict__ qkv, long long ldq,
     stage_rows<N, HDP>(vs, qkv, ldq, b, wi, wj, kt * R, H, W, shift,
                        2 * C + col, hd);
     __syncthreads();
-
-    // S = scale * q k^T + bias (+ mask)
-    float s[SR][SR];
-#pragma unroll
-    for (int i = 0; i < SR; ++i)
-#pragma unroll
-      for (int j = 0; j < SR; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HDP; d += 4) {
-      float4 q4[SR], k4[SR];
-#pragma unroll
-      for (int i = 0; i < SR; ++i)
-        q4[i] = *reinterpret_cast<const float4*>(qs + (ty + 16 * i) * P + d);
-#pragma unroll
-      for (int j = 0; j < SR; ++j)
-        k4[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * P + d);
-#pragma unroll
-      for (int i = 0; i < SR; ++i) {
-#pragma unroll
-        for (int j = 0; j < SR; ++j) {
-          float v = s[i][j];
-          v = fmaf(q4[i].x, k4[j].x, v);
-          v = fmaf(q4[i].y, k4[j].y, v);
-          v = fmaf(q4[i].z, k4[j].z, v);
-          s[i][j] = fmaf(q4[i].w, k4[j].w, v);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < SR; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < SR; ++j) {
-        const int c = tx + 16 * j;
-        ss[r * SP + c] = s[i][j] * scale
-                         + attn_term<N>(bias, mask, h, win, qt * R + r,
-                                        kt * R + c);
-      }
-    }
-    __syncthreads();
-
-    // the online softmax of each row over this tile: TPR lanes a row
-    {
-      float* sr = ss + srow * SP;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) mx = fmaxf(mx, sr[spart + TPR * j]);
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = row_max[srow];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const float e = expf(sr[spart + TPR * j] - m_new);
-        sr[spart + TPR * j] = e;
-        sum += e;
-      }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      __syncwarp();
-      if (spart == 0) {
-        const float alpha = expf(m_old - m_new);    // 0 on the first tile
-        row_alpha[srow] = alpha;
-        row_sum[srow] = row_sum[srow] * alpha + sum;
-        row_max[srow] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // o = alpha o + P v over this tile's keys
-    if (pv) {
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int r = r0 + RS * i;
-        if (r < R) {
-          const float alpha = row_alpha[r];
-#pragma unroll
-          for (int x = 0; x < 4; ++x) o[i][x] *= alpha;
-        }
-      }
-#pragma unroll 4
-      for (int k = 0; k < R; ++k) {
-        const float4 v = *reinterpret_cast<const float4*>(vs + k * P + 4 * dg);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const int r = r0 + RS * i;
-          if (r < R) {
-            const float pk = ss[r * SP + k];
-            o[i][0] = fmaf(pk, v.x, o[i][0]);
-            o[i][1] = fmaf(pk, v.y, o[i][1]);
-            o[i][2] = fmaf(pk, v.z, o[i][2]);
-            o[i][3] = fmaf(pk, v.w, o[i][3]);
-          }
-        }
-      }
-    }
-    __syncthreads();                      // before the next tile's loads
+    attend_tile<N, HDP>(qs, ks, vs, ss, row_max, row_sum, row_alpha, o, bias,
+                        mask, h, win, qt * R, kt * R, scale);
   }
 
   // each query row's (max, 1 / sum), the statistics kernel (f) reads

@@ -125,6 +125,11 @@ SIGNATURES["adsr_window_attention_bwd16_f32"] = \
 # ldw, pre, ldp, out, ldo, A, lda, eff, lde, eff_t, ldt, part, db_part,
 # splits, rows_per_split, dW, db, M, N, K, stream (a null out skips dgrad,
 # a null dW wgrad)
+# (g)'s f32 instances, a source a window (swin_block{4,,16}_f32.cu): the
+# arguments of adsr_swin_block16 at every window
+for _name in ("adsr_swin_block_f32", "adsr_swin_block4_f32",
+              "adsr_swin_block16_f32"):
+    SIGNATURES[_name] = SIGNATURES["adsr_swin_block16"]
 SIGNATURES["adsr_rdg_gemm_grads_f32"] = [_P, _L, _F, _P, _L, _P, _L, _I, _P,
                                          _L, _P, _L, _P, _L, _P, _L, _P, _L,
                                          _P, _L, _P, _P, _I, _I, _P, _P, _I,
@@ -223,24 +228,23 @@ BF16_F32 = (torch.bfloat16, torch.float32)
 _DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 
-def kernel_dtype(name: str, dtypes: tuple, *tensors: torch.Tensor,
-                 note: str = "") -> torch.dtype:
+def kernel_dtype(name: str, dtypes: tuple,
+                 *tensors: torch.Tensor) -> torch.dtype:
     """The one dtype of ``tensors`` if it is among ``dtypes`` (``BF16``, or
-    ``BF16_F32`` where the kernel has f32 instances), else
-    ``NotImplementedError`` naming what the kernels take and ``note``
-    (where the missing instances stand in ROADMAP.md)."""
+    ``BF16_F32``: every kernel of the port has bf16 and f32 instances),
+    else ``NotImplementedError`` naming what the kernels take."""
     got = {t.dtype for t in tensors}
     if len(got) != 1 or not got <= set(dtypes):
         takes = " or ".join(_DTYPE_NAMES[d] for d in dtypes)
         raise NotImplementedError(
             f"{name}: the CUDA kernels take {takes} (all operands of one "
-            f"type), got {sorted(map(str, got))}{note} (on the CPU the "
+            f"type), got {sorted(map(str, got))} (on the CPU the "
             "plain path takes any float type)")
     return got.pop()
 
 
 def require_cuda(name: str, dtypes: tuple, *tensors: torch.Tensor,
-                 layout: bool = True, note: str = "") -> torch.dtype:
+                 layout: bool = True) -> torch.dtype:
     """The wrappers' input check for the kernel route, and the one dtype of
     ``tensors``: every tensor on CUDA (checked first, else ``ValueError``),
     of one dtype among ``dtypes`` (:func:`kernel_dtype`). ``layout=False``
@@ -249,7 +253,7 @@ def require_cuda(name: str, dtypes: tuple, *tensors: torch.Tensor,
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"{name}: tensor on {t.device}, kernel needs CUDA")
-    dtype = kernel_dtype(name, dtypes, *tensors, note=note)
+    dtype = kernel_dtype(name, dtypes, *tensors)
     for t in tensors:
         if layout and (t.stride(-1) != 1 or t.data_ptr() % 8):
             raise ValueError(f"{name}: needs unit column stride and an 8-byte "

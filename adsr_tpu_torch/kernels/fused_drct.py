@@ -22,9 +22,9 @@ The packed dtype is the working type: bf16, or f32 (the JAX package's
 ``fp32``, its Pallas kernel at dtype f32). In f32 rdg mode runs the f32
 instances of kernels (a)-(c), and the head and tail convolutions run in
 full f32 (``core/device.py`` ``full_f32``: cuDNN's f32 convolutions
-default to TF32 on the card). Block mode has no f32 kernel (g) yet: an f32
-pack on the card raises there before any launch (ROADMAP.md Queue 1 item
-18).
+default to TF32 on the card); block mode runs the f32 instance of kernel
+(g) and the adjust convs on kernel (b)'s f32 instance, 10 f32 launches an
+RDG.
 """
 
 from __future__ import annotations
@@ -49,18 +49,6 @@ from adsr_tpu_torch.models.drct import LN_EPS
 _HEAD_CONVS = ("conv_first", "conv_after_body", "conv_before_upsample.0",
                "conv_last")
 MODES = ("rdg", "block")
-
-
-def check_block_dtype(mode: str, dtype: torch.dtype,
-                      device: torch.device) -> None:
-    """Block mode runs kernel (g), which has no f32 instance: an f32
-    forward in block mode on the card is refused (on the CPU the plain
-    path takes it)."""
-    if mode == "block" and dtype == torch.float32 and device.type == "cuda":
-        raise NotImplementedError(
-            "block mode (ADSR_TPU_RDG=0) in fp32 on CUDA: kernel (g) is bf16 "
-            "only; an f32 (g) is ROADMAP.md Queue 1 item 18 (rdg mode serves "
-            "fp32 on the card)")
 
 
 def resolve_mode(mode: Optional[str] = None) -> str:
@@ -141,7 +129,6 @@ def fused_drct_apply(packed: Dict, cfg: DRCTModelConfig, x: torch.Tensor,
     RDG."""
     mode = packed["mode"] if mode is None else resolve_mode(mode)
     dtype = packed["dtype"]
-    check_block_dtype(mode, dtype, x.device)
     # f32 convolutions in full f32, also inside a graph's capture
     with full_f32() if dtype == torch.float32 else contextlib.nullcontext():
         return _apply(packed, cfg, x, taps, mode, dtype)

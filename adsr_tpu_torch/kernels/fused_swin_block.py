@@ -39,6 +39,19 @@ map that ``window_attention`` uses; head dims are zero-padded to multiples
 of 16; the numerics are the eager model's (stabilised softmax, exact-erf
 GELU).
 
+In f32 (the JAX block mode in fp32: the Pallas kernel at dtype f32) the
+kernel is ``csrc/swin_block_f32.cuh`` (one source a window,
+``swin_block4_f32.cu``, ``swin_block_f32.cu``, ``swin_block16_f32.cu``):
+every product on f32 operands with FFMA on the CUDA cores, 256 threads
+holding 64 token rows (a window at 8x8, four windows at 4x4, a query tile
+of a 16x16 window in a cluster of four blocks, each peer's K and V tile
+pulled whole into the idle product ring), LN1 applied to the input rows as
+each qkv product stages them (the bf16 layout doubled to f32 does not fit
+an SM), kernel (c) f32's online-softmax core per head, the context of all
+heads before proj, the MLP in 128-wide hidden chunks; shared memory from
+:func:`swin_block_f32_plan`. f32 launches count in
+``fused_swin_block.launches_f32``, bf16 ones in ``launches``.
+
 The block reads the packed block dict of ``kernels/fused_rdg.py``
 (``pack_swin`` / ``_pack_block``) as it is: no second packer and no second
 copy of the weights. ``pack_swin_weights`` carries a JAX ``SwinBlock`` param
@@ -71,7 +84,9 @@ from adsr_tpu_torch.kernels.window_attention import (BLOCK_SHARED_MAX,
                                                      window_attention_plain,
                                                      windows_text)
 
-MAX_WIDTH = 320        # the kernel's LayerNorm keeps <= 10 values a lane
+# widths (g) takes: its bf16 LayerNorm keeps <= 10 values a lane, and its
+# f32 layout fits an SM's shared memory up to 320 columns
+MAX_WIDTH = 320
 THREADS = 288          # two consumer warpgroups + one producer warp
 STAGE_BYTES = 64 * 128  # a ring stage: 64 weight rows x 64 bf16
 MAX_STAGES = 16
@@ -81,9 +96,17 @@ H100_SMS = 132         # the card's SMs: the plans' default
 _VECTORS = ("ln1_w", "ln1_b", "bqkv", "attn_bias", "bproj", "ln2_w", "ln2_b",
             "b1", "b2")
 _MATRICES = ("wqkv", "wproj", "w1", "w2")
-# where kernel (g)'s f32 instance stands (its refusal's note)
-NO_F32 = ("; an f32 (g) for block mode in fp32 is ROADMAP.md Queue 1 item "
-          "18")
+# the f32 instance (csrc/swin_block_f32.cuh): a block of F32_THREADS holds
+# 64 token rows; products step K by F32_STEP_K through a ring of
+# F32_STAGES stages of A and W tiles [64][F32_STEP_K + 4] f32
+F32_THREADS = 256
+F32_STEP_K = 16
+F32_STAGES = 3
+F32_ENTRIES = {8: "adsr_swin_block_f32", 4: "adsr_swin_block4_f32",
+               16: "adsr_swin_block16_f32"}
+# where the windows and widths the kernels refuse stand (their note)
+REFUSED = ("; other windows are ROADMAP.md Queue 2 item 1, wider blocks and "
+           "head dims Queue 2 item 4")
 
 
 def pack_swin_weights(params: Mapping[str, Any], c: int, window: int,
@@ -197,6 +220,60 @@ def swin_block_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
     return plan
 
 
+@functools.lru_cache(maxsize=None)
+def swin_block_f32_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
+                        w: int = 8, window: int = KERNEL_WINDOW
+                        ) -> Dict[str, Any]:
+    """What the f32 kernel (g) (``csrc/swin_block_f32.cuh``) launches for
+    width ``c``, hidden width ``f`` and ``nh`` heads at batch ``b`` on ``h``
+    x ``w`` tokens: ``F32_THREADS`` a block, each holding 64 token rows (a
+    window at 8x8 windows; ``group`` consecutive windows at 4x4, the last
+    ``last_group``; one query tile at 16x16, ``cluster`` blocks a window),
+    ``blocks`` in all, one block an SM.
+
+    A block's shared memory, ``regions`` in the source's order: the rows'
+    token offsets (int64), LN1's per-row mean and 1/std, the context / LN2
+    buffer ``act`` [64][ldc] (``ldc`` = c rounded up to 16, plus 4: two
+    rows land in different bank groups), a ``union`` of the attention's
+    regions (``attention``: the q, k, v planes [3][64][hdp + 4], the scores
+    of a key tile [r][r + 4] and the row statistics [3][r], r = min(N, 64))
+    and the MLP's (``mlp``: the f32 stream ``y`` [64][ldc] and the hidden
+    chunk [64][132]), and the product ``ring`` (``stages`` x A and W tiles
+    [64][20] f32), which at 16x16 windows also holds a peer's K or V plane
+    between products (``stage``, [64][hdp + 4]). The source refuses a
+    launch whose shared memory, stages or cluster differ. Read only
+    (cached)."""
+    if window not in KERNEL_WINDOWS:
+        raise ValueError(f"swin_block_f32_plan: window {window}, the kernel "
+                         f"takes {KERNEL_WINDOWS}")
+    hdp = head_tile(c // nh)
+    n = window * window
+    r = min(n, 64)
+    ldc = -(-c // F32_STEP_K) * F32_STEP_K + 4
+    attention = {"planes": 4 * 3 * 64 * (hdp + 4), "scores": 4 * r * (r + 4),
+                 "row_stats": 4 * 3 * r}
+    mlp = {"y": 4 * 64 * ldc, "hid": 4 * 64 * (CHUNK + 4)}
+    stage = 4 * 64 * (hdp + 4) if window == 16 else 0
+    regions = {"rows": 8 * 64, "ln_stats": 2 * 4 * 64, "act": 4 * 64 * ldc,
+               "union": max(sum(attention.values()), sum(mlp.values())),
+               "ring": max(2 * F32_STAGES * 64 * (F32_STEP_K + 4) * 4,
+                           stage)}
+    windows = b * (h // window) * (w // window)
+    plan = {"hdp": hdp, "ldc": ldc, "threads": F32_THREADS,
+            "stages": F32_STAGES, "windows": windows, "regions": regions,
+            "attention": attention, "mlp": mlp, "stage": stage,
+            "smem_bytes": sum(regions.values())}
+    if window == 16:
+        plan.update(cluster=CLUSTER, blocks=windows * CLUSTER)
+    elif window == 4:
+        groups = -(-windows // GROUP4)
+        plan.update(cluster=1, blocks=groups, group=GROUP4,
+                    last_group=windows - (groups - 1) * GROUP4)
+    else:
+        plan.update(cluster=1, blocks=windows)
+    return plan
+
+
 def _tiles(n: int) -> int:
     """Output tiles of 64 columns in ``n``."""
     return -(-n // 64)
@@ -264,8 +341,10 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                      out: torch.Tensor) -> torch.Tensor:
     """Swin block ``k`` (0-based) of an RDG on ``x`` [B*h*w, c_k] (raster
     token order, any row stride: the concat prefix ``cat[:, :c_k]``) into
-    ``out`` [B*h*w, c_k]. A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (4x4, 8x8 or 16x16 windows) or the call raises."""
+    ``out`` [B*h*w, c_k], both bf16 or both f32 (the working type). A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (4x4,
+    8x8 or 16x16 windows; its f32 instance on f32 tensors) or the call
+    raises."""
     geo = block_geometry(cfg, k)
     c, shift = geo["c"], geo["shift"]
     m = x.shape[0]
@@ -284,15 +363,18 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
         raise NotImplementedError(
             f"fused_swin_block: the CUDA kernel takes {windows_text()}, "
             f"widths <= {MAX_WIDTH} and multiples of 4, head dims <= 128 (got "
-            f"window {win}, {h}x{w}, c {c}, hidden {geo['hidden']})")
-    _build.require_cuda("fused_swin_block", _build.BF16, x, out,
-                        *(p[n] for n in _MATRICES), note=NO_F32)
+            f"window {win}, {h}x{w}, c {c}, hidden {geo['hidden']})"
+            + REFUSED)
+    dtype = _build.require_cuda("fused_swin_block", _build.BF16_F32, x, out,
+                                *(p[n] for n in _MATRICES))
     _build.require_f32_cuda("fused_swin_block", *(p[n] for n in _VECTORS))
     if mask is not None:
         _build.require_f32_cuda("fused_swin_block", mask)
-    if x.stride(0) % 4 or out.stride(0) % 4:
+    if x.stride(0) % 4 or out.stride(0) % 4 or (
+            dtype == torch.float32 and (x.data_ptr() | out.data_ptr()) % 16):
         raise ValueError("fused_swin_block: needs row strides of x and out "
-                         "that are multiples of 4")
+                         "that are multiples of 4 (and 16-byte aligned bases "
+                         "in f32)")
     check_rows16("fused_swin_block", *(p[n] for n in _MATRICES))
     n = win * win
     if p["attn_bias"].shape != (geo["heads"], n, n) or (
@@ -310,8 +392,6 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
                          f"{tuple(bias.shape)} at {win}x{win} windows")
     _build.require_f32_cuda("fused_swin_block", bias)
     bsz = m // (h * w)
-    plan = swin_block_plan(c, geo["hidden"], geo["heads"], bsz, h, w,
-                           window=win, sms=_build.sm_count(x.device))
     lib = _build.library()
     args = [x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
             p["ln1_w"].data_ptr(), p["ln1_b"].data_ptr(),
@@ -322,17 +402,35 @@ def fused_swin_block(x: torch.Tensor, p: Mapping[str, torch.Tensor],
             p["ln2_b"].data_ptr(), p["w1"].data_ptr(), p["w1"].stride(0),
             p["b1"].data_ptr(), p["w2"].data_ptr(), p["w2"].stride(0),
             p["b2"].data_ptr(), bsz, h, w, c, geo["hidden"], geo["heads"],
-            win, shift, plan["stages"]]
+            win, shift]
+    if dtype == torch.float32:
+        plan = swin_block_f32_plan(c, geo["hidden"], geo["heads"], bsz, h, w,
+                                   window=win)
+        if plan["smem_bytes"] > BLOCK_SHARED_MAX:
+            raise NotImplementedError(
+                f"fused_swin_block: the f32 kernel's block {k + 1} (c {c}, "
+                f"head dim {c // geo['heads']}) needs {plan['smem_bytes']} "
+                f"bytes of shared memory, more than {BLOCK_SHARED_MAX}"
+                + REFUSED)
+        rc = getattr(lib, F32_ENTRIES[win])(
+            *args, plan["stages"], plan["cluster"], EPS, plan["smem_bytes"],
+            _build.stream_ptr(x))
+        _build.check_rc("fused_swin_block", rc)
+        fused_swin_block.launches_f32 += 1
+        return out
+    plan = swin_block_plan(c, geo["hidden"], geo["heads"], bsz, h, w,
+                           window=win, sms=_build.sm_count(x.device))
     if win == KERNEL_WINDOW:
-        rc = lib.adsr_swin_block(*args, EPS, plan["smem_bytes"],
-                                 _build.stream_ptr(x))
+        rc = lib.adsr_swin_block(*args, plan["stages"], EPS,
+                                 plan["smem_bytes"], _build.stream_ptr(x))
     else:
         launch = lib.adsr_swin_block4 if win == 4 else lib.adsr_swin_block16
-        rc = launch(*args, plan["cluster"], EPS, plan["smem_bytes"],
-                    _build.stream_ptr(x))
+        rc = launch(*args, plan["stages"], plan["cluster"], EPS,
+                    plan["smem_bytes"], _build.stream_ptr(x))
     _build.check_rc("fused_swin_block", rc)
     fused_swin_block.launches += 1
     return out
 
 
 fused_swin_block.launches = 0
+fused_swin_block.launches_f32 = 0

@@ -52,8 +52,8 @@ The serving forwards (``make_serving_forward``, ``make_eval_forward``,
 and, for DRCT, ``mode``: ``"rdg"`` runs each RDG on kernels (a)-(c),
 ``"block"`` each Swin block on kernel (g); ``None`` reads ``ADSR_TPU_RDG``
 as the JAX package does. They serve in the experiment's precision: bf16,
-or fp32 through the f32 instances of kernels (a)-(c) in rdg mode (block
-mode has no f32 kernel (g) yet: :func:`check_serving_precision`). On the
+or fp32 through the f32 instances of kernels (a)-(c) in rdg mode and of
+kernel (g) in block mode. On the
 card ``make_serving_forward`` and ``make_tiled_serving_forward`` serve
 through one CUDA graph per LR shape (``core/graphs.py``), as the JAX
 versions jit theirs; ``graphs=False`` launches every kernel from Python on
@@ -88,9 +88,8 @@ from adsr_tpu_torch.core.mesh import (Mesh, ShardedCall, gather_rows,
 from adsr_tpu_torch.data.pipeline import EpochSampler, SRDataset
 from adsr_tpu_torch.eval.tiled import feather_weights, tiled_sr_forward
 from adsr_tpu_torch.io.journal import TRAIN_STATE, Journal, load_train_state
-from adsr_tpu_torch.kernels.fused_drct import (check_block_dtype,
-                                               fused_drct_apply, prepack_drct,
-                                               resolve_mode)
+from adsr_tpu_torch.kernels.fused_drct import (fused_drct_apply,
+                                               prepack_drct, resolve_mode)
 from adsr_tpu_torch.kernels.fused_rdg_train import fused_drct_train_forward
 from adsr_tpu_torch.metrics import psnr_shave4, quantize, ssim_shave4
 from adsr_tpu_torch.models.drct import drop_path_mults
@@ -107,18 +106,18 @@ from adsr_tpu_torch.train.losses import make_loss
 
 def check_serving_precision(exp: Experiment, device: torch.device,
                             mode: Optional[str] = None) -> None:
-    """DRCT serves bf16 and fp32 on the card in rdg mode (kernels (a)-(c)
-    have bf16 and f32 instances); fp32 in block mode (``mode``, or
-    ``ADSR_TPU_RDG=0`` when None) is refused there, as kernel (g) is bf16
-    only (ROADMAP.md Queue 1 item 18). The CPU's plain path takes both.
-    DRN-L runs no kernel of the port and takes both precisions."""
+    """DRCT serves bf16 and fp32 on the card in both modes (``mode``, or
+    ``ADSR_TPU_RDG`` when None; an unknown one raises ``ValueError``): rdg
+    mode on kernels (a)-(c), block mode on kernel (g), each with bf16 and
+    f32 instances. The CPU's plain path takes both. DRN-L runs no kernel
+    of the port and takes both precisions. Another model raises
+    ``NotImplementedError``."""
     if isinstance(exp.model, DRNModelConfig):
         return
     if not isinstance(exp.model, DRCTModelConfig):
         raise NotImplementedError(
             f"the port has no model for {type(exp.model).__name__}")
-    check_block_dtype(resolve_mode(mode), compute_dtype(exp.precision),
-                      device)
+    resolve_mode(mode)
 
 
 def check_training_precision(exp: Experiment, device: torch.device) -> None:

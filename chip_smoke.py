@@ -96,21 +96,26 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    wall of ``evaluate_anomaly`` (the core of ``cli.evaluate``) on phase 10's
    data root;
 11a. fp32 serving, lines "[fp32] <phase>: ...": the f32 instances of
-   kernels (a)-(c) (the TPU kernel at dtype f32) against their plain f32
-   versions on the card (TF32 off): (a) on the concat prefix, ``x1`` and
-   the 4-byte path, (b) at every flagship product and epilogue (the
-   training ones too, adjust 5 in place), (c) at every block at both
-   shifts, at windows 8, 4 (64/x4) and 16 (256px/x4; the table and region
-   labels), each within ``F32_REL_L2`` / ``F32_MAX_ABS``; the flagship's
-   fp32 forward (``prepack_drct(..., dtype=float32)``) against the eager
-   f32 model and the CPU's forward RDG by RDG; its launches (40 f32 a RDG,
-   no bf16) through the forward, ``AnomalyServer`` and
-   ``evaluate_anomaly``; the forward, server and tiled forward through
-   their graphs bitwise equal to the launched route, with the capture's
-   memory; scores and AUCs against the CPU's; ``cli.evaluate`` at its fp32
-   default on phase 10's run dir; each f32 kernel's ms per RDG at the three
-   geometries beside its bound, plain version and library call, and the
-   fp32 forward's ms against its bound;
+   kernels (a)-(c) (TPU kernel 1 at dtype f32) and of kernel (g) (TPU
+   kernel 4 at dtype f32) against their plain f32 versions on the card
+   (TF32 off): (a) on the concat prefix, ``x1`` and the 4-byte path, (b) at
+   every flagship product and epilogue (the training ones too, adjust 5 in
+   place), (c) at every block at both shifts, (g) at every block's shape at
+   both shifts, twice bitwise (and at batch 5 on 20 x 20 / 32 x 32 tokens
+   at windows 4 / 16), at windows 8, 4 (64/x4) and 16 (256px/x4; the table
+   and region labels), each within ``F32_REL_L2`` / ``F32_MAX_ABS``; the
+   flagship's fp32 forward (``prepack_drct(..., dtype=float32)``) in rdg
+   and in block mode against the eager f32 model and the CPU's forward RDG
+   by RDG; their launches (40 f32 a RDG in rdg mode, 5 (g) f32 and 5 (b)
+   f32 in block mode, no bf16) through the forward, ``AnomalyServer`` and
+   ``evaluate_anomaly``; the forward, server and tiled forward of each
+   mode through their graphs bitwise equal to the launched route, with the
+   capture's memory; scores and AUCs of both modes against the CPU's;
+   ``cli.evaluate`` at its fp32 default on phase 10's run dir in rdg mode
+   and with ``ADSR_TPU_RDG=0`` (block mode; its scores and AUCs against
+   rdg mode's); each f32 kernel's ms per RDG at the three geometries beside
+   its bound, plain version and library call ((g) also beside the (a)-(c)
+   f32 composition), and both fp32 forwards' ms in turns;
 11b. fp32 training, lines "[fp32_train] <phase>: ...": the f32 instances
    of the backward kernels (d)-(f) (TPU kernel 3 at dtype f32) against their
    plain f32 versions on the card (TF32 off): (d) at every flagship product
@@ -150,7 +155,7 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    LR px); phase 11 at that size; then 512 px at x8 (``drct_experiment(
    "grid", 512, 8)``): ``AnomalyServer`` scores one batch in each mode, the
    SR against eager f32, the rdg-mode forward and ``AnomalyServer`` through
-   their graphs against the launched route, and four train steps;
+   their graphs against the launched route, and two train steps;
 13. the window-4 geometry, lines "[w4] <phase>: ...": the full-width 64/x4
    model (``drct_experiment("grid", 64, 4)``: LR 16 x 16, 4x4 windows, N =
    16 keys, shifts 0 and 2, M = 4,096 token rows at batch 16) through
@@ -460,7 +465,8 @@ F32_WRAPPERS = {"rdg_layernorm_f32": rdg_layernorm, "rdg_gemm_f32": rdg_gemm,
                 "rdg_gemm_dgrad_f32": gbwd.rdg_gemm_dgrad,
                 "rdg_gemm_wgrad_f32": gbwd.rdg_gemm_wgrad,
                 "rdg_layernorm_bwd_f32": rdg_layernorm_bwd,
-                "window_attention_bwd_f32": window_attention_bwd}
+                "window_attention_bwd_f32": window_attention_bwd,
+                "swin_block_f32": fused_swin_block}
 PER_FORWARD_F32 = {"rdg_layernorm_f32": 120, "rdg_gemm_f32": 300,
                    "window_attention_f32": 60}
 F32_SOURCES = {"rdg_layernorm_f32": "adsr_tpu_torch/csrc/rdg_layernorm.cu",
@@ -487,6 +493,12 @@ F32_BWD_WINDOW_SOURCES = {
     "w16": "adsr_tpu_torch/csrc/window_attention_bwd16_f32.cu"}
 # block mode: per RDG five (g) launches and five adjust products
 PER_FORWARD_BLOCK = {"swin_block": 60, "rdg_gemm": 60}
+# fp32 block mode: the same launches, (g)'s and (b)'s f32 instances
+# (csrc/swin_block{,4,16}_f32.cu on swin_block_f32.cuh, a source a window)
+PER_FORWARD_BLOCK_F32 = {"swin_block_f32": 60, "rdg_gemm_f32": 60}
+F32_SWIN_SOURCES = {"w8": "adsr_tpu_torch/csrc/swin_block_f32.cu",
+                    "w4": "adsr_tpu_torch/csrc/swin_block4_f32.cu",
+                    "w16": "adsr_tpu_torch/csrc/swin_block16_f32.cu"}
 # one train step, 12 RDGs: forward 10 / 25 / 5 a RDG; the backward
 # recomputes 10 LayerNorms, 20 products (not adjust) and 5 attentions, then
 # 25 dgrad, 25 wgrad, 10 LayerNorm backward and 5 attention backward a RDG
@@ -1439,7 +1451,7 @@ def phase_serving(exp, dev, report, n_good=16, n_bad=16, tail=5):
     return params, packed, x, model, server, lr_u8, hr_u8
 
 
-def phase_x8(dev, report, res=512, scale=8, steps=4, suffix="_x8",
+def phase_x8(dev, report, res=512, scale=8, steps=2, suffix="_x8",
              per_step_want=None, bwd_launches=W16_BWD_LAUNCHES):
     """Another tail on a geometry's tokens: ``drct_experiment("grid", res,
     scale)`` (512/x8 by default: LR 64 x 64, the window-16 token geometry,
@@ -4753,6 +4765,135 @@ def f32_geometry(cfg, dev, errs: dict, label: str, full: bool):
     return timings
 
 
+def swin_f32_bound(cfg, blocks, m, masks):
+    """Least time (ms) of one RDG's five f32 (g) launches: bytes at 4 an
+    element (x read once, the output written once, weights, vectors, bias
+    and mask read once, as :func:`swin_bound`) over the HBM rate against
+    every operation (products, attention, softmax, LayerNorms, GELU) at
+    the f32 peak."""
+    win = cfg.window_size
+    n = win * win
+    byt = ops = 0.0
+    for blk in blocks:
+        c, f, nh = blk["c"], blk["f"], blk["nh"]
+        byt += 2 * m * c * 4 + (4 * c * c + 2 * c * f) * 4 \
+            + (3 * c + 7 * c + f) * 4
+        mask = masks[blk["shift"]] if blk["shift"] else None
+        if win in TILED_WINDOWS:
+            byt += nh * (2 * win - 1) ** 2 * 4
+            byt += 0 if mask is None else mask.shape[0] * n * 4
+        else:
+            byt += nh * n * n * 4 + (0 if mask is None else mask.numel() * 4)
+        ops += 2 * m * (4 * c * c + 2 * c * f) + 4 * m * n * c \
+            + 6 * (m // n) * nh * n * n + 2 * 8 * m * c + 8 * m * f
+    t_b, t_ops = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (max(t_b, t_ops) * 1e3, "bytes" if t_b >= t_ops else "operations",
+            byt, ops)
+
+
+def swin_f32_cfg(cfg, blk):
+    """A config whose blocks 1 and 2 (k = 0 unshifted, k = 1 shifted) have
+    block ``blk``'s width, heads and hidden width (gc 0): kernel (g) at
+    each block's shape at both shifts."""
+    lone = dataclasses.replace(cfg, embed_dim=blk["c"], num_heads=blk["nh"],
+                               gc=0, mlp_ratio=blk["f"] / blk["c"])
+    g = rdg_geometry(lone)
+    if any(g[key][:2] != (blk[b],) * 2 for key, b in
+           (("feats", "c"), ("heads", "nh"), ("hidden", "f"))):
+        raise AssertionError(f"swin_f32_cfg: {g} is not block {blk['c']}")
+    return lone
+
+
+def f32_swin_geometry(cfg, dev, errs: dict, label: str):
+    """Kernel (g)'s f32 instance at ``cfg``'s five block shapes (batch
+    ``BATCH``), each at both shifts, twice, bitwise equal, within
+    ``F32_REL_L2`` / ``F32_MAX_ABS`` of its plain f32 version; at windows 4
+    and 16 also at batch 5 on 20 x 20 / 32 x 32 tokens (a short last group
+    of four windows; 20 clusters). Then one RDG's five launches timed
+    beside the bound, the plain version, the library sum (``F.layer_norm``,
+    ``F.linear`` with TF32 off, SDPA f32 with a float mask) and the (a)-(c)
+    f32 composition. Returns (ms, plain_ms, library_ms, bound_ms,
+    bound_by, composition_ms)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    cat, blocks, masks = f32_case_inputs(cfg, dev, gen)
+    g, m = flagship_shapes(cfg)
+    h = w = cfg.img_size
+    win = cfg.window_size
+    ps = [swin_case(blk) for blk in blocks]
+    sides = [(BATCH, h, masks)]
+    if win in (4, 16):
+        side = 20 if win == 4 else 32
+        sides.append((5, side, {s: torch.as_tensor(shift_attn_mask(
+            side, side, win, s), device=dev) for s in masks}))
+    for k, (blk, p) in enumerate(zip(blocks, ps)):
+        c = blk["c"]
+        lone = swin_f32_cfg(cfg, blk)
+        for b, side, msk in sides:
+            rows = b * side * side
+            x = cat[:rows, :c]
+            for kk in (0, 1):
+                outs = [torch.empty(rows, c, device=dev) for _ in range(2)]
+                for o in outs:
+                    fused_swin_block(x, p, msk, lone, side, side, kk, o)
+                want = fused_swin_block_plain(x, p, msk, lone, side, side, kk)
+                case = f"b{k + 1} c={c} heads={blk['nh']} f={blk['f']} " \
+                       f"shift={kk * win // 2} B={b} on {side}x{side}"
+                check_f32(errs, "swin_block_f32", case, outs[0], want,
+                          want.abs().max())
+                if not torch.equal(outs[0], outs[1]):
+                    raise AssertionError(f"swin_block_f32 {case}: two "
+                                         "launches differ")
+
+    outs = [torch.empty(m, blk["c"], device=dev) for blk in blocks]
+    work = rdg_workspace(m, cfg, torch.float32, dev)
+    nw = (h // win) * (w // win)
+    lib = []
+    for blk in blocks:
+        hd = blk["c"] // blk["nh"]
+        q, k_, v = (torch.randn(BATCH, nw, blk["nh"], win * win, hd,
+                                generator=gen, device=dev) for _ in range(3))
+        term = build_attn_term(blk["attn_bias"], h, w, win,
+                               masks.get(blk["shift"])).contiguous()
+        lib.append((q, k_, v, term))
+
+    def block_set(mode="kernel"):
+        for k, blk in enumerate(blocks):
+            c, p = blk["c"], ps[k]
+            if mode == "plain":
+                fused_swin_block_plain(cat[:, :c], p, masks, cfg, h, w, k)
+            elif mode == "composition":
+                swin_block_forward(cat[:, :c], p,
+                                   block_buffers(work, m, c, blk["f"]),
+                                   masks, cfg, h, w, k)
+            elif mode == "library":
+                q, k_, v, term = lib[k]
+                ln = F.layer_norm(cat[:, :c], (c,), p["ln1_w"], p["ln1_b"],
+                                  eps=1e-6)
+                F.linear(ln, p["wqkv"], p["bqkv"])
+                F.scaled_dot_product_attention(q, k_, v, attn_mask=term)
+                x1 = F.linear(blk["ctx"], p["wproj"], p["bproj"]) \
+                    + cat[:, :c]
+                hid = F.gelu(F.linear(F.layer_norm(x1, (c,), p["ln2_w"],
+                                                   p["ln2_b"], eps=1e-6),
+                                      p["w1"], p["b1"]))
+                F.linear(hid, p["w2"], p["b2"]).add_(x1)
+            else:
+                fused_swin_block(cat[:, :c], p, masks, cfg, h, w, k, outs[k])
+
+    kernel_ms = graph_ms(block_set, iters=10)
+    plain_ms = graph_ms(lambda: block_set("plain"), iters=3)
+    library_ms = graph_ms(lambda: block_set("library"), iters=10)
+    composition_ms = graph_ms(lambda: block_set("composition"), iters=10)
+    bound = swin_f32_bound(cfg, blocks, m, masks)
+    say("timing", f"{label} swin_block_f32       one RDG's launches: kernel "
+                  f"{kernel_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+                  f"{achieved(kernel_ms, bound)}), plain f32 {plain_ms:.4f} "
+                  f"ms, library {library_ms:.4f} ms, (a)-(c) f32 "
+                  f"composition {composition_ms:.4f} ms (device time, CUDA "
+                  "graph)")
+    return (kernel_ms, plain_ms, library_ms) + bound[:2] + (composition_ms,)
+
+
 def f32_cpu_pair(exp, params):
     """The CPU's fp32 forward of ``params`` (the plain versions of (a)-(c)
     and PyTorch's CPU convolutions): a packing on the CPU."""
@@ -4763,17 +4904,32 @@ def f32_cpu_pair(exp, params):
                                     device="cpu", mode="rdg")
 
 
+def f32_adjust_bound(cfg, batch: int) -> float:
+    """Least time (ms) of one RDG's five f32 adjust products (kernel (b) in
+    block mode) at ``batch`` images: bytes (each input read once, each
+    output written once; adjust 5 reads its residual) over the HBM rate
+    against the operations at the f32 peak."""
+    g = rdg_geometry(cfg)
+    m = batch * cfg.img_size ** 2
+    byt = ops = 0.0
+    for k, (c, a) in enumerate(zip(g["feats"], g["adj_out"])):
+        byt += m * c * 4 + a * c * 4 + a * 4 + m * a * 4 * (2 if k == 4 else 1)
+        ops += 2 * m * a * c
+    return max(byt / HBM_BYTES_PER_S, ops / F32_FLOPS) * 1e3
+
+
 def phase_fp32(dev, report):
-    """fp32 DRCT serving on the card (kernels (a)-(c) in f32), in a process
-    of its own after the flagship's: the f32 kernels against their plain
-    versions at windows 8 (the flagship), 4 and 16 and their times; the
-    flagship's fp32 forward against the eager f32 model and the CPU; its
-    launches (40 f32 a RDG, no bf16) through ``AnomalyServer`` and
-    ``evaluate_anomaly``; the captured forward, server and tiled forward
-    bitwise equal to the launched route; scores and AUCs against the CPU's;
-    ``cli.evaluate`` at its fp32 default on the flagship phase's run dir;
-    the forward's time against its bound. Returns (launches by path, the
-    flagship's kernel timings)."""
+    """fp32 DRCT serving on the card (kernels (a)-(c) and (g) in f32), in a
+    process of its own after the flagship's: the f32 kernels against their
+    plain versions at windows 8 (the flagship), 4 and 16 and their times;
+    the flagship's fp32 forward in rdg and in block mode against the eager
+    f32 model and the CPU; its launches (40 f32 a RDG in rdg mode, 10 in
+    block mode, no bf16) through ``AnomalyServer`` and
+    ``evaluate_anomaly``; the captured forward, server and tiled forward of
+    each mode bitwise equal to the launched route; scores and AUCs against
+    the CPU's; ``cli.evaluate`` at its fp32 default on the flagship phase's
+    run dir in both modes; both forwards' times. Returns (launches by path,
+    the flagship's kernel timings)."""
     global PREFIX
     PREFIX = "fp32"
     t_phase = time.perf_counter()
@@ -4781,23 +4937,39 @@ def phase_fp32(dev, report):
     exp = drct_experiment("grid", HR, SCALE, precision="fp32",
                           batch_size=BATCH, run_tag="chip_smoke_fp32")
     cfg = exp.model
+    walls, t_lap = {}, [t_phase]
+
+    def lap(name):
+        """The wall of the section that ends here, under ``name``."""
+        now = time.perf_counter()
+        walls[name], t_lap[0] = now - t_lap[0], now
+
     errs = {}
     reset_counts()
     timings = f32_geometry(cfg, dev, errs, "w8", full=True)
+    swin = {"w8": f32_swin_geometry(cfg, dev, errs, "w8")}
     out["max_abs_err"] = dict(errs)
     for tag, geo in (("w4", (64, 4)), ("w16", (256, 4))):
         e = {}
-        t = f32_geometry(drct_experiment("grid", *geo, precision="fp32",
-                                         run_tag="t").model,
-                         dev, e, tag, full=False)
+        cfg_g = drct_experiment("grid", *geo, precision="fp32",
+                                run_tag="t").model
+        t = f32_geometry(cfg_g, dev, e, tag, full=False)
+        swin[tag] = f32_swin_geometry(cfg_g, dev, e, tag)
         out[f"timings_{tag}"] = {k: list(v) for k, v in t.items()}
+        out[f"timings_{tag}"]["swin_block_f32"] = list(swin[tag][:5])
         out[f"max_abs_err_{tag}"] = e
         torch.cuda.empty_cache()
+    out["swin_block_f32"] = {
+        tag: {"ms": v[0], "plain_ms": v[1], "library_ms": v[2],
+              "bound_ms": v[3], "bound_by": v[4], "composition_ms": v[5]}
+        for tag, v in swin.items()}
     if any(counts().get(k) for k in WRAPPERS):
         raise AssertionError(f"the f32 kernel cases launched bf16 kernels: "
                              f"{counts()}")
 
-    # the flagship's fp32 forward: launches, the eager f32 model, the CPU
+    lap("kernels")
+    # the flagship's fp32 forward in each mode: launches, the eager f32
+    # model, the CPU
     params = seeded_params(cfg, dev)
     rng = np.random.RandomState(SEED + 40)
     lr_u8, hr_u8 = synthetic_split(rng, 16 + 5, 16)
@@ -4808,215 +4980,288 @@ def phase_fp32(dev, report):
                         dtype=torch.float32, device=dev)
     packed = prepack_drct(params, cfg, cfg.img_size, cfg.img_size,
                           dtype=torch.float32, device=dev, mode="rdg")
+    cpu_params, packed_cpu = f32_cpu_pair(exp, params)
     with torch.no_grad():
-        reset_counts()
-        taps_k = []
-        sr_k = fused_drct_apply(packed, cfg, x, taps=taps_k)
-        torch.cuda.synchronize()
-        got = counts()
-        if got != expected_counts(PER_FORWARD_F32, 1):
-            raise AssertionError(f"fp32 forward launches {got}, expected "
-                                 f"{PER_FORWARD_F32} and no bf16 kernel")
         model = make_model(cfg, device=dev)
         model.load_state_dict(params)
         taps_p = []
         with full_f32():
             sr_p = model(x, taps=taps_p)
-        cpu_params, packed_cpu = f32_cpu_pair(exp, params)
-        taps_c = []
-        sr_c = fused_drct_apply(packed_cpu, cfg, x[:F32_CPU_BATCH].cpu(),
-                                taps=taps_c)
-    errors = {}
-    for name, taps, sr, rows in (("eager", taps_p, sr_p, BATCH),
-                                 ("cpu", taps_c, sr_c, F32_CPU_BATCH)):
-        tok, inc, sr_err = stream_errors(
-            [t[:rows].cpu() for t in taps_k], sr_k[:rows].cpu(),
-            [t.cpu() for t in taps], sr.cpu())
-        errors[name] = {"tokens": tok, "increments": inc, "sr": sr_err}
-        say("main", f"fp32 forward (f32 kernels) vs the {name} f32 forward "
-                    f"({rows} images), relative L2 of the token stream after "
-                    "each RDG: " + " ".join(f"{e:.2e}" for e in tok)
-                    + "; of each RDG's increment: "
-                    + " ".join(f"{e:.2e}" for e in inc)
-                    + f"; of the float SR: {sr_err:.3e}")
-        if max(tok) > F32_FWD_REL_L2 or sr_err > F32_FWD_REL_L2 \
-                or max(inc) > F32_INCREMENT_REL_L2 \
-                or not torch.isfinite(sr_k).all():
-            raise AssertionError(
-                f"fp32 forward vs {name}: tokens {max(tok):.3e} or SR "
-                f"{sr_err:.3e} > {F32_FWD_REL_L2}, or increments "
-                f"{max(inc):.3e} > {F32_INCREMENT_REL_L2}")
-    out["forward_rel_l2"] = errors
-    say("main", f"fp32 forward launches {got}: 40 f32 kernels a RDG, no "
-                "bf16 kernel")
-    del model, taps_p, taps_k, taps_c
+    del model
+    modes = {"rdg": PER_FORWARD_F32, "block": PER_FORWARD_BLOCK_F32}
+    for mode, per in modes.items():
+        with torch.no_grad():
+            reset_counts()
+            taps_k = []
+            sr_k = fused_drct_apply(packed, cfg, x, taps=taps_k, mode=mode)
+            torch.cuda.synchronize()
+            got = counts()
+            if got != expected_counts(per, 1):
+                raise AssertionError(f"fp32 {mode} forward launches {got}, "
+                                     f"expected {per} and no bf16 kernel")
+            taps_c = []
+            sr_c = fused_drct_apply(packed_cpu, cfg, x[:F32_CPU_BATCH].cpu(),
+                                    taps=taps_c, mode=mode)
+        errors = {}
+        for name, taps, sr, rows in (("eager", taps_p, sr_p, BATCH),
+                                     ("cpu", taps_c, sr_c, F32_CPU_BATCH)):
+            tok, inc, sr_err = stream_errors(
+                [t[:rows].cpu() for t in taps_k], sr_k[:rows].cpu(),
+                [t.cpu() for t in taps], sr.cpu())
+            errors[name] = {"tokens": tok, "increments": inc, "sr": sr_err}
+            say("main", f"fp32 {mode}-mode forward (f32 kernels) vs the "
+                        f"{name} f32 forward ({rows} images), relative L2 of "
+                        "the token stream after each RDG: "
+                        + " ".join(f"{e:.2e}" for e in tok)
+                        + "; of each RDG's increment: "
+                        + " ".join(f"{e:.2e}" for e in inc)
+                        + f"; of the float SR: {sr_err:.3e}")
+            if max(tok) > F32_FWD_REL_L2 or sr_err > F32_FWD_REL_L2 \
+                    or max(inc) > F32_INCREMENT_REL_L2 \
+                    or not torch.isfinite(sr_k).all():
+                raise AssertionError(
+                    f"fp32 {mode} forward vs {name}: tokens {max(tok):.3e} "
+                    f"or SR {sr_err:.3e} > {F32_FWD_REL_L2}, or increments "
+                    f"{max(inc):.3e} > {F32_INCREMENT_REL_L2}")
+        out["forward_rel_l2" if mode == "rdg" else "forward_rel_l2_block"] = \
+            errors
+        say("main", f"fp32 {mode}-mode forward launches {got}: "
+                    f"{sum(per.values()) // cfg.num_layers} f32 kernels a "
+                    "RDG, no bf16 kernel")
+        del taps_k, taps_c
+    del taps_p
 
-    # AnomalyServer and evaluate_anomaly in fp32, launched: 40 f32 launches
-    # a RDG, no bf16 one
-    server = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev,
-                           graphs=False)
-    server.register("grid", exp, params, mode="rdg")
-    reset_counts()
-    scores = server.score("grid", lr_u8, hr_u8)
-    torch.cuda.synchronize()
-    n_fwd = math.ceil(len(lr_u8) / BATCH)
-    serving = counts()
-    if serving != expected_counts(PER_FORWARD_F32, n_fwd) \
-            or scores.shape != (len(lr_u8), 3) or not np.isfinite(scores).all():
-        raise AssertionError(f"fp32 AnomalyServer launches {serving}, "
-                             f"expected {PER_FORWARD_F32} x {n_fwd}; scores "
-                             f"{scores.shape}")
-    say("main", f"fp32 AnomalyServer scored {len(lr_u8)} requests in {n_fwd} "
-                f"forwards; launches {serving}")
+    lap("forwards")
+    # AnomalyServer and evaluate_anomaly in fp32 in each mode, launched:
+    # that mode's f32 launches, no bf16 one
     lr_f = to_float(lr_u8, cfg.in_chans, rgb)
     hr_f = to_float(hr_u8, cfg.in_chans, rgb)
     good = list(range(16)) + list(range(32, 37))
     bad = list(range(16, 32))
-    reset_counts()
-    res = evaluate_anomaly_arrays(exp, params, lr_f[good], hr_f[good],
-                                  lr_f[bad], hr_f[bad], batch=BATCH,
-                                  device=dev, log=lambda s: None, mode="rdg",
-                                  graphs=False)
-    torch.cuda.synchronize()
-    evaluate = counts()
+    n_fwd = math.ceil(len(lr_u8) / BATCH)
     n_eval = math.ceil(len(good) / BATCH) + math.ceil(len(bad) / BATCH)
-    aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
-    if evaluate != expected_counts(PER_FORWARD_F32, n_eval) \
-            or not all(0.0 <= a <= 1.0 for a in aucs):
-        raise AssertionError(f"fp32 evaluate_anomaly launches {evaluate}, "
-                             f"expected {PER_FORWARD_F32} x {n_eval}; AUCs "
-                             f"{aucs}")
-    say("main", f"fp32 evaluate_anomaly core: AUC ssim/mse/psnr "
-                f"{aucs[0]:.4f}/{aucs[1]:.4f}/{aucs[2]:.4f}; launches "
-                f"{evaluate}")
+    paths = {}
+    for mode, per in modes.items():
+        tag = "fp32" if mode == "rdg" else "block_fp32"
+        server = AnomalyServer(batch_size=BATCH, ssim_window=11, device=dev,
+                               graphs=False)
+        server.register("grid", exp, params, mode=mode)
+        reset_counts()
+        scores = server.score("grid", lr_u8, hr_u8)
+        torch.cuda.synchronize()
+        serving = counts()
+        if serving != expected_counts(per, n_fwd) \
+                or scores.shape != (len(lr_u8), 3) \
+                or not np.isfinite(scores).all():
+            raise AssertionError(f"fp32 {mode} AnomalyServer launches "
+                                 f"{serving}, expected {per} x {n_fwd}; "
+                                 f"scores {scores.shape}")
+        say("main", f"fp32 AnomalyServer ({mode} mode) scored {len(lr_u8)} "
+                    f"requests in {n_fwd} forwards; launches {serving}")
+        reset_counts()
+        res = evaluate_anomaly_arrays(exp, params, lr_f[good], hr_f[good],
+                                      lr_f[bad], hr_f[bad], batch=BATCH,
+                                      device=dev, log=lambda s: None,
+                                      mode=mode, graphs=False)
+        torch.cuda.synchronize()
+        evaluate = counts()
+        aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
+        if evaluate != expected_counts(per, n_eval) \
+                or not all(0.0 <= a <= 1.0 for a in aucs):
+            raise AssertionError(f"fp32 {mode} evaluate_anomaly launches "
+                                 f"{evaluate}, expected {per} x {n_eval}; "
+                                 f"AUCs {aucs}")
+        say("main", f"fp32 evaluate_anomaly core ({mode} mode): AUC "
+                    f"ssim/mse/psnr {aucs[0]:.4f}/{aucs[1]:.4f}/"
+                    f"{aucs[2]:.4f}; launches {evaluate}")
+        paths[f"serving_{tag}"] = serving
+        paths[f"evaluate_{tag}"] = evaluate
+        out["aucs" if mode == "rdg" else "aucs_block"] = aucs
+        del server
 
-    # scores and AUCs against the CPU's fp32 path from the same params
+    lap("serving")
+    # scores and AUCs of each mode against the CPU's fp32 path from the same
+    # params (its plain versions: the same functions in either mode)
     n = F32_CPU_SPLIT
     pick = list(range(n)) + list(range(16, 16 + n))
-    card_scores, cpu_scores = (
-        AnomalyServer(batch_size=F32_CPU_BATCH, ssim_window=11, device=d,
-                      graphs=False) for d in (dev, "cpu"))
-    card_scores.register("grid", exp, params, mode="rdg")
-    cpu_scores.register("grid", exp, cpu_params, mode="rdg")
-    s_card = card_scores.score("grid", lr_u8[pick], hr_u8[pick])
-    s_cpu = cpu_scores.score("grid", lr_u8[pick], hr_u8[pick])
-    score_diff = np.abs(s_card - s_cpu).max(0).tolist()
     sel_g, sel_b = list(range(n)), list(range(16, 16 + n))
-    res_card, res_cpu = (evaluate_anomaly_arrays(
-        exp, p, lr_f[sel_g], hr_f[sel_g], lr_f[sel_b], hr_f[sel_b],
-        batch=F32_CPU_BATCH, device=d, log=lambda s: None, mode="rdg",
-        graphs=False) for p, d in ((params, dev), (cpu_params, "cpu")))
-    auc_diff = [abs(res_card[k] - res_cpu[k])
-                for k in ("auc_ssim", "auc_mse", "auc_psnr")]
-    say("main", f"fp32 card vs CPU on {n} + {n} images: largest score "
-                f"difference (1-SSIM, MSE, -PSNR) {score_diff}; AUC "
-                f"differences {auc_diff} (limit {1 / n ** 2:.4f}); best "
-                f"window {res_card['best_ws']} / {res_cpu['best_ws']}")
-    np.testing.assert_allclose(s_card, s_cpu, rtol=F32_SCORE_RTOL,
-                               atol=F32_SCORE_ATOL)
-    if max(auc_diff) > 1.0 / n ** 2:
-        raise AssertionError(f"fp32 AUCs differ from the CPU's by {auc_diff}")
-    out.update(score_diff_vs_cpu=score_diff, auc_diff_vs_cpu=auc_diff,
-               aucs=aucs)
-    del card_scores, cpu_scores, server
 
-    # the captured route: the forward, AnomalyServer and the tiled forward
-    # bitwise equal to the launched route; the capture's memory
-    paths = {"serving_fp32": serving, "evaluate_fp32": evaluate}
-    fwd = {gr: make_serving_forward(exp, params, dev, mode="rdg", graphs=gr)
-           for gr in (True, False)}
-    check_replays("forward_fp32", fwd[True], fwd[False], forward_inputs(x),
-                  PER_FORWARD_F32, report)
-    del fwd
-    launches, _, _ = check_server_graphs(exp, dev, params, lr_u8, hr_u8,
-                                         "rdg", report, "serving_fp32_graphs",
-                                         per=PER_FORWARD_F32)
-    paths["serving_fp32_graphs"] = launches
+    def scores_and_aucs(device, p, mode):
+        server = AnomalyServer(batch_size=F32_CPU_BATCH, ssim_window=11,
+                               device=device, graphs=False)
+        server.register("grid", exp, p, mode=mode)
+        return server.score("grid", lr_u8[pick], hr_u8[pick]), \
+            evaluate_anomaly_arrays(exp, p, lr_f[sel_g], hr_f[sel_g],
+                                    lr_f[sel_b], hr_f[sel_b],
+                                    batch=F32_CPU_BATCH, device=device,
+                                    log=lambda s: None, mode=mode,
+                                    graphs=False)
+
+    s_cpu, res_cpu = scores_and_aucs("cpu", cpu_params, "rdg")
+    for mode in modes:
+        s_card, res_card = scores_and_aucs(dev, params, mode)
+        score_diff = np.abs(s_card - s_cpu).max(0).tolist()
+        auc_diff = [abs(res_card[k] - res_cpu[k])
+                    for k in ("auc_ssim", "auc_mse", "auc_psnr")]
+        say("main", f"fp32 {mode} mode, card vs CPU on {n} + {n} images: "
+                    f"largest score difference (1-SSIM, MSE, -PSNR) "
+                    f"{score_diff}; AUC differences {auc_diff} (limit "
+                    f"{1 / n ** 2:.4f}); best window {res_card['best_ws']} / "
+                    f"{res_cpu['best_ws']}")
+        np.testing.assert_allclose(s_card, s_cpu, rtol=F32_SCORE_RTOL,
+                                   atol=F32_SCORE_ATOL)
+        if max(auc_diff) > 1.0 / n ** 2:
+            raise AssertionError(f"fp32 {mode} AUCs differ from the CPU's by "
+                                 f"{auc_diff}")
+        key = "" if mode == "rdg" else "_block"
+        out[f"score_diff_vs_cpu{key}"] = score_diff
+        out[f"auc_diff_vs_cpu{key}"] = auc_diff
+
+    lap("cpu_scores")
+    # the captured route of each mode: the forward, AnomalyServer and the
+    # tiled forward bitwise equal to the launched route; the capture's
+    # memory
     rng = np.random.RandomState(SEED + 30)
     lr_t, _ = synthetic_split(rng, BATCH // 2, BATCH // 2, CLI_TEST_HR, SCALE)
     xt = torch.as_tensor(to_float(lr_t, cfg.in_chans, rgb),
                          dtype=torch.float32, device=dev)
-    tiled = {gr: make_tiled_serving_forward(exp, params, quantize_out=False,
-                                            device=dev, mode="rdg",
-                                            graphs=gr)
-             for gr in (True, False)}
-    paths["tiled_fp32_graphs"] = check_replays(
-        "tiled_fp32", tiled[True], tiled[False], forward_inputs(xt)[:3],
-        PER_FORWARD_F32, report)
-    tiled_ms = cuda_ms(lambda: tiled[True](xt), iters=3, warmup=1)
-    say("graphs", f"fp32 tiled serving through its graph: {BATCH} images of "
-                  f"{CLI_TEST_HR} px in {tiled_ms:.3f} ms = "
-                  f"{BATCH * 1e3 / tiled_ms:.1f} img/s")
-    out["tiled_ms"] = tiled_ms
-    del tiled
+    for mode, per in modes.items():
+        tag = "fp32" if mode == "rdg" else "block_fp32"
+        fwd = {gr: make_serving_forward(exp, params, dev, mode=mode,
+                                        graphs=gr) for gr in (True, False)}
+        check_replays(f"forward_{tag}", fwd[True], fwd[False],
+                      forward_inputs(x), per, report)
+        del fwd
+        launches, _, _ = check_server_graphs(exp, dev, params, lr_u8, hr_u8,
+                                             mode, report,
+                                             f"serving_{tag}_graphs", per=per)
+        paths[f"serving_{tag}_graphs"] = launches
+        tiled = {gr: make_tiled_serving_forward(
+            exp, params, quantize_out=False, device=dev, mode=mode,
+            graphs=gr) for gr in (True, False)}
+        paths[f"tiled_{tag}_graphs"] = check_replays(
+            f"tiled_{tag}", tiled[True], tiled[False],
+            forward_inputs(xt)[:3], per, report)
+        tiled_ms = cuda_ms(lambda: tiled[True](xt), iters=2, warmup=0)
+        say("graphs", f"fp32 tiled serving ({mode} mode) through its graph: "
+                      f"{BATCH} images of {CLI_TEST_HR} px in {tiled_ms:.3f} "
+                      f"ms = {BATCH * 1e3 / tiled_ms:.1f} img/s")
+        out["tiled_ms" if mode == "rdg" else "tiled_ms_block"] = tiled_ms
+        del tiled
 
-    # cli.evaluate at its default (fp32) on the flagship phase's run dir:
-    # 8 + 8 test images of 512 px, auto-tiled; its captured call's warm-up
-    # and capture count one forward's f32 launches each
+    lap("graphs")
+    # cli.evaluate at its default (fp32) on the flagship phase's run dir in
+    # each mode (ADSR_TPU_RDG=0: block mode): 8 + 8 test images of 512 px,
+    # auto-tiled; its captured call's warm-up and capture count one
+    # forward's f32 launches each; block mode's scores and AUCs against rdg
+    # mode's
     run_dir = max((CLI_DIR / "runs" / "drct").glob("*"),
                   key=lambda q: q.stat().st_mtime)
     root = CLI_DIR / "data"
-    os.environ["ADSR_TPU_RDG"] = "1"
-    reset_counts()
-    t0 = time.perf_counter()
-    res = cli_eval.main(["--run-dir", str(run_dir), "--data-root", str(root),
-                         "--sweep-windows", "9",
-                         "--output-dir", str(CLI_DIR / "eval_fp32")])
-    torch.cuda.synchronize()
-    cli_wall = time.perf_counter() - t0
-    os.environ.pop("ADSR_TPU_RDG")
-    cli_launches = counts()
-    cli_aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
-    lines = (CLI_DIR / "eval_fp32" / "scores.txt").read_text().splitlines()
     flagship = Path("workspace") / "chip_smoke_flagship.json"
     bf16_aucs = json.loads(flagship.read_text())["report"]["cli"]["aucs"] \
-        .get("rdg") if flagship.exists() else None
-    say("cli", f"cli.evaluate at its default precision (fp32) on "
-               f"{run_dir.name}: AUC ssim/mse/psnr "
-               f"{cli_aucs[0]:.4f}/{cli_aucs[1]:.4f}/{cli_aucs[2]:.4f} (bf16 "
-               f"kernels in the flagship phase: {bf16_aucs}), best window "
-               f"{res['best_ws']}; {cli_wall:.1f} s wall; launches "
-               f"{cli_launches}")
-    if cli_launches != expected_counts(PER_FORWARD_F32, 2) \
-            or not all(math.isfinite(a) and 0.0 <= a <= 1.0
-                       for a in cli_aucs) or len(lines) != 2 * CLI_TEST:
-        raise AssertionError(f"fp32 evaluate CLI: launches {cli_launches}, "
-                             f"expected {PER_FORWARD_F32} x 2; AUCs "
-                             f"{cli_aucs}; {len(lines)} score lines")
-    figures = check_figures(exp, CLI_DIR / "eval_fp32", root, "grid", res)
-    paths["evaluate_cli_fp32"] = cli_launches
-    out["cli"] = {"aucs": cli_aucs, "bf16_aucs": bf16_aucs,
-                  "wall_s": cli_wall, "figures": figures}
+        if flagship.exists() else {}
+    cli = {}
+    for mode, per in modes.items():
+        tag = "fp32" if mode == "rdg" else "block_fp32"
+        os.environ["ADSR_TPU_RDG"] = "1" if mode == "rdg" else "0"
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cli_eval.main(["--run-dir", str(run_dir), "--data-root",
+                             str(root), "--sweep-windows", "9",
+                             "--output-dir", str(CLI_DIR / f"eval_{tag}")])
+        torch.cuda.synchronize()
+        cli_wall = time.perf_counter() - t0
+        os.environ.pop("ADSR_TPU_RDG")
+        cli_launches = counts()
+        cli_aucs = [res["auc_ssim"], res["auc_mse"], res["auc_psnr"]]
+        lines = (CLI_DIR / f"eval_{tag}" / "scores.txt").read_text() \
+            .splitlines()
+        say("cli", f"cli.evaluate at its default precision (fp32), {mode} "
+                   f"mode, on {run_dir.name}: AUC ssim/mse/psnr "
+                   f"{cli_aucs[0]:.4f}/{cli_aucs[1]:.4f}/{cli_aucs[2]:.4f} "
+                   f"(bf16 kernels in the flagship phase: "
+                   f"{bf16_aucs.get(mode)}), best window {res['best_ws']}; "
+                   f"{cli_wall:.1f} s wall; launches {cli_launches}")
+        if cli_launches != expected_counts(per, 2) \
+                or not all(math.isfinite(a) and 0.0 <= a <= 1.0
+                           for a in cli_aucs) or len(lines) != 2 * CLI_TEST:
+            raise AssertionError(f"fp32 evaluate CLI ({mode} mode): "
+                                 f"launches {cli_launches}, expected {per} x "
+                                 f"2; AUCs {cli_aucs}; {len(lines)} score "
+                                 "lines")
+        figures = check_figures(exp, CLI_DIR / f"eval_{tag}", root, "grid",
+                                res)
+        paths[f"evaluate_cli_{tag}"] = cli_launches
+        cli[mode] = {"aucs": cli_aucs, "bf16_aucs": bf16_aucs.get(mode),
+                     "wall_s": cli_wall, "figures": figures,
+                     "scores": [res[k] for k in ("scores_ssim", "scores_mse",
+                                                 "scores_psnr")]}
+    auc_diff = [abs(a - b) for a, b in zip(cli["block"]["aucs"],
+                                           cli["rdg"]["aucs"])]
+    score_diff = [float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                  for a, b in zip(cli["block"].pop("scores"),
+                                  cli["rdg"].pop("scores"))]
+    say("cli", f"cli.evaluate fp32, block mode vs rdg mode: AUC differences "
+               f"{auc_diff} (limit {1 / CLI_TEST ** 2:.4f}), largest score "
+               f"difference (1-SSIM, MSE, -PSNR) {score_diff}")
+    if max(auc_diff) > 1.0 / CLI_TEST ** 2:
+        raise AssertionError(f"fp32 evaluate CLI: block mode's AUCs differ "
+                             f"from rdg mode's by {auc_diff}")
+    out["cli"] = {**cli["rdg"], "block": {**cli["block"],
+                                          "auc_diff_vs_rdg": auc_diff,
+                                          "score_diff_vs_rdg": score_diff}}
 
-    # the fp32 forward's time at batch 16, launched and as a graph, against
-    # its bound (the three kernels' bounds x 12 RDGs)
+    lap("cli")
+    # the fp32 forwards' time at batch 16, launched and as graphs (the two
+    # modes in turns: rdg, block, block, rdg), against their bounds (the
+    # kernels' bounds x 12 RDGs)
+    fwd_ms, fwd_graph_ms = {}, {}
     with torch.no_grad():
-        fwd_ms = cuda_ms(lambda: fused_drct_apply(packed, cfg, x), iters=5,
-                         warmup=1)
-        fwd_graph_ms = graph_ms(lambda: fused_drct_apply(packed, cfg, x),
-                                iters=5)
-    bound_ms = cfg.num_layers * sum(t[3] for t in timings.values())
+        for mode in ("rdg", "block", "block", "rdg"):
+            fwd_ms.setdefault(mode, []).append(cuda_ms(
+                lambda: fused_drct_apply(packed, cfg, x, mode=mode), iters=5,
+                warmup=1))
+            fwd_graph_ms.setdefault(mode, []).append(graph_ms(
+                lambda: fused_drct_apply(packed, cfg, x, mode=mode), iters=5))
+    bound_ms = {"rdg": cfg.num_layers * sum(t[3] for t in timings.values()),
+                "block": cfg.num_layers * (
+                    swin["w8"][3] + f32_adjust_bound(cfg, BATCH))}
     wall, families = profile_forward(packed, cfg, x, reps=2)
     busy = sum(families.values())
-    say("timing", f"fp32 forward, batch {BATCH}: {fwd_ms:.3f} ms launched, "
-                  f"{fwd_graph_ms:.3f} ms as a CUDA graph = "
-                  f"{BATCH * 1e3 / fwd_graph_ms:.1f} img/s; the kernels' "
-                  f"bounds x {cfg.num_layers} RDGs {bound_ms:.3f} ms (bound / "
-                  f"time {bound_ms / fwd_graph_ms:.3f}); profiler, device ms "
-                  "per forward: " + ", ".join(
-                      f"{k} {v:.3f}" for k, v in sorted(
-                          families.items(), key=lambda kv: -kv[1]))
+    for mode in ("rdg", "block"):
+        g_ms = min(fwd_graph_ms[mode])
+        say("timing", f"fp32 {mode}-mode forward, batch {BATCH}: "
+                      f"{' / '.join(f'{v:.3f}' for v in fwd_ms[mode])} ms "
+                      "launched, "
+                      f"{' / '.join(f'{v:.3f}' for v in fwd_graph_ms[mode])}"
+                      f" ms as a CUDA graph = {BATCH * 1e3 / g_ms:.1f} img/s; "
+                      f"the kernels' bounds x {cfg.num_layers} RDGs "
+                      f"{bound_ms[mode]:.3f} ms (bound / time "
+                      f"{bound_ms[mode] / g_ms:.3f})")
+    say("timing", "fp32 rdg-mode forward, profiler, device ms per forward: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(
+                      families.items(), key=lambda kv: -kv[1]))
                   + f"; busy {busy:.3f} of {wall:.3f} ms wall")
-    out.update(forward_ms=fwd_ms, forward_graph_ms=fwd_graph_ms,
-               forward_bound_ms=bound_ms,
+    out.update(forward_ms=fwd_ms["rdg"][0],
+               forward_graph_ms=fwd_graph_ms["rdg"][0],
+               forward_bound_ms=bound_ms["rdg"],
+               block_forward_ms=fwd_ms["block"],
+               block_forward_graph_ms=fwd_graph_ms["block"],
+               block_forward_bound_ms=bound_ms["block"],
+               rdg_forward_turns_ms=fwd_ms["rdg"],
+               rdg_forward_graph_turns_ms=fwd_graph_ms["rdg"],
                profile={"wall_ms": wall, "device_ms": families},
                phase_wall_s=time.perf_counter() - t_phase)
     out["per_rdg_ms"] = {k: {"ms": v[0], "plain_ms": v[1], "library_ms": v[2],
                              "bound_ms": v[3], "bound_by": v[4]}
                          for k, v in timings.items()}
-    say("done", f"fp32 phase in {out['phase_wall_s']:.1f} s")
+    lap("timing")
+    out["walls_s"] = walls
+    say("done", f"fp32 phase in {out['phase_wall_s']:.1f} s: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
     PREFIX = None
-    return paths, timings
+    return paths, {**timings, "swin_block_f32": swin["w8"][:5]}
 
 
 # --------------------------------------------------------------------------- #
@@ -5803,6 +6048,28 @@ def main() -> int:
                           "library_ms": library_ms,
                           "max_abs_err": f32[f"max_abs_err_{tag}"].get(k)}
         kernels.append(entry)
+    # the f32 instance of (g): the fp32 phase's readings at the flagship
+    # (window 8), and under "w4" / "w16" at those geometries, each beside
+    # the (a)-(c) f32 composition
+    swin = f32["swin_block_f32"]
+    by_path = {p: got["swin_block_f32"] for p, got in paths.items()
+               if got.get("swin_block_f32")}
+    if not by_path:
+        raise AssertionError("swin_block_f32: launched on no main path")
+    entry = {"name": "swin_block_f32", "route": "cuda",
+             "source": F32_SWIN_SOURCES["w8"],
+             "replaces": f"{REPLACES_BLOCK} (dtype f32)",
+             "counter": "launches_f32", "launches": sum(by_path.values()),
+             "launches_by_path": by_path,
+             "max_abs_err": f32["max_abs_err"]["swin_block_f32"],
+             **{k: swin["w8"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "composition_ms")}}
+    for tag in ("w4", "w16"):
+        entry[tag] = {"source": F32_SWIN_SOURCES[tag], **swin[tag],
+                      "max_abs_err":
+                      f32[f"max_abs_err_{tag}"]["swin_block_f32"]}
+    kernels.append(entry)
     # the f32 instances of (d)-(f): the fp32_train phase's readings at the
     # flagship, and under "w4" / "w16" at those geometries; their launches
     # are each wrapper's ``launches_f32``

@@ -1118,31 +1118,31 @@ def test_f32_forward_tracks_eager_and_launches_only_f32(dev, cfg):
                           device=dev, mode="rdg")
     g = torch.Generator(device=dev).manual_seed(2)
     x = 255 * torch.rand(2, side, side, 1, generator=g, device=dev)
-    fns = (rdg_layernorm, rdg_gemm, window_attention)
-    n0 = [(fn.launches, fn.launches_f32) for fn in fns]
+    fns = (rdg_layernorm, rdg_gemm, window_attention, fused_swin_block)
     with torch.no_grad():
-        got = fused_drct_apply(packed, cfg, x)
-        torch.cuda.synchronize()
-        counts = [(fn.launches - a, fn.launches_f32 - b)
-                  for fn, (a, b) in zip(fns, n0)]
         model = make_model(cfg, device=dev)
         model.load_state_dict(sd)
         want = model(x)
-    per = cfg.num_layers
-    assert counts == [(0, 10 * per), (0, 25 * per), (0, 5 * per)]
-    assert _rel_l2(got, want) <= 1e-5
-    # block mode has no f32 kernel (g): refused before any launch
-    n1 = fused_swin_block.launches
-    with pytest.raises(NotImplementedError, match="item 18"):
-        fused_drct_apply(packed, cfg, x, mode="block")
-    assert fused_swin_block.launches == n1
+        per = cfg.num_layers
+        # rdg mode: (a)-(c) f32; block mode: (g) f32 and the adjust on (b)
+        for mode, launches in (
+                ("rdg", [(0, 10 * per), (0, 25 * per), (0, 5 * per), (0, 0)]),
+                ("block", [(0, 0), (0, 5 * per), (0, 0), (0, 5 * per)])):
+            n0 = [(fn.launches, fn.launches_f32) for fn in fns]
+            got = fused_drct_apply(packed, cfg, x, mode=mode)
+            torch.cuda.synchronize()
+            counts = [(fn.launches - a, fn.launches_f32 - b)
+                      for fn, (a, b) in zip(fns, n0)]
+            assert counts == launches, mode
+            assert _rel_l2(got, want) <= 1e-5, mode
 
 
-def test_f32_serving_replay_equals_launched_bitwise(dev):
+@pytest.mark.parametrize("mode", ["rdg", "block"])
+def test_f32_serving_replay_equals_launched_bitwise(dev, mode):
     sd, _ = init_sr_params(CFG, torch.Generator().manual_seed(0), device=dev)
     exp = _f32_experiment(CFG)
-    graphed = make_serving_forward(exp, sd, dev, mode="rdg")
-    launched = make_serving_forward(exp, sd, dev, mode="rdg", graphs=False)
+    graphed = make_serving_forward(exp, sd, dev, mode=mode)
+    launched = make_serving_forward(exp, sd, dev, mode=mode, graphs=False)
     g = torch.Generator(device=dev).manual_seed(3)
     xs = [255 * torch.rand(2, 16, 16, 1, generator=g, device=dev)
           for _ in range(4)]
@@ -1150,5 +1150,39 @@ def test_f32_serving_replay_equals_launched_bitwise(dev):
     assert graphed.captured() == 1
     for x, got in zip(xs, outs):
         assert torch.equal(got, launched(x))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        make_serving_forward(exp, sd, dev, mode="block")
+
+
+# ---- the f32 instance of (g) (fp32 block mode) ----
+
+
+@pytest.mark.parametrize("k", [0, 1, 2, 3, 4])
+@pytest.mark.parametrize("win,b,side", [(8, 2, 32), (16, 2, 32), (4, 2, 16),
+                                        (4, 5, 20), (16, 5, 32)])
+def test_f32_swin_block_matches_plain(dev, k, win, b, side):
+    # the flagship's five blocks (c 180..308, heads 6/4/2/6/4, hd
+    # 30/53/122/46/77) at each window: a block a window at 8x8, a cluster
+    # of four a window at 16x16, four windows a block at 4x4 (at 5 x 20 x
+    # 20 the last block holds one window); f32 throughout, twice bitwise
+    cfg = DRCTModelConfig(upscale=4, img_size=side, window_size=win,
+                          in_chans=1, embed_dim=180, num_layers=1,
+                          num_heads=6, gc=32)
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(0), device=dev)
+    gen = torch.Generator().manual_seed(k)
+    sd = {n: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
+          for n, v in sd.items()}
+    packed = prepack_rdg_stack(sd, cfg, side, side, torch.float32, dev)
+    blk = packed["rdgs"][0][k]
+    c = (180, 212, 244, 276, 308)[k]
+    m = b * side * side
+    x = torch.randn(m, 308, generator=gen).to(dev)
+    outs = [torch.empty(m, c, device=dev) for _ in range(2)]
+    n0 = (fused_swin_block.launches, fused_swin_block.launches_f32)
+    for out in outs:
+        fused_swin_block(x[:, :c], blk, packed["masks"], cfg, side, side, k,
+                         out)
+    assert (fused_swin_block.launches, fused_swin_block.launches_f32) == \
+        (n0[0], n0[1] + 2)
+    want = fused_swin_block_plain(x[:, :c], blk, packed["masks"], cfg, side,
+                                  side, k)
+    _f32_close(outs[0], want)
+    assert torch.equal(outs[0], outs[1])

@@ -1,8 +1,9 @@
 """fp32 DRCT serving and evaluation: the route rule on each device, the
 evaluation CLI's default precision against the JAX CLI's, the f32 kernels'
 launch plans and layout rules on tensor metadata (no card needed), and the
-port's fp32 ``AnomalyServer`` and ``evaluate_anomaly`` against the JAX
-package's at windows 8 and 16 (window 4: ``tests/test_torch_serving.py``)."""
+port's fp32 ``AnomalyServer`` and ``evaluate_anomaly`` in rdg and in block
+mode against the JAX package's at windows 8 and 16 (window 4:
+``tests/test_torch_serving.py``)."""
 
 import dataclasses
 
@@ -25,7 +26,8 @@ from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels import rdg_gemm as gemm_mod
 from adsr_tpu_torch.kernels import rdg_layernorm as ln_mod
 from adsr_tpu_torch.kernels import window_attention as attn_mod
-from adsr_tpu_torch.kernels.fused_swin_block import NO_F32
+from adsr_tpu_torch.kernels import fused_swin_block as swin_mod
+from adsr_tpu_torch.kernels.fused_drct import resolve_mode
 from adsr_tpu_torch.kernels.fused_rdg import (block_buffers, rdg_geometry,
                                               rdg_workspace)
 from adsr_tpu_torch.train.trainer import (check_serving_precision,
@@ -35,7 +37,7 @@ from torch_port_util import CONFIGS, jax_params
 
 FLAGSHIP = pc.drct_experiment("grid", 128, 4, run_tag="t").model
 WRAPPERS = (ln_mod.rdg_layernorm, gemm_mod.rdg_gemm,
-            attn_mod.window_attention)
+            attn_mod.window_attention, swin_mod.fused_swin_block)
 
 
 def _launches():
@@ -46,29 +48,24 @@ def _launches():
 @pytest.mark.parametrize("mode", ["rdg", "block"])
 @pytest.mark.parametrize("precision", ["bf16", "fp32"])
 def test_route_rule(precision, mode, device):
-    """Serving: the card takes bf16 in both modes and fp32 in rdg mode;
-    fp32 block mode is refused there (item 18). Training: the card takes
-    both (the f32 instances of (a)-(f)). The CPU's plain path takes
-    everything."""
+    """Serving: the card takes bf16 and fp32 in both modes (the f32
+    instances of (a)-(c) and of (g)). Training: the card takes both (the
+    f32 instances of (a)-(f)). The CPU's plain path takes everything."""
     exp = pc.drct_experiment("grid", 128, 4, run_tag="t",
                              precision=precision)
     dev = torch.device(device)
-    card_fp32 = device == "cuda" and precision == "fp32"
-    if card_fp32 and mode == "block":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
-            check_serving_precision(exp, dev, mode)
-    else:
-        check_serving_precision(exp, dev, mode)
+    check_serving_precision(exp, dev, mode)
     check_training_precision(exp, dev)
+    with pytest.raises(ValueError, match="unknown fused DRCT mode"):
+        check_serving_precision(exp, dev, "window")
 
 
 def test_route_rule_reads_adsr_tpu_rdg(monkeypatch):
     exp = pc.drct_experiment("grid", 128, 4, run_tag="t", precision="fp32")
-    monkeypatch.setenv("ADSR_TPU_RDG", "0")
-    with pytest.raises(NotImplementedError, match="item 18"):
+    for flag, mode in (("0", "block"), ("1", "rdg")):
+        monkeypatch.setenv("ADSR_TPU_RDG", flag)
+        assert resolve_mode() == mode
         check_serving_precision(exp, torch.device("cuda"))
-    monkeypatch.setenv("ADSR_TPU_RDG", "1")
-    check_serving_precision(exp, torch.device("cuda"))
 
 
 def test_evaluate_cli_default_precision_is_the_jax_clis():
@@ -107,6 +104,51 @@ def test_f32_attention_plan_fits_the_card(window, c, nh):
     assert plan["blocks"] == windows * nh * (n // rows)
     # eight consecutive staged rows start in eight 16-byte bank groups
     assert len({(r * plan["pitch"] * 4) % 128 for r in range(8)}) == 8
+
+
+@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("hr,batch", [(128, 16), (128, 5), (256, 16),
+                                      (256, 5), (64, 16), (64, 5)])
+def test_f32_swin_block_plan_fits_the_card(hr, batch, k):
+    """Kernel (g)'s f32 plan at every block of the flagship (window 8),
+    256px/x4 (16) and 64/x4 (4) models (widths 180-308, heads 6/4/2/6/4,
+    hidden 360/424/488/276/308), at batch 16 and at batch 5 (at 64/x4 on 20
+    x 20 tokens: a short last group): one block an SM's shared memory, the
+    regions summing to it, a cluster the card launches."""
+    cfg = pc.drct_experiment("grid", hr, 4, run_tag="t").model
+    geo = swin_mod.block_geometry(cfg, k)
+    c, f, nh = geo["c"], geo["hidden"], geo["heads"]
+    assert (c, nh, f) == ((180, 6, 360), (212, 4, 424), (244, 2, 488),
+                          (276, 6, 276), (308, 4, 308))[k]
+    win = cfg.window_size
+    side = 20 if (win == 4 and batch == 5) else cfg.img_size
+    plan = swin_mod.swin_block_f32_plan(c, f, nh, batch, side, side, win)
+    assert plan["smem_bytes"] <= attn_mod.BLOCK_SHARED_MAX
+    assert plan["smem_bytes"] == sum(plan["regions"].values())
+    assert plan["regions"]["union"] == max(sum(plan["attention"].values()),
+                                           sum(plan["mlp"].values()))
+    hdp = -(-(c // nh) // 16) * 16
+    r = min(win * win, 64)
+    assert plan["attention"] == {"planes": 4 * 3 * 64 * (hdp + 4),
+                                 "scores": 4 * r * (r + 4),
+                                 "row_stats": 4 * 3 * r}
+    # at 16x16 windows the ring also holds a peer's K or V plane
+    assert plan["stage"] == (4 * 64 * (hdp + 4) if win == 16 else 0)
+    assert plan["regions"]["ring"] >= max(plan["stage"], 2 * 3 * 64 * 20 * 4)
+    # act's rows hold c rounded up to a product's K step, and two rows sit
+    # in different 16-byte bank groups
+    assert plan["ldc"] >= c and plan["ldc"] % 16 == 4
+    assert plan["threads"] == 256 and plan["stages"] == 3
+    windows = batch * (side // win) ** 2
+    assert plan["windows"] == windows
+    assert plan["cluster"] == (4 if win == 16 else 1)    # <= 8: portable
+    assert plan["blocks"] % plan["cluster"] == 0
+    if win == 4:
+        assert plan["blocks"] == -(-windows // 4)
+        assert plan["last_group"] == windows - 4 * (plan["blocks"] - 1)
+        assert plan["last_group"] == (1 if batch == 5 else 4)
+    else:
+        assert plan["blocks"] == windows * plan["cluster"]
 
 
 def test_f32_gemm_plan_covers_the_flagships_products():
@@ -163,11 +205,29 @@ def test_f32_layout_rules():
         attn_mod.check_rows16("t", torch.empty(64, 3 * 178)[:, :534])
 
 
+# a window-8 config whose block 1 (k = 0: width 12, no shift) kernel (g)'s
+# meta-tensor cases call
+SWIN_CFG = pc.DRCTModelConfig(upscale=2, img_size=16, window_size=8,
+                              in_chans=1, embed_dim=12, num_layers=1,
+                              num_heads=2, gc=4)
+
+
+def _swin_call(dtype):
+    """Kernel (g)'s wrapper on "meta" tensors of ``dtype`` (block 1 of
+    ``SWIN_CFG`` at batch 2)."""
+    meta = dict(device="meta", dtype=dtype)
+    p = {n: torch.empty(24, 12, **meta) for n in ("wqkv", "wproj", "w1",
+                                                  "w2")}
+    return lambda: swin_mod.fused_swin_block(
+        torch.empty(512, 12, **meta), p, {}, SWIN_CFG, 16, 16, 0,
+        torch.empty(512, 12, **meta))
+
+
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
 def test_other_dtypes_are_refused_on_the_card_route(dtype):
     # the kernels' type rule names bf16 and f32; on the card's route
     # ("meta" tensors take it) a tensor of another type raises in each of
-    # (a), (b) and (c) before any launch (meta is not CUDA: the device
+    # (a), (b), (c) and (g) before any launch (meta is not CUDA: the device
     # check comes first), and the launch counters do not move
     with pytest.raises(NotImplementedError, match="take bf16 or f32"):
         _build.kernel_dtype("t", _build.BF16_F32,
@@ -187,14 +247,16 @@ def test_other_dtypes_are_refused_on_the_card_route(dtype):
                                   torch.empty(128, 12, **meta),
                                   torch.empty(2, 64, 64, **f32), None, 8, 16,
                                   2, 8, 0)
+    with pytest.raises(ValueError, match="kernel needs CUDA"):
+        _swin_call(dtype)()
     assert _launches() == n0
 
 
 @pytest.mark.parametrize("wrapper", ["rdg_layernorm", "rdg_gemm",
-                                     "window_attention"])
+                                     "window_attention", "fused_swin_block"])
 def test_f32_reaches_the_device_check(wrapper):
-    # f32 passes the type check of (a), (b) and (c) and stops at the device
-    # check (meta is not CUDA)
+    # f32 passes the type check of (a), (b), (c) and (g) and stops at the
+    # device check (meta is not CUDA)
     meta = dict(device="meta")
     calls = {
         "rdg_layernorm": lambda: ln_mod.rdg_layernorm(
@@ -205,10 +267,29 @@ def test_f32_reaches_the_device_check(wrapper):
             torch.empty(4, **meta), torch.empty(16, 4, **meta)),
         "window_attention": lambda: attn_mod.window_attention(
             torch.empty(128, 36, **meta), torch.empty(128, 12, **meta),
-            torch.empty(2, 64, 64, **meta), None, 8, 16, 2, 8, 0)}
+            torch.empty(2, 64, 64, **meta), None, 8, 16, 2, 8, 0),
+        "fused_swin_block": _swin_call(torch.float32)}
     n0 = _launches()
     with pytest.raises(ValueError, match="kernel needs CUDA"):
         calls[wrapper]()
+    assert _launches() == n0
+
+
+@pytest.mark.parametrize("window,embed,item", [(2, 12, "Queue 2 item 1"),
+                                               (8, 324, "Queue 2 item 4")])
+def test_swin_block_refusals_name_their_queue_items(window, embed, item):
+    # a window or a width kernel (g) does not take raises on the card's
+    # route (meta tensors) before the device check, naming where it stands
+    cfg = pc.DRCTModelConfig(upscale=2, img_size=16, window_size=window,
+                             in_chans=1, embed_dim=embed, num_layers=1,
+                             num_heads=4, gc=4)
+    meta = dict(device="meta")
+    p = {n: torch.empty(8, embed, **meta) for n in ("wqkv", "wproj", "w1",
+                                                    "w2")}
+    n0 = _launches()
+    with pytest.raises(NotImplementedError, match=item):
+        swin_mod.fused_swin_block(torch.empty(512, embed, **meta), p, {}, cfg,
+                                  16, 16, 0, torch.empty(512, embed, **meta))
     assert _launches() == n0
 
 
@@ -218,10 +299,10 @@ def test_kernel_dtype_takes_one_dtype_of_the_listed_ones():
                                torch.empty(2, 4)) == torch.float32
     assert _build.kernel_dtype("t", _build.BF16, torch.empty(
         4, dtype=torch.bfloat16)) == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="take bf16 .*item 18"):
+    with pytest.raises(NotImplementedError,
+                       match=r"take bf16 \(all operands of one type\)"):
         _build.kernel_dtype("t", _build.BF16,
-                            torch.empty(4, 4, dtype=torch.float32),
-                            note=NO_F32)
+                            torch.empty(4, 4, dtype=torch.float32))
     with pytest.raises(NotImplementedError, match="one type"):
         _build.kernel_dtype("t", _build.BF16_F32,
                             torch.empty(4, 4, dtype=torch.float32),
@@ -296,6 +377,45 @@ def test_fp32_evaluate_anomaly_matches_jax_at_window16(tmp_path):
                         save_images=False, batch=4, log=lambda s: None)
     got = evaluate_anomaly(pexp, sd, str(tmp_path), "grid", batch=4,
                            device="cpu", log=lambda s: None)
+    assert got["best_ws"] == want["best_ws"]
+    assert got["y_true"] == want["y_true"]
+    swap = 1.0 / (4 * 3)   # one swapped rank pair moves an AUC by this
+    for key in ("auc_ssim", "auc_mse", "auc_psnr"):
+        assert abs(got[key] - want[key]) <= swap, key
+    for key in ("scores_ssim", "scores_mse", "scores_psnr"):
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["window8", "window16"])
+def test_fp32_block_server_matches_jax(name):
+    # block mode (each Swin block through kernel (g)'s plain path on the
+    # CPU) against the JAX server's fp32 model
+    jexp, pexp, params, sd = _pair(name)
+    side = pexp.model.img_size
+    hr_side = side * pexp.model.upscale
+    rng = np.random.RandomState(5)
+    lr = rng.randint(0, 256, (5, side, side, 3), np.uint8)
+    hr = rng.randint(0, 256, (5, hr_side, hr_side, 3), np.uint8)
+    theirs = JaxServer(batch_size=4, ssim_window=5)
+    theirs.register("grid", jexp, params)
+    ours = AnomalyServer(batch_size=4, ssim_window=5, device="cpu")
+    ours.register("grid", pexp, sd, mode="block")
+    want = theirs.score("grid", lr, hr)
+    got = ours.score("grid", lr, hr)
+    assert got.shape == (5, 3) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-4)
+
+
+def test_fp32_block_evaluate_anomaly_matches_jax_at_window16(tmp_path):
+    jexp, pexp, params, sd = _pair("window16")
+    side = pexp.model.img_size * pexp.model.upscale
+    rng = np.random.RandomState(6)
+    _write_split(tmp_path, "good", 4, side, pexp.model.upscale, rng, False)
+    _write_split(tmp_path, "bad", 3, side, pexp.model.upscale, rng, True)
+    want = jax_evaluate(jexp, params, str(tmp_path), "grid", out_dir=None,
+                        save_images=False, batch=4, log=lambda s: None)
+    got = evaluate_anomaly(pexp, sd, str(tmp_path), "grid", batch=4,
+                           device="cpu", log=lambda s: None, mode="block")
     assert got["best_ws"] == want["best_ws"]
     assert got["y_true"] == want["y_true"]
     swap = 1.0 / (4 * 3)   # one swapped rank pair moves an AUC by this

@@ -174,9 +174,8 @@ def test_check_training_precision_accepts_fp32_on_cuda(mesh):
     exp = drct_experiment("grid", 128, 4, run_tag="t", precision="fp32",
                           mesh=mesh)
     check_training_precision(exp, torch.device("cuda"))
-    # fp32 block mode still has no f32 kernel (g)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        check_serving_precision(exp, torch.device("cuda"), mode="block")
+    # fp32 block mode serves on the f32 kernel (g)
+    check_serving_precision(exp, torch.device("cuda"), mode="block")
 
 
 def test_train_cli_fp32_on_cuda_without_a_card_fails_on_the_device(tmp_path):

@@ -44,6 +44,23 @@ def test_block_mode_matches_jax_block_mode():
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("name", ["window8", "window16"])
+def test_fp32_block_mode_matches_jax_block_mode(name):
+    # the JAX block mode at f32 (its Pallas kernel at dtype f32, in
+    # interpret mode) against the port's block mode on f32 CPU tensors
+    # (kernel (g)'s plain path, the f32 instance's reference)
+    jcfg, _, params = jax_params(name)
+    cfg, packed = _packed(name, "block")
+    x = lr_input(jcfg)
+    jp = jax_prepack(params, jcfg, jcfg.img_size, jcfg.img_size,
+                     dtype=jnp.float32, mode="block")
+    want = np.asarray(jax_apply(jp, jcfg, x, dtype=jnp.float32))
+    with torch.no_grad():
+        got = fused_drct_apply(packed, cfg, torch.from_numpy(x)).numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
 @pytest.mark.parametrize("name", ["tiny", "fixup", "window8"])
 def test_block_mode_matches_rdg_mode(name):
     cfg, packed = _packed(name)

@@ -117,15 +117,14 @@ def test_entry_points_default_to_cuda_and_never_fall_back():
         evaluate_anomaly_arrays(pexp, {}, None, None, None, None)
 
 
-def test_fp32_on_cuda_is_not_implemented():
-    # fp32 serves on the card in rdg mode and trains there (the f32
-    # instances of (a)-(f)); what is still not implemented there: block
-    # mode in fp32 (an f32 kernel (g), ROADMAP item 18)
+def test_fp32_on_cuda_is_accepted_in_both_modes():
+    # fp32 serves on the card in rdg mode (the f32 instances of (a)-(c))
+    # and in block mode (the f32 instance of (g)), and trains there (the
+    # f32 instances of (a)-(f))
     _, pexp = _experiments()
     cuda = torch.device("cuda")
     check_serving_precision(pexp, cuda, mode="rdg")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        check_serving_precision(pexp, cuda, mode="block")
+    check_serving_precision(pexp, cuda, mode="block")
     check_training_precision(pexp, cuda)
     for mode in ("rdg", "block"):                      # plain path: fine
         check_serving_precision(pexp, torch.device("cpu"), mode=mode)
