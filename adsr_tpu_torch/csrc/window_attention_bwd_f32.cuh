@@ -12,47 +12,56 @@
 // accumulators (fused_rdg_train.py:442, 961-967). The bf16 instances are
 // window_attention_bwd{4,,16}.cu.
 // Bound on H100: bytes at N = 16 and 64 (qkv, dO and dqkv once; the
-// products of 64 x 64 a head are cheap), operations at N = 256 (ten
-// 256 x 256 x hd products a head in f32 FFMA).
-// Design: every product in f32 on the CUDA cores, the operand planes in
-// shared memory as the forward's (window_attention_f32.cuh, whose staging,
-// row map and bias / mask lookups this file reuses): a head's rows of q, k,
-// v and dO staged from the 16-byte pieces that hold its columns (head dims
-// 30, 53, 122, 46 and 77 at the flagship start on any 4-byte column) and
-// sliced out in registers into planes [R][hdp + 4], zero-padded. Scores and
-// dP tiles are a 16 x 16 grid of threads, R / 16 x R / 16 values each, a
-// row's sums half-warp shuffles; the three output products take a thread's
-// rows and four head dims, reading P and dS from shared tiles [R][R + 4].
-// - N = 16 and 64 (R = N, the whole window in one tile): one launch, a
-//   block per (group of ``group`` consecutive windows, head): for each
-//   window it recomputes the stabilised softmax from q, k, the bias and
-//   the mask, D = rowsum(P o dP), dS, then dQ, dK and dV, written into the
-//   head's columns of the raster-order dqkv; dS is summed over the group's
-//   windows in registers into one d(bias) partial [N][N] a (group, head).
-// - N = 256 (R = 64): FlashAttention-2's deterministic backward in two
-//   launches, as the bf16 kernels (window_attention_bwd16.cu): P from the
-//   forward's softmax statistics (kernel (c) writes (max, 1 / sum) a query
-//   row) and D = rowsum(dO o O) from the forward's context. ``dq``: a block
-//   per (window, head, query tile) computes D of its rows (written to
-//   ``dsum`` for the second launch), sweeps the four key tiles and writes
-//   dQ. ``dkv``: a block per (group of windows, head, key tile) walks its
-//   group's windows and each window's four query tiles, accumulates dK and
-//   dV of its keys in registers and the [256][64] d(bias) columns of its
-//   keys in registers over the group, and writes one partial a (group,
-//   head). The bias comes from the relative-position table and the mask
-//   from the region labels, so a 16x16 window's f32 bias (256 KB) is never
-//   staged.
+// products of 64 x 64 a head are cheap), operations at N = 256 (seven
+// 256 x 256 x hd products a head: 208 GFLOP an RDG at 256px/x4, 3.11 ms at
+// the 67 TFLOP/s of f32 FFMA, 1.26 ms as three TF32 products each at 495
+// TFLOP/s).
+// Design: operand planes in shared memory as the forward's
+// (window_attention_f32.cuh, whose staging, row map and bias / mask lookups
+// this file reuses): a head's rows of q, k, v and dO staged from the
+// 16-byte pieces that hold its columns (head dims 30, 53, 122, 46 and 77 at
+// the flagship start on any 4-byte column) and sliced out in registers into
+// planes [R][hdp + 4], zero-padded.
+// - N = 16 and 64 (R = N, the whole window in one tile; hdp a multiple of
+//   16): one launch, every product in f32 FFMA on the CUDA cores, a block
+//   per (group of ``group`` consecutive windows, head): for each window it
+//   recomputes the stabilised softmax from q, k, the bias and the mask, D =
+//   rowsum(P o dP), dS, then dQ, dK and dV, written into the head's columns
+//   of the raster-order dqkv; dS is summed over the group's windows in
+//   registers into one d(bias) partial [N][N] a (group, head). Scores and
+//   dP tiles are a 16 x 16 grid of threads, a row's sums half-warp
+//   shuffles; the three output products take a thread's rows and four head
+//   dims, reading P and dS from shared tiles [R][R + 4].
+// - N = 256 (R = 64; hdp a multiple of 8): FlashAttention-2's
+//   deterministic backward in two launches, as the bf16 kernels
+//   (window_attention_bwd16.cu), every product f32-accurate as 3xTF32 on
+//   the tensor cores (mma.sync, below): P from the forward's softmax
+//   statistics (kernel (c) writes (max, 1 / sum) a query row) and D =
+//   rowsum(dO o O) from the forward's context. ``dq``: a block per (window,
+//   head, query tile) computes D of its rows (written to ``dsum`` for the
+//   second launch), sweeps the four key tiles and writes dQ. ``dkv``: a
+//   block per (group of windows, head, key tile) walks its group's windows
+//   and each window's four query tiles, accumulates dK and dV of its keys
+//   in registers and the [256][64] d(bias) columns of its keys in shared
+//   memory over the group, and writes one partial a (group, head). The bias
+//   comes from the relative-position table and the mask from the region
+//   labels, so a 16x16 window's f32 bias (256 KB) is never staged.
 // partials.cuh's sum_partials adds the d(bias) partials in a fixed order:
 // no atomics, bitwise repeatable; nothing survives a launch.
 //
 // One source a window includes this file (window_attention_bwd4_f32.cu,
-// window_attention_bwd_f32.cu, window_attention_bwd16_f32.cu), so nvcc
-// builds the three windows' instances in parallel.
+// window_attention_bwd_f32.cu, window_attention_bwd16_f32.cu, and at N =
+// 256 head tiles past 64 window_attention_bwd16_f32_wide.cu), so nvcc
+// builds the windows' instances in parallel.
 
 #pragma once
 
 #include "partials.cuh"
 #include "window_attention_f32.cuh"
+
+#ifndef ADSR_BWD16_WIDE
+#define ADSR_BWD16_WIDE 0         // 1: the N = 256 head tiles past 64
+#endif
 
 namespace {
 
@@ -72,20 +81,13 @@ struct BwdGeo {
   static constexpr size_t kTile = (size_t)R * SP;
 };
 
-// shared memory of each kernel, in bytes (kernels/window_attention_bwd.py
-// ``window_attention_bwd_f32_plan``): the four planes, then the P and dS
-// tiles (the dq launch only dS), then (N = 256) each row's max, 1 / sum
-// and D
+// shared memory of the N = 16 and 64 kernel, in bytes
+// (kernels/window_attention_bwd.py ``window_attention_bwd_f32_plan``): the
+// four planes, then the P and dS tiles
 template <int N, int HDP>
 __host__ __device__ constexpr size_t bwd_smem_bytes() {
   using G = BwdGeo<N, HDP>;
-  return 4 * (G::kPlanes + 2 * G::kTile + (N == 256 ? 3 * G::R : 0));
-}
-
-template <int HDP>
-__host__ __device__ constexpr size_t dq_smem_bytes() {
-  using G = BwdGeo<256, HDP>;
-  return 4 * (G::kPlanes + G::kTile + 3 * G::R);
+  return 4 * (G::kPlanes + 2 * G::kTile);
 }
 
 // zero the padded head dims of the four planes (the staged rows write head
@@ -314,10 +316,307 @@ attn_bwd_f32_kernel(const float* __restrict__ qkv, long long ldq,
       out[(ty + 16 * i) * N + tx + 16 * j] = db[i][j];
 }
 
-// ---- N = 256: dq launch, a block per (window, head, query tile) -------------
+// ---- N = 256 on the tensor cores: 3xTF32 mma.sync --------------------------
+//
+// Every product is m16n8k8 TF32 mma.sync a warp, each operand split as x =
+// hi + lo (hi = tf32(x), lo = tf32(x - hi), to nearest) and the f32
+// accumulators summing a_lo b_hi + a_hi b_lo + a_hi b_hi (mma3). Operands
+// are split as their fragments are loaded from the f32 planes (pitch HDP +
+// 4, HDP the head dim rounded up to 8: the fragments' row and paired-row
+// reads are free of bank conflicts). A product's accumulator tile becomes
+// the A operand of the next product over its columns without leaving the
+// registers: its lane holds columns 2t and 2t + 1, so the reduction takes
+// its keys (or queries) in the paired order (a0, a1, a2, a3) = (c0, c2, c1,
+// c3) and the B operand reads rows k0 + 2t and k0 + 2t + 1 (frag_b_cols).
+// Eight warps a block: warp (wr, wc) takes rows 16 wr .. of the block's
+// 64 and columns 32 wc .. of each 64-wide tile of the other side; the two
+// warps of a row trade the half of a tile the other needs through an
+// exchange buffer of C fragments ([writer][wr][n8 tile][lane] float4s,
+// free of conflicts), so each output has one owner and no sum crosses warps.
+// A tile's rows are staged by cp.async in the 16-byte pieces that hold the
+// head's columns, as they lie: head dim j of a row sits at column j + (col
+// & 3) of the plane (every plane of a head shares that offset: C % 4 == 0),
+// and each row's last piece has the columns past the head dim zeroed once it
+// lands (the planes start zeroed, so the columns past a row's last piece
+// stay zero).
+
+// ablation switches of scripts/torch_attention_bwd16_f32_sweep.py (timing
+// only: a variant without them computes something else)
+#ifndef ATTN16_F32_STAGE
+#define ATTN16_F32_STAGE 1        // 0: the tiles' rows are not loaded
+#endif
+#ifndef ATTN16_F32_X3
+#define ATTN16_F32_X3 1           // 0: one TF32 product, no lo parts
+#endif
+#ifndef ATTN16_F32_TERM
+#define ATTN16_F32_TERM 1         // 0: no bias / mask lookups and no exp
+#endif
+
+constexpr int kDbPitch = 64 + 4;          // floats a row of dkv's d(bias)
+constexpr int kExchange = 2 * 4 * 4 * 32;   // float4s of the exchange
+constexpr int kStatFloats = 3 * 64;       // (max, 1 / sum) pairs, then D
 
 template <int HDP>
-__global__ void __launch_bounds__(kThreads, 2)
+struct Tc16 {
+  static_assert(HDP % 8 == 0 && HDP <= 128, "head tile");
+  static constexpr int R = 64, P = kPitch<HDP>, KT = HDP / 8;
+  static constexpr size_t kPlane = (size_t)R * P;
+  // dkv double-buffers its q and dO tiles (and their rows' statistics)
+  // where six planes fit beside its d(bias) tile; dq always does its k and
+  // v tiles
+  static constexpr bool kDkvDouble =
+      4 * (6 * kPlane + 4 * kExchange + 2 * kStatFloats + 256 * kDbPitch)
+      <= kMaxSmem;
+  static constexpr int kDkvBuffers = kDkvDouble ? 2 : 1;
+  // blocks an SM asked of the registers (kernels/window_attention_bwd.py
+  // ``bwd16_f32_min_blocks``): dq two where 128 registers hold a thread
+  // without spills and its shared memory lets two in
+  static constexpr int kDqMinBlocks = HDP >= 32 && HDP <= 64 ? 2 : 1;
+  static constexpr int kDkvMinBlocks = 1;
+};
+
+// shared memory of the two launches (kernels/window_attention_bwd.py
+// ``window_attention_bwd_f32_plan``): dq holds q, dO, two k and two v
+// planes, the exchange and its rows' statistics; dkv k, v, one or two q and
+// dO planes, the exchange, their rows' statistics and the d(bias) tile
+// [256][kDbPitch] of its keys
+template <int HDP>
+__host__ __device__ constexpr size_t dq16_smem_bytes() {
+  return 4 * (6 * Tc16<HDP>::kPlane + 4 * kExchange + kStatFloats);
+}
+
+template <int HDP>
+__host__ __device__ constexpr size_t dkv16_smem_bytes() {
+  constexpr int nb = Tc16<HDP>::kDkvBuffers;
+  return 4 * ((2 + 2 * nb) * Tc16<HDP>::kPlane + 4 * kExchange
+              + nb * kStatFloats + 256 * kDbPitch);
+}
+
+// hi = tf32(x), lo = tf32(x - hi): the nearest TF32 values, ties away from
+// zero (the rounding of cvt.rna.tf32.f32), in integer operations: the
+// conversion runs at a lower rate
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+#if ATTN16_F32_X3
+  lo = tf32_rna(x - __uint_as_float(hi));
+#else
+  lo = 0u;
+#endif
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b, f32-accurate: the small terms first
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+#if ATTN16_F32_X3
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+#endif
+  mma_tf32(d, ah, bh);
+}
+
+// two independent 3xTF32 products, their mma interleaved so neither waits
+// on its own accumulator
+__device__ __forceinline__ void mma3x2(
+    float (&d0)[4], const uint32_t (&a0h)[4], const uint32_t (&a0l)[4],
+    const uint32_t (&b0h)[2], const uint32_t (&b0l)[2], float (&d1)[4],
+    const uint32_t (&a1h)[4], const uint32_t (&a1l)[4],
+    const uint32_t (&b1h)[2], const uint32_t (&b1l)[2]) {
+#if ATTN16_F32_X3
+  mma_tf32(d0, a0l, b0h);
+  mma_tf32(d1, a1l, b1h);
+  mma_tf32(d0, a0h, b0l);
+  mma_tf32(d1, a1h, b1l);
+#endif
+  mma_tf32(d0, a0h, b0h);
+  mma_tf32(d1, a1h, b1h);
+}
+
+// A (16 x 8) of plane X: rows r0 + g (+ 8), columns k0 + t (+ 4)
+template <int P>
+__device__ __forceinline__ void frag_a(const float* X, int r0, int k0,
+                                       uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* x = X + (r0 + g) * P + k0 + t;
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[8 * P], hi[1], lo[1]);
+  split_tf32(x[4], hi[2], lo[2]);
+  split_tf32(x[8 * P + 4], hi[3], lo[3]);
+}
+
+// B (8 x 8), element (k, n) at X[n0 + n][k0 + k]: a product over the
+// planes' head dims (S = Q K^T)
+template <int P>
+__device__ __forceinline__ void frag_b_rows(const float* X, int n0, int k0,
+                                            uint32_t (&hi)[2],
+                                            uint32_t (&lo)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* x = X + (n0 + g) * P + k0 + t;
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[4], hi[1], lo[1]);
+}
+
+// B (8 x 8), element (k, n) at X[k0 + k][n0 + n] in the paired order: k = t
+// reads row k0 + 2t, k = t + 4 row k0 + 2t + 1 (a product over the planes'
+// rows, A from frag_a_of_c)
+template <int P>
+__device__ __forceinline__ void frag_b_cols(const float* X, int k0, int n0,
+                                            uint32_t (&hi)[2],
+                                            uint32_t (&lo)[2]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* x = X + (k0 + 2 * t) * P + n0 + g;
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[P], hi[1], lo[1]);
+}
+
+// an accumulator tile (c0, c1: row g, columns 2t, 2t + 1; c2, c3: row g +
+// 8) as the A of a product over its columns, in the paired order
+__device__ __forceinline__ void frag_a_of_c(float c0, float c1, float c2,
+                                            float c3, uint32_t (&hi)[4],
+                                            uint32_t (&lo)[4]) {
+  split_tf32(c0, hi[0], lo[0]);
+  split_tf32(c2, hi[1], lo[1]);
+  split_tf32(c1, hi[2], lo[2]);
+  split_tf32(c3, hi[3], lo[3]);
+}
+
+__device__ __forceinline__ void cp_async_piece(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"((uint32_t)__cvta_generic_to_shared(dst)), "l"(src)
+               : "memory");
+}
+
+// rows [t0, t0 + 64) of a window's part of ``src`` (the head's hd columns
+// from ``col``) into ``plane`` by cp.async, each row's 16-byte pieces as
+// they lie (head dim j at column j + (col & 3)): thread tid takes row
+// tid / 4 and its pieces tid % 4, + 4, ..; nothing waits
+template <int HDP>
+__device__ __forceinline__ void stage_async(float* plane,
+                                            const float* __restrict__ src,
+                                            long long ld, int col, int b,
+                                            int wi, int wj, int t0, int H,
+                                            int W, int shift, int hd) {
+#if ATTN16_F32_STAGE
+  constexpr int N = 256, P = kPitch<HDP>;
+  const int r = threadIdx.x >> 2;
+  const int pieces = ((col & 3) + hd + 3) / 4;
+  const float* g = src + token_row<N>(b, wi, wj, t0 + r, H, W, shift) * ld
+                   + (col & ~3);
+  for (int k = threadIdx.x & 3; k < pieces; k += 4)
+    cp_async_piece(plane + r * P + 4 * k, g + 4 * k);
+#endif
+}
+
+// rows [row0, row0 + 64)'s (max, 1 / sum) from ``stats`` and, where
+// given, D from ``dsum`` into ``st`` ([64] float2, then [64] float) by
+// cp.async
+__device__ __forceinline__ void stage_stats(float* st,
+                                            const float* __restrict__ stats,
+                                            const float* __restrict__ dsum,
+                                            size_t row0) {
+  const int tid = threadIdx.x;
+  if (tid < 32)
+    cp_async_piece(st + 4 * tid, stats + 2 * row0 + 4 * tid);
+  else if (dsum != nullptr && tid < 48)
+    cp_async_piece(st + 128 + 4 * (tid - 32), dsum + row0 + 4 * (tid - 32));
+}
+
+// waits for this thread's copies, then zeroes the columns past the head dim
+// that its row's last piece brought into ``count`` planes, ``stride``
+// floats apart from ``first`` (the caller synchronises the block before the
+// planes are read)
+template <int HDP>
+__device__ __forceinline__ void land_async(float* first, int stride,
+                                           int count, int col, int hd) {
+  constexpr int P = kPitch<HDP>;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  const int end = (col & 3) + hd, pieces = (end + 3) / 4;
+  if (4 * pieces == end || (threadIdx.x & 3) != ((pieces - 1) & 3)) return;
+  const int r = threadIdx.x >> 2;
+  for (int p = 0; p < count; ++p)
+    for (int x = end; x < 4 * pieces; ++x)
+      first[p * stride + r * P + x] = 0.f;
+}
+
+// the relative-position table's index of (query qi, key kj) at 16x16
+// windows (attn_term<256>'s) is rel16(qi) - rel16(kj) + 480
+__device__ __forceinline__ int rel16(int t) { return 31 * (t >> 4) + (t & 15); }
+
+// P = exp(scale s + term - max) / sum of (query qi, key kj), the additive
+// term from the head's table centred at index 480 (``tab``: table + h * 961
+// + 480) and the window's region labels (``lab``, null at shift 0), the
+// row's and the column's parts given: ``rel`` = rel16(qi) - rel16(kj),
+// ``same`` = whether qi and kj share a region
+__device__ __forceinline__ float probability(float s, float scale,
+                                             const float* __restrict__ tab,
+                                             int rel, bool same, float mx,
+                                             float inv) {
+#if ATTN16_F32_TERM
+  const float term = __ldg(tab + rel) + (same ? 0.f : kMaskOff);
+  return expf(s * scale + term - mx) * inv;
+#else
+  return s * scale * inv - mx + (float)rel + (same ? 0.f : 1.f);
+#endif
+}
+
+// S and dP of a warp's 16 rows of planes (a, a2) against 32 rows of
+// planes (b, b2) from row n0, over the head dims: s += a b^T, dp += a2 b2^T
+template <int HDP>
+__device__ __forceinline__ void scores_pair(const float* a, const float* a2,
+                                            const float* b, const float* b2,
+                                            int r0, int n0,
+                                            float (&s)[4][4],
+                                            float (&dp)[4][4]) {
+  constexpr int P = kPitch<HDP>, KT = HDP / 8;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+  auto step = [&](int kk) {
+    uint32_t ah[4], al[4], ch[4], cl[4];
+    frag_a<P>(a, r0, 8 * kk, ah, al);
+    frag_a<P>(a2, r0, 8 * kk, ch, cl);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t bh[2], bl[2], b2h[2], b2l[2];
+      frag_b_rows<P>(b, n0 + 8 * j, 8 * kk, bh, bl);
+      frag_b_rows<P>(b2, n0 + 8 * j, 8 * kk, b2h, b2l);
+      mma3x2(s[j], ah, al, bh, bl, dp[j], ch, cl, b2h, b2l);
+    }
+  };
+#pragma unroll 1
+  for (int kk = 0; kk + 1 < KT; kk += 2) {    // two head-dim steps a pass
+    step(kk);
+    step(kk + 1);
+  }
+  if (KT & 1) step(KT - 1);
+}
+
+// ---- N = 256: dq launch, a block per (window, head, query tile) -------------
+//
+// Warp (wr, wc) keeps S, dP (then dS) of its 16 query rows x 32 keys of
+// each key tile in registers, trades its dS half with its row's other warp
+// and accumulates dQ of its rows over the tile's 64 keys in the head dims'
+// n8 tiles wc, wc + 2, .. The next key tile's k and v land in the other
+// pair of planes while a tile is computed.
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, Tc16<HDP>::kDqMinBlocks)
 attn_bwd16_dq_f32_kernel(const float* __restrict__ qkv, long long ldq,
                          const float* __restrict__ dout, long long ldg,
                          const float* __restrict__ ctx, long long ldc,
@@ -328,49 +627,51 @@ attn_bwd16_dq_f32_kernel(const float* __restrict__ qkv, long long ldq,
                          float* __restrict__ dsum, int H, int W, int C,
                          int nh, int hd, int shift, float scale) {
   constexpr int N = 256;
-  using G = BwdGeo<N, HDP>;
-  constexpr int R = G::R, SR = G::SR, SP = G::SP, P = G::P;
+  using T = Tc16<HDP>;
+  constexpr int R = T::R, P = T::P, KT = T::KT, NQ = (KT + 1) / 2;
+  constexpr int kTiles = Geo<N>::kTiles;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + R * P;
-  float* vs = ks + R * P;
-  float* dos = vs + R * P;
-  float* dss = dos + R * P;
-  float* rmax = dss + R * SP;
-  float* rinv = rmax + R;
-  float* rd = rinv + R;
+  constexpr int PL = T::kPlane;
+  float* qs = smem;                       // planes: q, dO, k0, k1, v0, v1
+  float* dos = qs + PL;
+  float* ks = dos + PL;                   // key tile kt in ks + (kt & 1) PL
+  float* vs = ks + 2 * PL;
+  float4* exch = reinterpret_cast<float4*>(vs + 2 * PL);
+  float* st = reinterpret_cast<float*>(exch + kExchange);
+  float* rd = st + 128;
 
   const int nww = W / Geo<N>::kWin;
   const int nw = (H / Geo<N>::kWin) * nww;
   int bid = blockIdx.x;
-  const int qt = bid % Geo<N>::kTiles;
-  bid /= Geo<N>::kTiles;
+  const int qt = bid % kTiles;
+  bid /= kTiles;
   const int h = bid % nh;
   const int gw = bid / nh;                // image * nW + window
   const int b = gw / nw, win = gw % nw;
   const int wi = win / nww, wj = win % nww;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int dg = tid % G::G4, r0 = tid / G::G4;
-  const bool pv = tid < G::RS * G::G4;
-  const int col = h * hd, t0 = qt * R;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = tid / 32, t = tid & 3;
+  const int wr = warp & 3, wc = warp >> 2;
+  const int col = h * hd, t0 = qt * R, sc = col & 3;
   const size_t row0 = ((size_t)gw * nh + h) * N + t0;   // stats / dsum row
-  zero_pads<N, HDP>(smem, hd);
+  for (int i = tid; i < 6 * R * P; i += kThreads) smem[i] = 0.f;
   __syncthreads();
-  stage_rows<N, HDP>(qs, qkv, ldq, b, wi, wj, t0, H, W, shift, col, hd);
-  stage_rows<N, HDP>(dos, dout, ldg, b, wi, wj, t0, H, W, shift, col, hd);
-  stage_rows<N, HDP>(ks, ctx, ldc, b, wi, wj, t0, H, W, shift, col, hd);
-  for (int r = tid; r < R; r += kThreads) {
-    const float2 st = reinterpret_cast<const float2*>(stats)[row0 + r];
-    rmax[r] = st.x;
-    rinv[r] = st.y;
-  }
+  // q, dO, O (into the second k plane) and key tile 0
+  stage_async<HDP>(qs, qkv, ldq, col, b, wi, wj, t0, H, W, shift, hd);
+  stage_async<HDP>(dos, dout, ldg, col, b, wi, wj, t0, H, W, shift, hd);
+  stage_async<HDP>(ks + PL, ctx, ldc, col, b, wi, wj, t0, H, W, shift, hd);
+  stage_async<HDP>(ks, qkv, ldq, C + col, b, wi, wj, 0, H, W, shift, hd);
+  stage_async<HDP>(vs, qkv, ldq, 2 * C + col, b, wi, wj, 0, H, W, shift,
+                   hd);
+  stage_stats(st, stats, nullptr, row0);
+  land_async<HDP>(qs, PL, 5, col, hd);    // q, dO, k0, O, v0
   __syncthreads();
   {
     // D = rowsum(dO o O): four lanes a row, a quarter of the head dims each
     const int r = tid / 4, part = tid % 4;
     float d = 0.f;
-    for (int x = part; x < HDP; x += 4) d += dos[r * P + x] * ks[r * P + x];
+    for (int x = part; x < HDP; x += 4)
+      d += dos[r * P + sc + x] * ks[PL + r * P + sc + x];
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     d += __shfl_xor_sync(0xffffffffu, d, 2);
     if (part == 0) {
@@ -378,45 +679,108 @@ attn_bwd16_dq_f32_kernel(const float* __restrict__ qkv, long long ldq,
       dsum[row0 + r] = d;
     }
   }
-  __syncthreads();                        // ks is free for the key tiles
+  __syncthreads();                        // O's plane is free for tile 1
 
-  float acc[G::RPT][4];
-  zero_acc<N, HDP>(acc);
-  for (int kt = 0; kt < Geo<N>::kTiles; ++kt) {
-    stage_rows<N, HDP>(ks, qkv, ldq, b, wi, wj, kt * R, H, W, shift,
-                       C + col, hd);
-    stage_rows<N, HDP>(vs, qkv, ldq, b, wi, wj, kt * R, H, W, shift,
-                       2 * C + col, hd);
-    __syncthreads();
-    float s[SR][SR], dp[SR][SR];
-    dot_tile<N, HDP>(qs, ks, ty, tx, s);
-    dot_tile<N, HDP>(dos, vs, ty, tx, dp);
+  const int ra = 16 * wr + ((tid & 31) >> 2);   // rows ra, ra + 8
+  const float* tab = table + h * 961 + 480;
+  const int* lab = static_cast<const int*>(labels);
+  if (lab != nullptr) lab += (size_t)win * N;
+  const int rel_q[2] = {rel16(t0 + ra), rel16(t0 + ra + 8)};
+  const int lab_q[2] = {lab ? __ldg(lab + t0 + ra) : 0,
+                        lab ? __ldg(lab + t0 + ra + 8) : 0};
+  float dq[NQ][4];
 #pragma unroll
-    for (int i = 0; i < SR; ++i) {
-      const int r = ty + 16 * i;
-      const float mx = rmax[r], inv = rinv[r], d = rd[r];
+  for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int j = 0; j < SR; ++j) {
-        const int c = tx + 16 * j;
-        const float p = expf(s[i][j] * scale
-                             + attn_term<N>(table, labels, h, win, t0 + r,
-                                            kt * R + c) - mx) * inv;
-        dss[r * SP + c] = p * (dp[i][j] - d);
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+
+  for (int kt = 0; kt < kTiles; ++kt) {
+    const int cur = (kt & 1) * PL, nxt = PL - cur;
+    if (kt + 1 < kTiles) {                // the next key tile, meanwhile
+      stage_async<HDP>(ks + nxt, qkv, ldq, C + col, b, wi, wj, (kt + 1) * R,
+                       H, W, shift, hd);
+      stage_async<HDP>(vs + nxt, qkv, ldq, 2 * C + col, b, wi, wj,
+                       (kt + 1) * R, H, W, shift, hd);
+    }
+    const float* kp = ks + cur + sc;
+    float s[4][4], dp[4][4];              // S = Q K^T, dP = dO V^T
+    scores_pair<HDP>(qs + sc, dos + sc, kp, vs + cur + sc, 16 * wr, 32 * wc,
+                     s, dp);
+    // dS = P o (dP - D), P from the forward's statistics, in place of S,
+    // and the half the row's other warp needs into the exchange
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1, r = ra + 8 * hh;
+        const int kj = kt * R + 32 * wc + 8 * j + 2 * t + (e & 1);
+        const bool same = lab == nullptr || __ldg(lab + kj) == lab_q[hh];
+        const float p = probability(s[j][e], scale, tab,
+                                    rel_q[hh] - rel16(kj), same, st[2 * r],
+                                    st[2 * r + 1]);
+        s[j][e] = p * (dp[j][e] - rd[r]);
       }
+      exch[((wc * 4 + wr) * 4 + j) * 32 + lane] =
+          make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
     }
     __syncthreads();
-    if (pv) tile_product<N, HDP, false>(dss, ks, r0, dg, acc);
-    __syncthreads();                      // before the next tile's rows
+    // dQ += dS K over the tile's 64 keys, the warp's head-dim n8 tiles
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 o = exch[(((1 - wc) * 4 + wr) * 4 + j) * 32 + lane];
+        const bool own = hf == wc;
+        uint32_t ah[4], al[4];
+        frag_a_of_c(own ? s[j][0] : o.x, own ? s[j][1] : o.y,
+                    own ? s[j][2] : o.z, own ? s[j][3] : o.w, ah, al);
+#pragma unroll
+        for (int n = 0; n < NQ; n += 2) {   // two n8 tiles at a time
+          const int nt = 2 * n + wc;
+          uint32_t bh[2], bl[2], b2h[2], b2l[2];
+          if (n + 1 < NQ && nt + 2 < KT) {
+            frag_b_cols<P>(kp, 32 * hf + 8 * j, 8 * nt, bh, bl);
+            frag_b_cols<P>(kp, 32 * hf + 8 * j, 8 * (nt + 2), b2h, b2l);
+            mma3x2(dq[n], ah, al, bh, bl, dq[n + 1], ah, al, b2h, b2l);
+          } else if (nt < KT) {
+            frag_b_cols<P>(kp, 32 * hf + 8 * j, 8 * nt, bh, bl);
+            mma3(dq[n], ah, al, bh, bl);
+          }
+        }
+      }
+    }
+    if (kt + 1 < kTiles) land_async<HDP>(ks + nxt, 2 * PL, 2, col, hd);
+    __syncthreads();                      // this tile's reads are done
   }
-  if (pv)
-    store_rows<N, HDP>(acc, scale, dqkv, ldd, b, wi, wj, t0, H, W, shift,
-                       col, hd, r0, dg);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = ra + 8 * hh;
+    float* dst = dqkv + token_row<N>(b, wi, wj, t0 + r, H, W, shift) * ldd
+                 + col;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * (2 * n + wc) + 2 * t + e;
+        if (c < hd) dst[c] = dq[n][2 * hh + e] * scale;
+      }
+  }
 }
 
 // ---- N = 256: dkv launch, a block per (group of windows, head, key tile) ----
+//
+// Warp (wr, wc) computes S^T = K Q^T and dP^T = V dO^T of its 16 keys x 32
+// queries of each query tile in registers, P^T and dS^T in their place, and
+// adds dS^T into the block's d(bias) tile in shared memory (each element
+// always by the same thread: a fixed order over the group's windows). Warp
+// wc = 0 accumulates dV = P^T dO of its keys over the tile's 64 queries,
+// wc = 1 dK = dS^T Q: each trades the half the other needs (its dS, its P)
+// through the exchange. Where two q and dO planes fit (kDkvDouble), the
+// next query tile (of this window or the next one) lands while a tile is
+// computed.
 
 template <int HDP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, Tc16<HDP>::kDkvMinBlocks)
 attn_bwd16_dkv_f32_kernel(const float* __restrict__ qkv, long long ldq,
                           const float* __restrict__ dout, long long ldg,
                           const float* __restrict__ table,
@@ -428,19 +792,17 @@ attn_bwd16_dkv_f32_kernel(const float* __restrict__ qkv, long long ldq,
                           int nh, int hd, int shift, int group, int windows,
                           float scale) {
   constexpr int N = 256;
-  using G = BwdGeo<N, HDP>;
-  constexpr int R = G::R, SR = G::SR, SP = G::SP, P = G::P;
+  using T = Tc16<HDP>;
+  constexpr int R = T::R, P = T::P, KT = T::KT, NB = T::kDkvBuffers;
   constexpr int kQT = Geo<N>::kTiles;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + R * P;
-  float* vs = ks + R * P;
-  float* dos = vs + R * P;
-  float* ps = dos + R * P;
-  float* dss = ps + R * SP;
-  float* rmax = dss + R * SP;
-  float* rinv = rmax + R;
-  float* rd = rinv + R;
+  constexpr int PL = T::kPlane;
+  float* ks = smem;                       // planes: k, v, then q and dO a
+  float* vs = ks + PL;                    // buffer: buffer u's q at qs + 2u
+  float* qs = vs + PL;                    // PL, its dO PL after it
+  float4* exch = reinterpret_cast<float4*>(qs + 2 * NB * PL);
+  float* st = reinterpret_cast<float*>(exch + kExchange);   // a buffer's
+  float* dbs = st + NB * kStatFloats;     // statistics, then d(bias)
 
   const int nww = W / Geo<N>::kWin;
   const int nw = (H / Geo<N>::kWin) * nww;
@@ -448,88 +810,134 @@ attn_bwd16_dkv_f32_kernel(const float* __restrict__ qkv, long long ldq,
   const int kt = bid % kQT;
   bid /= kQT;
   const int h = bid % nh, grp = bid / nh;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int dg = tid % G::G4, r0 = tid / G::G4;
-  const bool pv = tid < G::RS * G::G4;
-  const int col = h * hd, k0 = kt * R;
-  zero_pads<N, HDP>(smem, hd);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = tid / 32, t = tid & 3;
+  const int wr = warp & 3, wc = warp >> 2;
+  const int col = h * hd, k0 = kt * R, sc = col & 3;
+  const int ka = 16 * wr + ((tid & 31) >> 2);   // keys ka, ka + 8
+  const float* tab = table + h * 961 + 480;
+  const int rel_k[2] = {rel16(k0 + ka), rel16(k0 + ka + 8)};
+  for (int i = tid; i < (2 + 2 * NB) * R * P; i += kThreads) smem[i] = 0.f;
+  for (int i = tid; i < N * kDbPitch; i += kThreads) dbs[i] = 0.f;
+  __syncthreads();
 
-  float db[kQT][SR][SR];                  // d(bias) rows qt * 64 + ty + 16 i
-#pragma unroll
-  for (int qt = 0; qt < kQT; ++qt)
-#pragma unroll
-    for (int i = 0; i < SR; ++i)
-#pragma unroll
-      for (int j = 0; j < SR; ++j) db[qt][i][j] = 0.f;
-
-  const int w_end = min(windows, (grp + 1) * group);
-  for (int gw = grp * group; gw < w_end; ++gw) {
+  // a query tile's q and dO rows and their statistics into buffer ``buf``
+  auto stage_q = [&](int gw_, int qt_, int buf) {
+    const int b_ = gw_ / nw, win_ = gw_ % nw;
+    stage_async<HDP>(qs + 2 * buf * PL, qkv, ldq, col, b_, win_ / nww,
+                     win_ % nww, qt_ * R, H, W, shift, hd);
+    stage_async<HDP>(qs + (2 * buf + 1) * PL, dout, ldg, col, b_, win_ / nww,
+                     win_ % nww, qt_ * R, H, W, shift, hd);
+    stage_stats(st + buf * kStatFloats, stats, dsum,
+                ((size_t)gw_ * nh + h) * N + qt_ * R);
+  };
+  const int w_begin = grp * group, w_end = min(windows, (grp + 1) * group);
+  int buf = 0;
+  if (NB == 2) stage_q(w_begin, 0, 0);
+  for (int gw = w_begin; gw < w_end; ++gw) {
     const int b = gw / nw, win = gw % nw;
     const int wi = win / nww, wj = win % nww;
-    const size_t srow = ((size_t)gw * nh + h) * N;
-    __syncthreads();                      // the last window's reads are done
-    stage_rows<N, HDP>(ks, qkv, ldq, b, wi, wj, k0, H, W, shift, C + col, hd);
-    stage_rows<N, HDP>(vs, qkv, ldq, b, wi, wj, k0, H, W, shift, 2 * C + col,
-                       hd);
-    float dk[G::RPT][4], dv[G::RPT][4];
-    zero_acc<N, HDP>(dk);
-    zero_acc<N, HDP>(dv);
+    const int* lab = static_cast<const int*>(labels);
+    if (lab != nullptr) lab += (size_t)win * N;
+    const int lab_k[2] = {lab ? __ldg(lab + k0 + ka) : 0,
+                          lab ? __ldg(lab + k0 + ka + 8) : 0};
+    // k and v of the window: the last window's reads ended at its last
+    // tile's barrier
+    stage_async<HDP>(ks, qkv, ldq, C + col, b, wi, wj, k0, H, W, shift, hd);
+    stage_async<HDP>(vs, qkv, ldq, 2 * C + col, b, wi, wj, k0, H, W, shift,
+                     hd);
+    float acc[KT][4];
 #pragma unroll
+    for (int n = 0; n < KT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
     for (int qt = 0; qt < kQT; ++qt) {
       const int t0 = qt * R;
-      stage_rows<N, HDP>(qs, qkv, ldq, b, wi, wj, t0, H, W, shift, col, hd);
-      stage_rows<N, HDP>(dos, dout, ldg, b, wi, wj, t0, H, W, shift, col,
-                         hd);
-      for (int r = tid; r < R; r += kThreads) {
-        const float2 st =
-            reinterpret_cast<const float2*>(stats)[srow + t0 + r];
-        rmax[r] = st.x;
-        rinv[r] = st.y;
-        rd[r] = dsum[srow + t0 + r];
+      if (NB == 1) stage_q(gw, qt, 0);
+      land_async<HDP>(qs + 2 * buf * PL, PL, 2, col, hd);
+      if (qt == 0) land_async<HDP>(ks, PL, 2, col, hd);
+      __syncthreads();
+      if (NB == 2) {                      // the next tile, meanwhile
+        if (qt + 1 < kQT)
+          stage_q(gw, qt + 1, buf ^ 1);
+        else if (gw + 1 < w_end)
+          stage_q(gw + 1, 0, buf ^ 1);
+      }
+      const float* qp = qs + 2 * buf * PL + sc;
+      const float* op = qp + PL;
+      const float* rs = st + buf * kStatFloats;
+      float s[4][4], dp[4][4];            // S^T, dP^T: keys ka (+ 8),
+      scores_pair<HDP>(ks + sc, vs + sc, qp, op, 16 * wr, 32 * wc, s, dp);
+#pragma unroll                            // queries 32 wc + 8 j + 2 t (+ 1)
+      for (int j = 0; j < 4; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, key = ka + 8 * hh;
+          const int q = 32 * wc + 8 * j + 2 * t + (e & 1);
+          const bool same = lab == nullptr || __ldg(lab + t0 + q) == lab_k[hh];
+          const float p = probability(s[j][e], scale, tab,
+                                      rel16(t0 + q) - rel_k[hh], same,
+                                      rs[2 * q], rs[2 * q + 1]);
+          const float ds = p * (dp[j][e] - rs[128 + q]);
+          dbs[(t0 + q) * kDbPitch + key] += ds;
+          s[j][e] = p;
+          dp[j][e] = ds;
+        }
+        // wc = 0 hands its dS to the dK warp, wc = 1 its P to the dV warp
+        exch[((wc * 4 + wr) * 4 + j) * 32 + lane] = wc == 0
+            ? make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3])
+            : make_float4(s[j][0], s[j][1], s[j][2], s[j][3]);
       }
       __syncthreads();
-      float s[SR][SR], dp[SR][SR];
-      dot_tile<N, HDP>(qs, ks, ty, tx, s);
-      dot_tile<N, HDP>(dos, vs, ty, tx, dp);
+      // wc = 0: dV from P^T and dO; wc = 1: dK from dS^T and Q
+      const float* bplane = wc == 0 ? op : qp;
 #pragma unroll
-      for (int i = 0; i < SR; ++i) {
-        const int r = ty + 16 * i;
-        const float mx = rmax[r], inv = rinv[r], d = rd[r];
+      for (int hf = 0; hf < 2; ++hf) {    // the tile's 64 queries
 #pragma unroll
-        for (int j = 0; j < SR; ++j) {
-          const int c = tx + 16 * j;
-          const float p = expf(s[i][j] * scale
-                               + attn_term<N>(table, labels, h, win, t0 + r,
-                                              k0 + c) - mx) * inv;
-          const float ds = p * (dp[i][j] - d);
-          db[qt][i][j] += ds;
-          ps[r * SP + c] = p;
-          dss[r * SP + c] = ds;
+        for (int j = 0; j < 4; ++j) {
+          const float4 o = exch[(((1 - wc) * 4 + wr) * 4 + j) * 32 + lane];
+          const float4 m = wc == 0
+              ? make_float4(s[j][0], s[j][1], s[j][2], s[j][3])
+              : make_float4(dp[j][0], dp[j][1], dp[j][2], dp[j][3]);
+          const float4 a = hf == wc ? m : o;
+          uint32_t ah[4], al[4];
+          frag_a_of_c(a.x, a.y, a.z, a.w, ah, al);
+#pragma unroll
+          for (int n = 0; n < KT; n += 2) {   // two n8 tiles at a time
+            uint32_t bh[2], bl[2], b2h[2], b2l[2];
+            frag_b_cols<P>(bplane, 32 * hf + 8 * j, 8 * n, bh, bl);
+            if (n + 1 < KT) {
+              frag_b_cols<P>(bplane, 32 * hf + 8 * j, 8 * (n + 1), b2h, b2l);
+              mma3x2(acc[n], ah, al, bh, bl, acc[n + 1], ah, al, b2h, b2l);
+            } else {
+              mma3(acc[n], ah, al, bh, bl);
+            }
+          }
         }
       }
-      __syncthreads();
-      if (pv) {
-        tile_product<N, HDP, true>(ps, dos, r0, dg, dv);
-        tile_product<N, HDP, true>(dss, qs, r0, dg, dk);
-      }
-      __syncthreads();                    // before the next tile's rows
+      __syncthreads();                    // this tile's reads are done
+      buf ^= NB - 1;
     }
-    if (pv) {
-      store_rows<N, HDP>(dk, scale, dqkv, ldd, b, wi, wj, k0, H, W, shift,
-                         C + col, hd, r0, dg);
-      store_rows<N, HDP>(dv, 1.f, dqkv, ldd, b, wi, wj, k0, H, W, shift,
-                         2 * C + col, hd, r0, dg);
+    // wc = 0 writes dV, wc = 1 dK (scaled) of its keys
+    const float mul = wc == 0 ? 1.f : scale;
+    const int part_col = (wc == 0 ? 2 * C : C) + col;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int key = ka + 8 * hh;
+      float* dst = dqkv + token_row<N>(b, wi, wj, k0 + key, H, W, shift) * ldd
+                   + part_col;
+#pragma unroll
+      for (int n = 0; n < KT; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * n + 2 * t + e;
+          if (c < hd) dst[c] = acc[n][2 * hh + e] * mul;
+        }
     }
   }
   float* out = part + ((size_t)grp * nh + h) * N * N + k0;
-#pragma unroll
-  for (int qt = 0; qt < kQT; ++qt)
-#pragma unroll
-    for (int i = 0; i < SR; ++i)
-#pragma unroll
-      for (int j = 0; j < SR; ++j)
-        out[(size_t)(qt * R + ty + 16 * i) * N + tx + 16 * j] = db[qt][i][j];
+  for (int i = tid; i < N * R; i += kThreads)
+    out[(size_t)(i / R) * N + i % R] = dbs[(i / R) * kDbPitch + i % R];
 }
 
 // ---- launches ---------------------------------------------------------------
@@ -571,11 +979,12 @@ int bwd_launch(const BwdArgs& a, cudaStream_t s) {
   const long long windows = (long long)a.B * (a.H / kWin) * (a.W / kWin);
   const long long groups = (windows + a.group - 1) / a.group;
   if (groups * a.nh > kMaxPartialBlocks) return (int)cudaErrorInvalidValue;
-  constexpr size_t bytes = bwd_smem_bytes<N, HDP>();
-  static_assert(bytes <= kMaxSmem, "window_attention_bwd_f32: shared memory");
-  if ((long long)bytes != a.smem) return (int)cudaErrorInvalidValue;
   int rc;
   if constexpr (N < 256) {
+    constexpr size_t bytes = bwd_smem_bytes<N, HDP>();
+    static_assert(bytes <= kMaxSmem,
+                  "window_attention_bwd_f32: shared memory");
+    if ((long long)bytes != a.smem) return (int)cudaErrorInvalidValue;
     static bool configured = false;
     if ((rc = allow_smem(attn_bwd_f32_kernel<N, HDP>, bytes, configured)))
       return rc;
@@ -585,8 +994,12 @@ int bwd_launch(const BwdArgs& a, cudaStream_t s) {
         a.H, a.W, a.C, a.nh, hd, a.shift, a.group, (int)windows, scale);
     if ((rc = (int)cudaGetLastError())) return rc;
   } else {
-    constexpr size_t dq_bytes = dq_smem_bytes<HDP>();
-    if ((long long)dq_bytes != a.smem_dq) return (int)cudaErrorInvalidValue;
+    constexpr size_t bytes = dkv16_smem_bytes<HDP>();
+    constexpr size_t dq_bytes = dq16_smem_bytes<HDP>();
+    static_assert(bytes <= kMaxSmem && dq_bytes <= kMaxSmem,
+                  "window_attention_bwd_f32: shared memory");
+    if ((long long)bytes != a.smem || (long long)dq_bytes != a.smem_dq)
+      return (int)cudaErrorInvalidValue;
     static bool dq_configured = false, dkv_configured = false;
     if ((rc = allow_smem(attn_bwd16_dq_f32_kernel<HDP>, dq_bytes,
                          dq_configured)) ||
@@ -611,15 +1024,38 @@ int bwd_launch(const BwdArgs& a, cudaStream_t s) {
   return sum_partials(a.part, (int)groups, total, a.dbias, total, nullptr, s);
 }
 
+// head dims padded to 16 at N = 16 and 64 (the SIMT kernel's float4
+// quads), to 8 at N = 256 (the mma k8 steps and n8 tiles)
 template <int N>
 int bwd_by_head(const BwdArgs& a, cudaStream_t s) {
-  switch ((a.C / a.nh + 15) / 16) {
+  const int hd = a.C / a.nh;
+  if constexpr (N == 256) {
+    // the head tiles of this source: up to 64 in
+    // window_attention_bwd16_f32.cu, 72-128 in
+    // window_attention_bwd16_f32_wide.cu (ADSR_BWD16_WIDE), so nvcc builds
+    // the two halves of the 32 instances in parallel
+    switch ((hd + 7) / 8) {
 #define ADSR_HDP(K) \
-    case K: return bwd_launch<N, 16 * K>(a, s);
-    ADSR_HDP(1) ADSR_HDP(2) ADSR_HDP(3) ADSR_HDP(4)
-    ADSR_HDP(5) ADSR_HDP(6) ADSR_HDP(7) ADSR_HDP(8)
+      case K: return bwd_launch<N, 8 * K>(a, s);
+#if ADSR_BWD16_WIDE
+      ADSR_HDP(9) ADSR_HDP(10) ADSR_HDP(11) ADSR_HDP(12)
+      ADSR_HDP(13) ADSR_HDP(14) ADSR_HDP(15) ADSR_HDP(16)
+#else
+      ADSR_HDP(1) ADSR_HDP(2) ADSR_HDP(3) ADSR_HDP(4)
+      ADSR_HDP(5) ADSR_HDP(6) ADSR_HDP(7) ADSR_HDP(8)
+#endif
 #undef ADSR_HDP
-    default: return (int)cudaErrorInvalidValue;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    switch ((hd + 15) / 16) {
+#define ADSR_HDP(K) \
+      case K: return bwd_launch<N, 16 * K>(a, s);
+      ADSR_HDP(1) ADSR_HDP(2) ADSR_HDP(3) ADSR_HDP(4)
+      ADSR_HDP(5) ADSR_HDP(6) ADSR_HDP(7) ADSR_HDP(8)
+#undef ADSR_HDP
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 

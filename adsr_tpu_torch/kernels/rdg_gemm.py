@@ -17,12 +17,16 @@ the source).
 
 f32 operands go to a kernel of their own, ``csrc/rdg_gemm_f32.cu`` (the TPU
 kernel at dtype f32, which takes f32 operands with an f32 result): the same
-function and epilogues in full f32 with FFMA on the CUDA cores (no TF32).
+function and epilogues, every product f32-accurate as 3xTF32 on the tensor
+cores (each operand split as ``hi + lo``, ``hi = tf32(x)``, ``lo = tf32(x -
+hi)``, the accumulators summing ``a_lo w_hi + a_hi w_lo + a_hi w_hi``).
 Bound on the H100: operations (one flagship RDG's 25 products are 72.3
-GFLOP, 1.08 ms at 67 TFLOP/s). Design: a tiled SIMT GEMM, 128 x 64 output
-tiles of 8 x 8 outputs a thread, K in steps of 16 staged by 16-byte
-``cp.async`` through a 3-stage ring (:func:`gemm_f32_plan`). Its launches
-count in ``rdg_gemm.launches_f32``, the bf16 ones in ``launches``.
+GFLOP: 1.08 ms at the 67 TFLOP/s of f32 FFMA, 0.44 ms as three TF32
+products each at 495 TFLOP/s). Design: persistent blocks over 128 x
+:func:`f32_tile_width` output tiles, A and W by TMA into a ring of
+stages that a split warp rewrites as hi and lo halves, two consumer
+warpgroups on TF32 wgmma (:func:`gemm_f32_plan`). Its launches count in
+``rdg_gemm.launches_f32``, the bf16 ones in ``launches``.
 
 Epilogues (the TPU kernels', unfolded): ``none`` (qkv), ``residual`` (proj,
 fc2), ``gelu`` (fc1, exact erf), ``leaky_relu`` (adjust 1-4, slope 0.2),
@@ -64,10 +68,10 @@ def check_gemm_layout(name: str, k: int, a: torch.Tensor, w: torch.Tensor,
     bf16: K and the row strides of A and W multiples of 4 (8-byte cp.async
     rows), and ``outs`` (out, residual, aux) with N and their row strides
     multiples of 4 (the epilogue moves 4 bf16 a lane); every operand with
-    unit column stride and an 8-byte aligned base. f32 (the SIMT kernel):
-    A and W with 16-byte aligned bases and K and their row strides
-    multiples of 4 (16-byte cp.async pieces); ``outs`` with unit column
-    stride at any row stride (the epilogue stores one float a thread). W
+    unit column stride and an 8-byte aligned base. f32: A and W with
+    16-byte aligned bases and K and their row strides multiples of 4 (TMA
+    rows); ``outs`` with unit column stride at any row stride (the epilogue
+    moves 16 bytes a lane where every output allows it, else one float). W
     may be a column prefix of a wider buffer, and every operand a column
     slice (a base at a column that is a multiple of 4)."""
     f32 = a.dtype == torch.float32
@@ -85,22 +89,45 @@ def check_gemm_layout(name: str, k: int, a: torch.Tensor, w: torch.Tensor,
                          "residual and aux to be multiples of 4")
 
 
-# the f32 kernel's output tile and threads (csrc/rdg_gemm_f32.cu)
-F32_TILE = (128, 64)
-F32_THREADS = 128
+# the f32 kernel's tile widths, threads and ring (csrc/rdg_gemm_f32.cu)
+F32_WIDTHS = (128, 64, 32)
+F32_THREADS = 512           # two consumer warpgroups, a TMA warp, 7 split
+F32_BK = 32                 # floats of K a stage: one 128-byte swizzled row
+F32_RING_BYTES = 200 * 1024
 
 
-def gemm_f32_plan(m: int, n: int, k: int) -> dict:
-    """What the f32 kernel launches for ``m`` x ``n`` outputs over ``k``: a
-    block of ``F32_THREADS`` a 128 x 64 output tile (8 x 8 outputs a
-    thread), a grid of (n-tiles, m-tiles), K in steps of 16 through a
-    3-stage ring of A and W tiles in static shared memory."""
-    bm, bn = F32_TILE
-    grid = (-(-n // bn), -(-m // bm))
-    return {"tile": F32_TILE, "threads": F32_THREADS, "grid": grid,
-            "blocks": grid[0] * grid[1], "k_steps": -(-k // 16),
-            "smem_bytes": 3 * (bm + bn) * 20 * 4,
-            "padded_flops": 2 * grid[0] * bn * grid[1] * bm * k}
+def f32_tile_width(m: int, n: int, sms: int = 132) -> int:
+    """The f32 kernel's output tile width for ``m`` x ``n`` outputs: of
+    ``F32_WIDTHS``, the one with the fewest rounds of the persistent grid
+    (``sms`` blocks over the 128 x w tiles) times ``w + _TILE_COST``
+    columns, the wider on a tie (the source's ``f32_tile_width``)."""
+    m_tiles = -(-m // 128)
+    return min(F32_WIDTHS, key=lambda w: (
+        -(-m_tiles * -(-n // w) // sms) * (w + _TILE_COST), -w))
+
+
+def gemm_f32_plan(m: int, n: int, k: int, sms: int = 132) -> dict:
+    """What the f32 kernel launches for ``m`` x ``n`` outputs over ``k``:
+    persistent blocks of ``F32_THREADS`` (two consumer warpgroups of 64
+    rows, a TMA warp, seven split warps), ``min(units, sms)`` of them over
+    the 128 x ``bn`` output tiles (``bn`` = :func:`f32_tile_width`), K in
+    steps of ``F32_BK`` floats through ``stages`` stages of [A hi | W hi |
+    A lo | W lo] in dynamic shared memory (as many as fit in 200 KB, at
+    most 6; 1024 bytes of alignment slack and three mbarriers a stage).
+    Each step is four k8 steps of three TF32 wgmma m64n``bn``k8 a
+    warpgroup."""
+    bn = f32_tile_width(m, n, sms)
+    units = -(-m // 128) * -(-n // bn)
+    k_steps = -(-k // F32_BK)
+    stage = 2 * (128 + bn) * F32_BK * 4
+    stages = min(6, F32_RING_BYTES // stage)
+    padded = 2 * -(-m // 128) * 128 * -(-n // bn) * bn * k_steps * F32_BK
+    return {"tile": (128, bn), "threads": F32_THREADS, "units": units,
+            "grid": min(units, sms), "k_steps": k_steps, "stages": stages,
+            "stage_bytes": stage,
+            "smem_bytes": 1024 + stages * stage + 3 * stages * 8,
+            "wgmma": (64, bn, 8), "padded_flops": padded,
+            "tf32_flops": 3 * padded}
 
 
 def row_pitch(n: int) -> int:

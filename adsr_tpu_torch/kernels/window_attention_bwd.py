@@ -45,15 +45,18 @@ forward's windows (``KERNEL_WINDOWS``), and ``qkv``, ``dout``, ``ctx`` and
 f32 operands (fp32 training: the TPU kernel at dtype f32) go to a kernel
 of their own, ``csrc/window_attention_bwd_f32.cuh`` (one source a window:
 ``window_attention_bwd4_f32.cu``, ``window_attention_bwd_f32.cu``,
-``window_attention_bwd16_f32.cu``): every product in f32 FFMA on the CUDA
-cores, a block's head staged from the 16-byte pieces that hold it into
-f32 planes; at N = 16 and 64 one launch, a block per (group of windows,
-head) recomputing the softmax; at N = 256 the forward's context and
-statistics (kernel (c) f32's) and two launches, ``dq`` per (window, head,
-query tile) and ``dkv`` per (group of windows, head, key tile)
+``window_attention_bwd16_f32.cu``, whose head tiles past 64 build from
+``window_attention_bwd16_f32_wide.cu``), a block's head staged from the 16-byte
+pieces that hold it into f32 planes; at N = 16 and 64 one launch, every
+product in f32 FFMA on the CUDA cores, a block per (group of windows, head)
+recomputing the softmax; at N = 256 every product f32-accurate as 3xTF32 on
+the tensor cores (``mma.sync`` m16n8k8, each operand split into TF32 hi and
+lo parts), the forward's context and statistics (kernel (c) f32's) and two
+launches, ``dq`` per (window, head, query tile) and ``dkv`` per (group of
+windows, head, key tile) with its keys' d(bias) columns in shared memory
 (:func:`window_attention_bwd_f32_plan`); one d(bias) partial a (group,
-head), summed in a fixed order. Bound on the H100: bytes at N = 16 and
-64, operations at N = 256. Its launches count in
+head), summed in a fixed order. Bound on the H100: bytes at N = 16 and 64,
+operations at N = 256. Its launches count in
 ``window_attention_bwd.launches_f32`` (two a call at N = 256), the bf16
 ones in ``launches``.
 
@@ -187,6 +190,37 @@ def _plan16(c: int, nh: int, b: int, h: int, w: int, window: int) -> dict:
             "stats_bytes": windows * nh * n * 16, "launches": 2}
 
 
+# floats a row of the f32 dkv launch's d(bias) tile at N = 256: two rows
+# apart by 8 banks, so a warp's paired-row updates are free of conflicts
+DB_PITCH = KEY_TILE + 4
+# the f32 N = 256 launches' exchange of C fragments between the two warps
+# of a row: [writer][4 row warps][4 n8 tiles][32 lanes] float4s
+EXCHANGE_BYTES = 2 * 4 * 4 * 32 * 16
+
+
+# each row's (max, 1 / sum) and D in the f32 N = 256 launches
+STAT_BYTES = 3 * KEY_TILE * 4
+
+
+def bwd16_f32_min_blocks(hdp: int) -> Tuple[int, int]:
+    """(dq, dkv): the blocks an SM the f32 N = 256 sources'
+    ``__launch_bounds__`` ask registers for (``Tc16``): dq two at head
+    tiles 32 to 64 (where 128 registers hold a thread without spills),
+    else one; dkv one."""
+    return (2 if 32 <= hdp <= 64 else 1), 1
+
+
+def bwd16_f32_dkv_buffers(hdp: int) -> int:
+    """The q and dO buffers of the f32 dkv launch at N = 256 (``Tc16``'s
+    ``kDkvBuffers``): two where six planes, the exchange, two sets of row
+    statistics and the d(bias) tile fit a block's shared memory, else
+    one."""
+    plane = KEY_TILE * (hdp + 4) * 4
+    two = 6 * plane + EXCHANGE_BYTES + 2 * STAT_BYTES \
+        + 256 * DB_PITCH * 4
+    return 2 if two <= BLOCK_SHARED_MAX else 1
+
+
 @functools.lru_cache(maxsize=None)
 def window_attention_bwd_f32_plan(c: int, nh: int, b: int = 1, h: int = 8,
                                   w: int = 8, window: int = KERNEL_WINDOW,
@@ -194,24 +228,33 @@ def window_attention_bwd_f32_plan(c: int, nh: int, b: int = 1, h: int = 8,
     """What the f32 kernel (``csrc/window_attention_bwd_f32.cuh``) launches
     for width ``c`` and ``nh`` heads at batch ``b`` on ``h`` x ``w`` tokens.
     Blocks of ``F32_THREADS``; shared memory (the source's layout) of q, k,
-    v and dO planes [rows][hdp + 4] f32 (rows = min(N, 64)), P and dS tiles
-    [rows][rows + 4] and, at N = 256, each row's max, 1 / sum and D. At N
-    = 16 and 64 one launch, a block per (group of ``group`` windows, head):
-    ``group`` is the fewest windows a block (at most ``MAX_GROUP``) for
+    v and dO planes [rows][hdp + 4] f32 (rows = min(N, 64)). At N = 16 and
+    64 (``hdp`` the head dim rounded up to 16) one launch, a block per
+    (group of ``group`` windows, head), with P and dS tiles [rows][rows +
+    4]: ``group`` is the fewest windows a block (at most ``MAX_GROUP``) for
     which every block is resident at once (``blocks_per_sm`` by shared
-    memory and the source's two blocks a ``__launch_bounds__``). At N =
-    256 two: ``dq`` a block per (window, head, query tile), shared memory
-    ``smem_dq_bytes`` (no P tile), and ``dkv`` a block per (group, head,
-    key tile), ``group`` the fewest windows that keep the partials within
-    ``MAX_PARTIAL_BYTES``; ``dsum_bytes`` the scratch of each query row's D.
-    One d(bias) partial [nh, N, N] a group (``partial_bytes``). The source
-    refuses a launch whose shared memory differs from this plan's. Read
-    only (cached)."""
+    memory and the source's two blocks a ``__launch_bounds__``). At N = 256
+    (``hdp`` rounded up to 8: the tensor cores' k8 steps and n8 tiles) two:
+    ``dq`` a block per (window, head, query tile), shared memory
+    ``smem_dq_bytes`` (q, dO and two k and v planes: the next key tile
+    lands while one is computed; the warps' exchange ``EXCHANGE_BYTES``
+    and its rows' max, 1 / sum and D, ``STAT_BYTES``), and ``dkv`` a block
+    per (group, head, key tile), ``smem_bytes`` (k and v, ``dkv_buffers``
+    q and dO planes with their rows' statistics (:func:`
+    bwd16_f32_dkv_buffers`), the exchange and the d(bias) tile
+    [256][``DB_PITCH``] of its keys), ``group`` the
+    fewest windows that keep the partials within ``MAX_PARTIAL_BYTES``;
+    their blocks an SM by shared memory and the sources'
+    ``__launch_bounds__`` (:func:`bwd16_f32_min_blocks`); ``dsum_bytes``
+    the scratch of each query row's D. One d(bias) partial [nh, N, N] a
+    group (``partial_bytes``). The source refuses a launch whose shared
+    memory differs from this plan's. Read only (cached)."""
     if window not in KERNEL_WINDOWS:
         raise ValueError(f"window_attention_bwd_f32_plan: window {window}, "
                          f"the kernel takes {KERNEL_WINDOWS}")
-    hdp = head_tile(c // nh)
     n = window * window
+    hd = c // nh
+    hdp = -(-hd // 8) * 8 if n > KEY_TILE else head_tile(hd)
     rows = min(n, KEY_TILE)
     planes = 4 * rows * (hdp + 4) * 4
     tile = rows * (rows + 4) * 4
@@ -232,15 +275,20 @@ def window_attention_bwd_f32_plan(c: int, nh: int, b: int = 1, h: int = 8,
         plan.update(smem_bytes=smem, blocks_per_sm=fit, launches=1,
                     blocks=groups * nh)
     else:
-        smem = planes + 2 * tile + 3 * rows * 4
-        smem_dq = planes + tile + 3 * rows * 4
+        plane = rows * (hdp + 4) * 4
+        buffers = bwd16_f32_dkv_buffers(hdp)
+        smem_dq = 6 * plane + EXCHANGE_BYTES + STAT_BYTES
+        smem = (2 + 2 * buffers) * plane + EXCHANGE_BYTES \
+            + buffers * STAT_BYTES + n * DB_PITCH * 4
+        dq_most, dkv_most = bwd16_f32_min_blocks(hdp)
         per_group = nh * n * n * 4
         group = max(1, -(-windows // max(1, MAX_PARTIAL_BYTES // per_group)))
         groups = -(-windows // group)
         tiles = n // rows
         plan.update(smem_bytes=smem, smem_dq_bytes=smem_dq,
-                    blocks_per_sm=per_sm(smem, 1),
-                    dq_blocks_per_sm=per_sm(smem_dq, 2), launches=2,
+                    blocks_per_sm=per_sm(smem, dkv_most),
+                    dq_blocks_per_sm=per_sm(smem_dq, dq_most),
+                    dkv_buffers=buffers, launches=2,
                     blocks=groups * nh * tiles,
                     dq_blocks=windows * nh * tiles,
                     dsum_bytes=windows * nh * n * 4)

@@ -13,8 +13,11 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds every kernel of ``adsr_tpu_torch/csrc`` (timed) and
-   ptxas's registers, shared memory and spills of each kernel are printed,
-   then the launch plans of rdg_layernorm (a), window_attention (c),
+   ptxas's registers, shared memory and spills of each kernel are printed;
+   it fails on a spill byte in any instance of (f) f32's dq and dkv
+   launches at 16x16 windows and on a C7520 ("wgmma serialized") in (b)
+   f32's log (the two f32 kernels on the tensor cores), one line saying
+   how many it read; then the launch plans of rdg_layernorm (a), window_attention (c),
    swin_block (g), window_attention_bwd (f) and rdg_layernorm_bwd (e) at
    the five flagship blocks (blocks, threads, shared memory, (a)'s pieces,
    lanes a row and rows ahead, (g)'s ring, (f)'s windows a block);
@@ -115,7 +118,9 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    and with ``ADSR_TPU_RDG=0`` (block mode; its scores and AUCs against
    rdg mode's); each f32 kernel's ms per RDG at the three geometries beside
    its bound, plain version and library call ((g) also beside the (a)-(c)
-   f32 composition), and both fp32 forwards' ms in turns;
+   f32 composition; (b), whose products run as 3xTF32 on the tensor cores,
+   beside its 3xTF32 bound and its FFMA bound), and both fp32 forwards' ms
+   in turns;
 11b. fp32 training, lines "[fp32_train] <phase>: ...": the f32 instances
    of the backward kernels (d)-(f) (TPU kernel 3 at dtype f32) against their
    plain f32 versions on the card (TF32 off): (d) at every flagship product
@@ -132,7 +137,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    ``cli.evaluate`` at fp32 on its run dir; each f32 backward kernel's ms
    per RDG at the three geometries beside its bound, plain version and
    library call (``torch.matmul`` x 2, ATen's LayerNorm backward, SDPA's
-   f32 backward);
+   f32 backward; (f) at 16x16 windows, on the tensor cores, beside its
+   3xTF32 bound and its FFMA bound);
 12. the window-16 geometry, lines "[w16] <phase>: ...": the full-width
    256px model (``drct_experiment("grid", 256, 4)``: LR 64 x 64, 16x16
    windows, N = 256 keys, shifts 0 and 8, M = 65,536 token rows at batch
@@ -364,6 +370,10 @@ SCALE = 4
 HBM_BYTES_PER_S = 3.35e12
 BF16_TC_FLOPS = 989e12
 F32_FLOPS = 67e12
+# (b) f32 and (f) f32 at 16x16 windows run their products as 3xTF32 on the
+# tensor cores: their bound is three TF32 products at this rate (the rest
+# of their arithmetic at F32_FLOPS) or the bytes, the FFMA bound beside it
+TF32_TC_FLOPS = 495e12
 
 # Tolerances of the kernel checks (kernel in bf16 vs plain f32 on the same
 # bf16-rounded inputs, TF32 off):
@@ -601,6 +611,35 @@ def ptxas_summary(log: str) -> list:
             lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
             name, spill = None, ""
     return lines
+
+
+# the f32 kernels on the tensor cores: (f) f32's launches at N = 256 must
+# not spill (every head tile's instance), (b) f32's wgmma must not be
+# serialized (ptxas's C7520 warning)
+NO_SPILL_KERNELS = ("attn_bwd16_dq_f32_kernel", "attn_bwd16_dkv_f32_kernel")
+NO_C7520_SOURCE = "rdg_gemm_f32"
+
+
+def check_tensor_core_builds(build_dir: Path) -> dict:
+    """Fails on a spill byte in ptxas's line of any instance of
+    ``NO_SPILL_KERNELS`` and on a C7520 in ``NO_C7520_SOURCE``'s build log
+    (the logs ``_build`` keeps beside the library); returns what it read."""
+    logs = {p.stem: p.read_text() for p in build_dir.glob("*.log")}
+    lines = [line for line in ptxas_summary("\n".join(logs.values()))
+             if line.split("<")[0] in NO_SPILL_KERNELS]
+    spilled = [line for line in lines
+               if not re.search(r" 0 bytes spill stores, 0 bytes spill loads",
+                                line)]
+    c7520 = [line.strip() for line in logs[NO_C7520_SOURCE].splitlines()
+             if "C7520" in line]
+    say("build", f"(f) f32 at N = 256: {len(lines)} dq / dkv instances, "
+                 f"{len(spilled)} with spills; (b) f32 "
+                 f"({NO_C7520_SOURCE}.cu): {len(c7520)} C7520 warnings")
+    if not lines or spilled or c7520:
+        raise AssertionError("tensor-core f32 kernels: spills "
+                             f"{spilled or lines or 'no instances found'}; "
+                             f"C7520 {c7520}")
+    return {"no_spill_instances": len(lines), "c7520": len(c7520)}
 
 
 GEMMS = ("rdg_gemm", "rdg_gemm_bwd")
@@ -4606,17 +4645,47 @@ def f32_bounds(cfg, blocks, m, masks):
         t_b, t_ops = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
         out[name] = (max(t_b, t_ops) * 1e3,
                      "bytes" if t_b >= t_ops else "operations", byt, ops)
+    # (b) f32 runs its products as 3xTF32: the FFMA bound stays beside it
+    out["ffma"] = {"rdg_gemm_f32": out["rdg_gemm_f32"]}
+    out["rdg_gemm_f32"] = tf32x3_bound(mm_b, mm_ops, 0.0)
     return out
 
 
-def f32_geometry(cfg, dev, errs: dict, label: str, full: bool):
+def tf32x3_bound(byt: float, tc_ops: float, f32_ops: float) -> tuple:
+    """(ms, bound_by, bytes, operations) of work whose products (``tc_ops``
+    operations) run as three TF32 products each on the tensor cores and
+    whose other arithmetic (``f32_ops``) at the f32 peak."""
+    t_b = byt / HBM_BYTES_PER_S
+    t_ops = 3 * tc_ops / TF32_TC_FLOPS + f32_ops / F32_FLOPS
+    return (max(t_b, t_ops) * 1e3, "bytes" if t_b >= t_ops else "operations",
+            byt, tc_ops + f32_ops)
+
+
+def bound_text(name: str, kernel_ms: float, bounds: dict) -> str:
+    """The bound of ``name`` for a timing line: 3xTF32 and FFMA both where
+    the kernel runs its products on the tensor cores."""
+    b = bounds[name]
+    text = f"bound {b[0]:.4f} ms ({b[1]}; {achieved(kernel_ms, b)})"
+    if name in bounds.get("ffma", {}):
+        f = bounds["ffma"][name]
+        text = (f"3xTF32 bound {b[0]:.4f} ms ({b[1]}; "
+                f"{achieved(kernel_ms, b)}), FFMA bound {f[0]:.4f} ms "
+                f"({f[1]}; {achieved(kernel_ms, f)})")
+    return text
+
+
+def f32_geometry(cfg, dev, errs: dict, label: str, full: bool,
+                 ffma: dict = None):
     """The f32 instances at ``cfg``'s shapes (batch ``BATCH``): each against
-    its plain f32 version (with ``full`` every LayerNorm piece and every
-    GEMM product and epilogue, else the attention's), then one RDG's
+    its plain f32 version (every GEMM product and epilogue and every
+    attention block and shift, with ``full`` every LayerNorm piece too),
+    then one RDG's
     launches of each timed beside its bound, its plain version and its
     library call (``F.layer_norm``, ``F.linear`` in f32 with TF32 off,
     ``scaled_dot_product_attention`` in f32 with a float mask). Returns
-    {kernel: (ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    {kernel: (ms, plain_ms, library_ms, bound_ms, bound_by)}; ``ffma``
+    (where given) takes the FFMA bound (ms) of each kernel whose bound_ms
+    is its 3xTF32 one. Each GEMM case runs twice, bitwise equal."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     cat, blocks, masks = f32_case_inputs(cfg, dev, gen)
     g, m = flagship_shapes(cfg)
@@ -4642,27 +4711,30 @@ def f32_geometry(cfg, dev, errs: dict, label: str, full: bool):
                 check_f32(errs, "rdg_layernorm_f32",
                           f"c={x.shape[1]} {name} ({piece}-byte pieces)",
                           out, want, want.abs().max())
-        dp = torch.full((BATCH, 10), 1.0 / 0.9, device=dev)
-        dp[1, 0::2] = dp[BATCH - 1, 1::2] = dp[BATCH // 2] = 0.0
-        for k, blk in enumerate(blocks):
-            c = blk["c"]
-            cases = [(label_, a, wt, bias, epi, res, None)
-                     for label_, a, wt, bias, epi, res
-                     in gemm_cases(cfg, cat, blk, k)]
-            cases += [("proj", blk["ctx"], blk["wproj"], blk["bproj"],
-                       "drop_residual", cat[:, :c], 2 * k),
-                      ("fc2", blk["hid"], blk["w2"], blk["b2"],
-                       "drop_residual", blk["x1"], 2 * k + 1),
-                      ("fc1", blk["act"], blk["w1"], blk["b1"], "gelu_aux",
-                       None, None)]
-            for name, a, wt, bias, epi, res, col in cases:
-                scale = None if col is None else dp[:, col]
-                want = rdg_gemm_plain(a, wt, bias, epi, res, scale)
+    # (b) at every geometry: its tile width follows M (f32_tile_width)
+    dp = torch.full((BATCH, 10), 1.0 / 0.9, device=dev)
+    dp[1, 0::2] = dp[BATCH - 1, 1::2] = dp[BATCH // 2] = 0.0
+    for k, blk in enumerate(blocks):
+        c = blk["c"]
+        cases = [(label_, a, wt, bias, epi, res, None)
+                 for label_, a, wt, bias, epi, res
+                 in gemm_cases(cfg, cat, blk, k)]
+        cases += [("proj", blk["ctx"], blk["wproj"], blk["bproj"],
+                   "drop_residual", cat[:, :c], 2 * k),
+                  ("fc2", blk["hid"], blk["w2"], blk["b2"],
+                   "drop_residual", blk["x1"], 2 * k + 1),
+                  ("fc1", blk["act"], blk["w1"], blk["b1"], "gelu_aux",
+                   None, None)]
+        for name, a, wt, bias, epi, res, col in cases:
+            scale = None if col is None else dp[:, col]
+            want = rdg_gemm_plain(a, wt, bias, epi, res, scale)
+
+            def gemm_once(res=res):
                 aux = torch.empty(m, wt.shape[0], device=dev) \
                     if epi == "gelu_aux" else None
                 if name == "adjust":
-                    # adjust 1-4 into the concat columns, adjust 5 in place
-                    # over the RDG input (out aliases residual)
+                    # adjust 1-4 into the concat columns, adjust 5 in
+                    # place over the RDG input (out aliases residual)
                     dst = cat.clone()
                     out = dst[:, c:c + cfg.gc] if k < 4 else dst[:, :d]
                     res = None if k < 4 else out
@@ -4670,13 +4742,21 @@ def f32_geometry(cfg, dev, errs: dict, label: str, full: bool):
                     out = pitched(m, wt.shape[0], dtype=torch.float32,
                                   device=dev)
                 rdg_gemm(a, wt, bias, out, epi, res, scale, aux)
-                size = (a.abs() @ wt.abs().t()).max() + want.abs().max()
-                check_f32(errs, "rdg_gemm_f32", f"b{k + 1} {name} {m}x"
-                          f"{wt.shape[0]}x{wt.shape[1]} {epi}", out, want,
-                          size)
-                if aux is not None:
-                    check_f32(errs, "rdg_gemm_f32", f"b{k + 1} {name} aux",
-                              aux, rdg_gemm_plain(a, wt, bias), size)
+                return out, aux
+
+            out, aux = gemm_once()
+            again, aux_again = gemm_once()
+            if not torch.equal(out, again) or (
+                    aux is not None and not torch.equal(aux, aux_again)):
+                raise AssertionError(f"rdg_gemm_f32 b{k + 1} {name} "
+                                     f"{epi}: two launches differ")
+            size = (a.abs() @ wt.abs().t()).max() + want.abs().max()
+            check_f32(errs, "rdg_gemm_f32", f"b{k + 1} {name} {m}x"
+                      f"{wt.shape[0]}x{wt.shape[1]} {epi}", out, want,
+                      size)
+            if aux is not None:
+                check_f32(errs, "rdg_gemm_f32", f"b{k + 1} {name} aux",
+                          aux, rdg_gemm_plain(a, wt, bias), size)
     for k, blk in enumerate(blocks):
         c, nh = blk["c"], blk["nh"]
         for shift in (0, win // 2):
@@ -4758,10 +4838,12 @@ def f32_geometry(cfg, dev, errs: dict, label: str, full: bool):
         library_ms = graph_ms(lambda: fn("library"), iters=10)
         timings[name] = (kernel_ms, plain_ms, library_ms) + bounds[name][:2]
         say("timing", f"{label} {name:20s} one RDG's launches: kernel "
-                      f"{kernel_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
-                      f"({bounds[name][1]}; {achieved(kernel_ms, bounds[name])}"
-                      f"), plain f32 {plain_ms:.4f} ms, library "
-                      f"{library_ms:.4f} ms (device time, CUDA graph)")
+                      f"{kernel_ms:.4f} ms, "
+                      f"{bound_text(name, kernel_ms, bounds)}, plain f32 "
+                      f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
+                      f"(device time, CUDA graph)")
+    if ffma is not None:
+        ffma.update({k: v[0] for k, v in bounds["ffma"].items()})
     return timings
 
 
@@ -4946,14 +5028,17 @@ def phase_fp32(dev, report):
 
     errs = {}
     reset_counts()
-    timings = f32_geometry(cfg, dev, errs, "w8", full=True)
+    ffma = out.setdefault("ffma_bound_ms", {})
+    timings = f32_geometry(cfg, dev, errs, "w8", full=True,
+                           ffma=ffma.setdefault("w8", {}))
     swin = {"w8": f32_swin_geometry(cfg, dev, errs, "w8")}
     out["max_abs_err"] = dict(errs)
     for tag, geo in (("w4", (64, 4)), ("w16", (256, 4))):
         e = {}
         cfg_g = drct_experiment("grid", *geo, precision="fp32",
                                 run_tag="t").model
-        t = f32_geometry(cfg_g, dev, e, tag, full=False)
+        t = f32_geometry(cfg_g, dev, e, tag, full=False,
+                         ffma=ffma.setdefault(tag, {}))
         swin[tag] = f32_swin_geometry(cfg_g, dev, e, tag)
         out[f"timings_{tag}"] = {k: list(v) for k, v in t.items()}
         out[f"timings_{tag}"]["swin_block_f32"] = list(swin[tag][:5])
@@ -5316,9 +5401,10 @@ def f32_bwd_case(errs, label, dy, wt, a, kw):
 
 def f32_bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
     """:func:`bwd_bounds` for the f32 instances: 4 bytes an element, every
-    operation at the f32 peak."""
+    operation at the f32 peak; at N = 256 (f) f32's at 3xTF32 (its FFMA
+    bound under ``"ffma"``)."""
     n = cfg.window_size ** 2
-    gm_b = gm_ops = ln_b = ln_ops = at_b = at_ops = 0.0
+    gm_b = gm_ops = ln_b = ln_ops = at_b = at_tc = at_ew = 0.0
     for k, blk in enumerate(blocks):
         c, nh = blk["c"], blk["nh"]
         for _, dy, wt, a, kw, _ in bwd_cases(cfg, cat, dcat, blk, k, extra):
@@ -5334,18 +5420,24 @@ def f32_bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
             ln_ops += 12 * m * c
         at_b += 4 * (2 * m * 3 * c + m * c + nh * n * n) \
             + attn_operand_bytes(blk, cfg, masks)
-        at_ops += 10 * m * n * c + 10 * (m // n) * nh * n * n
+        at_tc += 10 * m * n * c                 # its five products
+        at_ew += 10 * (m // n) * nh * n * n
     out = {}
     for name, byt, ops in (("rdg_gemm_bwd_f32", gm_b, gm_ops),
                            ("rdg_layernorm_bwd_f32", ln_b, ln_ops),
-                           ("window_attention_bwd_f32", at_b, at_ops)):
+                           ("window_attention_bwd_f32", at_b, at_tc + at_ew)):
         t_b, t_ops = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
         out[name] = (max(t_b, t_ops) * 1e3,
                      "bytes" if t_b >= t_ops else "operations", byt, ops)
+    if n == 256:        # (f) f32 runs its products as 3xTF32 at N = 256
+        out["ffma"] = {"window_attention_bwd_f32":
+                       out["window_attention_bwd_f32"]}
+        out["window_attention_bwd_f32"] = tf32x3_bound(at_b, at_tc, at_ew)
     return out
 
 
-def f32_bwd_geometry(cfg, dev, errs: dict, label: str, full: bool):
+def f32_bwd_geometry(cfg, dev, errs: dict, label: str, full: bool,
+                     ffma: dict = None):
     """The f32 instances of (d)-(f) at ``cfg``'s shapes (batch ``BATCH``):
     with ``full`` (d) at every product of the five blocks and (e) at both
     LayerNorms of each, then (f) at every block and both shifts (at 16x16
@@ -5354,7 +5446,8 @@ def f32_bwd_geometry(cfg, dev, errs: dict, label: str, full: bool):
     of each timed beside its bound, its plain version and its library call
     (``torch.matmul`` x 2 in f32 with TF32 off, ATen's LayerNorm backward,
     ``scaled_dot_product_attention``'s f32 backward). Returns {kernel: (ms,
-    plain_ms, library_ms, bound_ms, bound_by)}."""
+    plain_ms, library_ms, bound_ms, bound_by)}; ``ffma`` as
+    :func:`f32_geometry`'s."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 13)
     cat, blocks, masks = f32_case_inputs(cfg, dev, gen)
     for blk in blocks:          # qkv's and act's values, 16-byte rows
@@ -5551,10 +5644,12 @@ def f32_bwd_geometry(cfg, dev, errs: dict, label: str, full: bool):
             library_ms = graph_ms(lambda: fn("library"), iters=10)
         timings[name] = (kernel_ms, plain_ms, library_ms) + bounds[name][:2]
         say("timing", f"{label} {name:24s} one RDG's launches: kernel "
-                      f"{kernel_ms:.4f} ms, bound {bounds[name][0]:.4f} ms "
-                      f"({bounds[name][1]}; {achieved(kernel_ms, bounds[name])}"
-                      f"), plain f32 {plain_ms:.4f} ms, library "
-                      f"{library_ms:.4f} ms (device time; library: {how})")
+                      f"{kernel_ms:.4f} ms, "
+                      f"{bound_text(name, kernel_ms, bounds)}, plain f32 "
+                      f"{plain_ms:.4f} ms, library {library_ms:.4f} ms "
+                      f"(device time; library: {how})")
+    if ffma is not None:
+        ffma.update({k: v[0] for k, v in bounds.get("ffma", {}).items()})
     return timings
 
 
@@ -5875,13 +5970,16 @@ def phase_fp32_train(dev, report):
                           batch_size=BATCH, run_tag="chip_smoke_fp32_train")
     errs = {}
     reset_counts()
-    timings = f32_bwd_geometry(exp.model, dev, errs, "w8", full=True)
+    ffma = out.setdefault("ffma_bound_ms", {})
+    timings = f32_bwd_geometry(exp.model, dev, errs, "w8", full=True,
+                               ffma=ffma.setdefault("w8", {}))
     out["max_abs_err"] = dict(errs)
     for tag, geo in (("w4", (64, 4)), ("w16", (256, 4))):
         e = {}
         t = f32_bwd_geometry(drct_experiment("grid", *geo, precision="fp32",
                                              run_tag="t").model,
-                             dev, e, tag, full=False)
+                             dev, e, tag, full=False,
+                             ffma=ffma.setdefault(tag, {}))
         out[f"timings_{tag}"] = {k: list(v) for k, v in t.items()}
         out[f"max_abs_err_{tag}"] = e
         torch.cuda.empty_cache()
@@ -5940,6 +6038,13 @@ def phase_child(name: str, out: str) -> int:
     return 0
 
 
+def ffma_key(phase_report: dict, tag: str, kernel: str) -> dict:
+    """{"bound_ffma_ms": ms} where ``kernel``'s bound_ms at ``tag`` is its
+    3xTF32 bound (its products on the tensor cores), else {}."""
+    ms = phase_report.get("ffma_bound_ms", {}).get(tag, {}).get(kernel)
+    return {} if ms is None else {"bound_ffma_ms": ms}
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--phase":
         return phase_child(sys.argv[2], sys.argv[3])
@@ -5966,6 +6071,7 @@ def main() -> int:
     for line in ptxas_summary(_build.build_log()):
         say("build", line)
     report["build_s"] = build_s
+    report["tensor_core_f32"] = check_tensor_core_builds(lib.parent)
 
     # each geometry in a process of its own (run_phase)
     runs = {name: run_phase(name) for name in PHASES}
@@ -6037,7 +6143,8 @@ def main() -> int:
                  "launches_by_path": by_path,
                  "max_abs_err": f32["max_abs_err"][k], "ms": kernel_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": library_ms}
+                 "bound_by": bound_by, "library_ms": library_ms,
+                 **ffma_key(f32, "w8", k)}
         for tag in ("w4", "w16"):
             kernel_ms, plain_ms, library_ms, bound_ms, bound_by = \
                 f32[f"timings_{tag}"][k]
@@ -6046,7 +6153,8 @@ def main() -> int:
                           "ms": kernel_ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": library_ms,
-                          "max_abs_err": f32[f"max_abs_err_{tag}"].get(k)}
+                          "max_abs_err": f32[f"max_abs_err_{tag}"].get(k),
+                          **ffma_key(f32, tag, k)}
         kernels.append(entry)
     # the f32 instance of (g): the fp32 phase's readings at the flagship
     # (window 8), and under "w4" / "w16" at those geometries, each beside
@@ -6101,7 +6209,8 @@ def main() -> int:
                           "ms": kernel_ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by,
                           "library_ms": library_ms,
-                          "max_abs_err": ft[f"max_abs_err_{tag}"].get(k)}
+                          "max_abs_err": ft[f"max_abs_err_{tag}"].get(k),
+                          **ffma_key(ft, tag, k)}
         kernels.append(entry)
     report["total_s"] = time.perf_counter() - t_start
     say("report", json.dumps(report))

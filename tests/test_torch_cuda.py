@@ -891,6 +891,38 @@ def test_f32_gemm_matches_plain(dev, n, k, epi):
     assert torch.equal(dst[:, 5 + n:], before[:, 5 + n:])
 
 
+@pytest.mark.parametrize("m", [4096, 16384, 65536])
+@pytest.mark.parametrize("n,k,epi", [(540, 180, "none"),
+                                     (180, 360, "residual"),
+                                     (32, 180, "leaky_relu")])
+def test_f32_gemm_tile_widths_match_plain(dev, m, n, k, epi):
+    # the 3xTF32 kernel at one RDG's token rows at windows 4, 8 and 16,
+    # where its tile width changes with M (kernels/rdg_gemm.py
+    # f32_tile_width): qkv, fc2 (out aliasing residual) and adjust, all in
+    # 16-byte rows as the main path lays them out, twice bitwise
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    a = pitched(m, k, dtype=torch.float32, device=dev)
+    a.copy_(torch.randn(m, k, generator=g, device=dev))
+    w = pitched(n, k, dtype=torch.float32, device=dev)
+    w.copy_(0.05 * torch.randn(n, k, generator=g, device=dev))
+    bias = 0.05 * torch.randn(n, generator=g, device=dev)
+    res = pitched(m, n, dtype=torch.float32, device=dev)
+    res.copy_(torch.randn(m, n, generator=g, device=dev))
+    want = rdg_gemm_plain(a, w, bias, epi,
+                          res if epi == "residual" else None)
+    outs = []
+    for _ in range(2):
+        out = res.clone() if epi == "residual" else \
+            pitched(m, n, dtype=torch.float32, device=dev)
+        n0 = rdg_gemm.launches_f32
+        rdg_gemm(a, w, bias, out, epi, out if epi == "residual" else None)
+        assert rdg_gemm.launches_f32 == n0 + 1
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    _f32_close(outs[0], want, (a.abs() @ w.abs().t()).max()
+               + want.abs().max())
+
+
 F32_ATTN = [(180, 6), (212, 4), (244, 2), (276, 6), (308, 4)]
 
 
@@ -1094,6 +1126,45 @@ def test_f32_attention_bwd_matches_plain(dev, win, c, nh, b):
         dqkv, dbias = runs[0]
         want_q, want_b = window_attention_bwd_plain(
             qkv, dout, bias, mask, side, side, nh, win, shift, *fwd)
+        for i in range(3):
+            _f32_close(dqkv[:, i * c:(i + 1) * c],
+                       want_q[:, i * c:(i + 1) * c])
+        _f32_close(dbias, want_b)
+
+
+@pytest.mark.parametrize("c,nh", [(64, 8), (96, 4), (160, 4), (176, 2),
+                                  (216, 2), (120, 1)])
+def test_f32_attention_bwd16_head_tiles_match_plain(dev, c, nh):
+    # the N = 256 tensor-core kernel at head tiles the flagship does not
+    # use (head dims 8, 24, 40, 88, 108 and 120: both dkv shared-memory
+    # layouts, every head-dim split of dq's two warps), both shifts, fed
+    # kernel (c) f32's context and statistics, twice bitwise
+    g = torch.Generator(device=dev).manual_seed(c * nh)
+    f32, side, b, n = torch.float32, 32, 2, 256
+    m = b * side * side
+    qkv = pitched(m, 3 * c, dtype=f32, device=dev)
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    dout = pitched(m, c, dtype=f32, device=dev)
+    dout.copy_(torch.randn(m, c, generator=g, device=dev))
+    bias = 0.5 * torch.randn(nh, 961, generator=g, device=dev)
+    for shift in (0, 8):
+        mask = torch.as_tensor(shift_region_labels(side, side, 16, shift),
+                               device=dev) if shift else None
+        ctx = pitched(m, c, dtype=f32, device=dev)
+        stats = softmax_stats(qkv, side, side, nh, 16)
+        window_attention(qkv, ctx, bias, mask, side, side, nh, 16, shift,
+                         stats)
+        runs = []
+        for _ in range(2):
+            dqkv = pitched(m, 3 * c, dtype=f32, device=dev)
+            dbias = torch.empty(nh, n, n, device=dev)
+            window_attention_bwd(qkv, dout, bias, mask, side, side, nh, 16,
+                                 shift, dqkv, dbias, ctx, stats)
+            runs.append((dqkv, dbias))
+        assert all(torch.equal(p, q) for p, q in zip(*runs))
+        dqkv, dbias = runs[0]
+        want_q, want_b = window_attention_bwd_plain(
+            qkv, dout, bias, mask, side, side, nh, 16, shift, ctx, stats)
         for i in range(3):
             _f32_close(dqkv[:, i * c:(i + 1) * c],
                        want_q[:, i * c:(i + 1) * c])

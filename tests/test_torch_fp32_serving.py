@@ -158,14 +158,44 @@ def test_f32_gemm_plan_covers_the_flagships_products():
     for c, f, a in zip(g["feats"], g["hidden"], g["adj_out"]):
         for n_out, k in ((3 * c, c), (c, c), (f, c), (c, f), (a, c)):
             plan = gemm_mod.gemm_f32_plan(m, n_out, k)
-            assert plan["grid"] == (-(-n_out // 64), m // 128)
-            assert plan["grid"][1] <= 65535
-            assert plan["smem_bytes"] <= 48 * 1024     # static shared memory
+            bm, bn = plan["tile"]
+            assert bm == 128 and bn in gemm_mod.F32_WIDTHS
+            assert plan["units"] == (m // 128) * -(-n_out // bn)
+            assert plan["grid"] == min(plan["units"], 132)
+            assert plan["k_steps"] == -(-k // gemm_mod.F32_BK)
             assert plan["padded_flops"] >= 2 * m * n_out * k
+            assert plan["tf32_flops"] == 3 * plan["padded_flops"]
             flops += 2 * m * n_out * k
     # one flagship RDG's 25 products are 72.3 GFLOP (the f32 bound's count)
     assert flops / 1e9 == pytest.approx(72.3, abs=0.05)
-    assert gemm_mod.gemm_f32_plan(4 * m, 924, 308)["grid"][1] == 512
+    # persistent: no grid dimension limits M
+    assert gemm_mod.gemm_f32_plan(4 * m, 924, 308)["grid"] == 132
+
+
+@pytest.mark.parametrize("m", [4096, 16384, 65536, 3 * 1004])
+def test_f32_gemm_plans_fit_the_card_and_wgmma(m):
+    # every flagship product's plan at windows 4, 8 and 16 (and the card
+    # test's ragged M): its ring fits 227 KB of dynamic shared memory, a
+    # stage is [A hi | W hi | A lo | W lo] of 128-byte rows (the swizzle's
+    # span) in whole 1024-byte blocks, the wgmma is m64nBNk8 with a legal N
+    # (a multiple of 8 up to 256), and the tile width takes the fewest
+    # rounds of the persistent grid
+    g = rdg_geometry(FLAGSHIP)
+    for c, f, a in zip(g["feats"], g["hidden"], g["adj_out"]):
+        for n_out, k in ((3 * c, c), (c, c), (f, c), (c, f), (a, c)):
+            plan = gemm_mod.gemm_f32_plan(m, n_out, k)
+            bn = plan["tile"][1]
+            assert plan["smem_bytes"] <= 232448
+            assert gemm_mod.F32_BK * 4 == 128
+            assert plan["stage_bytes"] == 2 * (128 + bn) * 128
+            assert plan["stage_bytes"] % 1024 == 0
+            assert 3 <= plan["stages"] <= 6
+            assert plan["wgmma"] == (64, bn, 8)
+            assert bn % 8 == 0 and 8 <= bn <= 256
+            rounds = {w: -(-(-(-m // 128) * -(-n_out // w)) // 132)
+                      for w in gemm_mod.F32_WIDTHS}
+            cost = {w: r * (w + 32) for w, r in rounds.items()}
+            assert cost[bn] == min(cost.values())
 
 
 def test_main_path_f32_layouts_take_wide_pieces():

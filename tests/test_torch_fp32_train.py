@@ -142,12 +142,15 @@ def test_attention_bwd_f32_plan_covers_every_window_and_head(geo, k):
     c, nh, win = g["feats"][k], g["heads"][k], cfg.window_size
     side = cfg.img_size
     p = ab.window_attention_bwd_f32_plan(c, nh, BATCH, side, side, win, 132)
-    n, hdp = win * win, head_tile(c // nh)
+    n = win * win
+    # head dims pad to 16 for the SIMT kernel (N = 16, 64), to 8 for the
+    # tensor cores' k8 steps and n8 tiles (N = 256)
+    hdp = -(-(c // nh) // 8) * 8 if n == 256 else head_tile(c // nh)
+    assert p["hdp"] == hdp and p["pitch"] == hdp + 4
     rows = min(n, 64)
-    # the source's layout (csrc/window_attention_bwd_f32.cuh bwd_smem_bytes)
+    # the source's layout (csrc/window_attention_bwd_f32.cuh
+    # bwd_smem_bytes, dq16_smem_bytes, dkv16_smem_bytes)
     planes, tile = 4 * rows * (hdp + 4), rows * (rows + 4)
-    want = 4 * (planes + 2 * tile + (3 * rows if n == 256 else 0))
-    assert p["smem_bytes"] == want <= BLOCK_SHARED_MAX
     assert p["blocks_per_sm"] >= 1
     windows = BATCH * (side // win) ** 2
     assert p["windows"] == windows
@@ -155,16 +158,49 @@ def test_attention_bwd_f32_plan_covers_every_window_and_head(geo, k):
     assert 1 <= p["last_group"] <= p["group"]
     assert p["partial_bytes"] == p["groups"] * nh * n * n * 4
     if n == 256:
-        assert p["smem_dq_bytes"] == 4 * (planes + tile + 3 * rows) \
-            <= BLOCK_SHARED_MAX
+        # the warps' exchange: [2 writers][4 row warps][4 n8 tiles][32
+        # lanes] float4s; each row's max, 1 / sum and D
+        assert ab.EXCHANGE_BYTES == 2 * 4 * 4 * 32 * 16
+        assert ab.STAT_BYTES == 3 * 64 * 4
+        plane = rows * (hdp + 4) * 4
+        # dq: q, dO and two k and two v planes (the next key tile lands
+        # while one is computed)
+        assert p["smem_dq_bytes"] == 6 * plane + ab.EXCHANGE_BYTES \
+            + ab.STAT_BYTES <= BLOCK_SHARED_MAX
+        # dkv: k, v, one or two q and dO buffers with their statistics, and
+        # its keys' d(bias) columns [256][64 + 4]; two where they fit
+        assert ab.DB_PITCH == 68
+        nb = p["dkv_buffers"]
+        assert p["smem_bytes"] == (2 + 2 * nb) * plane + ab.EXCHANGE_BYTES \
+            + nb * ab.STAT_BYTES + 4 * 256 * 68 <= BLOCK_SHARED_MAX
+        two = 6 * plane + ab.EXCHANGE_BYTES + 2 * ab.STAT_BYTES \
+            + 4 * 256 * 68
+        assert nb == (2 if two <= BLOCK_SHARED_MAX else 1)
         assert p["partial_bytes"] <= ab.MAX_PARTIAL_BYTES
         assert p["launches"] == 2
         assert p["blocks"] == p["groups"] * nh * 4
         assert p["dq_blocks"] == windows * nh * 4
         assert p["dsum_bytes"] == windows * nh * n * 4
     else:
+        assert p["smem_bytes"] == 4 * (planes + 2 * tile) <= BLOCK_SHARED_MAX
         assert p["launches"] == 1 and p["blocks"] == p["groups"] * nh
         assert p["group"] <= ab.MAX_GROUP
+
+
+@pytest.mark.parametrize("hd", [1, 7, 8, 9, 30, 46, 53, 77, 122, 127, 128])
+def test_attention_bwd16_f32_plan_pads_head_dims_to_8_and_fits(hd):
+    # every head dim the N = 256 kernel takes (hd <= 128): the least
+    # multiple of 8 (the mma k8 steps and n8 tiles; at the flagship 30, 53,
+    # 122, 46 and 77 -> 32, 56, 128, 48 and 80), both launches within 227
+    # KB of dynamic shared memory, blocks an SM by the sources' launch bounds
+    p = ab.window_attention_bwd_f32_plan(2 * hd, 2, 1, 16, 16, 16, 132)
+    hdp = p["hdp"]
+    assert hdp % 8 == 0 and hd <= hdp < hd + 8
+    assert p["smem_bytes"] <= BLOCK_SHARED_MAX
+    assert p["smem_dq_bytes"] <= BLOCK_SHARED_MAX
+    dq_most, dkv_most = ab.bwd16_f32_min_blocks(hdp)
+    assert 1 <= p["dq_blocks_per_sm"] <= dq_most
+    assert 1 <= p["blocks_per_sm"] <= dkv_most
 
 
 @pytest.mark.parametrize("mesh", [MeshConfig(), MeshConfig(dp=2),

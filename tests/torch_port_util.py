@@ -150,3 +150,38 @@ def drn_jax_params(scale=(2, 4), n_colors: int = 1, n_blocks: int = 2,
                    + 0.02 * rng.randn(*np.shape(a)).astype(np.float32)))
     return (JaxDRNConfig(**kw), PortDRNConfig(**kw), perturb(primal),
             tuple(perturb(d) for d in duals))
+
+
+# ---- TF32 arithmetic of the card's f32 tensor-core kernels, emulated ----
+#
+# (b) f32 (csrc/rdg_gemm_f32.cu) and (f) f32 at N = 256
+# (csrc/window_attention_bwd_f32.cuh) split each f32 operand as x = hi + lo,
+# hi = tf32(x), lo = tf32(x - hi), and sum a_lo b_hi + a_hi b_lo + a_hi b_hi
+# in f32 ("3xTF32"). Here the rounding is to nearest with ties to even on
+# the int32 view; the kernels take ties away from zero, which differs only
+# where a value lies exactly half-way. The products of TF32 values are
+# exact and their sums IEEE f32 here; the tensor cores' sums need not
+# round as IEEE f32 does, which this does not model.
+
+def tf32_round(x) -> np.ndarray:
+    """float32 -> the nearest TF32 value (10 explicit mantissa bits, the
+    low 13 zero), ties to even."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    u = (u + np.uint32(0xFFF) + ((u >> np.uint32(13)) & np.uint32(1))) \
+        & np.uint32(0xFFFFE000)
+    return u.view(np.float32)
+
+
+def tf32_split(x):
+    """(hi, lo) of float32 ``x``: hi = tf32(x), lo = tf32(x - hi)."""
+    x = np.asarray(x, dtype=np.float32)
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def matmul_3xtf32(a, b) -> np.ndarray:
+    """float32 ``a @ b`` as three TF32 products (each product of two TF32
+    values exact), summed in float32: a_lo b_hi + a_hi b_lo + a_hi b_hi."""
+    ah, al = tf32_split(a)
+    bh, bl = tf32_split(b)
+    return (al @ bh) + (ah @ bl) + (ah @ bh)
