@@ -31,7 +31,7 @@
 //     staged before the block reads it.
 //   - Per head: the qkv product writes the head's q, k and v planes
 //     [64][hdp + 4] (head dim zero-padded to a multiple of 16: 30/53/122/
-//     46/77 at the flagship), then kernel (c) f32's online-softmax core
+//     46/77 at the flagship), then the SIMT online-softmax core
 //     (window_attention_f32.cuh attend_scores / attend_pv) runs over the
 //     window's key tiles and writes the head's context into its columns
 //     of the context buffer ``act`` [64][ldc] (all heads before proj). At

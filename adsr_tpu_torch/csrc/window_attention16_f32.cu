@@ -1,8 +1,8 @@
 // window_attention16_f32.cu: kernel (c)'s f32 instances at 16x16 windows
-// (N = 256), on window_attention_f32.cuh (its notes say what the kernel
+// (N = 256), on window_attention_tc_f32.cuh (its notes say what the kernel
 // replaces, its bound and its design).
 
-#include "window_attention_f32.cuh"
+#include "window_attention_tc_f32.cuh"
 
 // adsr_window_attention16's arguments (window_attention16.cu: those of
 // adsr_window_attention with the softmax statistics ``stats`` after

@@ -1,8 +1,8 @@
 // window_attention4_f32.cu: kernel (c)'s f32 instances at 4x4 windows
-// (N = 16), on window_attention_f32.cuh (its notes say what the kernel
+// (N = 16), on window_attention_tc_f32.cuh (its notes say what the kernel
 // replaces, its bound and its design).
 
-#include "window_attention_f32.cuh"
+#include "window_attention_tc_f32.cuh"
 
 // adsr_window_attention's arguments (window_attention.cu) on f32 qkv and
 // ctx; ``win`` must be 4

@@ -1,45 +1,17 @@
-// window_attention_f32.cuh: shifted-window multi-head self-attention in
-// full f32 over 4x4, 8x8 and 16x16 windows (N = 16, 64 and 256 tokens),
-// reading q, k, v straight from the raster-order f32 qkv buffer and writing
-// the f32 context in place of the head's columns.
+// window_attention_f32.cuh: the f32 window-attention pieces shared by the
+// f32 kernels over 4x4, 8x8 and 16x16 windows (N = 16, 64 and 256 tokens):
+// the window geometry and its plane pitch, the cyclic shift's raster row
+// map (token_row), the staging of a head's rows into zero-padded planes
+// (stage_rows, kernel (f) f32 at N = 16 and 64), the bias and mask lookup
+// in the forms kernels/window_attention.py ``attn_operands`` gives
+// (attn_term: the full [nh, N, N] bias and [nW, N, N] mask at N = 16 and
+// 64, the relative-position table [nh, 31 * 31] and the region labels [nW,
+// 256] at N = 256), and the SIMT online-softmax core over one key tile
+// (attend_scores, attend_pv: FFMA products on a 256-thread block), which
+// is kernel (g) f32's attention (swin_block_f32.cuh).
 //
-// Replaces: the attention phases of the Pallas kernel _rdg_kernel_impl
-// (adsr_tpu/ops/fused_rdg.py:734-855) at dtype f32: per (window, head)
-// scores with the relative-position bias and the shift mask, softmax,
-// context, every product in f32.
-// Bound on H100: bytes at N = 16 and 64 (each qkv row read once, each
-// context row written once: ~0.1 ms an RDG at the flagship), operations at
-// N = 256 (the two products of 256 x 256 per head in f32 FFMA).
-// Design: one block of 256 threads per (image, window, head, query tile of
-// R = min(N, 64) rows), one source templated on N and on the head dim
-// padded to a multiple of 16. The block stages its R query rows, then
-// walks the window's keys in tiles of R (one tile at N <= 64, four at N =
-// 256) with FlashAttention's online softmax: scores of the tile into shared
-// memory (a 4 x 4 register tile a thread at R = 64, float4 reads over the
-// head dim), each row's running max and sum updated by 256 / R lanes (4
-// at R = 64, 16 at R = 16), P = expf(S - max) kept in f32, the f32 context
-// (a thread's rows and four head dims in registers) rescaled as the max
-// grows, and divided by the row sum at the end. q, k and v of a head start on any 4-byte
-// column (head dims 30, 53, 122, 46, 77 at the flagship): rows are read in
-// the 16-byte pieces that hold the head's columns (qkv rows have a pitch
-// that is a multiple of 4 floats), and the head is sliced out of them in
-// registers into the shared planes, zero-padded; the context goes back in
-// scalar stores to the head's own columns. The cyclic shift is index
-// arithmetic on raster rows (as in window_attention.cu). The bias and mask
-// come in the forms kernels/window_attention.py ``attn_operands`` gives: the
-// full [nh, N, N] bias and [nW, N, N] mask at N = 16 and 64, the
-// relative-position table [nh, 31 * 31] and the region labels [nW, 256]
-// (int32, -100 between regions) at N = 256. At N = 256, for the training
-// backward, it also writes each query row's softmax statistics (max, 1 /
-// sum of exp(score - max)) into ``stats`` [B * nW, nh, N, 2] when given
-// one, as the bf16 kernel does (kernel (f) reads them). No atomics:
-// bitwise repeatable; nothing survives a launch (graph-capturable).
-//
-// The kernel and its launch live here; one source a window includes it
-// (window_attention4_f32.cu, window_attention_f32.cu and
-// window_attention16_f32.cu), so nvcc builds the three windows' instances
-// in parallel. Its key-tile body (attend_scores, attend_pv) is also kernel
-// (g) f32's attention (swin_block_f32.cuh).
+// Kernel (c) f32 itself, on the tensor cores, is window_attention_tc_f32.cuh;
+// (f) f32 is window_attention_bwd_f32.cuh.
 
 #pragma once
 
@@ -66,14 +38,6 @@ struct Geo {
 // eight consecutive rows start in eight different 16-byte bank groups
 template <int HDP>
 constexpr int kPitch = HDP + 4;
-
-// shared memory: the q, k and v planes [R][HDP + 4], the scores [R][R + 4]
-// and each row's running max, sum and rescale factor
-template <int N, int HDP>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return 4ull * (3 * Geo<N>::R * kPitch<HDP> + Geo<N>::R * Geo<N>::kSP
-                 + 3 * Geo<N>::R);
-}
 
 template <int N>
 __device__ __forceinline__ long long token_row(int b, int wi, int wj, int t,
@@ -151,8 +115,8 @@ struct Attend {
   static constexpr int RPT = (R + RS - 1) / RS;
 };
 
-// One key tile of the online softmax, the core of kernel (c) f32 and of
-// kernel (g) f32 (swin_block_f32.cuh), in two halves. attend_scores: the R
+// One key tile of the online softmax, the core of kernel (g) f32
+// (swin_block_f32.cuh), in two halves. attend_scores: the R
 // query rows of ``qs`` (window tokens q0 ..) against the R keys of ``ks``
 // (window tokens k0 ..), planes [R][P] zero past the head dim: S = scale q
 // k^T + bias (+ mask) into ``ss`` as P = exp(S - max), each row's running
@@ -285,182 +249,6 @@ __device__ __forceinline__ void attend_pv(
     }
   }
   __syncthreads();                        // before the next tile's loads
-}
-
-// a whole key tile: attend_scores, then attend_pv
-template <int N, int HDP>
-__device__ __forceinline__ void attend_tile(
-    const float* qs, const float* ks, const float* vs, float* ss,
-    float* row_max, float* row_sum, float* row_alpha,
-    float (&o)[Attend<N, HDP>::RPT][4], const float* __restrict__ bias,
-    const void* __restrict__ mask, int h, int win, int q0, int k0,
-    float scale) {
-  attend_scores<N, HDP>(qs, ks, ss, row_max, row_sum, row_alpha, bias, mask,
-                        h, win, q0, k0, scale);
-  attend_pv<N, HDP>(vs, ss, row_alpha, o);
-}
-
-template <int N, int HDP>
-__global__ void __launch_bounds__(kThreads)
-window_attention_f32_kernel(const float* __restrict__ qkv, long long ldq,
-                            float* __restrict__ ctx, long long ldc,
-                            const float* __restrict__ bias,
-                            const void* __restrict__ mask,
-                            float* __restrict__ stats, int H, int W,
-                            int C, int nh, int hd, int shift, float scale) {
-  using G = Geo<N>;
-  using A = Attend<N, HDP>;
-  constexpr int R = G::R, SP = G::kSP, P = kPitch<HDP>;
-  constexpr int G4 = A::G4, RS = A::RS, RPT = A::RPT;
-  extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + R * P;
-  float* vs = ks + R * P;
-  float* ss = vs + R * P;
-  float* row_max = ss + R * SP;
-  float* row_sum = row_max + R;
-  float* row_alpha = row_sum + R;
-
-  const int nww = W / G::kWin;
-  const int nw = (H / G::kWin) * nww;
-  int bid = blockIdx.x;
-  const int qt = bid % G::kTiles;
-  bid /= G::kTiles;
-  const int h = bid % nh;
-  bid /= nh;
-  const int win = bid % nw;
-  const int b = bid / nw;
-  const int wi = win / nww, wj = win % nww;
-  const int tid = threadIdx.x;
-
-  // the padded head dims are zero in every plane, and stay so (the staged
-  // rows write head dims below hd only)
-  if (HDP > hd) {
-    const int pad = HDP - hd;
-    for (int i = tid; i < 3 * R * pad; i += kThreads) {
-      const int row = i / pad;            // (plane, row)
-      qs[row * P + hd + (i - row * pad)] = 0.f;
-    }
-  }
-  for (int r = tid; r < R; r += kThreads) {
-    row_max[r] = -INFINITY;
-    row_sum[r] = 0.f;
-  }
-  __syncthreads();
-  const int col = h * hd;
-  stage_rows<N, HDP>(qs, qkv, ldq, b, wi, wj, qt * R, H, W, shift, col, hd);
-
-  const int dg = tid % G4, r0 = tid / G4;          // P @ V
-  const bool pv = tid < RS * G4;
-  float o[RPT][4];
-#pragma unroll
-  for (int i = 0; i < RPT; ++i)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) o[i][x] = 0.f;
-
-  for (int kt = 0; kt < G::kTiles; ++kt) {
-    stage_rows<N, HDP>(ks, qkv, ldq, b, wi, wj, kt * R, H, W, shift, C + col,
-                       hd);
-    stage_rows<N, HDP>(vs, qkv, ldq, b, wi, wj, kt * R, H, W, shift,
-                       2 * C + col, hd);
-    __syncthreads();
-    attend_tile<N, HDP>(qs, ks, vs, ss, row_max, row_sum, row_alpha, o, bias,
-                        mask, h, win, qt * R, kt * R, scale);
-  }
-
-  // each query row's (max, 1 / sum), the statistics kernel (f) reads
-  if (stats != nullptr) {
-    for (int r = tid; r < R; r += kThreads) {
-      float2* st = reinterpret_cast<float2*>(stats)
-                   + ((size_t)(b * nw + win) * nh + h) * N + qt * R + r;
-      *st = make_float2(row_max[r], 1.f / row_sum[r]);
-    }
-  }
-  // the context: this thread's rows, head dims 4 dg .. 4 dg + 3 below hd
-  if (pv) {
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = r0 + RS * i;
-      if (r >= R) continue;
-      const float inv = 1.f / row_sum[r];
-      float* dst = ctx + token_row<N>(b, wi, wj, qt * R + r, H, W, shift)
-                   * ldc + col;
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-        if (4 * dg + x < hd) dst[4 * dg + x] = o[i][x] * inv;
-    }
-  }
-}
-
-template <int N, int HDP>
-int launch(const void* qkv, long long ldq, void* ctx, long long ldc,
-           const void* bias, const void* mask, void* stats, int B, int H,
-           int W, int C,
-           int nh, int hd, int shift, long long smem, cudaStream_t stream) {
-  constexpr size_t bytes = smem_bytes<N, HDP>();
-  static_assert(bytes <= kMaxSmem, "window_attention_f32: shared memory");
-  if ((long long)bytes != smem) return (int)cudaErrorInvalidValue;
-  static bool configured = false;         // per template instance
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        window_attention_f32_kernel<N, HDP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  constexpr int kWin = Geo<N>::kWin;
-  const long long blocks =
-      (long long)B * (H / kWin) * (W / kWin) * nh * Geo<N>::kTiles;
-  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  window_attention_f32_kernel<N, HDP>
-      <<<(unsigned)blocks, kThreads, bytes, stream>>>(
-          (const float*)qkv, ldq, (float*)ctx, ldc, (const float*)bias, mask,
-          (float*)stats, H, W, C, nh, hd, shift,
-          (float)(1.0 / std::sqrt((double)hd)));
-  return (int)cudaGetLastError();
-}
-
-template <int N>
-int by_head(int hd, const void* qkv, long long ldq, void* ctx, long long ldc,
-            const void* bias, const void* mask, void* stats, int B, int H,
-            int W, int C, int nh, int shift, long long smem,
-            cudaStream_t s) {
-  switch ((hd + 15) / 16) {
-#define ADSR_HDP(K) \
-    case K: return launch<N, 16 * K>(qkv, ldq, ctx, ldc, bias, mask, stats, \
-                                     B, H, W, C, nh, hd, shift, smem, s);
-    ADSR_HDP(1) ADSR_HDP(2) ADSR_HDP(3) ADSR_HDP(4)
-    ADSR_HDP(5) ADSR_HDP(6) ADSR_HDP(7) ADSR_HDP(8)
-#undef ADSR_HDP
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-
-// The checks and launch of the C entry of window ``kWin`` (N = kWin^2):
-// ``bias`` and ``mask`` in the forms above (``mask`` null at shift 0);
-// ``smem`` the shared memory the caller planned
-// (kernels/window_attention.py ``window_attention_f32_plan``): a launch
-// whose plan differs from this file's layout is refused. qkv and ctx have
-// 16-byte aligned bases and row strides that are multiples of 4 floats.
-// ``stats`` (or null) takes the softmax statistics, at N = 256 only.
-template <int kWin>
-int entry(const void* qkv, long long ldq, void* ctx, long long ldc,
-          const void* bias, const void* mask, void* stats, int B, int H,
-          int W, int C, int nh, int win, int shift, long long smem,
-          void* stream) {
-  if (win != kWin || H % win || W % win || nh <= 0 || C % nh || C % 4 ||
-      B < 0 || shift < 0 || shift >= win || (shift > 0) != (mask != nullptr) ||
-      ldq % 4 || ldc % 4 || ldq < 3ll * C || ldc < C || C / nh > 128 ||
-      (stats != nullptr && kWin != 16) ||
-      reinterpret_cast<uintptr_t>(stats) % 8 ||
-      reinterpret_cast<uintptr_t>(qkv) % 16 ||
-      reinterpret_cast<uintptr_t>(ctx) % 16)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  return by_head<kWin * kWin>(C / nh, qkv, ldq, ctx, ldc, bias, mask, stats,
-                              B, H, W, C, nh, shift, smem,
-                              (cudaStream_t)stream);
 }
 
 }  // namespace

@@ -122,9 +122,9 @@ for _name in ("adsr_window_attention_bwd_f32",
 SIGNATURES["adsr_window_attention_bwd16_f32"] = \
     SIGNATURES["adsr_window_attention_bwd16"]
 # (d): dy, ldy, alpha, slope, lds, scale, scale_stride, rows_per_scale, W,
-# ldw, pre, ldp, out, ldo, A, lda, eff, lde, eff_t, ldt, part, db_part,
-# splits, rows_per_split, dW, db, M, N, K, stream (a null out skips dgrad,
-# a null dW wgrad)
+# ldw, pre, ldp, out, ldo, A, lda, eff, lde, part, db_part, splits,
+# rows_per_split, dW, db, M, N, K, stream (a null out skips dgrad, a null
+# dW wgrad)
 # (g)'s f32 instances, a source a window (swin_block{4,,16}_f32.cu): the
 # arguments of adsr_swin_block16 at every window
 for _name in ("adsr_swin_block_f32", "adsr_swin_block4_f32",
@@ -132,8 +132,8 @@ for _name in ("adsr_swin_block_f32", "adsr_swin_block4_f32",
     SIGNATURES[_name] = SIGNATURES["adsr_swin_block16"]
 SIGNATURES["adsr_rdg_gemm_grads_f32"] = [_P, _L, _F, _P, _L, _P, _L, _I, _P,
                                          _L, _P, _L, _P, _L, _P, _L, _P, _L,
-                                         _P, _L, _P, _P, _I, _I, _P, _P, _I,
-                                         _I, _I, _P]
+                                         _P, _P, _I, _I, _P, _P, _I, _I, _I,
+                                         _P]
 
 
 def sources() -> List[Path]:

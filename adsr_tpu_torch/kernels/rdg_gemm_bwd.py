@@ -36,15 +36,22 @@ the partials.
 f32 operands (fp32 training: the TPU kernel at dtype f32, whose staging is
 f32 with f32 accumulators) go to a kernel of their own,
 ``adsr_tpu_torch/csrc/rdg_gemm_bwd_f32.cu`` (C entry
-``adsr_rdg_gemm_grads_f32``): the same function in full f32 with FFMA on
-the CUDA cores (no TF32, dY_eff kept f32). Bound on the H100: operations
-(one flagship RDG's 50 products are ~145 GFLOP, ~2.2 ms at 67 TFLOP/s).
-Design: a pre-pass writes dY_eff (where wgrad cannot read dY in place), its
-transpose for dgrad and the db partials; then one SIMT GEMM with both
-operands reduction-major, 128 x 64 output tiles of 8 x 8 outputs a thread,
-a 3-stage ``cp.async`` ring, wgrad in splits of M summed in a fixed order
-(:func:`gemm_bwd_f32_plan`). Its launches count in ``launches_f32`` on
-``rdg_gemm_dgrad`` and ``rdg_gemm_wgrad``, the bf16 ones in ``launches``.
+``adsr_rdg_gemm_grads_f32``): the same function with every product
+f32-accurate as 3xTF32 on the tensor cores (``mma.sync`` m16n8k8; each
+value split into hi = x with its low 13 bits cleared and lo = x - hi,
+three products a pair; dY_eff kept f32). Bound on the H100: operations (one flagship RDG's
+50 products are ~145 GFLOP, ~0.88 ms as three TF32 products at 495
+TFLOP/s). Design: a pre-pass writes dY_eff where dY is transformed and
+the db partials where wgrad runs; then one GEMM reads dY_eff, W and the
+activation as they lie, dY_eff K-major for dgrad and every other operand
+reduction-major (TF32 ``wgmma`` takes only K-major operands from shared
+memory, ``mma.sync``'s fragments load from either layout, so nothing is
+transposed), 64 x 64 (dgrad) and 128 x 64 (wgrad) output tiles of four
+warps, a 3-stage ``cp.async`` ring of 32-row steps, sums in two levels
+(every 128 of the reduction into an f32 total), wgrad in splits of M
+added in a fixed order (:func:`gemm_bwd_f32_plan`). Its launches count in
+``launches_f32`` on ``rdg_gemm_dgrad`` and ``rdg_gemm_wgrad``, the bf16 ones
+in ``launches``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 the call raises.
@@ -66,13 +73,20 @@ _PREP_ROWS = 32              # rows of one db partial (both pre-passes; the
                              # f32 one's blocks take 32 x 32 of dY)
 _SMS = 132                   # the H100's SMs
 _MN_WIDTHS = (192, 128, 64)  # tile widths of an MN-major B (whole atoms)
-# the f32 kernel (csrc/rdg_gemm_bwd_f32.cu): output tile, threads, the
-# reduction step, blocks an SM (its __launch_bounds__), static shared memory
-F32_TILE = (128, 64)
+# the f32 kernel (csrc/rdg_gemm_bwd_f32.cu): dgrad's and wgrad's output
+# tiles (two and four m16 tiles a warp), threads, the reduction rows a
+# stage, blocks an SM of dgrad and of wgrad (their __launch_bounds__: the
+# two-level sums take registers), dynamic shared memory of each (a 3-stage
+# ring: dgrad's K-major [64][32 + 4] and [32][64 + 8] tiles, wgrad's
+# [32][128 + 8] and [32][64 + 8])
+F32_DGRAD_TILE = (64, 64)
+F32_WGRAD_TILE = (128, 64)
 F32_THREADS = 128
-F32_BK = 16
-F32_BLOCKS_PER_SM = 3
-F32_SMEM_BYTES = 3 * F32_BK * (128 + 64) * 4
+F32_BK = 32
+F32_DGRAD_BLOCKS_PER_SM = 4
+F32_WGRAD_BLOCKS_PER_SM = 2
+F32_SMEM_BYTES = (3 * (64 * (F32_BK + 4) + F32_BK * (64 + 8)) * 4,
+                  3 * F32_BK * (128 + 8 + 64 + 8) * 4)
 
 
 def gelu_grad(x: torch.Tensor) -> torch.Tensor:
@@ -254,37 +268,40 @@ def gemm_bwd_f32_plan(m: int, n: int, k: int, sms: int = _SMS,
                       prep: bool = True) -> dict:
     """What the f32 kernel (``csrc/rdg_gemm_bwd_f32.cu``) launches for dY
     [m, n] and W [n, k]: the pre-pass, a block per 32 x 32 tile of dY
-    (``prep_grid``); dgrad, a block of ``F32_THREADS`` a 128 x 64 tile of
-    dA [m, k] (``dgrad_grid``); wgrad, a block a 128 x 64 tile of dW [n, k]
-    and a split of the m rows (``wgrad_grid``: about ``F32_BLOCKS_PER_SM``
-    blocks an SM over the output tiles, each split at least 256 rows and a
-    multiple of the 16-row step). Its scratch, in byte offsets (each
-    region 256-byte aligned): dY_eff [m, n] f32 when ``prep`` (wgrad cannot
-    read dY in place) from 0, dY_eff^T [n, ldt] (ldt: m rounded up to 4)
-    when ``dgrad`` at ``eff_t``, the split partials [splits, n, k] at
-    ``part`` and the db partials [ceil(m / 32), n] at ``db_part`` when
-    ``wgrad``; ``bytes`` in all. Read only (cached)."""
+    (``prep_grid``), where dY is transformed (``prep``: it writes dY_eff)
+    or wgrad runs (it sums the db partials), else none; dgrad, a block of
+    ``F32_THREADS`` a 64 x 64 tile of dA [m, k] (``dgrad_grid``); wgrad,
+    a block a 128 x 64 tile of dW [n, k] and a split of the m rows
+    (``wgrad_grid``: about ``F32_WGRAD_BLOCKS_PER_SM`` blocks an SM over
+    the output tiles, each split at least 256 rows and a multiple of the
+    32-row step). Its scratch, in byte offsets (each region 256-byte
+    aligned): dY_eff [m, n] f32 when ``prep`` from 0, the split partials
+    [splits, n, k] at ``part`` and the db partials [ceil(m / 32), n] at
+    ``db_part`` when ``wgrad``; ``bytes`` in all; ``min_blocks`` the blocks
+    an SM dgrad and wgrad ask of the registers, ``smem_bytes`` their
+    shared memory. Read only (cached)."""
     def up(x):
         return -(-x // 256) * 256
-    bm, bn = F32_TILE
+    dm, _ = F32_DGRAD_TILE
+    bm, bn = F32_WGRAD_TILE
     tiles = -(-n // bm) * -(-k // bn)
-    s = max(1, min(sms * F32_BLOCKS_PER_SM // tiles, m // 256))
+    s = max(1, min(sms * F32_WGRAD_BLOCKS_PER_SM // tiles, m // 256))
     rows = -(-(-(-m // s)) // F32_BK) * F32_BK if m else F32_BK
     splits = max(1, -(-m // rows)) if wgrad else 0
-    ldt = -(-m // 4) * 4
-    eff_t = up(m * n * 4) if prep and wgrad else 0
-    part = eff_t + (up(n * ldt * 4) if dgrad else 0)
+    part = up(m * n * 4) if prep else 0
     db_part = part + (up(splits * n * k * 4) if wgrad else 0)
     end = db_part + (-(-m // _PREP_ROWS) * n * 4 if wgrad else 0)
-    return {"tile": F32_TILE, "threads": F32_THREADS,
-            "smem_bytes": F32_SMEM_BYTES,
-            "prep_grid": (-(-n // _PREP_ROWS), -(-m // _PREP_ROWS)),
-            "dgrad_grid": (-(-k // bn), -(-m // bm), 1) if dgrad else None,
+    return {"dgrad_tile": F32_DGRAD_TILE, "wgrad_tile": F32_WGRAD_TILE,
+            "threads": F32_THREADS, "smem_bytes": F32_SMEM_BYTES,
+            "min_blocks": (F32_DGRAD_BLOCKS_PER_SM, F32_WGRAD_BLOCKS_PER_SM),
+            "prep_grid": (-(-n // _PREP_ROWS), -(-m // _PREP_ROWS))
+            if prep or wgrad else None,
+            "dgrad_grid": (-(-k // bn), -(-m // dm), 1) if dgrad else None,
             "wgrad_grid": (-(-k // bn), -(-n // bm), splits) if wgrad
             else None,
             "splits": splits, "rows_per_split": rows if wgrad else 0,
-            "ldt": ldt, "eff_t": eff_t, "part": part, "db_part": db_part,
-            "bytes": end, "flops": 2 * m * n * k * (int(dgrad) + int(wgrad))}
+            "part": part, "db_part": db_part, "bytes": end,
+            "flops": 2 * m * n * k * (int(dgrad) + int(wgrad))}
 
 
 def _launch(name: str, dy, alpha, slope_src, row_scale, w=None, out=None,
@@ -341,8 +358,7 @@ def _launch_f32(name, dy, alpha, slope_src, row_scale, w, out, gelu_pre, a,
         row_scale.stride(0) if row_scale is not None else 0,
         m // row_scale.shape[0] if row_scale is not None else 0,
         _ptr(w), _ld(w), _ptr(gelu_pre), _ld(gelu_pre), _ptr(out), _ld(out),
-        _ptr(a), _ld(a), base if prep and wgrad else None, n,
-        base + plan["eff_t"] if out is not None else None, plan["ldt"],
+        _ptr(a), _ld(a), base if prep else None, n,
         base + plan["part"] if wgrad else None,
         base + plan["db_part"] if wgrad else None, plan["splits"],
         plan["rows_per_split"], _ptr(dw), _ptr(db), m, n, k,

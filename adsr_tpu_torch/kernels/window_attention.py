@@ -32,15 +32,18 @@ softmax is the stabilised f32 one (the TPU kernel's unstabilised exp2 form,
 its score-bound guard and its window pairs with -1e30 off-diagonal terms
 are not carried over).
 
-f32 operands go to a kernel of their own, ``csrc/window_attention_f32.cuh``
+f32 operands go to a kernel of their own, ``csrc/window_attention_tc_f32.cuh``
 (the TPU kernel at dtype f32), templated on N = 16, 64 and 256 and the
 padded head dim (one source a window: ``window_attention4_f32.cu``,
-``window_attention_f32.cu``, ``window_attention16_f32.cu``): a block of
-``F32_THREADS`` per (image, window, head, query tile of min(N, 64) rows)
-stages its query rows and walks the window's keys in tiles of min(N, 64)
-with an online softmax in full f32
-(``expf``; P stays f32), the bias and mask in the forms
-:func:`attn_operands` gives (:func:`window_attention_f32_plan`). At
+``window_attention_f32.cu``, ``window_attention16_f32.cu``), every product
+f32-accurate as 3xTF32 on the tensor cores (``mma.sync``; each value split
+into hi = x with its low 13 bits cleared and lo = x - hi, three products a
+pair): a block of
+min(N, 64) / 16 warps per (image, window, head, query tile of min(N, 64)
+rows), each warp 16 query rows, walks the window's keys in tiles of
+min(N, 64) with FlashAttention-2's online softmax in registers (``expf``; P
+stays f32 and feeds P @ V from the accumulators), the bias and mask in the
+forms :func:`attn_operands` gives (:func:`window_attention_f32_plan`). At
 ``TILED_WINDOWS`` it writes each query row's softmax statistics when given
 a ``stats`` buffer, as the bf16 kernel does (fp32 training's recompute;
 kernel (f) f32 reads them). Its launches count in
@@ -81,6 +84,7 @@ TILE_BYTES4 = 16 * 16 * 4  # a window's f32 mask, a head's f32 bias
 BWD_TILE_LD4 = 24      # (f)'s bf16 P and dS tiles [16][24] a head slot
 SMS = 132              # the H100's SMs
 THREADS_PER_SM = 2048
+MAX_BLOCKS_PER_SM = 32  # resident blocks an SM holds at most
 WARPGROUPS16 = 2       # consumer warpgroups a block at N = 256
 # the windows whose kernels walk 64-token tiles on wgmma (N = 256): they
 # take the bias as its table and the shift mask as region labels, and (c)
@@ -95,7 +99,8 @@ SM_SHARED_BYTES = 233472     # an H100 SM's shared memory
 BLOCK_SHARED_MAX = 232448    # the most one block may take
 BLOCK_RESERVED = 1024        # what the runtime keeps per resident block
 REGISTERS = 65536            # 32-bit registers an SM
-F32_THREADS = 256            # a block of the f32 kernel
+F32_THREADS = 256            # a block of (f) f32 (window_attention_bwd.py)
+TC_WARP_ROWS = 16            # query rows a warp of (c) f32
 # the f32 kernel's C entry a window (a source a window, built in parallel)
 F32_ENTRIES = {8: "adsr_window_attention_f32", 4: "adsr_window_attention4_f32",
                16: "adsr_window_attention16_f32"}
@@ -243,20 +248,28 @@ def window_attention_plan(c: int, nh: int, b: int = 1, h: int = 8,
             "stats_bytes": windows * nh * n * 8}
 
 
+def tc_min_blocks(n: int, hdp: int) -> int:
+    """(c) f32's blocks an SM asked of the registers (the source's
+    ``tc_min_blocks``, its ``__launch_bounds__``): 16 at N = 16 (128
+    registers a thread), 3 at N >= 64 up to a head tile of 64, else 2."""
+    return 16 if n == 16 else (3 if hdp <= 64 else 2)
+
+
 @functools.lru_cache(maxsize=None)
 def window_attention_f32_plan(c: int, nh: int, b: int = 1, h: int = 8,
                               w: int = 8, window: int = KERNEL_WINDOW
                               ) -> dict:
-    """What the f32 kernel (``csrc/window_attention_f32.cuh``) launches for
-    width ``c`` and ``nh`` heads at batch ``b`` on ``h`` x ``w`` tokens:
-    one block of ``F32_THREADS`` per (image, window, head, query tile of
-    ``rows`` = min(N, 64) rows), whose shared memory holds the q, k and v
-    planes [rows][hdp + 4] f32 (the head dim padded to a multiple of 16,
-    each row 4 floats more so that eight consecutive rows start in eight
-    bank groups), the scores of one key tile [rows][rows + 4] and each
-    row's running max, sum and rescale factor. The source refuses a launch
-    whose shared memory differs from this plan's. Also the blocks an SM
-    holds by shared memory and threads. Read only (cached)."""
+    """What the f32 kernel (``csrc/window_attention_tc_f32.cuh``) launches
+    for width ``c`` and ``nh`` heads at batch ``b`` on ``h`` x ``w`` tokens:
+    one block of ``threads`` (a warp per ``TC_WARP_ROWS`` query rows) per
+    (image, window, head, query tile of ``rows`` = min(N, 64) rows), whose
+    shared memory holds the q, k and v planes [rows][hdp + 4] f32 (the head
+    dim padded to a multiple of 16, each row 4 floats more so that a
+    fragment's eight rows start in eight different bank quads). The source
+    refuses a launch whose shared memory differs from this plan's. Also the
+    blocks an SM holds by shared memory, threads and the source's
+    ``__launch_bounds__`` (``min_blocks``, and the registers a thread may
+    use for it). Read only (cached)."""
     if window not in KERNEL_WINDOWS:
         raise ValueError(f"window_attention_f32_plan: window {window}, the "
                          f"kernel takes {KERNEL_WINDOWS}")
@@ -264,13 +277,17 @@ def window_attention_f32_plan(c: int, nh: int, b: int = 1, h: int = 8,
     n = window * window
     rows = min(n, KEY_TILE)
     pitch = hdp + 4
-    smem = 4 * (3 * rows * pitch + rows * (rows + 4) + 3 * rows)
+    threads = 32 * rows // TC_WARP_ROWS
+    smem = 4 * 3 * rows * pitch
     tiles = n // rows
+    least = tc_min_blocks(n, hdp)
     return {"hdp": hdp, "pitch": pitch, "tokens": n, "rows": rows,
-            "key_tiles": tiles, "threads": F32_THREADS, "smem_bytes": smem,
+            "key_tiles": tiles, "threads": threads, "smem_bytes": smem,
             "blocks": b * (h // window) * (w // window) * nh * tiles,
+            "min_blocks": least,
+            "max_registers": min(255, REGISTERS // (threads * least)),
             "blocks_per_sm": min(SM_SHARED_BYTES // (smem + BLOCK_RESERVED),
-                                 THREADS_PER_SM // F32_THREADS)}
+                                 THREADS_PER_SM // threads, MAX_BLOCKS_PER_SM)}
 
 
 def swizzle_cols(hdp: int) -> int:

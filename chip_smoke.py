@@ -14,10 +14,10 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: nvcc builds every kernel of ``adsr_tpu_torch/csrc`` (timed) and
    ptxas's registers, shared memory and spills of each kernel are printed;
-   it fails on a spill byte in any instance of (f) f32's dq and dkv
-   launches at 16x16 windows and on a C7520 ("wgmma serialized") in (b)
-   f32's log (the two f32 kernels on the tensor cores), one line saying
-   how many it read; then the launch plans of rdg_layernorm (a), window_attention (c),
+   it fails on a spill byte in any instance of (c) f32, (d) f32 and (f)
+   f32's dq and dkv launches at 16x16 windows and on a C7520 ("wgmma
+   serialized") in (b) f32's log (the f32 kernels on the tensor cores), one
+   line saying how many it read; then the launch plans of rdg_layernorm (a), window_attention (c),
    swin_block (g), window_attention_bwd (f) and rdg_layernorm_bwd (e) at
    the five flagship blocks (blocks, threads, shared memory, (a)'s pieces,
    lanes a row and rows ahead, (g)'s ring, (f)'s windows a block);
@@ -118,15 +118,18 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    and with ``ADSR_TPU_RDG=0`` (block mode; its scores and AUCs against
    rdg mode's); each f32 kernel's ms per RDG at the three geometries beside
    its bound, plain version and library call ((g) also beside the (a)-(c)
-   f32 composition; (b), whose products run as 3xTF32 on the tensor cores,
-   beside its 3xTF32 bound and its FFMA bound), and both fp32 forwards' ms
-   in turns;
+   f32 composition; (b) and (c), whose products run as 3xTF32 on the tensor
+   cores, beside their 3xTF32 bound and their FFMA bound; (c) also at batch
+   5 on 20 x 20 / 32 x 32 tokens at windows 4 / 16), and both fp32
+   forwards' ms in turns;
 11b. fp32 training, lines "[fp32_train] <phase>: ...": the f32 instances
    of the backward kernels (d)-(f) (TPU kernel 3 at dtype f32) against their
-   plain f32 versions on the card (TF32 off): (d) at every flagship product
-   and dY transform through ``rdg_gemm_grads``, (e) at both LayerNorms of
-   every block, (f) at every block and both shifts at windows 8, 4 (64/x4)
-   and 16 (256px/x4; fed kernel (c) f32's context and softmax statistics,
+   plain f32 versions on the card (TF32 off): (d) at every product and dY
+   transform of the five blocks through ``rdg_gemm_grads`` (at windows 8,
+   4 and 16: wgrad's splits over M = 65,536, adjust's N = 32, dgrad with
+   GELU'), (e) at both LayerNorms of every block, (f) at every block and
+   both shifts at windows 8, 4 (64/x4) and 16 (256px/x4; fed kernel (c)
+   f32's context and softmax statistics,
    which are checked too), every call twice, bitwise equal, each within
    ``F32_REL_L2`` / ``F32_MAX_ABS``; one RDG in f32 against eager f32
    autograd (``F32_RDG_REL_L2``), twice bitwise; a fp32 ``Trainer`` (two
@@ -137,8 +140,8 @@ toolkit's nvcc. Phases, each printing its own lines; any failed check raises:
    ``cli.evaluate`` at fp32 on its run dir; each f32 backward kernel's ms
    per RDG at the three geometries beside its bound, plain version and
    library call (``torch.matmul`` x 2, ATen's LayerNorm backward, SDPA's
-   f32 backward; (f) at 16x16 windows, on the tensor cores, beside its
-   3xTF32 bound and its FFMA bound);
+   f32 backward; (d), and (f) at 16x16 windows, on the tensor cores, beside
+   their 3xTF32 bound and their FFMA bound);
 12. the window-16 geometry, lines "[w16] <phase>: ...": the full-width
    256px model (``drct_experiment("grid", 256, 4)``: LR 64 x 64, 16x16
    windows, N = 256 keys, shifts 0 and 8, M = 65,536 token rows at batch
@@ -483,7 +486,7 @@ F32_SOURCES = {"rdg_layernorm_f32": "adsr_tpu_torch/csrc/rdg_layernorm.cu",
                "rdg_gemm_f32": "adsr_tpu_torch/csrc/rdg_gemm_f32.cu",
                "window_attention_f32":
                "adsr_tpu_torch/csrc/window_attention_f32.cu"}
-# (c)'s f32 instances have a source a window, on window_attention_f32.cuh
+# (c)'s f32 instances have a source a window, on window_attention_tc_f32.cuh
 F32_WINDOW_SOURCES = {
     "w4": "adsr_tpu_torch/csrc/window_attention4_f32.cu",
     "w16": "adsr_tpu_torch/csrc/window_attention16_f32.cu"}
@@ -613,10 +616,11 @@ def ptxas_summary(log: str) -> list:
     return lines
 
 
-# the f32 kernels on the tensor cores: (f) f32's launches at N = 256 must
-# not spill (every head tile's instance), (b) f32's wgmma must not be
-# serialized (ptxas's C7520 warning)
-NO_SPILL_KERNELS = ("attn_bwd16_dq_f32_kernel", "attn_bwd16_dkv_f32_kernel")
+# the f32 kernels on the tensor cores: (c) f32's, (d) f32's and (f) f32's
+# launches at N = 256 must not spill (every instance), (b) f32's wgmma must
+# not be serialized (ptxas's C7520 warning)
+NO_SPILL_KERNELS = ("window_attention_f32_kernel", "gemm_f32_kernel",
+                    "attn_bwd16_dq_f32_kernel", "attn_bwd16_dkv_f32_kernel")
 NO_C7520_SOURCE = "rdg_gemm_f32"
 
 
@@ -632,10 +636,13 @@ def check_tensor_core_builds(build_dir: Path) -> dict:
                                 line)]
     c7520 = [line.strip() for line in logs[NO_C7520_SOURCE].splitlines()
              if "C7520" in line]
-    say("build", f"(f) f32 at N = 256: {len(lines)} dq / dkv instances, "
-                 f"{len(spilled)} with spills; (b) f32 "
-                 f"({NO_C7520_SOURCE}.cu): {len(c7520)} C7520 warnings")
-    if not lines or spilled or c7520:
+    kinds = {k: sum(line.split("<")[0] == k for line in lines)
+             for k in NO_SPILL_KERNELS}
+    say("build", "tensor-core f32 kernels: " + ", ".join(
+        f"{v} {k}" for k, v in kinds.items()) + f" instances ((c), (d), "
+        f"(f) at N = 256), {len(spilled)} with spills; (b) f32 "
+        f"({NO_C7520_SOURCE}.cu): {len(c7520)} C7520 warnings")
+    if not all(kinds.values()) or spilled or c7520:
         raise AssertionError("tensor-core f32 kernels: spills "
                              f"{spilled or lines or 'no instances found'}; "
                              f"C7520 {c7520}")
@@ -2396,11 +2403,12 @@ def profile_steps(fn, reps: int = 3):
     node (every RDG Function) is also charged to that node's CPU event."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    # the f32 instances first: "rdg_gemm_f32_kernel<0>" holds
-    # "gemm_f32_kernel<0>"
+    # the f32 instances first: "rdg_gemm_f32_kernel<128, 0>" holds
+    # "gemm_f32_kernel<1" ((d) f32's are gemm_f32_kernel<0, 2>, dgrad, and
+    # <1, 4>, wgrad)
     fams = {"rdg_gemm_f32_kernel": "rdg_gemm_f32",
-            "gemm_f32_kernel<0>": "rdg_gemm_bwd_f32 dgrad",
-            "gemm_f32_kernel<1>": "rdg_gemm_bwd_f32 wgrad",
+            "gemm_f32_kernel<0": "rdg_gemm_bwd_f32 dgrad",
+            "gemm_f32_kernel<1": "rdg_gemm_bwd_f32 wgrad",
             "dy_prep_f32_kernel": "rdg_gemm_bwd_f32 dY prep",
             "rdg_layernorm_kernel<float": "rdg_layernorm_f32",
             "rdg_layernorm_bwd_kernel<float": "rdg_layernorm_bwd_f32",
@@ -4623,8 +4631,10 @@ def check_f32(errs: dict, kernel: str, case: str, got, want, scale) -> None:
 
 def f32_bounds(cfg, blocks, m, masks):
     """:func:`set_bounds` for the f32 instances: 4 bytes an element, every
-    operation at the f32 peak (no tensor cores)."""
-    ln_b = ln_ops = mm_b = mm_ops = at_b = at_ops = 0.0
+    operation at the f32 peak, (b)'s and (c)'s products also as 3xTF32 on
+    the tensor cores (:func:`tf32x3_bound`; the FFMA bound under
+    ``"ffma"``)."""
+    ln_b = ln_ops = mm_b = mm_ops = at_b = at_tc = at_ew = 0.0
     n = cfg.window_size ** 2
     for k, blk in enumerate(blocks):
         c, f, a, nh = blk["c"], blk["f"], blk["a"], blk["nh"]
@@ -4637,17 +4647,20 @@ def f32_bounds(cfg, blocks, m, masks):
             mm_ops += 2 * m * n_out * n_in
         at_b += m * 3 * c * 4 + m * c * 4 \
             + attn_operand_bytes(blk, cfg, masks)
-        at_ops += 4 * m * n * c + 6 * (m // n) * nh * n * n
+        at_tc += 4 * m * n * c                    # its two products
+        at_ew += 6 * (m // n) * nh * n * n
     out = {}
     for name, byt, ops in (("rdg_layernorm_f32", ln_b, ln_ops),
                            ("rdg_gemm_f32", mm_b, mm_ops),
-                           ("window_attention_f32", at_b, at_ops)):
+                           ("window_attention_f32", at_b, at_tc + at_ew)):
         t_b, t_ops = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
         out[name] = (max(t_b, t_ops) * 1e3,
                      "bytes" if t_b >= t_ops else "operations", byt, ops)
-    # (b) f32 runs its products as 3xTF32: the FFMA bound stays beside it
-    out["ffma"] = {"rdg_gemm_f32": out["rdg_gemm_f32"]}
+    # (b) f32 and (c) f32 run their products as 3xTF32: the FFMA bound
+    # stays beside it
+    out["ffma"] = {k: out[k] for k in ("rdg_gemm_f32", "window_attention_f32")}
     out["rdg_gemm_f32"] = tf32x3_bound(mm_b, mm_ops, 0.0)
+    out["window_attention_f32"] = tf32x3_bound(at_b, at_tc, at_ew)
     return out
 
 
@@ -4678,7 +4691,8 @@ def f32_geometry(cfg, dev, errs: dict, label: str, full: bool,
                  ffma: dict = None):
     """The f32 instances at ``cfg``'s shapes (batch ``BATCH``): each against
     its plain f32 version (every GEMM product and epilogue and every
-    attention block and shift, with ``full`` every LayerNorm piece too),
+    attention block and shift, at windows 4 and 16 also at batch 5 on 20 x
+    20 / 32 x 32 tokens, with ``full`` every LayerNorm piece too),
     then one RDG's
     launches of each timed beside its bound, its plain version and its
     library call (``F.layer_norm``, ``F.linear`` in f32 with TF32 off,
@@ -4776,6 +4790,34 @@ def f32_geometry(cfg, dev, errs: dict, label: str, full: bool,
             if not torch.equal(out, again):
                 raise AssertionError(f"window_attention_f32 b{k + 1} shift "
                                      f"{shift}: two launches differ")
+    if win in (4, 16):
+        # batch 5 on 20 x 20 / 32 x 32 tokens: windows that fill no power
+        # of two, twice bitwise
+        side = 20 if win == 4 else 32
+        rows = 5 * side * side
+        masks5 = {s_: torch.as_tensor(shift_attn_mask(side, side, win, s_),
+                                      device=dev) for s_ in masks}
+        for k, blk in enumerate(blocks):
+            c, nh = blk["c"], blk["nh"]
+            qkv = blk["qkv"][:rows]
+            for shift in (0, win // 2):
+                kbias, kmask = attn_operands(blk, masks5, side, side, shift,
+                                             win)
+                outs = [pitched(rows, c, dtype=torch.float32, device=dev)
+                        for _ in range(2)]
+                for o in outs:
+                    window_attention(qkv, o, kbias, kmask, side, side, nh,
+                                     win, shift)
+                want = window_attention_plain(qkv, blk["attn_bias"],
+                                              masks5.get(shift), side, side,
+                                              nh, win, shift)
+                case = f"b{k + 1} hd={c // nh} shift={shift} B=5 on " \
+                       f"{side}x{side}"
+                check_f32(errs, "window_attention_f32", case, outs[0], want,
+                          want.abs().max())
+                if not torch.equal(outs[0], outs[1]):
+                    raise AssertionError(f"window_attention_f32 {case}: two "
+                                         "launches differ")
 
     scratch = torch.empty(m * row_pitch(3 * max(g["feats"])),
                           dtype=torch.float32, device=dev)
@@ -5401,8 +5443,8 @@ def f32_bwd_case(errs, label, dy, wt, a, kw):
 
 def f32_bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
     """:func:`bwd_bounds` for the f32 instances: 4 bytes an element, every
-    operation at the f32 peak; at N = 256 (f) f32's at 3xTF32 (its FFMA
-    bound under ``"ffma"``)."""
+    operation at the f32 peak; (d) f32's and at N = 256 (f) f32's at
+    3xTF32 (their FFMA bounds under ``"ffma"``)."""
     n = cfg.window_size ** 2
     gm_b = gm_ops = ln_b = ln_ops = at_b = at_tc = at_ew = 0.0
     for k, blk in enumerate(blocks):
@@ -5429,9 +5471,12 @@ def f32_bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
         t_b, t_ops = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
         out[name] = (max(t_b, t_ops) * 1e3,
                      "bytes" if t_b >= t_ops else "operations", byt, ops)
-    if n == 256:        # (f) f32 runs its products as 3xTF32 at N = 256
-        out["ffma"] = {"window_attention_bwd_f32":
-                       out["window_attention_bwd_f32"]}
+    # (d) f32 runs its products as 3xTF32, (f) f32 at N = 256
+    out["ffma"] = {"rdg_gemm_bwd_f32": out["rdg_gemm_bwd_f32"]}
+    out["rdg_gemm_bwd_f32"] = tf32x3_bound(gm_b, gm_ops, 0.0)
+    if n == 256:
+        out["ffma"]["window_attention_bwd_f32"] = \
+            out["window_attention_bwd_f32"]
         out["window_attention_bwd_f32"] = tf32x3_bound(at_b, at_tc, at_ew)
     return out
 
@@ -5439,7 +5484,7 @@ def f32_bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
 def f32_bwd_geometry(cfg, dev, errs: dict, label: str, full: bool,
                      ffma: dict = None):
     """The f32 instances of (d)-(f) at ``cfg``'s shapes (batch ``BATCH``):
-    with ``full`` (d) at every product of the five blocks and (e) at both
+    (d) at every product of the five blocks, with ``full`` (e) at both
     LayerNorms of each, then (f) at every block and both shifts (at 16x16
     windows fed kernel (c) f32's context and softmax statistics, which are
     checked too), each call twice, bitwise equal; then one RDG's launches
@@ -5460,11 +5505,13 @@ def f32_bwd_geometry(cfg, dev, errs: dict, label: str, full: bool,
     win = cfg.window_size
     say("kernels", f"{label}: f32 backward kernels against their plain f32 "
                    f"versions at M = {m} token rows, window {win}")
+    # (d) at every geometry: wgrad's splits reduce over thousands of rows
+    # at M = 65,536 (two-level sums), adjust's N = 32, dgrad with GELU'
+    for k, blk in enumerate(blocks):
+        for name, dy, wt, a, kw, _ in bwd_cases(cfg, cat, dcat, blk, k,
+                                                extra):
+            f32_bwd_case(errs, f"b{k + 1} {name}", dy, wt, a, kw)
     if full:
-        for k, blk in enumerate(blocks):
-            for name, dy, wt, a, kw, _ in bwd_cases(cfg, cat, dcat, blk, k,
-                                                    extra):
-                f32_bwd_case(errs, f"b{k + 1} {name}", dy, wt, a, kw)
         for k, blk in enumerate(blocks):
             c = blk["c"]
             dy = extra["res"][:, :c].contiguous()
@@ -6199,7 +6246,8 @@ def main() -> int:
                  "launches_by_path": by_path,
                  "max_abs_err": ft["max_abs_err"][k], "ms": kernel_ms,
                  "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "library_ms": library_ms}
+                 "bound_by": bound_by, "library_ms": library_ms,
+                 **ffma_key(ft, "w8", k)}
         for tag in ("w4", "w16"):
             kernel_ms, plain_ms, library_ms, bound_ms, bound_by = \
                 ft[f"timings_{tag}"][k]

@@ -975,6 +975,63 @@ def test_f32_attention_matches_plain(dev, win, c, nh):
             _f32_close(stats[..., i], want_s[..., i])
 
 
+@pytest.mark.parametrize("win,side", [(4, 20), (8, 40), (16, 32)])
+@pytest.mark.parametrize("c,nh", F32_ATTN)
+def test_f32_attention_batch5_matches_plain(dev, win, side, c, nh):
+    # batch 5 on windows that do not fill a power of two (20 x 20, 40 x 40
+    # and 32 x 32 tokens), both shifts, twice bitwise; at window 16 the
+    # statistics too
+    g = torch.Generator(device=dev).manual_seed(win * c + 5)
+    m, n = 5 * side * side, win * win
+    qkv = pitched(m, 3 * c, dtype=torch.float32, device=dev)
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    bias = 0.5 * (torch.randn(nh, 961, generator=g, device=dev) if win == 16
+                  else torch.randn(nh, n, n, generator=g, device=dev))
+    for shift in (0, win // 2):
+        mask = None
+        if shift:
+            mask = torch.as_tensor(
+                (shift_region_labels if win == 16 else shift_attn_mask)(
+                    side, side, win, shift), device=dev)
+        stats = softmax_stats(qkv, side, side, nh, win)
+        want_s = None if stats is None else torch.empty_like(stats)
+        outs = [pitched(m, c, dtype=torch.float32, device=dev)
+                for _ in range(2)]
+        for out in outs:
+            window_attention(qkv, out, bias, mask, side, side, nh, win, shift,
+                             stats)
+        assert torch.equal(outs[0], outs[1])
+        want = window_attention_plain(qkv, bias, mask, side, side, nh, win,
+                                      shift, want_s)
+        _f32_close(outs[0], want)
+        if stats is not None:
+            for i in range(2):
+                _f32_close(stats[..., i], want_s[..., i])
+
+
+@pytest.mark.parametrize("win", [4, 8, 16])
+@pytest.mark.parametrize("c,nh", [(64, 8), (96, 4), (176, 2), (120, 1),
+                                  (256, 2)])
+def test_f32_attention_head_tiles_match_plain(dev, win, c, nh):
+    # head dims the flagship does not use (8, 24, 88, 120, 128: head tiles
+    # 16, 32, 96, 128 and a whole 128), at shift half the window
+    g = torch.Generator(device=dev).manual_seed(win + c * nh)
+    side, n = 2 * win, win * win
+    m = 2 * side * side
+    qkv = pitched(m, 3 * c, dtype=torch.float32, device=dev)
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    bias = 0.5 * (torch.randn(nh, 961, generator=g, device=dev) if win == 16
+                  else torch.randn(nh, n, n, generator=g, device=dev))
+    shift = win // 2
+    mask = torch.as_tensor(
+        (shift_region_labels if win == 16 else shift_attn_mask)(
+            side, side, win, shift), device=dev)
+    out = pitched(m, c, dtype=torch.float32, device=dev)
+    window_attention(qkv, out, bias, mask, side, side, nh, win, shift)
+    _f32_close(out, window_attention_plain(qkv, bias, mask, side, side, nh,
+                                           win, shift))
+
+
 # ---- the f32 instances of (d)-(f) (fp32 training) ----
 #
 # The limits of the f32 forward kernels above: both sides sum exact f32
@@ -1033,6 +1090,51 @@ def test_f32_gemm_bwd_matches_plain(dev, n, k):
         gb.rdg_gemm_wgrad(dy, a, dw2, db2, **wkw)
         assert torch.equal(alone, out) and torch.equal(dw2, dw) \
             and torch.equal(db2, db)
+
+
+@pytest.mark.parametrize("m", [4096, 65536])
+@pytest.mark.parametrize("n,k,kw", [(32, 180, "slope"), (540, 180, "none"),
+                                    (360, 180, "gelu"), (180, 360, "scale"),
+                                    (180, 308, "alpha")])
+def test_f32_gemm_bwd_long_reductions_match_plain(dev, m, n, k, kw):
+    # one RDG's token rows at windows 4 and 16 (M = 65,536: wgrad's splits
+    # reduce over thousands of rows each, summed in two levels): adjust's
+    # N = 32 with the LeakyReLU, qkv, fc1's dgrad with GELU', fc2 with the
+    # drop-path multipliers, adjust 5 with its 0.2; dY and A in 16-byte
+    # rows, twice bitwise
+    g = torch.Generator(device=dev).manual_seed(m + n + k)
+    f32 = torch.float32
+    dy = pitched(m, n, dtype=f32, device=dev)
+    dy.copy_(torch.randn(m, n, generator=g, device=dev))
+    w = pitched(n, k, dtype=f32, device=dev)
+    w.copy_(0.05 * torch.randn(n, k, generator=g, device=dev))
+    a = pitched(m, k, dtype=f32, device=dev)
+    a.copy_(torch.randn(m, k, generator=g, device=dev))
+    args = {"none": {}, "alpha": {"alpha": 0.2},
+            "slope": {"slope_src": torch.randn(m, n, generator=g,
+                                               device=dev)},
+            "gelu": {"gelu_pre": torch.randn(m, k, generator=g, device=dev)},
+            "scale": {"row_scale": torch.tensor([1.1, 0.0, 1.1, 1.1],
+                                                device=dev)}}[kw]
+    runs = []
+    for _ in range(2):
+        got = (torch.empty(m, k, device=dev), torch.empty(n, k, device=dev),
+               torch.empty(n, device=dev))
+        gb.rdg_gemm_grads(dy, w, a, *got, **args)
+        runs.append(got)
+    (out, dw, db), again = runs
+    assert all(torch.equal(x, y) for x, y in zip(again, (out, dw, db)))
+    wkw = {key: v for key, v in args.items() if key != "gelu_pre"}
+    eff = gb.dy_effective(dy, args.get("alpha", 1.0), args.get("slope_src"),
+                          args.get("row_scale"))
+    want = gb.rdg_gemm_dgrad_plain(dy, w, **args)
+    bound = eff.abs() @ w.abs()
+    if "gelu_pre" in args:
+        bound = bound * gb.gelu_grad(args["gelu_pre"]).abs()
+    _f32_close(out, want, bound.max() + want.abs().max())
+    want_w, want_b = gb.rdg_gemm_wgrad_plain(dy, a, **wkw)
+    _f32_close(dw, want_w, (eff.abs().t() @ a.abs()).max())
+    _f32_close(db, want_b, eff.abs().sum(0).max())
 
 
 @pytest.mark.parametrize("c,stride", [(180, 308), (244, 308), (308, 308),

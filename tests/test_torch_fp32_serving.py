@@ -96,10 +96,13 @@ def test_f32_attention_plan_fits_the_card(window, c, nh):
     hdp = -(-(c // nh) // 16) * 16
     assert plan["rows"] == rows and plan["key_tiles"] == n // rows
     assert plan["hdp"] == hdp and plan["pitch"] == hdp + 4
-    assert plan["smem_bytes"] == 4 * (3 * rows * (hdp + 4)
-                                      + rows * (rows + 4) + 3 * rows)
+    # the q, k and v planes; a warp per 16 query rows, two threads a row
+    assert plan["smem_bytes"] == 4 * 3 * rows * (hdp + 4)
+    assert plan["threads"] == 2 * rows == 32 * (rows // 16)
     assert plan["smem_bytes"] <= attn_mod.BLOCK_SHARED_MAX
     assert plan["blocks_per_sm"] >= 1
+    assert plan["max_registers"] * plan["threads"] * plan["min_blocks"] \
+        <= attn_mod.REGISTERS
     windows = 16 * (side // window) ** 2
     assert plan["blocks"] == windows * nh * (n // rows)
     # eight consecutive staged rows start in eight 16-byte bank groups

@@ -112,22 +112,25 @@ def test_gemm_bwd_f32_plan_covers_every_product(geo, k):
     for name, n, kk in _products(cfg, k):
         for prep in (False, True):
             p = gb.gemm_bwd_f32_plan(m, n, kk, 132, True, True, prep)
-            assert p["smem_bytes"] <= 48 * 1024 <= BLOCK_SHARED_MAX, name
-            bm, bn = p["tile"]
+            # dgrad's and wgrad's rings: min_blocks of each fit an SM
+            for smem, per_sm in zip(p["smem_bytes"], p["min_blocks"]):
+                assert per_sm * (smem + 1024) <= 233472, name
+                assert smem <= BLOCK_SHARED_MAX, name
+            (dm, dn), (bm, bn) = p["dgrad_tile"], p["wgrad_tile"]
             assert p["prep_grid"][0] * 32 >= n and p["prep_grid"][1] * 32 >= m
             dg, wg = p["dgrad_grid"], p["wgrad_grid"]
-            assert dg[0] * bn >= kk and dg[1] * bm >= m and dg[1] <= 65535
+            assert dg[0] * dn >= kk and dg[1] * dm >= m and dg[1] <= 65535
             assert wg[0] * bn >= kk and wg[1] * bm >= n
             assert wg[2] == p["splits"] <= 65535
             rows = p["rows_per_split"]
             assert rows % gb.F32_BK == 0 and (rows >= 256 or p["splits"] == 1)
             assert _covered_once(m, rows, p["splits"]), (name, rows)
-            # scratch regions in order, disjoint, 256-byte aligned
+            # scratch regions in order, disjoint, 256-byte aligned: dY_eff
+            # (read K-major by dgrad, so no transpose), the partials
             ends = [(0, m * n * 4 if prep else 0),
-                    (p["eff_t"], n * p["ldt"] * 4),
                     (p["part"], p["splits"] * n * kk * 4),
                     (p["db_part"], -(-m // 32) * n * 4)]
-            assert p["ldt"] % 4 == 0 and p["ldt"] >= m
+            assert "eff_t" not in p
             for (start, size), (nxt, _) in zip(ends, ends[1:]):
                 assert start % 256 == 0 and start + size <= nxt
             assert ends[-1][0] + ends[-1][1] == p["bytes"]

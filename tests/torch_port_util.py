@@ -157,7 +157,11 @@ def drn_jax_params(scale=(2, 4), n_colors: int = 1, n_blocks: int = 2,
 # (b) f32 (csrc/rdg_gemm_f32.cu) and (f) f32 at N = 256
 # (csrc/window_attention_bwd_f32.cuh) split each f32 operand as x = hi + lo,
 # hi = tf32(x), lo = tf32(x - hi), and sum a_lo b_hi + a_hi b_lo + a_hi b_hi
-# in f32 ("3xTF32"). Here the rounding is to nearest with ties to even on
+# in f32 ("3xTF32"); (c) f32 (csrc/window_attention_tc_f32.cuh) and (d) f32
+# (csrc/rdg_gemm_bwd_f32.cu) split as hi = x with its low 13 bits cleared
+# and lo = x - hi, of which the tensor cores read the top 19 bits
+# (``tf32_split_trunc``), and (d) sums each 128 of the reduction apart
+# before adding them (``matmul_3xtf32``'s ``chunk``). Here the rounding is to nearest with ties to even on
 # the int32 view; the kernels take ties away from zero, which differs only
 # where a value lies exactly half-way. The products of TF32 values are
 # exact and their sums IEEE f32 here; the tensor cores' sums need not
@@ -179,9 +183,38 @@ def tf32_split(x):
     return hi, tf32_round(x - hi)
 
 
-def matmul_3xtf32(a, b) -> np.ndarray:
+def tf32_truncate(x) -> np.ndarray:
+    """float32 -> its low 13 mantissa bits cleared: the TF32 value the tensor
+    cores read from an f32 operand."""
+    u = np.ascontiguousarray(x, dtype=np.float32).view(np.uint32)
+    return (u & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def tf32_split_trunc(x):
+    """(hi, lo) of float32 ``x`` as (c) f32 and (d) f32 split it: hi = x
+    truncated to TF32, lo = x - hi (exact in f32) as the tensor cores read
+    it, truncated to TF32."""
+    x = np.asarray(x, dtype=np.float32)
+    hi = tf32_truncate(x)
+    return hi, tf32_truncate(x - hi)
+
+
+def matmul_3xtf32(a, b, split: str = "rna", chunk: int = 0) -> np.ndarray:
     """float32 ``a @ b`` as three TF32 products (each product of two TF32
-    values exact), summed in float32: a_lo b_hi + a_hi b_lo + a_hi b_hi."""
-    ah, al = tf32_split(a)
-    bh, bl = tf32_split(b)
-    return (al @ bh) + (ah @ bl) + (ah @ bh)
+    values exact), summed in float32: a_lo b_hi + a_hi b_lo + a_hi b_hi.
+    ``split`` "rna" rounds both parts to nearest (``tf32_split``), "trunc"
+    truncates them (``tf32_split_trunc``); ``chunk`` > 0 sums each
+    ``chunk`` of the reduction apart, then the chunks in order (the
+    two-level sums of (d) f32)."""
+    cut = tf32_split if split == "rna" else tf32_split_trunc
+    ah, al = cut(a)
+    bh, bl = cut(b)
+    k = np.shape(a)[-1]
+    step = chunk or k
+    out = None
+    for r in range(0, k, step):
+        part = (al[..., r:r + step] @ bh[r:r + step]) \
+            + (ah[..., r:r + step] @ bl[r:r + step]) \
+            + (ah[..., r:r + step] @ bh[r:r + step])
+        out = part if out is None else out + part
+    return out
