@@ -1,7 +1,7 @@
 // tf32_mma.cuh: f32-accurate products on the tensor cores as 3xTF32 with
 // mma.sync m16n8k8, shared by the f32 kernels that run their products so:
-// (c) f32 (window_attention_tc_f32.cuh), (d) f32 (rdg_gemm_bwd_f32.cu) and
-// (f) f32 at 16x16 windows (window_attention_bwd_f32.cuh).
+// (c) f32 (window_attention_tc_f32.cuh), (d) f32 (rdg_gemm_bwd_f32.cu), (f)
+// f32 (window_attention_bwd_f32.cuh) and (g) f32 (swin_block_f32.cuh).
 //
 // Each f32 operand is split as x = hi + lo, hi = tf32(x) and lo = tf32(x -
 // hi), both rounded to nearest with ties away from zero (or, kTrunc, hi

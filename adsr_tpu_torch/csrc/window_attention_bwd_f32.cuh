@@ -11,38 +11,50 @@
 // :968) at dtype f32, where the TPU kernel stages in f32 with f32
 // accumulators (fused_rdg_train.py:442, 961-967). The bf16 instances are
 // window_attention_bwd{4,,16}.cu.
-// Bound on H100: bytes at N = 16 and 64 (qkv, dO and dqkv once; the
-// products of 64 x 64 a head are cheap), operations at N = 256 (seven
-// 256 x 256 x hd products a head: 208 GFLOP an RDG at 256px/x4, 3.11 ms at
-// the 67 TFLOP/s of f32 FFMA, 1.26 ms as three TF32 products each at 495
-// TFLOP/s).
-// Design: operand planes in shared memory as the forward's
-// (window_attention_f32.cuh, whose staging, row map and bias / mask lookups
-// this file reuses): a head's rows of q, k, v and dO staged from the
-// 16-byte pieces that hold its columns (head dims 30, 53, 122, 46 and 77 at
-// the flagship start on any 4-byte column) and sliced out in registers into
-// planes [R][hdp + 4], zero-padded.
-// - N = 16 and 64 (R = N, the whole window in one tile; hdp a multiple of
-//   16): one launch, every product in f32 FFMA on the CUDA cores, a block
-//   per (group of ``group`` consecutive windows, head): for each window it
-//   recomputes the stabilised softmax from q, k, the bias and the mask, D =
-//   rowsum(P o dP), dS, then dQ, dK and dV, written into the head's columns
-//   of the raster-order dqkv; dS is summed over the group's windows in
-//   registers into one d(bias) partial [N][N] a (group, head). Scores and
-//   dP tiles are a 16 x 16 grid of threads, a row's sums half-warp
-//   shuffles; the three output products take a thread's rows and four head
-//   dims, reading P and dS from shared tiles [R][R + 4].
+// Bound on H100: bytes at N = 16 and 64 (qkv, dO and dqkv once; the five
+// products of 64 x 64 a head are cheap as 3xTF32: ~0.17 ms of bytes an RDG
+// at the flagship against ~0.08 ms of tensor-core work), operations at N =
+// 256 (seven 256 x 256 x hd products a head: 208 GFLOP an RDG at
+// 256px/x4, 3.11 ms at the 67 TFLOP/s of f32 FFMA, 1.26 ms as three TF32
+// products each at 495 TFLOP/s).
+// Design: every product f32-accurate as 3xTF32 on the tensor cores
+// (mma.sync m16n8k8, tf32_mma.cuh). Operand planes [rows][hdp + 4] in
+// shared memory hold a head's rows of q, k, v and dO, staged by cp.async
+// in the 16-byte pieces that hold the head's columns, as they lie: head
+// dim j of a row sits at column j + (col & 3) of the plane (every part of
+// a head shares that offset: C % 4 == 0), and each row's last piece has its
+// columns past the head dim zeroed once it lands (the planes start zeroed,
+// so the columns past a row's last piece stay zero).
+// - N = 16 and 64 (hdp a multiple of 16): one launch, a block of eight
+//   warps per (group of ``group`` consecutive windows, head), 64 token rows
+//   at a time (a set: one 8x8 window, or four 4x4 windows), each set's
+//   rows landing while the last set is computed where two sets of planes
+//   fit (``Tc64::kBuffers``). Warp (wr, wc) takes rows 16 wr .. 16 wr + 15
+//   of the set (at N = 16 window wr of the set) and half of its window's
+//   keys (32 at N = 64, 8 at N = 16): it recomputes S and dP of its 16 x
+//   N / 2 tile in registers (each value split as its fragment loads: hi =
+//   x with its low 13 bits cleared, lo = x - hi, exact), the rows' max,
+//   sum of exp and D = rowsum(P o dP) summed over the quad's lanes and then
+//   the two halves in order through shared memory, dS = P o (dP - D), and
+//   adds dS into the d(bias) partial it owns in registers over the group's
+//   windows. P and dS go to shared tiles [64][N + 4]; then each warp takes
+//   its 16 rows' dQ (over the window's keys), dK and dV (over its queries)
+//   in the head-dim n8 tiles wc, wc + 2, .., with the tiles' values as A in
+//   the paired order (a0 a2 from rows 2t, 2t + 1) and the planes' rows as
+//   B (frag_b_cols). The three results go through the dead q, k and v
+//   planes and out in whole 16-byte pieces (the pieces a head shares with
+//   its neighbours value by value). At N = 16 the four windows' d(bias)
+//   partials are added in window order at the end.
 // - N = 256 (R = 64; hdp a multiple of 8): FlashAttention-2's
 //   deterministic backward in two launches, as the bf16 kernels
-//   (window_attention_bwd16.cu), every product f32-accurate as 3xTF32 on
-//   the tensor cores (mma.sync, below): P from the forward's softmax
-//   statistics (kernel (c) writes (max, 1 / sum) a query row) and D =
-//   rowsum(dO o O) from the forward's context. ``dq``: a block per (window,
-//   head, query tile) computes D of its rows (written to ``dsum`` for the
-//   second launch), sweeps the four key tiles and writes dQ. ``dkv``: a
-//   block per (group of windows, head, key tile) walks its group's windows
-//   and each window's four query tiles, accumulates dK and dV of its keys
-//   in registers and the [256][64] d(bias) columns of its keys in shared
+//   (window_attention_bwd16.cu): P from the forward's softmax statistics
+//   (kernel (c) writes (max, 1 / sum) a query row) and D = rowsum(dO o O)
+//   from the forward's context. ``dq``: a block per (window, head, query
+//   tile) computes D of its rows (written to ``dsum`` for the second
+//   launch), sweeps the four key tiles and writes dQ. ``dkv``: a block per
+//   (group of windows, head, key tile) walks its group's windows and each
+//   window's four query tiles, accumulates dK and dV of its keys in
+//   registers and the [256][64] d(bias) columns of its keys in shared
 //   memory over the group, and writes one partial a (group, head). The bias
 //   comes from the relative-position table and the mask from the region
 //   labels, so a 16x16 window's f32 bias (256 KB) is never staged.
@@ -64,152 +76,149 @@
 #define ADSR_BWD16_WIDE 0         // 1: the N = 256 head tiles past 64
 #endif
 
+// ablation switches of scripts/torch_attention_bwd_f32_sweep.py at N = 16
+// and 64 (timing only: a variant without them computes something else; the
+// shared ATTN16_F32_X3 0 leaves one TF32 product of three)
+#ifndef ATTN_BWD_F32_STAGE
+#define ATTN_BWD_F32_STAGE 1      // 0: no rows loaded (the planes stay 0)
+#endif
+#ifndef ATTN_BWD_F32_TERM
+#define ATTN_BWD_F32_TERM 1       // 0: no bias / mask lookups and no exp
+#endif
+#ifndef ATTN_BWD_F32_STORE
+#define ATTN_BWD_F32_STORE 1      // 0: dQ, dK and dV not written
+#endif
+
 namespace {
 
 constexpr int kMaxPartialBlocks = 1 << 20;
 
-// the thread layouts of a 256-thread block for R rows and a head tile HDP
+// ---- N = 16 and 64: one launch, a block per (group of windows, head) -------
+
+constexpr int kSetRows = 64;              // token rows of a set
+
 template <int N, int HDP>
-struct BwdGeo {
-  static constexpr int R = Geo<N>::R;
-  static constexpr int SR = R / 16;       // scores a thread a dim
-  static constexpr int SP = Geo<N>::kSP;  // floats a row of a P / dS tile
+struct Tc64 {
+  static_assert(HDP % 16 == 0 && HDP <= 128 && (N == 16 || N == 64),
+                "head tile");
   static constexpr int P = kPitch<HDP>;   // floats a row of a plane
-  static constexpr int G4 = HDP / 4;      // head-dim quads
-  static constexpr int RS = kThreads / G4;  // product rows a pass
-  static constexpr int RPT = (R + RS - 1) / RS;
-  static constexpr size_t kPlanes = 4ull * R * P;   // q, k, v, dO
-  static constexpr size_t kTile = (size_t)R * SP;
+  static constexpr int SP = N + 4;        // floats a row of the P / dS tiles
+  static constexpr int WPS = kSetRows / N;  // windows a set
+  static constexpr int KH = HDP / 16;     // a warp's head-dim n8 tiles
+  static constexpr int KN = N / 16;       // a warp's key n8 tiles (N / 2)
+  static constexpr size_t kPlane = (size_t)kSetRows * P;
+  static constexpr size_t kTile = (size_t)kSetRows * SP;
+  static constexpr size_t kRed = 3 * 2 * kSetRows;  // max, sum, D a half
+  // two sets of the four planes where they fit beside the tiles
+  static constexpr int kBuffers =
+      4 * (8 * kPlane + 2 * kTile + kRed) <= kMaxSmem ? 2 : 1;
+  // blocks an SM asked of the registers (kernels/window_attention_bwd.py
+  // ``bwd_f32_min_blocks``): two (128 registers a thread) up to a head
+  // tile of 48 (64 spills there), else one
+  static constexpr int kMinBlocks = HDP <= 48 ? 2 : 1;
 };
 
 // shared memory of the N = 16 and 64 kernel, in bytes
-// (kernels/window_attention_bwd.py ``window_attention_bwd_f32_plan``): the
-// four planes, then the P and dS tiles
+// (kernels/window_attention_bwd.py ``window_attention_bwd_f32_plan``): one
+// or two sets of the q, k, v and dO planes, the P and dS tiles and the
+// rows' halves of max, sum and D
 template <int N, int HDP>
 __host__ __device__ constexpr size_t bwd_smem_bytes() {
-  using G = BwdGeo<N, HDP>;
-  return 4 * (G::kPlanes + 2 * G::kTile);
+  using T = Tc64<N, HDP>;
+  return 4 * (4 * T::kBuffers * T::kPlane + 2 * T::kTile + T::kRed);
 }
 
-// zero the padded head dims of the four planes (the staged rows write head
-// dims below hd only, so they stay zero)
-template <int N, int HDP>
-__device__ __forceinline__ void zero_pads(float* planes, int hd) {
-  using G = BwdGeo<N, HDP>;
-  if (HDP > hd) {
-    const int pad = HDP - hd;
-    for (int i = threadIdx.x; i < 4 * G::R * pad; i += kThreads) {
-      const int row = i / pad;
-      planes[row * G::P + hd + (i - row * pad)] = 0.f;
+// the 16 x 8 A fragment (paired order) of element (i, k) = X[k][i]: rows kr
+// + 2t, kr + 2t + 1 and columns c0 + g (+ 8) of a tile of pitch SP (a
+// product over the tile's rows)
+template <int SP>
+__device__ __forceinline__ void frag_a_t(const float* X, int kr, int c0,
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float* x = X + (kr + 2 * t) * SP + c0 + g;
+  split_as<true>(x[0], hi[0], lo[0]);
+  split_as<true>(x[8], hi[1], lo[1]);
+  split_as<true>(x[SP], hi[2], lo[2]);
+  split_as<true>(x[SP + 8], hi[3], lo[3]);
+}
+
+// the A fragment (paired order) of element (i, k) = X[r0 + i][k0 + k]: a
+// product over the tile's columns
+template <int SP>
+__device__ __forceinline__ void frag_a_p(const float* X, int r0, int k0,
+                                         uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x & 31) >> 2, t = threadIdx.x & 3;
+  const float2 a = *reinterpret_cast<const float2*>(X + (r0 + g) * SP + k0
+                                                    + 2 * t);
+  const float2 b = *reinterpret_cast<const float2*>(X + (r0 + g + 8) * SP
+                                                    + k0 + 2 * t);
+  split_as<true>(a.x, hi[0], lo[0]);
+  split_as<true>(b.x, hi[1], lo[1]);
+  split_as<true>(a.y, hi[2], lo[2]);
+  split_as<true>(b.y, hi[3], lo[3]);
+}
+
+// S and dP of a warp's 16 rows (r0 ..) of planes (a, a2) against KN x 8
+// rows (n0 ..) of planes (b, b2), over the head dims: s = a b^T, dp = a2
+// b2^T
+template <int HDP, int KN>
+__device__ __forceinline__ void scores_pairs(const float* a, const float* a2,
+                                             const float* b, const float* b2,
+                                             int r0, int n0,
+                                             float (&s)[KN][4],
+                                             float (&dp)[KN][4]) {
+  constexpr int P = kPitch<HDP>, KT = HDP / 8;
+#pragma unroll
+  for (int j = 0; j < KN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+  for (int kk = 0; kk < KT; ++kk) {
+    uint32_t ah[4], al[4], ch[4], cl[4];
+    frag_a<P, true>(a, r0, 8 * kk, ah, al);
+    frag_a<P, true>(a2, r0, 8 * kk, ch, cl);
+#pragma unroll
+    for (int j = 0; j < KN; ++j) {
+      uint32_t bh[2], bl[2], b2h[2], b2l[2];
+      frag_b_rows<P, true>(b, n0 + 8 * j, 8 * kk, bh, bl);
+      frag_b_rows<P, true>(b2, n0 + 8 * j, 8 * kk, b2h, b2l);
+      mma3x2(s[j], ah, al, bh, bl, dp[j], ch, cl, b2h, b2l);
     }
   }
 }
 
-// s[i][j] = a[ty + 16 i] . b[tx + 16 j] over the head dims
-template <int N, int HDP>
-__device__ __forceinline__ void dot_tile(
-    const float* a, const float* b, int ty, int tx,
-    float (&s)[BwdGeo<N, HDP>::SR][BwdGeo<N, HDP>::SR]) {
-  using G = BwdGeo<N, HDP>;
-  constexpr int SR = G::SR;
-#pragma unroll
-  for (int i = 0; i < SR; ++i)
-#pragma unroll
-    for (int j = 0; j < SR; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HDP; d += 4) {
-    float4 a4[SR], b4[SR];
-#pragma unroll
-    for (int i = 0; i < SR; ++i)
-      a4[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * G::P + d);
-#pragma unroll
-    for (int j = 0; j < SR; ++j)
-      b4[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * G::P + d);
-#pragma unroll
-    for (int i = 0; i < SR; ++i) {
-#pragma unroll
-      for (int j = 0; j < SR; ++j) {
-        float v = s[i][j];
-        v = fmaf(a4[i].x, b4[j].x, v);
-        v = fmaf(a4[i].y, b4[j].y, v);
-        v = fmaf(a4[i].z, b4[j].z, v);
-        s[i][j] = fmaf(a4[i].w, b4[j].w, v);
-      }
-    }
-  }
+// waits for this thread's copies, then zeroes the columns past the head dim
+// that its row's last piece brought into ``count`` planes, ``stride``
+// floats apart from ``first`` (the caller synchronises the block before the
+// planes are read)
+template <int HDP>
+__device__ __forceinline__ void land_async(float* first, int stride,
+                                           int count, int col, int hd) {
+  constexpr int P = kPitch<HDP>;
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  const int end = (col & 3) + hd, pieces = (end + 3) / 4;
+  if (4 * pieces == end || (threadIdx.x & 3) != ((pieces - 1) & 3)) return;
+  const int r = threadIdx.x >> 2;
+  for (int p = 0; p < count; ++p)
+    for (int x = end; x < 4 * pieces; ++x)
+      first[p * stride + r * P + x] = 0.f;
 }
 
-// the sum and the max over the 16 lanes of a half-warp (one score row)
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// the sum (or max) of a row's values over the four lanes of a quad
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ float row_max16(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// acc[i] += sum over k < R of T(row r_i, k) X[k] (kT false: T[r][k], as
-// dQ = dS K; kT true: T[k][r], as dK = dS^T Q and dV = P^T dO), the thread's
-// rows r_i = r0 + RS i and head dims 4 dg .. 4 dg + 3
-template <int N, int HDP, bool kT>
-__device__ __forceinline__ void tile_product(
-    const float* T, const float* X, int r0, int dg,
-    float (&acc)[BwdGeo<N, HDP>::RPT][4]) {
-  using G = BwdGeo<N, HDP>;
-#pragma unroll 4
-  for (int k = 0; k < G::R; ++k) {
-    const float4 x = *reinterpret_cast<const float4*>(X + k * G::P + 4 * dg);
-#pragma unroll
-    for (int i = 0; i < G::RPT; ++i) {
-      const int r = r0 + G::RS * i;
-      if (r < G::R) {
-        const float t = kT ? T[k * G::SP + r] : T[r * G::SP + k];
-        acc[i][0] = fmaf(t, x.x, acc[i][0]);
-        acc[i][1] = fmaf(t, x.y, acc[i][1]);
-        acc[i][2] = fmaf(t, x.z, acc[i][2]);
-        acc[i][3] = fmaf(t, x.w, acc[i][3]);
-      }
-    }
-  }
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
 template <int N, int HDP>
-__device__ __forceinline__ void zero_acc(float (&acc)[BwdGeo<N, HDP>::RPT][4]) {
-#pragma unroll
-  for (int i = 0; i < BwdGeo<N, HDP>::RPT; ++i)
-#pragma unroll
-    for (int x = 0; x < 4; ++x) acc[i][x] = 0.f;
-}
-
-// mul * acc into the head's columns ``col`` of dqkv at the window's tokens
-// t0 + r_i
-template <int N, int HDP>
-__device__ __forceinline__ void store_rows(
-    const float (&acc)[BwdGeo<N, HDP>::RPT][4], float mul,
-    float* __restrict__ dqkv, long long ldd, int b, int wi, int wj, int t0,
-    int H, int W, int shift, int col, int hd, int r0, int dg) {
-  using G = BwdGeo<N, HDP>;
-#pragma unroll
-  for (int i = 0; i < G::RPT; ++i) {
-    const int r = r0 + G::RS * i;
-    if (r >= G::R) continue;
-    float* dst = dqkv + token_row<N>(b, wi, wj, t0 + r, H, W, shift) * ldd
-                 + col;
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      if (4 * dg + x < hd) dst[4 * dg + x] = acc[i][x] * mul;
-  }
-}
-
-// ---- N = 16 and 64: one launch, a block per (group of windows, head) -------
-
-template <int N, int HDP>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, Tc64<N, HDP>::kMinBlocks)
 attn_bwd_f32_kernel(const float* __restrict__ qkv, long long ldq,
                     const float* __restrict__ dout, long long ldg,
                     const float* __restrict__ bias,
@@ -217,104 +226,256 @@ attn_bwd_f32_kernel(const float* __restrict__ qkv, long long ldq,
                     long long ldd, float* __restrict__ part, int H, int W,
                     int C, int nh, int hd, int shift, int group, int windows,
                     float scale) {
-  using G = BwdGeo<N, HDP>;
-  constexpr int R = G::R, SR = G::SR, SP = G::SP, P = G::P;
+  using T = Tc64<N, HDP>;
+  constexpr int P = T::P, SP = T::SP, WPS = T::WPS, KH = T::KH, KN = T::KN;
+  constexpr int NB = T::kBuffers;
+  constexpr int PL = (int)T::kPlane, R = kSetRows;
   extern __shared__ __align__(16) float smem[];
-  float* qs = smem;
-  float* ks = qs + R * P;
-  float* vs = ks + R * P;
-  float* dos = vs + R * P;
-  float* ps = dos + R * P;
-  float* dss = ps + R * SP;
+  float* ps = smem + 4 * NB * PL;         // P [64][SP]
+  float* dss = ps + T::kTile;             // dS [64][SP]
+  float* red = dss + T::kTile;            // [max, sum, D][half][64 rows]
 
   const int h = blockIdx.x % nh, grp = blockIdx.x / nh;
   const int nww = W / Geo<N>::kWin;
   const int nw = (H / Geo<N>::kWin) * nww;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int dg = tid % G::G4, r0 = tid / G::G4;
-  const bool pv = tid < G::RS * G::G4;
-  const int col = h * hd;
-  zero_pads<N, HDP>(smem, hd);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp & 3, wc = warp >> 2;
+  const int col = h * hd, sc = col & 3;
+  const int r0 = 16 * wr;                 // the warp's rows of the set
+  const int wb = N == 16 ? r0 : 0;        // the first row of its window
+  const int q0 = N == 16 ? 0 : r0;        // its rows' first window token
+  const int kh = (N / 2) * wc;            // its keys' first window token
+  const int w_begin = grp * group, w_end = min(windows, w_begin + group);
 
-  float db[SR][SR];
-#pragma unroll
-  for (int i = 0; i < SR; ++i)
-#pragma unroll
-    for (int j = 0; j < SR; ++j) db[i][j] = 0.f;
+  for (int i = tid; i < 4 * NB * PL / 4; i += kThreads)
+    reinterpret_cast<float4*>(smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
 
-  const int w_end = min(windows, (grp + 1) * group);
-  for (int gw = grp * group; gw < w_end; ++gw) {
-    const int b = gw / nw, win = gw % nw;
-    const int wi = win / nww, wj = win % nww;
-    stage_rows<N, HDP>(qs, qkv, ldq, b, wi, wj, 0, H, W, shift, col, hd);
-    stage_rows<N, HDP>(ks, qkv, ldq, b, wi, wj, 0, H, W, shift, C + col, hd);
-    stage_rows<N, HDP>(vs, qkv, ldq, b, wi, wj, 0, H, W, shift, 2 * C + col,
-                       hd);
-    stage_rows<N, HDP>(dos, dout, ldg, b, wi, wj, 0, H, W, shift, col, hd);
+  // the set of windows from ``first`` into buffer ``buf``: row tid / 4 of
+  // each plane, its pieces tid % 4, + 4, ..; one commit group
+  const int pieces = (sc + hd + 3) / 4;
+  auto stage = [&](int first, int buf) {
+    const int r = tid >> 2, fw = first + r / N;
+    if (ATTN_BWD_F32_STAGE && fw < w_end) {
+      const int b = fw / nw, win = fw % nw;
+      const long long row =
+          token_row<N>(b, win / nww, win % nww, r % N, H, W, shift);
+      float* dst = smem + 4 * buf * PL + r * P;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float* src = p == 3 ? dout + row * ldg + (col & ~3)
+                                  : qkv + row * ldq + ((p * C + col) & ~3);
+        for (int k = tid & 3; k < pieces; k += 4)
+          cp_async_piece(dst + p * PL + 4 * k, src + 4 * k);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float db[KN][4];
+#pragma unroll
+  for (int j = 0; j < KN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) db[j][e] = 0.f;
+
+  int buf = 0;
+  stage(w_begin, 0);
+  for (int first = w_begin; first < w_end; first += WPS) {
+    float* qs = smem + 4 * buf * PL;
+    float* ks = qs + PL;
+    float* vs = ks + PL;
+    float* dos = vs + PL;
+    if (NB == 1 && first != w_begin) stage(first, 0);
+    land_async<HDP>(qs, PL, 4, col, hd);
     __syncthreads();
+    if (NB == 2 && first + WPS < w_end) stage(first + WPS, buf ^ 1);
 
-    float s[SR][SR], dp[SR][SR];
-    dot_tile<N, HDP>(qs, ks, ty, tx, s);
-    dot_tile<N, HDP>(dos, vs, ty, tx, dp);
+    // the warp's window: at N = 16 window wr of the set (none past the
+    // group's last window)
+    const int fw = first + (N == 16 ? wr : 0);
+    const bool valid = fw < w_end;
+    const int win = valid ? fw % nw : 0;
+
+    // S = Q K^T and dP = dO V^T of its rows x its half of the keys, then
+    // the scale and the bias (and mask) term
+    float s[KN][4], dp[KN][4];
+    scores_pairs<HDP, KN>(qs + sc, dos + sc, ks + sc, vs + sc, r0, wb + kh,
+                          s, dp);
+    float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < SR; ++i) {
-      const int r = ty + 16 * i;
-      float mx = -INFINITY;
+    for (int j = 0; j < KN; ++j)
 #pragma unroll
-      for (int j = 0; j < SR; ++j) {
-        s[i][j] = s[i][j] * scale
-                  + attn_term<N>(bias, mask, h, win, r, tx + 16 * j);
-        mx = fmaxf(mx, s[i][j]);
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + g + 8 * (e >> 1), kj = kh + 8 * j + 2 * t + (e & 1);
+#if ATTN_BWD_F32_TERM
+        s[j][e] = s[j][e] * scale + attn_term<N>(bias, mask, h, win, qi, kj);
+#else
+        s[j][e] *= scale;
+#endif
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
       }
-      mx = row_max16(mx);
-      float sum = 0.f;
+    // the softmax of each row over both halves: max, then the sum of exp,
+    // each over the quad and then the two halves (wc 0 + wc 1) in order
 #pragma unroll
-      for (int j = 0; j < SR; ++j) {
-        s[i][j] = expf(s[i][j] - mx);
-        sum += s[i][j];
+    for (int x = 0; x < 2; ++x) {
+      mx[x] = quad_max(mx[x]);
+      if (t == 0) red[wc * R + r0 + g + 8 * x] = mx[x];
+    }
+    __syncthreads();
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = r0 + g + 8 * x;
+      mx[x] = fmaxf(red[r], red[R + r]);
+    }
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#if ATTN_BWD_F32_TERM
+        s[j][e] = expf(s[j][e] - mx[e >> 1]);
+#else
+        s[j][e] -= mx[e >> 1];
+#endif
+        sum[e >> 1] += s[j][e];
       }
-      const float inv = 1.f / row_sum16(sum);
-      float dsum = 0.f;
 #pragma unroll
-      for (int j = 0; j < SR; ++j) {
-        s[i][j] *= inv;                   // P
-        dsum += s[i][j] * dp[i][j];
+    for (int x = 0; x < 2; ++x) {
+      sum[x] = quad_sum(sum[x]);
+      if (t == 0) red[(2 + wc) * R + r0 + g + 8 * x] = sum[x];
+    }
+    __syncthreads();
+    float dsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = r0 + g + 8 * x;
+      sum[x] = 1.f / (red[2 * R + r] + red[3 * R + r]);
+    }
+#pragma unroll
+    for (int j = 0; j < KN; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] *= sum[e >> 1];                 // P
+        dsum[e >> 1] += s[j][e] * dp[j][e];
       }
-      const float d = row_sum16(dsum);    // D = rowsum(P o dP)
 #pragma unroll
-      for (int j = 0; j < SR; ++j) {
-        const float ds = s[i][j] * (dp[i][j] - d);
-        db[i][j] += ds;
-        ps[r * SP + tx + 16 * j] = s[i][j];
-        dss[r * SP + tx + 16 * j] = ds;
+    for (int x = 0; x < 2; ++x) {
+      dsum[x] = quad_sum(dsum[x]);
+      if (t == 0) red[(4 + wc) * R + r0 + g + 8 * x] = dsum[x];
+    }
+    __syncthreads();
+    // dS = P o (dP - D) into the d(bias) partial; P and dS into their tiles
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int r = r0 + g + 8 * x;
+      const float d = red[4 * R + r] + red[5 * R + r];
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        const float ds0 = s[j][2 * x] * (dp[j][2 * x] - d);
+        const float ds1 = s[j][2 * x + 1] * (dp[j][2 * x + 1] - d);
+        if (valid) {
+          db[j][2 * x] += ds0;
+          db[j][2 * x + 1] += ds1;
+        }
+        const int c = kh + 8 * j + 2 * t;
+        *reinterpret_cast<float2*>(ps + r * SP + c) =
+            make_float2(s[j][2 * x], s[j][2 * x + 1]);
+        *reinterpret_cast<float2*>(dss + r * SP + c) = make_float2(ds0, ds1);
       }
     }
     __syncthreads();
 
-    if (pv) {
-      float acc[G::RPT][4];
-      zero_acc<N, HDP>(acc);
-      tile_product<N, HDP, false>(dss, ks, r0, dg, acc);      // dQ
-      store_rows<N, HDP>(acc, scale, dqkv, ldd, b, wi, wj, 0, H, W, shift,
-                         col, hd, r0, dg);
-      zero_acc<N, HDP>(acc);
-      tile_product<N, HDP, true>(dss, qs, r0, dg, acc);       // dK
-      store_rows<N, HDP>(acc, scale, dqkv, ldd, b, wi, wj, 0, H, W, shift,
-                         C + col, hd, r0, dg);
-      zero_acc<N, HDP>(acc);
-      tile_product<N, HDP, true>(ps, dos, r0, dg, acc);       // dV
-      store_rows<N, HDP>(acc, 1.f, dqkv, ldd, b, wi, wj, 0, H, W, shift,
-                         2 * C + col, hd, r0, dg);
+    // dV = P^T dO and dK = dS^T Q of the warp's rows as keys, over the
+    // window's queries; dQ = dS K of its rows as queries, over the window's
+    // keys; head-dim n8 tiles wc, wc + 2, ..
+    float dq[KH][4], dk[KH][4], dv[KH][4];
+#pragma unroll
+    for (int i = 0; i < KH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq[i][e] = dk[i][e] = dv[i][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < N; k0 += 8) {
+      uint32_t pah[4], pal[4], sah[4], sal[4], qah[4], qal[4];
+      frag_a_t<SP>(ps, wb + k0, q0, pah, pal);
+      frag_a_t<SP>(dss, wb + k0, q0, sah, sal);
+      frag_a_p<SP>(dss, r0, k0, qah, qal);
+#pragma unroll
+      for (int i = 0; i < KH; ++i) {
+        const int n = 8 * (wc + 2 * i);
+        uint32_t vh[2], vl[2], kh2[2], kl2[2], qh[2], ql[2];
+        frag_b_cols<P, true>(dos + sc, wb + k0, n, vh, vl);
+        frag_b_cols<P, true>(qs + sc, wb + k0, n, qh, ql);
+        frag_b_cols<P, true>(ks + sc, wb + k0, n, kh2, kl2);
+        mma3x2(dv[i], pah, pal, vh, vl, dk[i], sah, sal, qh, ql);
+        mma3(dq[i], qah, qal, kh2, kl2);
+      }
     }
-    __syncthreads();                      // before the next window's rows
+    __syncthreads();                      // every read of the planes done
+    // dQ into q's plane, dK into k's, dV into v's, as the rows were staged
+#pragma unroll
+    for (int i = 0; i < KH; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + g + 8 * (e >> 1);
+        const int j = sc + 8 * (wc + 2 * i) + 2 * t + (e & 1);
+        qs[r * P + j] = dq[i][e] * scale;
+        ks[r * P + j] = dk[i][e] * scale;
+        vs[r * P + j] = dv[i][e];
+      }
+    __syncthreads();
+    // the rows out: whole 16-byte pieces, a head's edge pieces value by
+    // value (its neighbours' columns belong to other blocks)
+    {
+      const int r = tid >> 2, ow = first + r / N;
+      if (ATTN_BWD_F32_STORE && ow < w_end) {
+        const int b = ow / nw, win_o = ow % nw;
+        const long long row =
+            token_row<N>(b, win_o / nww, win_o % nww, r % N, H, W, shift);
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          const float* src = qs + p * PL + r * P;
+          float* dst = dqkv + row * ldd + ((p * C + col) & ~3);
+          for (int k = tid & 3; k < pieces; k += 4) {
+            const float4 v = *reinterpret_cast<const float4*>(src + 4 * k);
+            if (4 * k >= sc && 4 * k + 4 <= sc + hd) {
+              *reinterpret_cast<float4*>(dst + 4 * k) = v;
+            } else {
+              const float e4[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int x = 0; x < 4; ++x)
+                if (4 * k + x >= sc && 4 * k + x < sc + hd)
+                  dst[4 * k + x] = e4[x];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();                      // the planes free for new rows
+    buf ^= NB - 1;
   }
-  float* out = part + (size_t)blockIdx.x * N * N;   // (group, head)
+
+  // the (group, head)'s d(bias) partial [N][N]: at N = 64 each value has
+  // one owner; at N = 16 the set's four windows' partials are added in
+  // window order (through the P tile)
+  float* out = part + (size_t)blockIdx.x * N * N;
+  if constexpr (N == 64) {
 #pragma unroll
-  for (int i = 0; i < SR; ++i)
+    for (int j = 0; j < KN; ++j)
 #pragma unroll
-    for (int j = 0; j < SR; ++j)
-      out[(ty + 16 * i) * N + tx + 16 * j] = db[i][j];
+      for (int e = 0; e < 4; ++e)
+        out[(r0 + g + 8 * (e >> 1)) * N + kh + 8 * j + 2 * t + (e & 1)] =
+            db[j][e];
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ps[(wr * 16 + g + 8 * (e >> 1)) * 16 + kh + 2 * t + (e & 1)] = db[0][e];
+    __syncthreads();
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) v += ps[w * 256 + tid];
+    out[tid] = v;
+  }
 }
 
 // ---- N = 256 on the tensor cores: 3xTF32 mma.sync --------------------------
@@ -423,23 +584,6 @@ __device__ __forceinline__ void stage_stats(float* st,
     cp_async_piece(st + 4 * tid, stats + 2 * row0 + 4 * tid);
   else if (dsum != nullptr && tid < 48)
     cp_async_piece(st + 128 + 4 * (tid - 32), dsum + row0 + 4 * (tid - 32));
-}
-
-// waits for this thread's copies, then zeroes the columns past the head dim
-// that its row's last piece brought into ``count`` planes, ``stride``
-// floats apart from ``first`` (the caller synchronises the block before the
-// planes are read)
-template <int HDP>
-__device__ __forceinline__ void land_async(float* first, int stride,
-                                           int count, int col, int hd) {
-  constexpr int P = kPitch<HDP>;
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-  const int end = (col & 3) + hd, pieces = (end + 3) / 4;
-  if (4 * pieces == end || (threadIdx.x & 3) != ((pieces - 1) & 3)) return;
-  const int r = threadIdx.x >> 2;
-  for (int p = 0; p < count; ++p)
-    for (int x = end; x < 4 * pieces; ++x)
-      first[p * stride + r * P + x] = 0.f;
 }
 
 // the relative-position table's index of (query qi, key kj) at 16x16
@@ -913,8 +1057,8 @@ int bwd_launch(const BwdArgs& a, cudaStream_t s) {
   return sum_partials(a.part, (int)groups, total, a.dbias, total, nullptr, s);
 }
 
-// head dims padded to 16 at N = 16 and 64 (the SIMT kernel's float4
-// quads), to 8 at N = 256 (the mma k8 steps and n8 tiles)
+// head dims padded to 16 at N = 16 and 64 (a row's two warps take the n8
+// tiles wc, wc + 2, ..), to 8 at N = 256 (the mma k8 steps and n8 tiles)
 template <int N>
 int bwd_by_head(const BwdArgs& a, cudaStream_t s) {
   const int hd = a.C / a.nh;

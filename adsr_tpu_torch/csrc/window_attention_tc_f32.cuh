@@ -51,8 +51,8 @@
 //
 // One source a window includes this file (window_attention4_f32.cu,
 // window_attention_f32.cu and window_attention16_f32.cu), so nvcc builds
-// the three windows' instances in parallel. Kernel (g) f32 keeps the SIMT
-// body of window_attention_f32.cuh.
+// the three windows' instances in parallel. Kernel (g) f32
+// (swin_block_f32.cuh) runs the same FlashAttention-2 core on its planes.
 
 #pragma once
 

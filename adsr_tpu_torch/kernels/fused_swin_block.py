@@ -42,13 +42,15 @@ GELU).
 In f32 (the JAX block mode in fp32: the Pallas kernel at dtype f32) the
 kernel is ``csrc/swin_block_f32.cuh`` (one source a window,
 ``swin_block4_f32.cu``, ``swin_block_f32.cu``, ``swin_block16_f32.cu``):
-every product on f32 operands with FFMA on the CUDA cores, 256 threads
-holding 64 token rows (a window at 8x8, four windows at 4x4, a query tile
-of a 16x16 window in a cluster of four blocks, each peer's K and V tile
-pulled whole into the idle product ring), LN1 applied to the input rows as
-each qkv product stages them (the bf16 layout doubled to f32 does not fit
-an SM), kernel (c) f32's online-softmax core per head, the context of all
-heads before proj, the MLP in 128-wide hidden chunks; shared memory from
+every product f32-accurate as 3xTF32 on the tensor cores (``mma.sync``
+m16n8k8), eight warps holding 64 token rows (a window at 8x8, four windows
+at 4x4, a query tile of a 16x16 window in a cluster of four blocks, each
+peer's K and V plane pulled whole into the idle product ring), K in steps
+of 32 through a three-stage ``cp.async`` ring, sums in two levels, LN1
+applied to the rows as qkv stages them, FlashAttention-2 per head (each
+warp 16 query rows and half of every key tile, the halves merged), the
+stream after proj in the output rows, the MLP in 128-wide hidden chunks
+(fc2's added into the output rows); shared memory from
 :func:`swin_block_f32_plan`. f32 launches count in
 ``fused_swin_block.launches_f32``, bf16 ones in ``launches``.
 
@@ -98,10 +100,15 @@ _VECTORS = ("ln1_w", "ln1_b", "bqkv", "attn_bias", "bproj", "ln2_w", "ln2_b",
 _MATRICES = ("wqkv", "wproj", "w1", "w2")
 # the f32 instance (csrc/swin_block_f32.cuh): a block of F32_THREADS holds
 # 64 token rows; products step K by F32_STEP_K through a ring of
-# F32_STAGES stages of A and W tiles [64][F32_STEP_K + 4] f32
+# F32_STAGES stages of F32_STAGE_ROWS rows [F32_STEP_K + F32_PAD] f32 (a W
+# tile of 128 output columns, or an A and a W tile of 64); rows of act and
+# y hold c rounded up to a K step, plus F32_PAD (8-byte fragment loads free
+# of bank conflicts)
 F32_THREADS = 256
-F32_STEP_K = 16
+F32_STEP_K = 32
 F32_STAGES = 3
+F32_STAGE_ROWS = 128
+F32_PAD = 8
 F32_ENTRIES = {8: "adsr_swin_block_f32", 4: "adsr_swin_block4_f32",
                16: "adsr_swin_block16_f32"}
 # where the windows and widths the kernels refuse stand (their note)
@@ -226,42 +233,39 @@ def swin_block_f32_plan(c: int, f: int, nh: int, b: int = 1, h: int = 8,
                         ) -> Dict[str, Any]:
     """What the f32 kernel (g) (``csrc/swin_block_f32.cuh``) launches for
     width ``c``, hidden width ``f`` and ``nh`` heads at batch ``b`` on ``h``
-    x ``w`` tokens: ``F32_THREADS`` a block, each holding 64 token rows (a
-    window at 8x8 windows; ``group`` consecutive windows at 4x4, the last
-    ``last_group``; one query tile at 16x16, ``cluster`` blocks a window),
-    ``blocks`` in all, one block an SM.
+    x ``w`` tokens: ``F32_THREADS`` a block (eight warps), each holding 64
+    token rows (a window at 8x8 windows; ``group`` consecutive windows at
+    4x4, the last ``last_group``; one query tile at 16x16, ``cluster``
+    blocks a window), ``blocks`` in all, one block an SM.
 
     A block's shared memory, ``regions`` in the source's order: the rows'
-    token offsets (int64), LN1's per-row mean and 1/std, the context / LN2
-    buffer ``act`` [64][ldc] (``ldc`` = c rounded up to 16, plus 4: two
-    rows land in different bank groups), a ``union`` of the attention's
-    regions (``attention``: the q, k, v planes [3][64][hdp + 4], the scores
-    of a key tile [r][r + 4] and the row statistics [3][r], r = min(N, 64))
-    and the MLP's (``mlp``: the f32 stream ``y`` [64][ldc] and the hidden
-    chunk [64][132]), and the product ``ring`` (``stages`` x A and W tiles
-    [64][20] f32), which at 16x16 windows also holds a peer's K or V plane
-    between products (``stage``, [64][hdp + 4]). The source refuses a
-    launch whose shared memory, stages or cluster differ. Read only
-    (cached)."""
+    token offsets (int64), the LayerNorms' per-row mean and 1/std, the
+    second key half's row max and sum (``merge``), the context / hidden
+    chunk buffer ``act`` (the larger of [64][ldc], ``ldc`` = c rounded up
+    to a K step of 32, plus ``F32_PAD``, and the hidden chunk [64][136]), a
+    ``union`` of the attention's q, k, v planes [3][64][hdp + 4]
+    (``planes``) and ``y`` [64][ldc] (LN2 of the stream after proj), and
+    the product ``ring`` (``stages`` x [128][40] f32), which at 16x16
+    windows also holds a peer's K or V plane between products (``stage``,
+    [64][hdp + 4]). The source refuses a launch whose shared memory, stages
+    or cluster differ. Read only (cached)."""
     if window not in KERNEL_WINDOWS:
         raise ValueError(f"swin_block_f32_plan: window {window}, the kernel "
                          f"takes {KERNEL_WINDOWS}")
     hdp = head_tile(c // nh)
-    n = window * window
-    r = min(n, 64)
-    ldc = -(-c // F32_STEP_K) * F32_STEP_K + 4
-    attention = {"planes": 4 * 3 * 64 * (hdp + 4), "scores": 4 * r * (r + 4),
-                 "row_stats": 4 * 3 * r}
-    mlp = {"y": 4 * 64 * ldc, "hid": 4 * 64 * (CHUNK + 4)}
+    ldc = -(-c // F32_STEP_K) * F32_STEP_K + F32_PAD
+    planes = 4 * 3 * 64 * (hdp + 4)
+    y = 4 * 64 * ldc
     stage = 4 * 64 * (hdp + 4) if window == 16 else 0
-    regions = {"rows": 8 * 64, "ln_stats": 2 * 4 * 64, "act": 4 * 64 * ldc,
-               "union": max(sum(attention.values()), sum(mlp.values())),
-               "ring": max(2 * F32_STAGES * 64 * (F32_STEP_K + 4) * 4,
-                           stage)}
+    regions = {"rows": 8 * 64, "ln_stats": 2 * 4 * 64, "merge": 2 * 4 * 64,
+               "act": 4 * 64 * max(ldc, CHUNK + F32_PAD),
+               "union": max(planes, y),
+               "ring": max(4 * F32_STAGES * F32_STAGE_ROWS
+                           * (F32_STEP_K + F32_PAD), stage)}
     windows = b * (h // window) * (w // window)
     plan = {"hdp": hdp, "ldc": ldc, "threads": F32_THREADS,
             "stages": F32_STAGES, "windows": windows, "regions": regions,
-            "attention": attention, "mlp": mlp, "stage": stage,
+            "planes": planes, "y": y, "stage": stage,
             "smem_bytes": sum(regions.values())}
     if window == 16:
         plan.update(cluster=CLUSTER, blocks=windows * CLUSTER)

@@ -47,16 +47,17 @@ of their own, ``csrc/window_attention_bwd_f32.cuh`` (one source a window:
 ``window_attention_bwd4_f32.cu``, ``window_attention_bwd_f32.cu``,
 ``window_attention_bwd16_f32.cu``, whose head tiles past 64 build from
 ``window_attention_bwd16_f32_wide.cu``), a block's head staged from the 16-byte
-pieces that hold it into f32 planes; at N = 16 and 64 one launch, every
-product in f32 FFMA on the CUDA cores, a block per (group of windows, head)
-recomputing the softmax; at N = 256 every product f32-accurate as 3xTF32 on
-the tensor cores (``mma.sync`` m16n8k8, each operand split into TF32 hi and
-lo parts), the forward's context and statistics (kernel (c) f32's) and two
-launches, ``dq`` per (window, head, query tile) and ``dkv`` per (group of
-windows, head, key tile) with its keys' d(bias) columns in shared memory
-(:func:`window_attention_bwd_f32_plan`); one d(bias) partial a (group,
-head), summed in a fixed order. Bound on the H100: bytes at N = 16 and 64,
-operations at N = 256. Its launches count in
+pieces that hold it into f32 planes, every product f32-accurate as 3xTF32
+on the tensor cores (``mma.sync`` m16n8k8, each operand split into TF32 hi
+and lo parts); at N = 16 and 64 one launch, a block of eight warps per
+(group of windows, head) recomputing the softmax 64 token rows at a time
+(the next rows landing by ``cp.async`` while one set is computed, whole
+16-byte pieces stored); at N = 256 the forward's context and statistics
+(kernel (c) f32's) and two launches, ``dq`` per (window, head, query tile)
+and ``dkv`` per (group of windows, head, key tile) with its keys' d(bias)
+columns in shared memory (:func:`window_attention_bwd_f32_plan`); one
+d(bias) partial a (group, head), summed in a fixed order. Bound on the
+H100: bytes at N = 16 and 64, operations at N = 256. Its launches count in
 ``window_attention_bwd.launches_f32`` (two a call at N = 256), the bf16
 ones in ``launches``.
 
@@ -221,43 +222,63 @@ def bwd16_f32_dkv_buffers(hdp: int) -> int:
     return 2 if two <= BLOCK_SHARED_MAX else 1
 
 
+def bwd_f32_min_blocks(hdp: int) -> int:
+    """The blocks an SM the f32 N = 16 / 64 source's ``__launch_bounds__``
+    asks registers for (``Tc64::kMinBlocks``): two (128 registers a thread)
+    up to a head tile of 48, else one."""
+    return 2 if hdp <= 48 else 1
+
+
+def bwd_f32_buffers(n: int, hdp: int) -> int:
+    """Sets of the four planes of the f32 N = 16 / 64 kernel
+    (``Tc64::kBuffers``): two where eight planes [64][hdp + 4], the P and
+    dS tiles [64][N + 4] and the rows' halves of max, sum and D fit a
+    block's shared memory (the next set's rows land while one is
+    computed), else one."""
+    plane = KEY_TILE * (hdp + 4) * 4
+    rest = 2 * KEY_TILE * (n + 4) * 4 + 3 * 2 * KEY_TILE * 4
+    return 2 if 8 * plane + rest <= BLOCK_SHARED_MAX else 1
+
+
 @functools.lru_cache(maxsize=None)
 def window_attention_bwd_f32_plan(c: int, nh: int, b: int = 1, h: int = 8,
                                   w: int = 8, window: int = KERNEL_WINDOW,
                                   sms: int = SMS) -> dict:
     """What the f32 kernel (``csrc/window_attention_bwd_f32.cuh``) launches
-    for width ``c`` and ``nh`` heads at batch ``b`` on ``h`` x ``w`` tokens.
-    Blocks of ``F32_THREADS``; shared memory (the source's layout) of q, k,
-    v and dO planes [rows][hdp + 4] f32 (rows = min(N, 64)). At N = 16 and
-    64 (``hdp`` the head dim rounded up to 16) one launch, a block per
-    (group of ``group`` windows, head), with P and dS tiles [rows][rows +
-    4]: ``group`` is the fewest windows a block (at most ``MAX_GROUP``) for
-    which every block is resident at once (``blocks_per_sm`` by shared
-    memory and the source's two blocks a ``__launch_bounds__``). At N = 256
-    (``hdp`` rounded up to 8: the tensor cores' k8 steps and n8 tiles) two:
-    ``dq`` a block per (window, head, query tile), shared memory
-    ``smem_dq_bytes`` (q, dO and two k and v planes: the next key tile
-    lands while one is computed; the warps' exchange ``EXCHANGE_BYTES``
-    and its rows' max, 1 / sum and D, ``STAT_BYTES``), and ``dkv`` a block
-    per (group, head, key tile), ``smem_bytes`` (k and v, ``dkv_buffers``
-    q and dO planes with their rows' statistics (:func:`
+    for width ``c`` and ``nh`` heads at batch ``b`` on ``h`` x ``w`` tokens,
+    every product 3xTF32 on the tensor cores. Blocks of ``F32_THREADS``
+    (eight warps); q, k, v and dO planes [64][hdp + 4] f32. At N = 16 and 64
+    (``hdp`` the head dim rounded up to 16) one launch, a block per (group
+    of ``group`` windows, head) walking its group 64 token rows at a time
+    (``set_windows``: one 8x8 window or four 4x4 windows), with
+    ``buffers`` sets of the four planes (:func:`bwd_f32_buffers`: two
+    where they fit, the next set landing while one is computed), the P and
+    dS tiles [64][N + 4] (``tile_pitch``) and the rows' halves of max, sum
+    and D: ``group`` is the fewest windows, a multiple of ``set_windows``,
+    for which every block is resident at once (``blocks_per_sm`` by shared
+    memory and :func:`bwd_f32_min_blocks`), at most ``MAX_GROUP`` sets. At
+    N = 256 (``hdp`` rounded up to 8: the tensor cores' k8 steps and n8
+    tiles) two: ``dq`` a block per (window, head, query tile), shared
+    memory ``smem_dq_bytes`` (q, dO and two k and v planes: the next key
+    tile lands while one is computed; the warps' exchange
+    ``EXCHANGE_BYTES`` and its rows' max, 1 / sum and D, ``STAT_BYTES``),
+    and ``dkv`` a block per (group, head, key tile), ``smem_bytes`` (k and
+    v, ``dkv_buffers`` q and dO planes with their rows' statistics (:func:`
     bwd16_f32_dkv_buffers`), the exchange and the d(bias) tile
-    [256][``DB_PITCH``] of its keys), ``group`` the
-    fewest windows that keep the partials within ``MAX_PARTIAL_BYTES``;
-    their blocks an SM by shared memory and the sources'
-    ``__launch_bounds__`` (:func:`bwd16_f32_min_blocks`); ``dsum_bytes``
-    the scratch of each query row's D. One d(bias) partial [nh, N, N] a
-    group (``partial_bytes``). The source refuses a launch whose shared
-    memory differs from this plan's. Read only (cached)."""
+    [256][``DB_PITCH``] of its keys), ``group`` the fewest windows that keep
+    the partials within ``MAX_PARTIAL_BYTES``; their blocks an SM by shared
+    memory and the sources' ``__launch_bounds__`` (:func:`
+    bwd16_f32_min_blocks`); ``dsum_bytes`` the scratch of each query row's
+    D. One d(bias) partial [nh, N, N] a group (``partial_bytes``). The
+    source refuses a launch whose shared memory differs from this plan's.
+    Read only (cached)."""
     if window not in KERNEL_WINDOWS:
         raise ValueError(f"window_attention_bwd_f32_plan: window {window}, "
                          f"the kernel takes {KERNEL_WINDOWS}")
     n = window * window
     hd = c // nh
     hdp = -(-hd // 8) * 8 if n > KEY_TILE else head_tile(hd)
-    rows = min(n, KEY_TILE)
-    planes = 4 * rows * (hdp + 4) * 4
-    tile = rows * (rows + 4) * 4
+    rows = KEY_TILE
     windows = b * (h // window) * (w // window)
 
     def per_sm(smem, most):
@@ -267,13 +288,20 @@ def window_attention_bwd_f32_plan(c: int, nh: int, b: int = 1, h: int = 8,
     plan = {"hdp": hdp, "pitch": hdp + 4, "tokens": n, "rows": rows,
             "threads": F32_THREADS, "windows": windows}
     if n <= KEY_TILE:
-        smem = planes + 2 * tile
-        fit = per_sm(smem, 2)
-        group = next((g for g in range(1, MAX_GROUP)
-                      if nh * -(-windows // g) <= fit * sms), MAX_GROUP)
+        plane = rows * (hdp + 4) * 4
+        buffers = bwd_f32_buffers(n, hdp)
+        smem = 4 * buffers * plane + 2 * rows * (n + 4) * 4 \
+            + 3 * 2 * rows * 4
+        fit = per_sm(smem, bwd_f32_min_blocks(hdp))
+        wps = rows // n
+        group = next((g for g in range(wps, MAX_GROUP * wps, wps)
+                      if nh * -(-windows // g) <= fit * sms),
+                     MAX_GROUP * wps)
         groups = -(-windows // group)
         plan.update(smem_bytes=smem, blocks_per_sm=fit, launches=1,
-                    blocks=groups * nh)
+                    blocks=groups * nh, buffers=buffers, set_windows=wps,
+                    tile_pitch=n + 4,
+                    min_blocks=bwd_f32_min_blocks(hdp))
     else:
         plane = rows * (hdp + 4) * 4
         buffers = bwd16_f32_dkv_buffers(hdp)

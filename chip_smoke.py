@@ -456,6 +456,7 @@ def rdg_tensor_class(name: str) -> str:
 # Training on one fixed batch: 20 steps at the flagship's LR lowered the L1
 # loss by 51.6% (same card); the check asks for half of that.
 FIXED_BATCH_STEPS = 20
+TRAIN_TIMED = 5              # steps (forwards, forward + backwards) timed
 FIXED_BATCH_MIN_DROP = 0.25
 
 KERNELS = ("rdg_layernorm", "rdg_gemm", "window_attention")
@@ -616,11 +617,13 @@ def ptxas_summary(log: str) -> list:
     return lines
 
 
-# the f32 kernels on the tensor cores: (c) f32's, (d) f32's and (f) f32's
-# launches at N = 256 must not spill (every instance), (b) f32's wgmma must
-# not be serialized (ptxas's C7520 warning)
+# the f32 kernels on the tensor cores: (c) f32's, (d) f32's, (f) f32's
+# (N = 16 / 64 and both N = 256 launches) and (g) f32's must not spill
+# (every instance), (b) f32's wgmma must not be serialized (ptxas's C7520
+# warning)
 NO_SPILL_KERNELS = ("window_attention_f32_kernel", "gemm_f32_kernel",
-                    "attn_bwd16_dq_f32_kernel", "attn_bwd16_dkv_f32_kernel")
+                    "attn_bwd_f32_kernel", "attn_bwd16_dq_f32_kernel",
+                    "attn_bwd16_dkv_f32_kernel", "swin_block_f32_kernel")
 NO_C7520_SOURCE = "rdg_gemm_f32"
 
 
@@ -640,7 +643,8 @@ def check_tensor_core_builds(build_dir: Path) -> dict:
              for k in NO_SPILL_KERNELS}
     say("build", "tensor-core f32 kernels: " + ", ".join(
         f"{v} {k}" for k, v in kinds.items()) + f" instances ((c), (d), "
-        f"(f) at N = 256), {len(spilled)} with spills; (b) f32 "
+        f"(f) at N = 16 / 64 and 256, (g)), {len(spilled)} with spills; "
+        f"(b) f32 "
         f"({NO_C7520_SOURCE}.cu): {len(c7520)} C7520 warnings")
     if not all(kinds.values()) or spilled or c7520:
         raise AssertionError("tensor-core f32 kernels: spills "
@@ -2397,7 +2401,7 @@ def bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
     return out
 
 
-def profile_steps(fn, reps: int = 3):
+def profile_steps(fn, reps: int = 2):
     """(wall ms per call, {kernel family: device ms per call}) of ``fn``.
     Only device-side events count: a kernel launched inside an autograd
     node (every RDG Function) is also charged to that node's CPU event."""
@@ -2519,9 +2523,9 @@ def phase_train_timing(exp, dev, trainer, lrs, hr, bwd_inputs, report,
     def forward_backward():
         forward_only().backward()
 
-    step_ms = cuda_ms(train_step, iters=10, warmup=2)
-    fwd_ms = cuda_ms(forward_only, iters=10, warmup=1)
-    fb_ms = cuda_ms(forward_backward, iters=10, warmup=1)
+    step_ms = cuda_ms(train_step, iters=TRAIN_TIMED, warmup=2)
+    fwd_ms = cuda_ms(forward_only, iters=TRAIN_TIMED, warmup=1)
+    fb_ms = cuda_ms(forward_backward, iters=TRAIN_TIMED, warmup=1)
     torch.cuda.reset_peak_memory_stats()
     train_step()
     torch.cuda.synchronize()
@@ -2981,7 +2985,7 @@ def phase_cli(exp, dev, report, cli_dir=CLI_DIR, modes=("rdg", "block"),
 # route bit for bit, launch counts, memory, and graphs against launched
 # --------------------------------------------------------------------------- #
 
-GRAPH_TURNS = 4      # A/B turns; the routes' order alternates turn by turn
+GRAPH_TURNS = 2      # A/B turns; the routes' order alternates turn by turn
 GRAPH_CALLS = 10     # timed calls a turn of a forward or a scoring call
 
 
@@ -4893,11 +4897,13 @@ def swin_f32_bound(cfg, blocks, m, masks):
     """Least time (ms) of one RDG's five f32 (g) launches: bytes at 4 an
     element (x read once, the output written once, weights, vectors, bias
     and mask read once, as :func:`swin_bound`) over the HBM rate against
-    every operation (products, attention, softmax, LayerNorms, GELU) at
-    the f32 peak."""
+    the operations: the four products and the attention's two as three TF32
+    products each on the tensor cores, the softmax, LayerNorms and GELU at
+    the f32 peak (:func:`tf32x3_bound`). Returns (that bound, the FFMA
+    bound: every operation at the f32 peak)."""
     win = cfg.window_size
     n = win * win
-    byt = ops = 0.0
+    byt = tc_ops = f32_ops = 0.0
     for blk in blocks:
         c, f, nh = blk["c"], blk["f"], blk["nh"]
         byt += 2 * m * c * 4 + (4 * c * c + 2 * c * f) * 4 \
@@ -4908,11 +4914,13 @@ def swin_f32_bound(cfg, blocks, m, masks):
             byt += 0 if mask is None else mask.shape[0] * n * 4
         else:
             byt += nh * n * n * 4 + (0 if mask is None else mask.numel() * 4)
-        ops += 2 * m * (4 * c * c + 2 * c * f) + 4 * m * n * c \
-            + 6 * (m // n) * nh * n * n + 2 * 8 * m * c + 8 * m * f
+        tc_ops += 2 * m * (4 * c * c + 2 * c * f) + 4 * m * n * c
+        f32_ops += 6 * (m // n) * nh * n * n + 2 * 8 * m * c + 8 * m * f
+    ops = tc_ops + f32_ops
     t_b, t_ops = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
-    return (max(t_b, t_ops) * 1e3, "bytes" if t_b >= t_ops else "operations",
+    ffma = (max(t_b, t_ops) * 1e3, "bytes" if t_b >= t_ops else "operations",
             byt, ops)
+    return tf32x3_bound(byt, tc_ops, f32_ops), ffma
 
 
 def swin_f32_cfg(cfg, blk):
@@ -5008,14 +5016,16 @@ def f32_swin_geometry(cfg, dev, errs: dict, label: str):
     plain_ms = graph_ms(lambda: block_set("plain"), iters=3)
     library_ms = graph_ms(lambda: block_set("library"), iters=10)
     composition_ms = graph_ms(lambda: block_set("composition"), iters=10)
-    bound = swin_f32_bound(cfg, blocks, m, masks)
+    bound, ffma = swin_f32_bound(cfg, blocks, m, masks)
     say("timing", f"{label} swin_block_f32       one RDG's launches: kernel "
-                  f"{kernel_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
-                  f"{achieved(kernel_ms, bound)}), plain f32 {plain_ms:.4f} "
-                  f"ms, library {library_ms:.4f} ms, (a)-(c) f32 "
-                  f"composition {composition_ms:.4f} ms (device time, CUDA "
-                  "graph)")
-    return (kernel_ms, plain_ms, library_ms) + bound[:2] + (composition_ms,)
+                  f"{kernel_ms:.4f} ms, 3xTF32 bound {bound[0]:.4f} ms "
+                  f"({bound[1]}; {achieved(kernel_ms, bound)}), FFMA bound "
+                  f"{ffma[0]:.4f} ms ({ffma[1]}; {achieved(kernel_ms, ffma)}), "
+                  f"plain f32 {plain_ms:.4f} ms, library {library_ms:.4f} "
+                  f"ms, (a)-(c) f32 composition {composition_ms:.4f} ms "
+                  "(device time, CUDA graph)")
+    return (kernel_ms, plain_ms, library_ms) + bound[:2] \
+        + (composition_ms, ffma[0])
 
 
 def f32_cpu_pair(exp, params):
@@ -5088,7 +5098,8 @@ def phase_fp32(dev, report):
         torch.cuda.empty_cache()
     out["swin_block_f32"] = {
         tag: {"ms": v[0], "plain_ms": v[1], "library_ms": v[2],
-              "bound_ms": v[3], "bound_by": v[4], "composition_ms": v[5]}
+              "bound_ms": v[3], "bound_by": v[4], "composition_ms": v[5],
+              "bound_ffma_ms": v[6]}
         for tag, v in swin.items()}
     if any(counts().get(k) for k in WRAPPERS):
         raise AssertionError(f"the f32 kernel cases launched bf16 kernels: "
@@ -5443,8 +5454,8 @@ def f32_bwd_case(errs, label, dy, wt, a, kw):
 
 def f32_bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
     """:func:`bwd_bounds` for the f32 instances: 4 bytes an element, every
-    operation at the f32 peak; (d) f32's and at N = 256 (f) f32's at
-    3xTF32 (their FFMA bounds under ``"ffma"``)."""
+    operation at the f32 peak; (d) f32's and (f) f32's products at 3xTF32
+    (their FFMA bounds under ``"ffma"``)."""
     n = cfg.window_size ** 2
     gm_b = gm_ops = ln_b = ln_ops = at_b = at_tc = at_ew = 0.0
     for k, blk in enumerate(blocks):
@@ -5471,13 +5482,11 @@ def f32_bwd_bounds(cfg, cat, dcat, blocks, extra, m, masks):
         t_b, t_ops = byt / HBM_BYTES_PER_S, ops / F32_FLOPS
         out[name] = (max(t_b, t_ops) * 1e3,
                      "bytes" if t_b >= t_ops else "operations", byt, ops)
-    # (d) f32 runs its products as 3xTF32, (f) f32 at N = 256
-    out["ffma"] = {"rdg_gemm_bwd_f32": out["rdg_gemm_bwd_f32"]}
+    # (d) f32 and (f) f32 run their products as 3xTF32
+    out["ffma"] = {k: out[k] for k in ("rdg_gemm_bwd_f32",
+                                       "window_attention_bwd_f32")}
     out["rdg_gemm_bwd_f32"] = tf32x3_bound(gm_b, gm_ops, 0.0)
-    if n == 256:
-        out["ffma"]["window_attention_bwd_f32"] = \
-            out["window_attention_bwd_f32"]
-        out["window_attention_bwd_f32"] = tf32x3_bound(at_b, at_tc, at_ew)
+    out["window_attention_bwd_f32"] = tf32x3_bound(at_b, at_tc, at_ew)
     return out
 
 
@@ -5901,9 +5910,9 @@ def f32_step_timing(exp, dev, trainer, lrs, hr, out):
         with deterministic_f32():
             loss.backward()
 
-    step_ms = cuda_ms(train_step, iters=10, warmup=2)
-    fwd_ms = cuda_ms(forward_only, iters=10, warmup=1)
-    fb_ms = cuda_ms(forward_backward, iters=10, warmup=1)
+    step_ms = cuda_ms(train_step, iters=TRAIN_TIMED, warmup=2)
+    fwd_ms = cuda_ms(forward_only, iters=TRAIN_TIMED, warmup=1)
+    fb_ms = cuda_ms(forward_backward, iters=TRAIN_TIMED, warmup=1)
     for p in params.values():
         p.grad = None
     torch.cuda.reset_peak_memory_stats()
@@ -6121,7 +6130,14 @@ def main() -> int:
     report["tensor_core_f32"] = check_tensor_core_builds(lib.parent)
 
     # each geometry in a process of its own (run_phase)
-    runs = {name: run_phase(name) for name in PHASES}
+    runs, walls = {}, {}
+    for name in PHASES:
+        t0 = time.perf_counter()
+        runs[name] = run_phase(name)
+        walls[name] = time.perf_counter() - t0
+    say("phases", "walls (s, each its own process): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()))
+    report["phase_walls_s"] = walls
     for run in runs.values():
         report.update(run["report"])
     timings, timings16, timings4 = (runs[name]["timings"]
@@ -6219,7 +6235,8 @@ def main() -> int:
              "max_abs_err": f32["max_abs_err"]["swin_block_f32"],
              **{k: swin["w8"][k] for k in ("ms", "plain_ms", "bound_ms",
                                            "bound_by", "library_ms",
-                                           "composition_ms")}}
+                                           "composition_ms",
+                                           "bound_ffma_ms")}}
     for tag in ("w4", "w16"):
         entry[tag] = {"source": F32_SWIN_SOURCES[tag], **swin[tag],
                       "max_abs_err":

@@ -2,10 +2,11 @@
 """The f32 kernels that run their products as 3xTF32 on the tensor cores,
 (b) f32 (``csrc/rdg_gemm_f32.cu``), (c) f32
 (``csrc/window_attention_tc_f32.cuh``), (d) f32
-(``csrc/rdg_gemm_bwd_f32.cu``) and (f) f32 at 16x16 windows
-(``csrc/window_attention_bwd_f32.cuh``), and the fp32 forward and training
-forward + backward they make up, against another checkout's (say the
-parent's) on one CUDA card, in turns.
+(``csrc/rdg_gemm_bwd_f32.cu``), (f) f32
+(``csrc/window_attention_bwd_f32.cuh``) and (g) f32
+(``csrc/swin_block_f32.cuh``), and the fp32 forwards and training forward +
+backward they make up, against another checkout's (say the parent's) on
+one CUDA card, in turns.
 
     python3 scripts/torch_f32_tensorcore_ab.py --parent DIR [--turns 1]
 
@@ -36,9 +37,20 @@ between CUDA events:
   own shift), fed kernel (c) f32's context and statistics; then a digest
   of their result fed the plain version's (``attention_bwd16_f32_digest``,
   equal where (f) f32 computes the same);
+- ``attention_bwd_f32``: one RDG's five (f) f32 calls at batch 16 on 32 x
+  32 tokens (window 8) and 16 x 16 (window 4), each block at its own
+  shift; beside it ``scaled_dot_product_attention``'s f32 backward on the
+  same shapes with a float mask, launched (``sdpa_bwd_f32``; autograd does
+  not capture);
+- ``swin_block_f32``: one RDG's five f32 (g) launches (the blocks' own
+  seeded weights, each at its shift) at batch 16 at windows 8 (the
+  flagship), 4 (64/x4) and 16 (256px/x4); beside it the library sum of the
+  same block (``library_sum``: ``F.layer_norm`` x 2, ``F.linear`` x 4 with
+  TF32 off, SDPA f32 with a float mask);
 - ``fp32_forward``: the flagship's fp32 serving forward (rdg mode, batch
-  16, seeded weights), ``fp32_block_forward`` in block mode (f32 (g) and
-  (b)'s adjust; with a digest of its SR) and ``fp32_train_fb``: its fp32
+  16, seeded weights; with a digest of its SR), ``fp32_block_forward`` in
+  block mode (f32 (g) and (b)'s adjust; with a digest of its SR) and
+  ``fp32_train_fb``: its fp32
   training forward + loss + backward (``fused_drct_train_forward`` with
   drop path, cuDNN TF32 off, timed launched: autograd does not capture).
 
@@ -68,7 +80,9 @@ from adsr_tpu_torch.core.device import deterministic_f32
 from adsr_tpu_torch.kernels import _build
 from adsr_tpu_torch.kernels import rdg_gemm_bwd as gb
 from adsr_tpu_torch.kernels.fused_drct import fused_drct_apply, prepack_drct
+from adsr_tpu_torch.kernels.fused_rdg import prepack_rdg_stack
 from adsr_tpu_torch.kernels.fused_rdg_train import fused_drct_train_forward
+from adsr_tpu_torch.kernels.fused_swin_block import fused_swin_block
 from adsr_tpu_torch.kernels.rdg_gemm import pitched, rdg_gemm
 from adsr_tpu_torch.kernels.window_attention import (softmax_stats,
                                                      window_attention,
@@ -236,6 +250,83 @@ out["attention_bwd16_f32_digest"] = digest.hexdigest()[:16]
 del calls
 torch.cuda.empty_cache()
 
+for tag, win, side in (("w8", 8, 32), ("w4", 4, 16)):
+    m, n = 16 * side * side, win * win
+    nw = (side // win) ** 2
+    calls, sdpa = [], []
+    for c, nh, sh in zip(feats, heads, shifts):
+        shift = sh * win // 2
+        mask = (torch.as_tensor(shift_attn_mask(side, side, win, shift),
+                                device=dev) if shift else None)
+        calls.append((rand(m, 3 * c), rand(m, c),
+                      0.5 * torch.randn(nh, n, n, generator=gen, device=dev),
+                      mask, nh, shift, pitched(m, 3 * c, torch.float32, dev),
+                      torch.empty(nh, n, n, device=dev)))
+        ins = tuple(torch.randn(16, nw, nh, n, c // nh, generator=gen,
+                                device=dev, requires_grad=True)
+                    for _ in range(3))
+        o = F.scaled_dot_product_attention(
+            *ins, attn_mask=torch.randn(nw, nh, n, n, generator=gen,
+                                        device=dev))
+        sdpa.append((o, ins, torch.randn(o.shape, generator=gen, device=dev)))
+    def attn_bwd():
+        for qkv, dout, bias, mask, nh, shift, dqkv, dbias in calls:
+            window_attention_bwd(qkv, dout, bias, mask, side, side, nh, win,
+                                 shift, dqkv, dbias)
+    out[f"attention_bwd_f32_{tag}"] = graph_ms(attn_bwd)
+    def sdpa_bwd():
+        for o, ins, do in sdpa:
+            torch.autograd.grad(o, ins, do, retain_graph=True)
+    sdpa_bwd()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(10):
+        sdpa_bwd()
+    t1.record()
+    torch.cuda.synchronize()
+    out[f"sdpa_bwd_f32_{tag}"] = t0.elapsed_time(t1) / 10
+    del calls, sdpa
+    torch.cuda.empty_cache()
+
+for tag, hr_px in (("w8", 128), ("w4", 64), ("w16", 256)):
+    cfg_g = drct_experiment("grid", hr_px, 4, precision="fp32",
+                            run_tag="ab").model
+    side, win = cfg_g.img_size, cfg_g.window_size
+    m, nw, n = 16 * side * side, (side // cfg_g.window_size) ** 2, win * win
+    params_g, _ = init_sr_params(cfg_g, torch.Generator().manual_seed(27),
+                                 device=dev)
+    stack = prepack_rdg_stack(params_g, cfg_g, side, side, torch.float32,
+                              dev)
+    blocks, masks = stack["rdgs"][0], stack["masks"]
+    x = rand(m, 308)
+    outs = [pitched(m, c, torch.float32, dev) for c in feats]
+    def swin():
+        for k, p in enumerate(blocks):
+            fused_swin_block(x[:, :feats[k]], p, masks, cfg_g, side, side, k,
+                             outs[k])
+    out[f"swin_block_f32_{tag}"] = graph_ms(swin)
+    lib = [tuple(torch.randn(16, nw, nh, n, c // nh, generator=gen,
+                             device=dev) for _ in range(3))
+           + (torch.randn(nw, nh, n, n, generator=gen, device=dev),
+              rand(m, c)) for c, nh in zip(feats, heads)]
+    def swin_library():
+        for k, p in enumerate(blocks):
+            c = feats[k]
+            q, k_, v, term, ctx = lib[k]
+            xs = x[:, :c]
+            ln = F.layer_norm(xs, (c,), p["ln1_w"], p["ln1_b"], eps=1e-6)
+            F.linear(ln, p["wqkv"], p["bqkv"])
+            F.scaled_dot_product_attention(q, k_, v, attn_mask=term)
+            x1 = F.linear(ctx, p["wproj"], p["bproj"]) + xs
+            hid = F.gelu(F.linear(F.layer_norm(x1, (c,), p["ln2_w"],
+                                               p["ln2_b"], eps=1e-6),
+                                  p["w1"], p["b1"]))
+            F.linear(hid, p["w2"], p["b2"]).add_(x1)
+    out[f"library_sum_{tag}"] = graph_ms(swin_library)
+    del blocks, masks, stack, x, outs, lib
+    torch.cuda.empty_cache()
+
 exp = drct_experiment("grid", 128, 4, precision="fp32", batch_size=16,
                       run_tag="ab")
 cfg = exp.model
@@ -251,6 +342,9 @@ block = prepack_drct(params, cfg, cfg.img_size, cfg.img_size,
 with torch.no_grad():
     out["fp32_forward_w8"] = graph_ms(
         lambda: fused_drct_apply(packed, cfg, lr, mode="rdg"))
+    sr = fused_drct_apply(packed, cfg, lr, mode="rdg")
+    out["fp32_forward_digest"] = hashlib.sha256(
+        sr.cpu().numpy().tobytes()).hexdigest()[:16]
     # block mode: (g) f32 and (b) f32's adjust, and its result's digest
     out["fp32_block_forward_w8"] = graph_ms(
         lambda: fused_drct_apply(block, cfg, lr, mode="block"))

@@ -16,10 +16,15 @@ times between CUDA events:
 
 - ``kernel``: the sources as they are, checked against the plain version;
 - ``no_attention``: ``SWIN_F32_ATTEND=0``, the attention left out;
-- ``no_ln_load``: ``SWIN_F32_LN_LOAD=0``, qkv's A tiles not normalised;
-- ``no_fma``: ``SWIN_F32_FMA=0``, the products' arithmetic left out (one
-  add in four: the loads, barriers and epilogues stay);
-- ``no_fma_no_attention``: both, what is left is the data movement, the
+- ``no_ln_load``: ``SWIN_F32_LN_LOAD=0``, qkv's A fragments not
+  normalised;
+- ``no_stage``: ``SWIN_F32_STAGE=0``, the products' tiles not staged (the
+  ring holds whatever it holds);
+- ``one_tf32``: ``ATTN16_F32_X3=0``, one TF32 product of three (products
+  and attention);
+- ``no_mma``: ``SWIN_F32_MMA=0``, the products' mma left out (the
+  fragment loads, splits, barriers and epilogues stay);
+- ``no_mma_no_attention``: both, what is left is the data movement, the
   LayerNorms and the barriers.
 
 Prints ptxas's registers and spills of each variant, one line per window
@@ -52,8 +57,10 @@ BATCH = 16
 SOURCES = ("swin_block4_f32.cu", "swin_block_f32.cu", "swin_block16_f32.cu")
 VARIANTS = {"kernel": [], "no_attention": ["SWIN_F32_ATTEND=0"],
             "no_ln_load": ["SWIN_F32_LN_LOAD=0"],
-            "no_fma": ["SWIN_F32_FMA=0"],
-            "no_fma_no_attention": ["SWIN_F32_FMA=0", "SWIN_F32_ATTEND=0"]}
+            "no_stage": ["SWIN_F32_STAGE=0"],
+            "one_tf32": ["ATTN16_F32_X3=0"],
+            "no_mma": ["SWIN_F32_MMA=0"],
+            "no_mma_no_attention": ["SWIN_F32_MMA=0", "SWIN_F32_ATTEND=0"]}
 # window: (model resolution, scale); the windows of 128, 64 and 256 px x4
 GEOMETRIES = {8: (128, 4), 4: (64, 4), 16: (256, 4)}
 F32_LIMIT = 1e-5         # relative L2 against the plain version

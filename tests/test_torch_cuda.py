@@ -1359,3 +1359,117 @@ def test_f32_swin_block_matches_plain(dev, k, win, b, side):
                                   side, k)
     _f32_close(outs[0], want)
     assert torch.equal(outs[0], outs[1])
+
+
+# ---- f32 (g) and (f) f32 at N = 16 / 64 on the tensor cores (3xTF32) ----
+
+F32_BLOCKS = [(180, 6, 360), (212, 4, 424), (244, 2, 488), (276, 6, 276),
+              (308, 4, 308)]
+
+
+def _lone_block(k, win, side, dev, seed):
+    """Block ``k`` of a flagship-width RDG (random weights from ``seed``) as
+    a lone block: a config whose blocks 1 and 2 (unshifted, shifted) have
+    its width, heads and hidden width, its packed f32 dict and the masks."""
+    cfg = DRCTModelConfig(upscale=4, img_size=side, window_size=win,
+                          in_chans=1, embed_dim=180, num_layers=1,
+                          num_heads=6, gc=32)
+    sd, _ = init_sr_params(cfg, torch.Generator().manual_seed(seed),
+                           device=dev)
+    gen = torch.Generator().manual_seed(seed + 1)
+    sd = {n: v + 0.02 * torch.randn(v.shape, generator=gen).to(dev)
+          for n, v in sd.items()}
+    packed = prepack_rdg_stack(sd, cfg, side, side, torch.float32, dev)
+    c, nh, f = F32_BLOCKS[k]
+    lone = DRCTModelConfig(upscale=4, img_size=side, window_size=win,
+                           in_chans=1, embed_dim=c, num_layers=1,
+                           num_heads=nh, gc=0, mlp_ratio=f / c)
+    return lone, packed["rdgs"][0][k], packed["masks"]
+
+
+@pytest.mark.parametrize("win,b,side", [(8, 2, 32), (4, 2, 16), (16, 2, 32),
+                                        (4, 5, 20), (16, 5, 32)])
+@pytest.mark.parametrize("k", range(5))
+def test_f32_swin_block_tc_both_shifts_match_plain(dev, k, win, b, side):
+    # every flagship block width (c, heads, hidden) at both shifts and the
+    # three windows (at 5 x 20 x 20 a short last group of four windows, at
+    # 5 x 32 x 32 twenty clusters), twice bitwise: the 3xTF32 products' two
+    # levels, the two key halves' merge and LN2 staged from the output rows
+    cfg, blk, masks = _lone_block(k, win, side, dev, 40 + k + win)
+    c = F32_BLOCKS[k][0]
+    g = torch.Generator(device=dev).manual_seed(c * win + b)
+    m = b * side * side
+    x = pitched(m, c, dtype=torch.float32, device=dev)
+    x.copy_(torch.randn(m, c, generator=g, device=dev))
+    for kk in (0, 1):
+        outs = [torch.empty(m, c, device=dev) for _ in range(2)]
+        for out in outs:
+            fused_swin_block(x, blk, masks, cfg, side, side, kk, out)
+        want = fused_swin_block_plain(x, blk, masks, cfg, side, side, kk)
+        _f32_close(outs[0], want)
+        assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("win,side", [(8, 32), (4, 16), (16, 32)])
+def test_f32_swin_block_in_place_matches_plain(dev, win, side):
+    # out aliasing x: the kernel writes the stream after proj into the
+    # output rows for fc1's LN2 and reads each row of x only before that
+    cfg, blk, masks = _lone_block(4, win, side, dev, 7 + win)
+    c = F32_BLOCKS[4][0]
+    g = torch.Generator(device=dev).manual_seed(win)
+    m = 2 * side * side
+    for k in (0, 1):
+        x = torch.randn(m, c, generator=g, device=dev)
+        want = fused_swin_block_plain(x, blk, masks, cfg, side, side, k)
+        fused_swin_block(x, blk, masks, cfg, side, side, k, x)
+        _f32_close(x, want)
+
+
+def _attention_bwd_case(dev, win, c, nh, b, side, seed):
+    """(f) f32 at 4x4 or 8x8 windows against its plain version at both
+    shifts, twice bitwise, qkv, dO and dqkv in 16-byte rows."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+    m, n = b * side * side, win * win
+    qkv = pitched(m, 3 * c, dtype=f32, device=dev)
+    qkv.copy_(torch.randn(m, 3 * c, generator=g, device=dev))
+    dout = pitched(m, c, dtype=f32, device=dev)
+    dout.copy_(torch.randn(m, c, generator=g, device=dev))
+    bias = 0.5 * torch.randn(nh, n, n, generator=g, device=dev)
+    for shift in (0, win // 2):
+        mask = None if not shift else torch.as_tensor(
+            shift_attn_mask(side, side, win, shift), device=dev)
+        runs = []
+        for _ in range(2):
+            dqkv = pitched(m, 3 * c, dtype=f32, device=dev)
+            dqkv.fill_(7.0)               # every head's columns are written
+            dbias = torch.empty(nh, n, n, device=dev)
+            window_attention_bwd(qkv, dout, bias, mask, side, side, nh, win,
+                                 shift, dqkv, dbias)
+            runs.append((dqkv, dbias))
+        assert all(torch.equal(p, q) for p, q in zip(*runs))
+        dqkv, dbias = runs[0]
+        want_q, want_b = window_attention_bwd_plain(
+            qkv, dout, bias, mask, side, side, nh, win, shift)
+        for i in range(3):
+            _f32_close(dqkv[:, i * c:(i + 1) * c],
+                       want_q[:, i * c:(i + 1) * c])
+        _f32_close(dbias, want_b)
+
+
+@pytest.mark.parametrize("win,b,side", [(4, 5, 20), (8, 5, 40), (4, 16, 16),
+                                        (8, 3, 32)])
+@pytest.mark.parametrize("c,nh", F32_ATTN)
+def test_f32_attention_bwd_tc_match_plain(dev, win, b, side, c, nh):
+    # (f) f32 at N = 16 and 64 at the five flagship widths: batch 5 (a short
+    # last set of four 4x4 windows, a short last group), batch 16 on 16 x
+    # 16 (the 64/x4 training shape) and 3 x 32 x 32
+    _attention_bwd_case(dev, win, c, nh, b, side, 17 * c + side)
+
+
+@pytest.mark.parametrize("win", [4, 8])
+@pytest.mark.parametrize("c,nh", [(64, 8), (96, 4), (176, 2), (120, 1)])
+def test_f32_attention_bwd_tc_head_tiles_match_plain(dev, win, c, nh):
+    # head tiles the flagship does not use (hd 8, 24, 88, 120 -> 16, 32, 96,
+    # 128): one and two sets of planes, one and two blocks an SM
+    _attention_bwd_case(dev, win, c, nh, 2, 4 * win, 5 * c + win)

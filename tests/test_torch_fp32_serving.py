@@ -128,19 +128,23 @@ def test_f32_swin_block_plan_fits_the_card(hr, batch, k):
     plan = swin_mod.swin_block_f32_plan(c, f, nh, batch, side, side, win)
     assert plan["smem_bytes"] <= attn_mod.BLOCK_SHARED_MAX
     assert plan["smem_bytes"] == sum(plan["regions"].values())
-    assert plan["regions"]["union"] == max(sum(plan["attention"].values()),
-                                           sum(plan["mlp"].values()))
+    # the source's order: row offsets, LN statistics, the key halves' merge,
+    # act (context, then the hidden chunk), the union, the ring
+    assert list(plan["regions"]) == ["rows", "ln_stats", "merge", "act",
+                                     "union", "ring"]
     hdp = -(-(c // nh) // 16) * 16
-    r = min(win * win, 64)
-    assert plan["attention"] == {"planes": 4 * 3 * 64 * (hdp + 4),
-                                 "scores": 4 * r * (r + 4),
-                                 "row_stats": 4 * 3 * r}
+    # the union holds the q, k, v planes or the stream y [64][ldc]
+    assert plan["planes"] == 4 * 3 * 64 * (hdp + 4)
+    assert plan["y"] == 4 * 64 * plan["ldc"]
+    assert plan["regions"]["union"] == max(plan["planes"], plan["y"])
+    # act holds the context [64][ldc], then the hidden chunk [64][136]
+    assert plan["regions"]["act"] == 4 * 64 * max(plan["ldc"], 136)
     # at 16x16 windows the ring also holds a peer's K or V plane
     assert plan["stage"] == (4 * 64 * (hdp + 4) if win == 16 else 0)
-    assert plan["regions"]["ring"] >= max(plan["stage"], 2 * 3 * 64 * 20 * 4)
-    # act's rows hold c rounded up to a product's K step, and two rows sit
-    # in different 16-byte bank groups
-    assert plan["ldc"] >= c and plan["ldc"] % 16 == 4
+    assert plan["regions"]["ring"] == max(plan["stage"], 3 * 128 * 40 * 4)
+    # act's rows hold c rounded up to a product's K step of 32, and a
+    # half-warp's 8-byte fragment pairs sit in 32 different banks
+    assert plan["ldc"] >= c and plan["ldc"] % 32 == 8
     assert plan["threads"] == 256 and plan["stages"] == 3
     windows = batch * (side // win) ** 2
     assert plan["windows"] == windows

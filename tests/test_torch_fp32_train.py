@@ -146,14 +146,15 @@ def test_attention_bwd_f32_plan_covers_every_window_and_head(geo, k):
     side = cfg.img_size
     p = ab.window_attention_bwd_f32_plan(c, nh, BATCH, side, side, win, 132)
     n = win * win
-    # head dims pad to 16 for the SIMT kernel (N = 16, 64), to 8 for the
-    # tensor cores' k8 steps and n8 tiles (N = 256)
+    # head dims pad to 16 at N = 16 and 64 (the n8 tiles of a warp pair's
+    # halves), to 8 at N = 256 (the tensor cores' k8 steps and n8 tiles)
     hdp = -(-(c // nh) // 8) * 8 if n == 256 else head_tile(c // nh)
     assert p["hdp"] == hdp and p["pitch"] == hdp + 4
-    rows = min(n, 64)
+    rows = 64
+    assert p["rows"] == rows
     # the source's layout (csrc/window_attention_bwd_f32.cuh
     # bwd_smem_bytes, dq16_smem_bytes, dkv16_smem_bytes)
-    planes, tile = 4 * rows * (hdp + 4), rows * (rows + 4)
+    plane = rows * (hdp + 4) * 4
     assert p["blocks_per_sm"] >= 1
     windows = BATCH * (side // win) ** 2
     assert p["windows"] == windows
@@ -165,7 +166,6 @@ def test_attention_bwd_f32_plan_covers_every_window_and_head(geo, k):
         # lanes] float4s; each row's max, 1 / sum and D
         assert ab.EXCHANGE_BYTES == 2 * 4 * 4 * 32 * 16
         assert ab.STAT_BYTES == 3 * 64 * 4
-        plane = rows * (hdp + 4) * 4
         # dq: q, dO and two k and two v planes (the next key tile lands
         # while one is computed)
         assert p["smem_dq_bytes"] == 6 * plane + ab.EXCHANGE_BYTES \
@@ -185,9 +185,20 @@ def test_attention_bwd_f32_plan_covers_every_window_and_head(geo, k):
         assert p["dq_blocks"] == windows * nh * 4
         assert p["dsum_bytes"] == windows * nh * n * 4
     else:
-        assert p["smem_bytes"] == 4 * (planes + 2 * tile) <= BLOCK_SHARED_MAX
+        # one or two sets of the q, k, v and dO planes [64][hdp + 4] (two
+        # where they fit: the next set lands while one is computed), the P
+        # and dS tiles [64][N + 4] and the rows' halves of max, sum and D
+        tiles = 2 * rows * (n + 4) * 4 + 3 * 2 * rows * 4
+        nb = p["buffers"]
+        assert nb == (2 if 8 * plane + tiles <= BLOCK_SHARED_MAX else 1)
+        assert p["smem_bytes"] == 4 * nb * plane + tiles <= BLOCK_SHARED_MAX
+        assert p["tile_pitch"] == n + 4 and p["set_windows"] == rows // n
         assert p["launches"] == 1 and p["blocks"] == p["groups"] * nh
-        assert p["group"] <= ab.MAX_GROUP
+        # a group is whole sets of windows, at most MAX_GROUP sets
+        assert p["group"] % p["set_windows"] == 0
+        assert p["group"] <= ab.MAX_GROUP * p["set_windows"]
+        assert p["blocks_per_sm"] <= p["min_blocks"] == \
+            (2 if hdp <= 48 else 1)
 
 
 @pytest.mark.parametrize("hd", [1, 7, 8, 9, 30, 46, 53, 77, 122, 127, 128])
